@@ -91,6 +91,8 @@ _global_config.register("data.validate_ids", "count",
                         "only when asked for; 'raise' raises on "
                         "out-of-range ids (syncs the host each lookup).")
 _global_config.register("kernels.fused_embedding", True,
-                        "Route embedding lookups through the hand-written "
-                        "gather kernel (ops/embedding_kernels.py). Off = "
-                        "the plain PyTorch gather, the parity reference.")
+                        "Accepted so the JAX package's settings load; the "
+                        "port ignores it. Every embedding lookup takes the "
+                        "gather wrapper (ops/embedding_kernels.py): the "
+                        "CUDA kernel for a table on the card, its plain "
+                        "version for a table on the CPU.")

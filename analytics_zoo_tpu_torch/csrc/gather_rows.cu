@@ -12,10 +12,11 @@
 // This is the TPU kernel's contract, not jnp.take's: off the TPU jnp.take
 // wraps negative ids and fills NaN rows for ids >= rows.
 //
-// Bound: a pure copy, so device memory bounds it: 2*n*dim*elem + 4*n bytes
-// at 3.35 TB/s on an H100 SXM. At the NCF serving batch (256 ids x 64 f32)
-// that is about 0.04 us, far below one launch, so there the kernel is bound
-// by launch latency, not by bytes.
+// Bound: a pure copy, so device memory bounds it: (n + d)*dim*elem + 4*n
+// bytes at 3.35 TB/s on an H100 SXM, where d <= n counts the distinct rows
+// the ids reach (each is read once). At the NCF serving batch (256 ids x
+// 64 f32) that is about 0.04 us, far below one launch, so there the kernel
+// is bound by launch latency, not by bytes.
 //
 // Design: the TPU version scalar-prefetches 256 ids per grid step and
 // double-buffers one DMA per row through VMEM. Here blocks run in parallel

@@ -3,9 +3,10 @@ embedding.py`` ``Embedding``), for a replicated table with no cold tier.
 
 Every lookup validates its ids (``data.validate_ids``), then gathers rows
 through ``ops.embedding_kernels.gather_rows_clip``: the hand-written CUDA
-kernel on the card, its plain PyTorch version on the CPU. Vocab sharding
-(``shard``) and the host-memory cold tier (``cold_rows``) are later slices
-and raise here.
+kernel for a table on the card, its plain PyTorch version only for a table
+on the CPU. Neither ``kernels.fused_embedding`` nor ``fused`` can move a
+lookup on the card off the kernel. Vocab sharding (``shard``) and the
+host-memory cold tier (``cold_rows``) are later slices and raise here.
 """
 from __future__ import annotations
 
@@ -39,8 +40,8 @@ class Embedding(Layer):
         self.init = initializers.get(init)
         self.weights = weights
         self.trainable = trainable
-        #: per-layer override of ``kernels.fused_embedding``: None follows
-        #: the config, False takes the plain gather, True the kernel
+        #: kept so the JAX package's constructor surface and saved configs
+        #: still load; the port has one gather path and ignores it
         self.fused = fused
 
     def build(self, generator, input_shape, device):
@@ -59,18 +60,10 @@ class Embedding(Layer):
             self.register_buffer("embeddings", table)
         self.built = True
 
-    def _use_kernel(self) -> bool:
-        if self.fused is not None:
-            return bool(self.fused)
-        return _embed.fused_kernels() is not None
-
     def forward(self, inputs):
         # float ids truncate toward zero, as the JAX layer's astype(int32)
         idx = _embed.validate_ids(inputs.to(torch.int32), self.input_dim)
-        if self._use_kernel():
-            return _ek.gather_rows_clip(self.embeddings, idx)
-        flat = _ek.gather_plain(self.embeddings, idx.reshape(-1), clip=True)
-        return flat.reshape(tuple(idx.shape) + (self.output_dim,))
+        return _ek.gather_rows_clip(self.embeddings, idx)
 
     def compute_output_shape(self, input_shape):
         return tuple(input_shape) + (self.output_dim,)

@@ -29,8 +29,8 @@ class NeuralCF(Recommender):
         self.mf_embed = mf_embed
         #: vocab sharding is a later slice; the Embedding layer raises on it
         self.shard_embeddings = shard_embeddings
-        #: per-model override of ``kernels.fused_embedding`` (None follows
-        #: the config, False pins the tables to the plain gather)
+        #: kept so zoo_model.json matches the JAX package's; the port's
+        #: Embedding ignores it (one gather path, the kernel on the card)
         self.fused_embeddings = fused_embeddings
 
     def get_config(self):

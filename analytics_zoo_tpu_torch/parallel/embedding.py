@@ -1,6 +1,7 @@
-"""Embedding-id validation and kernel resolution (counterpart of
-``analytics_zoo_tpu/parallel/embedding.py``: ``validate_ids`` and
-``fused_kernels`` only; the vocab-sharded engine is a later slice)."""
+"""Embedding-id validation (counterpart of ``analytics_zoo_tpu/parallel/
+embedding.py``: ``validate_ids`` only; the vocab-sharded engine is a later
+slice). JAX's ``fused_kernels`` has no counterpart: the port has one gather
+path, so ``kernels.fused_embedding`` selects nothing."""
 from __future__ import annotations
 
 import threading
@@ -68,11 +69,3 @@ def validate_ids(idx: torch.Tensor, vocab: int) -> torch.Tensor:
         _oob_counter(idx.device).add_(n_bad)
     return clamped
 
-
-def fused_kernels():
-    """The kernel module when ``kernels.fused_embedding`` is on, else None
-    (callers then take the plain gather, the parity reference)."""
-    if not global_config().get("kernels.fused_embedding"):
-        return None
-    from ..ops import embedding_kernels as _ek
-    return _ek

@@ -2,7 +2,6 @@
 """Drive the torch port's main path on one NVIDIA card, end to end.
 
     python3 chip_smoke.py [--seed 0] [--requests 2048] [--single 64]
-                          [--workdir build]
 
 Phases, each of which must pass or the script exits non-zero:
 
@@ -12,7 +11,9 @@ Phases, each of which must pass or the script exits non-zero:
 3. kernels: every kernel of the path is held bit for bit against its plain
    PyTorch version at the serving shapes and on ragged, bf16/fp16 and
    out-of-range cases, then timed with CUDA events beside the plain version
-   and the one PyTorch call that computes the same function.
+   and the one PyTorch call that computes the same function, at the serving
+   batch and at 2^20 ids: from a table that fits in L2 and from one of 1 GiB
+   with every id distinct, which must stream its rows from device memory.
 4. serving: NeuralCF at MovieLens-1M width with seeded random weights is
    saved, loaded by ``ClusterServing`` on the card and answers the requests
    sent through the file spool: first a burst published before the server
@@ -49,6 +50,8 @@ NCF_TABLES = (("mlp_user_table", 6041, 64), ("mlp_item_table", 3707, 64),
               ("mf_user_table", 6041, 32), ("mf_item_table", 3707, 32))
 SERVE_BATCH = 256
 LARGE_N = 1 << 20
+#: rows of the timed table that L2 cannot hold: 4 Mi x 64 f32 = 1 GiB
+HBM_ROWS = 1 << 22
 
 
 def log(msg: str) -> None:
@@ -94,10 +97,14 @@ def device_ms(fn, calls: int = 20):
     return us / 1e3 / calls if us > 0 else None
 
 
-def gather_bound_ms(n: int, dim: int, elem: int) -> float:
-    """Least time for the gather: each output row written once, each
-    gathered row read once, each id read once, at the memory rate."""
-    return (2 * n * dim * elem + 4 * n) / HBM_BYTES_PER_S * 1e3
+def gather_bound_ms(table: torch.Tensor, ids: torch.Tensor) -> float:
+    """Least time for a clip gather of these ids at the memory rate: each id
+    read once, each output row written once, and each distinct table row
+    the ids reach read once (a row asked for twice is read once)."""
+    n, dim = ids.shape[0], table.shape[1]
+    distinct = int(torch.unique(ids.clamp(0, table.shape[0] - 1)).numel())
+    row = dim * table.element_size()
+    return (n * row + 4 * n + distinct * row) / HBM_BYTES_PER_S * 1e3
 
 
 def phase_kernels(ek, dev, gen):
@@ -131,18 +138,26 @@ def phase_kernels(ek, dev, gen):
     log(f"kernel == plain (torch.equal) on {len(cases)} shapes x 2 modes")
 
     timings = []
+    dev_gen = torch.Generator(device=dev).manual_seed(gen.initial_seed())
     for label, rows, dim, n, iters in (
             [(name, rows, dim, SERVE_BATCH, 500)
              for name, rows, dim in NCF_TABLES]
-            + [("mlp_user_table", 6041, 64, LARGE_N, 50)]):
-        table = torch.randn(rows, dim, generator=gen).to(dev)
-        ids = torch.randint(0, rows, (n,), generator=gen,
-                            dtype=torch.int32).to(dev)
+            + [("mlp_user_table", 6041, 64, LARGE_N, 50),
+               ("hbm_table", HBM_ROWS, 64, LARGE_N, 50)]):
+        if rows == HBM_ROWS:
+            # every id distinct, so every row comes from device memory
+            table = torch.randn(rows, dim, generator=dev_gen, device=dev)
+            ids = torch.randperm(rows, generator=dev_gen, device=dev)[:n]
+            ids = ids.to(torch.int32)
+        else:
+            table = torch.randn(rows, dim, generator=gen).to(dev)
+            ids = torch.randint(0, rows, (n,), generator=gen,
+                                dtype=torch.int32).to(dev)
         fns = {"ms": lambda: ek.gather(table, ids, True),
                "plain_ms": lambda: ek.gather_plain(table, ids, True),
                "library_ms": lambda: torch.index_select(table, 0, ids)}
         t = {"table": label, "rows": rows, "dim": dim, "n": n,
-             "bound_ms": gather_bound_ms(n, dim, 4)}
+             "bound_ms": gather_bound_ms(table, ids)}
         # *ms: CUDA events around back-to-back calls, what a caller issuing
         # them from Python sees; *device_ms: the profiler's kernel time
         for key, fn in fns.items():
@@ -315,9 +330,6 @@ def main() -> int:
                         help="requests in the burst phase")
     parser.add_argument("--single", type=int, default=64,
                         help="requests sent one at a time after the burst")
-    parser.add_argument("--workdir", default=os.path.join(REPO, "build"),
-                        help="parent of the run's model dir and spool "
-                             "(default: build/ in the checkout)")
     args = parser.parse_args()
 
     # -- 1. device ------------------------------------------------------------
@@ -351,20 +363,19 @@ def main() -> int:
     timings, max_err = phase_kernels(ek, dev, gen)
 
     # -- 4. serving -----------------------------------------------------------
-    os.makedirs(args.workdir, exist_ok=True)
-    workdir = tempfile.mkdtemp(prefix="chip_smoke_", dir=args.workdir)
+    build = os.path.join(REPO, "build")
+    os.makedirs(build, exist_ok=True)
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_", dir=build)
     try:
         launches, batches, stats = phase_serving(ek, args.seed,
                                                  args.requests, args.single,
                                                  workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
-    log("serving " + json.dumps(stats) + f" | spool under {args.workdir}"
-        f" | {smi}")
+    log("serving " + json.dumps(stats) + f" | {smi}")
 
     # -- 5. the kernels line, 6. the result line ------------------------------
     serve = timings[0]
-    large = timings[-1]
     entry = {
         "name": "gather_rows", "route": "cuda",
         "source": "analytics_zoo_tpu_torch/csrc/gather_rows.cu",
@@ -378,9 +389,10 @@ def main() -> int:
         "plain_ms": serve["plain_ms"], "bound_ms": serve["bound_ms"],
         "bound_by": "bytes", "library_ms": serve["library_ms"],
         "device_ms": serve["device_ms"],
-        "large": {k: large[k] for k in (
-            "n", "dim", "ms", "plain_ms", "library_ms", "bound_ms",
-            "device_ms", "plain_device_ms", "library_device_ms")},
+        "large": [{k: t[k] for k in (
+            "table", "rows", "n", "dim", "ms", "plain_ms", "library_ms",
+            "bound_ms", "device_ms", "plain_device_ms", "library_device_ms")}
+            for t in timings if t["n"] == LARGE_N],
     }
     print(smi)
     print(json.dumps({"kernels": [entry]}))

@@ -135,6 +135,8 @@ def test_validate_ids_matches_jax(mode):
 
 @pytest.mark.parametrize("fused", [True, False])
 def test_embedding_layer_forward_and_gradient_match_jax(fused):
+    """The knob moves JAX between its kernel and its plain path; the port
+    has one path, which must match JAX's either way."""
     rows, dim = 25, 8
     table = _table(rows, dim, seed=11)
     rng = np.random.default_rng(12)

@@ -132,6 +132,35 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
     assert ek.launch_counts == {"gather_rows": 0}
 
 
+@pytest.fixture()
+def knob_off(monkeypatch):
+    """Turn ``kernels.fused_embedding`` off the way a deployment would."""
+    monkeypatch.setenv("ZOO_TPU_KERNELS_FUSED_EMBEDDING", "false")
+
+
+def _small_ncf(device):
+    return NeuralCF(9, 7, 2, user_embed=4, item_embed=4, hidden_layers=[8],
+                    mf_embed=2, fused_embeddings=False).build(
+        torch.Generator().manual_seed(0), device=device)
+
+
+def test_every_lookup_takes_the_gather_wrapper_whatever_the_knob(
+        knob_off, monkeypatch):
+    calls = []
+    real = ek.gather
+
+    def spy(table, ids, clip):
+        calls.append((tuple(table.shape), clip))
+        return real(table, ids, clip)
+
+    monkeypatch.setattr(ek, "gather", spy)
+    ncf = _small_ncf("cpu")
+    with torch.inference_mode():
+        ncf.model(torch.tensor([[1., 2.], [9., 7.], [-1., 30.]]))
+    assert calls == [((10, 4), True), ((8, 4), True), ((10, 2), True),
+                     ((8, 2), True)]
+
+
 def test_library_is_keyed_by_a_hash_of_the_sources():
     path = kernel_build.library_path()
     assert path == kernel_build.library_path()
@@ -178,3 +207,16 @@ def test_kernel_equals_its_plain_version_on_the_card(cuda_device, rows, dim,
         if not clip:
             ref[(idn < 0) | (idn >= rows)] = 0
         assert np.array_equal(got.float().cpu().numpy(), ref)
+
+
+@pytest.mark.cuda
+def test_served_batches_launch_the_kernel_four_times_whatever_the_knob(
+        cuda_device, knob_off, tmp_path):
+    path = str(tmp_path / "ncf")
+    _small_ncf(cuda_device).save_model(path)
+    model = InferenceModel(device=cuda_device).load_zoo(path)
+    x = np.array([[1, 2], [9, 7], [-1, 30]], np.float32)
+    ek.reset_launch_counts()
+    for batch in range(1, 4):
+        model.predict(x)
+        assert ek.launch_counts["gather_rows"] == 4 * batch

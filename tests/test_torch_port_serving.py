@@ -24,11 +24,11 @@ from analytics_zoo_tpu.serving import InputQueue as JaxInputQueue
 from analytics_zoo_tpu.serving import OutputQueue as JaxOutputQueue
 from analytics_zoo_tpu.serving import ServingConfig as JaxServingConfig
 from analytics_zoo_tpu.serving.queues import FileQueue as JaxFileQueue
-# The JAX package registers its metrics in one process-wide registry as its
-# modules are imported, and tests/test_metric_names_lint.py checks that
-# registry in whichever test process it lands in. Importing the online tier
-# here, when tests are collected, registers its metrics in every process,
-# whichever other test files that process runs.
+# Not used here. tests/test_metric_names_lint.py expects the online tier's
+# metrics in the JAX package's process-wide registry but does not import
+# that tier itself, so it passes only in a test process that already has.
+# Importing it at collection gives every test process those metrics. Drop
+# this once that test imports the module in its own setup (ROADMAP notes).
 import analytics_zoo_tpu.online  # noqa: F401,E402
 from analytics_zoo_tpu_torch.convert import from_jax_params
 from analytics_zoo_tpu_torch.inference.inference_model import \
