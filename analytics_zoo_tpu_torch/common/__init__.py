@@ -1,1 +1,2 @@
-"""Runtime substrate: config, device context, file IO, utilities."""
+"""Runtime substrate: config, device context, file IO, training triggers,
+utilities."""

@@ -1,0 +1,119 @@
+"""In-memory dataset (counterpart of ``analytics_zoo_tpu/feature/
+featureset.py`` ``FeatureSet``, the DRAM tier on one host).
+
+Features and labels are numpy arrays, or tuples/dicts of them, whose leading
+axis is the record axis. The shuffle stream is the JAX package's exactly:
+``np.random.default_rng(seed)``, one ``permutation`` per epoch, drawn when
+the epoch's first batch is, so both packages see the same batches in the
+same order.
+"""
+from __future__ import annotations
+
+import json
+from typing import Any, Dict, Iterator, Optional, Tuple, Union
+
+import numpy as np
+
+ArrayTree = Union[np.ndarray, Tuple[np.ndarray, ...], Dict[str, np.ndarray]]
+
+
+def _normalize(tree):
+    """Lists of arrays (the Keras multi-input convention) become tuples."""
+    return tuple(tree) if isinstance(tree, list) else tree
+
+
+def tree_map(fn, tree):
+    """``fn`` over the leaves of a tuple/list/dict tree."""
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(tree_map(fn, t) for t in tree)
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _leaves(tree) -> list:
+    if isinstance(tree, (tuple, list)):
+        return [leaf for t in tree for leaf in _leaves(t)]
+    if isinstance(tree, dict):
+        return [leaf for v in tree.values() for leaf in _leaves(v)]
+    return [tree]
+
+
+class FeatureSet:
+    """``(features, labels)`` array trees held in host memory. ``labels``
+    may be None (inference)."""
+
+    def __init__(self, features: ArrayTree,
+                 labels: Optional[ArrayTree] = None, shuffle: bool = True,
+                 seed: int = 0):
+        features = _normalize(features)
+        labels = _normalize(labels)
+        n = _leaves(features)[0].shape[0]
+        for leaf in _leaves(features) + (
+                _leaves(labels) if labels is not None else []):
+            if leaf.shape[0] != n:
+                raise ValueError(
+                    "all arrays must share the leading record axis")
+        self.features = features
+        self.labels = labels
+        self.size = n
+        self.shuffle = shuffle
+        self._rng = np.random.default_rng(seed)
+
+    @classmethod
+    def from_ndarrays(cls, features: ArrayTree,
+                      labels: Optional[ArrayTree] = None,
+                      **kwargs) -> "FeatureSet":
+        features = tree_map(np.asarray, _normalize(features))
+        if labels is not None:
+            labels = tree_map(np.asarray, _normalize(labels))
+        return cls(features, labels, **kwargs)
+
+    def num_batches(self, batch_size: int, drop_remainder: bool = True) -> int:
+        if drop_remainder:
+            return self.size // batch_size
+        return (self.size + batch_size - 1) // batch_size
+
+    def _gather(self, idx: np.ndarray) -> Tuple[Any, Any]:
+        take = lambda a: np.take(a, idx, axis=0)
+        x = tree_map(take, self.features)
+        y = tree_map(take, self.labels) if self.labels is not None else None
+        return x, y
+
+    def train_iterator(self, batch_size: int, skip_batches: int = 0
+                       ) -> Iterator[Tuple[Any, Any]]:
+        """Endless; reshuffles every epoch; drops the remainder so every
+        step sees a full batch. ``skip_batches`` fast-forwards within the
+        first epoch only (a resumed mid-epoch checkpoint)."""
+        while True:
+            order = (self._rng.permutation(self.size) if self.shuffle
+                     else np.arange(self.size))
+            first = skip_batches * batch_size
+            skip_batches = 0
+            for start in range(first, self.size - batch_size + 1,
+                               batch_size):
+                yield self._gather(order[start:start + batch_size])
+
+    def data_state(self) -> str:
+        """The shuffle RNG's state as JSON (PCG64 holds 128-bit ints, which
+        JSON carries exactly)."""
+        return json.dumps(self._rng.bit_generator.state)
+
+    def set_data_state(self, state_json: str) -> None:
+        rng = np.random.default_rng()
+        rng.bit_generator.state = json.loads(state_json)
+        self._rng = rng
+
+    def eval_iterator(self, batch_size: int, pad_remainder: bool = False
+                      ) -> Iterator[Tuple[Any, Any, int]]:
+        """Bounded, in record order; yields ``(x, y, valid_count)``. With
+        ``pad_remainder`` the tail batch repeats its last record up to full
+        size and ``valid_count`` marks the real ones."""
+        for start in range(0, self.size, batch_size):
+            idx = np.arange(start, min(start + batch_size, self.size))
+            valid = len(idx)
+            if valid < batch_size and pad_remainder:
+                idx = np.concatenate(
+                    [idx, np.full(batch_size - valid, idx[-1])])
+            x, y = self._gather(idx)
+            yield x, y, valid

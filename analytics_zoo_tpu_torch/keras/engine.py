@@ -11,6 +11,10 @@ the JAX package's params tree flattened (``mlp_dense_0.kernel``).
 Graph building is the JAX package's: calling a layer on a
 :class:`SymbolicTensor` records a :class:`Node`; the model orders the nodes
 topologically and runs them in that order.
+
+Training is the JAX package's too: ``compile`` then ``fit``, ``evaluate``
+and ``predict`` delegate to an :class:`~analytics_zoo_tpu_torch.estimator.
+Estimator`, which runs on the card unless ``device="cpu"`` is passed.
 """
 from __future__ import annotations
 
@@ -216,6 +220,69 @@ class Model(Layer):
                                 else (out,))
         outs = [values[id(o.node)][o.index] for o in self.outputs]
         return outs[0] if self._single_output else outs
+
+    # -- training (delegates to the Estimator, as in the JAX package) ---------
+
+    def compile(self, optimizer, loss, metrics: Optional[List] = None):
+        from . import objectives
+        from . import optimizers as opt_mod
+        self.loss_fn = objectives.get(loss)
+        self.optimizer = opt_mod.get(optimizer)
+        self.metric_specs = list(metrics or [])
+        self._estimator = None
+
+    def get_estimator(self, device: DeviceLike = None):
+        """The compiled model's Estimator, made on ``device`` (the card when
+        omitted) at first use; a later ``device`` moves it there."""
+        from ..estimator import Estimator
+        if not hasattr(self, "loss_fn"):
+            raise RuntimeError(
+                "call compile(optimizer, loss) before fit/evaluate")
+        if self._estimator is None:
+            self._estimator = Estimator(self, self.loss_fn, self.optimizer,
+                                        self.metric_specs, device=device)
+        elif device is not None:
+            self._estimator.to(device)
+        return self._estimator
+
+    def fit(self, x, y=None, batch_size: int = 32, nb_epoch: int = 1,
+            validation_data=None, featureset=None, device: DeviceLike = None,
+            **kwargs):
+        """Train on ``x``/``y`` arrays (or a ``FeatureSet``) through the
+        Estimator; returns ``{"loss_history", "iterations"}``."""
+        from ..feature import FeatureSet
+        nb_epoch = kwargs.pop("epochs", nb_epoch)
+        est = self.get_estimator(device)
+        if featureset is None:
+            featureset = (x if isinstance(x, FeatureSet)
+                          else FeatureSet.from_ndarrays(x, y))
+        if validation_data is not None and not isinstance(validation_data,
+                                                          FeatureSet):
+            validation_data = FeatureSet.from_ndarrays(*validation_data)
+        return est.train(featureset, batch_size=batch_size, epochs=nb_epoch,
+                         validation_set=validation_data, **kwargs)
+
+    def evaluate(self, x, y=None, batch_size: int = 32, featureset=None,
+                 device: DeviceLike = None) -> Dict[str, float]:
+        from ..feature import FeatureSet
+        est = self.get_estimator(device)
+        if featureset is None:
+            featureset = (x if isinstance(x, FeatureSet)
+                          else FeatureSet.from_ndarrays(x, y))
+        return est.evaluate(featureset, batch_size=batch_size)
+
+    def predict(self, x, batch_size: int = 32, device: DeviceLike = None):
+        """Forward ``x`` in batches. A compiled model predicts through its
+        Estimator; an uncompiled one on ``device``, else on the device its
+        built parameters live on, else on the card."""
+        from ..estimator import Estimator
+        if hasattr(self, "loss_fn"):
+            est = self.get_estimator(device)
+        else:
+            if device is None and self.built:
+                device = self.device
+            est = Estimator(self, None, None, device=device)
+        return est.predict(x, batch_size=batch_size)
 
     # -- persistence ----------------------------------------------------------
 

@@ -1,5 +1,6 @@
 """Layers of the port's Keras-style API."""
-from .core import Dense, Flatten, Lambda, Merge, merge
-from .embedding import Embedding
+from .core import Activation, Dense, Flatten, Lambda, Merge, merge
+from .embedding import Embedding, SparseEmbedding
 
-__all__ = ["Dense", "Embedding", "Flatten", "Lambda", "Merge", "merge"]
+__all__ = ["Activation", "Dense", "Embedding", "Flatten", "Lambda", "Merge",
+           "SparseEmbedding", "merge"]

@@ -1,5 +1,7 @@
 """Core layers (counterpart of ``analytics_zoo_tpu/keras/layers/core.py``):
-``Dense``, ``Flatten``, ``Lambda`` and ``Merge``/``merge`` (concat, mul)."""
+``Activation``, ``Dense``, ``Flatten``, ``Lambda`` and ``Merge``/``merge``
+(sum, mul, max, min, ave, concat, dot, cosine; ``sum`` by default, as in the
+JAX package)."""
 from __future__ import annotations
 
 from typing import Callable, Optional, Union
@@ -31,6 +33,15 @@ def get_activation(act: Union[str, Callable, None]) -> Callable:
     if act not in _ACTIVATIONS:
         raise ValueError(f"unknown activation '{act}'")
     return _ACTIVATIONS[act]
+
+
+class Activation(Layer):
+    def __init__(self, activation, name: Optional[str] = None):
+        super().__init__(name)
+        self.fn = get_activation(activation)
+
+    def forward(self, inputs):
+        return self.fn(inputs)
 
 
 class Dense(Layer):
@@ -96,31 +107,49 @@ class Lambda(Layer):
 
 
 class Merge(Layer):
-    """Merge a list of inputs: ``concat`` along ``concat_axis`` or
-    elementwise ``mul``."""
+    """Merge a list of inputs: sum/mul/max/min/ave elementwise, concat along
+    ``concat_axis``, or the row-wise dot product or cosine of two inputs."""
 
-    MODES = ("mul", "concat")
+    MODES = ("sum", "mul", "max", "ave", "min", "concat", "dot", "cosine")
 
-    def __init__(self, mode: str = "concat", concat_axis: int = -1,
+    def __init__(self, mode: str = "sum", concat_axis: int = -1,
                  name: Optional[str] = None):
         super().__init__(name)
         if mode not in self.MODES:
-            raise ValueError(f"merge mode '{mode}' is not ported; have "
-                             f"{self.MODES}")
+            raise ValueError(f"unknown merge mode '{mode}'")
         self.mode = mode
         self.concat_axis = concat_axis
 
     def forward(self, inputs):
         xs = list(inputs)
+        if self.mode == "sum":
+            out = xs[0]
+            for x in xs[1:]:
+                out = out + x
+            return out
+        if self.mode == "mul":
+            out = xs[0]
+            for x in xs[1:]:
+                out = out * x
+            return out
+        if self.mode == "max":
+            return torch.stack(xs).amax(dim=0)
+        if self.mode == "min":
+            return torch.stack(xs).amin(dim=0)
+        if self.mode == "ave":
+            return torch.stack(xs).mean(dim=0)
         if self.mode == "concat":
             return torch.cat(xs, dim=self.concat_axis)
-        out = xs[0]
-        for x in xs[1:]:
-            out = out * x
-        return out
+        a, b = xs[0], xs[1]
+        if self.mode == "cosine":
+            a = a / (torch.linalg.vector_norm(a, dim=-1, keepdim=True) + 1e-8)
+            b = b / (torch.linalg.vector_norm(b, dim=-1, keepdim=True) + 1e-8)
+        return torch.sum(a * b, dim=-1, keepdim=True)
 
     def compute_output_shape(self, input_shape):
         shapes = input_shape
+        if self.mode in ("dot", "cosine"):
+            return (shapes[0][0], 1)
         if self.mode == "concat":
             ax = self.concat_axis
             out = list(shapes[0])
@@ -130,5 +159,5 @@ class Merge(Layer):
         return shapes[0]
 
 
-def merge(inputs, mode="concat", concat_axis=-1, name=None):
+def merge(inputs, mode="sum", concat_axis=-1, name=None):
     return Merge(mode, concat_axis, name)(inputs)

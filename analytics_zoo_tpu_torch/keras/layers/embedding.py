@@ -1,11 +1,14 @@
-"""Embedding layer (counterpart of ``analytics_zoo_tpu/keras/layers/
-embedding.py`` ``Embedding``), for a replicated table with no cold tier.
+"""Embedding layers (counterpart of ``analytics_zoo_tpu/keras/layers/
+embedding.py``: ``Embedding`` and ``SparseEmbedding``), for a replicated
+table with no cold tier.
 
 Every lookup validates its ids (``data.validate_ids``), then gathers rows
 through ``ops.embedding_kernels.gather_rows_clip``: the hand-written CUDA
 kernel for a table on the card, its plain PyTorch version only for a table
-on the CPU. Neither ``kernels.fused_embedding`` nor ``fused`` can move a
-lookup on the card off the kernel. Vocab sharding (``shard``) and the
+on the CPU. ``SparseEmbedding`` pools bags of ids through
+``ops.embedding_kernels.gather_pool``, the gather+pool kernel. Neither
+``kernels.fused_embedding`` nor ``fused`` can move a lookup on the card off
+the kernels. Vocab sharding (``shard``) and the
 host-memory cold tier (``cold_rows``) are later slices and raise here.
 """
 from __future__ import annotations
@@ -67,3 +70,30 @@ class Embedding(Layer):
 
     def compute_output_shape(self, input_shape):
         return tuple(input_shape) + (self.output_dim,)
+
+
+class SparseEmbedding(Embedding):
+    """Embedding over integer bags ``[..., bag]`` pooled by ``combiner``
+    (``sum``, ``mean``, ``sqrtn``; ``None`` keeps the bag axis). Negative
+    ids are padding: zero rows, left out of the mean/sqrtn count."""
+
+    def __init__(self, input_dim: int, output_dim: int, combiner: str = "sum",
+                 init="uniform", weights=None, trainable: bool = True,
+                 name: Optional[str] = None, shard=None,
+                 fused: Optional[bool] = None):
+        super().__init__(input_dim, output_dim, init=init, weights=weights,
+                         trainable=trainable, name=name, shard=shard,
+                         fused=fused)
+        if combiner not in ("sum", "mean", "sqrtn", None):
+            raise ValueError(f"unknown combiner {combiner}")
+        self.combiner = combiner
+
+    def forward(self, inputs):
+        idx = _embed.validate_ids(inputs.to(torch.int32), self.input_dim,
+                                  allow_negative=True)
+        return _ek.gather_pool(self.embeddings, idx, self.combiner)
+
+    def compute_output_shape(self, input_shape):
+        if self.combiner is None:
+            return tuple(input_shape) + (self.output_dim,)
+        return tuple(input_shape[:-1]) + (self.output_dim,)

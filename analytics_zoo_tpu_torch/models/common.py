@@ -49,19 +49,26 @@ class ZooModel:
         self._ensure_built().build(generator, device=device)
         return self
 
-    def predict(self, x, batch_size: int = 1024) -> np.ndarray:
-        """Forward ``x`` in chunks of ``batch_size`` on the model's device;
-        returns a numpy array."""
-        model = self._ensure_built()
-        if not model.built:
-            raise RuntimeError("build() or load_model() the model first")
-        x = np.asarray(x, np.float32)
-        outs = []
-        with torch.inference_mode():
-            for i in range(0, x.shape[0], batch_size):
-                xb = torch.from_numpy(x[i:i + batch_size]).to(model.device)
-                outs.append(model(xb).cpu().numpy())
-        return np.concatenate(outs) if outs else np.zeros((0,), np.float32)
+    # -- training facade (the JAX package's) ---------------------------------
+
+    def compile(self, optimizer, loss, metrics=None):
+        self._ensure_built().compile(optimizer, loss, metrics)
+
+    def default_compile(self):
+        self.compile(optimizer="adam", loss="mse")
+
+    def fit(self, *args, **kwargs):
+        return self._ensure_built().fit(*args, **kwargs)
+
+    def evaluate(self, *args, **kwargs):
+        return self._ensure_built().evaluate(*args, **kwargs)
+
+    def predict(self, x, batch_size: int = 1024, device: DeviceLike = None
+                ) -> np.ndarray:
+        """Forward ``x`` in chunks of ``batch_size``; returns a numpy array.
+        The device is chosen as ``Model.predict`` chooses it."""
+        return self._ensure_built().predict(x, batch_size=batch_size,
+                                            device=device)
 
     # -- persistence ----------------------------------------------------------
 

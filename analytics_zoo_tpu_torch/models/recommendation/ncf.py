@@ -79,3 +79,7 @@ class NeuralCF(Recommender):
         out = Dense(self.num_classes, activation="softmax",
                     name="prediction")(h)
         return Model(pairs, out, name="neural_cf")
+
+    def default_compile(self):
+        self.compile(optimizer="adam", loss="sparse_categorical_crossentropy",
+                     metrics=["accuracy"])

@@ -1,33 +1,39 @@
-"""Embedding row gathers (counterpart of ``analytics_zoo_tpu/ops/
-embedding_kernels.py``: ``gather_rows`` and ``gather_rows_clip``).
+"""Embedding row gathers and bag pooling (counterpart of
+``analytics_zoo_tpu/ops/embedding_kernels.py``: ``gather_rows``,
+``gather_rows_clip`` and ``gather_pool``).
 
-On a CUDA tensor every gather launches the hand-written kernel in
-``csrc/gather_rows.cu`` (it replaces the TPU's ``_gather_kernel``), or
-raises; there is no fallback. On a CPU tensor the wrapper runs
-:func:`gather_plain`, the plain PyTorch version with the same contract,
+On a CUDA tensor every gather launches a hand-written kernel, or raises;
+there is no fallback. ``csrc/gather_rows.cu`` replaces the TPU's
+``_gather_kernel`` and ``csrc/gather_pool.cu`` its ``_gather_pool_kernel``.
+On a CPU tensor a wrapper runs the kernel's plain PyTorch version
+(:func:`gather_plain`, :func:`gather_pool_plain`) with the same contract,
 which the tests hold against the JAX package and which ``chip_smoke.py``
-holds the kernel against on the card.
+holds each kernel against on the card.
 
-The contract is the TPU kernel's, not ``jnp.take``'s: ``clip`` clamps ids to
-``[0, rows-1]``; fill mode writes zero rows for any id outside ``[0, rows)``,
-negative ids included. The TPU package's 128-lane rule (``_lane_ok``) is
-dropped: every table width reaches the kernel.
+The contracts are the TPU kernels', not ``jnp.take``'s: ``clip`` clamps ids
+to ``[0, rows-1]``; fill mode writes zero rows for any id outside
+``[0, rows)``, negative ids included; a masked pool leaves such ids out of
+the sum and of the mean/sqrtn count. The TPU package's 128-lane rule
+(``_lane_ok``) is dropped: every table width reaches the kernels.
 """
 from __future__ import annotations
 
 import threading
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
 from .kernel_build import load_library
 
 _DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+#: the pool kernel's dtype and combiner codes
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_COMBINERS = {"sum": 0, "mean": 1, "sqrtn": 2}
 
 _count_lock = threading.Lock()
 #: kernel launches per wrapper, counted where the kernel is launched and
 #: nowhere else (``chip_smoke.py`` reads it to prove the path ran the kernel)
-launch_counts: Dict[str, int] = {"gather_rows": 0}
+launch_counts: Dict[str, int] = {"gather_rows": 0, "gather_pool": 0}
 
 
 def reset_launch_counts() -> None:
@@ -48,14 +54,15 @@ def gather_plain(table: torch.Tensor, ids: torch.Tensor,
     return out
 
 
-def _check(table: torch.Tensor, ids: torch.Tensor) -> None:
+def _check(table: torch.Tensor, ids: torch.Tensor, ids_dim: int = 1) -> None:
     if table.dim() != 2:
         raise ValueError(f"table must be 2-D [rows, dim], got "
                          f"{tuple(table.shape)}")
     if table.shape[0] < 1 or table.shape[1] < 1:
         raise ValueError(f"empty table {tuple(table.shape)}")
-    if ids.dim() != 1:
-        raise ValueError(f"ids must be flat [n], got {tuple(ids.shape)}")
+    if ids.dim() != ids_dim:
+        want = "flat [n]" if ids_dim == 1 else "[n, bag]"
+        raise ValueError(f"ids must be {want}, got {tuple(ids.shape)}")
     if ids.dtype != torch.int32:
         raise TypeError(f"ids must be int32, got {ids.dtype}")
     if table.dtype not in _DTYPES:
@@ -66,16 +73,30 @@ def _check(table: torch.Tensor, ids: torch.Tensor) -> None:
         raise ValueError(f"table on {table.device}, ids on {ids.device}")
 
 
+def _on_card(table: torch.Tensor, name: str) -> bool:
+    """True for a CUDA tensor, False for a CPU one; raises for any other."""
+    if table.device.type == "cpu":
+        return False
+    if table.device.type != "cuda":
+        raise ValueError(f"no {name} for device {table.device}")
+    return True
+
+
+def _launched(name: str, rc: int) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+    with _count_lock:
+        launch_counts[name] += 1
+
+
 def gather(table: torch.Tensor, ids: torch.Tensor,
            clip: bool) -> torch.Tensor:
     """The kernel's wrapper: ``out[i] = table[ids[i]]`` for a contiguous
     2-D table and flat int32 ids. CPU tensors take :func:`gather_plain`;
     CUDA tensors launch the kernel on the current stream."""
     _check(table, ids)
-    if table.device.type == "cpu":
+    if not _on_card(table, "gather"):
         return gather_plain(table, ids, clip)
-    if table.device.type != "cuda":
-        raise ValueError(f"no gather for device {table.device}")
     n, dim = ids.shape[0], table.shape[1]
     out = torch.empty((n, dim), dtype=table.dtype, device=table.device)
     if n == 0:
@@ -87,31 +108,129 @@ def gather(table: torch.Tensor, ids: torch.Tensor,
             table.data_ptr(), ids.data_ptr(), out.data_ptr(), n,
             table.shape[0], dim, table.element_size(), int(bool(clip)),
             stream)
-    if rc != 0:
-        raise RuntimeError(f"gather_rows kernel launch failed: CUDA error "
-                           f"{rc}")
-    with _count_lock:
-        launch_counts["gather_rows"] += 1
+    _launched("gather_rows", rc)
     return out
 
 
-class _GatherClip(torch.autograd.Function):
-    """Clip gather whose backward is a plain ``index_add_`` into a zero
-    table, as JAX's ``_gather_clip_tpu_bwd`` is an XLA scatter-add."""
+def gather_pool_plain(table: torch.Tensor, ids: torch.Tensor, combiner: str,
+                      clip: bool) -> torch.Tensor:
+    """Plain PyTorch version of the pool kernel, the same arithmetic in the
+    same order: ``ids`` ``[n, bag]``; f32 sums in bag order; out-of-range
+    ids masked out of sum and count, or clamped with ``clip``."""
+    rows = table.shape[0]
+    n, bag = ids.shape
+    got = table[ids.clamp(0, rows - 1).long()].float()  # [n, bag, dim]
+    ok = None if clip else (ids >= 0) & (ids < rows)
+    acc = torch.zeros((n, table.shape[1]), dtype=torch.float32,
+                      device=table.device)
+    count = torch.full((n, 1), 0.0 if ok is not None else float(bag),
+                       device=table.device)
+    for k in range(bag):
+        row = got[:, k]
+        if ok is not None:
+            row = torch.where(ok[:, k, None], row, torch.zeros_like(row))
+            count = count + ok[:, k, None].float()
+        acc = acc + row
+    denom = count.clamp(min=1.0)
+    if combiner == "mean":
+        acc = acc / denom
+    elif combiner == "sqrtn":
+        acc = acc / torch.sqrt(denom)
+    return acc.to(table.dtype)
+
+
+def pool(table: torch.Tensor, ids: torch.Tensor, combiner: str,
+         clip: bool) -> torch.Tensor:
+    """The pool kernel's wrapper: ``out[i] = combine_k table[ids[i, k]]``
+    for a contiguous 2-D table and int32 ids ``[n, bag]``. CPU tensors take
+    :func:`gather_pool_plain`; CUDA tensors launch the kernel on the
+    current stream."""
+    _check(table, ids, ids_dim=2)
+    if combiner not in _COMBINERS:
+        raise ValueError(f"unknown combiner {combiner!r}; have "
+                         f"{sorted(_COMBINERS)}")
+    if not _on_card(table, "gather_pool"):
+        return gather_pool_plain(table, ids, combiner, clip)
+    (n, bag), dim = ids.shape, table.shape[1]
+    out = torch.empty((n, dim), dtype=table.dtype, device=table.device)
+    if n == 0:
+        return out
+    lib = load_library()
+    with torch.cuda.device(table.device):
+        stream = torch.cuda.current_stream(table.device).cuda_stream
+        rc = lib.azt_gather_pool(
+            table.data_ptr(), ids.data_ptr(), out.data_ptr(), n, bag,
+            table.shape[0], dim, _DTYPE_CODES[table.dtype],
+            _COMBINERS[combiner], int(bool(clip)), stream)
+    _launched("gather_pool", rc)
+    return out
+
+
+class _GatherPool(torch.autograd.Function):
+    """Gather (``combiner=None``) or pooled gather whose backward is a plain
+    ``index_add_`` into a zero table, as JAX's ``_gather_pool_tpu_bwd`` is
+    an XLA scatter-add. Unlike JAX's TPU backward, masked ids are those
+    outside ``[0, rows)``, as in the forward kernel, and every id is clamped
+    before the add: ``index_add_`` on the card faults on an out-of-range
+    index where JAX's ``.at[].add`` drops it."""
 
     @staticmethod
-    def forward(ctx, table, flat_ids):
-        ctx.save_for_backward(flat_ids)
-        ctx.rows = table.shape[0]
-        return gather(table, flat_ids, clip=True)
+    def forward(ctx, table, idx, combiner, mask_negative):
+        ids = idx.to(torch.int32).contiguous()
+        ctx.save_for_backward(ids)
+        ctx.rows, ctx.dtype = table.shape[0], table.dtype
+        ctx.combiner, ctx.mask_negative = combiner, mask_negative
+        dim = table.shape[1]
+        if combiner is None:
+            rows = gather(table, ids.reshape(-1), clip=not mask_negative)
+            return rows.reshape(tuple(ids.shape) + (dim,))
+        pooled = pool(table, ids.reshape(-1, ids.shape[-1]), combiner,
+                      clip=not mask_negative)
+        return pooled.reshape(tuple(ids.shape[:-1]) + (dim,))
 
     @staticmethod
     def backward(ctx, g):
-        (flat_ids,) = ctx.saved_tensors
-        safe = flat_ids.clamp(0, ctx.rows - 1).long()
-        ct = torch.zeros((ctx.rows, g.shape[-1]), dtype=g.dtype,
-                         device=g.device)
-        return ct.index_add_(0, safe, g.contiguous()), None
+        (ids,) = ctx.saved_tensors
+        rows, dim = ctx.rows, g.shape[-1]
+        valid = None
+        if ctx.mask_negative:
+            valid = ((ids >= 0) & (ids < rows)).to(g.dtype)[..., None]
+        if ctx.combiner is None:
+            gk = g if valid is None else g * valid
+        else:
+            if ctx.combiner in ("mean", "sqrtn"):
+                count = (torch.full_like(g[..., :1], float(ids.shape[-1]))
+                         if valid is None else valid.sum(-2))
+                count = count.clamp(min=1.0)
+                g = g / (count if ctx.combiner == "mean"
+                         else torch.sqrt(count))
+            gk = g[..., None, :].expand(tuple(ids.shape) + (dim,))
+            if valid is not None:
+                gk = gk * valid
+        safe = ids.reshape(-1).clamp(0, rows - 1).long()
+        ct = torch.zeros((rows, dim), dtype=ctx.dtype, device=g.device)
+        ct.index_add_(0, safe, gk.reshape(-1, dim).to(ctx.dtype))
+        return ct, None, None, None
+
+
+def gather_pool(table: torch.Tensor, idx: torch.Tensor,
+                combiner: Optional[str] = None,
+                mask_negative: bool = True) -> torch.Tensor:
+    """Gather + padding mask + bag pooling over the trailing axis of
+    ``idx``, with the TPU kernel's contract; differentiable in ``table``.
+
+    ``combiner`` ``sum``, ``mean`` or ``sqrtn`` pools ``idx.shape[:-1] +
+    (dim,)`` through the pool kernel; ``None`` gathers ``idx.shape +
+    (dim,)`` through the row-gather kernel (fill mode when masked, clip mode
+    otherwise, as ``_gather_pool_tpu`` routes it). ``mask_negative`` masks
+    ids outside ``[0, rows)`` (zero rows, left out of the mean/sqrtn count);
+    without it every id is clamped into the table first."""
+    if combiner is not None and combiner not in _COMBINERS:
+        raise ValueError(f"unknown combiner {combiner!r}")
+    if combiner is not None and idx.dim() < 2:
+        raise ValueError("a pooled gather_pool needs idx.ndim >= 2")
+    return _GatherPool.apply(table.contiguous(), idx, combiner,
+                             bool(mask_negative))
 
 
 def gather_rows(table: torch.Tensor, flat_ids: torch.Tensor) -> torch.Tensor:
@@ -123,6 +242,4 @@ def gather_rows(table: torch.Tensor, flat_ids: torch.Tensor) -> torch.Tensor:
 def gather_rows_clip(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     """Clip-mode row gather over any ``ids`` shape; differentiable in
     ``table``. Returns ``ids.shape + (dim,)``."""
-    flat = ids.reshape(-1).to(torch.int32).contiguous()
-    rows = _GatherClip.apply(table.contiguous(), flat)
-    return rows.reshape(tuple(ids.shape) + (table.shape[1],))
+    return gather_pool(table, ids, None, mask_negative=False)

@@ -1,7 +1,8 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Every ``csrc/*.cu`` source is compiled by ``nvcc`` for ``sm_90a`` into one
-shared library with a plain C interface, loaded with ``ctypes``. The build
+Every ``csrc/*.cu`` source is compiled by its own ``nvcc`` for ``sm_90a``,
+all of them started together, and the objects are linked into one shared
+library with a plain C interface, loaded with ``ctypes``. The build
 runs at first use (``InferenceModel.prewarm`` triggers it before traffic),
 never at import, and lands in ``build/analytics_zoo_tpu_torch/`` beside the
 package. The library's file name carries a hash of the sources and flags, so
@@ -26,7 +27,7 @@ CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build",
                          "analytics_zoo_tpu_torch")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -68,27 +69,47 @@ def library_path() -> str:
     return os.path.join(BUILD_DIR, f"libazt_kernels-{h.hexdigest()[:16]}.so")
 
 
+def _run_all(cmds) -> None:
+    """Start every ``nvcc`` command at once, wait for all, raise if any
+    failed."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    failed = []
+    for cmd, proc in zip(cmds, procs):
+        out = proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}"
+                          f"\n{out}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 def _build(out: str) -> None:
     srcs, _ = _sources()
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = os.path.join(BUILD_DIR, f".{uuid.uuid4().hex}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", CSRC_DIR, "-o", tmp, *srcs]
+    stem = os.path.join(BUILD_DIR, f".{uuid.uuid4().hex}")
+    objs = [f"{stem}.{os.path.basename(src)}.o" for src in srcs]
+    tmp = f"{stem}.tmp.so"
+    nvcc = [_nvcc(), *NVCC_FLAGS]
     try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                f"{proc.stdout}\n{proc.stderr}")
+        # one nvcc per source, all started together, then one link
+        _run_all([[*nvcc, "-I", CSRC_DIR, "-c", "-o", obj, src]
+                  for src, obj in zip(srcs, objs)])
+        _run_all([[*nvcc, "-shared", "-o", tmp, *objs]])
         os.replace(tmp, out)  # atomic: a concurrent loader never sees a tear
     finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+        for path in objs + [tmp]:
+            if os.path.exists(path):
+                os.remove(path)
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     lib.azt_gather_rows.argtypes = [p, p, p, ll, ll, ll, i, i, p]
     lib.azt_gather_rows.restype = i
+    lib.azt_gather_pool.argtypes = [p, p, p, ll, i, ll, ll, i, i, i, p]
+    lib.azt_gather_pool.restype = i
     return lib
 
 

@@ -39,7 +39,8 @@ def reset_oob_ids() -> None:
         _oob_counters.clear()
 
 
-def validate_ids(idx: torch.Tensor, vocab: int) -> torch.Tensor:
+def validate_ids(idx: torch.Tensor, vocab: int,
+                 allow_negative: bool = False) -> torch.Tensor:
     """Apply the ``data.validate_ids`` policy to an integer id tensor.
 
     * ``clamp``: clip to ``[0, vocab-1]`` silently.
@@ -48,15 +49,24 @@ def validate_ids(idx: torch.Tensor, vocab: int) -> torch.Tensor:
       reads the counter when asked.
     * ``raise``: raise ValueError on any offender. This reads the count on
       the host, so it waits for the device on every lookup.
+
+    ``allow_negative`` keeps negative ids intact (``SparseEmbedding`` masks
+    them as padding downstream); only the upper bound is then validated.
     """
     mode = str(global_config().get("data.validate_ids"))
     if mode not in ("clamp", "count", "raise"):
         raise ValueError(f"data.validate_ids={mode!r}: expected "
                          f"'clamp', 'count' or 'raise'")
-    clamped = idx.clamp(0, vocab - 1)
-    bad = (idx < 0) | (idx >= vocab)
-    if mode == "clamp":
-        return clamped
+    if allow_negative:
+        clamped = idx.clamp(max=vocab - 1)
+        if mode == "clamp":
+            return clamped
+        bad = idx >= vocab
+    else:
+        clamped = idx.clamp(0, vocab - 1)
+        if mode == "clamp":
+            return clamped
+        bad = (idx < 0) | (idx >= vocab)
     n_bad = bad.sum()
     if mode == "raise":
         count = int(n_bad)

@@ -2,7 +2,8 @@
 
 Imports neither JAX nor the JAX package, so it also runs on a machine
 with an NVIDIA card and no JAX, where the ``cuda``-marked test holds the
-hand-written gather kernel against its plain version:
+hand-written kernels against their plain versions and trains Wide&Deep
+on the card:
 
     python -m pytest --noconftest -p no:cacheprovider \
         tests/test_torch_port_kernels.py
@@ -129,7 +130,7 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
                                           [0, 0, 0]]))
     assert ek.gather(table, torch.zeros(0, dtype=torch.int32),
                      clip=True).shape == (0, 3)
-    assert ek.launch_counts == {"gather_rows": 0}
+    assert ek.launch_counts == {"gather_rows": 0, "gather_pool": 0}
 
 
 @pytest.fixture()
@@ -168,7 +169,8 @@ def test_library_is_keyed_by_a_hash_of_the_sources():
         REPO, "build", "analytics_zoo_tpu_torch")
     assert os.path.basename(path).startswith("libazt_kernels-")
     srcs, _ = kernel_build._sources()
-    assert "gather_rows.cu" in [os.path.basename(s) for s in srcs]
+    assert {"gather_rows.cu", "gather_pool.cu"} <= {
+        os.path.basename(s) for s in srcs}
 
 
 # -- on the card --------------------------------------------------------------
@@ -220,3 +222,56 @@ def test_served_batches_launch_the_kernel_four_times_whatever_the_knob(
     for batch in range(1, 4):
         model.predict(x)
         assert ek.launch_counts["gather_rows"] == 4 * batch
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,dim,bag,n,dtype", [
+    (101016, 2, 3, 8192, torch.float32), (50, 2, 1, 257, torch.float32),
+    (50, 8, 17, 100, torch.float32), (50, 33, 3, 64, torch.float32),
+    (300, 64, 5, 129, torch.float32), (300, 64, 3, 64, torch.bfloat16),
+    (50, 33, 17, 31, torch.float16), (50, 8, 3, 0, torch.float32)])
+def test_pool_kernel_equals_its_plain_version_on_the_card(cuda_device, rows,
+                                                          dim, bag, n, dtype):
+    gen = torch.Generator().manual_seed(rows + dim + bag + n)
+    table = torch.randn(rows, dim, generator=gen).to(dtype).to(cuda_device)
+    ids = torch.randint(-3, rows + 3, (n, bag), generator=gen,
+                        dtype=torch.int32).to(cuda_device)
+    for combiner in ("sum", "mean", "sqrtn"):
+        for clip in (True, False):
+            before = ek.launch_counts["gather_pool"]
+            got = ek.pool(table, ids, combiner, clip)
+            torch.cuda.synchronize()
+            assert ek.launch_counts["gather_pool"] == before + (1 if n else 0)
+            assert got.dtype == dtype and got.shape == (n, dim)
+            # the same f32 adds in the same bag order: bit for bit
+            assert torch.equal(got, ek.gather_pool_plain(table, ids,
+                                                         combiner, clip))
+
+
+@pytest.mark.cuda
+def test_a_wide_and_deep_step_launches_pool_once_and_gather_twice(
+        cuda_device):
+    from analytics_zoo_tpu_torch.models import WideAndDeep
+    cols = dict(wide_base_cols=["a"], wide_base_dims=[7],
+                wide_cross_cols=["c"], wide_cross_dims=[30],
+                indicator_cols=["i"], indicator_dims=[3],
+                embed_cols=["e1", "e2"], embed_in_dims=[7, 9],
+                embed_out_dims=[4, 4], continuous_cols=["x"])
+    rng = np.random.default_rng(0)
+    n = 64
+    x = [np.stack([rng.integers(0, 7, n), 7 + rng.integers(0, 30, n)],
+                  1).astype(np.int32),
+         rng.integers(0, 3, (n, 1)).astype(np.int32),
+         np.stack([rng.integers(0, 7, n), rng.integers(0, 9, n)],
+                  1).astype(np.int32),
+         rng.random((n, 1)).astype(np.float32)]
+    y = rng.integers(0, 2, n).astype(np.float32)
+    zoo = WideAndDeep("wide_n_deep", 2, hidden_layers=(8, 4), **cols)
+    zoo.default_compile()
+    ek.reset_launch_counts()
+    hist = zoo.fit(x, y, batch_size=16, nb_epoch=1)
+    steps = hist["iterations"]
+    assert steps == 4 and np.isfinite(hist["loss_history"]).all()
+    assert ek.launch_counts == {"gather_pool": steps,
+                                "gather_rows": 2 * steps}
+    assert zoo.model.device.type == "cuda"
