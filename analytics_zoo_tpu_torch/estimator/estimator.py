@@ -11,6 +11,15 @@ stop. A checkpoint is one ``torch.save`` file holding the parameters, the
 optimizer state, the epoch, the global step and the data pipeline's state,
 so a resumed run replays the batches an uninterrupted run would see.
 
+``train`` steps in training mode (``nn.Module.train()``), ``evaluate`` and
+``predict`` run in eval mode. Dropout draws from one ``torch.Generator`` on
+the Estimator's device, seeded from ``seed`` and handed to every layer
+(``set_dropout_generator``); its state is part of a checkpoint, so a run
+resumed with dropout on replays the uninterrupted run's masks. Moving the
+Estimator to another device, or loading a checkpoint saved on another
+device type, starts the generator from ``seed`` (a CPU generator's state
+does not carry to a CUDA one).
+
 The device is the card unless the caller passes ``device="cpu"``; without a
 card the constructor raises ``NoCudaDeviceError``.
 """
@@ -43,6 +52,14 @@ def _to_device(tree, device):
                     else t, tree)
 
 
+def _input_shape(features):
+    """The model's input shape from a batch of features: ``None`` for the
+    batch axis, a list for a tuple or list of arrays."""
+    if isinstance(features, (tuple, list)):
+        return [_input_shape(f) for f in features]
+    return (None,) + tuple(np.shape(features)[1:])
+
+
 class Estimator:
     def __init__(self, model, loss_fn: Optional[Callable],
                  optimizer: Any = None, metrics: Optional[Sequence] = None,
@@ -58,6 +75,7 @@ class Estimator:
         self.metrics = [metrics_mod.get(m) for m in (metrics or [])]
         self.seed = seed
         self.opt_state: Optional[Dict[str, Any]] = None
+        self.dropout_generator: Optional[torch.Generator] = None
         self.global_step = 0
         self.epoch = 1
         self._ckpt_dir: Optional[str] = None
@@ -86,12 +104,21 @@ class Estimator:
     def _params(self) -> Dict[str, torch.nn.Parameter]:
         return dict(self.model.named_parameters())
 
-    def _ensure_initialized(self) -> None:
+    def _ensure_initialized(self, features=None) -> None:
+        """Build the model (for the shape of ``features``, a numpy tree with
+        the record axis first, where it needs one), put it on the device,
+        give it the dropout generator and create the optimizer state."""
         if not self.model.built:
+            shape = None if features is None else _input_shape(features)
             self.model.build(torch.Generator().manual_seed(self.seed),
-                             device=self.device)
+                             shape, device=self.device)
         elif self.model.device != self.device:
             self.model.to(self.device)
+        gen = self.dropout_generator
+        if gen is None or gen.device != self.device:
+            gen = torch.Generator(device=self.device).manual_seed(self.seed)
+            self.dropout_generator = gen
+        self.model.set_dropout_generator(gen)
         if self.opt_state is None and self.optimizer is not None:
             self.opt_state = self.optimizer.init(self._params())
 
@@ -139,7 +166,7 @@ class Estimator:
         # the JAX loop draws a sample batch to initialise, which uses up one
         # shuffle permutation: do the same, so both see the same batches
         next(train_set.train_iterator(batch_size))
-        self._ensure_initialized()
+        self._ensure_initialized(train_set.features)
 
         state = TrainingState(epoch=self.epoch, iteration=self.global_step)
         history: List[float] = []
@@ -214,7 +241,7 @@ class Estimator:
         if val_set.size == 0:
             raise ValueError("validation set is empty (0 records)")
         local_batch = min(batch_size, val_set.size)
-        self._ensure_initialized()
+        self._ensure_initialized(val_set.features)
         states = [m.init_state(self.device) for m in self.metrics]
         self.model.eval()
         batches = masked_eval_batches(
@@ -232,7 +259,7 @@ class Estimator:
         batches of ``batch_size``; returns float32 numpy."""
         if not isinstance(x, FeatureSet):
             x = FeatureSet.from_ndarrays(x, None, shuffle=False)
-        self._ensure_initialized()
+        self._ensure_initialized(x.features)
         self.model.eval()
         outs = []
         with torch.inference_mode():
@@ -246,13 +273,17 @@ class Estimator:
 
     # -- params / checkpoint --------------------------------------------------
 
-    def get_params(self) -> Dict[str, Dict[str, np.ndarray]]:
-        """``{layer: {param: ndarray}}``, the JAX package's params tree."""
+    def get_params(self) -> Dict[str, Any]:
+        """``{layer: {param: ndarray}}``, the JAX package's params tree
+        (nested deeper where the layer nests, as BERT's blocks do)."""
         self._ensure_initialized()
-        out: Dict[str, Dict[str, np.ndarray]] = {}
+        out: Dict[str, Any] = {}
         for name, p in self._params().items():
-            layer, key = name.split(".", 1)
-            out.setdefault(layer, {})[key] = p.detach().cpu().numpy()
+            *path, key = name.split(".")
+            node = out
+            for part in path:
+                node = node.setdefault(part, {})
+            node[key] = p.detach().cpu().numpy()
         return out
 
     def set_params(self, params) -> None:
@@ -278,7 +309,10 @@ class Estimator:
     def _snapshot(self) -> Dict[str, Any]:
         self._ensure_initialized()
         meta: Dict[str, Any] = {"global_step": self.global_step,
-                                "epoch": self.epoch}
+                                "epoch": self.epoch,
+                                "dropout_rng":
+                                    self.dropout_generator.get_state(),
+                                "dropout_device": self.device.type}
         ts = self._active_train_set
         if ts is not None:
             # an epoch-end snapshot records the post-epoch shuffle state; a
@@ -308,8 +342,10 @@ class Estimator:
 
     def load_checkpoint(self, path: str) -> None:
         """Restore a :meth:`save_checkpoint` directory: parameters,
-        optimizer state, epoch, global step, and the data state the next
-        ``train`` resumes from."""
+        optimizer state, epoch, global step, the dropout generator's state
+        (saved on this device type; else it restarts from ``seed``), and
+        the data state the next ``train`` resumes from. The model must
+        be built (a ``Sequential`` needs its input shape)."""
         tree = torch.load(file_io.join(path, CHECKPOINT_FILE),
                           map_location="cpu", weights_only=True)
         missing = {"params", "opt_state", "meta"} - set(tree)
@@ -322,6 +358,12 @@ class Estimator:
         meta = tree["meta"]
         self.global_step = int(meta["global_step"])
         self.epoch = int(meta["epoch"])
+        # a generator's state only fits one of its own device type (a CPU
+        # state is not a CUDA one): from another device, start from ``seed``
+        if meta.get("dropout_device") == self.device.type:
+            self.dropout_generator.set_state(meta["dropout_rng"])
+        else:
+            self.dropout_generator.manual_seed(self.seed)
         if "data_rng" in meta:
             self._restore_data = (meta["data_rng"], int(meta["data_offset"]),
                                   int(meta["data_batch"]))

@@ -1,4 +1,6 @@
-"""Keras-style API: ``Input``, the functional ``Model`` and its layers."""
-from .engine import Input, InputLayer, Layer, Model, SymbolicTensor
+"""Keras-style API: ``Input``, the functional ``Model``, ``Sequential`` and
+their layers."""
+from .engine import Input, InputLayer, Layer, Model, Sequential, SymbolicTensor
 
-__all__ = ["Input", "InputLayer", "Layer", "Model", "SymbolicTensor"]
+__all__ = ["Input", "InputLayer", "Layer", "Model", "Sequential",
+           "SymbolicTensor"]

@@ -1,5 +1,6 @@
 """Keras-style model engine (counterpart of ``analytics_zoo_tpu/keras/
-engine.py``): layers, symbolic inputs and the functional ``Model``.
+engine.py``): layers, symbolic inputs, the functional ``Model`` and
+``Sequential``.
 
 In the JAX package a layer is a stateless config whose parameters live in
 an external pytree. Here a :class:`Layer` is an ``nn.Module`` that owns its
@@ -15,6 +16,9 @@ topologically and runs them in that order.
 Training is the JAX package's too: ``compile`` then ``fit``, ``evaluate``
 and ``predict`` delegate to an :class:`~analytics_zoo_tpu_torch.estimator.
 Estimator`, which runs on the card unless ``device="cpu"`` is passed.
+Training mode is ``nn.Module.train()``; dropout draws from one explicit
+``torch.Generator`` on the model's device, which the Estimator hands to
+every layer through :meth:`set_dropout_generator`.
 """
 from __future__ import annotations
 
@@ -52,6 +56,8 @@ class Layer(nn.Module):
         self.name = name or _auto_name(type(self).__name__)
         self.built_shape: Optional[Any] = None
         self.built = False
+        #: set on every layer by the model (``set_dropout_generator``)
+        self.dropout_generator: Optional[torch.Generator] = None
 
     def build(self, generator: torch.Generator, input_shape,
               device: torch.device) -> None:
@@ -140,62 +146,10 @@ def Input(shape: Shape, name: Optional[str] = None) -> SymbolicTensor:
     return SymbolicTensor(layer.shape, Node(layer, []), 0)
 
 
-class Model(Layer):
-    """Functional graph model: layers run in topological order, each node
-    fed the outputs of the nodes it was called on."""
-
-    def __init__(self, inputs, outputs, name: Optional[str] = None):
-        super().__init__(name)
-        self.inputs: List[SymbolicTensor] = (
-            list(inputs) if isinstance(inputs, (list, tuple)) else [inputs])
-        self.outputs: List[SymbolicTensor] = (
-            list(outputs) if isinstance(outputs, (list, tuple))
-            else [outputs])
-        self._single_output = not isinstance(outputs, (list, tuple))
-        self._nodes = self._topo_sort()
-        _scope_names([n.layer for n in self._nodes])
-        for node in self._nodes:
-            layer = node.layer
-            if not isinstance(layer, InputLayer) \
-                    and layer.name not in self._modules:
-                self.add_module(layer.name, layer)
-
-    def _topo_sort(self) -> List[Node]:
-        order: List[Node] = []
-        seen = set()
-
-        def visit(node: Node):
-            if id(node) in seen:
-                return
-            seen.add(id(node))
-            for sym in node.inputs:
-                if sym.node is not None:
-                    visit(sym.node)
-            order.append(node)
-
-        for out in self.outputs:
-            visit(out.node)
-        return order
-
-    def build(self, generator: Optional[torch.Generator] = None,
-              input_shape=None, device: DeviceLike = None) -> "Model":
-        """Create every layer's parameters, in topological order, from
-        ``generator`` (seed 0 when omitted) on ``device`` (the card when
-        omitted; ``"cpu"`` must be asked for)."""
-        dev = resolve_device(device)
-        gen = generator if generator is not None \
-            else torch.Generator().manual_seed(0)
-        for node in self._nodes:
-            layer = node.layer
-            if layer.built or isinstance(layer, InputLayer):
-                continue
-            in_shapes = [s.shape for s in node.inputs]
-            shape_arg = in_shapes[0] if len(in_shapes) == 1 else in_shapes
-            layer.build(gen, shape_arg, dev)
-            layer.built_shape = shape_arg
-        self.built_shape = input_shape
-        self.built = True
-        return self
+class _TrainableMixin:
+    """The compile / fit / evaluate / predict surface and persistence that
+    ``Model`` and ``Sequential`` share (the JAX package's
+    ``_TrainableMixin``)."""
 
     @property
     def device(self) -> torch.device:
@@ -203,23 +157,13 @@ class Model(Layer):
             return p.device
         return torch.device("cpu")
 
-    def forward(self, inputs):
-        xs = inputs if isinstance(inputs, (list, tuple)) else [inputs]
-        if len(xs) != len(self.inputs):
-            raise ValueError(f"model expects {len(self.inputs)} inputs, "
-                             f"got {len(xs)}")
-        values: Dict[int, Any] = {}
-        for sym, x in zip(self.inputs, xs):
-            values[id(sym.node)] = (x,)
-        for node in self._nodes:
-            if id(node) in values:
-                continue
-            args = [values[id(s.node)][s.index] for s in node.inputs]
-            out = node.layer(args[0] if len(args) == 1 else args)
-            values[id(node)] = (tuple(out) if isinstance(out, (list, tuple))
-                                else (out,))
-        outs = [values[id(o.node)][o.index] for o in self.outputs]
-        return outs[0] if self._single_output else outs
+    def set_dropout_generator(self,
+                              generator: Optional[torch.Generator]) -> None:
+        """Hand ``generator`` to every layer, nested ones included: their
+        dropout draws from it and from nothing else."""
+        for m in self.modules():
+            if isinstance(m, Layer):
+                m.dropout_generator = generator
 
     # -- training (delegates to the Estimator, as in the JAX package) ---------
 
@@ -307,3 +251,134 @@ class Model(Layer):
         state = torch.load(file_io.join(path, WEIGHTS_FILE),
                            map_location=self.device, weights_only=True)
         self.load_state_dict(state, strict=True)
+
+
+class Model(_TrainableMixin, Layer):
+    """Functional graph model: layers run in topological order, each node
+    fed the outputs of the nodes it was called on."""
+
+    def __init__(self, inputs, outputs, name: Optional[str] = None):
+        super().__init__(name)
+        self.inputs: List[SymbolicTensor] = (
+            list(inputs) if isinstance(inputs, (list, tuple)) else [inputs])
+        self.outputs: List[SymbolicTensor] = (
+            list(outputs) if isinstance(outputs, (list, tuple))
+            else [outputs])
+        self._single_output = not isinstance(outputs, (list, tuple))
+        self._nodes = self._topo_sort()
+        _scope_names([n.layer for n in self._nodes])
+        for node in self._nodes:
+            layer = node.layer
+            if not isinstance(layer, InputLayer) \
+                    and layer.name not in self._modules:
+                self.add_module(layer.name, layer)
+
+    def _topo_sort(self) -> List[Node]:
+        order: List[Node] = []
+        seen = set()
+
+        def visit(node: Node):
+            if id(node) in seen:
+                return
+            seen.add(id(node))
+            for sym in node.inputs:
+                if sym.node is not None:
+                    visit(sym.node)
+            order.append(node)
+
+        for out in self.outputs:
+            visit(out.node)
+        return order
+
+    def build(self, generator: Optional[torch.Generator] = None,
+              input_shape=None, device: DeviceLike = None) -> "Model":
+        """Create every layer's parameters, in topological order, from
+        ``generator`` (seed 0 when omitted) on ``device`` (the card when
+        omitted; ``"cpu"`` must be asked for)."""
+        dev = resolve_device(device)
+        gen = generator if generator is not None \
+            else torch.Generator().manual_seed(0)
+        for node in self._nodes:
+            layer = node.layer
+            if layer.built or isinstance(layer, InputLayer):
+                continue
+            in_shapes = [s.shape for s in node.inputs]
+            shape_arg = in_shapes[0] if len(in_shapes) == 1 else in_shapes
+            layer.build(gen, shape_arg, dev)
+            layer.built_shape = shape_arg
+        self.built_shape = input_shape
+        self.built = True
+        return self
+
+    def forward(self, inputs):
+        xs = inputs if isinstance(inputs, (list, tuple)) else [inputs]
+        if len(xs) != len(self.inputs):
+            raise ValueError(f"model expects {len(self.inputs)} inputs, "
+                             f"got {len(xs)}")
+        values: Dict[int, Any] = {}
+        for sym, x in zip(self.inputs, xs):
+            values[id(sym.node)] = (x,)
+        for node in self._nodes:
+            if id(node) in values:
+                continue
+            args = [values[id(s.node)][s.index] for s in node.inputs]
+            out = node.layer(args[0] if len(args) == 1 else args)
+            values[id(node)] = (tuple(out) if isinstance(out, (list, tuple))
+                                else (out,))
+        outs = [values[id(o.node)][o.index] for o in self.outputs]
+        return outs[0] if self._single_output else outs
+
+
+class Sequential(_TrainableMixin, Layer):
+    """A linear stack of layers (the JAX package's ``Sequential``). The
+    first layer takes the model's input as it comes, a list of arrays
+    included (BERT's four-array pack)."""
+
+    def __init__(self, layers: Optional[Sequence[Layer]] = None,
+                 name: Optional[str] = None):
+        super().__init__(name)
+        self.layers: List[Layer] = []
+        for layer in (layers or []):
+            self.add(layer)
+
+    def add(self, layer: Layer) -> "Sequential":
+        self.layers.append(layer)
+        _scope_names(self.layers)
+        for l in self.layers:
+            if l.name not in self._modules:
+                self.add_module(l.name, l)
+        return self
+
+    def build(self, generator: Optional[torch.Generator] = None,
+              input_shape=None, device: DeviceLike = None) -> "Sequential":
+        """Create every layer's parameters in order, each for the shape the
+        layers before it give, from ``generator`` (seed 0 when omitted) on
+        ``device`` (the card when omitted). ``input_shape`` is the input's
+        shape with ``None`` for the batch, or a list of them."""
+        if input_shape is None:
+            raise ValueError("a Sequential builds from its input shape: "
+                             "pass input_shape, or fit/predict first")
+        dev = resolve_device(device)
+        gen = generator if generator is not None \
+            else torch.Generator().manual_seed(0)
+        shape = input_shape
+        for layer in self.layers:
+            if not layer.built:
+                layer.build(gen, shape, dev)
+                layer.built_shape = shape
+            shape = layer.compute_output_shape(shape)
+        self.built_shape = input_shape
+        self.built = True
+        return self
+
+    def forward(self, inputs):
+        x = inputs
+        for layer in self.layers:
+            x = layer(x)
+        return x
+
+    def compute_output_shape(self, input_shape):
+        shape = input_shape
+        for layer in self.layers:
+            shape = layer.compute_output_shape(shape)
+        return shape

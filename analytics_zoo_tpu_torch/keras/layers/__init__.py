@@ -1,6 +1,8 @@
 """Layers of the port's Keras-style API."""
-from .core import Activation, Dense, Flatten, Lambda, Merge, merge
+from .attention import BERT, MultiHeadAttention
+from .core import Activation, Dense, Dropout, Flatten, Lambda, Merge, merge
 from .embedding import Embedding, SparseEmbedding
 
-__all__ = ["Activation", "Dense", "Embedding", "Flatten", "Lambda", "Merge",
-           "SparseEmbedding", "merge"]
+__all__ = ["Activation", "BERT", "Dense", "Dropout", "Embedding", "Flatten",
+           "Lambda", "Merge", "MultiHeadAttention", "SparseEmbedding",
+           "merge"]

@@ -1,7 +1,7 @@
 """Core layers (counterpart of ``analytics_zoo_tpu/keras/layers/core.py``):
-``Activation``, ``Dense``, ``Flatten``, ``Lambda`` and ``Merge``/``merge``
-(sum, mul, max, min, ave, concat, dot, cosine; ``sum`` by default, as in the
-JAX package)."""
+``Activation``, ``Dense``, ``Dropout``, ``Flatten``, ``Lambda`` and
+``Merge``/``merge`` (sum, mul, max, min, ave, concat, dot, cosine; ``sum``
+by default, as in the JAX package)."""
 from __future__ import annotations
 
 from typing import Callable, Optional, Union
@@ -22,6 +22,8 @@ _ACTIVATIONS = {
     "softmax": lambda x: torch.softmax(x, dim=-1),
     "log_softmax": lambda x: torch.log_softmax(x, dim=-1),
     "softplus": torch.nn.functional.softplus,
+    # jax.nn.gelu's default is the tanh approximation
+    "gelu": lambda x: torch.nn.functional.gelu(x, approximate="tanh"),
     "linear": lambda x: x,
     None: lambda x: x,
 }
@@ -74,6 +76,35 @@ class Dense(Layer):
 
     def compute_output_shape(self, input_shape):
         return tuple(input_shape[:-1]) + (self.output_dim,)
+
+
+def dropout(x: torch.Tensor, rate: float,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Zero each entry with probability ``rate`` and scale the rest by
+    ``1/(1-rate)``, the mask drawn from ``generator`` (the model's dropout
+    generator, on ``x``'s device), never from torch's global RNG."""
+    if generator is None:
+        raise ValueError("dropout in training mode needs the model's dropout "
+                         "generator (the Estimator sets it; or call "
+                         "set_dropout_generator)")
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
+                                                   device=x.device))
+
+
+class Dropout(Layer):
+    """The identity outside training; in training, :func:`dropout` at rate
+    ``p``."""
+
+    def __init__(self, p: float, name: Optional[str] = None):
+        super().__init__(name)
+        self.rate = p
+
+    def forward(self, inputs):
+        if not self.training or self.rate <= 0.0:
+            return inputs
+        return dropout(inputs, self.rate, self.dropout_generator)
 
 
 class Flatten(Layer):

@@ -18,28 +18,19 @@ the sum and of the mean/sqrtn count. The TPU package's 128-lane rule
 """
 from __future__ import annotations
 
-import threading
-from typing import Dict, Optional
+from typing import Optional
 
 import torch
 
-from .kernel_build import load_library
+from .kernel_build import LaunchCounts, load_library, on_card
 
 _DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 #: the pool kernel's dtype and combiner codes
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _COMBINERS = {"sum": 0, "mean": 1, "sqrtn": 2}
 
-_count_lock = threading.Lock()
-#: kernel launches per wrapper, counted where the kernel is launched and
-#: nowhere else (``chip_smoke.py`` reads it to prove the path ran the kernel)
-launch_counts: Dict[str, int] = {"gather_rows": 0, "gather_pool": 0}
-
-
-def reset_launch_counts() -> None:
-    with _count_lock:
-        for k in launch_counts:
-            launch_counts[k] = 0
+launch_counts = LaunchCounts("gather_rows", "gather_pool")
+reset_launch_counts = launch_counts.reset
 
 
 def gather_plain(table: torch.Tensor, ids: torch.Tensor,
@@ -73,29 +64,13 @@ def _check(table: torch.Tensor, ids: torch.Tensor, ids_dim: int = 1) -> None:
         raise ValueError(f"table on {table.device}, ids on {ids.device}")
 
 
-def _on_card(table: torch.Tensor, name: str) -> bool:
-    """True for a CUDA tensor, False for a CPU one; raises for any other."""
-    if table.device.type == "cpu":
-        return False
-    if table.device.type != "cuda":
-        raise ValueError(f"no {name} for device {table.device}")
-    return True
-
-
-def _launched(name: str, rc: int) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
-    with _count_lock:
-        launch_counts[name] += 1
-
-
 def gather(table: torch.Tensor, ids: torch.Tensor,
            clip: bool) -> torch.Tensor:
     """The kernel's wrapper: ``out[i] = table[ids[i]]`` for a contiguous
     2-D table and flat int32 ids. CPU tensors take :func:`gather_plain`;
     CUDA tensors launch the kernel on the current stream."""
     _check(table, ids)
-    if not _on_card(table, "gather"):
+    if not on_card(table, "gather"):
         return gather_plain(table, ids, clip)
     n, dim = ids.shape[0], table.shape[1]
     out = torch.empty((n, dim), dtype=table.dtype, device=table.device)
@@ -108,7 +83,7 @@ def gather(table: torch.Tensor, ids: torch.Tensor,
             table.data_ptr(), ids.data_ptr(), out.data_ptr(), n,
             table.shape[0], dim, table.element_size(), int(bool(clip)),
             stream)
-    _launched("gather_rows", rc)
+    launch_counts.launched("gather_rows", rc)
     return out
 
 
@@ -149,7 +124,7 @@ def pool(table: torch.Tensor, ids: torch.Tensor, combiner: str,
     if combiner not in _COMBINERS:
         raise ValueError(f"unknown combiner {combiner!r}; have "
                          f"{sorted(_COMBINERS)}")
-    if not _on_card(table, "gather_pool"):
+    if not on_card(table, "gather_pool"):
         return gather_pool_plain(table, ids, combiner, clip)
     (n, bag), dim = ids.shape, table.shape[1]
     out = torch.empty((n, dim), dtype=table.dtype, device=table.device)
@@ -162,7 +137,7 @@ def pool(table: torch.Tensor, ids: torch.Tensor, combiner: str,
             table.data_ptr(), ids.data_ptr(), out.data_ptr(), n, bag,
             table.shape[0], dim, _DTYPE_CODES[table.dtype],
             _COMBINERS[combiner], int(bool(clip)), stream)
-    _launched("gather_pool", rc)
+    launch_counts.launched("gather_pool", rc)
     return out
 
 

@@ -22,6 +22,8 @@ import time
 import uuid
 from typing import Optional
 
+import torch
+
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build",
@@ -110,6 +112,13 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.azt_gather_rows.restype = i
     lib.azt_gather_pool.argtypes = [p, p, p, ll, i, ll, ll, i, i, i, p]
     lib.azt_gather_pool.restype = i
+    f, u = ctypes.c_float, ctypes.c_uint32
+    lib.azt_fused_short_fwd.argtypes = [p, p, p, p, p, p, ll, i, i, i, i, f,
+                                        u, f, i, p]
+    lib.azt_fused_short_fwd.restype = i
+    lib.azt_fused_short_bwd.argtypes = [p, p, p, p, p, p, p, p, p, p, ll, i,
+                                        i, i, i, f, f, u, f, i, p]
+    lib.azt_fused_short_bwd.restype = i
     return lib
 
 
@@ -127,3 +136,36 @@ def load_library() -> ctypes.CDLL:
             last_build_seconds = time.perf_counter() - t0
             _lib = _bind(ctypes.CDLL(path))
     return _lib
+
+
+class LaunchCounts(dict):
+    """Kernel launches per wrapper, ``{name: count}``, counted where a
+    wrapper launches its kernel and nowhere else (``chip_smoke.py`` reads
+    them to prove a path ran the kernels)."""
+
+    def __init__(self, *names: str):
+        super().__init__({n: 0 for n in names})
+        self._lock = threading.Lock()
+
+    def reset(self) -> None:
+        with self._lock:
+            for k in self:
+                self[k] = 0
+
+    def launched(self, name: str, rc: int) -> None:
+        """Raise if the C entry point returned a CUDA error, else count."""
+        if rc != 0:
+            raise RuntimeError(f"{name} kernel launch failed: CUDA error "
+                               f"{rc}")
+        with self._lock:
+            self[name] += 1
+
+
+def on_card(t: torch.Tensor, name: str) -> bool:
+    """True for a CUDA tensor (launch the kernel), False for a CPU one (run
+    the plain version); raises for any other device."""
+    if t.device.type == "cpu":
+        return False
+    if t.device.type != "cuda":
+        raise ValueError(f"no {name} for device {t.device}")
+    return True

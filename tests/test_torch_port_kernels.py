@@ -1,9 +1,9 @@
-"""The torch port's boundaries and its CUDA kernel.
+"""The torch port's boundaries and its CUDA kernels.
 
 Imports neither JAX nor the JAX package, so it also runs on a machine
-with an NVIDIA card and no JAX, where the ``cuda``-marked test holds the
-hand-written kernels against their plain versions and trains Wide&Deep
-on the card:
+with an NVIDIA card and no JAX, where the ``cuda``-marked tests hold the
+hand-written kernels against their plain versions and train Wide&Deep and
+a small BERT on the card:
 
     python -m pytest --noconftest -p no:cacheprovider \
         tests/test_torch_port_kernels.py
@@ -56,6 +56,10 @@ def _port_sources():
 def test_port_and_chip_smoke_import_no_jax():
     sources = list(_port_sources())
     assert len(sources) > 20 and all(os.path.exists(p) for p in sources)
+    assert {os.path.join(PKG, "capture", "text.py"),
+            os.path.join(PKG, "ops", "attention.py"),
+            os.path.join(PKG, "keras", "layers", "attention.py")} <= set(
+        sources)
     bad = {os.path.relpath(p, REPO): m for p in sources
            for m in _imports(p) if _forbidden(m)}
     assert bad == {}
@@ -169,7 +173,7 @@ def test_library_is_keyed_by_a_hash_of_the_sources():
         REPO, "build", "analytics_zoo_tpu_torch")
     assert os.path.basename(path).startswith("libazt_kernels-")
     srcs, _ = kernel_build._sources()
-    assert {"gather_rows.cu", "gather_pool.cu"} <= {
+    assert {"gather_rows.cu", "gather_pool.cu", "fused_short_attn.cu"} <= {
         os.path.basename(s) for s in srcs}
 
 
@@ -275,3 +279,114 @@ def test_a_wide_and_deep_step_launches_pool_once_and_gather_twice(
     assert ek.launch_counts == {"gather_pool": steps,
                                 "gather_rows": 2 * steps}
     assert zoo.model.device.type == "cuda"
+
+
+# -- the fused short attention kernels (B7, B8) on the card -------------------
+
+#: kernel against plain: f32 sums in another order; bf16 outputs round to
+#: 8 bits, so their tolerance is relative to the output's scale
+ATTN_ATOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+def _attn_inputs(dev, b, h, s, d, dtype, seed):
+    gen = torch.Generator().manual_seed(seed)
+    q, k, v, do = (torch.randn(b, h, s, d, generator=gen).to(dtype).to(dev)
+                   for _ in range(4))
+    mask = torch.ones(b, s)
+    for i in range(b):
+        mask[i, int(torch.randint(1, s + 1, (1,), generator=gen)):] = 0
+    if b > 1:
+        mask[-1] = 0  # a row of all-masked keys
+    return q, k, v, do, ((1.0 - mask) * -1e9).to(dev)
+
+
+def _close(got, want, dtype):
+    scale = max(1.0, float(want.detach().float().abs().max()))
+    return float((got.float() - want.float()).abs().max()) <= \
+        ATTN_ATOL[dtype] * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [1, 17, 128, 512])
+@pytest.mark.parametrize("d", [24, 32, 64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_fused_short_kernels_equal_their_plain_versions_on_the_card(
+        cuda_device, s, d, dtype):
+    from analytics_zoo_tpu_torch.ops import attention as at
+    q, k, v, do, bias = _attn_inputs(cuda_device, 2, 3, s, d, dtype, s + d)
+    seed = torch.tensor([1234], dtype=torch.int32, device=cuda_device)
+    for kb in (None, bias):
+        for causal in (False, True):
+            for rate in (0.0, 0.1):
+                before = dict(at.launch_counts)
+                o = at.fused_short_fwd(q, k, v, kb, seed, 0.125, rate, causal)
+                grads = at.fused_short_bwd(q, k, v, do, kb, seed, 0.125,
+                                           rate, causal)
+                torch.cuda.synchronize()
+                assert at.launch_counts == {
+                    "fused_short_fwd": before["fused_short_fwd"] + 1,
+                    "fused_short_bwd": before["fused_short_bwd"] + 1}
+                leaves = [t.detach().clone().requires_grad_() for t in
+                          (q, k, v)]
+                want = at.fused_short_attention_plain(
+                    *leaves, kb, 0.125, rate, seed, causal)
+                want.backward(do)
+                case = f"bias={kb is not None} causal={causal} rate={rate}"
+                assert o.dtype == dtype and _close(o, want, dtype), case
+                for name, g, t in zip("qkv", grads, leaves):
+                    assert _close(g, t.grad, dtype), f"d{name} {case}"
+
+
+@pytest.mark.cuda
+def test_the_kernels_dropout_mask_is_the_plain_mask_bit_for_bit(
+        cuda_device):
+    from analytics_zoo_tpu_torch.ops import attention as at
+    b, h, s = 4, 3, 128
+    # q = k = 0 gives p = 1/s everywhere; v = I reads p·keep back out
+    q = torch.zeros(b, h, s, s, device=cuda_device)
+    eye = torch.eye(s, device=cuda_device).expand(b, h, s, s).contiguous()
+    seed = torch.tensor([99], dtype=torch.int32, device=cuda_device)
+    o = at.fused_short_fwd(q, q, eye, None, seed, 1.0, 0.1, False)
+    _, _, dv = at.fused_short_bwd(q, q, eye, eye, None, seed, 1.0, 0.1,
+                                  False)
+    want = at.dropout_keep_mask(seed, b * h, s, 0.1).reshape(b, h, s, s)
+    assert torch.equal(o != 0, want)
+    assert torch.equal(dv.transpose(-1, -2) != 0, want)
+    o2 = at.fused_short_fwd(q, q, eye, None, seed, 1.0, 0.1, False)
+    assert torch.equal(o, o2)
+
+
+@pytest.mark.cuda
+def test_a_bert_step_launches_each_attention_kernel_once_per_block(
+        cuda_device):
+    from analytics_zoo_tpu_torch.capture import BERTClassifier
+    from analytics_zoo_tpu_torch.ops import attention as at
+    cfg = dict(vocab=100, hidden_size=64, n_block=2, n_head=2,
+               intermediate_size=128, max_position_len=64,
+               compute_dtype="bfloat16")
+    rng = np.random.default_rng(0)
+    tok = rng.integers(1, 100, (64, 32))
+    tok[:, 20:] = 0
+    y = rng.integers(0, 2, 64)
+    clf = BERTClassifier(2, bert_config=cfg)
+    at.reset_launch_counts()
+    ek.reset_launch_counts()
+    hist = clf.fit(tok, y, batch_size=16, epochs=1)
+    steps = hist["iterations"]
+    assert steps == 4 and np.isfinite(hist["loss_history"]).all()
+    assert at.launch_counts == {"fused_short_fwd": 2 * steps,
+                                "fused_short_bwd": 2 * steps}
+    assert ek.launch_counts["gather_rows"] == 3 * steps
+    at.reset_launch_counts()
+    assert clf.predict(tok, batch_size=32).shape == (64, 2)
+    assert at.launch_counts == {"fused_short_fwd": 4, "fused_short_bwd": 0}
+
+
+@pytest.mark.cuda
+def test_kv_len_past_512_raises_on_the_card(cuda_device):
+    from analytics_zoo_tpu_torch.keras.layers import MultiHeadAttention
+    mha = MultiHeadAttention(1, 8)
+    mha.build(torch.Generator(), (None, 513, 8), cuda_device)
+    with pytest.raises(NotImplementedError, match="B4"):
+        mha(torch.zeros(1, 513, 8, device=cuda_device))
