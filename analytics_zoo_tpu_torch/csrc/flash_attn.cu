@@ -1,0 +1,780 @@
+// Flash attention for Hopper (sm_90a): the forward (B4), the two-pass
+// backward (B5a dq, B5b dk/dv) and the one-pass backward (B6).
+//
+// Replaces the TPU kernels in analytics_zoo_tpu/ops/attention.py:
+//   B4  `_flash_fwd_kernel`        (pallas_call in `_flash_fwd_pallas`)
+//   B5a `_flash_bwd_dq_kernel`     (pallas_call in `_flash_bwd_pallas`)
+//   B5b `_flash_bwd_dkv_kernel`    (pallas_call in `_flash_bwd_pallas`)
+//   B6  `_flash_bwd_fused_kernel`  (pallas_call in `_flash_bwd_fused`)
+//
+// q [bh, sq, d], k and v [bh, skv, d] (f32 or bf16, contiguous, d <= 128,
+// any lengths, sq and skv apart), an optional per-key bias key_bias
+// [bh / heads, skv] f32 in natural-log units (B4 only), and an optional
+// causal mask aligned top-left (key col visible to query row iff
+// col <= row, absolute indices). In f32 throughout, as B7/B8:
+//
+//   t[i, j] = (q_i . k_j) * scale*log2(e) + key_bias[j]*log2(e)
+//   t[i, j] = -1e30 where causal and j > i
+//   B4:  m_i = max_j t, l_i = sum_j exp2(t - m_i) by the online softmax
+//        over key tiles, o_i = sum_j exp2(t - m_i) v_j / max(l_i, 1e-30),
+//        lse_i = m_i * ln 2 + ln(max(l_i, 1e-30))
+//   bwd: p = exp2(t - lse_i * log2(e)), dp = dO_i . v_j,
+//        ds = p * (dp - D_i + glse_i) with D_i = sum dO_i * o_i (computed
+//        by the caller) and glse the lse cotangent (NULL for 0);
+//        dq_i = scale * sum_j ds k_j, dk_j = scale * sum_i ds q_i,
+//        dv_j = sum_i p dO_i.
+//
+// Tiles are 64 query rows by 64 keys. A key tile wholly above the diagonal
+// is skipped; a ragged tile is masked (columns past skv weigh exactly 0,
+// rows past sq are computed from zeros and not stored). 256 threads, as
+// 16 x 16: thread (ty, tx) owns score rows ty + 16 i and columns tx + 16 j
+// (i, j < 4) of a 64 x 64 tile, and output rows ty + 16 i, columns
+// 4 tx + e + 64 h (e < 4, h < d/64) of a 64 x d tile. Operands sit in
+// shared memory as f32 rows padded to d + 4 floats, so a score reads both
+// operands as float4 along d, and a product over keys reads its weights as
+// float4 along the keys and the 64 x d operand as float4 along d; each
+// float4 read feeds four or eight fmas and no read has a bank conflict.
+//
+//   B4:  a block per (bh, query tile), walking the key tiles; the running
+//        max, denominator and a 4 x 8 f32 accumulator in registers; K and
+//        V share one shared-memory tile (85 KB at d = 128: two blocks an
+//        SM). Heaviest causal tiles are launched first.
+//   B5a: a block per (bh, query tile) walking the key tiles: recompute p,
+//        dp, ds; dq += ds k. No atomics (150 KB).
+//   B5b: a block per (bh, key tile) walking the query tiles from the
+//        diagonal down: dv += p^T dO, dk += ds^T q in registers. No
+//        atomics (167 KB).
+//   B6:  B5b's walk, and each p and ds tile computed once also feeds
+//        dq += ds k, added with atomicAdd into an f32 buffer the caller
+//        zeroed, scaled before the add. 5 tile products where the two
+//        passes take 7. dq then sums its key tiles in no fixed order: at
+//        most skv / 64 f32 partial sums, a relative error of order
+//        (skv / 64) * 2^-24 of the sum of their magnitudes, and dq is not
+//        bit-equal from run to run (dk, dv are). The TPU kernel instead
+//        keeps the whole K and V of a bh in VMEM, which does not carry
+//        over: at skv 2048, d 128 they are 2 MB, against 227 KB of shared
+//        memory.
+//
+// Bound. The work is 4 * bh * sq * skv * d operations for B4 and
+// 10 * bh * sq * skv * d for a backward (one-pass count), halved by the
+// causal mask. At the LM's shape (bh 128, s 2048, d 128, f32, causal) that
+// is 137 GFLOP for B4 (2.05 ms at the H100 SXM's 67 TFLOP/s f32 rate)
+// against 0.16 ms of bytes at 3.35 TB/s, and 344 GFLOP (5.1 ms) for the
+// backward (NVIDIA's data sheet, not a measurement): operations bound all
+// four. These first kernels run f32 fmas on the CUDA cores; bf16 inputs
+// are widened to f32 in shared memory, so bf16 gets no tensor-core rate
+// (wgmma and TMA are later work).
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kTile = 64;        // query rows and keys per tile
+constexpr int kTP = kTile + 4;   // padded row of a 64 x 64 tile
+constexpr int kMaxD = 128;
+constexpr float kNegInf = -1e30f;  // a masked score, as the TPU kernels
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+__device__ __forceinline__ float4 widen4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 widen4(const __nv_bfloat16* p) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&raw.x));
+  const float2 b = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float x);
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+__device__ __forceinline__ void store4(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
+  __nv_bfloat162 a = __floats2bfloat162_rn(v.x, v.y);
+  __nv_bfloat162 b = __floats2bfloat162_rn(v.z, v.w);
+  uint2 raw;
+  raw.x = *reinterpret_cast<uint32_t*>(&a);
+  raw.y = *reinterpret_cast<uint32_t*>(&b);
+  *reinterpret_cast<uint2*>(p) = raw;
+}
+
+__device__ __forceinline__ float comp(const float4& v, int e) {
+  return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
+}
+
+// dst[r][c] (row stride D + 4) = src[row0 + r][c] as f32 for r < 64; zero
+// for rows at or past `limit` and columns at or past d. src is the [*, d]
+// slice of one bh. D / 4 threads cover a row, four columns each.
+template <int D, typename T>
+__device__ __forceinline__ void stage(float* dst, const T* __restrict__ src,
+                                      int row0, int limit, int d, bool vec) {
+  constexpr int kTpr = D / 4;
+  constexpr int kRpp = kThreads / kTpr;
+  const int c = 4 * (threadIdx.x % kTpr);
+  for (int r = threadIdx.x / kTpr; r < kTile; r += kRpp) {
+    const int g = row0 + r;
+    float4 val = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (g < limit && c < d) {
+      const T* p = src + (long long)g * d + c;
+      if (vec) {
+        val = widen4(p);  // d % 4 == 0 and 16-byte aligned rows
+      } else {
+        val.x = to_f32(p[0]);
+        if (c + 1 < d) val.y = to_f32(p[1]);
+        if (c + 2 < d) val.z = to_f32(p[2]);
+        if (c + 3 < d) val.w = to_f32(p[3]);
+      }
+    }
+    store4(dst + r * (D + 4) + c, val);
+  }
+}
+
+// per-row values of a 64-row tile into shared memory: dst[r] = src[row0 +
+// r] * mul, or `fill` past `limit` (or where src is NULL)
+__device__ __forceinline__ void stage_rows(float* dst,
+                                           const float* __restrict__ src,
+                                           int row0, int limit, float mul,
+                                           float fill) {
+  for (int r = threadIdx.x; r < kTile; r += kThreads) {
+    const int g = row0 + r;
+    dst[r] = (src != nullptr && g < limit) ? src[g] * mul : fill;
+  }
+}
+
+// acc[i][j] = sum_x a[ty + 16 i][x] * b[tx + 16 j][x] over x < D: one fma
+// chain in x order per entry. a and b are [64][D + 4] tiles.
+template <int D>
+__device__ __forceinline__ void dots(float (&acc)[4][4], const float* a,
+                                     const float* b) {
+  constexpr int kLd = D + 4;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
+#pragma unroll 2
+  for (int x = 0; x < D; x += 4) {
+    float4 av[4], bv[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) av[i] = widen4(a + (ty + 16 * i) * kLd + x);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) bv[j] = widen4(b + (tx + 16 * j) * kLd + x);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float s = acc[i][j];
+        s = fmaf(av[i].x, bv[j].x, s);
+        s = fmaf(av[i].y, bv[j].y, s);
+        s = fmaf(av[i].z, bv[j].z, s);
+        s = fmaf(av[i].w, bv[j].w, s);
+        acc[i][j] = s;
+      }
+  }
+}
+
+// acc[i][4 h + e] += sum_k w[ty + 16 i][k] * x[k][64 h + 4 tx + e] over the
+// tile's 64 keys (w [64][kTP], x [64][D + 4]; zero past the valid ones)
+template <int D>
+__device__ __forceinline__ void apply(float (&acc)[4][D / 16], const float* w,
+                                      const float* x) {
+  constexpr int kLd = D + 4, kH = D / 64;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+#pragma unroll 2
+  for (int k = 0; k < kTile; k += 4) {
+    float4 wv[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) wv[i] = widen4(w + (ty + 16 * i) * kTP + k);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+      for (int h = 0; h < kH; ++h) {
+        const float4 xv = widen4(x + (k + kk) * kLd + 64 * h + 4 * tx);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float wk = comp(wv[i], kk);
+          acc[i][4 * h + 0] = fmaf(wk, xv.x, acc[i][4 * h + 0]);
+          acc[i][4 * h + 1] = fmaf(wk, xv.y, acc[i][4 * h + 1]);
+          acc[i][4 * h + 2] = fmaf(wk, xv.z, acc[i][4 * h + 2]);
+          acc[i][4 * h + 3] = fmaf(wk, xv.w, acc[i][4 * h + 3]);
+        }
+      }
+    }
+  }
+}
+
+// acc[i][4 h + e] += sum_k wt[k][ty + 16 i] * x[k][64 h + 4 tx + e]: apply()
+// with the weights transposed (wt [64][kTP], rows the keys)
+template <int D>
+__device__ __forceinline__ void apply_t(float (&acc)[4][D / 16],
+                                        const float* wt, const float* x) {
+  constexpr int kLd = D + 4, kH = D / 64;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+#pragma unroll 4
+  for (int k = 0; k < kTile; ++k) {
+    float wk[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) wk[i] = wt[k * kTP + ty + 16 * i];
+#pragma unroll
+    for (int h = 0; h < kH; ++h) {
+      const float4 xv = widen4(x + k * kLd + 64 * h + 4 * tx);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        acc[i][4 * h + 0] = fmaf(wk[i], xv.x, acc[i][4 * h + 0]);
+        acc[i][4 * h + 1] = fmaf(wk[i], xv.y, acc[i][4 * h + 1]);
+        acc[i][4 * h + 2] = fmaf(wk[i], xv.z, acc[i][4 * h + 2]);
+        acc[i][4 * h + 3] = fmaf(wk[i], xv.w, acc[i][4 * h + 3]);
+      }
+    }
+  }
+}
+
+// out[row0 + ty + 16 i][64 h + 4 tx + e] = acc * mul for rows < limit and
+// columns < d
+template <int D, typename T>
+__device__ __forceinline__ void store_rows(T* __restrict__ out,
+                                           const float (&acc)[4][D / 16],
+                                           float mul, int row0, int limit,
+                                           int d, bool vec) {
+  constexpr int kH = D / 64;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = row0 + ty + 16 * i;
+    if (row >= limit) continue;
+#pragma unroll
+    for (int h = 0; h < kH; ++h) {
+      const int c = 64 * h + 4 * tx;
+      if (c >= d) continue;
+      const float4 v = make_float4(__fmul_rn(acc[i][4 * h + 0], mul),
+                                   __fmul_rn(acc[i][4 * h + 1], mul),
+                                   __fmul_rn(acc[i][4 * h + 2], mul),
+                                   __fmul_rn(acc[i][4 * h + 3], mul));
+      T* p = out + (long long)row * d + c;
+      if (vec) {
+        store4(p, v);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (c + e < d) p[e] = from_f32<T>(comp(v, e));
+      }
+    }
+  }
+}
+
+// max and sum over the 16 threads (one half-warp) that share a row
+__device__ __forceinline__ float row_max(float x) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(~0u, x, o));
+  return x;
+}
+__device__ __forceinline__ float row_sum(float x) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(~0u, x, o);
+  return x;
+}
+
+// the key tiles a causal query tile reaches end before q0 + 64
+__device__ __forceinline__ int key_end(int q0, int skv, int causal) {
+  return causal ? min(skv, q0 + kTile) : skv;
+}
+
+// -- B4: forward -----------------------------------------------------------
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads, 2)
+flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, const float* __restrict__ key_bias,
+                 T* __restrict__ o, float* __restrict__ lse, int heads,
+                 int sq, int skv, int d, float scale_log2e, int causal,
+                 int vec) {
+  extern __shared__ float4 smem4[];
+  constexpr int kLd = D + 4, kH = D / 64;
+  float* qs = reinterpret_cast<float*>(smem4);  // [64][kLd]
+  float* kvs = qs + kTile * kLd;                // [64][kLd]: K, then V
+  float* ps = kvs + kTile * kLd;                // [64][kTP]
+  float* bs = ps + kTile * kTP;                 // [64]
+  const long long bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kTile;  // heaviest first
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const T* kb = k + bh * skv * d;
+  const T* vb = v + bh * skv * d;
+  const float* biasb =
+      key_bias != nullptr ? key_bias + (bh / heads) * skv : nullptr;
+
+  stage<D>(qs, q + bh * sq * d, q0, sq, d, vec);
+  float m[4], l[4], acc[4][4 * kH];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = kNegInf;
+    l[i] = 0.0f;
+#pragma unroll
+    for (int c = 0; c < 4 * kH; ++c) acc[i][c] = 0.0f;
+  }
+  const int kend = key_end(q0, skv, causal);
+  for (int k0 = 0; k0 < kend; k0 += kTile) {
+    __syncthreads();  // the previous V tile is consumed
+    stage<D>(kvs, kb, k0, skv, d, vec);
+    if (biasb != nullptr) stage_rows(bs, biasb, k0, skv, kLog2e, 0.0f);
+    __syncthreads();
+    float s[4][4];
+    dots<D>(s, qs, kvs);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = q0 + ty + 16 * i;
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int col = k0 + tx + 16 * j;
+        float t = __fmul_rn(s[i][j], scale_log2e);
+        if (biasb != nullptr) t = __fadd_rn(t, bs[tx + 16 * j]);
+        if (col >= skv)
+          t = -INFINITY;  // past the end: weighs exactly 0
+        else if (causal && col > row)
+          t = kNegInf;
+        s[i][j] = t;
+        mx = fmaxf(mx, t);
+      }
+      const float m_new = fmaxf(m[i], row_max(mx));
+      const float corr = exp2f(m[i] - m_new);
+      float rs = 0.0f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float p = exp2f(s[i][j] - m_new);
+        ps[(ty + 16 * i) * kTP + tx + 16 * j] = p;
+        rs += p;
+      }
+      l[i] = l[i] * corr + row_sum(rs);
+      m[i] = m_new;
+#pragma unroll
+      for (int c = 0; c < 4 * kH; ++c) acc[i][c] *= corr;
+    }
+    __syncthreads();  // K consumed, P written
+    stage<D>(kvs, vb, k0, skv, d, vec);
+    __syncthreads();
+    apply<D>(acc, ps, kvs);
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float den = fmaxf(l[i], 1e-30f);
+#pragma unroll
+    for (int c = 0; c < 4 * kH; ++c) acc[i][c] = __fdiv_rn(acc[i][c], den);
+    const int row = q0 + ty + 16 * i;
+    if (tx == 0 && row < sq)
+      lse[bh * sq + row] = m[i] * kLn2 + logf(den);
+  }
+  store_rows<D>(o + bh * sq * d, acc, 1.0f, q0, sq, d, vec);
+}
+
+// -- shared by the backward kernels ----------------------------------------
+
+// p and ds of one (query tile, key tile) pair for this thread's entries,
+// with s the scores and dp the dO.v dots as dots() lays them out: rows
+// `r_base + 16 i`, columns `c_base + 16 j`. With keys_are_rows, rows are
+// keys and columns queries (the dk/dv walk), else the other way round.
+// Row statistics (lse * log2 e, D, glse) are per query, from shared memory.
+__device__ __forceinline__ void probs(float (&s)[4][4], float (&dp)[4][4],
+                                      bool keys_are_rows, int q0, int k0,
+                                      int sq, int skv, int causal,
+                                      float scale_log2e, const float* lse2s,
+                                      const float* dls, const float* gls) {
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int qi = keys_are_rows ? tx + 16 * j : ty + 16 * i;
+      const int ki = keys_are_rows ? ty + 16 * i : tx + 16 * j;
+      const int row = q0 + qi, col = k0 + ki;
+      float p = 0.0f;
+      if (row < sq && col < skv && !(causal && col > row))
+        p = exp2f(__fmul_rn(s[i][j], scale_log2e) - lse2s[qi]);
+      s[i][j] = p;
+      dp[i][j] = __fmul_rn(p, __fadd_rn(__fsub_rn(dp[i][j], dls[qi]),
+                                        gls[qi]));
+    }
+}
+
+// the first query tile a causal key tile reaches: rows at or past k0
+__device__ __forceinline__ int query_begin(int k0, int causal) {
+  return causal ? (k0 / kTile) * kTile : 0;
+}
+
+// -- B5a: backward, dq -----------------------------------------------------
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const T* __restrict__ dout,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta,
+                    const float* __restrict__ glse, T* __restrict__ dq,
+                    int sq, int skv, int d, float scale_log2e, float scale,
+                    int causal, int vec) {
+  extern __shared__ float4 smem4[];
+  constexpr int kLd = D + 4, kH = D / 64;
+  float* qs = reinterpret_cast<float*>(smem4);  // [64][kLd]
+  float* dos = qs + kTile * kLd;                // [64][kLd]
+  float* ks = dos + kTile * kLd;                // [64][kLd]
+  float* vs = ks + kTile * kLd;                 // [64][kLd]
+  float* dss = vs + kTile * kLd;                // [64][kTP]: ds[q][k]
+  float* lse2s = dss + kTile * kTP;             // [64] x 3
+  float* dls = lse2s + kTile;
+  float* gls = dls + kTile;
+  const long long bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kTile;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const T* kb = k + bh * skv * d;
+  const T* vb = v + bh * skv * d;
+
+  stage<D>(qs, q + bh * sq * d, q0, sq, d, vec);
+  stage<D>(dos, dout + bh * sq * d, q0, sq, d, vec);
+  stage_rows(lse2s, lse + bh * sq, q0, sq, kLog2e, INFINITY);
+  stage_rows(dls, delta + bh * sq, q0, sq, 1.0f, 0.0f);
+  stage_rows(gls, glse != nullptr ? glse + bh * sq : nullptr, q0, sq, 1.0f,
+             0.0f);
+  float acc[4][4 * kH] = {};
+  const int kend = key_end(q0, skv, causal);
+  for (int k0 = 0; k0 < kend; k0 += kTile) {
+    __syncthreads();  // the previous tiles are consumed
+    stage<D>(ks, kb, k0, skv, d, vec);
+    stage<D>(vs, vb, k0, skv, d, vec);
+    __syncthreads();
+    float s[4][4], dp[4][4];
+    dots<D>(s, qs, ks);
+    dots<D>(dp, dos, vs);
+    probs(s, dp, false, q0, k0, sq, skv, causal, scale_log2e, lse2s, dls,
+          gls);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        dss[(ty + 16 * i) * kTP + tx + 16 * j] = dp[i][j];
+    __syncthreads();
+    apply<D>(acc, dss, ks);
+  }
+  store_rows<D>(dq + bh * sq * d, acc, scale, q0, sq, d, vec);
+}
+
+// -- B5b and B6: backward over the queries of one key tile -----------------
+
+// B5b (kFused false): dk, dv. B6 (kFused true): also dq, added into the
+// f32 buffer dq_acc with atomics.
+template <typename T, int D, bool kFused>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_kv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const T* __restrict__ dout,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta,
+                    const float* __restrict__ glse,
+                    float* __restrict__ dq_acc, T* __restrict__ dk,
+                    T* __restrict__ dv, int sq, int skv, int d,
+                    float scale_log2e, float scale, int causal, int vec) {
+  extern __shared__ float4 smem4[];
+  constexpr int kLd = D + 4, kH = D / 64;
+  float* ks = reinterpret_cast<float*>(smem4);  // [64][kLd]
+  float* vs = ks + kTile * kLd;                 // [64][kLd]
+  float* qs = vs + kTile * kLd;                 // [64][kLd]
+  float* dos = qs + kTile * kLd;                // [64][kLd]
+  float* ps = dos + kTile * kLd;                // [64][kTP]: p[k][q]
+  float* dss = ps + kTile * kTP;                // [64][kTP]: ds[k][q]
+  float* lse2s = dss + kTile * kTP;             // [64] x 3
+  float* dls = lse2s + kTile;
+  float* gls = dls + kTile;
+  const long long bh = blockIdx.x;
+  const int k0 = blockIdx.y * kTile;  // the first key tiles see the most rows
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const T* qb = q + bh * sq * d;
+  const T* dob = dout + bh * sq * d;
+
+  stage<D>(ks, k + bh * skv * d, k0, skv, d, vec);
+  stage<D>(vs, v + bh * skv * d, k0, skv, d, vec);
+  float acc_k[4][4 * kH] = {}, acc_v[4][4 * kH] = {};
+  for (int q0 = query_begin(k0, causal); q0 < sq; q0 += kTile) {
+    __syncthreads();  // the previous tiles are consumed
+    stage<D>(qs, qb, q0, sq, d, vec);
+    stage<D>(dos, dob, q0, sq, d, vec);
+    stage_rows(lse2s, lse + bh * sq, q0, sq, kLog2e, INFINITY);
+    stage_rows(dls, delta + bh * sq, q0, sq, 1.0f, 0.0f);
+    stage_rows(gls, glse != nullptr ? glse + bh * sq : nullptr, q0, sq,
+               1.0f, 0.0f);
+    __syncthreads();
+    float s[4][4], dp[4][4];
+    dots<D>(s, ks, qs);
+    dots<D>(dp, vs, dos);
+    probs(s, dp, true, q0, k0, sq, skv, causal, scale_log2e, lse2s, dls,
+          gls);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        ps[(ty + 16 * i) * kTP + tx + 16 * j] = s[i][j];
+        dss[(ty + 16 * i) * kTP + tx + 16 * j] = dp[i][j];
+      }
+    __syncthreads();
+    apply<D>(acc_v, ps, dos);
+    apply<D>(acc_k, dss, qs);
+    if (kFused) {
+      // this key tile's share of dq for the query tile: ds^T k
+      float acc_q[4][4 * kH] = {};
+      apply_t<D>(acc_q, dss, ks);
+      float* dqb = dq_acc + bh * sq * d;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int row = q0 + ty + 16 * i;
+        if (row >= sq) continue;
+#pragma unroll
+        for (int c = 0; c < 4 * kH; ++c) {
+          const int col = 64 * (c / 4) + 4 * tx + c % 4;
+          if (col < d)
+            atomicAdd(dqb + (long long)row * d + col,
+                      __fmul_rn(acc_q[i][c], scale));
+        }
+      }
+    }
+  }
+  store_rows<D>(dk + bh * skv * d, acc_k, scale, k0, skv, d, vec);
+  store_rows<D>(dv + bh * skv * d, acc_v, 1.0f, k0, skv, d, vec);
+}
+
+// -- launches --------------------------------------------------------------
+
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t bytes) {
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)bytes);
+}
+
+size_t tiles_bytes(int d_tpl, int rows_tiles, int score_tiles, int vecs) {
+  return sizeof(float) * ((size_t)rows_tiles * kTile * (d_tpl + 4) +
+                          (size_t)score_tiles * kTile * kTP +
+                          (size_t)vecs * kTile);
+}
+
+bool aligned16(const void* p) {
+  return p == nullptr || (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
+}
+
+int tiles(int n) { return (n + kTile - 1) / kTile; }
+
+template <typename T, int D>
+int launch_fwd(const void* q, const void* k, const void* v,
+               const void* key_bias, void* o, void* lse, long long bh,
+               int heads, int sq, int skv, int d, float scale_log2e,
+               int causal, int vec, cudaStream_t stream) {
+  const size_t smem = tiles_bytes(D, 2, 1, 1);
+  auto kernel = flash_fwd_kernel<T, D>;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<dim3((unsigned)bh, (unsigned)tiles(sq)), kThreads, smem,
+           stream>>>(static_cast<const T*>(q), static_cast<const T*>(k),
+                     static_cast<const T*>(v),
+                     static_cast<const float*>(key_bias), static_cast<T*>(o),
+                     static_cast<float*>(lse), heads, sq, skv, d,
+                     scale_log2e, causal, vec);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int D>
+int launch_dq(const void* q, const void* k, const void* v, const void* dout,
+              const void* lse, const void* delta, const void* glse, void* dq,
+              long long bh, int sq, int skv, int d, float scale_log2e,
+              float scale, int causal, int vec, cudaStream_t stream) {
+  const size_t smem = tiles_bytes(D, 4, 1, 3);
+  auto kernel = flash_bwd_dq_kernel<T, D>;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<dim3((unsigned)bh, (unsigned)tiles(sq)), kThreads, smem,
+           stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<const float*>(glse), static_cast<T*>(dq), sq, skv, d,
+      scale_log2e, scale, causal, vec);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int D, bool kFused>
+int launch_kv(const void* q, const void* k, const void* v, const void* dout,
+              const void* lse, const void* delta, const void* glse,
+              void* dq_acc, void* dk, void* dv, long long bh, int sq,
+              int skv, int d, float scale_log2e, float scale, int causal,
+              int vec, cudaStream_t stream) {
+  const size_t smem = tiles_bytes(D, 4, 2, 3);
+  auto kernel = flash_bwd_kv_kernel<T, D, kFused>;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<dim3((unsigned)bh, (unsigned)tiles(skv)), kThreads, smem,
+           stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<const float*>(glse), static_cast<float*>(dq_acc),
+      static_cast<T*>(dk), static_cast<T*>(dv), sq, skv, d, scale_log2e,
+      scale, causal, vec);
+  return (int)cudaGetLastError();
+}
+
+bool bad_shape(long long bh, int sq, int skv, int d) {
+  return bh < 0 || bh > 0x7fffffffLL || sq < 1 || skv < 1 ||
+         tiles(sq) > 65535 || tiles(skv) > 65535 || d < 1 || d > kMaxD;
+}
+
+// rows may be read and written as float4 (f32) or 4 x bf16 when d is a
+// multiple of 4 and every tensor starts on 16 bytes
+int vector_ok(int d, const void* a, const void* b, const void* c,
+              const void* e, const void* f, const void* g) {
+  return d % 4 == 0 && aligned16(a) && aligned16(b) && aligned16(c) &&
+         aligned16(e) && aligned16(f) && aligned16(g);
+}
+
+template <bool kFused>
+int launch_kv_any(const void* q, const void* k, const void* v,
+                  const void* dout, const void* lse, const void* delta,
+                  const void* glse, void* dq_acc, void* dk, void* dv,
+                  long long bh, int sq, int skv, int d, int dtype,
+                  float scale_log2e, float scale, int causal,
+                  cudaStream_t st) {
+  const int vec = vector_ok(d, q, k, v, dout, dk, dv);
+  const bool wide = d > 64;
+  switch (dtype) {
+    case 0:
+      return wide ? launch_kv<float, 128, kFused>(
+                        q, k, v, dout, lse, delta, glse, dq_acc, dk, dv, bh,
+                        sq, skv, d, scale_log2e, scale, causal, vec, st)
+                  : launch_kv<float, 64, kFused>(
+                        q, k, v, dout, lse, delta, glse, dq_acc, dk, dv, bh,
+                        sq, skv, d, scale_log2e, scale, causal, vec, st);
+    case 1:
+      return wide ? launch_kv<__nv_bfloat16, 128, kFused>(
+                        q, k, v, dout, lse, delta, glse, dq_acc, dk, dv, bh,
+                        sq, skv, d, scale_log2e, scale, causal, vec, st)
+                  : launch_kv<__nv_bfloat16, 64, kFused>(
+                        q, k, v, dout, lse, delta, glse, dq_acc, dk, dv, bh,
+                        sq, skv, d, scale_log2e, scale, causal, vec, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+// B4 on `stream`; returns cudaGetLastError() (0 on success). q, o: [bh, sq,
+// d]; k, v: [bh, skv, d]; dtype 0 = f32, 1 = bf16. key_bias: [bh / heads,
+// skv] f32 or NULL. lse: [bh, sq] f32. The caller allocates o and lse.
+int azt_flash_fwd(const void* q, const void* k, const void* v,
+                  const void* key_bias, void* o, void* lse, long long bh,
+                  int sq, int skv, int d, int dtype, int heads,
+                  float scale_log2e, int causal, void* stream) {
+  if (bad_shape(bh, sq, skv, d) || heads < 1)
+    return (int)cudaErrorInvalidValue;
+  if (bh == 0) return 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int vec = vector_ok(d, q, k, v, o, nullptr, nullptr);
+  const bool wide = d > 64;
+  switch (dtype) {
+    case 0:
+      return wide ? launch_fwd<float, 128>(q, k, v, key_bias, o, lse, bh,
+                                           heads, sq, skv, d, scale_log2e,
+                                           causal, vec, st)
+                  : launch_fwd<float, 64>(q, k, v, key_bias, o, lse, bh,
+                                          heads, sq, skv, d, scale_log2e,
+                                          causal, vec, st);
+    case 1:
+      return wide ? launch_fwd<__nv_bfloat16, 128>(
+                        q, k, v, key_bias, o, lse, bh, heads, sq, skv, d,
+                        scale_log2e, causal, vec, st)
+                  : launch_fwd<__nv_bfloat16, 64>(
+                        q, k, v, key_bias, o, lse, bh, heads, sq, skv, d,
+                        scale_log2e, causal, vec, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// B5a on `stream`: dq [bh, sq, d] in the inputs' dtype. lse, delta, glse:
+// [bh, sq] f32 (glse may be NULL for zero).
+int azt_flash_bwd_dq(const void* q, const void* k, const void* v,
+                     const void* dout, const void* lse, const void* delta,
+                     const void* glse, void* dq, long long bh, int sq,
+                     int skv, int d, int dtype, float scale_log2e,
+                     float scale, int causal, void* stream) {
+  if (bad_shape(bh, sq, skv, d)) return (int)cudaErrorInvalidValue;
+  if (bh == 0) return 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int vec = vector_ok(d, q, k, v, dout, dq, nullptr);
+  const bool wide = d > 64;
+  switch (dtype) {
+    case 0:
+      return wide ? launch_dq<float, 128>(q, k, v, dout, lse, delta, glse,
+                                          dq, bh, sq, skv, d, scale_log2e,
+                                          scale, causal, vec, st)
+                  : launch_dq<float, 64>(q, k, v, dout, lse, delta, glse, dq,
+                                         bh, sq, skv, d, scale_log2e, scale,
+                                         causal, vec, st);
+    case 1:
+      return wide ? launch_dq<__nv_bfloat16, 128>(
+                        q, k, v, dout, lse, delta, glse, dq, bh, sq, skv, d,
+                        scale_log2e, scale, causal, vec, st)
+                  : launch_dq<__nv_bfloat16, 64>(
+                        q, k, v, dout, lse, delta, glse, dq, bh, sq, skv, d,
+                        scale_log2e, scale, causal, vec, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// B5b on `stream`: dk, dv [bh, skv, d] in the inputs' dtype.
+int azt_flash_bwd_dkv(const void* q, const void* k, const void* v,
+                      const void* dout, const void* lse, const void* delta,
+                      const void* glse, void* dk, void* dv, long long bh,
+                      int sq, int skv, int d, int dtype, float scale_log2e,
+                      float scale, int causal, void* stream) {
+  if (bad_shape(bh, sq, skv, d)) return (int)cudaErrorInvalidValue;
+  if (bh == 0) return 0;
+  return launch_kv_any<false>(q, k, v, dout, lse, delta, glse, nullptr, dk,
+                              dv, bh, sq, skv, d, dtype, scale_log2e, scale,
+                              causal, static_cast<cudaStream_t>(stream));
+}
+
+// B6 on `stream`: dk, dv [bh, skv, d] in the inputs' dtype, and dq added
+// into dq_acc [bh, sq, d] f32, which the caller zeroes.
+int azt_flash_bwd_fused(const void* q, const void* k, const void* v,
+                        const void* dout, const void* lse,
+                        const void* delta, const void* glse, void* dq_acc,
+                        void* dk, void* dv, long long bh, int sq, int skv,
+                        int d, int dtype, float scale_log2e, float scale,
+                        int causal, void* stream) {
+  if (bad_shape(bh, sq, skv, d)) return (int)cudaErrorInvalidValue;
+  if (bh == 0) return 0;
+  return launch_kv_any<true>(q, k, v, dout, lse, delta, glse, dq_acc, dk,
+                             dv, bh, sq, skv, d, dtype, scale_log2e, scale,
+                             causal, static_cast<cudaStream_t>(stream));
+}
+
+}  // extern "C"

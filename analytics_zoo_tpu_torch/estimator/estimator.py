@@ -20,6 +20,14 @@ Estimator to another device, or loading a checkpoint saved on another
 device type, starts the generator from ``seed`` (a CPU generator's state
 does not carry to a CUDA one).
 
+A captured model (``GraphModel.from_loss``, the JAX package's
+``direct_loss_fn``) hands over its whole loss instead: ``direct_loss_fn(
+model, x, y)`` returns the scalar loss from the batch (``y`` is None for
+an ``x``-only set), ``forward_fn(model, x)`` gives ``predict`` its
+outputs, and ``evaluate`` without metrics is the record-weighted mean of
+that loss over full batches and the unpadded tail. Such a model may be any
+``nn.Module``: one without ``built`` counts as built.
+
 The device is the card unless the caller passes ``device="cpu"``; without a
 card the constructor raises ``NoCudaDeviceError``.
 """
@@ -52,6 +60,19 @@ def _to_device(tree, device):
                     else t, tree)
 
 
+def params_tree(named) -> Dict[str, Any]:
+    """``{layer: {param: ndarray}}`` from ``named_parameters()``: each
+    dotted name nests, as the JAX package's params tree does."""
+    out: Dict[str, Any] = {}
+    for name, p in named:
+        *path, key = name.split(".")
+        node = out
+        for part in path:
+            node = node.setdefault(part, {})
+        node[key] = p.detach().cpu().numpy()
+    return out
+
+
 def _input_shape(features):
     """The model's input shape from a batch of features: ``None`` for the
     batch axis, a list for a tuple or list of arrays."""
@@ -63,13 +84,18 @@ def _input_shape(features):
 class Estimator:
     def __init__(self, model, loss_fn: Optional[Callable],
                  optimizer: Any = None, metrics: Optional[Sequence] = None,
-                 device: DeviceLike = None, seed: int = 42):
+                 device: DeviceLike = None, seed: int = 42,
+                 direct_loss_fn: Optional[Callable] = None,
+                 forward_fn: Optional[Callable] = None):
         """``model`` is a keras ``Model`` (built or not: an unbuilt model is
-        built from ``seed`` on ``device`` at first use)."""
+        built from ``seed`` on ``device`` at first use), or with
+        ``direct_loss_fn`` any ``nn.Module``."""
         self.device = resolve_device(device)
         self.model = model
         self.loss_fn = objectives.get(loss_fn) if loss_fn is not None \
             else None
+        self.direct_loss_fn = direct_loss_fn
+        self.forward_fn = forward_fn
         self.optimizer = (optimizers_mod.get(optimizer)
                           if optimizer is not None else None)
         self.metrics = [metrics_mod.get(m) for m in (metrics or [])]
@@ -86,7 +112,7 @@ class Estimator:
     def to(self, device: DeviceLike) -> "Estimator":
         """Move the model and the optimizer state to ``device``."""
         self.device = resolve_device(device)
-        if self.model.built:
+        if getattr(self.model, "built", True):
             self.model.to(self.device)
         if self.opt_state is not None:
             self.opt_state = _to_device(self.opt_state, self.device)
@@ -108,17 +134,18 @@ class Estimator:
         """Build the model (for the shape of ``features``, a numpy tree with
         the record axis first, where it needs one), put it on the device,
         give it the dropout generator and create the optimizer state."""
-        if not self.model.built:
+        if not getattr(self.model, "built", True):
             shape = None if features is None else _input_shape(features)
             self.model.build(torch.Generator().manual_seed(self.seed),
                              shape, device=self.device)
-        elif self.model.device != self.device:
+        elif any(p.device != self.device for p in self.model.parameters()):
             self.model.to(self.device)
         gen = self.dropout_generator
         if gen is None or gen.device != self.device:
             gen = torch.Generator(device=self.device).manual_seed(self.seed)
             self.dropout_generator = gen
-        self.model.set_dropout_generator(gen)
+        if hasattr(self.model, "set_dropout_generator"):
+            self.model.set_dropout_generator(gen)
         if self.opt_state is None and self.optimizer is not None:
             self.opt_state = self.optimizer.init(self._params())
 
@@ -128,8 +155,10 @@ class Estimator:
         """Forward, loss, gradients and the optimizer update; returns the
         loss on the device (nothing here waits for the device)."""
         params = self._params()
-        y_pred = self.model(x)
-        loss = self.loss_fn(y, y_pred.float())
+        if self.direct_loss_fn is not None:
+            loss = self.direct_loss_fn(self.model, x, y).float()
+        else:
+            loss = self.loss_fn(y, self.model(x).float())
         grads = torch.autograd.grad(loss, list(params.values()),
                                     allow_unused=True)
         grads = {k: torch.zeros_like(p) if g is None else g
@@ -152,7 +181,8 @@ class Estimator:
         if steps_per_dispatch != 1:
             raise NotImplementedError(
                 "steps_per_dispatch > 1 is not ported yet")
-        if self.loss_fn is None or self.optimizer is None:
+        if (self.loss_fn is None and self.direct_loss_fn is None) \
+                or self.optimizer is None:
             raise RuntimeError("train needs a loss_fn and an optimizer")
         end_trigger = end_trigger or MaxEpoch(epochs if epochs is not None
                                               else 1)
@@ -236,6 +266,8 @@ class Estimator:
         """Metrics over ``val_set`` (the compiled loss when none were
         given), accumulated on the device and copied to the host once. The
         tail batch is padded and masked, as in the JAX package."""
+        if self.direct_loss_fn is not None and not self.metrics:
+            return self._evaluate_direct(val_set, batch_size)
         if not self.metrics:
             self.metrics = [metrics_mod.Loss(self.loss_fn)]
         if val_set.size == 0:
@@ -249,10 +281,32 @@ class Estimator:
             local_batch)
         with torch.inference_mode():
             for (bx, by, mask), _ in DeviceFeed(batches, self.device):
-                y_pred = self.model(bx).float()
+                y_pred = self._forward(bx).float()
                 states = [m.update(s, by, y_pred, mask)
                           for m, s in zip(self.metrics, states)]
         return metrics_mod.compute_all(self.metrics, states)
+
+    def _evaluate_direct(self, val_set: FeatureSet, batch_size: int
+                         ) -> Dict[str, float]:
+        """``{"loss": ...}``: the captured loss averaged over the records,
+        full batches and the tail unpadded, each batch weighted by its
+        size (the JAX package's single-process ``_evaluate_direct``)."""
+        if val_set.size == 0:
+            raise ValueError("validation set is empty (0 records)")
+        local_batch = min(batch_size, val_set.size)
+        self._ensure_initialized(val_set.features)
+        self.model.eval()
+        total = torch.zeros((), dtype=torch.float64, device=self.device)
+        with torch.inference_mode():
+            for bx, by, valid in DeviceFeed(
+                    val_set.eval_iterator(local_batch), self.device):
+                total += self.direct_loss_fn(self.model, bx, by).double() \
+                    * valid
+        return {"loss": float(total) / val_set.size}
+
+    def _forward(self, x):
+        return (self.forward_fn(self.model, x) if self.forward_fn is not None
+                else self.model(x))
 
     def predict(self, x, batch_size: int = 32) -> np.ndarray:
         """Forward ``x`` (arrays, a list of arrays or a ``FeatureSet``) in
@@ -266,7 +320,7 @@ class Estimator:
             for bx, _, _ in DeviceFeed(
                     x.eval_iterator(max(1, min(batch_size, x.size))),
                     self.device):
-                outs.append(self.model(bx).float())
+                outs.append(self._forward(bx).float())
         if not outs:
             return np.zeros((0,), np.float32)
         return torch.cat(outs).cpu().numpy()
@@ -277,14 +331,7 @@ class Estimator:
         """``{layer: {param: ndarray}}``, the JAX package's params tree
         (nested deeper where the layer nests, as BERT's blocks do)."""
         self._ensure_initialized()
-        out: Dict[str, Any] = {}
-        for name, p in self._params().items():
-            *path, key = name.split(".")
-            node = out
-            for part in path:
-                node = node.setdefault(part, {})
-            node[key] = p.detach().cpu().numpy()
-        return out
+        return params_tree(self._params().items())
 
     def set_params(self, params) -> None:
         """Load a ``{layer: {param: array}}`` tree (the JAX package's, or

@@ -1,5 +1,6 @@
-"""Attention and BERT layers (counterpart of ``analytics_zoo_tpu/keras/
-layers/attention.py``): ``MultiHeadAttention`` and ``BERT``.
+"""Attention and transformer layers (counterpart of ``analytics_zoo_tpu/
+keras/layers/attention.py``): ``MultiHeadAttention``, ``TransformerLayer``
+and ``BERT``.
 
 The parameter tree is the JAX package's, as nested modules: a BERT named
 ``bert_1`` holds ``word_emb``, ``pos_emb``, ``type_emb``, ``emb_ln``,
@@ -13,12 +14,18 @@ package does (its ``attend``), with "on the TPU" read as "on the card":
 ``q_len == kv_len <= 512`` takes the fused short kernels (B7 forward, B8
 backward) with or without dropout, bias or causal mask; on the CPU the same
 branch takes their plain versions, so the CPU and the card draw the same
-attention-dropout mask. ``kv_len > 512`` needs the flash kernels (B4-B6),
-which are not ported: it raises. ``use_flash=False`` takes
-``dot_product_attention``. The word, position and type lookups go through
-the row-gather kernel (B1) in clip mode, as the JAX package's indexing
-clamps. ``compute_dtype`` casts the summed embeddings, so every dense runs
-in it; layer norms reduce in f32.
+attention-dropout mask. ``kv_len > 512`` takes ``flash_attention`` (B4
+forward, B6 or B5a + B5b backward; a padding mask rides into B4 as a key
+bias) without attention dropout, and the plain ``blockwise_attention`` with
+it. ``use_flash=False`` takes ``dot_product_attention``. The word,
+position and type lookups go through the row-gather kernel (B1) in clip
+mode, as the JAX package's indexing clamps.
+
+``TransformerLayer`` is the Keras-API causal stack (``bidirectional=False``)
+over token and position ids: ``word_emb``, ``pos_emb``, ``pooler`` and
+``block_<i>``, BERT's blocks without the type embedding, the embedding
+layer norm and the mask. ``compute_dtype`` casts the summed embeddings,
+so every dense runs in it; layer norms reduce in f32.
 """
 from __future__ import annotations
 
@@ -143,10 +150,15 @@ class MultiHeadAttention(Layer):
                 q, k, v, key_bias=None if bias is None else bias[:, 0, 0, :],
                 dropout_rate=attn_drop, generator=gen, causal=self.causal)
         elif self.use_flash and kv_len > _attn.FUSED_SHORT_MAX_SEQ:
-            raise NotImplementedError(
-                f"kv_len {kv_len} > {_attn.FUSED_SHORT_MAX_SEQ} needs the "
-                f"flash attention kernels (B4 _flash_fwd_kernel and its "
-                f"backward B5/B6), which are not ported yet")
+            if attn_drop > 0.0:
+                # streaming attention with per-block dropout: the [q, kv]
+                # probabilities never materialise
+                ctx = _attn.blockwise_attention(
+                    q, k, v, bias=bias, causal=self.causal,
+                    dropout_rate=attn_drop, generator=gen)
+            else:
+                ctx = _attn.flash_attention(q, k, v, bias=bias,
+                                            causal=self.causal)
         else:
             ctx = _attn.dot_product_attention(
                 q, k, v, bias=bias, causal=self.causal,
@@ -240,6 +252,57 @@ class _TransformerBase(Layer):
         if self.output_all_block:
             return [states] * self.n_block + [pooled]
         return [states, pooled]
+
+
+class TransformerLayer(_TransformerBase):
+    """GPT-style stack (the JAX package's ``TransformerLayer``): inputs
+    ``[token ids [b, s], position ids [b, s]]`` or the token ids alone
+    (positions ``arange``); outputs the block state(s) and the pooled
+    first-token output."""
+
+    def __init__(self, vocab: int, hidden_size: int = 768, n_block: int = 12,
+                 n_head: int = 12, seq_len: int = 512,
+                 intermediate_size: int = 0, hidden_p_drop: float = 0.1,
+                 attn_p_drop: float = 0.1, initializer_range: float = 0.02,
+                 bidirectional: bool = False, output_all_block: bool = True,
+                 use_flash: bool = True, compute_dtype: DTypeLike = None,
+                 name: Optional[str] = None):
+        super().__init__(n_block, n_head, hidden_size, intermediate_size,
+                         hidden_p_drop, attn_p_drop, initializer_range,
+                         causal=not bidirectional,
+                         output_all_block=output_all_block,
+                         use_flash=use_flash, compute_dtype=compute_dtype,
+                         name=name)
+        self.vocab = vocab
+        self.seq_len = seq_len
+
+    def build(self, generator, input_shape, device):
+        r = self.init_range
+        self.word_emb = _normal(generator, (self.vocab, self.hidden_size), r,
+                                device)
+        self.pos_emb = _normal(generator, (self.seq_len, self.hidden_size),
+                               r, device)
+        self._build_blocks(generator, device)
+        self.built = True
+
+    def compute_output_shape(self, input_shape):
+        shape = input_shape[0] if isinstance(input_shape, list) \
+            else input_shape
+        return self._stack_output_shape(shape[1])
+
+    def forward(self, inputs):
+        if isinstance(inputs, (list, tuple)):
+            tokens, positions = inputs[0], inputs[1]
+        else:
+            tokens = inputs
+            positions = torch.arange(tokens.shape[1],
+                                     device=tokens.device).expand(
+                tokens.shape)
+        x = (_ek.gather_rows_clip(self.word_emb, tokens.to(torch.int32))
+             + _ek.gather_rows_clip(self.pos_emb, positions.to(torch.int32)))
+        if self.compute_dtype is not None:
+            x = x.to(self.compute_dtype)
+        return self._stack(x, None)
 
 
 class BERT(_TransformerBase):

@@ -1,6 +1,8 @@
 """Attention (counterpart of ``analytics_zoo_tpu/ops/attention.py``):
-``dot_product_attention`` and the fused short-sequence attention that BERT
-runs in every layer.
+``dot_product_attention``, the fused short-sequence attention that BERT
+runs in every layer, the flash attention that the transformer LM trains
+with at every length, ``blockwise_attention`` and the decode cache's
+``masked_context``.
 
 Layout at the public functions is the JAX package's: ``q``, ``k``, ``v``
 ``[batch, heads, seq, head_dim]``, and ``key_bias`` ``[batch, kv_len]`` in
@@ -31,6 +33,23 @@ hash of the words ``(bh, row, col)`` keyed by the call's seed
 entry, and B7, B8 and the plain versions draw the same mask whatever their
 tiling. The seed is drawn once per call from the model's dropout generator
 and stays on the device.
+
+:func:`flash_attention` (and :func:`flash_attention_lse`) stream over the
+keys for any lengths, ``q_len`` and ``kv_len`` apart, with the causal mask
+aligned top-left (row >= col in absolute indices). On a CUDA tensor the
+forward launches B4 (``csrc/flash_attn.cu``, replacing
+``_flash_fwd_kernel``) and always saves the row logsumexp in natural-log
+units; the backward launches the one-pass B6 (replacing
+``_flash_bwd_fused_kernel``) where :func:`fused_bwd_applicable` holds, else
+B5a then B5b (replacing ``_flash_bwd_dq_kernel`` and
+``_flash_bwd_dkv_kernel``). On a CPU tensor each runs its plain version
+(:func:`flash_fwd_plain`, :func:`flash_bwd_dq_plain`,
+:func:`flash_bwd_dkv_plain`, :func:`flash_bwd_fused_plain`), the same
+function in full-row softmax over chunks of query rows. The arithmetic is
+B7's: f32 scores in ``exp2`` units, ``p`` in f32 in every product, masked
+scores ``-1e30``, the denominator floored at ``1e-30``. A ``[b, 1, 1, kv]``
+key bias runs inside B4; its backward is autograd through
+:func:`blockwise_attention`, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -52,7 +71,15 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 #: one B8 launch is the two passes of one backward
 launch_counts = LaunchCounts("fused_short_fwd", "fused_short_bwd")
-reset_launch_counts = launch_counts.reset
+#: B4, B5a, B5b and B6
+flash_launch_counts = LaunchCounts("flash_fwd", "flash_bwd_dq",
+                                   "flash_bwd_dkv", "flash_bwd_fused")
+
+
+def reset_launch_counts() -> None:
+    """Set every attention kernel's count to 0."""
+    launch_counts.reset()
+    flash_launch_counts.reset()
 
 
 # -- dropout bits ------------------------------------------------------------
@@ -83,18 +110,28 @@ def _fmix(h: torch.Tensor) -> torch.Tensor:
     return h ^ (h >> 16)
 
 
+def _entry_bits(seed, rows: torch.Tensor, cols: torch.Tensor,
+                bh: int) -> torch.Tensor:
+    """murmur3_32 of ``(bh index, row, col)`` keyed by ``seed`` for the
+    absolute ``rows`` and ``cols`` given: ``[bh, len(rows), len(cols)]``
+    int64 in ``[0, 2^32)``."""
+    dev = seed.device if isinstance(seed, torch.Tensor) else rows.device
+    h = torch.as_tensor(seed, device=dev).reshape(1, 1, 1).long() & _M32
+    h = _mix(h, torch.arange(bh, device=dev, dtype=torch.int64)[:, None,
+                                                                   None])
+    h = _mix(h, rows.to(dev, torch.int64)[None, :, None])
+    h = _mix(h, cols.to(dev, torch.int64)[None, None, :])
+    return _fmix(h ^ 12)  # 12: the three words' length in bytes
+
+
 def dropout_bits(seed, bh: int, s: int) -> torch.Tensor:
     """The kernels' random bits, ``[bh, s, s]`` int64 in ``[0, 2^32)``:
     murmur3_32 of the three words ``(bh, row, col)`` with ``seed`` as its
     seed. ``seed`` is an int or a one-element integer tensor (its device is
     the result's)."""
     dev = seed.device if isinstance(seed, torch.Tensor) else None
-    h = torch.as_tensor(seed, device=dev).reshape(1, 1, 1).long() & _M32
-    idx = lambda n: torch.arange(n, device=h.device, dtype=torch.int64)
-    h = _mix(h, idx(bh)[:, None, None])
-    h = _mix(h, idx(s)[None, :, None])
-    h = _mix(h, idx(s)[None, None, :])
-    return _fmix(h ^ 12)  # 12: the three words' length in bytes
+    idx = torch.arange(s, device=dev, dtype=torch.int64)
+    return _entry_bits(seed, idx, idx, bh)
 
 
 def keep_threshold(rate: float) -> int:
@@ -346,3 +383,440 @@ def fused_short_applicable(q_len: int, kv_len: int, causal: bool) -> bool:
     versions, so the CPU and the card draw the same dropout mask."""
     del causal  # the kernels mask above the diagonal themselves
     return q_len == kv_len and kv_len <= FUSED_SHORT_MAX_SEQ
+
+
+# -- flash attention (B4, B5a, B5b, B6) ---------------------------------------
+
+#: the JAX package's default tile sizes; here they cut the plain
+#: :func:`blockwise_attention` (the kernels cut fixed 64-row tiles)
+DEFAULT_Q_BLOCK = 512
+DEFAULT_KV_BLOCK = 1024
+#: the widest head the flash kernels take
+FLASH_MAX_HEAD_DIM = 128
+_LN2 = 1.0 / _LOG2E
+#: the JAX package's budget for its one-pass backward: K/V in their dtype
+#: and dk/dv f32 accumulators per batch·head, ``kv_len·d·(2·itemsize + 8)``
+#: bytes; above it the two-pass design runs. Kept so that a shape takes the
+#: same design on both packages.
+_FUSED_BWD_MAX_RESIDENT_BYTES = 6_600_000
+#: query rows per chunk in the plain versions (bounds their ``[rows, kv]``
+#: temporaries)
+_PLAIN_Q_CHUNK = 512
+
+
+def _largest_divisor_leq(n: int, cap: int) -> int:
+    for c in range(min(n, cap), 0, -1):
+        if n % c == 0:
+            return c
+    return 1
+
+
+def fused_bwd_applicable(kv_len: int, d: int, itemsize: int = 2) -> bool:
+    """Whether the backward takes the one-pass kernel B6 (else B5a + B5b):
+    the JAX package's resident-bytes test (``_fused_bwd_applicable``).
+    Its lane-tiling term (``bq % 128 == 0 or bq == q_len``) and
+    ``_lse_tile_ok`` are dropped: they are rules of the TPU's (8, 128)
+    tiles, off which the TPU takes an XLA backward; the CUDA kernels cut
+    fixed tiles and mask ragged ones."""
+    return kv_len * d * (2 * itemsize + 8) <= _FUSED_BWD_MAX_RESIDENT_BYTES
+
+
+def _scores2(q, k, key_bias, scale: float, causal: bool, row0: int):
+    """Scores in exp2 units, f32 ``[b, h, rows, kv]``, for query rows
+    starting at ``row0``: ``q·kᵀ·scale·log2(e) + key_bias·log2(e)``, and
+    ``-1e30`` where ``causal`` and col > row."""
+    t = torch.matmul(q.float(), k.float().transpose(-1, -2)) \
+        * (scale * _LOG2E)
+    if key_bias is not None:
+        t = t + (key_bias.float() * _LOG2E)[:, None, None, :]
+    if causal:
+        rows = torch.arange(row0, row0 + t.shape[-2], device=t.device)
+        cols = torch.arange(t.shape[-1], device=t.device)
+        t = t.masked_fill(cols[None, :] > rows[:, None], _NEG_INF)
+    return t
+
+
+def _q_chunks(q_len: int):
+    for r0 in range(0, q_len, _PLAIN_Q_CHUNK):
+        yield r0, min(r0 + _PLAIN_Q_CHUNK, q_len)
+
+
+def flash_fwd_plain(q, k, v, key_bias=None, scale: Optional[float] = None,
+                    causal: bool = False
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of B4: ``(o, lse)``, ``o`` in q's dtype and
+    the row logsumexp ``[b, h, q_len]`` f32 in natural-log units. Full-row
+    softmax in exp2 units (max, ``p = exp2(t - max)``, ``o = p·v /
+    max(Σp, 1e-30)``, ``lse = max·ln2 + ln(max(Σp, 1e-30))``)."""
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    outs, lses = [], []
+    vf = v.float()
+    for r0, r1 in _q_chunks(q.shape[-2]):
+        t = _scores2(q[:, :, r0:r1], k, key_bias, scale, causal, r0)
+        m = t.amax(-1, keepdim=True)
+        p = torch.exp2(t - m)
+        l = p.sum(-1, keepdim=True).clamp_min(1e-30)
+        outs.append(torch.matmul(p, vf) / l)
+        lses.append((m * _LN2 + torch.log(l))[..., 0])
+    return torch.cat(outs, -2).to(q.dtype), torch.cat(lses, -1)
+
+
+def _bwd_chunk(q, k, v, do, lse, delta, glse, scale, causal, r0, r1):
+    """``p`` and ``ds = p·(dO·vᵀ − D + glse)`` for query rows [r0, r1)."""
+    t = _scores2(q[:, :, r0:r1], k, None, scale, causal, r0)
+    p = torch.exp2(t - (lse[:, :, r0:r1] * _LOG2E)[..., None])
+    dp = torch.matmul(do[:, :, r0:r1].float(), v.float().transpose(-1, -2))
+    rest = dp - delta[:, :, r0:r1, None]
+    if glse is not None:
+        rest = rest + glse[:, :, r0:r1, None]
+    return p, p * rest
+
+
+def flash_bwd_dq_plain(q, k, v, do, lse, delta, glse, scale: float,
+                       causal: bool) -> torch.Tensor:
+    """Plain PyTorch version of B5a: ``dq = scale·Σ_j ds·k_j`` with ``p``
+    recomputed from ``lse``; ``delta = Σ dO·O`` per row, ``glse`` the lse
+    cotangent (None for 0), both ``[b, h, q_len]`` f32."""
+    dq = [torch.matmul(_bwd_chunk(q, k, v, do, lse, delta, glse, scale,
+                                  causal, r0, r1)[1], k.float()) * scale
+          for r0, r1 in _q_chunks(q.shape[-2])]
+    return torch.cat(dq, -2).to(q.dtype)
+
+
+def flash_bwd_dkv_plain(q, k, v, do, lse, delta, glse, scale: float,
+                        causal: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of B5b: ``dk = scale·Σ_i dsᵀ·q_i``,
+    ``dv = Σ_i pᵀ·dO_i``."""
+    return flash_bwd_fused_plain(q, k, v, do, lse, delta, glse, scale,
+                                 causal)[1:]
+
+
+def flash_bwd_fused_plain(q, k, v, do, lse, delta, glse, scale: float,
+                          causal: bool):
+    """Plain PyTorch version of B6: ``(dq, dk, dv)`` from one pass over
+    the query rows, each ``p`` and ``ds`` computed once."""
+    dk = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
+    dv = torch.zeros(v.shape, dtype=torch.float32, device=v.device)
+    dq = []
+    for r0, r1 in _q_chunks(q.shape[-2]):
+        p, ds = _bwd_chunk(q, k, v, do, lse, delta, glse, scale, causal,
+                           r0, r1)
+        dq.append(torch.matmul(ds, k.float()) * scale)
+        dk += torch.matmul(ds.transpose(-1, -2), q[:, :, r0:r1].float())
+        dv += torch.matmul(p.transpose(-1, -2), do[:, :, r0:r1].float())
+    return (torch.cat(dq, -2).to(q.dtype), (dk * scale).to(k.dtype),
+            dv.to(v.dtype))
+
+
+def _flash_check(q, k, v, do=None, key_bias=None, rows=()) -> None:
+    """Raise on what the flash kernels do not take."""
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError("q, k, v must be [b, h, s, d]")
+    b, h, q_len, d = q.shape
+    kv_len = k.shape[-2]
+    if k.shape != (b, h, kv_len, d) or v.shape != k.shape:
+        raise ValueError(f"k and v must be [{b}, {h}, kv_len, {d}], got "
+                         f"{tuple(k.shape)} and {tuple(v.shape)}")
+    if do is not None and do.shape != q.shape:
+        raise ValueError(f"dO must be {tuple(q.shape)}")
+    for t in (k, v) + (() if do is None else (do,)):
+        if t.dtype != q.dtype or t.device != q.device:
+            raise ValueError("q, k, v (and dO) must share dtype and device")
+    for t in (q, k, v) + (() if do is None else (do,)):
+        if not t.is_contiguous():
+            raise ValueError("the flash kernels take contiguous "
+                             "[b, h, s, d] tensors")
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"dtype {q.dtype} not in {list(_DTYPES)}")
+    if q_len < 1 or kv_len < 1:
+        raise ValueError("empty sequence")
+    if not 1 <= d <= FLASH_MAX_HEAD_DIM:
+        raise ValueError(f"head_dim {d} outside [1, {FLASH_MAX_HEAD_DIM}]")
+    if key_bias is not None and (
+            key_bias.shape != (b, kv_len) or key_bias.dtype != torch.float32
+            or key_bias.device != q.device or not key_bias.is_contiguous()):
+        raise ValueError(f"key_bias must be contiguous f32 [{b}, {kv_len}]"
+                         f" on {q.device}")
+    for t in rows:
+        if t is not None and (
+                t.shape != (b, h, q_len) or t.dtype != torch.float32
+                or t.device != q.device or not t.is_contiguous()):
+            raise ValueError(f"lse, delta and glse must be contiguous f32 "
+                             f"[{b}, {h}, {q_len}] on {q.device}")
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _dims(q, k):
+    b, h, q_len, d = q.shape
+    return b * h, q_len, k.shape[-2], d, _DTYPES[q.dtype]
+
+
+def flash_fwd(q, k, v, key_bias, scale: float, causal: bool):
+    """B4's wrapper: ``(o, lse)`` for contiguous ``[b, h, s, d]`` inputs
+    and an optional ``[b, kv_len]`` f32 key bias. CPU tensors take
+    :func:`flash_fwd_plain`; CUDA tensors launch the kernel on the current
+    stream."""
+    _flash_check(q, k, v, key_bias=key_bias)
+    if not on_card(q, "flash_fwd"):
+        return flash_fwd_plain(q, k, v, key_bias, scale, causal)
+    o = torch.empty_like(q)
+    lse = torch.empty(q.shape[:-1], dtype=torch.float32, device=q.device)
+    lib = load_library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.azt_flash_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(key_bias),
+            o.data_ptr(), lse.data_ptr(), *_dims(q, k), q.shape[1],
+            scale * _LOG2E, int(bool(causal)), stream)
+    flash_launch_counts.launched("flash_fwd", rc)
+    return o, lse
+
+
+def _bwd_ptrs(q, k, v, do, lse, delta, glse):
+    """Check a backward's inputs; their pointers, glse's None for 0."""
+    _flash_check(q, k, v, do, rows=(lse, delta, glse))
+    return (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), _ptr(glse))
+
+
+def flash_bwd_dq(q, k, v, do, lse, delta, glse, scale: float,
+                 causal: bool) -> torch.Tensor:
+    """B5a's wrapper: ``dq``. CPU tensors take :func:`flash_bwd_dq_plain`;
+    CUDA tensors launch the kernel (a block per 64 query rows walking the
+    keys, no atomics)."""
+    ptrs = _bwd_ptrs(q, k, v, do, lse, delta, glse)
+    if not on_card(q, "flash_bwd_dq"):
+        return flash_bwd_dq_plain(q, k, v, do, lse, delta, glse, scale,
+                                  causal)
+    dq = torch.empty_like(q)
+    lib = load_library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.azt_flash_bwd_dq(*ptrs, dq.data_ptr(), *_dims(q, k),
+                                  scale * _LOG2E, scale, int(bool(causal)),
+                                  stream)
+    flash_launch_counts.launched("flash_bwd_dq", rc)
+    return dq
+
+
+def flash_bwd_dkv(q, k, v, do, lse, delta, glse, scale: float,
+                  causal: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """B5b's wrapper: ``(dk, dv)``. CPU tensors take
+    :func:`flash_bwd_dkv_plain`; CUDA tensors launch the kernel (a block
+    per 64 keys walking the queries, no atomics)."""
+    ptrs = _bwd_ptrs(q, k, v, do, lse, delta, glse)
+    if not on_card(q, "flash_bwd_dkv"):
+        return flash_bwd_dkv_plain(q, k, v, do, lse, delta, glse, scale,
+                                   causal)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    lib = load_library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.azt_flash_bwd_dkv(*ptrs, dk.data_ptr(), dv.data_ptr(),
+                                   *_dims(q, k), scale * _LOG2E, scale,
+                                   int(bool(causal)), stream)
+    flash_launch_counts.launched("flash_bwd_dkv", rc)
+    return dk, dv
+
+
+def flash_bwd_fused(q, k, v, do, lse, delta, glse, scale: float,
+                    causal: bool):
+    """B6's wrapper: ``(dq, dk, dv)`` from one launch. CPU tensors take
+    :func:`flash_bwd_fused_plain`; CUDA tensors launch the kernel (a block
+    per 64 keys walking the queries, dk and dv in registers, dq added into
+    an f32 buffer with atomics, so dq sums in no fixed order)."""
+    ptrs = _bwd_ptrs(q, k, v, do, lse, delta, glse)
+    if not on_card(q, "flash_bwd_fused"):
+        return flash_bwd_fused_plain(q, k, v, do, lse, delta, glse, scale,
+                                     causal)
+    dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    lib = load_library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.azt_flash_bwd_fused(*ptrs, dq.data_ptr(), dk.data_ptr(),
+                                     dv.data_ptr(), *_dims(q, k),
+                                     scale * _LOG2E, scale,
+                                     int(bool(causal)), stream)
+    flash_launch_counts.launched("flash_bwd_fused", rc)
+    return dq.to(q.dtype), dk, dv
+
+
+def flash_bwd(q, k, v, o, lse, do, glse, scale: float, causal: bool):
+    """The flash backward: the preamble ``delta = Σ dO·O`` per row (one
+    plain reduction, as in the JAX package), then B6 where
+    :func:`fused_bwd_applicable` holds, else B5a and B5b."""
+    delta = (do.float() * o.float()).sum(-1)
+    args = (q, k, v, do, lse, delta, glse, scale, causal)
+    if fused_bwd_applicable(k.shape[-2], q.shape[-1], q.element_size()):
+        return flash_bwd_fused(*args)
+    return (flash_bwd_dq(*args),) + flash_bwd_dkv(*args)
+
+
+class _Flash(torch.autograd.Function):
+    """Unbiased flash attention: forward B4 (saving the lse), backward B6
+    or B5a + B5b; both outputs, ``o`` and ``lse``, are differentiable."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, causal):
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        o, lse = flash_fwd(q, k, v, None, scale, causal)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.args = (scale, causal)
+        ctx.set_materialize_grads(False)
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, go, glse):
+        q, k, v, o, lse = ctx.saved_tensors
+        scale, causal = ctx.args
+        go = torch.zeros_like(o) if go is None else go.contiguous()
+        if glse is not None:
+            glse = glse.float().contiguous()
+        dq, dk, dv = flash_bwd(q, k, v, o, lse, go, glse, scale, causal)
+        return dq, dk, dv, None, None
+
+
+class _FlashKeyBias(torch.autograd.Function):
+    """Flash attention with a ``[b, kv_len]`` padding bias: forward B4 with
+    its bias operand; backward autograd through the plain
+    :func:`blockwise_attention` recompute (the JAX package's
+    ``_flash_keybias_bwd``, whose backward is XLA), and a zero gradient for
+    the bias, which is a mask and not trained."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, key_bias, scale, causal, q_block, kv_block):
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        kb = key_bias.float().contiguous()
+        ctx.save_for_backward(q, k, v, kb)
+        ctx.args = (scale, causal, q_block, kv_block)
+        return flash_fwd(q, k, v, kb, scale, causal)[0]
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, kb = ctx.saved_tensors
+        scale, causal, q_block, kv_block = ctx.args
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+            out = blockwise_attention(*leaves, kb[:, None, None, :], causal,
+                                      scale, q_block, kv_block)
+            dq, dk, dv = torch.autograd.grad(out, leaves, g)
+        return (dq, dk, dv, torch.zeros_like(kb), None, None, None, None)
+
+
+def flash_attention(q, k, v, bias=None, causal: bool = False,
+                    scale: Optional[float] = None,
+                    q_block: int = DEFAULT_Q_BLOCK,
+                    kv_block: int = DEFAULT_KV_BLOCK) -> torch.Tensor:
+    """Streaming-softmax attention for any lengths (the JAX package's
+    ``flash_attention``). A per-key padding bias in the ``[b, 1, 1, kv]``
+    form runs inside B4; any other bias shape takes
+    :func:`blockwise_attention`. The JAX package also sends a key bias to
+    the blockwise path when no kv block divisible by 128 exists
+    (``_keybias_block``), a TPU tiling rule the CUDA kernel does not
+    have."""
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    if bias is not None:
+        b, kv_len = q.shape[0], k.shape[-2]
+        if bias.dim() == 4 and tuple(bias.shape) == (b, 1, 1, kv_len):
+            return _FlashKeyBias.apply(q, k, v, bias[:, 0, 0, :], scale,
+                                       causal, q_block, kv_block)
+        return blockwise_attention(q, k, v, bias, causal, scale, q_block,
+                                   kv_block)
+    return _Flash.apply(q, k, v, scale, causal)[0]
+
+
+def flash_attention_lse(q, k, v, causal: bool = False,
+                        scale: Optional[float] = None,
+                        q_block: int = DEFAULT_Q_BLOCK,
+                        kv_block: int = DEFAULT_KV_BLOCK):
+    """Flash attention that also returns the row logsumexp ``[b, h,
+    q_len]`` (natural log), jointly differentiable in both outputs: the
+    lse cotangent enters every backward kernel's ``ds``. ``q_block`` and
+    ``kv_block`` are the JAX signature's TPU tile sizes: the CUDA kernels
+    cut fixed tiles."""
+    del q_block, kv_block
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    return _Flash.apply(q, k, v, scale, causal)
+
+
+def blockwise_attention(q, k, v, bias=None, causal: bool = False,
+                        scale: Optional[float] = None,
+                        q_block: int = DEFAULT_Q_BLOCK,
+                        kv_block: int = DEFAULT_KV_BLOCK,
+                        dropout_rate: float = 0.0,
+                        generator: Optional[torch.Generator] = None,
+                        return_lse: bool = False):
+    """Streaming-softmax attention over kv blocks in plain PyTorch (the JAX
+    package's ``blockwise_attention``, which is XLA there too), blocks cut
+    by the largest divisor of each length within ``q_block``/``kv_block``;
+    differentiable by autograd. ``bias`` broadcasts against ``[b, h, q_len,
+    kv_len]``. Dropout (``dropout_rate > 0`` and a ``generator``) is applied
+    per kv block to the weights after the denominator took them undropped,
+    which is standard post-softmax dropout; its bits are the fused kernels'
+    murmur3 of (bh, row, col) keyed by one seed drawn from ``generator``,
+    not JAX's ``fold_in`` draws. ``return_lse`` also returns the row
+    logsumexp ``[b, h, q_len]``."""
+    b, h, q_len, d = q.shape
+    kv_len = k.shape[-2]
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    bq = _largest_divisor_leq(q_len, q_block)
+    bk = _largest_divisor_leq(kv_len, kv_block)
+    if bias is not None:
+        bias = bias.float().expand(b, h, q_len, kv_len)
+    seed = None
+    if dropout_rate > 0.0 and generator is not None:
+        seed = torch.randint(0, 2 ** 31 - 1, (1,), generator=generator,
+                             device=q.device, dtype=torch.int32)
+        thresh, inv = keep_threshold(dropout_rate), 1.0 / (1.0 - dropout_rate)
+    kf, vf = k.float(), v.float()
+    outs, lses = [], []
+    for r0 in range(0, q_len, bq):
+        qc = q[:, :, r0:r0 + bq].float()
+        acc = torch.zeros(b, h, bq, d, dtype=torch.float32, device=q.device)
+        m = torch.full((b, h, bq, 1), _NEG_INF, dtype=torch.float32,
+                       device=q.device)
+        l = torch.zeros_like(m)
+        rows = torch.arange(r0, r0 + bq, device=q.device)
+        for c0 in range(0, kv_len, bk):
+            s = torch.matmul(qc, kf[:, :, c0:c0 + bk].transpose(-1, -2)) \
+                * scale
+            if bias is not None:
+                s = s + bias[:, :, r0:r0 + bq, c0:c0 + bk]
+            cols = torch.arange(c0, c0 + bk, device=q.device)
+            if causal:
+                s = s.masked_fill(cols[None, :] > rows[:, None], _NEG_INF)
+            m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+            p = torch.exp(s - m_new)
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(-1, keepdim=True)
+            if seed is not None:
+                keep = _entry_bits(seed, rows, cols, b * h).reshape(
+                    b, h, bq, bk) >= thresh
+                p = torch.where(keep, p * inv, 0.0)
+            # p in v's dtype, the products summed in f32 (as the JAX
+            # package's einsum with an f32 result)
+            acc = acc * corr + torch.matmul(p.to(v.dtype).float(),
+                                            vf[:, :, c0:c0 + bk])
+            m = m_new
+        l = l.clamp_min(1e-30)
+        outs.append((acc / l).to(v.dtype))
+        lses.append((m + torch.log(l))[..., 0])
+    out = torch.cat(outs, -2)
+    return (out, torch.cat(lses, -1)) if return_lse else out
+
+
+def masked_context(q, k_buf, v_buf, visible, scale: float) -> torch.Tensor:
+    """The decode cache's attention (the JAX package's ``masked_context``):
+    ``softmax(q·kᵀ·scale`` masked to ``visible``) ``·v`` with f32 scores
+    and sums; invisible positions score exactly ``-1e30``, so their weight
+    underflows to exactly 0. ``q`` ``[B, H, T, D]``, buffers ``[B, H, K,
+    D]``, ``visible`` broadcasting against ``[B, H, T, K]``."""
+    s = torch.matmul(q.float(), k_buf.float().transpose(-1, -2)) * scale
+    s = torch.where(visible, s, _NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    ctx = torch.matmul(p.to(v_buf.dtype).float(), v_buf.float())
+    return ctx.to(q.dtype)

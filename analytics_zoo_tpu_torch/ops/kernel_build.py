@@ -119,6 +119,16 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.azt_fused_short_bwd.argtypes = [p, p, p, p, p, p, p, p, p, p, ll, i,
                                         i, i, i, f, f, u, f, i, p]
     lib.azt_fused_short_bwd.restype = i
+    lib.azt_flash_fwd.argtypes = [p, p, p, p, p, p, ll, i, i, i, i, i, f, i,
+                                  p]
+    lib.azt_flash_fwd.restype = i
+    lib.azt_flash_bwd_dq.argtypes = [p] * 8 + [ll, i, i, i, i, f, f, i, p]
+    lib.azt_flash_bwd_dq.restype = i
+    lib.azt_flash_bwd_dkv.argtypes = [p] * 9 + [ll, i, i, i, i, f, f, i, p]
+    lib.azt_flash_bwd_dkv.restype = i
+    lib.azt_flash_bwd_fused.argtypes = [p] * 10 + [ll, i, i, i, i, f, f, i,
+                                                   p]
+    lib.azt_flash_bwd_fused.restype = i
     return lib
 
 

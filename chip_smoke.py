@@ -64,13 +64,43 @@ Phases, each of which must pass or the script exits non-zero:
    1e-5, one step's gradients within 1e-4 in relative L2 norm, two Adam
    steps' losses rtol 1e-5 and parameters (see ``phase_bert_vs_cpu``).
 
-The last three lines of output are the card's ``nvidia-smi`` name and power
-limit, the ``{"kernels": [...]}`` line, and the ``{"ok": true, ...}`` line.
+8. flash kernels: the flash attention forward (B4, with and without a
+   padding bias, causal or not), the two-pass backward (B5a + B5b) and the
+   one-pass backward (B6, with and without an lse cotangent) are held
+   against their plain versions for lengths 1, 17, 513, 1000, 2047, 2048
+   and 4096 and four pairs of unequal q/kv lengths, head widths 64 and
+   128, f32 and bf16: within 2e-5 (f32) and 2e-2 (bf16) of the output's
+   scale (of the three gradients' joint scale for a backward) and, each
+   output and each gradient, in relative L2. The backward must take B6 at
+   [8, 16, 2048, 128] f32 and B5a + B5b at [2, 16, 4096, 128] f32. All
+   four are timed there and at [4, 8, 4096, 128] bf16 beside their plain
+   versions and ``scaled_dot_product_attention(is_causal=True)``, and held
+   to the same tolerances at those shapes. A profiler device time is
+   printed only where every kernel and copy the host issued has its
+   device event in the trace.
+9. TransformerLM: the full-width model (``bench.py:2337-2338``: vocab
+   32000, hidden 2048, 8 blocks, 16 heads, max_len 2048, f32, Adam) with
+   seeded weights trains 8 steps at batch 8 x 2048 tokens (one B4 and one
+   B6 per block and step), then a warm fit and the step are timed; it
+   generates 32 tokens greedily for 4 prompts of 1000 tokens (prefill
+   through B4) and of 100 (through B7, causal), each decode step's logits
+   held to a full causal forward (1e-4 of their scale). A long-context
+   step (depth 2, sequence 4096, batch 2) must take B5a + B5b. At depth 2
+   the card is held against the CPU from the same weights: a greedy
+   generate after a 600-token prompt (tokens equal up to a near-tie of the
+   CPU's, logits 1e-4 of their scale) and two Adam steps (losses rtol
+   1e-5, parameters as in 7).
+
+Each phase's seconds are printed. The last three lines of output are the
+card's
+``nvidia-smi`` name and power limit, the ``{"kernels": [...]}`` line,
+and the ``{"ok": true, ...}`` line.
 """
 import argparse
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -127,6 +157,38 @@ ATTN_ATOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 #: the card-against-CPU check: Adam had "the CPU's gradient" for a
 #: parameter where the card's is within this of it, relative
 GRAD_SAME = 1e-3
+#: the repo's full-width TransformerLM (bench.py:2337-2338): head dim 128,
+#: intermediate 8192, tied embeddings, f32 (472.6 M parameters)
+LM_CFG = dict(vocab_size=32000, hidden=2048, n_block=8, n_head=16,
+              max_len=2048)
+#: training: 8 steps of batch 8 x 2048 tokens (rows of 2049: the forward
+#: runs at max_len)
+LM_BATCH, LM_STEPS = 8, 8
+#: long context: the same widths at depth 2 (cut for time only), max_len
+#: and sequence 4096 (bench_longseq's, bench.py:2874), batch 2, 2 steps
+LM_LONG = dict(LM_CFG, n_block=2, max_len=4096)
+LM_LONG_BATCH, LM_LONG_STEPS = 2, 2
+#: generation: batch 4, 32 new tokens, prompts of 1000 tokens (prefill
+#: bucket 2048, flash) and of 100 (bucket 128, the fused short kernel)
+GEN_BATCH, GEN_NEW, GEN_PROMPTS = 4, 32, (1000, 100)
+#: card against CPU: full width at depth 2; two Adam steps at batch 2,
+#: sequence 512; a greedy generate of 8 tokens after a 600-token prompt
+LM_CPU = dict(LM_CFG, n_block=2)
+LM_CPU_RECORDS, LM_CPU_BATCH, LM_CPU_SEQ = 4, 2, 512
+LM_CPU_PROMPT, LM_CPU_NEW = 600, 8
+#: decode logits against a full forward (the card) and the card against
+#: the CPU: f32 sums in another order through every block, relative to the
+#: logits' scale (their largest magnitude, about 4 at random init)
+LOGIT_TOL = 1e-4
+#: flash kernels against their plain versions: the grid's (q_len, kv_len)
+FLASH_LENGTHS = ((1, 1), (17, 17), (513, 513), (1000, 1000), (2047, 2047),
+                 (2048, 2048), (4096, 4096), (513, 1000), (1000, 513),
+                 (17, 4096), (2047, 1))
+#: the timed shapes [b, h, s, d]: the LM's step (B4, B6), its long-context
+#: step (B5a, B5b) and bench_longseq's (bf16, B6)
+FLASH_TIMED = (("lm", (8, 16, 2048, 128), torch.float32),
+               ("lm_long", (2, 16, 4096, 128), torch.float32),
+               ("bench_longseq", (4, 8, 4096, 128), torch.bfloat16))
 
 
 def log(msg: str) -> None:
@@ -138,10 +200,10 @@ def check(ok: bool, msg: str) -> None:
         raise RuntimeError(f"chip_smoke check failed: {msg}")
 
 
-def cuda_ms(fn, iters: int) -> float:
+def cuda_ms(fn, iters: int, warmup: int = 5) -> float:
     """Mean milliseconds per call over ``iters`` calls, by CUDA events,
-    after a warm-up."""
-    for _ in range(5):
+    after ``warmup`` calls."""
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -156,20 +218,30 @@ def cuda_ms(fn, iters: int) -> float:
 
 def device_ms(fn, calls: int = 20):
     """Device time per call of the kernels and copies ``fn`` issues, summed
-    from a ``torch.profiler`` trace; None when the trace holds no device
-    events (the profiler could not reach the card)."""
+    from a ``torch.profiler`` trace; None when the trace is incomplete (see
+    :func:`step_profile`)."""
     return step_profile(fn, calls)["device_ms"]
 
 
-def step_profile(fn, calls: int = 20, top: int = 0) -> dict:
+#: host calls that put a kernel, copy or fill on the card, as the profiler
+#: names them (``cudaLaunchKernel``, ``cuLaunchKernelEx``,
+#: ``cudaMemcpyAsync``, ``cudaMemsetAsync``, ...)
+_DEVICE_WORK_CALL = re.compile(r"^cu(da)?(Launch|Memcpy|Memset)")
+
+
+def step_profile(fn, calls: int = 20, top: int = 0,
+                 warmup: bool = True) -> dict:
     """A ``torch.profiler`` trace of ``calls`` calls of ``fn``, per call:
-    the device time of its kernels and copies (None when the trace holds no
-    device events), their number, and with ``top`` the ``top`` longest
+    the device time of its kernels and copies, their number, the number of
+    host calls that issued them, and with ``top`` the ``top`` longest
     kernels and the ``top`` host operators with the most self time, as
-    ``[name, ms, count]``."""
+    ``[name, ms, count]``. The device time is None unless every issued
+    kernel, copy and fill has its device event: the profiler can drop
+    device events in short windows, and a partial sum is not a time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    fn()
+    if warmup:
+        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -178,11 +250,15 @@ def step_profile(fn, calls: int = 20, top: int = 0) -> dict:
         torch.cuda.synchronize()
     events = prof.key_averages()
     dev = [e for e in events if e.device_type == DeviceType.CUDA]
+    host = [e for e in events if e.device_type == DeviceType.CPU]
     us = sum(e.self_device_time_total for e in dev)
-    out = {"device_ms": us / 1e3 / calls if us > 0 else None,
-           "device_launches": sum(e.count for e in dev) / calls}
+    n_dev = sum(e.count for e in dev)
+    issued = sum(e.count for e in host if _DEVICE_WORK_CALL.match(e.key))
+    out = {"device_ms": us / 1e3 / calls if us > 0 and n_dev == issued
+           else None,
+           "device_launches": n_dev / calls,
+           "issued_launches": issued / calls}
     if top:
-        host = [e for e in events if e.device_type == DeviceType.CPU]
         dev.sort(key=lambda e: -e.self_device_time_total)
         host.sort(key=lambda e: -e.self_cpu_time_total)
         out["top_device"] = [[e.key[:72], e.self_device_time_total / 1e3
@@ -813,6 +889,46 @@ def phase_bert(at, ek, seed: int):
     return counts, stats
 
 
+def record_grads(opt) -> list:
+    """Wrap ``opt.step`` so each step's gradients are kept (on the host);
+    returns the list they are appended to."""
+    seen = []
+
+    def recording(params, grads, state, step=opt.step):
+        seen.append({k: g.detach().cpu() for k, g in grads.items()})
+        step(params, grads, state)
+
+    opt.step = recording
+    return seen
+
+
+def hold_adam_params(w_dev, w_cpu, g_dev, g_cpu, lr: float):
+    """Hold the card's parameters after Adam steps to the CPU's: within
+    atol 1e-5 where Adam had the CPU's gradient within ``GRAD_SAME``
+    (relative) at every step, else within ``2·lr`` a step (Adam moves a
+    parameter by about ``lr·sign(g)`` whatever ``|g|``, so where rounding
+    decides a gradient's sign the runs part by up to that). Returns
+    ``((largest held error, its parameter), elements held to 2·lr, their
+    largest error)``."""
+    steps = len(g_cpu)
+    held_err, free_err, free = (0.0, ""), 0.0, 0
+    for k in w_cpu:
+        same = torch.ones_like(w_cpu[k], dtype=torch.bool)
+        for gd, gc in zip(g_dev, g_cpu):
+            same &= (gd[k] - gc[k]).abs() <= GRAD_SAME * gc[k].abs()
+        diff = (w_dev[k] - w_cpu[k]).abs()
+        if bool(same.any()):
+            held_err = max(held_err, (float(diff[same].max()), k))
+        if not bool(same.all()):
+            free_err = max(free_err, float(diff[~same].max()))
+            free += int((~same).sum())
+    check(held_err[0] <= 1e-5, f"parameter {held_err[1]} differs by "
+          f"{held_err[0]} where Adam had the CPU's gradients")
+    check(free_err <= 2 * lr * steps, f"a parameter moved {free_err} from "
+          f"the CPU's, past Adam's bound {2 * lr * steps}")
+    return held_err, free, free_err
+
+
 def phase_bert_vs_cpu(seed: int):
     """BERT-base in f32 with dropout off, fit for two Adam steps on the card
     and on the CPU from the same weights: the forward's probabilities, the
@@ -846,13 +962,7 @@ def phase_bert_vs_cpu(seed: int):
         clf.model.load_state_dict(weights)
         probs = clf.predict(tokens, batch_size=batch, device=dev)
         opt = clf.model.get_estimator().optimizer
-        seen = []  # the gradients each step hands to Adam
-
-        def recording(params, grads, state, step=opt.step, seen=seen):
-            seen.append({k: g.detach().cpu() for k, g in grads.items()})
-            step(params, grads, state)
-
-        opt.step = recording
+        seen = record_grads(opt)
         hist = clf.fit(tokens, y, batch_size=batch, epochs=1)
         runs[dev] = (probs, seen, hist["loss_history"],
                      {k: v.detach().cpu()
@@ -873,21 +983,8 @@ def phase_bert_vs_cpu(seed: int):
     check(grad_rel <= 1e-4, f"gradient {worst} differs by {grad_rel} "
           f"(relative L2)")
     np.testing.assert_allclose(l_dev, l_cpu, rtol=1e-5, atol=0)
-    held_err, free_err, free = (0.0, ""), 0.0, 0
-    for k in w_cpu:
-        same = torch.ones_like(w_cpu[k], dtype=torch.bool)
-        for gd, gc in zip(g_dev, g_cpu):
-            same &= (gd[k] - gc[k]).abs() <= GRAD_SAME * gc[k].abs()
-        diff = (w_dev[k] - w_cpu[k]).abs()
-        if bool(same.any()):
-            held_err = max(held_err, (float(diff[same].max()), k))
-        if not bool(same.all()):
-            free_err = max(free_err, float(diff[~same].max()))
-            free += int((~same).sum())
-    check(held_err[0] <= 1e-5, f"parameter {held_err[1]} differs by "
-          f"{held_err[0]} where Adam had the CPU's gradients")
-    check(free_err <= 2 * lr * steps, f"a parameter moved {free_err} from "
-          f"the CPU's, past Adam's bound {2 * lr * steps}")
+    held_err, free, free_err = hold_adam_params(w_dev, w_cpu, g_dev, g_cpu,
+                                                lr)
     return {"records": n, "batch": batch, "seq": seq, "adam_steps": steps,
             "lr": lr, "max_abs_err_probs": probs_err,
             "max_rel_l2_err_grad": grad_rel, "worst_grad": worst,
@@ -897,6 +994,501 @@ def phase_bert_vs_cpu(seed: int):
             "params": sum(v.numel() for v in w_cpu.values()),
             "params_other_gradient": free,
             "max_abs_err_params_other_gradient": free_err}
+
+
+def flash_pairs(sq: int, skv: int, causal: bool) -> int:
+    """(row, col) pairs a flash call computes: all of them, or those on and
+    below the top-left diagonal."""
+    if not causal:
+        return sq * skv
+    rows = np.arange(sq)
+    return int(np.minimum(rows + 1, skv).sum())
+
+
+def flash_bound_ms(b, h, sq, skv, d, dtype, kind: str, causal=True):
+    """Least time for a flash kernel at these shapes, and what bounds it:
+    the larger of the bytes each input read once and each output written
+    once take at the memory rate and the operations at the dtype's peak,
+    counting only the (row, col) pairs the causal mask leaves. ``fwd``
+    (B4): q, k, v in, o and the f32 lse out, 4·d operations a pair (q·kᵀ,
+    p·v). ``bwd`` (the backward function, one-pass count, whichever design
+    runs): q, k, v, dO, lse, D in, dq, dk, dv out, 10·d a pair. ``dq``
+    (B5a): q, k, v, dO, lse, D in, dq out, 6·d a pair (q·kᵀ, dO·vᵀ, ds·k).
+    ``dkv`` (B5b): q, k, v, dO, lse, D in, dk, dv out, 8·d a pair (q·kᵀ,
+    dO·vᵀ, pᵀ·dO, dsᵀ·q)."""
+    size = torch.tensor([], dtype=dtype).element_size()
+    qt, kt = b * h * sq * d * size, b * h * skv * d * size
+    rows = 4 * b * h * sq
+    bytes_, per_pair = {
+        "fwd": (2 * qt + 2 * kt + rows, 4),
+        "bwd": (3 * qt + 3 * kt + 2 * rows, 10),
+        "dq": (3 * qt + 2 * kt + 2 * rows, 6),
+        "dkv": (2 * qt + 4 * kt + 2 * rows, 8)}[kind]
+    flops = per_pair * b * h * d * flash_pairs(sq, skv, causal)
+    t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def _flash_case(dev, sq, skv, d, dtype, gen, b=1, h=2):
+    q, do = (torch.randn(b, h, sq, d, generator=gen).to(dtype).to(dev)
+             for _ in range(2))
+    k, v = (torch.randn(b, h, skv, d, generator=gen).to(dtype).to(dev)
+            for _ in range(2))
+    glse = torch.randn(b, h, sq, generator=gen).to(dev)
+    bias = ((torch.rand(b, skv, generator=gen) < 0.2).float() * -1e9).to(dev)
+    return q, k, v, do, glse, bias
+
+
+def _rel_l2(got, want, norm=None) -> float:
+    """``‖got − want‖ / ‖want‖`` over the whole tensor (``norm`` in place
+    of ``‖want‖`` where given): small entries weigh as much as the large
+    ones, so a wrong or missing tile shows though its values are small."""
+    err = float((got.float() - want.float()).norm())
+    return err / max(float(want.float().norm()) if norm is None else norm,
+                     1e-30)
+
+
+def _grads_errs(got, want, one_key_no_glse: bool):
+    """Two errors of ``(dq, dk, dv)`` against the reference: the largest
+    absolute error over the three gradients' joint scale (the largest
+    reference gradient, at least 1), and the largest relative L2 error of
+    each gradient over its own norm. Over a single key with no lse
+    cotangent, dq and dk are zero in exact arithmetic (``ds = p·(dp − D)``
+    with ``p = 1`` and ``D = dp``), so they are rounding of dp and D alone
+    and take the joint norm."""
+    scale = max([1.0] + [float(w.float().abs().max()) for w in want])
+    joint = float(sum(w.float().norm() ** 2 for w in want)) ** 0.5
+    abs_err = max(float((g.float() - w.float()).abs().max())
+                  for g, w in zip(got, want)) / scale
+    l2 = max(_rel_l2(g, w, joint if one_key_no_glse and i < 2 else None)
+             for i, (g, w) in enumerate(zip(got, want)))
+    return abs_err, l2
+
+
+def phase_flash_kernels(at, dev, seed: int):
+    """Hold B4 (bias or not, causal or not), B5a + B5b and B6 (lse
+    cotangent or not) against their plain versions over the grid, check
+    that the backward takes B6 at the LM's shape and B5a + B5b at its
+    long-context shape, then time all four at the timed shapes beside their
+    plain versions and ``scaled_dot_product_attention``; returns (timings,
+    errors)."""
+    gen = torch.Generator().manual_seed(seed)
+    errors = {f"{key}_{name}": 0.0 for name in ("f32", "bf16")
+              for key in ("fwd", "bwd_two_pass", "bwd_fused", "lse")}
+    cases = 0
+    for sq, skv in FLASH_LENGTHS:
+        for d in (64, 128):
+            for dtype in (torch.float32, torch.bfloat16):
+                q, k, v, do, glse, bias = _flash_case(dev, sq, skv, d, dtype,
+                                                      gen)
+                scale = d ** -0.5
+                tol = ATTN_ATOL[dtype]
+                tag = "f32" if dtype == torch.float32 else "bf16"
+                for causal in (False, True):
+                    case = f"{sq}x{skv} d={d} {dtype} causal={causal}"
+                    for kb in (None, bias):
+                        o, lse = at.flash_fwd(q, k, v, kb, scale, causal)
+                        want_o, want_lse = at.flash_fwd_plain(
+                            q, k, v, kb, scale, causal)
+                        e = max(_rel_err(o, want_o), _rel_l2(o, want_o))
+                        e_l = max(_rel_err(lse, want_lse),
+                                  _rel_l2(lse, want_lse))
+                        check(e <= tol and e_l <= ATTN_ATOL[torch.float32],
+                              f"B4 != plain by {e} (lse {e_l}) at {case} "
+                              f"bias={kb is not None}")
+                        errors[f"fwd_{tag}"] = max(errors[f"fwd_{tag}"], e)
+                        errors[f"lse_{tag}"] = max(errors[f"lse_{tag}"],
+                                                   e_l)
+                    o, lse = at.flash_fwd_plain(q, k, v, None, scale, causal)
+                    delta = (do.float() * o.float()).sum(-1)
+                    for gl in (None, glse):
+                        args = (q, k, v, do, lse, delta, gl, scale, causal)
+                        want = at.flash_bwd_fused_plain(*args)
+                        two = ((at.flash_bwd_dq(*args),)
+                               + at.flash_bwd_dkv(*args))
+                        fused = at.flash_bwd_fused(*args)
+                        torch.cuda.synchronize()
+                        for key, got in (("bwd_two_pass", two),
+                                         ("bwd_fused", fused)):
+                            e = max(_grads_errs(
+                                got, want, skv == 1 and gl is None))
+                            check(e <= tol, f"{key} != plain by {e} at "
+                                  f"{case} glse={gl is not None}")
+                            errors[f"{key}_{tag}"] = max(
+                                errors[f"{key}_{tag}"], e)
+                    cases += 1
+    log(f"flash kernels within f32 2e-5, bf16 2e-2 of their plain versions "
+        f"(of the scale and in relative L2) on {cases} cases (each: B4 with and without a bias, B5a + B5b "
+        f"and B6 with and without glse); largest errors "
+        + json.dumps(errors))
+
+    # dispatch: the LM's 2048 keys take B6, 4096 keys B5a + B5b (f32)
+    for shape, fused in (((8, 16, 2048, 128), True),
+                         ((2, 16, 4096, 128), False)):
+        leaves = [torch.randn(shape, device=dev).requires_grad_()
+                  for _ in range(3)]
+        at.reset_launch_counts()
+        at.flash_attention(*leaves, causal=True).backward(
+            torch.randn(shape, device=dev))
+        torch.cuda.synchronize()
+        want = {"flash_fwd": 1, "flash_bwd_dq": 0 if fused else 1,
+                "flash_bwd_dkv": 0 if fused else 1,
+                "flash_bwd_fused": 1 if fused else 0}
+        check(dict(at.flash_launch_counts) == want,
+              f"backward at {shape} f32 launched "
+              f"{dict(at.flash_launch_counts)}, expected {want}")
+        del leaves
+    log("flash dispatch: [8, 16, 2048, 128] f32 -> B6, [2, 16, 4096, 128] "
+        "f32 -> B5a + B5b")
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    timings = {"cases": cases, "errors": errors}
+    for label, (b, h, s, d), dtype in FLASH_TIMED:
+        q, k, v, do = (torch.randn(b, h, s, d, device=dev).to(dtype)
+                       for _ in range(4))
+        scale = d ** -0.5
+        o, lse = at.flash_fwd(q, k, v, None, scale, True)
+        delta = (do.float() * o.float()).sum(-1)
+        args = (q, k, v, do, lse, delta, None, scale, True)
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+
+        def sdpa_fwd_bwd():
+            sdpa(*leaves, is_causal=True).backward(do)
+
+        fns = {
+            "fwd_ms": lambda: at.flash_fwd(q, k, v, None, scale, True),
+            "dq_ms": lambda: at.flash_bwd_dq(*args),
+            "dkv_ms": lambda: at.flash_bwd_dkv(*args),
+            "fused_ms": lambda: at.flash_bwd_fused(*args),
+            "plain_fwd_ms": lambda: at.flash_fwd_plain(q, k, v, None, scale,
+                                                       True),
+            "plain_dq_ms": lambda: at.flash_bwd_dq_plain(*args),
+            "plain_dkv_ms": lambda: at.flash_bwd_dkv_plain(*args),
+            "plain_fused_ms": lambda: at.flash_bwd_fused_plain(*args),
+            "library_fwd_ms": lambda: sdpa(q, k, v, is_causal=True),
+            "library_fwd_bwd_ms": sdpa_fwd_bwd,
+        }
+        t = {"shape": [b, h, s, d], "dtype": str(dtype).split(".")[-1],
+             "causal": True,
+             "backward_design": "B6" if at.fused_bwd_applicable(
+                 s, d, q.element_size()) else "B5a+B5b"}
+        for key, fn in fns.items():
+            t[key] = cuda_ms(fn, 3, warmup=1)
+            t[key.replace("ms", "device_ms")] = device_ms(fn, calls=2)
+        want_o, want_lse = at.flash_fwd_plain(q, k, v, None, scale, True)
+        got_o, got_lse = at.flash_fwd(q, k, v, None, scale, True)
+        t["fwd_max_abs_err"] = float((got_o.float() - want_o.float()).abs()
+                                     .max())
+        t["fwd_rel_err"] = _rel_err(got_o, want_o)
+        t["fwd_rel_l2_err"] = _rel_l2(got_o, want_o)
+        t["lse_rel_err"] = _rel_err(got_lse, want_lse)
+        t["lse_rel_l2_err"] = _rel_l2(got_lse, want_lse)
+        check(max(t["fwd_rel_err"], t["fwd_rel_l2_err"]) <= ATTN_ATOL[dtype]
+              and max(t["lse_rel_err"], t["lse_rel_l2_err"])
+              <= ATTN_ATOL[torch.float32],
+              f"B4 != plain at {label}: " + json.dumps(
+                  {k: t[k] for k in ("fwd_rel_err", "fwd_rel_l2_err",
+                                     "lse_rel_err", "lse_rel_l2_err")}))
+        del got_o, got_lse, want_o, want_lse
+        want = at.flash_bwd_fused_plain(*args)
+        for key, got in (("fused", at.flash_bwd_fused(*args)),
+                         ("two_pass", (at.flash_bwd_dq(*args),)
+                          + at.flash_bwd_dkv(*args))):
+            t[f"{key}_max_abs_err"] = max(
+                float((g.float() - w.float()).abs().max())
+                for g, w in zip(got, want))
+            t[f"{key}_rel_err"], t[f"{key}_rel_l2_err"] = _grads_errs(
+                got, want, False)
+            check(max(t[f"{key}_rel_err"], t[f"{key}_rel_l2_err"])
+                  <= ATTN_ATOL[dtype],
+                  f"{key} != plain by {t[f'{key}_rel_err']} (relative L2 "
+                  f"{t[f'{key}_rel_l2_err']}) at {label}")
+        for kind in ("fwd", "bwd", "dq", "dkv"):
+            t[f"{kind}_bound"] = list(flash_bound_ms(b, h, s, s, d, dtype,
+                                                     kind))
+        timings[label] = t
+        log(f"flash timing {label} " + json.dumps(t))
+        del q, k, v, do, o, lse, delta, args, leaves, fns
+        torch.cuda.empty_cache()
+    return timings
+
+
+def lm_tokens(seed: int, n: int, s: int) -> np.ndarray:
+    """``n`` rows of ``s`` token ids drawn uniformly from the vocabulary."""
+    return np.random.RandomState(seed).randint(
+        0, LM_CFG["vocab_size"], (n, s)).astype(np.int64)
+
+
+def _lm_counts(at, ek) -> dict:
+    return {**at.flash_launch_counts, **at.launch_counts,
+            "gather_rows": ek.launch_counts["gather_rows"]}
+
+
+def _reset_counts(at, ek) -> None:
+    at.reset_launch_counts()
+    ek.reset_launch_counts()
+
+
+def _lm_step_stats(lm, tokens, batch: int, steps_timed: int,
+                   steps_profiled: int) -> dict:
+    """One training step on a batch already on the card: CUDA events,
+    the profiler's device time, launches and top kernels."""
+    est = lm._graph.get_estimator()
+    xb = torch.from_numpy(tokens[:batch].astype(np.float32)).cuda()
+    lm.train()
+    step_ms = cuda_ms(lambda: est._train_step(xb, None), steps_timed,
+                      warmup=1)
+    prof = step_profile(lambda: est._train_step(xb, None),
+                        calls=steps_profiled, top=12, warmup=False)
+    return {"step_ms_events": step_ms,
+            "tokens_per_s_events": batch * (tokens.shape[1] - 1) / step_ms
+            * 1e3,
+            "step_device_ms": prof["device_ms"],
+            "step_device_launches": prof["device_launches"],
+            "step_issued_launches": prof["issued_launches"],
+            "step_top_kernels": prof["top_device"],
+            "step_top_host_ops": prof["top_host"]}
+
+
+def phase_lm_train(at, ek, seed: int):
+    """Train the full-width TransformerLM on the card: 8 steps at batch 8 x
+    2048 tokens, then a warm fit of 8 more and the step timed; returns
+    (the model, launches, stats)."""
+    from analytics_zoo_tpu_torch.capture import TransformerLM
+
+    t0 = time.perf_counter()
+    lm = TransformerLM(**LM_CFG, seed=seed)
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in lm.parameters())
+    tokens = lm_tokens(seed, LM_BATCH * LM_STEPS, LM_CFG["max_len"] + 1)
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts(at, ek)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hist = lm.fit(tokens, batch_size=LM_BATCH, epochs=1)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = _lm_counts(at, ek)
+    blocks = LM_CFG["n_block"]
+    want = {"flash_fwd": blocks * LM_STEPS, "flash_bwd_fused":
+            blocks * LM_STEPS, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+            "fused_short_fwd": 0, "fused_short_bwd": 0,
+            "gather_rows": LM_STEPS}
+    check(launches == want, f"LM fit launched {launches}, expected {want}")
+    losses = np.asarray(hist["loss_history"])
+    check(hist["iterations"] == LM_STEPS and losses.shape == (LM_STEPS,)
+          and bool(np.isfinite(losses).all()),
+          f"LM fit: {hist['iterations']} steps, losses {losses}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    # a warm fit: one more epoch of the same 8 steps
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    warm = lm.fit(tokens, batch_size=LM_BATCH, epochs=2)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    check(warm["iterations"] == 2 * LM_STEPS and bool(np.isfinite(
+        warm["loss_history"]).all()), "the warm LM fit failed")
+    stats = {"config": LM_CFG, "params": n_params, "batch": LM_BATCH,
+             "seq": LM_CFG["max_len"], "steps": LM_STEPS,
+             "tokens_per_step": LM_BATCH * LM_CFG["max_len"],
+             "losses": losses.tolist(),
+             "warm_losses": list(warm["loss_history"]),
+             "init_s": init_s, "first_fit_s": fit_s,
+             "first_fit_ms_per_step": fit_s * 1e3 / LM_STEPS,
+             "fit_wall_s": wall_s,
+             "fit_ms_per_step": wall_s * 1e3 / LM_STEPS,
+             "fit_tokens_per_s": LM_STEPS * LM_BATCH * LM_CFG["max_len"]
+             / wall_s,
+             "peak_memory_gb": peak_gb, "launches": launches,
+             "launches_per_step": {k: v / LM_STEPS
+                                   for k, v in launches.items()}}
+    stats.update(_lm_step_stats(lm, tokens, LM_BATCH, 2, 1))
+    stats["device_busy_share"] = (
+        stats["step_device_ms"] * LM_STEPS / (wall_s * 1e3)
+        if stats["step_device_ms"] is not None else None)
+    return lm, launches, stats
+
+
+def phase_lm_long(at, ek, seed: int):
+    """The long-context step: full widths at depth 2, sequence 4096, batch
+    2, 2 steps; the backward must take B5a + B5b; returns (launches,
+    stats)."""
+    from analytics_zoo_tpu_torch.capture import TransformerLM
+
+    lm = TransformerLM(**LM_LONG, seed=seed + 2)
+    tokens = lm_tokens(seed + 2, LM_LONG_BATCH * LM_LONG_STEPS,
+                       LM_LONG["max_len"] + 1)
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts(at, ek)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hist = lm.fit(tokens, batch_size=LM_LONG_BATCH, epochs=1)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = _lm_counts(at, ek)
+    n = LM_LONG["n_block"] * LM_LONG_STEPS
+    want = {"flash_fwd": n, "flash_bwd_dq": n, "flash_bwd_dkv": n,
+            "flash_bwd_fused": 0, "fused_short_fwd": 0, "fused_short_bwd": 0,
+            "gather_rows": LM_LONG_STEPS}
+    check(launches == want, f"long-context fit launched {launches}, "
+          f"expected {want}")
+    check(bool(np.isfinite(hist["loss_history"]).all()),
+          "long-context losses not finite")
+    stats = {"config": LM_LONG, "batch": LM_LONG_BATCH,
+             "seq": LM_LONG["max_len"], "steps": LM_LONG_STEPS,
+             "reduced": "n_block 8 -> 2, for time",
+             "losses": list(hist["loss_history"]), "first_fit_s": fit_s,
+             "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+             "launches": launches,
+             "launches_per_step": {k: v / LM_LONG_STEPS
+                                   for k, v in launches.items()}}
+    stats.update(_lm_step_stats(lm, tokens, LM_LONG_BATCH, 2, 1))
+    del lm
+    torch.cuda.empty_cache()
+    return launches, stats
+
+
+def _decode_vs_full(lm, prompt, gen, logits) -> float:
+    """Largest error of each decode step's logits against a full causal
+    forward of prompt + generated tokens at those positions, over the
+    logits' scale."""
+    full = lm.logits(np.concatenate([prompt, gen[:, :-1]], 1),
+                     batch_size=prompt.shape[0])
+    want = full[:, prompt.shape[1] - 1:]
+    return float(np.abs(logits - want).max()) / max(
+        1.0, float(np.abs(want).max()))
+
+
+def phase_lm_generate(at, ek, lm, seed: int):
+    """Greedy generation with the trained full-width LM: prompts of 1000
+    tokens (prefill through B4) and of 100 (through B7, causal), 32 new
+    tokens each; every decode step's logits against a full forward;
+    returns (launches by prompt, stats)."""
+    from analytics_zoo_tpu_torch.capture import prefill_bucket
+
+    blocks = LM_CFG["n_block"]
+    launches, stats = {}, {}
+    for length in GEN_PROMPTS:
+        prompt = lm_tokens(seed + length, GEN_BATCH, length)
+        tb = prefill_bucket(length - 1, LM_CFG["max_len"])
+        _reset_counts(at, ek)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gen, logits = lm.generate(prompt, GEN_NEW, return_logits=True)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        counts = _lm_counts(at, ek)
+        flash = tb > at.FUSED_SHORT_MAX_SEQ
+        want = {"flash_fwd": blocks if flash else 0,
+                "fused_short_fwd": 0 if flash else blocks,
+                "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "flash_bwd_fused": 0,
+                "fused_short_bwd": 0, "gather_rows": 1 + GEN_NEW}
+        check(counts == want, f"generate after {length} tokens launched "
+              f"{counts}, expected {want}")
+        check(gen.shape == (GEN_BATCH, GEN_NEW) and bool(
+            ((gen >= 0) & (gen < LM_CFG["vocab_size"])).all()),
+              "generated tokens malformed")
+        err = _decode_vs_full(lm, prompt, gen, logits)
+        check(err <= LOGIT_TOL, f"decode logits differ from the full "
+              f"forward by {err} of their scale ({length}-token prompt)")
+        # warm: the whole call again, and the prefill alone
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        again = lm.generate(prompt, GEN_NEW)
+        torch.cuda.synchronize()
+        total_ms = (time.perf_counter() - t0) * 1e3
+        check(np.array_equal(again, gen), "a second generate differs")
+        padded = torch.zeros((GEN_BATCH, tb), dtype=torch.long,
+                             device=lm.embed.device)
+        padded[:, :length - 1] = torch.from_numpy(prompt[:, :-1])
+        with torch.inference_mode():
+            prefill_ms = cuda_ms(lambda: lm.prefill_kv(padded), 3, warmup=1)
+        launches[length] = counts
+        stats[f"prompt_{length}"] = {
+            "bucket": tb, "attention": "B4" if flash else "B7",
+            "first_call_ms": first_s * 1e3, "total_ms": total_ms,
+            "prefill_ms_events": prefill_ms,
+            "ms_per_token": (total_ms - prefill_ms) / GEN_NEW,
+            "launches": counts, "decode_vs_full_rel_err": err}
+    return launches, stats
+
+
+def phase_lm_vs_cpu(seed: int):
+    """Full width at depth 2, on the card and on the CPU from the same
+    weights: a greedy generate of 8 tokens after a 600-token prompt (the
+    prefill through flash), then two Adam steps at batch 2, sequence 512;
+    returns stats.
+
+    Tokens must equal the CPU's up to the first step where a row parts,
+    and there the CPU's top-two logit margin must lie within LOGIT_TOL of
+    the logits' scale (a near-tie that rounding may decide; random weights
+    give near-ties over 32,000 tokens); logits at the steps before are held
+    to LOGIT_TOL. Losses rtol 1e-5, parameters as ``hold_adam_params``."""
+    from analytics_zoo_tpu_torch.capture import TransformerLM
+
+    weights = {k: v.clone() for k, v in
+               TransformerLM(**LM_CPU, seed=seed + 3).state_dict().items()}
+    tokens = lm_tokens(seed + 4, LM_CPU_RECORDS, LM_CPU_SEQ + 1)
+    prompt = lm_tokens(seed + 5, 2, LM_CPU_PROMPT)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        lm = TransformerLM(**LM_CPU)
+        lm.load_state_dict(weights)
+        t0 = time.perf_counter()
+        gen, logits = lm.generate(prompt, LM_CPU_NEW, device=dev,
+                                  return_logits=True)
+        gen_s = time.perf_counter() - t0
+        opt = lm._graph.get_estimator().optimizer
+        seen = record_grads(opt)
+        t0 = time.perf_counter()
+        hist = lm.fit(tokens, batch_size=LM_CPU_BATCH, epochs=1)
+        runs[dev] = dict(gen=gen, logits=logits, grads=seen,
+                         losses=hist["loss_history"], fit_s=time.perf_counter()
+                         - t0, gen_s=gen_s,
+                         weights={k: v.detach().cpu()
+                                  for k, v in lm.state_dict().items()},
+                         lr=opt.learning_rate)
+        del lm
+    card, cpu = runs["cuda"], runs["cpu"]
+    scale = max(1.0, float(np.abs(cpu["logits"]).max()))
+    matched, margins = [], []
+    for row in range(prompt.shape[0]):
+        n = 0
+        while n < LM_CPU_NEW and card["gen"][row, n] == cpu["gen"][row, n]:
+            err = float(np.abs(card["logits"][row, n]
+                               - cpu["logits"][row, n]).max()) / scale
+            check(err <= LOGIT_TOL, f"row {row} step {n}: logits differ "
+                  f"from the CPU's by {err} of their scale")
+            n += 1
+        if n < LM_CPU_NEW:
+            top2 = np.sort(cpu["logits"][row, n])[-2:]
+            margin = float(top2[1] - top2[0]) / scale
+            check(margin <= LOGIT_TOL, f"row {row} parts from the CPU at "
+                  f"step {n} with a top-two margin of {margin}")
+            margins.append(margin)
+        matched.append(n)
+    np.testing.assert_allclose(card["losses"], cpu["losses"], rtol=1e-5,
+                               atol=0)
+    held_err, free, free_err = hold_adam_params(
+        card["weights"], cpu["weights"], card["grads"], cpu["grads"],
+        cpu["lr"])
+    return {"config": LM_CPU, "reduced": "n_block 8 -> 2, for the CPU's time",
+            "records": LM_CPU_RECORDS, "batch": LM_CPU_BATCH,
+            "seq": LM_CPU_SEQ, "adam_steps": len(cpu["losses"]),
+            "max_rel_err_loss": float(np.max(np.abs(
+                np.asarray(card["losses"]) - cpu["losses"])
+                / np.abs(cpu["losses"]))),
+            "max_abs_err_params": held_err[0], "worst_param": held_err[1],
+            "params_other_gradient": free,
+            "max_abs_err_params_other_gradient": free_err,
+            "prompt": LM_CPU_PROMPT, "new_tokens": LM_CPU_NEW,
+            "steps_matched": matched, "parting_margins": margins,
+            "max_rel_err_logits_matched": float(max(
+                [np.abs(card["logits"][r, :n] - cpu["logits"][r, :n]).max()
+                 / scale for r, n in enumerate(matched) if n] + [0.0])),
+            "cpu_fit_s": cpu["fit_s"], "cpu_generate_s": cpu["gen_s"],
+            "card_fit_s": card["fit_s"], "card_generate_s": card["gen_s"]}
 
 
 class CountingQueue:
@@ -1078,52 +1670,76 @@ def main() -> int:
     log(f"device {torch.cuda.get_device_name(dev)} | {smi} | torch "
         f"{torch.__version__} cuda {torch.version.cuda}")
 
+    phase_s = {}
+
+    def timed(name, fn, *fn_args):
+        t0 = time.perf_counter()
+        out = fn(*fn_args)
+        phase_s[name] = time.perf_counter() - t0
+        return out
+
     # -- 2. build -------------------------------------------------------------
-    t0 = time.perf_counter()
-    kernel_build.load_library()
+    timed("build", kernel_build.load_library)
     log(f"kernel library {os.path.relpath(kernel_build.library_path(), REPO)}"
-        f" ready in {time.perf_counter() - t0:.3f} s (nvcc "
+        f" ready in {phase_s['build']:.3f} s (nvcc "
         f"{kernel_build.last_build_seconds:.3f} s); rebuilt, s: "
-        + json.dumps(rebuild_seconds(kernel_build)))
+        + json.dumps(timed("rebuild", rebuild_seconds, kernel_build)))
 
     # -- 3. kernels against their plain versions ------------------------------
     gen = torch.Generator().manual_seed(args.seed)
-    timings, max_err = phase_kernels(ek, dev, gen)
-    pool_timings, pool_err = phase_pool_kernels(ek, dev, gen, args.seed)
-    t0 = time.perf_counter()
-    attn = phase_attention_kernels(at, dev, args.seed)
-    phase_s = {"attention_kernels": time.perf_counter() - t0}
+    timings, max_err = timed("gather_kernel", phase_kernels, ek, dev, gen)
+    pool_timings, pool_err = timed("pool_kernel", phase_pool_kernels, ek, dev,
+                                   gen, args.seed)
+    attn = timed("attention_kernels", phase_attention_kernels, at, dev,
+                 args.seed)
 
     # -- 4. serving, 5. training ---------------------------------------------
     build = os.path.join(REPO, "build")
     os.makedirs(build, exist_ok=True)
     workdir = tempfile.mkdtemp(prefix="chip_smoke_", dir=build)
     try:
-        launches, batches, stats = phase_serving(ek, args.seed,
-                                                 args.requests, args.single,
-                                                 workdir)
+        launches, batches, stats = timed(
+            "serving", phase_serving, ek, args.seed, args.requests,
+            args.single, workdir)
         log("serving " + json.dumps(stats) + f" | {smi}")
-        train_launches, train_stats = phase_training(ek, args.seed, workdir)
+        train_launches, train_stats = timed("training", phase_training, ek,
+                                            args.seed, workdir)
         log("training " + json.dumps(train_stats) + f" | {smi}")
         # -- 6. BERT fine-tuning, 7. BERT on the card against the CPU ----
-        t0 = time.perf_counter()
-        bert_launches, bert_stats = phase_bert(at, ek, args.seed)
-        phase_s["bert"] = time.perf_counter() - t0
+        bert_launches, bert_stats = timed("bert", phase_bert, at, ek,
+                                          args.seed)
         log("bert " + json.dumps(bert_stats) + f" | {smi}")
-        t0 = time.perf_counter()
-        bert_cpu = phase_bert_vs_cpu(args.seed)
-        phase_s["bert_vs_cpu"] = time.perf_counter() - t0
+        bert_cpu = timed("bert_vs_cpu", phase_bert_vs_cpu, args.seed)
         log("bert card vs cpu " + json.dumps(bert_cpu) + f" | {smi}")
-        log("bert phases, s: " + json.dumps(phase_s))
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
+    # -- 8. flash kernels, 9. the TransformerLM ------------------------------
+    flash = timed("flash_kernels", phase_flash_kernels, at, dev, args.seed)
+    lm, lm_launches, lm_stats = timed("lm_train", phase_lm_train, at, ek,
+                                      args.seed)
+    log("lm training " + json.dumps(lm_stats) + f" | {smi}")
+    gen_launches, gen_stats = timed("lm_generate", phase_lm_generate, at, ek,
+                                    lm, args.seed)
+    log("lm generate " + json.dumps(gen_stats) + f" | {smi}")
+    del lm
+    torch.cuda.empty_cache()
+    long_launches, long_stats = timed("lm_long", phase_lm_long, at, ek,
+                                      args.seed)
+    log("lm long context " + json.dumps(long_stats) + f" | {smi}")
+    lm_cpu = timed("lm_vs_cpu", phase_lm_vs_cpu, args.seed)
+    log("lm card vs cpu " + json.dumps(lm_cpu) + f" | {smi}")
+    log("phases, s: " + json.dumps(phase_s))
+
     # -- 8. the kernels line, 9. the result line ------------------------------
     serve = timings[0]
+    lm_paths = {"lm_train": lm_launches, "lm_long": long_launches,
+                **{f"lm_generate_{n}": c for n, c in gen_launches.items()}}
     rows_launches = {"serving": launches,
                      "training": train_launches["gather_rows"],
                      "bert": sum(c["gather_rows"]
-                                 for c in bert_launches.values())}
+                                 for c in bert_launches.values()),
+                     **{k: c["gather_rows"] for k, c in lm_paths.items()}}
     entry = {
         "name": "gather_rows", "route": "cuda",
         "source": "analytics_zoo_tpu_torch/csrc/gather_rows.cu",
@@ -1184,6 +1800,7 @@ def main() -> int:
                                  "scaled_dot_product_attention, forward and "
                                  "backward (it has no backward alone)"))):
         by_path = {k: c[name] for k, c in bert_launches.items()}
+        by_path.update({k: c[name] for k, c in lm_paths.items()})
         attn_entries.append({
             "name": name, "route": "cuda",
             "source": "analytics_zoo_tpu_torch/csrc/fused_short_attn.cu",
@@ -1202,8 +1819,56 @@ def main() -> int:
             "no_dropout": {k: v for k, v in attn["rate_0.0"].items()
                            if k.startswith((key, "plain_" + key, "library"))},
         })
+    flash_entries = []
+    for name, tpu, line, label, key, kind, err in (
+            ("flash_fwd", "_flash_fwd_kernel", 203, "lm", "fwd", "fwd",
+             "fwd_max_abs_err"),
+            ("flash_bwd_dq", "_flash_bwd_dq_kernel", 379, "lm_long", "dq",
+             "dq", "two_pass_max_abs_err"),
+            ("flash_bwd_dkv", "_flash_bwd_dkv_kernel", 428, "lm_long", "dkv",
+             "dkv", "two_pass_max_abs_err"),
+            ("flash_bwd_fused", "_flash_bwd_fused_kernel", 483, "lm",
+             "fused", "bwd", "fused_max_abs_err")):
+        t = flash[label]
+        by_path = {k: c[name] for k, c in lm_paths.items()}
+        library = ("library_fwd_ms", "scaled_dot_product_attention("
+                   "is_causal=True), forward") if key == "fwd" else (
+            "library_fwd_bwd_ms", "scaled_dot_product_attention("
+            "is_causal=True), forward and backward (it has no backward "
+            "alone)")
+        flash_entries.append({
+            "name": name, "route": "cuda",
+            "source": "analytics_zoo_tpu_torch/csrc/flash_attn.cu",
+            "replaces": f"analytics_zoo_tpu/ops/attention.py:{line}",
+            "tpu_kernel": tpu, "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
+            "launches_per_train_step": (
+                by_path["lm_long"] / LM_LONG_STEPS if label == "lm_long"
+                else by_path["lm_train"] / LM_STEPS),
+            "max_abs_err": t[err],
+            "max_rel_err_grid": {
+                name: flash["errors"][
+                    {"fwd": "fwd", "dq": "bwd_two_pass",
+                     "dkv": "bwd_two_pass", "fused": "bwd_fused"}[key]
+                    + f"_{name}"] for name in ("f32", "bf16")},
+            "shape": f"{t['shape']} {t['dtype']} causal",
+            "ms": t[f"{key}_ms"], "kernel_ms": t[f"{key}_ms"],
+            "device_ms": t[f"{key}_device_ms"],
+            "plain_ms": t[f"plain_{key}_ms"],
+            "bound_ms": t[f"{kind}_bound"][0],
+            "bound_by": t[f"{kind}_bound"][1],
+            "backward_bound_ms": t["bwd_bound"][0],
+            "library_ms": t[library[0]], "library": library[1],
+            "other_shapes": {
+                lab: {k: flash[lab][k] for k in (
+                    "shape", "dtype", "backward_design", f"{key}_ms",
+                    f"{key}_device_ms", f"plain_{key}_ms", f"{kind}_bound",
+                    "library_fwd_ms", "library_fwd_bwd_ms")}
+                for lab, _, _ in FLASH_TIMED if lab != label},
+        })
     print(smi)
-    print(json.dumps({"kernels": [entry, pool_entry] + attn_entries}))
+    print(json.dumps({"kernels": [entry, pool_entry] + attn_entries
+                      + flash_entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

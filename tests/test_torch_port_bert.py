@@ -109,13 +109,17 @@ def test_cross_attention_with_a_mask_matches_jax():
 
 
 def test_kv_len_past_512_raises_naming_the_flash_kernel():
+    # since the flash kernels (B4-B6) are ported, kv_len past 512 takes
+    # flash_attention instead of raising; it equals the plain path
     mha = MultiHeadAttention(1, 8)
-    mha.build(torch.Generator(), (None, 513, 8), torch.device("cpu"))
-    with pytest.raises(NotImplementedError, match="B4"):
-        mha(torch.zeros(1, 513, 8))
-    # without use_flash the plain path takes any length
+    mha.build(torch.Generator().manual_seed(0), (None, 513, 8),
+              torch.device("cpu"))
+    x = torch.randn(1, 513, 8, generator=torch.Generator().manual_seed(1))
+    got = mha(x)
+    assert got.shape == (1, 513, 8)
     mha.use_flash = False
-    assert mha(torch.zeros(1, 513, 8)).shape == (1, 513, 8)
+    np.testing.assert_allclose(got.detach().numpy(),
+                               mha(x).detach().numpy(), rtol=0, atol=ATOL)
 
 
 def _classifier_pair(make_jax, make_port):

@@ -384,9 +384,139 @@ def test_a_bert_step_launches_each_attention_kernel_once_per_block(
 
 
 @pytest.mark.cuda
-def test_kv_len_past_512_raises_on_the_card(cuda_device):
+def test_kv_len_past_512_takes_flash_on_the_card(cuda_device):
+    # kv_len past 512 takes the flash kernels (one B4 launch forward) and
+    # equals the same layer on the CPU
     from analytics_zoo_tpu_torch.keras.layers import MultiHeadAttention
+    from analytics_zoo_tpu_torch.ops import attention as at
     mha = MultiHeadAttention(1, 8)
-    mha.build(torch.Generator(), (None, 513, 8), cuda_device)
-    with pytest.raises(NotImplementedError, match="B4"):
-        mha(torch.zeros(1, 513, 8, device=cuda_device))
+    mha.build(torch.Generator().manual_seed(0), (None, 513, 8),
+              torch.device("cpu"))
+    x = torch.randn(1, 513, 8, generator=torch.Generator().manual_seed(1))
+    want = mha(x)
+    at.reset_launch_counts()
+    got = mha.to(cuda_device)(x.to(cuda_device))
+    assert at.flash_launch_counts["flash_fwd"] == 1
+    assert float((got.detach().cpu() - want.detach()).abs().max()) <= 1e-5
+
+
+# -- the flash attention kernels (B4, B5a, B5b, B6) on the card ---------------
+
+#: (q_len, kv_len): ragged tiles, lengths apart, the LM's S - 1
+FLASH_LENGTHS = [(1, 1), (17, 17), (513, 513), (1000, 1000), (2047, 2047),
+                 (2048, 2048), (4096, 4096), (513, 1000), (1000, 513),
+                 (17, 4096), (2047, 1)]
+
+
+def _rel_l2(got, want, norm=None) -> float:
+    err = float((got.float() - want.float()).norm())
+    return err / max(float(want.float().norm()) if norm is None else norm,
+                     1e-30)
+
+
+def _flash_close(got, want, dtype):
+    """Within the tolerance of the output's scale (at least 1) and in
+    relative L2, so a wrong tile of small values shows too."""
+    return _close(got, want, dtype) and \
+        _rel_l2(got, want) <= ATTN_ATOL[dtype]
+
+
+def _grads_close(got, want, dtype, one_key_no_glse):
+    """The three gradients against the reference's: each within the
+    tolerance of their joint scale (the largest reference gradient, at
+    least 1), and each within it in relative L2 over its own norm. Over a
+    single key with no lse cotangent, dq and dk are zero in exact
+    arithmetic (ds = dO·v − dO·o cancels), so they are rounding of dp and
+    D alone and take the three gradients' joint norm."""
+    scale = max([1.0] + [float(w.float().abs().max()) for w in want])
+    joint = float(sum(w.float().norm() ** 2 for w in want)) ** 0.5
+    tol = ATTN_ATOL[dtype]
+    return all(float((g.float() - w.float()).abs().max()) <= tol * scale
+               and _rel_l2(g, w, joint if one_key_no_glse and i < 2
+                           else None) <= tol
+               for i, (g, w) in enumerate(zip(got, want)))
+
+
+def _flash_inputs(dev, sq, skv, d, dtype, seed, b=1, h=2):
+    gen = torch.Generator().manual_seed(seed)
+    q, do = (torch.randn(b, h, sq, d, generator=gen).to(dtype).to(dev)
+             for _ in range(2))
+    k, v = (torch.randn(b, h, skv, d, generator=gen).to(dtype).to(dev)
+            for _ in range(2))
+    glse = torch.randn(b, h, sq, generator=gen).to(dev)
+    mask = (torch.rand(b, skv, generator=gen) < 0.2).float()
+    return q, k, v, do, glse, (mask * -1e9).to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sq,skv", FLASH_LENGTHS,
+                         ids=[f"{a}x{b}" for a, b in FLASH_LENGTHS])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_flash_kernels_equal_their_plain_versions_on_the_card(
+        cuda_device, sq, skv, d, dtype):
+    """B4 (with and without a key bias, causal or not), B5a + B5b and B6
+    (with and without an lse cotangent) against their plain versions:
+    within 2e-5 (f32) or 2e-2 (bf16) of the output's scale (the three
+    gradients' joint scale for a backward) and in relative L2. B6 adds dq
+    with atomics in no fixed order, which costs at most skv / 64 partial
+    sums' rounding, far inside the f32 tolerance; dk and dv repeat bit for
+    bit, dq need not."""
+    from analytics_zoo_tpu_torch.ops import attention as at
+    q, k, v, do, glse, bias = _flash_inputs(cuda_device, sq, skv, d, dtype,
+                                            sq + skv + d)
+    scale = d ** -0.5
+    for causal in (False, True):
+        for kb in (None, bias):
+            before = at.flash_launch_counts["flash_fwd"]
+            o, lse = at.flash_fwd(q, k, v, kb, scale, causal)
+            torch.cuda.synchronize()
+            assert at.flash_launch_counts["flash_fwd"] == before + 1
+            want_o, want_lse = at.flash_fwd_plain(q, k, v, kb, scale, causal)
+            case = f"causal={causal} bias={kb is not None}"
+            assert o.dtype == dtype and _flash_close(o, want_o, dtype), case
+            assert _flash_close(lse, want_lse, torch.float32), case
+        o, lse = at.flash_fwd_plain(q, k, v, None, scale, causal)
+        delta = (do.float() * o.float()).sum(-1)
+        for gl in (None, glse):
+            args = (q, k, v, do, lse, delta, gl, scale, causal)
+            want = at.flash_bwd_fused_plain(*args)
+            counts = dict(at.flash_launch_counts)
+            two_pass = (at.flash_bwd_dq(*args),) + at.flash_bwd_dkv(*args)
+            fused = at.flash_bwd_fused(*args)
+            again = at.flash_bwd_fused(*args)
+            torch.cuda.synchronize()
+            assert at.flash_launch_counts["flash_bwd_dq"] == \
+                counts["flash_bwd_dq"] + 1
+            assert at.flash_launch_counts["flash_bwd_dkv"] == \
+                counts["flash_bwd_dkv"] + 1
+            assert at.flash_launch_counts["flash_bwd_fused"] == \
+                counts["flash_bwd_fused"] + 2
+            case = f"causal={causal} glse={gl is not None}"
+            assert all(t.dtype == dtype for t in two_pass + fused)
+            one_key = skv == 1 and gl is None
+            assert _grads_close(two_pass, want, dtype, one_key), f"B5 {case}"
+            assert _grads_close(fused, want, dtype, one_key), f"B6 {case}"
+            assert torch.equal(fused[1], again[1])
+            assert torch.equal(fused[2], again[2])
+            assert torch.equal(two_pass[0], at.flash_bwd_dq(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,fused", [(2048, True), (4096, False)])
+def test_flash_backward_takes_the_design_the_resident_bytes_pick(
+        cuda_device, s, fused):
+    """At d 128 in f32, the LM's 2048 keys take the one-pass B6 and 4096
+    keys the two-pass B5a + B5b, as in the JAX package."""
+    from analytics_zoo_tpu_torch.ops import attention as at
+    q, k, v, do, _, _ = _flash_inputs(cuda_device, s, s, 128, torch.float32,
+                                      s)
+    leaves = [t.requires_grad_() for t in (q, k, v)]
+    at.reset_launch_counts()
+    at.flash_attention(*leaves, causal=True).backward(do)
+    torch.cuda.synchronize()
+    assert at.flash_launch_counts == {
+        "flash_fwd": 1, "flash_bwd_dq": 0 if fused else 1,
+        "flash_bwd_dkv": 0 if fused else 1,
+        "flash_bwd_fused": 1 if fused else 0}
