@@ -8,16 +8,20 @@ moves its batch to the device, runs the forward under
 ``torch.inference_mode()`` and starts the copy back into pinned host memory
 on the same stream; :meth:`predict_async` returns before that copy lands,
 so the serving loop decodes the next batch while the card works.
+
+:meth:`quantize` is the JAX package's: bf16, weight-only int8, or int8
+calibrated on sample batches (``inference/quantize.py``).
 """
 from __future__ import annotations
 
 import threading
-from typing import Callable, Optional, Sequence
+from typing import Callable, Dict, Optional, Sequence
 
 import numpy as np
 import torch
 
 from ..common.context import DeviceLike, resolve_device
+from .quantize import observe_activation_scales, quantize_params
 
 _BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024)
 
@@ -37,13 +41,17 @@ class InferenceModel:
         self.concurrent_num = concurrent_num
         self._slots = threading.Semaphore(concurrent_num)
         self._module: Optional[torch.nn.Module] = None
+        #: bf16 models hand back f32 outputs, as the JAX package's
+        self._output_f32 = False
+        #: {Dense layer name: activation scale} after calibrated int8
+        self._act_scales: Optional[Dict[str, float]] = None
 
     # -- loaders --------------------------------------------------------------
 
     def load_zoo(self, path: str) -> "InferenceModel":
         """Load a saved ``ZooModel`` directory onto this model's device."""
         from ..models.common import ZooModel
-        self._module = ZooModel.load_model(path, device=self.device).model
+        self._set_module(ZooModel.load_model(path, device=self.device).model)
         return self
 
     def load_keras(self, model, state_dict=None) -> "InferenceModel":
@@ -53,7 +61,44 @@ class InferenceModel:
             raise RuntimeError("build the model (or pass it loaded) first")
         if state_dict is not None:
             model.load_state_dict(state_dict, strict=True)
-        self._module = model.to(self.device).eval()
+        self._set_module(model.to(self.device).eval())
+        return self
+
+    def _set_module(self, module: torch.nn.Module) -> None:
+        self._module = module
+        self._output_f32 = False
+        self._act_scales = None
+
+    # -- quantization ---------------------------------------------------------
+
+    def quantize(self, dtype: str = "bf16", calibration_data=None,
+                 percentile: float = 99.9) -> "InferenceModel":
+        """Quantize the loaded model in place; returns ``self``. ``bf16``
+        casts the float weights (outputs come back f32); ``int8`` without
+        ``calibration_data`` is weight-only: every weight of two or more
+        dimensions is kept int8 with an f32 scale (``Dense`` dequantizes
+        it on the fly, ``Embedding`` gathers it through the int8 kernel),
+        and a layer that cannot consume one raises ``NotImplementedError``.
+        ``int8`` with ``calibration_data`` (an iterable of input batches)
+        observes each ``Dense`` layer's input range over the batches, then
+        quantizes only those kernels, which then run int8 by int8."""
+        from ..keras.engine import Model, Sequential
+        if self._module is None:
+            raise RuntimeError("load a model first")
+        if dtype == "int8" and calibration_data is not None:
+            if not isinstance(self._module, (Model, Sequential)):
+                raise ValueError(
+                    "calibrated int8 needs a keras-graph model "
+                    "(load_keras/load_zoo); weight-only int8 works for "
+                    "opaque forwards — call quantize('int8') without "
+                    "calibration_data")
+            act_scales = observe_activation_scales(
+                self._module, calibration_data, percentile=percentile)
+            quantize_params(self._module, "int8", act_scales=act_scales)
+            self._act_scales = act_scales
+            return self
+        quantize_params(self._module, dtype)
+        self._output_f32 = dtype != "int8"
         return self
 
     # -- warm-up --------------------------------------------------------------
@@ -84,6 +129,8 @@ class InferenceModel:
         t = torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
         with self._slots, torch.inference_mode():
             y = self._module(t)
+            if self._output_f32:
+                y = y.to(torch.float32)
             if self.device.type == "cuda":
                 host = torch.empty(y.shape, dtype=y.dtype, pin_memory=True)
                 host.copy_(y, non_blocking=True)

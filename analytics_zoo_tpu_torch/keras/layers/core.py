@@ -12,6 +12,7 @@ from torch import nn
 
 from .. import initializers
 from ..engine import Layer
+from ...inference.quantize import QuantizedWeight, qdense_apply
 
 # -- activations -------------------------------------------------------------
 
@@ -48,7 +49,9 @@ class Activation(Layer):
 
 class Dense(Layer):
     """Fully connected layer: ``activation(x @ kernel + bias)`` with
-    ``kernel`` ``[in, out]``, the JAX package's layout."""
+    ``kernel`` ``[in, out]``, the JAX package's layout. The product runs in
+    the input's dtype; an int8 kernel (``inference.quantize``) takes
+    ``qdense_apply``."""
 
     def __init__(self, output_dim: int, activation=None,
                  init="glorot_uniform", bias: bool = True,
@@ -69,7 +72,10 @@ class Dense(Layer):
         self.built = True
 
     def forward(self, inputs):
-        y = inputs @ self.kernel.to(inputs.dtype)
+        if isinstance(self.kernel, QuantizedWeight):
+            y = qdense_apply(inputs, self.kernel)
+        else:
+            y = inputs @ self.kernel.to(inputs.dtype)
         if self.use_bias:
             y = y + self.bias.to(y.dtype)
         return self.activation(y)

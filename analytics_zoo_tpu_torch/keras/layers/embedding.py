@@ -10,6 +10,12 @@ on the CPU. ``SparseEmbedding`` pools bags of ids through
 ``kernels.fused_embedding`` nor ``fused`` can move a lookup on the card off
 the kernels. Vocab sharding (``shard``) and the
 host-memory cold tier (``cold_rows``) are later slices and raise here.
+
+An ``Embedding`` table that ``inference.quantize`` left int8 stays int8
+and is looked up through ``ops.embedding_kernels.gather_pool_int8``: the
+int8 gather kernel on the card, which dequantizes each row as it copies it.
+The JAX package instead dequantizes the whole table before the forward;
+the values are the same (ROADMAP Queue C5). An int8 table is forward only.
 """
 from __future__ import annotations
 
@@ -21,6 +27,7 @@ from torch import nn
 
 from .. import initializers
 from ..engine import Layer
+from ...inference.quantize import QuantizedWeight
 from ...ops import embedding_kernels as _ek
 from ...parallel import embedding as _embed
 
@@ -66,7 +73,15 @@ class Embedding(Layer):
     def forward(self, inputs):
         # float ids truncate toward zero, as the JAX layer's astype(int32)
         idx = _embed.validate_ids(inputs.to(torch.int32), self.input_dim)
-        return _ek.gather_rows_clip(self.embeddings, idx)
+        table = self.embeddings
+        if isinstance(table, QuantizedWeight):
+            if self.training:
+                raise RuntimeError(
+                    f"{self.name}: an int8 table is forward only; it has no "
+                    f"gradient (quantize a model for inference, after "
+                    f"training)")
+            return _ek.gather_pool_int8(table.q, table.scale, idx, None)
+        return _ek.gather_rows_clip(table, idx)
 
     def compute_output_shape(self, input_shape):
         return tuple(input_shape) + (self.output_dim,)

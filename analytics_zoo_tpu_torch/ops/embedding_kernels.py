@@ -1,14 +1,16 @@
 """Embedding row gathers and bag pooling (counterpart of
 ``analytics_zoo_tpu/ops/embedding_kernels.py``: ``gather_rows``,
-``gather_rows_clip`` and ``gather_pool``).
+``gather_rows_clip``, ``gather_pool``, and the int8 tables'
+``quantize_table``, ``gather_pool_int8`` and ``int8_error_bound``).
 
 On a CUDA tensor every gather launches a hand-written kernel, or raises;
 there is no fallback. ``csrc/gather_rows.cu`` replaces the TPU's
-``_gather_kernel`` and ``csrc/gather_pool.cu`` its ``_gather_pool_kernel``.
-On a CPU tensor a wrapper runs the kernel's plain PyTorch version
-(:func:`gather_plain`, :func:`gather_pool_plain`) with the same contract,
-which the tests hold against the JAX package and which ``chip_smoke.py``
-holds each kernel against on the card.
+``_gather_kernel``, ``csrc/gather_pool.cu`` its ``_gather_pool_kernel`` and
+``csrc/gather_int8.cu`` its ``_gather_int8_kernel``. On a CPU tensor a
+wrapper runs the kernel's plain PyTorch version (:func:`gather_plain`,
+:func:`gather_pool_plain`, :func:`gather_int8_plain`) with the same
+contract, which the tests hold against the JAX package and which
+``chip_smoke.py`` holds each kernel against on the card.
 
 The contracts are the TPU kernels', not ``jnp.take``'s: ``clip`` clamps ids
 to ``[0, rows-1]``; fill mode writes zero rows for any id outside
@@ -22,6 +24,7 @@ from typing import Optional
 
 import torch
 
+from .int8_dataflow import dequant_int8, next_amax, quant_int8, scale_of_amax
 from .kernel_build import LaunchCounts, load_library, on_card
 
 _DTYPES = (torch.float32, torch.bfloat16, torch.float16)
@@ -29,7 +32,7 @@ _DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _COMBINERS = {"sum": 0, "mean": 1, "sqrtn": 2}
 
-launch_counts = LaunchCounts("gather_rows", "gather_pool")
+launch_counts = LaunchCounts("gather_rows", "gather_pool", "gather_int8")
 reset_launch_counts = launch_counts.reset
 
 
@@ -45,7 +48,8 @@ def gather_plain(table: torch.Tensor, ids: torch.Tensor,
     return out
 
 
-def _check(table: torch.Tensor, ids: torch.Tensor, ids_dim: int = 1) -> None:
+def _check(table: torch.Tensor, ids: torch.Tensor, ids_dim: int = 1,
+           dtypes=_DTYPES) -> None:
     if table.dim() != 2:
         raise ValueError(f"table must be 2-D [rows, dim], got "
                          f"{tuple(table.shape)}")
@@ -56,8 +60,8 @@ def _check(table: torch.Tensor, ids: torch.Tensor, ids_dim: int = 1) -> None:
         raise ValueError(f"ids must be {want}, got {tuple(ids.shape)}")
     if ids.dtype != torch.int32:
         raise TypeError(f"ids must be int32, got {ids.dtype}")
-    if table.dtype not in _DTYPES:
-        raise TypeError(f"table dtype {table.dtype} not in {_DTYPES}")
+    if table.dtype not in dtypes:
+        raise TypeError(f"table dtype {table.dtype} not in {dtypes}")
     if not (table.is_contiguous() and ids.is_contiguous()):
         raise ValueError("table and ids must be contiguous")
     if table.device != ids.device:
@@ -218,3 +222,119 @@ def gather_rows_clip(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     """Clip-mode row gather over any ``ids`` shape; differentiable in
     ``table``. Returns ``ids.shape + (dim,)``."""
     return gather_pool(table, ids, None, mask_negative=False)
+
+
+# -- int8 tables ---------------------------------------------------------------
+
+
+def gather_int8_plain(qtable: torch.Tensor, scale: torch.Tensor,
+                      ids: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the int8 kernel: ``float(qtable[id]) *
+    scale`` in f32 for ids in ``[0, rows)``, a zero row for any other id."""
+    rows = qtable.shape[0]
+    out = qtable[ids.clamp(0, rows - 1).long()].to(torch.float32) * scale
+    ok = (ids >= 0) & (ids < rows)
+    return torch.where(ok[:, None], out, torch.zeros_like(out))
+
+
+def gather_int8(qtable: torch.Tensor, scale: torch.Tensor,
+                ids: torch.Tensor) -> torch.Tensor:
+    """The int8 kernel's wrapper: ``out[i] = float(qtable[ids[i]]) *
+    scale``, f32 ``[n, dim]``, zero rows for ids outside ``[0, rows)``, for
+    a contiguous 2-D int8 table, a 0-d f32 ``scale`` on the table's device
+    and flat int32 ids. CPU tensors take :func:`gather_int8_plain`; CUDA
+    tensors launch the kernel on the current stream, which reads the scale
+    on the card (no host sync)."""
+    _check(qtable, ids, dtypes=(torch.int8,))
+    if scale.dtype != torch.float32 or scale.numel() != 1:
+        raise TypeError(f"scale must be one f32 value, got {scale.dtype} "
+                        f"{tuple(scale.shape)}")
+    if scale.device != qtable.device:
+        raise ValueError(f"scale on {scale.device}, table on "
+                         f"{qtable.device}")
+    if not on_card(qtable, "gather_int8"):
+        return gather_int8_plain(qtable, scale.reshape(()), ids)
+    n, dim = ids.shape[0], qtable.shape[1]
+    out = torch.empty((n, dim), dtype=torch.float32, device=qtable.device)
+    if n == 0:
+        return out
+    scale = scale.contiguous()
+    lib = load_library()
+    with torch.cuda.device(qtable.device):
+        stream = torch.cuda.current_stream(qtable.device).cuda_stream
+        rc = lib.azt_gather_int8(qtable.data_ptr(), scale.data_ptr(),
+                                 ids.data_ptr(), out.data_ptr(), n,
+                                 qtable.shape[0], dim, stream)
+    launch_counts.launched("gather_int8", rc)
+    return out
+
+
+def gather_pool_int8(qtable: torch.Tensor, scale: torch.Tensor,
+                     idx: torch.Tensor, combiner: Optional[str] = None,
+                     mask_negative: bool = True) -> torch.Tensor:
+    """:func:`gather_pool` over a :func:`quantize_table` table, routed as
+    the JAX package routes it on the TPU; f32 out, forward only.
+
+    ``combiner=None`` gathers ``idx.shape + (dim,)`` through the int8
+    kernel (:func:`gather_int8`), then with ``mask_negative`` multiplies by
+    ``idx >= 0``. A pooled combiner (``sum``, ``mean``, ``sqrtn``) runs the
+    plain dequantize, mask and pool ops on every device, as JAX does on the
+    TPU too: rows of ids outside ``[0, rows)`` are zero, as the kernel's;
+    with ``mask_negative`` the mean/sqrtn count is the number of ids
+    ``>= 0``, otherwise the bag size. Error against the f32 table:
+    :func:`int8_error_bound`."""
+    if combiner is not None and combiner not in _COMBINERS:
+        raise ValueError(f"unknown combiner {combiner!r}")
+    ids = idx.to(torch.int32).contiguous()
+    dim = qtable.shape[1]
+    if combiner is None:
+        rows = gather_int8(qtable, scale, ids.reshape(-1))
+        out = rows.reshape(tuple(ids.shape) + (dim,))
+        if mask_negative:
+            out = out * (ids >= 0).to(out.dtype)[..., None]
+        return out
+    if ids.dim() < 2:
+        raise ValueError("a pooled gather_pool_int8 needs idx.ndim >= 2")
+    nrows = qtable.shape[0]
+    ok = (ids >= 0) & (ids < nrows)
+    emb = dequant_int8(qtable[ids.clamp(0, nrows - 1).long()], scale,
+                       torch.float32)
+    emb = torch.where(ok[..., None], emb, torch.zeros_like(emb))
+    valid = None
+    if mask_negative:
+        valid = (ids >= 0).to(torch.float32)[..., None]
+        emb = emb * valid
+    total = emb.sum(dim=-2)
+    if combiner == "sum":
+        return total
+    if valid is not None:
+        count = valid.sum(dim=-2).clamp(min=1.0)
+    else:
+        count = torch.full(tuple(total.shape[:-1]) + (1,),
+                           float(ids.shape[-1]), device=total.device)
+    if combiner == "mean":
+        return total / count
+    return total / torch.sqrt(count)  # sqrtn
+
+
+def quantize_table(table: torch.Tensor,
+                   running_amax: Optional[torch.Tensor] = None):
+    """Symmetric int8 quantization of an embedding table with the delayed-
+    scaling recipe of :mod:`.int8_dataflow`: ``scale = amax / 127``, the
+    amax carried across calls as a fast-rise/slow-decay running value when
+    ``running_amax`` is given. Returns ``(qtable int8, scale, amax)``, the
+    last two 0-d f32 tensors on the table's device."""
+    f = table.to(torch.float32)  # as JAX promotes a bf16 table / f32 scale
+    seen = f.abs().max()
+    amax = seen if running_amax is None else next_amax(
+        torch.as_tensor(running_amax, dtype=torch.float32,
+                        device=table.device), seen)
+    scale = scale_of_amax(amax)
+    return quant_int8(f, scale), scale, amax
+
+
+def int8_error_bound(scale, bag_size: int = 1):
+    """Worst-case absolute error of an int8 lookup against the f32 table:
+    half a quantization step per element, times the bag size for a
+    sum-pooled bag (mean and sqrtn divide it back down)."""
+    return 0.5 * scale * bag_size

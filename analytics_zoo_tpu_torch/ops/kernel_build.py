@@ -112,6 +112,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.azt_gather_rows.restype = i
     lib.azt_gather_pool.argtypes = [p, p, p, ll, i, ll, ll, i, i, i, p]
     lib.azt_gather_pool.restype = i
+    lib.azt_gather_int8.argtypes = [p, p, p, p, ll, ll, ll, p]
+    lib.azt_gather_int8.restype = i
     f, u = ctypes.c_float, ctypes.c_uint32
     lib.azt_fused_short_fwd.argtypes = [p, p, p, p, p, p, ll, i, i, i, i, f,
                                         u, f, i, p]

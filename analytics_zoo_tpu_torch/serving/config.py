@@ -20,6 +20,7 @@ class ServingConfig:
     max_pending: int = 10000  # erroring load-shed depth threshold
     concurrent_num: int = 1
     decode_threads: int = 4  # host threads decoding while the device runs
+    quantize: Optional[str] = None  # bf16 | int8 (weight-only)
     # -- SLO layer ------------------------------------------------------------
     default_deadline_ms: Optional[int] = None  # for records that carry none
     shed_wait_ms: Optional[int] = None  # estimated-wait admission (None =
@@ -55,6 +56,7 @@ class ServingConfig:
                                             cfg.concurrent_num))
         cfg.decode_threads = int(params.get("decode_threads",
                                             cfg.decode_threads))
+        cfg.quantize = params.get("quantize", cfg.quantize)
         if params.get("deadline_ms") is not None:
             cfg.default_deadline_ms = int(params["deadline_ms"])
         if params.get("shed_wait_ms") is not None:

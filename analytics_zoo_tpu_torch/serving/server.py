@@ -94,7 +94,10 @@ class ClusterServing:
                 f"model_type {cfg.model_type!r} is not ported yet; the "
                 f"torch port serves 'zoo' models")
         im = InferenceModel(concurrent_num=cfg.concurrent_num, device=device)
-        return im.load_zoo(cfg.model_path)
+        im.load_zoo(cfg.model_path)
+        if cfg.quantize:  # before the prewarm: no request pays for it
+            im.quantize(cfg.quantize)
+        return im
 
     def _example_batch(self) -> np.ndarray:
         """A zeros batch shaped like :meth:`_prepare`'s output."""

@@ -91,6 +91,28 @@ Phases, each of which must pass or the script exits non-zero:
    CPU's, logits 1e-4 of their scale) and two Adam steps (losses rtol
    1e-5, parameters as in 7).
 
+10. int8 gather kernel (B9): held bit for bit against its plain version on
+   NCF's four tables quantized as ``quantize_table`` does, for n 0-257,
+   widths 1, 3, 4, 5, 31, 32, 33, 64 and 130, ids out of range on both
+   sides, a scale that is a device tensor, and a table whose base is not
+   4-byte aligned; then timed at the served lookup ([6041, 64], n 256) and
+   over a 1 GiB table ([2^24, 64], 2^20 distinct ids) beside its plain
+   version and ``index_select`` then ``* scale`` (two calls).
+11. quantized serving: the NCF that phase 4 saved is served through
+   ``ClusterServing`` with ``quantize: int8`` and ``quantize: bf16`` (a
+   burst of 512, then 16 single requests each). Every request is answered
+   once, equal to a direct card forward of the same quantized model at the
+   served batch shapes (rtol 1e-5) and to the CPU's quantized forward (atol
+   1e-5 int8, 2e-2 bf16); a served batch launches 4 B9 and no B1 in int8,
+   4 B1 on bf16 tables in bf16; int8 frees about 3/4 of the weight bytes.
+   Records/s, latency, and drift and argmax agreement against the f32
+   model are printed.
+12. calibrated int8: ``InferenceModel.quantize("int8", calibration_data=)``
+   on the same model, on the card and on the CPU from the same batches:
+   activation scales within 1e-6 relative, int8 kernels equal; with the
+   CPU's scales loaded on the card, predictions at buckets 1, 16 and 256
+   within 1e-5 of the CPU's (buckets 1 and 16 pad for ``torch._int_mm``).
+
 Each phase's seconds are printed. The last three lines of output are the
 card's
 ``nvidia-smi`` name and power limit, the ``{"kernels": [...]}`` line,
@@ -176,6 +198,17 @@ GEN_BATCH, GEN_NEW, GEN_PROMPTS = 4, 32, (1000, 100)
 LM_CPU = dict(LM_CFG, n_block=2)
 LM_CPU_RECORDS, LM_CPU_BATCH, LM_CPU_SEQ = 4, 2, 512
 LM_CPU_PROMPT, LM_CPU_NEW = 600, 8
+#: B9's grid: widths that are and are not whole 4-byte words, and id counts
+INT8_DIMS = (1, 3, 4, 5, 31, 32, 33, 64, 130)
+INT8_NS = (0, 1, 2, 31, 32, 33, 255, 256, 257)
+#: the timed int8 table that L2 cannot hold: 16 Mi x 64 int8 = 1 GiB
+INT8_HBM_ROWS = 1 << 24
+#: quantized serving: a burst, then requests one at a time, per mode
+QUANT_BURST, QUANT_SINGLE = 512, 16
+#: the served answers against the CPU's quantized forward
+QUANT_ATOL = {"int8": 1e-5, "bf16": 2e-2}
+#: calibration: 4 seeded batches of 256 pairs
+CALIB_BATCHES = 4
 #: decode logits against a full forward (the card) and the card against
 #: the CPU: f32 sums in another order through every block, relative to the
 #: logits' scale (their largest magnitude, about 4 at random init)
@@ -464,6 +497,89 @@ def phase_pool_kernels(ek, dev, gen, seed: int):
     return timings, max_err
 
 
+def int8_bound_ms(qtable: torch.Tensor, ids: torch.Tensor) -> float:
+    """Least time for an int8 gather of these ids at the memory rate, as
+    :func:`gather_bound_ms` reckons it: each distinct in-range row read
+    once (1 byte an element), each f32 output row written once, each id
+    read once."""
+    rows, dim = qtable.shape
+    n = ids.shape[0]
+    distinct = int(torch.unique(ids[(ids >= 0) & (ids < rows)]).numel())
+    return (distinct * dim + n * dim * 4 + 4 * n) / HBM_BYTES_PER_S * 1e3
+
+
+def phase_int8_kernels(ek, dev, seed: int):
+    """Hold the int8 gather kernel (B9) against its plain version bit for
+    bit, then time both and ``index_select`` + ``* scale``; returns
+    (timings, largest error, cases checked)."""
+    gen = torch.Generator().manual_seed(seed)
+    cases = []
+    for _, rows, dim in NCF_TABLES:  # NCF's tables, as quantize makes them
+        q, scale, _ = ek.quantize_table(
+            torch.randn(rows, dim, generator=gen) * 0.05)
+        cases += [(q, scale, n) for n in INT8_NS]
+    for dim in INT8_DIMS:
+        q = torch.randint(-127, 128, (50, dim), generator=gen,
+                          dtype=torch.int8)
+        scale = torch.rand((), generator=gen) * 0.02 + 1e-3
+        cases += [(q, scale, n) for n in INT8_NS]
+    max_err, checked = 0.0, 0
+    for q, scale, n in cases:
+        rows, dim = q.shape
+        ids = torch.randint(-3, rows + 3, (n,), generator=gen,
+                            dtype=torch.int32)
+        if n >= 2:
+            ids[0], ids[1] = -1, rows
+        ids, scale_dev = ids.to(dev), scale.to(dev)
+        # the table as allocated, and at an odd address (the byte path)
+        raw = torch.zeros(q.numel() + 1, dtype=torch.int8, device=dev)
+        raw[1:] = q.reshape(-1).to(dev)
+        for table in (q.to(dev), raw[1:].view(rows, dim)):
+            got = ek.gather_int8(table, scale_dev, ids)
+            want = ek.gather_int8_plain(table, scale_dev, ids)
+            torch.cuda.synchronize()
+            check(got.dtype == torch.float32 and torch.equal(got, want),
+                  f"int8 kernel != plain at rows={rows} dim={dim} n={n} "
+                  f"aligned={table.data_ptr() % 4 == 0}")
+            checked += 1
+            if n:
+                max_err = max(max_err, float((got - want).abs().max()))
+    log(f"int8 kernel == plain (torch.equal) on {checked} cases")
+
+    timings = []
+    dev_gen = torch.Generator(device=dev).manual_seed(seed)
+    for label, rows, dim, n, iters in (
+            ("mlp_user_table", 6041, 64, SERVE_BATCH, 500),
+            ("hbm_table", INT8_HBM_ROWS, 64, LARGE_N, 50)):
+        if rows == INT8_HBM_ROWS:
+            # every id distinct, so every row comes from device memory
+            q = torch.randint(-127, 128, (rows, dim), generator=dev_gen,
+                              device=dev, dtype=torch.int8)
+            ids = torch.randperm(rows, generator=dev_gen, device=dev)[:n]
+            ids = ids.to(torch.int32)
+            scale = torch.tensor(0.0123, device=dev)
+        else:
+            q, scale, _ = ek.quantize_table(
+                torch.randn(rows, dim, generator=gen).to(dev) * 0.05)
+            ids = torch.randint(0, rows, (n,), generator=gen,
+                                dtype=torch.int32).to(dev)
+        fns = {"ms": lambda: ek.gather_int8(q, scale, ids),
+               "plain_ms": lambda: ek.gather_int8_plain(q, scale, ids),
+               "library_ms": lambda: torch.index_select(q, 0, ids) * scale}
+        t = {"table": label, "rows": rows, "dim": dim, "n": n,
+             "bound_ms": int8_bound_ms(q, ids),
+             "library_max_abs_diff": float(
+                 (ek.gather_int8(q, scale, ids)
+                  - torch.index_select(q, 0, ids) * scale).abs().max())}
+        for key, fn in fns.items():
+            t[key] = cuda_ms(fn, iters)
+            t[key.replace("ms", "device_ms")] = device_ms(fn)
+        timings.append(t)
+        log("int8 gather timing " + json.dumps(t))
+        del fns, q, ids
+    return timings, max_err, checked
+
+
 def wnd_records(seed: int, n: int):
     """``n`` seeded Wide&Deep records made as ``bench.py:662-671`` makes
     them: the four model inputs and the labels."""
@@ -518,7 +634,7 @@ def phase_training(ek, seed: int, workdir: str):
     def per(k):
         """Launches for ``k`` forwards: one pool and two row gathers
         each."""
-        return {"gather_rows": 2 * k, "gather_pool": k}
+        return {"gather_rows": 2 * k, "gather_pool": k, "gather_int8": 0}
 
     check(hist["iterations"] == steps, f"{hist['iterations']} steps, "
           f"expected {steps}")
@@ -1641,6 +1757,247 @@ def phase_serving(ek, seed: int, n_requests: int, n_single: int,
     return launches, batches, stats
 
 
+def ncf_pairs(rng: np.random.Generator, n: int) -> np.ndarray:
+    """``n`` (user, item) requests, a few of them out of range (clamped and
+    counted by ``validate_ids``)."""
+    x = np.stack([rng.integers(1, NCF["user_count"] + 1, n),
+                  rng.integers(1, NCF["item_count"] + 1, n)],
+                 axis=1).astype(np.float32)
+    x[3], x[10], x[17] = [-1, 5], [7000, 9], [12, 5000]
+    return x
+
+
+def _card_forward(module, x: np.ndarray, batch: int) -> np.ndarray:
+    """A direct forward on the card, ``batch`` rows at a time, f32 out."""
+    with torch.inference_mode():
+        return np.concatenate([
+            module(torch.from_numpy(x[i:i + batch]).cuda()).float().cpu()
+            .numpy() for i in range(0, len(x), batch)])
+
+
+def phase_quantized_serving(ek, seed: int, workdir: str):
+    """Serve phase 4's NCF through ``ClusterServing`` with ``quantize:
+    int8`` and ``quantize: bf16``; returns {mode: (launches, stats)}."""
+    from analytics_zoo_tpu_torch.inference import InferenceModel
+    from analytics_zoo_tpu_torch.inference.quantize import _is_qleaf
+    from analytics_zoo_tpu_torch.serving import (ClusterServing, FileQueue,
+                                                 InputQueue, OutputQueue,
+                                                 ServingConfig)
+
+    model_dir = os.path.join(workdir, "ncf")
+    x = ncf_pairs(np.random.default_rng(seed + 1), QUANT_BURST)
+    xs = np.concatenate([x, x[:QUANT_SINGLE]])
+    f32 = InferenceModel(device="cuda").load_zoo(model_dir)
+    ref = _card_forward(f32._module, xs, len(xs))
+    del f32
+
+    # weight memory: int8 keeps a quarter of the >= 2-D weights' bytes
+    im = InferenceModel(device="cuda").load_zoo(model_dir)
+    wbytes = sum(p.numel() * p.element_size()
+                 for p in im._module.parameters() if p.dim() >= 2)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    im.quantize("int8")
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_allocated()
+    freed = (before - after) / wbytes
+    check(abs(freed - 0.75) <= 0.01, f"int8 quantize freed {freed:.4f} of "
+          f"the {wbytes} weight bytes, expected about 3/4")
+    del im
+
+    out = {}
+    for mode in ("int8", "bf16"):
+        spool = os.path.join(workdir, f"spool_{mode}")
+        src = "dir://" + spool
+        cfg = ServingConfig(model_type="zoo", model_path=model_dir,
+                            data_src=src, image_shape=(2,),
+                            batch_size=SERVE_BATCH, quantize=mode)
+        queue = CountingQueue(FileQueue(spool))
+        t0 = time.perf_counter()
+        server = ClusterServing(cfg, queue=queue, device="cuda")
+        up_s = time.perf_counter() - t0
+        module = server.model._module
+        tables = [getattr(module, name).embeddings
+                  for name, _, _ in NCF_TABLES]
+        if mode == "int8":
+            check(all(_is_qleaf(t) and t.q.dtype == torch.int8
+                      and t.q.is_cuda for t in tables)
+                  and _is_qleaf(module.prediction.kernel),
+                  "int8 serving did not keep the weights int8 on the card")
+        else:
+            check(all(t.dtype == torch.bfloat16 and t.is_cuda
+                      for t in tables), "bf16 tables are not bf16")
+        inq, outq = InputQueue(src), OutputQueue(src)
+
+        ek.reset_launch_counts()
+        t0 = time.perf_counter()
+        for i, row in enumerate(x):
+            inq.enqueue_tensor(f"req-{i}", row)
+        enqueue_s = time.perf_counter() - t0
+        t_start = time.perf_counter()
+        server.start()
+        try:
+            deadline = time.monotonic() + 300
+            while (server.records_served + sum(server.counters.values())
+                   < QUANT_BURST and time.monotonic() < deadline):
+                server.check_health()
+                time.sleep(0.002)
+            drain_s = time.perf_counter() - t_start
+            burst_batches = server.batches_dispatched
+            single = []
+            for j in range(QUANT_SINGLE):
+                uri = f"one-{j}"
+                t = time.perf_counter()
+                inq.enqueue_tensor(uri, x[j])
+                while (queue.get_result(uri) is None
+                       and time.monotonic() < deadline):
+                    server.check_health()
+                    time.sleep(0.0005)
+                single.append((time.perf_counter() - t) * 1e3)
+        finally:
+            server.drain(timeout_s=60)
+        launches = dict(ek.launch_counts)
+        batches = server.batches_dispatched
+
+        results = outq.dequeue()
+        uris = [f"req-{i}" for i in range(QUANT_BURST)]
+        singles = [f"one-{j}" for j in range(QUANT_SINGLE)]
+        check(sorted(results) == sorted(uris + singles),
+              f"{mode}: {len(results)} results for "
+              f"{QUANT_BURST + QUANT_SINGLE} requests")
+        check(queue.posts == {u: 1 for u in uris + singles},
+              f"{mode}: a request got no terminal result or more than one")
+        errors = [u for u in uris + singles if "error" in results[u]]
+        check(not errors, f"{mode}: {len(errors)} error results, e.g. "
+              f"{results[errors[0]] if errors else None}")
+        # the direct forward below repeats the served shapes: 256-row
+        # batches, then single rows
+        check(burst_batches == QUANT_BURST // SERVE_BATCH
+              and batches == burst_batches + QUANT_SINGLE,
+              f"{mode}: {burst_batches} burst batches, {batches} in all")
+        rows_kernel, other = (("gather_int8", "gather_rows")
+                              if mode == "int8" else
+                              ("gather_rows", "gather_int8"))
+        check(launches[rows_kernel] == 4 * batches
+              and launches[other] == 0 and launches["gather_pool"] == 0,
+              f"{mode}: launched {launches} for {batches} batches (expected "
+              f"4 {rows_kernel} a batch and nothing else)")
+        served = np.array([results[u]["value"] for u in uris + singles],
+                          np.float32)
+        check(served.shape == (len(xs), NCF["num_classes"])
+              and bool(np.isfinite(served).all()),
+              f"{mode}: served values malformed")
+        direct = np.concatenate([_card_forward(module, x, SERVE_BATCH),
+                                 _card_forward(module, x[:QUANT_SINGLE], 1)])
+        np.testing.assert_allclose(served, direct, rtol=1e-5, atol=0)
+        cpu = InferenceModel(device="cpu").load_zoo(model_dir).quantize(mode)
+        plain = cpu.predict(xs)
+        np.testing.assert_allclose(served, plain, rtol=0,
+                                   atol=QUANT_ATOL[mode])
+        xb = torch.from_numpy(x[:SERVE_BATCH]).cuda()
+        with torch.inference_mode():
+            forward_ms = cuda_ms(lambda: module(xb), 50)
+        predict_device_ms = device_ms(
+            lambda: server.model.predict(x[:SERVE_BATCH]))
+        single.sort()
+        stats = {
+            "mode": mode, "requests": len(xs), "burst": QUANT_BURST,
+            "burst_batches": burst_batches, "batches": batches,
+            "launches": launches, "load_quantize_prewarm_s": up_s,
+            "enqueue_records_per_s": QUANT_BURST / enqueue_s,
+            "records_per_s": QUANT_BURST / drain_s,
+            "burst_latency_p50_ms": server.latency_ms(0.50),
+            "single_latency_p50_ms": single[len(single) // 2],
+            "single_latency_max_ms": single[-1],
+            "forward_ms_batch256": forward_ms,
+            "predict_device_ms_batch256": predict_device_ms,
+            "max_abs_err_vs_card_forward": float(
+                np.abs(served - direct).max()),
+            "max_abs_err_vs_cpu_plain": float(np.abs(served - plain).max()),
+            "max_prob_drift_vs_f32": float(np.abs(served - ref).max()),
+            "argmax_agreement_vs_f32": float(
+                (served.argmax(1) == ref.argmax(1)).mean())}
+        if mode == "int8":
+            stats.update({"weight_bytes_f32": wbytes,
+                          "allocated_before": before,
+                          "allocated_after": after,
+                          "freed_share_of_weight_bytes": freed})
+        log(f"{mode}: max prob drift vs f32 "
+            f"{stats['max_prob_drift_vs_f32']:.6f}, argmax agreement "
+            f"{stats['argmax_agreement_vs_f32']:.4f}, "
+            f"{stats['records_per_s']:.1f} records/s served")
+        out[mode] = (launches, stats)
+        del server, module, tables, cpu
+    return out
+
+
+def phase_calibrated(ek, seed: int, workdir: str):
+    """Calibrated int8 on the card against the CPU from the same batches;
+    returns (launches of the bucketed predicts, stats)."""
+    from analytics_zoo_tpu_torch.inference import InferenceModel
+
+    model_dir = os.path.join(workdir, "ncf")
+    rng = np.random.default_rng(seed + 2)
+    calib = [ncf_pairs(rng, SERVE_BATCH) for _ in range(CALIB_BATCHES)]
+    x = ncf_pairs(rng, SERVE_BATCH)
+    ref = _card_forward(InferenceModel(device="cuda").load_zoo(
+        model_dir)._module, x, SERVE_BATCH)
+    card = InferenceModel(device="cuda").load_zoo(model_dir)
+    cpu = InferenceModel(device="cpu").load_zoo(model_dir)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card.quantize("int8", calibration_data=calib)
+    torch.cuda.synchronize()
+    calibrate_s = time.perf_counter() - t0
+    cpu.quantize("int8", calibration_data=calib)
+    names = sorted(cpu._act_scales)
+    check(sorted(card._act_scales) == names and len(names) == 4,
+          f"calibrated layers {sorted(card._act_scales)} vs the CPU's "
+          f"{names}")
+    scale_err = max(abs(card._act_scales[k] - cpu._act_scales[k])
+                    / cpu._act_scales[k] for k in names)
+    check(scale_err <= 1e-6, f"activation scales differ from the CPU's by "
+          f"{scale_err} relative")
+    for k in names:
+        got, want = (getattr(card._module, k).kernel,
+                     getattr(cpu._module, k).kernel)
+        check(torch.equal(got.q.cpu(), want.q)
+              and torch.equal(got.scale.cpu(), want.scale),
+              f"{k}: the card's int8 kernel or scale differs from the CPU's")
+    own = card.predict(x)
+    # the CPU's scales on the card: no activation can round across a tie
+    card._module.load_state_dict(cpu._module.state_dict(), strict=True)
+    ek.reset_launch_counts()
+    errs = {}
+    for b in (1, 16, SERVE_BATCH):
+        got, want = card.predict(x[:b]), cpu.predict(x[:b])
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+        errs[b] = float(np.abs(got - want).max())
+    launches = dict(ek.launch_counts)
+    check(launches == {"gather_rows": 12, "gather_pool": 0,
+                       "gather_int8": 0},
+          f"3 calibrated predicts launched {launches}, expected 12 row "
+          f"gathers (the tables stay f32)")
+    xb = torch.from_numpy(x).cuda()
+    with torch.inference_mode():
+        forward_ms = cuda_ms(lambda: card._module(xb), 50)
+    stats = {"calibration_batches": CALIB_BATCHES,
+             "calibrate_s_card": calibrate_s,
+             "act_scales": cpu._act_scales,
+             "max_rel_err_act_scales": scale_err,
+             "max_abs_err_vs_cpu_by_bucket": errs,
+             "max_abs_err_own_scales_vs_cpu": float(
+                 np.abs(own - cpu.predict(x)).max()),
+             "forward_ms_batch256": forward_ms,
+             "max_prob_drift_vs_f32": float(np.abs(own - ref).max()),
+             "argmax_agreement_vs_f32": float(
+                 (own.argmax(1) == ref.argmax(1)).mean())}
+    log(f"calibrated int8: max prob drift vs f32 "
+        f"{stats['max_prob_drift_vs_f32']:.6f}, argmax agreement "
+        f"{stats['argmax_agreement_vs_f32']:.4f}")
+    return launches, stats
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1692,6 +2049,8 @@ def main() -> int:
                                    gen, args.seed)
     attn = timed("attention_kernels", phase_attention_kernels, at, dev,
                  args.seed)
+    int8_timings, int8_err, int8_cases = timed(
+        "int8_kernel", phase_int8_kernels, ek, dev, args.seed)
 
     # -- 4. serving, 5. training ---------------------------------------------
     build = os.path.join(REPO, "build")
@@ -1702,6 +2061,16 @@ def main() -> int:
             "serving", phase_serving, ek, args.seed, args.requests,
             args.single, workdir)
         log("serving " + json.dumps(stats) + f" | {smi}")
+        # -- 11. quantized serving, 12. calibrated int8 ------------------
+        quant = timed("quantized_serving", phase_quantized_serving, ek,
+                      args.seed, workdir)
+        for mode, (_, q_stats) in quant.items():
+            log(f"serving quantize={mode} " + json.dumps(q_stats)
+                + f" | {smi}")
+        calib_launches, calib_stats = timed("calibrated_int8",
+                                            phase_calibrated, ek, args.seed,
+                                            workdir)
+        log("calibrated int8 " + json.dumps(calib_stats) + f" | {smi}")
         train_launches, train_stats = timed("training", phase_training, ek,
                                             args.seed, workdir)
         log("training " + json.dumps(train_stats) + f" | {smi}")
@@ -1736,6 +2105,9 @@ def main() -> int:
     lm_paths = {"lm_train": lm_launches, "lm_long": long_launches,
                 **{f"lm_generate_{n}": c for n, c in gen_launches.items()}}
     rows_launches = {"serving": launches,
+                     "serving_bf16": quant["bf16"][0]["gather_rows"],
+                     "serving_int8": quant["int8"][0]["gather_rows"],
+                     "calibrated_int8": calib_launches["gather_rows"],
                      "training": train_launches["gather_rows"],
                      "bert": sum(c["gather_rows"]
                                  for c in bert_launches.values()),
@@ -1761,6 +2133,33 @@ def main() -> int:
             "table", "rows", "n", "dim", "ms", "plain_ms", "library_ms",
             "bound_ms", "device_ms", "plain_device_ms", "library_device_ms")}
             for t in timings if t["n"] == LARGE_N],
+    }
+    int8_serve = quant["int8"][0]
+    int8_by_path = {"serving_int8": int8_serve["gather_int8"],
+                    "serving_bf16": quant["bf16"][0]["gather_int8"],
+                    "calibrated_int8": calib_launches["gather_int8"]}
+    served8, large8 = int8_timings
+    int8_entry = {
+        "name": "gather_int8", "route": "cuda",
+        "source": "analytics_zoo_tpu_torch/csrc/gather_int8.cu",
+        "replaces": "analytics_zoo_tpu/ops/embedding_kernels.py:158",
+        "tpu_kernel": "_gather_int8_kernel",
+        "launches": int8_by_path["serving_int8"],
+        "launches_by_path": int8_by_path,
+        "launches_per_batch": int8_by_path["serving_int8"]
+        / quant["int8"][1]["batches"],
+        "max_abs_err": int8_err, "grid_cases": int8_cases,
+        "shape": f"table {served8['rows']}x{served8['dim']} int8, "
+                 f"n={served8['n']}",
+        "ms": served8["ms"], "kernel_ms": served8["ms"],
+        "plain_ms": served8["plain_ms"], "bound_ms": served8["bound_ms"],
+        "bound_by": "bytes", "library_ms": served8["library_ms"],
+        "library": "torch.index_select, then * scale (two calls)",
+        "device_ms": served8["device_ms"],
+        "large": [{k: large8[k] for k in (
+            "table", "rows", "n", "dim", "ms", "plain_ms", "library_ms",
+            "bound_ms", "device_ms", "plain_device_ms", "library_device_ms",
+            "library_max_abs_diff")}],
     }
     wide = pool_timings[0]
     pool_entry = {
@@ -1867,8 +2266,8 @@ def main() -> int:
                 for lab, _, _ in FLASH_TIMED if lab != label},
         })
     print(smi)
-    print(json.dumps({"kernels": [entry, pool_entry] + attn_entries
-                      + flash_entries}))
+    print(json.dumps({"kernels": [entry, pool_entry, int8_entry]
+                      + attn_entries + flash_entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

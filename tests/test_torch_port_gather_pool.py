@@ -146,7 +146,8 @@ def test_pool_wrapper_rejects_what_the_kernel_does_not_take():
         ek.gather_pool(table, ids[0], "sum")
     ek.reset_launch_counts()
     assert ek.pool(table, ids, "sum", clip=False).shape == (2, 3)
-    assert ek.launch_counts == {"gather_rows": 0, "gather_pool": 0}
+    assert ek.launch_counts == {"gather_rows": 0, "gather_pool": 0,
+                                "gather_int8": 0}
 
 
 # -- layers above it ---------------------------------------------------------

@@ -58,8 +58,9 @@ def test_port_and_chip_smoke_import_no_jax():
     assert len(sources) > 20 and all(os.path.exists(p) for p in sources)
     assert {os.path.join(PKG, "capture", "text.py"),
             os.path.join(PKG, "ops", "attention.py"),
-            os.path.join(PKG, "keras", "layers", "attention.py")} <= set(
-        sources)
+            os.path.join(PKG, "keras", "layers", "attention.py"),
+            os.path.join(PKG, "ops", "int8_dataflow.py"),
+            os.path.join(PKG, "inference", "quantize.py")} <= set(sources)
     bad = {os.path.relpath(p, REPO): m for p in sources
            for m in _imports(p) if _forbidden(m)}
     assert bad == {}
@@ -134,7 +135,32 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
                                           [0, 0, 0]]))
     assert ek.gather(table, torch.zeros(0, dtype=torch.int32),
                      clip=True).shape == (0, 3)
-    assert ek.launch_counts == {"gather_rows": 0, "gather_pool": 0}
+    assert ek.launch_counts == {"gather_rows": 0, "gather_pool": 0,
+                                "gather_int8": 0}
+
+
+def test_int8_wrapper_rejects_what_the_kernel_does_not_take():
+    q = torch.zeros(4, 3, dtype=torch.int8)
+    scale = torch.tensor(0.5)
+    ids = torch.zeros(2, dtype=torch.int32)
+    with pytest.raises(TypeError):
+        ek.gather_int8(q.float(), scale, ids)
+    with pytest.raises(TypeError):
+        ek.gather_int8(q, scale.double(), ids)
+    with pytest.raises(TypeError):
+        ek.gather_int8(q, torch.ones(2), ids)
+    with pytest.raises(TypeError):
+        ek.gather_int8(q, scale, ids.long())
+    with pytest.raises(ValueError):
+        ek.gather_int8(q, scale, ids[None])
+    with pytest.raises(ValueError):
+        ek.gather_int8(torch.zeros(3, 4, dtype=torch.int8).t(), scale, ids)
+    ek.reset_launch_counts()
+    out = ek.gather_int8(q + 2, scale, torch.tensor([3, -1, 4],
+                                                    dtype=torch.int32))
+    assert torch.equal(out, torch.tensor([[1., 1., 1.], [0, 0, 0],
+                                          [0, 0, 0]]))
+    assert ek.launch_counts["gather_int8"] == 0
 
 
 @pytest.fixture()
@@ -173,8 +199,8 @@ def test_library_is_keyed_by_a_hash_of_the_sources():
         REPO, "build", "analytics_zoo_tpu_torch")
     assert os.path.basename(path).startswith("libazt_kernels-")
     srcs, _ = kernel_build._sources()
-    assert {"gather_rows.cu", "gather_pool.cu", "fused_short_attn.cu"} <= {
-        os.path.basename(s) for s in srcs}
+    assert {"gather_rows.cu", "gather_pool.cu", "fused_short_attn.cu",
+            "gather_int8.cu"} <= {os.path.basename(s) for s in srcs}
 
 
 # -- on the card --------------------------------------------------------------
@@ -252,6 +278,94 @@ def test_pool_kernel_equals_its_plain_version_on_the_card(cuda_device, rows,
                                                          combiner, clip))
 
 
+#: the int8 kernel's grid: widths that are and are not whole 4-byte words
+INT8_DIMS = (1, 3, 4, 5, 31, 32, 33, 64, 130)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim", INT8_DIMS)
+@pytest.mark.parametrize("n", [0, 1, 31, 256, 257])
+def test_int8_kernel_equals_its_plain_version_on_the_card(cuda_device, dim,
+                                                         n):
+    gen = torch.Generator().manual_seed(dim * 1000 + n)
+    rows = 50
+    q = torch.randint(-127, 128, (rows, dim), generator=gen,
+                      dtype=torch.int8)
+    ids = torch.randint(-3, rows + 3, (n,), generator=gen, dtype=torch.int32)
+    if n >= 2:
+        ids[0], ids[1] = -1, rows
+    # a table whose base is not 4-byte aligned takes the byte path
+    raw = torch.zeros(rows * dim + 1, dtype=torch.int8)
+    raw[1:] = q.reshape(-1)
+    scale = torch.tensor(0.0173, device=cuda_device)
+    for table in (q.to(cuda_device),
+                  raw.to(cuda_device)[1:].view(rows, dim)):
+        before = ek.launch_counts["gather_int8"]
+        got = ek.gather_int8(table, scale, ids.to(cuda_device))
+        torch.cuda.synchronize()
+        assert ek.launch_counts["gather_int8"] == before + (1 if n else 0)
+        assert got.dtype == torch.float32 and got.shape == (n, dim)
+        want = ek.gather_int8_plain(table, scale, ids.to(cuda_device))
+        assert torch.equal(got, want)  # one exact convert, one f32 multiply
+        idn = ids.numpy()
+        ref = q.numpy()[np.clip(idn, 0, rows - 1)].astype(np.float32) \
+            * np.float32(0.0173)
+        ref[(idn < 0) | (idn >= rows)] = 0
+        assert np.array_equal(got.cpu().numpy(), ref)
+
+
+@pytest.mark.cuda
+def test_served_int8_batches_launch_the_int8_kernel_four_times(cuda_device,
+                                                               tmp_path):
+    path = str(tmp_path / "ncf")
+    _small_ncf(cuda_device).save_model(path)
+    model = InferenceModel(device=cuda_device).load_zoo(path).quantize("int8")
+    x = np.array([[1, 2], [9, 7], [-1, 30]], np.float32)
+    ek.reset_launch_counts()
+    for batch in range(1, 4):
+        y = model.predict(x)
+        assert ek.launch_counts["gather_int8"] == 4 * batch
+        assert ek.launch_counts["gather_rows"] == 0
+    cpu = InferenceModel(device="cpu").load_zoo(path).quantize("int8")
+    np.testing.assert_allclose(y, cpu.predict(x), rtol=0, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 16, 17, 24, 256, 257])
+@pytest.mark.parametrize("k,n", [(128, 128), (128, 64), (64, 32), (64, 2),
+                                 (10, 2)])
+def test_int8_matmul_is_exact_on_the_card(cuda_device, m, k, n):
+    from analytics_zoo_tpu_torch.inference.quantize import int8_matmul
+    gen = torch.Generator().manual_seed(m * k + n)
+    a = torch.randint(-127, 128, (m, k), generator=gen, dtype=torch.int8)
+    b = torch.randint(-127, 128, (k, n), generator=gen, dtype=torch.int8)
+    got = int8_matmul(a.to(cuda_device), b.to(cuda_device))
+    assert got.dtype == torch.int32 and got.shape == (m, n)
+    assert torch.equal(got.cpu(), (a.long() @ b.long()).int())
+
+
+@pytest.mark.cuda
+def test_calibrated_int8_on_the_card_equals_the_cpu_at_padded_buckets(
+        cuda_device, tmp_path):
+    path = str(tmp_path / "ncf")
+    _small_ncf("cpu").save_model(path)
+    rng = np.random.default_rng(0)
+    x = np.stack([rng.integers(0, 10, 64), rng.integers(0, 8, 64)],
+                 1).astype(np.float32)
+    batches = [x[:32], x[32:]]
+    card = InferenceModel(device=cuda_device).load_zoo(path).quantize(
+        "int8", calibration_data=batches)
+    cpu = InferenceModel(device="cpu").load_zoo(path).quantize(
+        "int8", calibration_data=batches)
+    for name, scale in cpu._act_scales.items():
+        assert abs(card._act_scales[name] - scale) <= 1e-6 * scale
+    # the CPU's activation scales on the card: the int8 products are exact
+    card._module.load_state_dict(cpu._module.state_dict(), strict=True)
+    for b in (1, 16, 17, 64):  # through _int_mm's padding
+        np.testing.assert_allclose(card.predict(x[:b]), cpu.predict(x[:b]),
+                                   rtol=0, atol=1e-6)
+
+
 @pytest.mark.cuda
 def test_a_wide_and_deep_step_launches_pool_once_and_gather_twice(
         cuda_device):
@@ -277,7 +391,7 @@ def test_a_wide_and_deep_step_launches_pool_once_and_gather_twice(
     steps = hist["iterations"]
     assert steps == 4 and np.isfinite(hist["loss_history"]).all()
     assert ek.launch_counts == {"gather_pool": steps,
-                                "gather_rows": 2 * steps}
+                                "gather_rows": 2 * steps, "gather_int8": 0}
     assert zoo.model.device.type == "cuda"
 
 
