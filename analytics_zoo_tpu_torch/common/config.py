@@ -96,3 +96,8 @@ _global_config.register("kernels.fused_embedding", True,
                         "gather wrapper (ops/embedding_kernels.py): the "
                         "CUDA kernel for a table on the card, its plain "
                         "version for a table on the CPU.")
+_global_config.register("embed.sparse_updates", True,
+                        "Vocab-sharded tables take the row-subset optimizer "
+                        "update (parallel/embedding.py apply_row_update) "
+                        "when the optimizer has one (sparse_rows); false "
+                        "updates them with the dense optimizer.")

@@ -12,20 +12,41 @@ leaf ``{"q", "scale"[, "act_scale"]}`` flattens to ``<layer>.<param>.q``,
 ``.scale`` and ``.act_scale``, the buffers of the port's
 ``inference.quantize.QuantizedWeight``, so it loads strictly into a port
 model quantized the same way; bf16 leaves become bf16 tensors.
+
+A vocab-sharded table crosses to one rank as that rank's block: pass
+``shard=(rank, ranks)`` and the state-dict keys of the sharded tables
+(``sharded``), and each of them, the JAX package's padded global table or
+an unpadded replicated one, becomes :func:`shard_rows` of it.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Iterable, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
 
-def from_jax_params(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+def shard_rows(table: torch.Tensor, rank: int, ranks: int) -> torch.Tensor:
+    """Rank ``rank``'s block of a table split by rows over ``ranks``:
+    ``ceil(rows / ranks)`` rows from ``rank`` times that, zero rows past the
+    end. An unpadded table and its zero-padded form give the same block."""
+    per = -(-table.shape[0] // ranks)
+    block = table[rank * per:(rank + 1) * per]
+    if block.shape[0] < per:
+        block = torch.cat([block, block.new_zeros(
+            (per - block.shape[0],) + tuple(table.shape[1:]))])
+    return block.contiguous()
+
+
+def from_jax_params(params: Mapping[str, Any],
+                    shard: Optional[Tuple[int, int]] = None,
+                    sharded: Iterable[str] = ()) -> Dict[str, torch.Tensor]:
     """``{layer: {param: ndarray}}`` -> a ``state_dict`` keyed
     ``"<layer>.<param>"`` (deeper nesting joins with dots too, and item
     ``i`` of a list or tuple is ``"<name>.<i>"``). Leaves may be numpy
-    arrays or anything ``np.asarray`` takes; values are copied."""
+    arrays or anything ``np.asarray`` takes; values are copied. With
+    ``shard=(rank, ranks)`` every key in ``sharded`` keeps only ``rank``'s
+    block (:func:`shard_rows`)."""
     out: Dict[str, torch.Tensor] = {}
 
     def walk(prefix: str, node: Any) -> None:
@@ -45,4 +66,7 @@ def from_jax_params(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
             out[prefix] = torch.from_numpy(arr)
 
     walk("", params)
+    if shard is not None:
+        for key in sharded:
+            out[key] = shard_rows(out[key], *shard)
     return out

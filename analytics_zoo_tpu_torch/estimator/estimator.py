@@ -30,6 +30,24 @@ that loss over full batches and the unpadded tail. Such a model may be any
 
 The device is the card unless the caller passes ``device="cpu"``; without a
 card the constructor raises ``NoCudaDeviceError``.
+
+On a mesh (``mesh=``, or the default mesh ``parallel.mesh.init_mesh``
+installs) every rank runs its own Estimator over the same ``FeatureSet``,
+and training is data parallel: each rank steps on its share of every
+global batch (``batch_size`` is the global batch and must divide by the
+rank count), scales its loss by ``1 / ranks`` and sums the dense gradients
+over the ranks in one flat all-reduce, which also carries the loss, so
+every rank's loss history is the global batch's mean loss, as the JAX
+package's. Vocab-sharded tables (``sharded_tables()`` of a layer) are not
+all-reduced: their gradient is already this rank's block, and where the
+optimizer has a row-subset form (``sparse_rows``, with
+``embed.sparse_updates`` on) they update only the rows the step touched
+(``parallel.embedding.apply_row_update``), with row-wise state under
+``opt_state["embed"]`` beside the optimizer's own under ``"dense"``.
+``evaluate``, ``predict``, ``get_params`` and ``save_checkpoint`` are
+collective: every rank calls them. ``get_params`` reads a sharded table
+whole (padded), as the JAX package's global arrays read; a checkpoint is
+one file per rank, and it resumes only on as many ranks.
 """
 from __future__ import annotations
 
@@ -41,18 +59,29 @@ import numpy as np
 import torch
 
 from ..common import file_io
+from ..common.config import global_config
 from ..common.context import DeviceLike, resolve_device
 from ..common.triggers import (EveryEpoch, MaxEpoch, Trigger,
                                TrainingState)
-from ..convert import from_jax_params
+from ..convert import from_jax_params, shard_rows
 from ..feature.device_feed import DeviceFeed, masked_eval_batches
 from ..feature.featureset import FeatureSet, tree_map
 from ..keras import metrics as metrics_mod
 from ..keras import objectives
 from ..keras import optimizers as optimizers_mod
+from ..parallel import embedding as _embed
+from ..parallel.mesh import Mesh, default_mesh, set_default_mesh
 
-#: the file a checkpoint directory holds
+#: the file a checkpoint directory holds (one rank)
 CHECKPOINT_FILE = "estimator.pt"
+
+
+def checkpoint_file(mesh: Optional[Mesh]) -> str:
+    """The file this rank's checkpoint is: :data:`CHECKPOINT_FILE` for one
+    rank, ``estimator-rank<r>-of-<n>.pt`` on a mesh of ``n``."""
+    if mesh is None or mesh.size == 1:
+        return CHECKPOINT_FILE
+    return f"estimator-rank{mesh.rank}-of-{mesh.size}.pt"
 
 
 def _to_device(tree, device):
@@ -86,10 +115,16 @@ class Estimator:
                  optimizer: Any = None, metrics: Optional[Sequence] = None,
                  device: DeviceLike = None, seed: int = 42,
                  direct_loss_fn: Optional[Callable] = None,
-                 forward_fn: Optional[Callable] = None):
+                 forward_fn: Optional[Callable] = None,
+                 mesh: Optional[Mesh] = None):
         """``model`` is a keras ``Model`` (built or not: an unbuilt model is
         built from ``seed`` on ``device`` at first use), or with
-        ``direct_loss_fn`` any ``nn.Module``."""
+        ``direct_loss_fn`` any ``nn.Module``. ``mesh`` (default: the default
+        mesh, if any) makes this Estimator one rank of a data-parallel run,
+        on ``mesh.device`` unless ``device`` names another."""
+        self.mesh = mesh if mesh is not None else default_mesh()
+        if self.mesh is not None and device is None:
+            device = self.mesh.device
         self.device = resolve_device(device)
         self.model = model
         self.loss_fn = objectives.get(loss_fn) if loss_fn is not None \
@@ -130,14 +165,76 @@ class Estimator:
     def _params(self) -> Dict[str, torch.nn.Parameter]:
         return dict(self.model.named_parameters())
 
+    @property
+    def _ranks(self) -> int:
+        return self.mesh.size if self.mesh is not None else 1
+
+    def _sharded_table_specs(self) -> Dict[str, Any]:
+        """``{state-dict key: ShardSpec}`` of every vocab-sharded table in
+        the model."""
+        out: Dict[str, Any] = {}
+        for name, module in self.model.named_modules():
+            tables = getattr(module, "sharded_tables", None)
+            if tables is None:
+                continue
+            for key, spec in tables().items():
+                out[f"{name}.{key}" if name else key] = spec
+        return out
+
+    def _embed_plan(self) -> Dict[str, Any]:
+        """The sharded tables the row-subset update owns: all of them when
+        the optimizer has one (``sparse_rows``) and ``embed.sparse_updates``
+        is on, else none (the optimizer updates them as it updates any
+        parameter)."""
+        if (self.optimizer is None
+                or getattr(self.optimizer, "sparse_rows", None) is None
+                or self.direct_loss_fn is not None
+                or not global_config().get("embed.sparse_updates")):
+            return {}
+        return self._sharded_table_specs()
+
+    def _init_opt_state(self, params) -> Dict[str, Any]:
+        """The optimizer's state; with a plan, ``{"dense": the optimizer's
+        state over the other parameters, "embed": {key: row state}}``."""
+        plan = {k: v for k, v in self._embed_plan().items() if k in params}
+        if not plan:
+            return self.optimizer.init(params)
+        kind, _hyper = self.optimizer.sparse_rows
+        return {"dense": self.optimizer.init(
+                    {k: v for k, v in params.items() if k not in plan}),
+                "embed": {k: _embed.init_row_state(kind, params[k])
+                          for k in sorted(plan)}}
+
+    def _pop_stashed_rows(self) -> Dict[str, torch.Tensor]:
+        """``{state-dict key: recv}`` the sharded lookups kept since the
+        last call."""
+        out = {}
+        for name, module in self.model.named_modules():
+            pop = getattr(module, "pop_stashed_rows", None)
+            if pop is not None:
+                for key, recv in pop().items():
+                    out[f"{name}.{key}" if name else key] = recv
+        return out
+
+    def _check_mesh_loss(self) -> None:
+        if self._ranks > 1 and self.direct_loss_fn is not None:
+            raise NotImplementedError(
+                "a captured (direct) loss on a mesh of more than one rank "
+                "is not ported")
+
     def _ensure_initialized(self, features=None) -> None:
         """Build the model (for the shape of ``features``, a numpy tree with
         the record axis first, where it needs one), put it on the device,
         give it the dropout generator and create the optimizer state."""
         if not getattr(self.model, "built", True):
             shape = None if features is None else _input_shape(features)
-            self.model.build(torch.Generator().manual_seed(self.seed),
-                             shape, device=self.device)
+            outer = default_mesh()
+            set_default_mesh(self.mesh)  # the layers shard against it
+            try:
+                self.model.build(torch.Generator().manual_seed(self.seed),
+                                 shape, device=self.device)
+            finally:
+                set_default_mesh(outer)
         elif any(p.device != self.device for p in self.model.parameters()):
             self.model.to(self.device)
         gen = self.dropout_generator
@@ -147,24 +244,67 @@ class Estimator:
         if hasattr(self.model, "set_dropout_generator"):
             self.model.set_dropout_generator(gen)
         if self.opt_state is None and self.optimizer is not None:
-            self.opt_state = self.optimizer.init(self._params())
+            self.opt_state = self._init_opt_state(self._params())
 
     # -- one step -------------------------------------------------------------
 
     def _train_step(self, x, y) -> torch.Tensor:
         """Forward, loss, gradients and the optimizer update; returns the
-        loss on the device (nothing here waits for the device)."""
+        loss on the device (nothing here waits for the device, except the
+        collectives on a mesh)."""
         params = self._params()
         if self.direct_loss_fn is not None:
             loss = self.direct_loss_fn(self.model, x, y).float()
         else:
             loss = self.loss_fn(y, self.model(x).float())
+        ranks = self._ranks
+        if ranks > 1:
+            loss = loss / ranks  # the ranks' sum is the global batch's mean
         grads = torch.autograd.grad(loss, list(params.values()),
                                     allow_unused=True)
         grads = {k: torch.zeros_like(p) if g is None else g
                  for (k, p), g in zip(params.items(), grads)}
-        self.optimizer.step(params, grads, self.opt_state)
-        return loss.detach()
+        loss = loss.detach()
+        if ranks > 1:
+            loss = self._all_reduce_grads(grads, loss)
+        plan = self._embed_plan()
+        rows = self._pop_stashed_rows()
+        if not plan:
+            self.optimizer.step(params, grads, self.opt_state)
+            return loss
+        dense = [k for k in params if k not in plan]
+        self.optimizer.step({k: params[k] for k in dense},
+                            {k: grads[k] for k in dense},
+                            self.opt_state["dense"])
+        kind, hyper = self.optimizer.sparse_rows
+        embed_state = self.opt_state["embed"]
+        for key in sorted(plan):
+            recv = rows.get(key)
+            if recv is not None:
+                embed_state[key] = _embed.apply_row_update(
+                    kind, hyper, plan[key], params[key], grads[key], recv,
+                    embed_state[key])
+            else:
+                embed_state[key] = _embed.apply_dense_update(
+                    kind, hyper, params[key], grads[key], embed_state[key])
+        return loss
+
+    def _all_reduce_grads(self, grads: Dict[str, torch.Tensor],
+                          loss: torch.Tensor) -> torch.Tensor:
+        """Sum every gradient but the sharded tables' (already this rank's
+        whole block) and the loss over the ranks, in one flat all-reduce;
+        ``grads`` are replaced by the sums, the summed loss returned."""
+        sharded = self._sharded_table_specs()
+        keys = [k for k in grads if k not in sharded]
+        flat = torch.cat([grads[k].reshape(-1) for k in keys]
+                         + [loss.reshape(1)])
+        self.mesh.all_reduce_(flat)
+        offset = 0
+        for k in keys:
+            n = grads[k].numel()
+            grads[k] = flat[offset:offset + n].view_as(grads[k])
+            offset += n
+        return flat[offset]
 
     # -- train ----------------------------------------------------------------
 
@@ -184,6 +324,10 @@ class Estimator:
         if (self.loss_fn is None and self.direct_loss_fn is None) \
                 or self.optimizer is None:
             raise RuntimeError("train needs a loss_fn and an optimizer")
+        self._check_mesh_loss()
+        if batch_size % self._ranks:
+            raise ValueError(f"the global batch {batch_size} does not divide "
+                             f"over {self._ranks} ranks")
         end_trigger = end_trigger or MaxEpoch(epochs if epochs is not None
                                               else 1)
         validation_trigger = validation_trigger or EveryEpoch()
@@ -221,9 +365,9 @@ class Estimator:
                         f"replay the wrong records")
                 skip = min(skip, batches_per_epoch)
             self._epoch_data_state = train_set.data_state()
-            feed = DeviceFeed(train_set.train_iterator(batch_size,
-                                                       skip_batches=skip),
-                              self.device)
+            feed = DeviceFeed(train_set.train_iterator(
+                batch_size, skip_batches=skip, mesh=self._mesh_or_none()),
+                self.device)
             epoch_iter = self._epoch_offset = skip
             self.model.train()
             try:
@@ -259,6 +403,17 @@ class Estimator:
             history.extend(torch.stack(pending).cpu().tolist())
         return {"loss_history": history, "iterations": self.global_step}
 
+    def _mesh_or_none(self) -> Optional[Mesh]:
+        """The mesh when it has more than one rank (one rank needs no
+        sharding of batches)."""
+        return self.mesh if self._ranks > 1 else None
+
+    def _eval_batch(self, batch_size: int, size: int) -> int:
+        """The global evaluation batch: ``batch_size`` capped at ``size``,
+        rounded up to a multiple of the rank count."""
+        b = max(1, min(batch_size, size))
+        return -(-b // self._ranks) * self._ranks
+
     # -- evaluate / predict ---------------------------------------------------
 
     def evaluate(self, val_set: FeatureSet, batch_size: int
@@ -272,18 +427,23 @@ class Estimator:
             self.metrics = [metrics_mod.Loss(self.loss_fn)]
         if val_set.size == 0:
             raise ValueError("validation set is empty (0 records)")
-        local_batch = min(batch_size, val_set.size)
+        batch = self._eval_batch(batch_size, val_set.size)
+        mesh = self._mesh_or_none()
         self._ensure_initialized(val_set.features)
         states = [m.init_state(self.device) for m in self.metrics]
         self.model.eval()
         batches = masked_eval_batches(
-            val_set.eval_iterator(local_batch, pad_remainder=True),
-            local_batch)
+            val_set.eval_iterator(batch, pad_remainder=True, mesh=mesh),
+            batch, mesh=mesh)
         with torch.inference_mode():
             for (bx, by, mask), _ in DeviceFeed(batches, self.device):
                 y_pred = self._forward(bx).float()
                 states = [m.update(s, by, y_pred, mask)
                           for m, s in zip(self.metrics, states)]
+            if mesh is not None:
+                for state in states:
+                    for v in state.values():
+                        mesh.all_reduce_(v)
         return metrics_mod.compute_all(self.metrics, states)
 
     def _evaluate_direct(self, val_set: FeatureSet, batch_size: int
@@ -293,6 +453,7 @@ class Estimator:
         size (the JAX package's single-process ``_evaluate_direct``)."""
         if val_set.size == 0:
             raise ValueError("validation set is empty (0 records)")
+        self._check_mesh_loss()
         local_batch = min(batch_size, val_set.size)
         self._ensure_initialized(val_set.features)
         self.model.eval()
@@ -315,12 +476,20 @@ class Estimator:
             x = FeatureSet.from_ndarrays(x, None, shuffle=False)
         self._ensure_initialized(x.features)
         self.model.eval()
+        mesh = self._mesh_or_none()
         outs = []
         with torch.inference_mode():
-            for bx, _, _ in DeviceFeed(
-                    x.eval_iterator(max(1, min(batch_size, x.size))),
-                    self.device):
-                outs.append(self._forward(bx).float())
+            if mesh is None:
+                batches = x.eval_iterator(max(1, min(batch_size, x.size)))
+            else:  # every rank its rows of padded batches, then gathered
+                batches = x.eval_iterator(self._eval_batch(batch_size,
+                                                           x.size),
+                                          pad_remainder=True, mesh=mesh)
+            for bx, _, valid in DeviceFeed(batches, self.device):
+                out = self._forward(bx).float()
+                if mesh is not None:
+                    out = mesh.all_gather(out)[:valid]
+                outs.append(out)
         if not outs:
             return np.zeros((0,), np.float32)
         return torch.cat(outs).cpu().numpy()
@@ -329,20 +498,30 @@ class Estimator:
 
     def get_params(self) -> Dict[str, Any]:
         """``{layer: {param: ndarray}}``, the JAX package's params tree
-        (nested deeper where the layer nests, as BERT's blocks do)."""
+        (nested deeper where the layer nests, as BERT's blocks do). A
+        vocab-sharded table reads whole, padded, from every rank's block:
+        every rank must call this."""
         self._ensure_initialized()
-        return params_tree(self._params().items())
+        named = self._params()
+        for key in self._sharded_table_specs():
+            named[key] = self.mesh.all_gather(named[key].detach())
+        return params_tree(named.items())
 
     def set_params(self, params) -> None:
         """Load a ``{layer: {param: array}}`` tree (the JAX package's, or
         :meth:`get_params`') or a flat ``{"layer.param": array}`` dict; it
-        must name every parameter of the model."""
+        must name every parameter of the model. A vocab-sharded table may
+        come whole, padded or not: this rank keeps its block."""
         self._ensure_initialized()
+        sharded = self._sharded_table_specs()
+        shard = (self.mesh.rank, self.mesh.size) if sharded else None
         if any(isinstance(v, Mapping) for v in params.values()):
-            flat = from_jax_params(params)
+            flat = from_jax_params(params, shard=shard, sharded=sharded)
         else:
             flat = {k: torch.as_tensor(np.asarray(v)) for k, v in
                     params.items()}
+            for key in sharded:
+                flat[key] = shard_rows(flat[key], *shard)
         named = self._params()
         if set(flat) != set(named):
             raise ValueError(
@@ -356,7 +535,7 @@ class Estimator:
     def _snapshot(self) -> Dict[str, Any]:
         self._ensure_initialized()
         meta: Dict[str, Any] = {"global_step": self.global_step,
-                                "epoch": self.epoch,
+                                "epoch": self.epoch, "ranks": self._ranks,
                                 "dropout_rng":
                                     self.dropout_generator.get_state(),
                                 "dropout_device": self.device.type}
@@ -379,26 +558,40 @@ class Estimator:
         }
 
     def save_checkpoint(self, path: str) -> None:
-        """Write a checkpoint directory holding one ``torch.save`` file,
-        through a temporary file renamed into place."""
+        """Write a checkpoint directory holding one ``torch.save`` file per
+        rank (:func:`checkpoint_file`: parameters, sharded tables' blocks
+        and row state included), each through a temporary file renamed into
+        place. On a mesh every rank calls this, and it returns once every
+        rank's file is written."""
         file_io.makedirs(path, exist_ok=True)
-        dst = file_io.join(path, CHECKPOINT_FILE)
+        dst = file_io.join(path, checkpoint_file(self.mesh))
         tmp = dst + f".tmp{os.getpid()}"
         torch.save(self._snapshot(), tmp)
         file_io.replace(tmp, dst)
+        if self._ranks > 1:
+            self.mesh.barrier()
 
     def load_checkpoint(self, path: str) -> None:
         """Restore a :meth:`save_checkpoint` directory: parameters,
         optimizer state, epoch, global step, the dropout generator's state
         (saved on this device type; else it restarts from ``seed``), and
         the data state the next ``train`` resumes from. The model must
-        be built (a ``Sequential`` needs its input shape)."""
-        tree = torch.load(file_io.join(path, CHECKPOINT_FILE),
-                          map_location="cpu", weights_only=True)
+        be built (a ``Sequential`` needs its input shape). A checkpoint
+        resumes only on as many ranks as saved it."""
+        src = file_io.join(path, checkpoint_file(self.mesh))
+        if not file_io.exists(src):
+            raise ValueError(
+                f"checkpoint at {path} has no {checkpoint_file(self.mesh)}: "
+                f"it was not saved by {self._ranks} rank(s)")
+        tree = torch.load(src, map_location="cpu", weights_only=True)
         missing = {"params", "opt_state", "meta"} - set(tree)
         if missing:
             raise ValueError(f"checkpoint at {path} is not an estimator "
                              f"snapshot (missing {sorted(missing)})")
+        saved_ranks = int(tree["meta"].get("ranks", 1))
+        if saved_ranks != self._ranks:
+            raise ValueError(f"checkpoint at {path} was saved by "
+                             f"{saved_ranks} rank(s), not {self._ranks}")
         self._ensure_initialized()
         self.model.load_state_dict(tree["params"], strict=True)
         self.opt_state = _to_device(tree["opt_state"], self.device)

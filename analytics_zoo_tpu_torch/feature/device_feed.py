@@ -24,11 +24,17 @@ import torch
 from .featureset import tree_map
 
 
-def masked_eval_batches(it: Iterator[Any], batch_size: int) -> Iterator[Any]:
+def masked_eval_batches(it: Iterator[Any], batch_size: int,
+                        mesh=None) -> Iterator[Any]:
     """``(x, y, valid)`` from ``eval_iterator`` -> ``((x, y, mask), valid)``
-    with a float mask over the real rows of a padded tail batch."""
+    with a float mask over the real rows of a padded tail batch. With
+    ``mesh``, ``batch_size`` is the global batch and the mask this rank's
+    rows of it."""
     positions = np.arange(batch_size)
-    masks = {batch_size: np.ones(batch_size, np.float32)}
+    if mesh is not None:
+        from ..parallel.mesh import shard_batch
+        positions = shard_batch(mesh, positions)
+    masks = {}
     for x, y, valid in it:
         mask = masks.get(valid)
         if mask is None:

@@ -6,6 +6,12 @@ axis is the record axis. The shuffle stream is the JAX package's exactly:
 ``np.random.default_rng(seed)``, one ``permutation`` per epoch, drawn when
 the epoch's first batch is, so both packages see the same batches in the
 same order.
+
+On a mesh every rank holds the same ``FeatureSet`` (same arrays, same
+seed), so every rank draws the same global batches; each gathers only its
+own rows of each (``parallel.mesh.shard_batch`` on the batch's record
+indices), and an evaluation tail is padded to the same length on every
+rank.
 """
 from __future__ import annotations
 
@@ -80,11 +86,12 @@ class FeatureSet:
         y = tree_map(take, self.labels) if self.labels is not None else None
         return x, y
 
-    def train_iterator(self, batch_size: int, skip_batches: int = 0
-                       ) -> Iterator[Tuple[Any, Any]]:
+    def train_iterator(self, batch_size: int, skip_batches: int = 0,
+                       mesh=None) -> Iterator[Tuple[Any, Any]]:
         """Endless; reshuffles every epoch; drops the remainder so every
         step sees a full batch. ``skip_batches`` fast-forwards within the
-        first epoch only (a resumed mid-epoch checkpoint)."""
+        first epoch only (a resumed mid-epoch checkpoint). With ``mesh``
+        each global batch of ``batch_size`` yields this rank's rows."""
         while True:
             order = (self._rng.permutation(self.size) if self.shuffle
                      else np.arange(self.size))
@@ -92,7 +99,9 @@ class FeatureSet:
             skip_batches = 0
             for start in range(first, self.size - batch_size + 1,
                                batch_size):
-                yield self._gather(order[start:start + batch_size])
+                idx = order[start:start + batch_size]
+                yield self._gather(idx if mesh is None
+                                   else _shard_batch(mesh, idx))
 
     def data_state(self) -> str:
         """The shuffle RNG's state as JSON (PCG64 holds 128-bit ints, which
@@ -104,16 +113,28 @@ class FeatureSet:
         rng.bit_generator.state = json.loads(state_json)
         self._rng = rng
 
-    def eval_iterator(self, batch_size: int, pad_remainder: bool = False
-                      ) -> Iterator[Tuple[Any, Any, int]]:
+    def eval_iterator(self, batch_size: int, pad_remainder: bool = False,
+                      mesh=None) -> Iterator[Tuple[Any, Any, int]]:
         """Bounded, in record order; yields ``(x, y, valid_count)``. With
         ``pad_remainder`` the tail batch repeats its last record up to full
-        size and ``valid_count`` marks the real ones."""
+        size and ``valid_count`` marks the real ones. With ``mesh`` (which
+        needs ``pad_remainder``) each padded global batch yields this
+        rank's rows and the global ``valid_count``."""
+        if mesh is not None and not pad_remainder:
+            raise ValueError("a mesh evaluates padded batches: every rank's "
+                             "batch must have the same length")
         for start in range(0, self.size, batch_size):
             idx = np.arange(start, min(start + batch_size, self.size))
             valid = len(idx)
             if valid < batch_size and pad_remainder:
                 idx = np.concatenate(
                     [idx, np.full(batch_size - valid, idx[-1])])
+            if mesh is not None:
+                idx = _shard_batch(mesh, idx)
             x, y = self._gather(idx)
             yield x, y, valid
+
+
+def _shard_batch(mesh, idx: np.ndarray) -> np.ndarray:
+    from ..parallel.mesh import shard_batch
+    return shard_batch(mesh, idx)

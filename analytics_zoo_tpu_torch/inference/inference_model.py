@@ -11,11 +11,21 @@ so the serving loop decodes the next batch while the card works.
 
 :meth:`quantize` is the JAX package's: bf16, weight-only int8, or int8
 calibrated on sample batches (``inference/quantize.py``).
+
+A model of several inputs (Wide&Deep's four) takes a list of arrays, as
+in the JAX package, or one flat ``[n, sum of widths]`` array when every
+input is ``[n, width]``: the flat array is split into the inputs in order.
+``ClusterServing`` sends such a model its records that way, as one
+float32 tensor each. A float carries an integer exactly only below 2 to
+the power of its mantissa's bits plus one (2^24 for float32), so the
+columns of an id input (``Input(..., ids=True)``) must hold whole numbers
+below that: they become int64, and any other value raises ``ValueError``
+rather than look up another row.
 """
 from __future__ import annotations
 
 import threading
-from typing import Callable, Dict, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -24,6 +34,40 @@ from ..common.context import DeviceLike, resolve_device
 from .quantize import observe_activation_scales, quantize_params
 
 _BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024)
+
+
+def _flat_inputs(module) -> Optional[List[Tuple[int, bool]]]:
+    """``(width, holds ids)`` of each input of a keras ``Model`` of several
+    inputs that are all ``[batch, width]``, else None."""
+    from ..keras.engine import Model
+    if not isinstance(module, Model) or len(module.inputs) < 2:
+        return None
+    if any(len(s.shape) != 2 for s in module.inputs):
+        return None
+    return [(int(s.shape[1]), s.node.layer.ids) for s in module.inputs]
+
+
+def _split_flat(flat: np.ndarray, inputs: List[Tuple[int, bool]]
+                ) -> List[np.ndarray]:
+    """Split a flat ``[n, sum of widths]`` array into the inputs; an id
+    input's columns become int64, and must be whole numbers that the flat
+    array's dtype holds exactly."""
+    widths = [w for w, _ in inputs]
+    parts = np.split(flat, np.cumsum(widths)[:-1], axis=1)
+    out = []
+    for (_, ids), a in zip(inputs, parts):
+        if ids and np.issubdtype(a.dtype, np.floating):
+            exact = 2.0 ** (np.finfo(a.dtype).nmant + 1)
+            if a.size and not (np.all(np.abs(a) < exact)
+                               and np.all(a == np.round(a))):
+                raise ValueError(
+                    f"an id column of the flat {a.dtype} input holds a "
+                    f"value that is not a whole number below {exact:.0f}, "
+                    f"which {a.dtype} carries exactly; pass the inputs as "
+                    f"a list with integer ids")
+            a = a.astype(np.int64)
+        out.append(a)
+    return out
 
 
 def _bucket(n: int) -> int:
@@ -45,6 +89,9 @@ class InferenceModel:
         self._output_f32 = False
         #: {Dense layer name: activation scale} after calibrated int8
         self._act_scales: Optional[Dict[str, float]] = None
+        #: a multi-input model's (width, holds ids) per input: a flat
+        #: array splits by them
+        self._flat_inputs: Optional[List[Tuple[int, bool]]] = None
 
     # -- loaders --------------------------------------------------------------
 
@@ -68,6 +115,7 @@ class InferenceModel:
         self._module = module
         self._output_f32 = False
         self._act_scales = None
+        self._flat_inputs = _flat_inputs(module)
 
     # -- quantization ---------------------------------------------------------
 
@@ -76,9 +124,9 @@ class InferenceModel:
         """Quantize the loaded model in place; returns ``self``. ``bf16``
         casts the float weights (outputs come back f32); ``int8`` without
         ``calibration_data`` is weight-only: every weight of two or more
-        dimensions is kept int8 with an f32 scale (``Dense`` dequantizes
-        it on the fly, ``Embedding`` gathers it through the int8 kernel),
-        and a layer that cannot consume one raises ``NotImplementedError``.
+        dimensions, in any layer, is kept int8 with an f32 scale (``Dense``
+        dequantizes it on the fly, ``Embedding`` gathers it through the int8
+        kernel, and every other layer reads it dequantized to f32).
         ``int8`` with ``calibration_data`` (an iterable of input batches)
         observes each ``Dense`` layer's input range over the batches, then
         quantizes only those kernels, which then run int8 by int8."""
@@ -124,11 +172,13 @@ class InferenceModel:
 
     # -- predict --------------------------------------------------------------
 
-    def _launch(self, x: np.ndarray, n: int) -> Callable[[], np.ndarray]:
+    def _launch(self, xs: List[np.ndarray], n: int
+                ) -> Callable[[], np.ndarray]:
         """Run one padded bucket; returns the fetch thunk."""
-        t = torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
+        ts = [torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
+              for x in xs]
         with self._slots, torch.inference_mode():
-            y = self._module(t)
+            y = self._module(ts[0] if len(ts) == 1 else ts)
             if self._output_f32:
                 y = y.to(torch.float32)
             if self.device.type == "cuda":
@@ -150,16 +200,24 @@ class InferenceModel:
                 _fetch: bool = True):
         """Borrow a slot, pad to the shape bucket with the last row, run,
         trim. ``batch_size`` splits larger inputs into chunks, each
-        bucketed. One input array, one output array."""
+        bucketed. One input array, or a list of them for a model of several
+        inputs (or one flat array, see the module's docstring); one output
+        array."""
         if self._module is None:
             raise RuntimeError("no model loaded")
-        x = np.asarray(x)
-        if x.dtype == np.float64:  # as the JAX package's x64-off jit
-            x = x.astype(np.float32)
-        n = x.shape[0]
+        xs = [np.asarray(a) for a in x] if isinstance(x, (list, tuple)) \
+            else [np.asarray(x)]
+        flat = self._flat_inputs
+        if len(xs) == 1 and flat and xs[0].ndim == 2 \
+                and xs[0].shape[1] == sum(w for w, _ in flat):
+            xs = _split_flat(xs[0], flat)
+        # f64 -> f32, as the JAX package's x64-off jit
+        xs = [a.astype(np.float32) if a.dtype == np.float64 else a
+              for a in xs]
+        n = xs[0].shape[0]
         if batch_size is not None and n > batch_size:
-            thunks = [self.predict(x[i:i + batch_size], batch_size,
-                                   _fetch=False)
+            thunks = [self.predict([a[i:i + batch_size] for a in xs],
+                                   batch_size, _fetch=False)
                       for i in range(0, n, batch_size)]
 
             def gather() -> np.ndarray:
@@ -168,9 +226,10 @@ class InferenceModel:
             return gather() if _fetch else gather
         bucket = _bucket(n)
         if bucket != n:
-            pad = x[-1:] if n else np.zeros((1,) + x.shape[1:], x.dtype)
-            x = np.concatenate([x, np.repeat(pad, bucket - n, axis=0)])
-        fetch = self._launch(x, n)
+            xs = [np.concatenate([a, np.repeat(
+                a[-1:] if n else np.zeros((1,) + a.shape[1:], a.dtype),
+                bucket - n, axis=0)]) for a in xs]
+        fetch = self._launch(xs, n)
         return fetch() if _fetch else fetch
 
     def predict_async(self, x, batch_size: Optional[int] = None):

@@ -2,12 +2,16 @@
 quantize.py``), on the port's modules rather than on a parameter pytree.
 
 - bf16: every float parameter is cast to bf16 in place.
-- int8, weight-only: every float parameter of two or more dimensions
-  becomes a :class:`QuantizedWeight`, an int8 buffer ``q`` with its f32 0-d
-  ``scale`` (symmetric, per tensor), on the parameter's device; the f32
-  original is freed. A ``Dense`` kernel dequantizes on the fly; an
+- int8, weight-only: every float parameter of two or more dimensions, in
+  any module, becomes a :class:`QuantizedWeight`, an int8 buffer ``q`` with
+  its f32 0-d ``scale`` (symmetric, per tensor), on the parameter's device;
+  the f32 original is freed. A ``Dense`` kernel dequantizes on the fly; an
   ``Embedding`` table stays int8 on the card and its rows dequantize in the
-  int8 gather kernel (``ops.embedding_kernels.gather_pool_int8``).
+  int8 gather kernel (``ops.embedding_kernels.gather_pool_int8``). Every
+  other module that holds one (Wide&Deep's wide table, ``SparseEmbedding``,
+  the attention layers, BERT, the LM, any ``nn.Module``) reads it as ``q *
+  scale`` in f32 each time its code reads the attribute, as the JAX package
+  dequantizes the whole tree before each forward.
 - int8, calibrated: :func:`observe_activation_scales` records each
   ``Dense`` layer's input range over calibration batches; only those
   layers' kernels are quantized, each carrying its f32 ``act_scale``, and
@@ -88,6 +92,40 @@ def _consumes_int8(module: nn.Module, name: str) -> bool:
             or (type(module) is Embedding and name == "embeddings"))
 
 
+def _dequantizing_getattr(self, name: str):
+    value = nn.Module.__getattr__(self, name)
+    if isinstance(value, QuantizedWeight):
+        return value.dequantize()
+    return value
+
+
+#: module class -> its subclass that dequantizes on read
+_DEQUANTIZING: Dict[type, type] = {}
+
+
+def _dequantize_on_read(module: nn.Module) -> None:
+    """Make ``module`` read each :class:`QuantizedWeight` attribute as its f32
+    ``q * scale``: its class becomes a subclass (same name, ``isinstance``
+    unchanged) whose ``__getattr__`` dequantizes, wherever the read is (the
+    LM's blocks read their children's kernels, and its training and
+    generation call no ``forward``, so forward hooks would miss them). The
+    state dict still holds ``q`` and ``scale``; the module itself no longer
+    pickles (``torch.save(model)``): save its ``state_dict``, as
+    ``save_model`` does, the way ``torch.nn.utils.parametrize`` asks of the
+    modules it swaps the class of."""
+    cls = type(module)
+    if cls in _DEQUANTIZING.values():
+        return
+    sub = _DEQUANTIZING.get(cls)
+    if sub is None:
+        sub = type(cls.__name__, (cls,),
+                   {"__getattr__": _dequantizing_getattr,
+                    "__module__": cls.__module__,
+                    "__qualname__": cls.__qualname__})
+        _DEQUANTIZING[cls] = sub
+    module.__class__ = sub
+
+
 def quantize_params(model: nn.Module, dtype: str = "bf16",
                     act_scales: Optional[Dict[str, float]] = None
                     ) -> nn.Module:
@@ -95,13 +133,13 @@ def quantize_params(model: nn.Module, dtype: str = "bf16",
 
     ``bf16`` casts every float parameter. ``int8`` replaces every float
     parameter of two or more dimensions by a :class:`QuantizedWeight`
-    (biases and scalars stay f32), and raises ``NotImplementedError``,
-    before changing anything, when a layer that cannot consume an int8
-    weight yet holds one (``SparseEmbedding``, Wide&Deep's wide table, the
-    attention layers and the LM). With ``act_scales`` (``{layer name:
-    activation scale}`` from :func:`observe_activation_scales`) only the
-    kernels of those ``Dense`` layers are quantized, each carrying its
-    ``act_scale``; every other parameter stays f32."""
+    (biases and scalars stay f32): ``Dense`` kernels and ``Embedding``
+    tables run int8, and every other module holding one reads it
+    dequantized (:func:`_dequantize_on_read`). With ``act_scales``
+    (``{layer name: activation scale}`` from
+    :func:`observe_activation_scales`) only the kernels of those ``Dense``
+    layers are quantized, each carrying its ``act_scale``; every other
+    parameter stays f32."""
     if dtype in ("bf16", "bfloat16"):
         for m, name, p in _float_params(model):
             m._parameters[name] = nn.Parameter(
@@ -110,19 +148,10 @@ def quantize_params(model: nn.Module, dtype: str = "bf16",
     if dtype != "int8":
         raise ValueError(f"unsupported quantization dtype {dtype}")
     if act_scales is None:
-        plan = _float_params(model, min_dim=2)
-        names = {id(m): path for path, m in model.named_modules()}
-        bad = [f"{type(m).__name__} '{getattr(m, 'name', names[id(m)])}' "
-               f"({name} {tuple(p.shape)})" for m, name, p in plan
-               if not _consumes_int8(m, name)]
-        if bad:
-            raise NotImplementedError(
-                "weight-only int8 is not ported for " + ", ".join(bad)
-                + "; these layers cannot consume an int8 weight yet (use "
-                "bf16, or calibrated int8, which quantizes Dense kernels "
-                "only)")
-        for m, name, p in plan:
+        for m, name, p in _float_params(model, min_dim=2):
             _replace(m, name, _qleaf(p))
+            if not _consumes_int8(m, name):
+                _dequantize_on_read(m)
         return model
     from ..keras.layers.core import Dense
     for m in model.modules():
@@ -142,6 +171,8 @@ def dequantize_params(model: nn.Module,
         for name, child in list(m._modules.items()):
             if _is_qleaf(child):
                 setattr(m, name, nn.Parameter(child.dequantize(dtype)))
+        if type(m) in _DEQUANTIZING.values():
+            m.__class__ = type(m).__bases__[0]
     for m, name, p in _float_params(model):
         if p.dtype != dtype:
             m._parameters[name] = nn.Parameter(

@@ -130,9 +130,13 @@ class SymbolicTensor:
 
 
 class InputLayer(Layer):
-    def __init__(self, shape: Shape, name: Optional[str] = None):
+    def __init__(self, shape: Shape, name: Optional[str] = None,
+                 ids: bool = False):
         super().__init__(name)
         self.shape = (None,) + tuple(shape)
+        #: whether the input holds integer ids (which a float array carries
+        #: exactly only up to its mantissa)
+        self.ids = ids
 
     def forward(self, inputs):
         return inputs
@@ -141,8 +145,11 @@ class InputLayer(Layer):
         return self.shape
 
 
-def Input(shape: Shape, name: Optional[str] = None) -> SymbolicTensor:
-    layer = InputLayer(shape, name)
+def Input(shape: Shape, name: Optional[str] = None,
+          ids: bool = False) -> SymbolicTensor:
+    """A model input of ``shape`` (batch axis left out); ``ids`` marks one
+    that holds integer ids."""
+    layer = InputLayer(shape, name, ids)
     return SymbolicTensor(layer.shape, Node(layer, []), 0)
 
 

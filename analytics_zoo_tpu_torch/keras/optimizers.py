@@ -7,11 +7,17 @@ the parameters in place with PyTorch's multi-tensor (``_foreach``) ops, a
 few launches per step whatever the number of tensors. The arithmetic is
 optax's, in optax's order: :func:`Adam` is ``optax.adam`` (``eps`` added
 after the bias-corrected square root), :func:`SGD` is ``optax.sgd`` with
-optional momentum, Nesterov and weight decay (``add_decayed_weights``).
+optional momentum, Nesterov and weight decay (``add_decayed_weights``),
+:func:`Adagrad` is ``optax.adagrad`` (accumulator from 0.1, ``eps`` 1e-7).
+
+``sparse_rows`` is the JAX package's: ``(kind, hyperparameters)`` where the
+optimizer's arithmetic has a row-subset form that the Estimator may run on
+vocab-sharded tables (``parallel.embedding.apply_row_update``), else None
+(momentum, weight decay).
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, List, Optional, Union
+from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -31,6 +37,8 @@ class Optimizer:
         self.learning_rate = learning_rate
         self._init = init
         self._step = step
+        #: ``(kind, hyperparameters)`` of the row-subset update, or None
+        self.sparse_rows: Optional[Tuple[str, Dict[str, float]]] = None
 
     def init(self, params: Tensors) -> Dict[str, Any]:
         """Zero state for ``params`` (name -> tensor), on their devices."""
@@ -84,7 +92,10 @@ def SGD(learningrate: float = 0.01, momentum: float = 0.0,
                 gs = trace
         torch._foreach_add_(ps, torch._foreach_mul(gs, -learningrate))
 
-    return Optimizer("sgd", learningrate, init, step)
+    opt = Optimizer("sgd", learningrate, init, step)
+    if momentum == 0.0 and not nesterov and weightdecay == 0.0:
+        opt.sparse_rows = ("sgd", {"lr": float(learningrate)})
+    return opt
 
 
 def Adam(learningrate: float = 1e-3, beta1: float = 0.9, beta2: float = 0.999,
@@ -116,10 +127,42 @@ def Adam(learningrate: float = 1e-3, beta1: float = 0.9, beta2: float = 0.999,
         torch._foreach_mul_(upd, -learningrate)
         torch._foreach_add_(ps, upd)
 
-    return Optimizer("adam", learningrate, init, step)
+    opt = Optimizer("adam", learningrate, init, step)
+    # lazy adam on sharded tables: moments move for touched rows only
+    opt.sparse_rows = ("adam", {"lr": float(learningrate),
+                                "b1": float(beta1), "b2": float(beta2),
+                                "eps": float(epsilon)})
+    return opt
 
 
-_FACTORIES = {"sgd": SGD, "adam": Adam}
+def Adagrad(learningrate: float = 1e-2, weightdecay: float = 0.0
+            ) -> Optimizer:
+    """``optax.adagrad``: ``acc += g^2`` from 0.1, ``p += -lr * g *
+    rsqrt(acc + 1e-7)`` (0 where ``acc`` is 0), after optional weight
+    decay."""
+    eps = 1e-7
+
+    def init(params):
+        return {"acc": {k: torch.full_like(v, 0.1)
+                        for k, v in params.items()}}
+
+    def step(ps, gs, state):
+        if weightdecay > 0:
+            gs = torch._foreach_add(gs, torch._foreach_mul(ps, weightdecay))
+        acc = _slots(state, "acc", len(ps))
+        torch._foreach_add_(acc, torch._foreach_mul(gs, gs))
+        for p, g, a in zip(ps, gs, acc):
+            inv_rt = torch.where(a > 0, torch.rsqrt(a + eps),
+                                 torch.zeros_like(a))
+            p.add_((inv_rt * g) * (-learningrate))
+
+    opt = Optimizer("adagrad", learningrate, init, step)
+    if weightdecay == 0.0:
+        opt.sparse_rows = ("adagrad", {"lr": float(learningrate), "eps": eps})
+    return opt
+
+
+_FACTORIES = {"sgd": SGD, "adam": Adam, "adagrad": Adagrad}
 
 
 def get(optimizer: Union[str, Optimizer],

@@ -27,7 +27,8 @@ class NeuralCF(Recommender):
         self.hidden_layers = list(hidden_layers)
         self.include_mf = include_mf
         self.mf_embed = mf_embed
-        #: vocab sharding is a later slice; the Embedding layer raises on it
+        #: None/False = replicated tables; True/axis name = vocab-shard the
+        #: four tables over the default mesh (``Embedding(shard=...)``)
         self.shard_embeddings = shard_embeddings
         #: kept so zoo_model.json matches the JAX package's; the port's
         #: Embedding ignores it (one gather path, the kernel on the card)

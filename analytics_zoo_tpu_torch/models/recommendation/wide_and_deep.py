@@ -7,6 +7,11 @@ a ``[total_wide_dim, num_classes]`` table (``one_hot(x) @ W == W[x].sum``),
 pooled by ``gather_pool`` and so by the gather+pool kernel on the card.
 Indicator columns are one-hot on the device, embedding columns get one
 table each (the row-gather kernel), continuous columns pass through.
+
+``shard_embeddings`` (True or a mesh axis name) vocab-shards the wide table
+and every embedding table over the ranks of the default mesh
+(``parallel/embedding.py``): the hashed-cross vocabulary stops being
+replicated on every rank, and its gradient stops being a dense all-reduce.
 """
 from __future__ import annotations
 
@@ -21,6 +26,7 @@ from torch import nn
 from ..common import Recommender, register_zoo_model
 from ...keras import Input, Model
 from ...keras.engine import Layer
+from ...keras.layers.embedding import ShardedTable
 from ...keras.layers import (Activation, Dense, Embedding, Flatten, Lambda,
                              merge)
 from ...ops import embedding_kernels as _ek
@@ -104,32 +110,48 @@ def features_from_dataframe(df, column_info: ColumnFeatureInfo
     return [wide, ind, emb, cont], labels
 
 
-class _WideLinear(Layer):
+class _WideLinear(ShardedTable, Layer):
     """Embedding-sum sparse linear layer over offset bucket ids
-    ``[batch, n_wide]``: ``table[ids].sum(1) + bias``."""
+    ``[batch, n_wide]``: ``table[ids].sum(1) + bias``.
+
+    With ``shard`` the ``[total_dim, num_classes]`` table is drawn whole,
+    padded with zero rows and split over the default mesh's ranks; this
+    rank keeps its block and looks rows up through the sharded engine."""
+
+    TABLE = "table"
 
     def __init__(self, total_dim: int, num_classes: int, name=None,
                  shard=None, fused=None):
         super().__init__(name)
-        if shard:
-            raise NotImplementedError(
-                "vocab-sharded embeddings (shard=...) are not ported yet")
         self.total_dim = total_dim
         self.num_classes = num_classes
         #: kept for the JAX package's surface; the port has one path
         self.fused = fused
+        self._init_sharding(shard)
+
+    @property
+    def _vocab(self) -> int:
+        return self.total_dim
+
+    @property
+    def _dim(self) -> int:
+        return self.num_classes
 
     def build(self, generator, input_shape, device):
         table = torch.empty((self.total_dim, self.num_classes)).uniform_(
             -0.05, 0.05, generator=generator)
-        self.table = nn.Parameter(table.to(device))
+        self.table = nn.Parameter(self._shard_table(table).to(device))
         self.bias = nn.Parameter(torch.zeros(self.num_classes, device=device))
         self.built = True
 
     def forward(self, inputs):
         idx = _embed.validate_ids(inputs.to(torch.int32), self.total_dim)
-        return _ek.gather_pool(self.table, idx, "sum",
-                               mask_negative=False) + self.bias
+        if not self._takes_sharded(idx):
+            return _ek.gather_pool(self.table, idx, "sum",
+                                   mask_negative=False) + self.bias
+        rows = self._sharded(self.table, idx.reshape(-1))
+        return rows.reshape(tuple(idx.shape) + (self.num_classes,)).sum(1) \
+            + self.bias
 
     def compute_output_shape(self, input_shape):
         return (input_shape[0], self.num_classes)
@@ -174,7 +196,8 @@ class WideAndDeep(Recommender):
         self.num_classes = num_classes
         self.column_info = column_info
         self.hidden_layers = list(hidden_layers)
-        #: vocab sharding is a later slice; the layers raise on it
+        #: None/False = replicated tables; True/axis name = vocab-shard the
+        #: wide table and the embedding tables over the default mesh
         self.shard_embeddings = shard_embeddings
         #: kept so zoo_model.json matches the JAX package's; ignored
         self.fused_embeddings = fused_embeddings
@@ -203,9 +226,10 @@ class WideAndDeep(Recommender):
 
     def build_model(self) -> Model:
         ci = self.column_info
-        in_wide = Input((len(ci.wide_cols),), name="wide_input")
-        in_ind = Input((len(ci.indicator_cols),), name="indicator_input")
-        in_emb = Input((len(ci.embed_cols),), name="embed_input")
+        in_wide = Input((len(ci.wide_cols),), name="wide_input", ids=True)
+        in_ind = Input((len(ci.indicator_cols),), name="indicator_input",
+                       ids=True)
+        in_emb = Input((len(ci.embed_cols),), name="embed_input", ids=True)
         in_cont = Input((len(ci.continuous_cols),), name="continuous_input")
         inputs = [in_wide, in_ind, in_emb, in_cont]
 

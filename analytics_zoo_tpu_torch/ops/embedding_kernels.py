@@ -1,22 +1,28 @@
-"""Embedding row gathers and bag pooling (counterpart of
-``analytics_zoo_tpu/ops/embedding_kernels.py``: ``gather_rows``,
-``gather_rows_clip``, ``gather_pool``, and the int8 tables'
-``quantize_table``, ``gather_pool_int8`` and ``int8_error_bound``).
+"""Embedding row gathers, bag pooling and the sharded backward's row
+scatter-add (counterpart of ``analytics_zoo_tpu/ops/embedding_kernels.py``:
+``gather_rows``, ``gather_rows_clip``, ``gather_pool``, ``segment_grads``,
+``scatter_rows``, and the int8 tables' ``quantize_table``,
+``gather_pool_int8`` and ``int8_error_bound``).
 
-On a CUDA tensor every gather launches a hand-written kernel, or raises;
-there is no fallback. ``csrc/gather_rows.cu`` replaces the TPU's
-``_gather_kernel``, ``csrc/gather_pool.cu`` its ``_gather_pool_kernel`` and
-``csrc/gather_int8.cu`` its ``_gather_int8_kernel``. On a CPU tensor a
+On a CUDA tensor every gather and scatter launches a hand-written kernel,
+or raises; there is no fallback. ``csrc/gather_rows.cu`` replaces the TPU's
+``_gather_kernel``, ``csrc/gather_pool.cu`` its ``_gather_pool_kernel``,
+``csrc/gather_int8.cu`` its ``_gather_int8_kernel`` and
+``csrc/scatter_rows.cu`` its ``_scatter_add_kernel``. On a CPU tensor a
 wrapper runs the kernel's plain PyTorch version (:func:`gather_plain`,
-:func:`gather_pool_plain`, :func:`gather_int8_plain`) with the same
-contract, which the tests hold against the JAX package and which
-``chip_smoke.py`` holds each kernel against on the card.
+:func:`gather_pool_plain`, :func:`gather_int8_plain`,
+:func:`scatter_rows_plain`) with the same contract, which the tests hold
+against the JAX package and which ``chip_smoke.py`` holds each kernel
+against on the card. :func:`segment_grads` is plain PyTorch on every
+device, as it is plain XLA in the JAX package.
 
 The contracts are the TPU kernels', not ``jnp.take``'s: ``clip`` clamps ids
 to ``[0, rows-1]``; fill mode writes zero rows for any id outside
 ``[0, rows)``, negative ids included; a masked pool leaves such ids out of
 the sum and of the mean/sqrtn count. The TPU package's 128-lane rule
-(``_lane_ok``) is dropped: every table width reaches the kernels.
+(``_lane_ok``) is dropped: every table width reaches the kernels, and the TPU's VMEM gate on the scatter (``SCATTER_VMEM_BYTES``)
+too: every sharded backward on the card launches the scatter kernel
+(ROADMAP Queue C7).
 """
 from __future__ import annotations
 
@@ -32,7 +38,8 @@ _DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _COMBINERS = {"sum": 0, "mean": 1, "sqrtn": 2}
 
-launch_counts = LaunchCounts("gather_rows", "gather_pool", "gather_int8")
+launch_counts = LaunchCounts("gather_rows", "gather_pool", "gather_int8",
+                             "scatter_rows")
 reset_launch_counts = launch_counts.reset
 
 
@@ -222,6 +229,77 @@ def gather_rows_clip(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     """Clip-mode row gather over any ``ids`` shape; differentiable in
     ``table``. Returns ``ids.shape + (dim,)``."""
     return gather_pool(table, ids, None, mask_negative=False)
+
+
+# -- the sharded backward: segment sums and the row scatter-add ---------------
+
+
+def segment_grads(g: torch.Tensor, inv: torch.Tensor, d: torch.Tensor,
+                  slot: torch.Tensor, shards: int) -> torch.Tensor:
+    """Sum the output cotangent ``g`` ``[n, dim]`` per unique id (``inv``
+    maps each id to its unique) and place each unique's sum in its
+    (destination, slot) cell of the request-shaped exchange buffer ``[shards,
+    n, dim]``: an ``index_add_`` and an index write, on every device."""
+    n = inv.shape[0]
+    g_u = torch.zeros((n, g.shape[-1]), dtype=g.dtype, device=g.device)
+    g_u.index_add_(0, inv.long(), g)
+    out = torch.zeros((shards, n, g.shape[-1]), dtype=g.dtype,
+                      device=g.device)
+    out[d.long(), slot.long()] = g_u
+    return out
+
+
+def scatter_rows_plain(g: torch.Tensor, rows: torch.Tensor,
+                       num_rows: int) -> torch.Tensor:
+    """Plain PyTorch version of the scatter kernel: zeros ``[num_rows,
+    dim]``, then ``index_add_`` of the rows of ``g`` whose ``rows`` lie in
+    ``[0, num_rows)``; the others drop."""
+    ok = (rows >= 0) & (rows < num_rows)
+    out = torch.zeros((num_rows, g.shape[1]), dtype=g.dtype, device=g.device)
+    kept = rows[ok].long()
+    if kept.numel():  # an empty index_add_ fails to launch on the card
+        out.index_add_(0, kept, g[ok])
+    return out
+
+
+def scatter_rows(g_flat: torch.Tensor, rows: torch.Tensor,
+                 num_rows: int) -> torch.Tensor:
+    """The scatter kernel's wrapper: the row-subset cotangent ``[num_rows,
+    dim]`` f32 of a table shard, ``out[rows[j]] += g_flat[j]`` over a zeroed
+    block for ``rows[j]`` in ``[0, num_rows)``, the rest dropped, for
+    contiguous f32 ``g_flat`` ``[n, dim]`` and flat int32 ``rows``. CPU
+    tensors take :func:`scatter_rows_plain`; CUDA tensors launch the kernel
+    on the current stream (duplicate rows add with atomics, in no fixed
+    order)."""
+    if g_flat.dim() != 2 or rows.dim() != 1 \
+            or rows.shape[0] != g_flat.shape[0]:
+        raise ValueError(f"g must be [n, dim] and rows [n], got "
+                         f"{tuple(g_flat.shape)} and {tuple(rows.shape)}")
+    if g_flat.dtype != torch.float32:
+        raise TypeError(f"g must be float32, got {g_flat.dtype}")
+    if rows.dtype != torch.int32:
+        raise TypeError(f"rows must be int32, got {rows.dtype}")
+    if num_rows < 1 or g_flat.shape[1] < 1:
+        raise ValueError(f"empty block [{num_rows}, {g_flat.shape[1]}]")
+    if not (g_flat.is_contiguous() and rows.is_contiguous()):
+        raise ValueError("g and rows must be contiguous")
+    if g_flat.device != rows.device:
+        raise ValueError(f"g on {g_flat.device}, rows on {rows.device}")
+    if not on_card(g_flat, "scatter_rows"):
+        return scatter_rows_plain(g_flat, rows, num_rows)
+    n, dim = g_flat.shape
+    if n == 0:
+        return torch.zeros((num_rows, dim), dtype=torch.float32,
+                           device=g_flat.device)
+    out = torch.empty((num_rows, dim), dtype=torch.float32,
+                      device=g_flat.device)
+    lib = load_library()
+    with torch.cuda.device(g_flat.device):
+        stream = torch.cuda.current_stream(g_flat.device).cuda_stream
+        rc = lib.azt_scatter_rows(g_flat.data_ptr(), rows.data_ptr(),
+                                  out.data_ptr(), n, num_rows, dim, stream)
+    launch_counts.launched("scatter_rows", rc)
+    return out
 
 
 # -- int8 tables ---------------------------------------------------------------

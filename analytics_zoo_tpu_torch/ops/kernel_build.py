@@ -114,6 +114,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.azt_gather_pool.restype = i
     lib.azt_gather_int8.argtypes = [p, p, p, p, ll, ll, ll, p]
     lib.azt_gather_int8.restype = i
+    lib.azt_scatter_rows.argtypes = [p, p, p, ll, ll, ll, p]
+    lib.azt_scatter_rows.restype = i
     f, u = ctypes.c_float, ctypes.c_uint32
     lib.azt_fused_short_fwd.argtypes = [p, p, p, p, p, p, ll, i, i, i, i, f,
                                         u, f, i, p]

@@ -1,1 +1,2 @@
-"""Embedding-id validation (the sharded engine is a later slice)."""
+"""Ranks over ``torch.distributed`` (``mesh``) and the vocab-sharded
+embedding engine (``embedding``)."""

@@ -112,6 +112,30 @@ Phases, each of which must pass or the script exits non-zero:
    activation scales within 1e-6 relative, int8 kernels equal; with the
    CPU's scales loaded on the card, predictions at buckets 1, 16 and 256
    within 1e-5 of the CPU's (buckets 1 and 16 pad for ``torch._int_mm``).
+13. row scatter-add kernel (B3): held against its plain version for widths
+   1, 2, 3, 8, 64 and 130, 0 to 4096 grad rows, blocks of 7, 5000 and
+   25,000,254 rows, rows out of range on both sides: bit for bit where no
+   row repeats, within 2e-5 of the output's scale where rows repeat (f32
+   atomics add them in no fixed order). Timed at the Wide&Deep shard
+   ([25,000,254, 2], n = 4 x 6144) and at a 1 GiB block ([2^22, 64], 2^20
+   uniform rows) beside its plain version and ``zeros`` + ``index_add_``.
+14. vocab-sharded Wide&Deep: 4 gloo ranks (``torch.multiprocessing``) share
+   the card, each holding a quarter of every table. At the columns of 5,
+   ``SGD(0.1)``, 4 steps of the global batch 8192: parameters within 1e-5
+   of the replicated model trained on the card in one process from the
+   same weights, and of the same 4 ranks on the CPU; each rank launches 3
+   B1 (forward lookups) and 3 B3 (backward) a step and no B2, and the
+   ranks' exchange bytes are ``exchange_cost_bytes``. Then at
+   ``bench_widedeep_sharded``'s width (100M-bucket cross: a 100,001,016 x 2
+   f32 table, 200 MB a rank, asserted at most a quarter of the dense
+   table plus one row), lazy Adam 1e-3, 16 steps: samples/s, step ms by
+   CUDA events, peak memory and bytes exchanged per rank, and rank 0's
+   step in the profiler (device time, top kernels and host operators);
+   the replicated model at 1M buckets in one process beside it. Four ranks time-share one
+   card: no multi-card scaling is measured.
+15. weight-only int8 Wide&Deep (columns of 5): predicted on the card and on
+   the CPU from the same saved model, within 1e-5; the wide table reads
+   dequantized (one B2 a batch), the embedding tables through B9.
 
 Each phase's seconds are printed. The last three lines of output are the
 card's
@@ -124,11 +148,13 @@ import math
 import os
 import re
 import shutil
+import socket
 import subprocess
 import sys
 import tempfile
 import threading
 import time
+import traceback
 
 import numpy as np
 import torch
@@ -203,6 +229,32 @@ INT8_DIMS = (1, 3, 4, 5, 31, 32, 33, 64, 130)
 INT8_NS = (0, 1, 2, 31, 32, 33, 255, 256, 257)
 #: the timed int8 table that L2 cannot hold: 16 Mi x 64 int8 = 1 GiB
 INT8_HBM_ROWS = 1 << 24
+#: B3's grid: widths (the wide table's 2, the embed tables' 8), grad
+#: counts (those of the sharded step: 4 ranks x 2048 rows for an embed
+#: table, x 3 wide ids for the wide table), and block rows (small, the
+#: occ_e shard's 250, and the full-width Wide&Deep shard's)
+SCATTER_DIMS = (1, 2, 3, 8, 64, 130)
+SCATTER_NS = (0, 1, 255, 256, 257, 4096, 8192, 24576)
+SCATTER_ROWS = (7, 250, 5000, 25000254)
+#: the full-width Wide&Deep shard: 100,001,016 wide rows over 4 ranks, and
+#: one step's exchanged grads there (4 ranks x 2048 rows x 3 wide ids)
+WND_SHARD_ROWS, WND_SHARD_N = 25000254, 4 * 6144
+#: a shard block L2 cannot hold: 2^22 x 64 f32 = 1 GiB, 2^20 uniform rows
+SCATTER_HBM = (1 << 22, 64, 1 << 20)
+#: vocab-sharded Wide&Deep: gloo ranks sharing the one card, the global
+#: batch (bench_widedeep_sharded's), and steps held to the replicated run
+SHARD_RANKS, SHARD_BATCH, SHARD_STEPS = 4, 8192, 4
+#: full width: bench_widedeep_sharded's 100M-bucket cross (bench.py:
+#: 752-755), lazy Adam for 16 steps, then 10 steps timed by CUDA events;
+#: the replicated layout beside it at 1M buckets (bench.py:816-824)
+FULL_CROSS, FULL_STEPS, FULL_TIMED = 100000000, 16, 10
+#: steps in the profiler's trace of a full-width step (rank 0's)
+FULL_PROFILED = 5
+REPLICATED_CROSS = 1000000
+#: seconds the parent waits for every rank's results
+RANKS_TIMEOUT_S = 480
+#: weight-only int8 Wide&Deep, card against CPU: records predicted
+INT8_WND_RECORDS = 20000
 #: quantized serving: a burst, then requests one at a time, per mode
 QUANT_BURST, QUANT_SINGLE = 512, 16
 #: the served answers against the CPU's quantized forward
@@ -580,6 +632,105 @@ def phase_int8_kernels(ek, dev, seed: int):
     return timings, max_err, checked
 
 
+def scatter_bound_ms(num_rows: int, dim: int, n: int) -> float:
+    """Least time for the scatter at the memory rate: the zero fill of the
+    ``[num_rows, dim]`` f32 block written once, and per grad row its row
+    id read, its ``dim`` f32 read, and its output row read and written."""
+    return ((num_rows * dim * 4 + n * (4 + 3 * dim * 4)) / HBM_BYTES_PER_S
+            * 1e3)
+
+
+def _scatter_rows_input(dev, n: int, num_rows: int, repeat: bool):
+    """Rows for the B3 grid: out of range on both sides (negatives,
+    ``num_rows`` and past it) and, with ``repeat``, in-range rows that
+    repeat; without, every row distinct."""
+    if repeat:
+        pool = torch.randint(-3, num_rows + 3, (max(1, n // 4),),
+                             device=dev)
+        rows = pool[torch.randint(0, pool.numel(), (n,), device=dev)]
+    else:
+        rows = torch.randperm(num_rows + 6, device=dev)[:n] - 3
+    return rows.to(torch.int32)
+
+
+def _held_to_plain(ek, g, rows, num_rows: int, what: str) -> tuple:
+    """Run B3 and its plain version on ``(g, rows)``: bit for bit where no
+    in-range row repeats, else within ``ATTN_ATOL[f32]`` of the output's
+    scale (f32 atomics sum repeats in no fixed order). Returns (largest
+    error, that error over the scale where rows repeat, else None)."""
+    got = ek.scatter_rows(g, rows, num_rows)
+    want = ek.scatter_rows_plain(g, rows, num_rows)
+    torch.cuda.synchronize()
+    check(got.shape == (num_rows, g.shape[1]),
+          f"scatter out {tuple(got.shape)} at {what}")
+    err = float((got - want).abs().max()) if got.numel() else 0.0
+    kept = rows[(rows >= 0) & (rows < num_rows)]
+    if torch.unique(kept).numel() == kept.numel():
+        check(torch.equal(got, want),
+              f"scatter kernel != plain at {what} (no repeated rows)")
+        return err, None
+    scale = max(1.0, float(want.abs().max()))
+    check(err <= ATTN_ATOL[torch.float32] * scale,
+          f"scatter kernel off plain by {err} (scale {scale}) at {what}")
+    return err, err / scale
+
+
+def phase_scatter_kernel(ek, dev, seed: int):
+    """Hold the row scatter-add kernel (B3) against its plain version on the
+    grid, then time both and ``zeros`` + ``index_add_`` at the Wide&Deep
+    shard and at a 1 GiB block, holding B3 to plain there too; returns
+    (timings, largest error, largest error relative to scale with
+    repeated rows, cases)."""
+    torch.manual_seed(seed)
+    abs_err, repeat_err, cases = 0.0, 0.0, 0
+    for num_rows in SCATTER_ROWS:
+        for dim in SCATTER_DIMS:
+            for n in SCATTER_NS:
+                for repeat in (False, True):
+                    if not repeat and n > num_rows + 6:
+                        continue
+                    rows = _scatter_rows_input(dev, n, num_rows, repeat)
+                    g = torch.randn(n, dim, device=dev)
+                    err, rel = _held_to_plain(
+                        ek, g, rows, num_rows,
+                        f"rows={num_rows} dim={dim} n={n}")
+                    abs_err = max(abs_err, err)
+                    repeat_err = max(repeat_err, rel or 0.0)
+                    cases += 1
+                    del g, rows
+        torch.cuda.empty_cache()
+    log(f"scatter kernel against plain on {cases} cases: bit for bit "
+        f"without repeated rows, {repeat_err:.3g} of scale with them")
+
+    timings = []
+    for label, num_rows, dim, n, iters in (
+            ("wnd_shard", WND_SHARD_ROWS, 2, WND_SHARD_N, 50),
+            ("hbm_block",) + SCATTER_HBM + (20,)):
+        rows = torch.randint(0, num_rows, (n,), device=dev,
+                             dtype=torch.int32)
+        g = torch.randn(n, dim, device=dev)
+        ok = (rows >= 0) & (rows < num_rows)
+        rows_m, g_m = rows[ok].long(), g[ok]
+        fns = {"ms": lambda: ek.scatter_rows(g, rows, num_rows),
+               "plain_ms": lambda: ek.scatter_rows_plain(g, rows, num_rows),
+               "library_ms": lambda: torch.zeros(
+                   num_rows, dim, device=dev).index_add_(0, rows_m, g_m)}
+        err, rel = _held_to_plain(ek, g, rows, num_rows, label)
+        abs_err = max(abs_err, err)
+        repeat_err = max(repeat_err, rel or 0.0)
+        t = {"shape": label, "rows": num_rows, "dim": dim, "n": n,
+             "bound_ms": scatter_bound_ms(num_rows, dim, n),
+             "max_abs_err": err, "repeated_rows": rel is not None}
+        for key, fn in fns.items():
+            t[key] = cuda_ms(fn, iters)
+            t[key.replace("ms", "device_ms")] = device_ms(fn)
+        timings.append(t)
+        log("scatter timing " + json.dumps(t))
+        del fns, rows, g, rows_m, g_m
+        torch.cuda.empty_cache()
+    return timings, abs_err, repeat_err, cases
+
+
 def wnd_records(seed: int, n: int):
     """``n`` seeded Wide&Deep records made as ``bench.py:662-671`` makes
     them: the four model inputs and the labels."""
@@ -634,7 +785,8 @@ def phase_training(ek, seed: int, workdir: str):
     def per(k):
         """Launches for ``k`` forwards: one pool and two row gathers
         each."""
-        return {"gather_rows": 2 * k, "gather_pool": k, "gather_int8": 0}
+        return {"gather_rows": 2 * k, "gather_pool": k, "gather_int8": 0,
+                "scatter_rows": 0}
 
     check(hist["iterations"] == steps, f"{hist['iterations']} steps, "
           f"expected {steps}")
@@ -727,6 +879,421 @@ def phase_training(ek, seed: int, workdir: str):
         "step_top_kernels": prof["top_device"],
         "step_top_host_ops": prof["top_host"]})
     return fit_launches, stats
+
+
+def wnd_columns(cross: int) -> dict:
+    """``WND_COLUMNS`` with a cross column of ``cross`` buckets."""
+    return dict(WND_COLUMNS, wide_cross_dims=[cross])
+
+
+def wnd_records_at(seed: int, n: int, columns: dict):
+    """``n`` seeded records for the Wide&Deep of ``columns``, made as
+    ``bench.py:767-776`` makes them."""
+    rs = np.random.RandomState(seed)
+    dims = columns["wide_base_dims"] + columns["wide_cross_dims"]
+    offsets = np.cumsum([0] + dims)[:-1]
+    wide = np.stack([rs.randint(0, d, n) + off
+                     for d, off in zip(dims, offsets)], 1).astype(np.int32)
+    ind = np.stack([rs.randint(0, d, n) for d in
+                    columns["indicator_dims"]], 1).astype(np.int32)
+    emb = np.stack([rs.randint(0, d, n) for d in
+                    columns["embed_in_dims"]], 1).astype(np.int32)
+    cont = rs.rand(n, 2).astype(np.float32)
+    y = rs.randint(0, 2, n).astype(np.float32)
+    return [wide, ind, emb, cont], y
+
+
+def _launches(ek) -> dict:
+    return {k: ek.launch_counts[k] for k in
+            ("gather_rows", "gather_pool", "gather_int8", "scatter_rows")}
+
+
+def _rank_train(ek, engine, est, x, y, steps: int) -> dict:
+    """Train ``est`` one epoch of ``steps`` global batches, counting this
+    rank's launches and exchange bytes over that run only."""
+    from analytics_zoo_tpu_torch.feature import FeatureSet
+    fs = FeatureSet.from_ndarrays(x, y)
+    ek.reset_launch_counts()
+    engine.reset_exchange_bytes()
+    sync = est.device.type == "cuda"
+    if sync:
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hist = est.train(fs, batch_size=SHARD_BATCH, epochs=1)
+    if sync:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(hist["iterations"] == steps, f"{hist['iterations']} steps, "
+          f"expected {steps}")
+    return {"launches": _launches(ek), "wall_s": wall,
+            "exchange_bytes": dict(engine.exchange_bytes),
+            "loss": hist["loss_history"]}
+
+
+def _shard_rank(rank: int, port: int, device: str, jobs: list, seed: int,
+                init_path: str, queue) -> None:
+    """One of ``SHARD_RANKS`` ranks: join a gloo group, run ``jobs`` and put
+    ``(rank, {job: result})`` on ``queue``."""
+    sys.path.insert(0, REPO)
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(SHARD_RANKS),
+                      MASTER_ADDR="localhost", MASTER_PORT=str(port),
+                      LOCAL_RANK=str(rank))
+    import torch.distributed as dist
+    from analytics_zoo_tpu_torch.parallel.mesh import init_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_num_threads(1)
+    mesh = init_mesh(backend="gloo", device=device)
+    try:
+        queue.put((rank, _rank_jobs(rank, mesh, device, jobs, seed,
+                                    init_path)))
+    except BaseException:
+        queue.put((rank, {"error": traceback.format_exc()}))
+        raise
+    mesh.barrier()
+    dist.destroy_process_group()
+
+
+def _rank_jobs(rank: int, mesh, device: str, jobs: list, seed: int,
+               init_path: str) -> dict:
+    from analytics_zoo_tpu_torch.estimator import Estimator
+    from analytics_zoo_tpu_torch.keras import optimizers
+    from analytics_zoo_tpu_torch.models import WideAndDeep
+    from analytics_zoo_tpu_torch.ops import embedding_kernels as ek
+    from analytics_zoo_tpu_torch.parallel import embedding as engine
+
+    out = {}
+    for job in jobs:
+        if job == "correct":
+            # 100k-bucket cross, SGD(0.1): held to the replicated run
+            zoo = WideAndDeep("wide_n_deep", 2, hidden_layers=WND_HIDDEN,
+                              shard_embeddings=True, **WND_COLUMNS)
+            est = Estimator(zoo._ensure_built(),
+                            "sparse_categorical_crossentropy",
+                            optimizers.SGD(0.1), mesh=mesh, seed=seed)
+            est.set_params(torch.load(init_path, weights_only=True))
+            x, y = wnd_records(seed, SHARD_STEPS * SHARD_BATCH)
+            res = _rank_train(ek, engine, est, x, y, SHARD_STEPS)
+            params = est.get_params()  # collective
+            res["params"] = params if rank == 0 else None
+            res["specs"] = {k: (s.rows_per_shard, s.dim, s.vocab)
+                            for k, s in est._sharded_table_specs().items()}
+            out[job] = res
+            del est, zoo
+        else:  # "full": bench_widedeep_sharded's model, lazy Adam
+            dev = torch.device(device)
+            torch.cuda.reset_peak_memory_stats(dev)
+            cols = wnd_columns(FULL_CROSS)
+            zoo = WideAndDeep("wide_n_deep", 2, hidden_layers=WND_HIDDEN,
+                              shard_embeddings=True, **cols)
+            est = Estimator(zoo._ensure_built(),
+                            "sparse_categorical_crossentropy",
+                            optimizers.Adam(1e-3), mesh=mesh, seed=seed)
+            x, y = wnd_records_at(seed, FULL_STEPS * SHARD_BATCH, cols)
+            t0 = time.perf_counter()
+            est._ensure_initialized(x)
+            init_s = time.perf_counter() - t0
+            res = _rank_train(ek, engine, est, x, y, FULL_STEPS)
+            spec = est._sharded_table_specs()["wide_linear.table"]
+            dense = sum(cols["wide_base_dims"] + cols["wide_cross_dims"]) \
+                * 2 * 4
+            check(spec.device_bytes <= dense / spec.shards + spec.dim * 4,
+                  f"rank table bytes {spec.device_bytes} > dense/"
+                  f"{spec.shards} + one row")
+            local = SHARD_BATCH // SHARD_RANKS
+            xb = [torch.from_numpy(a[rank * local:(rank + 1) * local])
+                  .to(dev) for a in x]
+            yb = torch.from_numpy(y[rank * local:(rank + 1) * local]).to(dev)
+            est.model.train()
+
+            def step():
+                return est._train_step(xb, yb)
+
+            step_ms = cuda_ms(step, FULL_TIMED, 2)
+            # rank 0's trace; the others step alike (every step is
+            # collective) without the profiler
+            if rank == 0:
+                prof = step_profile(step, calls=FULL_PROFILED, top=8)
+            else:
+                for _ in range(FULL_PROFILED + 1):
+                    step()
+                torch.cuda.synchronize()
+                prof = None
+            res.update({
+                "init_s": init_s, "step_ms_events": step_ms,
+                "samples_per_s_events": SHARD_BATCH / step_ms * 1e3,
+                "profile": prof,
+                "table_rows": spec.padded, "rows_per_shard":
+                    spec.rows_per_shard,
+                "rank_table_bytes": spec.device_bytes,
+                "dense_table_bytes": dense,
+                "sharded_table_bytes": sum(engine.table_bytes.values()),
+                "specs": {k: (s.rows_per_shard, s.dim, s.vocab) for k, s in
+                          est._sharded_table_specs().items()},
+                "peak_memory_bytes": torch.cuda.max_memory_allocated(dev)})
+            out[job] = res
+            del est, zoo
+    return out
+
+
+def run_ranks(device: str, jobs: list, seed: int, init_path: str) -> list:
+    """Spawn ``SHARD_RANKS`` gloo ranks on ``device`` (all on one card, or
+    the CPU) running ``jobs``; returns each rank's results, in rank
+    order."""
+    import torch.multiprocessing as mp
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    ctx = mp.get_context("spawn")
+    queue = ctx.Queue()
+    procs = [ctx.Process(target=_shard_rank,
+                         args=(r, port, device, jobs, seed, init_path,
+                               queue))
+             for r in range(SHARD_RANKS)]
+    for p in procs:
+        p.start()
+    try:
+        deadline = time.monotonic() + RANKS_TIMEOUT_S
+        got = {}
+        for _ in procs:
+            rank, res = queue.get(timeout=max(1.0, deadline
+                                              - time.monotonic()))
+            check("error" not in res, f"rank {rank} failed:\n"
+                  f"{res.get('error')}")
+            got[rank] = res
+        for p in procs:
+            p.join(60)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+    check(all(p.exitcode == 0 for p in procs),
+          f"rank exit codes {[p.exitcode for p in procs]}")
+    return [got[r] for r in range(SHARD_RANKS)]
+
+
+def _per_step(launches: dict, steps: int) -> dict:
+    return {k: v / steps for k, v in launches.items()}
+
+
+def _padding_dropped(params: dict, like: dict) -> float:
+    """Largest difference between ``like`` and ``params`` with each of
+    ``params``' tables cut to ``like``'s rows."""
+    worst = 0.0
+    for layer, sub in like.items():
+        for k, v in sub.items():
+            got = params[layer][k][:v.shape[0]]
+            check(got.shape == v.shape, f"{layer}.{k} {got.shape} vs "
+                  f"{v.shape}")
+            worst = max(worst, float(np.abs(got - v).max()))
+    return worst
+
+
+def _change_off(params: dict, like: dict, init: dict) -> float:
+    """Largest difference between ``params``' change from ``init`` and
+    ``like``'s, over its allowance: 1e-3 of ``like``'s change plus 8 f32
+    spacings of the largest value (each run rounds a parameter once a step,
+    four steps). A table row whose gradient was lost, or half lost, is off
+    by all (half) of its change, which the values' check at 1e-5 misses
+    for a row hit once (SGD(0.1) moves it about 0.1 x 0.5 / 8192 = 6e-6).
+    Above 1 fails."""
+    worst = 0.0
+    for layer, sub in like.items():
+        for k, v in sub.items():
+            p0 = init[layer][k]
+            got = params[layer][k][:v.shape[0]]
+            err = np.abs((got - p0) - (v - p0))
+            top = np.maximum(np.maximum(np.abs(p0), np.abs(v)), np.abs(got))
+            tol = 1e-3 * np.abs(v - p0) + 8 * np.spacing(top)
+            worst = max(worst, float((err / tol).max()))
+    return worst
+
+
+def phase_sharded_wnd(ek, seed: int, workdir: str):
+    """Train Wide&Deep with vocab-sharded tables on ``SHARD_RANKS`` gloo
+    ranks that share the card: at ``WND_COLUMNS`` held to the replicated
+    card run and the same ranks on the CPU, then at full width (100M-bucket
+    cross) timed; the replicated model at 1M buckets beside it. Returns
+    (card ranks' results, stats)."""
+    from analytics_zoo_tpu_torch.estimator import Estimator
+    from analytics_zoo_tpu_torch.estimator.estimator import params_tree
+    from analytics_zoo_tpu_torch.feature import FeatureSet
+    from analytics_zoo_tpu_torch.keras import optimizers
+    from analytics_zoo_tpu_torch.models import WideAndDeep
+    from analytics_zoo_tpu_torch.parallel import embedding as engine
+    from analytics_zoo_tpu_torch.parallel.mesh import Mesh
+
+    init = WideAndDeep("wide_n_deep", 2, hidden_layers=WND_HIDDEN,
+                       **WND_COLUMNS).build(
+        torch.Generator().manual_seed(seed), device="cpu").model.state_dict()
+    init_path = os.path.join(workdir, "wnd_shard_init.pt")
+    torch.save(init, init_path)
+
+    # the replicated reference: one process on the card
+    x, y = wnd_records(seed, SHARD_STEPS * SHARD_BATCH)
+    ref_est = Estimator(
+        WideAndDeep("wide_n_deep", 2, hidden_layers=WND_HIDDEN,
+                    **WND_COLUMNS).build(device="cuda").model,
+        "sparse_categorical_crossentropy", optimizers.SGD(0.1),
+        device="cuda", seed=seed)
+    ref_est.model.load_state_dict(init, strict=True)
+    ref_hist = ref_est.train(FeatureSet.from_ndarrays(x, y),
+                             batch_size=SHARD_BATCH, epochs=1)
+    ref = ref_est.get_params()
+    del ref_est
+
+    t0 = time.perf_counter()
+    card = run_ranks("cuda:0", ["correct", "full"], seed, init_path)
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu = run_ranks("cpu", ["correct"], seed, init_path)
+    cpu_s = time.perf_counter() - t0
+
+    got = card[0]["correct"]
+    err_ref = _padding_dropped(got["params"], ref)
+    check(err_ref <= 1e-5, f"sharded card params off the replicated card "
+          f"run's by {err_ref}")
+    np.testing.assert_allclose(got["loss"], ref_hist["loss_history"],
+                               rtol=1e-5, atol=0)
+    err_cpu = _padding_dropped(got["params"], cpu[0]["correct"]["params"])
+    check(err_cpu <= 1e-5, f"sharded card params off the CPU ranks' by "
+          f"{err_cpu}")
+    init_tree = params_tree(init.items())
+    change_ref = _change_off(got["params"], ref, init_tree)
+    change_cpu = _change_off(got["params"], cpu[0]["correct"]["params"],
+                             init_tree)
+    check(max(change_ref, change_cpu) <= 1.0,
+          f"sharded card params' change off the replicated run's by "
+          f"{change_ref} and off the CPU ranks' by {change_cpu} of its "
+          f"allowance")
+    want_step = {"gather_rows": 3, "gather_pool": 0, "gather_int8": 0,
+                 "scatter_rows": 3}
+    for r, res in enumerate(card):
+        for job, steps in (("correct", SHARD_STEPS), ("full", FULL_STEPS)):
+            per = _per_step(res[job]["launches"], steps)
+            check(per == want_step, f"rank {r} {job} launched {per} per "
+                  f"step, expected {want_step}")
+    for r, res in enumerate(cpu):
+        check(not any(res["correct"]["launches"].values()),
+              f"CPU rank {r} launched {res['correct']['launches']}")
+
+    def cost(specs, steps):
+        """Each table's ``exchange_cost_bytes`` for ``steps`` steps."""
+        stub = Mesh(rank=0, size=SHARD_RANKS, axis="data", group=None,
+                    backend="gloo", device=torch.device("cpu"))
+        out = {"exchange": 0.0, "grad": 0.0}
+        for key, (rps, dim, vocab) in specs.items():
+            spec = engine.ShardSpec(stub, "data", SHARD_RANKS, rps, vocab,
+                                    dim)
+            n_ids = SHARD_BATCH * (3 if key == "wide_linear.table" else 1)
+            c = engine.exchange_cost_bytes(spec, n_ids)
+            out["exchange"] += c["forward_bytes"] * steps
+            out["grad"] += c["grad_bytes"] * steps
+        return out
+
+    for job, steps in (("correct", SHARD_STEPS), ("full", FULL_STEPS)):
+        want = cost(card[0][job]["specs"], steps)
+        summed = {k: sum(res[job]["exchange_bytes"][k] for res in card)
+                  for k in want}
+        check(summed == want, f"{job}: ranks moved {summed} bytes, "
+              f"exchange_cost_bytes gives {want}")
+
+    # beside it: the replicated model at 1M buckets, one process
+    cols = wnd_columns(REPLICATED_CROSS)
+    rx, ry = wnd_records_at(seed, FULL_STEPS * SHARD_BATCH, cols)
+    rep = Estimator(WideAndDeep("wide_n_deep", 2, hidden_layers=WND_HIDDEN,
+                                **cols)._ensure_built(),
+                    "sparse_categorical_crossentropy", optimizers.Adam(1e-3),
+                    device="cuda", seed=seed)
+    rep_train = _rank_train(ek, engine, rep, rx, ry, FULL_STEPS)
+    xb = [torch.from_numpy(a[:SHARD_BATCH]).cuda() for a in rx]
+    yb = torch.from_numpy(ry[:SHARD_BATCH]).cuda()
+    rep_ms = cuda_ms(lambda: rep._train_step(xb, yb), FULL_TIMED, 2)
+    rep_prof = step_profile(lambda: rep._train_step(xb, yb),
+                            calls=FULL_PROFILED, top=8)
+    del rep
+
+    full = [res["full"] for res in card]
+    stats = {
+        "ranks": SHARD_RANKS, "backend": "gloo", "device": "cuda:0 (shared)",
+        "correct": {
+            "steps": SHARD_STEPS, "batch": SHARD_BATCH,
+            "max_abs_err_params_vs_replicated_card": err_ref,
+            "max_abs_err_params_vs_cpu_ranks": err_cpu,
+            "change_off_replicated_card_of_allowance": change_ref,
+            "change_off_cpu_ranks_of_allowance": change_cpu,
+            "loss_first": float(got["loss"][0]),
+            "loss_last": float(got["loss"][-1]),
+            "launches_per_step_per_rank": _per_step(got["launches"],
+                                                    SHARD_STEPS),
+            "exchange_bytes_per_step": {
+                k: sum(r["correct"]["exchange_bytes"][k] for r in card)
+                / SHARD_STEPS for k in ("exchange", "grad")}},
+        "full": {
+            "cross_buckets": FULL_CROSS, "steps": FULL_STEPS,
+            "batch": SHARD_BATCH, "table_rows": full[0]["table_rows"],
+            "rows_per_shard": full[0]["rows_per_shard"],
+            "rank_table_bytes": full[0]["rank_table_bytes"],
+            "dense_table_bytes": full[0]["dense_table_bytes"],
+            "sharded_table_bytes": full[0]["sharded_table_bytes"],
+            "init_s": [r["init_s"] for r in full],
+            "fit_wall_s": [r["wall_s"] for r in full],
+            "fit_samples_per_s": [FULL_STEPS * SHARD_BATCH / r["wall_s"]
+                                  for r in full],
+            "step_ms_events": [r["step_ms_events"] for r in full],
+            "samples_per_s_events": [r["samples_per_s_events"]
+                                     for r in full],
+            "peak_memory_bytes": [r["peak_memory_bytes"] for r in full],
+            "exchange_bytes_per_step": {
+                k: sum(r["exchange_bytes"][k] for r in full) / FULL_STEPS
+                for k in ("exchange", "grad")},
+            "loss_first": float(full[0]["loss"][0]),
+            "loss_last": float(full[0]["loss"][-1]),
+            "launches_per_step_per_rank": _per_step(full[0]["launches"],
+                                                    FULL_STEPS),
+            "rank0_step_profile": full[0]["profile"]},
+        "replicated_1m": {
+            "cross_buckets": REPLICATED_CROSS, "steps": FULL_STEPS,
+            "fit_wall_s": rep_train["wall_s"],
+            "fit_samples_per_s": FULL_STEPS * SHARD_BATCH
+            / rep_train["wall_s"],
+            "step_ms_events": rep_ms,
+            "samples_per_s_events": SHARD_BATCH / rep_ms * 1e3,
+            "step_profile": rep_prof,
+            "launches_per_step": _per_step(rep_train["launches"],
+                                           FULL_STEPS)},
+        "card_ranks_s": card_s, "cpu_ranks_s": cpu_s}
+    return card, stats
+
+
+def phase_int8_wnd(ek, seed: int, workdir: str):
+    """Weight-only int8 Wide&Deep (``WND_COLUMNS``) predicted on the card
+    and on the CPU from the same saved model; returns stats."""
+    from analytics_zoo_tpu_torch.inference import InferenceModel
+    from analytics_zoo_tpu_torch.models import WideAndDeep
+
+    path = os.path.join(workdir, "wnd_int8")
+    WideAndDeep("wide_n_deep", 2, hidden_layers=WND_HIDDEN,
+                **WND_COLUMNS).build(torch.Generator().manual_seed(seed),
+                                     device="cpu").save_model(path)
+    x, _ = wnd_records(seed + 3, INT8_WND_RECORDS)
+    card = InferenceModel(device="cuda").load_zoo(path).quantize("int8")
+    cpu = InferenceModel(device="cpu").load_zoo(path).quantize("int8")
+    ek.reset_launch_counts()
+    got = card.predict(x, batch_size=SHARD_BATCH)
+    launches = _launches(ek)
+    want = cpu.predict(x, batch_size=SHARD_BATCH)
+    err = float(np.abs(got - want).max())
+    check(got.shape == (INT8_WND_RECORDS, 2) and np.isfinite(got).all(),
+          "int8 Wide&Deep predictions malformed")
+    check(err <= 1e-5, f"int8 Wide&Deep card off the CPU by {err}")
+    batches = -(-INT8_WND_RECORDS // SHARD_BATCH)
+    want_launches = {"gather_rows": 0, "gather_pool": batches,
+                     "gather_int8": 2 * batches, "scatter_rows": 0}
+    check(launches == want_launches, f"int8 Wide&Deep launched {launches}, "
+          f"expected {want_launches}")
+    return {"records": INT8_WND_RECORDS, "max_abs_err_vs_cpu": err,
+            "launches": launches}
 
 
 def attention_bound_ms(b, h, s, d, dtype, backward: bool) -> tuple:
@@ -1975,7 +2542,7 @@ def phase_calibrated(ek, seed: int, workdir: str):
         errs[b] = float(np.abs(got - want).max())
     launches = dict(ek.launch_counts)
     check(launches == {"gather_rows": 12, "gather_pool": 0,
-                       "gather_int8": 0},
+                       "gather_int8": 0, "scatter_rows": 0},
           f"3 calibrated predicts launched {launches}, expected 12 row "
           f"gathers (the tables stay f32)")
     xb = torch.from_numpy(x).cuda()
@@ -2051,6 +2618,8 @@ def main() -> int:
                  args.seed)
     int8_timings, int8_err, int8_cases = timed(
         "int8_kernel", phase_int8_kernels, ek, dev, args.seed)
+    scatter_timings, scatter_err, scatter_rel, scatter_cases = timed(
+        "scatter_kernel", phase_scatter_kernel, ek, dev, args.seed)
 
     # -- 4. serving, 5. training ---------------------------------------------
     build = os.path.join(REPO, "build")
@@ -2074,6 +2643,13 @@ def main() -> int:
         train_launches, train_stats = timed("training", phase_training, ek,
                                             args.seed, workdir)
         log("training " + json.dumps(train_stats) + f" | {smi}")
+        # -- 13. vocab-sharded Wide&Deep, 14. int8 Wide&Deep -------------
+        torch.cuda.empty_cache()
+        shard_ranks, shard_stats = timed("sharded_wnd", phase_sharded_wnd,
+                                         ek, args.seed, workdir)
+        log("sharded wide&deep " + json.dumps(shard_stats) + f" | {smi}")
+        int8_wnd = timed("int8_wnd", phase_int8_wnd, ek, args.seed, workdir)
+        log("int8 wide&deep " + json.dumps(int8_wnd) + f" | {smi}")
         # -- 6. BERT fine-tuning, 7. BERT on the card against the CPU ----
         bert_launches, bert_stats = timed("bert", phase_bert, at, ek,
                                           args.seed)
@@ -2109,6 +2685,9 @@ def main() -> int:
                      "serving_int8": quant["int8"][0]["gather_rows"],
                      "calibrated_int8": calib_launches["gather_rows"],
                      "training": train_launches["gather_rows"],
+                     "sharded_wnd": sum(
+                         r[job]["launches"]["gather_rows"]
+                         for r in shard_ranks for job in ("correct", "full")),
                      "bert": sum(c["gather_rows"]
                                  for c in bert_launches.values()),
                      **{k: c["gather_rows"] for k, c in lm_paths.items()}}
@@ -2185,6 +2764,35 @@ def main() -> int:
             "library_ms", "library_mean_ms", "bound_ms", "device_ms",
             "mean_device_ms", "plain_device_ms", "library_device_ms",
             "library_mean_device_ms")} for t in pool_timings[1:]],
+    }
+    shard_launches = {job: sum(r[job]["launches"]["scatter_rows"]
+                               for r in shard_ranks)
+                      for job in ("correct", "full")}
+    wnd_shard, hbm_block = scatter_timings
+    scatter_entry = {
+        "name": "scatter_rows", "route": "cuda",
+        "source": "analytics_zoo_tpu_torch/csrc/scatter_rows.cu",
+        "replaces": "analytics_zoo_tpu/ops/embedding_kernels.py:257",
+        "tpu_kernel": "_scatter_add_kernel",
+        "launches": sum(shard_launches.values()),
+        "launches_by_path": {f"sharded_wnd_{k}": v
+                             for k, v in shard_launches.items()},
+        "launches_per_step_per_rank":
+            shard_stats["full"]["launches_per_step_per_rank"]["scatter_rows"],
+        "max_abs_err": scatter_err, "max_rel_err_repeated_rows": scatter_rel,
+        "grid_cases": scatter_cases,
+        "shape": f"block {wnd_shard['rows']}x{wnd_shard['dim']} f32, "
+                 f"n={wnd_shard['n']}",
+        "ms": wnd_shard["ms"], "kernel_ms": wnd_shard["ms"],
+        "device_ms": wnd_shard["device_ms"],
+        "plain_ms": wnd_shard["plain_ms"], "bound_ms": wnd_shard["bound_ms"],
+        "bound_by": "bytes", "library_ms": wnd_shard["library_ms"],
+        "library": "torch.zeros, then index_add_ of the in-range rows "
+                   "(two calls)",
+        "large": [{k: hbm_block[k] for k in (
+            "rows", "dim", "n", "ms", "device_ms", "plain_ms",
+            "plain_device_ms", "library_ms", "library_device_ms",
+            "bound_ms", "max_abs_err")}],
     }
     main_t = attn["rate_0.1"]  # the fine-tune's attention dropout
     attn_shape = (f"b {BERT_BATCH} x h {BERT_CFG['n_head']}, s {BERT_SEQ}, "
@@ -2266,7 +2874,8 @@ def main() -> int:
                 for lab, _, _ in FLASH_TIMED if lab != label},
         })
     print(smi)
-    print(json.dumps({"kernels": [entry, pool_entry, int8_entry]
+    print(json.dumps({"kernels": [entry, pool_entry, scatter_entry,
+                                  int8_entry]
                       + attn_entries + flash_entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

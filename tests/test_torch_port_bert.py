@@ -108,9 +108,7 @@ def test_cross_attention_with_a_mask_matches_jax():
                                rtol=0, atol=ATOL)
 
 
-def test_kv_len_past_512_raises_naming_the_flash_kernel():
-    # since the flash kernels (B4-B6) are ported, kv_len past 512 takes
-    # flash_attention instead of raising; it equals the plain path
+def test_kv_len_past_512_takes_flash_and_equals_the_plain_path():
     mha = MultiHeadAttention(1, 8)
     mha.build(torch.Generator().manual_seed(0), (None, 513, 8),
               torch.device("cpu"))

@@ -147,7 +147,8 @@ def test_pool_wrapper_rejects_what_the_kernel_does_not_take():
     ek.reset_launch_counts()
     assert ek.pool(table, ids, "sum", clip=False).shape == (2, 3)
     assert ek.launch_counts == {"gather_rows": 0, "gather_pool": 0,
-                                "gather_int8": 0}
+                                "gather_int8": 0,
+                                "scatter_rows": 0}
 
 
 # -- layers above it ---------------------------------------------------------

@@ -60,7 +60,9 @@ def test_port_and_chip_smoke_import_no_jax():
             os.path.join(PKG, "ops", "attention.py"),
             os.path.join(PKG, "keras", "layers", "attention.py"),
             os.path.join(PKG, "ops", "int8_dataflow.py"),
-            os.path.join(PKG, "inference", "quantize.py")} <= set(sources)
+            os.path.join(PKG, "inference", "quantize.py"),
+            os.path.join(PKG, "parallel", "mesh.py"),
+            os.path.join(PKG, "parallel", "embedding.py")} <= set(sources)
     bad = {os.path.relpath(p, REPO): m for p in sources
            for m in _imports(p) if _forbidden(m)}
     assert bad == {}
@@ -136,7 +138,8 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
     assert ek.gather(table, torch.zeros(0, dtype=torch.int32),
                      clip=True).shape == (0, 3)
     assert ek.launch_counts == {"gather_rows": 0, "gather_pool": 0,
-                                "gather_int8": 0}
+                                "gather_int8": 0,
+                                "scatter_rows": 0}
 
 
 def test_int8_wrapper_rejects_what_the_kernel_does_not_take():
@@ -200,7 +203,8 @@ def test_library_is_keyed_by_a_hash_of_the_sources():
     assert os.path.basename(path).startswith("libazt_kernels-")
     srcs, _ = kernel_build._sources()
     assert {"gather_rows.cu", "gather_pool.cu", "fused_short_attn.cu",
-            "gather_int8.cu"} <= {os.path.basename(s) for s in srcs}
+            "gather_int8.cu", "scatter_rows.cu"} <= {
+        os.path.basename(s) for s in srcs}
 
 
 # -- on the card --------------------------------------------------------------
@@ -391,8 +395,47 @@ def test_a_wide_and_deep_step_launches_pool_once_and_gather_twice(
     steps = hist["iterations"]
     assert steps == 4 and np.isfinite(hist["loss_history"]).all()
     assert ek.launch_counts == {"gather_pool": steps,
-                                "gather_rows": 2 * steps, "gather_int8": 0}
+                                "gather_rows": 2 * steps, "gather_int8": 0,
+                                "scatter_rows": 0}
     assert zoo.model.device.type == "cuda"
+
+
+# -- the row scatter-add (B3) on the card --------------------------------------
+
+
+def _scatter_case(n, dim, num_rows, repeat, seed):
+    """f32 grads and int32 rows with negatives, ``num_rows`` and past it;
+    with ``repeat`` some in-range rows repeat."""
+    gen = torch.Generator().manual_seed(seed)
+    if repeat:
+        rows = torch.randint(-3, num_rows + 3, (n,), generator=gen)
+    else:
+        rows = torch.randperm(num_rows + 6, generator=gen)[:n] - 3
+    g = torch.randn(n, dim, generator=gen)
+    return g, rows.to(torch.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim", [1, 2, 3, 8, 64, 130])
+@pytest.mark.parametrize("n", [0, 1, 255, 256, 257, 4096, 8192, 24576])
+def test_scatter_kernel_equals_its_plain_version_on_the_card(cuda_device,
+                                                             dim, n):
+    for num_rows, repeat in ((5000, False), (7, True), (300, True)):
+        if not repeat and n > num_rows:
+            continue
+        g, rows = _scatter_case(n, dim, num_rows, repeat, seed=n + dim)
+        want = ek.scatter_rows_plain(g, rows, num_rows)
+        ek.reset_launch_counts()
+        got = ek.scatter_rows(g.to(cuda_device), rows.to(cuda_device),
+                              num_rows)
+        torch.cuda.synchronize()
+        assert got.shape == (num_rows, dim)
+        assert ek.launch_counts["scatter_rows"] == (1 if n else 0)
+        if repeat:  # atomics add a repeated row in no fixed order
+            scale = max(1.0, float(want.abs().max()))
+            assert float((got.cpu() - want).abs().max()) <= 2e-5 * scale
+        else:
+            assert torch.equal(got.cpu(), want)
 
 
 # -- the fused short attention kernels (B7, B8) on the card -------------------

@@ -24,6 +24,7 @@ from analytics_zoo_tpu.inference.inference_model import \
     InferenceModel as JaxInferenceModel
 from analytics_zoo_tpu.inference import quantize as jax_quantize
 from analytics_zoo_tpu.models import NeuralCF as JaxNeuralCF
+from analytics_zoo_tpu.models import WideAndDeep as JaxWideAndDeep
 from analytics_zoo_tpu.ops import embedding_kernels as jax_ek
 from analytics_zoo_tpu.ops import int8_dataflow as jax_i8
 from analytics_zoo_tpu_torch import ops as port_ops
@@ -317,7 +318,8 @@ def test_weight_only_int8_embedding_route_equals_the_dequantized_forward(
     # JAX package's route dequantizes the whole tree first: same values
     assert torch.equal(got, want)
     assert ek.launch_counts == {"gather_rows": 0, "gather_pool": 0,
-                                "gather_int8": 0}
+                                "gather_int8": 0,
+                                "scatter_rows": 0}
 
 
 def test_weight_only_int8_gathers_every_table_through_the_int8_wrapper(
@@ -387,27 +389,146 @@ def test_calibration_of_an_opaque_module_raises_jax_value_error():
     im = InferenceModel(device="cpu").load_keras(_Opaque())
     with pytest.raises(ValueError, match="keras-graph model"):
         im.quantize("int8", calibration_data=[np.ones((4, 2), np.float32)])
-    with pytest.raises(NotImplementedError, match="_Opaque 'opaque'"):
-        im.quantize("int8")
-    im.quantize("bf16")
+    # weight-only int8 quantizes any module, as the JAX package's does: its
+    # forward reads the weight dequantized
+    im.quantize("int8")
+    w = im._module._modules["w"]
+    assert port_quantize._is_qleaf(w) and w.q.dtype == torch.int8
+    assert type(im._module).__name__ == "_Opaque"
+    np.testing.assert_allclose(im.predict(np.ones((2, 2), np.float32)),
+                               np.full((2, 3), 2.0), rtol=0, atol=1e-6)
+    im = InferenceModel(device="cpu").load_keras(_Opaque()).quantize("bf16")
     assert im.predict(np.ones((2, 2), np.float32)).dtype == np.float32
 
 
-def test_weight_only_int8_raises_for_wide_and_deep_and_changes_nothing():
-    cols = dict(wide_base_cols=["a"], wide_base_dims=[7],
+WND_COLS = dict(wide_base_cols=["a"], wide_base_dims=[7],
                 wide_cross_cols=["c"], wide_cross_dims=[30],
                 indicator_cols=["i"], indicator_dims=[3],
                 embed_cols=["e1"], embed_in_dims=[7], embed_out_dims=[4],
                 continuous_cols=["x"])
+
+
+def _wnd_inputs(n, seed):
+    rng = np.random.default_rng(seed)
+    return [np.stack([rng.integers(0, 7, n), 7 + rng.integers(0, 30, n)],
+                     1).astype(np.int32),
+            rng.integers(0, 3, (n, 1)).astype(np.int32),
+            rng.integers(0, 7, (n, 1)).astype(np.int32),
+            rng.random((n, 1)).astype(np.float32)]
+
+
+@pytest.fixture(scope="module")
+def jax_wnd():
+    jm = JaxWideAndDeep("wide_n_deep", 2, hidden_layers=(8, 4),
+                        **WND_COLS)._ensure_built()
+    params, state = jm.build(jax.random.PRNGKey(3))
+    return jm, jax.tree_util.tree_map(np.asarray, params), state
+
+
+def _port_wnd(params):
+    zoo = WideAndDeep("wide_n_deep", 2, hidden_layers=(8, 4),
+                      **WND_COLS).build(device="cpu")
+    zoo.model.load_state_dict(from_jax_params(params), strict=True)
+    return zoo
+
+
+def test_weight_only_int8_raises_for_wide_and_deep_and_changes_nothing(
+        jax_wnd):
+    """Weight-only int8 Wide&Deep (the wide table, the embedding table and
+    every Dense kernel int8) predicts as the JAX package's
+    ``InferenceModel.quantize("int8")`` within 1e-5."""
+    jm, params, state = jax_wnd
+    x = _wnd_inputs(37, seed=2)
+    want = np.asarray(JaxInferenceModel().load_keras(
+        jm, params=params, model_state=state).quantize("int8").predict(x))
+    zoo = _port_wnd(params)
+    im = InferenceModel(device="cpu").load_keras(zoo.model).quantize("int8")
+    qtree = jax_quantize.quantize_params(params, "int8")
+    assert sorted(zoo.model.state_dict()) == sorted(from_jax_params(qtree))
+    assert zoo.model.wide_linear._modules["table"].q.dtype == torch.int8
+    got = im.predict(x)
+    assert got.shape == (37, 2)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+    # JAX's quantized tree loads into the quantized port model, and one
+    # flat float32 row per record predicts the same
+    zoo.model.load_state_dict(from_jax_params(qtree), strict=True)
+    flat = np.concatenate([a.astype(np.float32) for a in x], axis=1)
+    np.testing.assert_allclose(im.predict(flat), want, rtol=0, atol=1e-5)
+
+
+def test_flat_rows_with_ids_past_float32_raise_or_stay_exact():
+    """A cross column past 2^24 buckets: a flat float32 row cannot carry
+    its ids, so predict raises instead of looking up a neighbouring row; a
+    flat float64 row carries them exactly and predicts as the list of
+    integer inputs; a fractional id raises too."""
+    cols = dict(WND_COLS, wide_cross_dims=[(1 << 24) + 9])
     zoo = WideAndDeep("wide_n_deep", 2, hidden_layers=(8, 4),
                       **cols).build(device="cpu")
-    im = InferenceModel(device="cpu").load_keras(zoo.model)
-    before = {k: v.clone() for k, v in zoo.model.state_dict().items()}
-    with pytest.raises(NotImplementedError, match="_WideLinear 'wide_linear'"):
-        im.quantize("int8")
-    after = zoo.model.state_dict()
-    assert sorted(after) == sorted(before)
-    assert all(torch.equal(after[k], v) for k, v in before.items())
+    im = InferenceModel(device="cpu").load_keras(zoo.model).quantize("int8")
+    x = _wnd_inputs(5, seed=6)
+    x[0][:, 1] = 7 + (1 << 24) + np.arange(5) % 9  # past float32's 2^24
+    want = im.predict(x)
+    flat64 = np.concatenate([a.astype(np.float64) for a in x], axis=1)
+    np.testing.assert_array_equal(im.predict(flat64), want)
+    with pytest.raises(ValueError, match="whole number below 16777216"):
+        im.predict(flat64.astype(np.float32))
+    small = np.concatenate([a.astype(np.float32) for a in _wnd_inputs(
+        5, seed=6)], axis=1)
+    im.predict(small)
+    small[0, 0] += 0.5
+    with pytest.raises(ValueError, match="whole number"):
+        im.predict(small)
+
+
+def test_weight_only_int8_bert_matches_jax():
+    from analytics_zoo_tpu.keras.layers import BERT as JaxBERT
+    from analytics_zoo_tpu_torch.capture import bert_input_pack
+    from analytics_zoo_tpu_torch.keras.layers import BERT
+    cfg = dict(vocab=100, hidden_size=32, n_block=2, n_head=2,
+               intermediate_size=64, max_position_len=64)
+    jb = JaxBERT(**cfg)
+    params, _ = jb.build(jax.random.PRNGKey(0), [(None, 24)] * 4)
+    params = jax.tree_util.tree_map(np.asarray, params)
+    rs = np.random.RandomState(0)
+    tok = rs.randint(1, 100, (4, 24))
+    for i, length in enumerate(rs.randint(4, 25, 4)):
+        tok[i, length:] = 0
+    x = bert_input_pack(tok)
+    deq = jax_quantize.dequantize_params(
+        jax_quantize.quantize_params(params, "int8"))
+    want, _ = jb.call(deq, {}, [jnp.asarray(a) for a in x])
+    pb = BERT(**cfg, name="bert")
+    pb.build(torch.Generator(), [(None, 24)] * 4, torch.device("cpu"))
+    pb.load_state_dict(from_jax_params(params), strict=True)
+    port_quantize.quantize_params(pb.eval(), "int8")
+    pb.load_state_dict(from_jax_params(
+        jax_quantize.quantize_params(params, "int8")), strict=True)
+    with torch.no_grad():
+        got = pb([torch.from_numpy(a) for a in x])
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=0,
+                                   atol=1e-5)
+
+
+def test_weight_only_int8_lm_logits_match_jax():
+    from analytics_zoo_tpu.capture import TransformerLM as JaxLM
+    from analytics_zoo_tpu_torch.capture import TransformerLM
+    cfg = dict(vocab_size=128, hidden=32, n_block=2, n_head=2, max_len=64)
+    jlm = JaxLM(seed=0, **cfg)
+    params = jlm._init_params(jax.random.PRNGKey(0), None)
+    qtree = jax_quantize.quantize_params(params, "int8")
+    jlm._graph.estimator.set_params(jax_quantize.dequantize_params(qtree))
+    tokens = np.random.RandomState(0).randint(0, 128, (4, 20))
+    want = np.asarray(jlm.logits(tokens))
+    plm = TransformerLM(seed=0, **cfg)
+    plm.load_state_dict(from_jax_params(
+        jax.tree_util.tree_map(np.asarray, params)), strict=True)
+    port_quantize.quantize_params(plm, "int8")
+    assert sorted(plm.state_dict()) == sorted(from_jax_params(
+        jax.tree_util.tree_map(np.asarray, qtree)))
+    got = plm.logits(tokens, device="cpu")
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
 
 
 @pytest.mark.parametrize("m", [1, 16, 17, 256])
@@ -458,4 +579,38 @@ def test_cluster_serving_with_quantize_int8_answers_as_a_direct_predict(
         "int8").predict(x)
     np.testing.assert_allclose(served, direct, rtol=1e-6, atol=0)
     want = np.asarray(_jax_inference(jax_ncf, "int8").predict(x))
+    np.testing.assert_allclose(served, want, rtol=0, atol=1e-5)
+
+
+def test_cluster_serving_with_quantize_int8_serves_wide_and_deep(
+        jax_wnd, tmp_path):
+    """Each record is one flat float32 row of the four inputs; served
+    answers equal a direct quantized predict and JAX's within 1e-5."""
+    model_dir = str(tmp_path / "wnd")
+    _port_wnd(jax_wnd[1]).save_model(model_dir)
+    x = _wnd_inputs(21, seed=4)
+    flat = np.concatenate([a.astype(np.float32) for a in x], axis=1)
+    src = f"dir://{tmp_path}/spool"
+    cfg = ServingConfig(model_path=model_dir, data_src=src,
+                        image_shape=(flat.shape[1],), batch_size=8,
+                        quantize="int8")
+    server = ClusterServing(cfg, queue=FileQueue(str(tmp_path / "spool")),
+                            device="cpu")
+    assert port_quantize._is_qleaf(
+        server.model._module.wide_linear._modules["table"])
+    inq = InputQueue(src)
+    for i, row in enumerate(flat):
+        inq.enqueue_tensor(f"r{i}", row)
+    while server.serve_once():
+        pass
+    results = OutputQueue(src).dequeue()
+    assert sorted(results) == sorted(f"r{i}" for i in range(len(flat)))
+    served = np.array([results[f"r{i}"]["value"] for i in range(len(flat))],
+                      np.float32)
+    direct = InferenceModel(device="cpu").load_zoo(model_dir).quantize(
+        "int8").predict(x)
+    np.testing.assert_allclose(served, direct, rtol=1e-6, atol=0)
+    jm, params, state = jax_wnd
+    want = np.asarray(JaxInferenceModel().load_keras(
+        jm, params=params, model_state=state).quantize("int8").predict(x))
     np.testing.assert_allclose(served, want, rtol=0, atol=1e-5)
