@@ -1,10 +1,11 @@
-// Fused short-sequence attention, forward (B7) and backward (B8), for
-// Hopper (sm_90a).
+// Fused short-sequence attention, forward (B7) and backward (B8), f32
+// route, on the CUDA cores of Hopper (sm_90a). bf16 inputs take the
+// tensor-core route in fused_short_attn_bf16.cu; the dtype alone picks it.
 //
 // Replaces the TPU kernels `_fused_short_fwd_kernel` and
 // `_fused_short_bwd_kernel` in analytics_zoo_tpu/ops/attention.py
-// (pallas_call site `_fused_short_call`). For q, k, v [bh, s, d] (f32 or
-// bf16, contiguous, s <= 512, d <= 128), an optional per-key bias
+// (pallas_call site `_fused_short_call`). For q, k, v [bh, s, d] (f32,
+// contiguous, s <= 512, d <= 128), an optional per-key bias
 // key_bias [bh / heads, s] f32 in natural-log units, and an optional
 // causal mask, both compute exact softmax attention:
 //
@@ -17,17 +18,14 @@
 // Scale and log2(e) fold into the f32 score, not into q: the TPU kernel
 // pre-scales q and rounds it to q's dtype, which this kernel does not. The
 // bias is applied in f32 (the TPU kernel rounds it to bf16 and broadcasts
-// it to [bh, s, s], a Mosaic workaround not carried over). p stays f32 in
-// the p.v product. Every score is one f32 fma chain over d in index order,
-// the same in the forward and both backward passes, so the backward
-// recomputes the forward's p bit for bit.
+// it to [bh, s, s], a Mosaic workaround not carried over). Every score is
+// one f32 fma chain over d in index order, the same in the forward and both
+// backward passes, so the backward recomputes the forward's p bit for bit.
+// f32 stays off the tensor cores: TF32 keeps about three digits, and this
+// route is held within 2e-5 of its plain version.
 //
-// Dropout bits: murmur3_32 of the words (bh, row, col) with the call's seed
-// as its seed, read from device memory (so no host sync draws it). The
-// mask depends on nothing else, so B7 and B8 draw the same mask whatever
-// their tiling, and the plain PyTorch version (`dropout_bits` in
-// ops/attention.py) reproduces it bit for bit. An entry is kept where its
-// bits are >= min(int(rate * 2^32), 2^32 - 1), the TPU kernel's rule.
+// Dropout bits: dropout_hash.cuh, read from the seed in device memory (so
+// no host sync draws it).
 //
 // Backward: two passes, no atomics, so it is deterministic.
 //   dq pass, one block per (bh, 32 query rows): recompute t and p, dp =
@@ -37,26 +35,25 @@
 //     64, recompute p from `stats` and the mask, dv += pd^T.dO and
 //     dk += ds^T.q, then dk *= scale.
 //
-// Bound: device memory, on paper. At BERT-base, batch 128 (bh = 1536,
-// s = 128, d = 64, bf16), B7 moves q, k, v and o, about 101 MB: 0.030 ms at
-// 3.35 TB/s, against 6.4 GFLOP, 0.0065 ms at the bf16 tensor-core rate of
-// 989 TFLOP/s; B8 moves about 176 MB (0.053 ms) against about 16 GFLOP
-// (0.016 ms) (H100 SXM data sheet, not measurements). This first kernel is
-// simple: f32 fma on the CUDA cores from f32 copies of the tiles in shared
-// memory, 32 rows to a block, each thread two of them, so a value read from
-// shared memory feeds two (or four) fmas. It sits far above both bounds;
-// wgmma and TMA are later work.
+// Bound: at the LM's prefill (bh = 64, s = 128, d = 128, f32, causal) B7
+// moves q, k, v and o, 16.8 MB: 0.0050 ms at 3.35 TB/s, against 0.27
+// GFLOP (q.k^T and p.v on the causal half), 0.0040 ms at the f32
+// CUDA-core rate of 67 TFLOP/s (H100 SXM data sheet, not measurements).
+// The kernel is simple: f32 fma from the tiles in shared memory, 32 rows
+// to a block, each thread two of them, so a value read from shared memory
+// feeds two (or four) fmas.
 //
-// Shared memory, f32: the forward holds a 32 x (d+1) q tile, a 64 x (d+1)
+// Shared memory: the forward holds a 32 x (d+1) q tile, a 64 x (d+1)
 // k or v tile and the 32 x s block of scores (115 KB at s = 512, d = 128);
 // the dq pass adds a dO tile and a second 32 x s block (195 KB, under the
 // 227 KB a block may have); the dk/dv pass holds 32-row k and v tiles and
 // 64-row q and dO tiles (116 KB). Hence s <= 512 and d <= 128; the caller
 // raises on anything else and on non-contiguous inputs.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "dropout_hash.cuh"
 
 namespace {
 
@@ -79,64 +76,11 @@ constexpr float kNegInf = -1e30f;
 constexpr float kFltMax = 3.402823466e38f;  // every score is above -kFltMax
 constexpr float kLog2e = 1.4426950408889634f;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-// -- dropout bits: murmur3_32 over (bh, row, col) --------------------------
-
-__device__ __forceinline__ uint32_t rotl32(uint32_t x, int r) {
-  return (x << r) | (x >> (32 - r));
-}
-
-__device__ __forceinline__ uint32_t mix(uint32_t h, uint32_t k) {
-  k *= 0xcc9e2d51u;
-  k = rotl32(k, 15);
-  k *= 0x1b873593u;
-  h ^= k;
-  h = rotl32(h, 13);
-  return h * 5u + 0xe6546b64u;
-}
-
-__device__ __forceinline__ uint32_t fmix(uint32_t h) {
-  h ^= h >> 16;
-  h *= 0x85ebca6bu;
-  h ^= h >> 13;
-  h *= 0xc2b2ae35u;
-  h ^= h >> 16;
-  return h;
-}
-
-// the row's key: mix(mix(seed, bh), row); an entry's bits:
-// fmix(mix(row_key, col) ^ 12), 12 being the three words' length in bytes
-__device__ __forceinline__ uint32_t row_key(uint32_t seed, uint32_t bh,
-                                            uint32_t row) {
-  return mix(mix(seed, bh), row);
-}
-
-__device__ __forceinline__ bool kept(uint32_t key, uint32_t col,
-                                     uint32_t thresh) {
-  return fmix(mix(key, col) ^ 12u) >= thresh;
-}
-
 // -- shared pieces ---------------------------------------------------------
 
 // dst[r][c] (row stride d + 1) = src[first + r][c] as f32 for first + r <
 // limit, else 0; src is the [s, d] slice of one bh
-template <typename T>
-__device__ __forceinline__ void stage(float* dst, const T* __restrict__ src,
+__device__ __forceinline__ void stage(float* dst, const float* __restrict__ src,
                                       int first, int rows, int limit,
                                       int d) {
   // thread t copies column t % d of rows t / d, t / d + step, ...: one
@@ -147,7 +91,7 @@ __device__ __forceinline__ void stage(float* dst, const T* __restrict__ src,
        r += step) {
     const int g = first + r;
     dst[r * (d + 1) + c] =
-        g < limit ? to_f32(src[(long long)g * d + c]) : 0.0f;
+        g < limit ? src[(long long)g * d + c] : 0.0f;
   }
 }
 
@@ -211,10 +155,9 @@ __device__ __forceinline__ void stage_bias(float* bs,
 // x . y_j over every key into w (row stride sp + 1) for the block's rows
 // x (row stride d + 1), y staged through ts, keys g, g + kGroup, ... of each
 // tile to this thread; with `scores`, t from score(), else the bare dot
-template <typename T>
 __device__ __forceinline__ void block_dots(float* w, int sp1, const float* xs,
                                            float* ts,
-                                           const T* __restrict__ ybh,
+                                           const float* __restrict__ ybh,
                                            int s, int d, bool scores,
                                            float scale_log2e,
                                            const float* bs, int row0,
@@ -245,12 +188,12 @@ __device__ __forceinline__ void block_dots(float* w, int sp1, const float* xs,
 
 // acc[i][j] (row p + i * kPairs, column g + j * kGroup) += sum_k w[row][k]
 // * x[k][col] over all s keys, x staged through ts
-template <int kC, typename T>
+template <int kC>
 __device__ __forceinline__ void block_apply(float (&acc)[kR][kC],
                                             const float* ws, int sp1,
                                             float* ts,
-                                            const T* __restrict__ xbh, int s,
-                                            int d) {
+                                            const float* __restrict__ xbh,
+                                            int s, int d) {
   const int pr = threadIdx.x / kGroup, g = threadIdx.x % kGroup;
   for (int k0 = 0; k0 < s; k0 += kKeyTile) {
     __syncthreads();
@@ -276,8 +219,8 @@ __device__ __forceinline__ void block_apply(float (&acc)[kR][kC],
 }
 
 // writes acc (times `mul`) to out's rows row0 + p + i * kPairs
-template <int kC, typename T>
-__device__ __forceinline__ void store_rows(T* __restrict__ out,
+template <int kC>
+__device__ __forceinline__ void store_rows(float* __restrict__ out,
                                            const float (&acc)[kR][kC],
                                            float mul, int row0, int s,
                                            int d) {
@@ -290,19 +233,19 @@ __device__ __forceinline__ void store_rows(T* __restrict__ out,
     for (int j = 0; j < kC; ++j) {
       const int c = g + j * kGroup;
       if (c < d)
-        out[(long long)row * d + c] = from_f32<T>(__fmul_rn(acc[i][j], mul));
+        out[(long long)row * d + c] = __fmul_rn(acc[i][j], mul);
     }
   }
 }
 
 // -- B7: forward -----------------------------------------------------------
 
-template <typename T, int kC>
+template <int kC>
 __global__ void __launch_bounds__(kThreads)
-fused_short_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v,
+fused_short_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                       const float* __restrict__ v,
                        const float* __restrict__ key_bias,
-                       const int32_t* __restrict__ seed, T* __restrict__ o,
+                       const int32_t* __restrict__ seed, float* __restrict__ o,
                        int heads, int s, int d, int row_tiles, int sp,
                        float scale_log2e, uint32_t thresh, float inv_keep,
                        int causal) {
@@ -360,13 +303,15 @@ fused_short_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 // -- B8: backward, dq pass -------------------------------------------------
 
-template <typename T, int kC>
+template <int kC>
 __global__ void __launch_bounds__(kThreads)
-fused_short_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                          const T* __restrict__ v, const T* __restrict__ dout,
+fused_short_bwd_dq_kernel(const float* __restrict__ q,
+                          const float* __restrict__ k,
+                          const float* __restrict__ v,
+                          const float* __restrict__ dout,
                           const float* __restrict__ key_bias,
                           const int32_t* __restrict__ seed,
-                          T* __restrict__ dq, float* __restrict__ stats,
+                          float* __restrict__ dq, float* __restrict__ stats,
                           long long bh_total, int heads, int s, int d,
                           int row_tiles, int sp, float scale_log2e,
                           float scale, uint32_t thresh, float inv_keep,
@@ -444,14 +389,15 @@ fused_short_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 // -- B8: backward, dk/dv pass ----------------------------------------------
 
-template <typename T, int kC>
+template <int kC>
 __global__ void __launch_bounds__(kThreads)
-fused_short_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                           const T* __restrict__ v,
-                           const T* __restrict__ dout,
+fused_short_bwd_dkv_kernel(const float* __restrict__ q,
+                           const float* __restrict__ k,
+                           const float* __restrict__ v,
+                           const float* __restrict__ dout,
                            const float* __restrict__ key_bias,
                            const int32_t* __restrict__ seed,
-                           T* __restrict__ dk, T* __restrict__ dv,
+                           float* __restrict__ dk, float* __restrict__ dv,
                            const float* __restrict__ stats,
                            long long bh_total, int heads, int s, int d,
                            int key_tiles, float scale_log2e, float scale,
@@ -569,7 +515,6 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
                               (int)bytes);
 }
 
-template <typename T>
 int launch_fwd(const void* q, const void* k, const void* v,
                const void* key_bias, const void* seed, void* o, long long bh,
                int heads, int s, int d, float scale_log2e, uint32_t thresh,
@@ -581,19 +526,18 @@ int launch_fwd(const void* q, const void* k, const void* v,
                        (size_t)kRows * (sp + 1) + sp);
   const long long blocks = bh * row_tiles;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  auto kernel = d <= 64 ? fused_short_fwd_kernel<T, 4>
-                        : fused_short_fwd_kernel<T, 8>;
+  auto kernel = d <= 64 ? fused_short_fwd_kernel<4>
+                        : fused_short_fwd_kernel<8>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
   kernel<<<(unsigned)blocks, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const float*>(key_bias),
-      static_cast<const int32_t*>(seed), static_cast<T*>(o), heads, s, d,
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(key_bias),
+      static_cast<const int32_t*>(seed), static_cast<float*>(o), heads, s, d,
       row_tiles, sp, scale_log2e, thresh, inv_keep, causal);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
 int launch_bwd(const void* q, const void* k, const void* v, const void* dout,
                const void* key_bias, const void* seed, void* dq, void* dk,
                void* dv, void* stats, long long bh, int heads, int s, int d,
@@ -609,31 +553,31 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* dout,
                        2 * (size_t)kRows * (kQTile + 1) + 3 * kQTile + kRows);
   const long long blocks = bh * row_tiles;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  auto dq_kernel = d <= 64 ? fused_short_bwd_dq_kernel<T, 4>
-                           : fused_short_bwd_dq_kernel<T, 8>;
-  auto dkv_kernel = d <= 64 ? fused_short_bwd_dkv_kernel<T, 4>
-                            : fused_short_bwd_dkv_kernel<T, 8>;
+  auto dq_kernel = d <= 64 ? fused_short_bwd_dq_kernel<4>
+                           : fused_short_bwd_dq_kernel<8>;
+  auto dkv_kernel = d <= 64 ? fused_short_bwd_dkv_kernel<4>
+                            : fused_short_bwd_dkv_kernel<8>;
   cudaError_t err = allow_smem(dq_kernel, smem_dq);
   if (err != cudaSuccess) return (int)err;
   err = allow_smem(dkv_kernel, smem_dkv);
   if (err != cudaSuccess) return (int)err;
-  const T* qt = static_cast<const T*>(q);
-  const T* kt = static_cast<const T*>(k);
-  const T* vt = static_cast<const T*>(v);
-  const T* dot_ = static_cast<const T*>(dout);
+  const float* qt = static_cast<const float*>(q);
+  const float* kt = static_cast<const float*>(k);
+  const float* vt = static_cast<const float*>(v);
+  const float* dot_ = static_cast<const float*>(dout);
   const float* kb = static_cast<const float*>(key_bias);
   const int32_t* sd = static_cast<const int32_t*>(seed);
   float* st = static_cast<float*>(stats);
   dq_kernel<<<(unsigned)blocks, kThreads, smem_dq, stream>>>(
-      qt, kt, vt, dot_, kb, sd, static_cast<T*>(dq), st, bh, heads, s, d,
+      qt, kt, vt, dot_, kb, sd, static_cast<float*>(dq), st, bh, heads, s, d,
       row_tiles, sp, scale_log2e, scale, thresh, inv_keep, causal);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   // key tiles are 32 rows, like the dq pass's query tiles
   dkv_kernel<<<(unsigned)blocks, kThreads, smem_dkv, stream>>>(
-      qt, kt, vt, dot_, kb, sd, static_cast<T*>(dk), static_cast<T*>(dv), st,
-      bh, heads, s, d, row_tiles, scale_log2e, scale, thresh, inv_keep,
-      causal);
+      qt, kt, vt, dot_, kb, sd, static_cast<float*>(dk),
+      static_cast<float*>(dv), st, bh, heads, s, d, row_tiles, scale_log2e,
+      scale, thresh, inv_keep, causal);
   return (int)cudaGetLastError();
 }
 
@@ -645,58 +589,37 @@ bool bad_shape(long long bh, int heads, int s, int d) {
 
 extern "C" {
 
-// B7 on `stream`; returns cudaGetLastError() (0 on success). q, k, v, o:
-// [bh, s, d], dtype 0 = f32, 1 = bf16. key_bias: [bh / heads, s] f32 or
-// NULL. seed: one int32 on the device, or NULL for no dropout (then thresh
-// and inv_keep are unused). The caller allocates o.
-int azt_fused_short_fwd(const void* q, const void* k, const void* v,
-                        const void* key_bias, const void* seed, void* o,
-                        long long bh, int heads, int s, int d, int dtype,
-                        float scale_log2e, unsigned int thresh,
-                        float inv_keep, int causal, void* stream) {
+// B7, f32 route, on `stream`; returns cudaGetLastError() (0 on success).
+// q, k, v, o: [bh, s, d] f32. key_bias: [bh / heads, s] f32 or NULL. seed:
+// one int32 on the device, or NULL for no dropout (then thresh and
+// inv_keep are unused). The caller allocates o.
+int azt_fused_short_fwd_f32(const void* q, const void* k, const void* v,
+                            const void* key_bias, const void* seed, void* o,
+                            long long bh, int heads, int s, int d,
+                            float scale_log2e, unsigned int thresh,
+                            float inv_keep, int causal, void* stream) {
   if (bad_shape(bh, heads, s, d)) return (int)cudaErrorInvalidValue;
   if (bh == 0) return 0;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0:
-      return launch_fwd<float>(q, k, v, key_bias, seed, o, bh, heads, s, d,
-                               scale_log2e, thresh, inv_keep, causal, st);
-    case 1:
-      return launch_fwd<__nv_bfloat16>(q, k, v, key_bias, seed, o, bh, heads,
-                                       s, d, scale_log2e, thresh, inv_keep,
-                                       causal, st);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return launch_fwd(q, k, v, key_bias, seed, o, bh, heads, s, d,
+                    scale_log2e, thresh, inv_keep, causal,
+                    static_cast<cudaStream_t>(stream));
 }
 
-// B8 on `stream`: the dq pass, then the dk/dv pass; returns
-// cudaGetLastError(). dout, dq, dk, dv: [bh, s, d] in the inputs' dtype;
-// stats: [3, bh, s] f32 scratch. The caller allocates the outputs and
-// stats.
-int azt_fused_short_bwd(const void* q, const void* k, const void* v,
-                        const void* dout, const void* key_bias,
-                        const void* seed, void* dq, void* dk, void* dv,
-                        void* stats, long long bh, int heads, int s, int d,
-                        int dtype, float scale_log2e, float scale,
-                        unsigned int thresh, float inv_keep, int causal,
-                        void* stream) {
+// B8, f32 route, on `stream`: the dq pass, then the dk/dv pass; returns
+// cudaGetLastError(). dout, dq, dk, dv: [bh, s, d] f32; stats: [3, bh, s]
+// f32 scratch. The caller allocates the outputs and stats.
+int azt_fused_short_bwd_f32(const void* q, const void* k, const void* v,
+                            const void* dout, const void* key_bias,
+                            const void* seed, void* dq, void* dk, void* dv,
+                            void* stats, long long bh, int heads, int s,
+                            int d, float scale_log2e, float scale,
+                            unsigned int thresh, float inv_keep, int causal,
+                            void* stream) {
   if (bad_shape(bh, heads, s, d)) return (int)cudaErrorInvalidValue;
   if (bh == 0) return 0;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0:
-      return launch_bwd<float>(q, k, v, dout, key_bias, seed, dq, dk, dv,
-                               stats, bh, heads, s, d, scale_log2e, scale,
-                               thresh, inv_keep, causal, st);
-    case 1:
-      return launch_bwd<__nv_bfloat16>(q, k, v, dout, key_bias, seed, dq, dk,
-                                       dv, stats, bh, heads, s, d,
-                                       scale_log2e, scale, thresh, inv_keep,
-                                       causal, st);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return launch_bwd(q, k, v, dout, key_bias, seed, dq, dk, dv, stats, bh,
+                    heads, s, d, scale_log2e, scale, thresh, inv_keep,
+                    causal, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

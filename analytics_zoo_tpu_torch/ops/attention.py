@@ -10,10 +10,13 @@ natural-log units (the 0 / -1e9 padding bias BERT builds from its mask).
 
 :func:`fused_short_attention` is exact softmax attention for
 ``q_len == kv_len <= FUSED_SHORT_MAX_SEQ``. Its forward launches the
-hand-written CUDA kernel B7 (``csrc/fused_short_attn.cu``, replacing the
-TPU's ``_fused_short_fwd_kernel``) and its backward B8 (replacing
+hand-written CUDA kernel B7 (replacing the TPU's
+``_fused_short_fwd_kernel``) and its backward B8 (replacing
 ``_fused_short_bwd_kernel``) on a CUDA tensor, or raises; there is no
-fallback. On a CPU tensor each runs its plain PyTorch version
+fallback. The dtype picks the route: bf16 runs on the tensor cores
+(``csrc/fused_short_attn_bf16.cu``, ``mma.sync``), f32 on the CUDA cores
+(``csrc/fused_short_attn.cu``), and ``route_counts`` counts each launch by
+route. On a CPU tensor each runs its plain PyTorch version
 (:func:`fused_short_attention_plain`, :func:`fused_short_bwd_plain`), the
 same arithmetic, which the tests hold against the JAX package and which
 ``chip_smoke.py`` holds each kernel against on the card.
@@ -23,7 +26,12 @@ The arithmetic, in both versions: scores ``q·k`` in f32, times
 TPU kernel rounds the pre-scaled ``q`` to its dtype), plus
 ``key_bias·log2(e)`` in f32 (the TPU kernel rounds it to bf16), a causal
 mask of ``-1e30`` above the diagonal, softmax in ``exp2`` with IEEE
-division, then dropout, then ``p·v`` with ``p`` kept in f32.
+division, then dropout, then ``p·v`` with sums in f32. ``pd`` is rounded
+to the inputs' dtype before ``pd·v`` and ``pdᵀ·dO``, and ``ds`` before
+``ds·k`` and ``dsᵀ·q``, where the TPU kernel rounds them (no-ops in f32).
+The bf16 backward reads each row's softmax max and sum (``stats``) from its
+forward; the f32 backward recomputes them. Both take ``D = rowsum(dp·p)``
+in f32.
 
 Dropout keeps an entry where its 32 random bits are at or above
 ``min(int(rate·2^32), 2^32-1)`` and scales it by ``1/(1-rate)``, the TPU
@@ -71,6 +79,9 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 #: one B8 launch is the two passes of one backward
 launch_counts = LaunchCounts("fused_short_fwd", "fused_short_bwd")
+#: B7 and B8 launches by route: bf16 on the tensor cores, f32 on the CUDA
+#: cores
+route_counts = LaunchCounts("bf16_tc", "f32_simt")
 #: B4, B5a, B5b and B6
 flash_launch_counts = LaunchCounts("flash_fwd", "flash_bwd_dq",
                                    "flash_bwd_dkv", "flash_bwd_fused")
@@ -79,7 +90,15 @@ flash_launch_counts = LaunchCounts("flash_fwd", "flash_bwd_dq",
 def reset_launch_counts() -> None:
     """Set every attention kernel's count to 0."""
     launch_counts.reset()
+    route_counts.reset()
     flash_launch_counts.reset()
+
+
+def fused_short_route(dtype: torch.dtype) -> str:
+    """The fused kernels' route for inputs of ``dtype``: ``"bf16_tc"`` (the
+    tensor cores; its backward reads the forward's row statistics) or
+    ``"f32_simt"`` (the CUDA cores)."""
+    return "bf16_tc" if dtype == torch.bfloat16 else "f32_simt"
 
 
 # -- dropout bits ------------------------------------------------------------
@@ -148,9 +167,11 @@ def dropout_keep_mask(seed, bh: int, s: int, rate: float) -> torch.Tensor:
 # -- plain versions ----------------------------------------------------------
 
 
-def _probs(q, k, key_bias, scale: float, causal: bool) -> torch.Tensor:
+def _probs(q, k, key_bias, scale: float, causal: bool,
+           with_stats: bool = False):
     """Pre-dropout probabilities ``[b, h, s, s]`` f32, the kernels'
-    arithmetic; differentiable."""
+    arithmetic; differentiable. With ``with_stats``, also each row's max
+    (exp2 units) and sum, ``[2, b, h, s]``."""
     s2 = torch.matmul(q.float(), k.float().transpose(-1, -2)) \
         * (scale * _LOG2E)
     if key_bias is not None:
@@ -160,8 +181,12 @@ def _probs(q, k, key_bias, scale: float, causal: bool) -> torch.Tensor:
         above = torch.ones(n, n, dtype=torch.bool,
                            device=s2.device).triu(1)
         s2 = s2.masked_fill(above, _NEG_INF)
-    e = torch.exp2(s2 - s2.amax(-1, keepdim=True).detach())
-    return e / e.sum(-1, keepdim=True)
+    m = s2.amax(-1, keepdim=True).detach()
+    e = torch.exp2(s2 - m)
+    l = e.sum(-1, keepdim=True)
+    if with_stats:
+        return e / l, torch.stack([m[..., 0], l[..., 0].detach()])
+    return e / l
 
 
 def _keep(seed, q: torch.Tensor, rate: float) -> Optional[torch.Tensor]:
@@ -171,19 +196,42 @@ def _keep(seed, q: torch.Tensor, rate: float) -> Optional[torch.Tensor]:
     return dropout_keep_mask(seed, b * h, s, rate).reshape(b, h, s, s)
 
 
+class _RoundTo(torch.autograd.Function):
+    """f32 ``x`` rounded to ``dtype`` and back; its gradient passes through
+    unrounded, as the kernels keep the gradient at that point in f32."""
+
+    @staticmethod
+    def forward(ctx, x, dtype):
+        return x.to(dtype).float()
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def _rounded(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``x`` rounded to ``dtype`` and back to f32, where the TPU kernel
+    casts an operand to the inputs' dtype (a no-op in f32)."""
+    return x if dtype == torch.float32 else _RoundTo.apply(x, dtype)
+
+
 def fused_short_attention_plain(q, k, v, key_bias=None,
                                 scale: Optional[float] = None,
                                 rate: float = 0.0, seed=None,
-                                causal: bool = False) -> torch.Tensor:
+                                causal: bool = False,
+                                with_stats: bool = False):
     """Plain PyTorch version of B7: same inputs, same arithmetic, same
     dropout mask; differentiable, so autograd through it is the reference
-    for B8."""
+    for B8. With ``with_stats``, returns ``(o, stats)``: each row's
+    softmax max (exp2 units) and sum, ``[2, b, h, s]`` f32, as the bf16
+    kernel saves them."""
     scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
-    p = _probs(q, k, key_bias, scale, causal)
+    p, stats = _probs(q, k, key_bias, scale, causal, with_stats=True)
     keep = _keep(seed, q, rate)
     if keep is not None:
         p = torch.where(keep, p * (1.0 / (1.0 - rate)), 0.0)
-    return torch.matmul(p, v.float()).to(v.dtype)
+    o = torch.matmul(_rounded(p, v.dtype), v.float()).to(v.dtype)
+    return (o, stats) if with_stats else o
 
 
 def fused_short_bwd_plain(q, k, v, do, key_bias, scale: float, rate: float,
@@ -202,8 +250,8 @@ def fused_short_bwd_plain(q, k, v, do, key_bias, scale: float, rate: float,
         inv = 1.0 / (1.0 - rate)
         pd = torch.where(keep, p * inv, 0.0)
         dp = torch.where(keep, dp * inv, 0.0)
-    dv = torch.matmul(pd.transpose(-1, -2), dof)
-    ds = p * (dp - (dp * p).sum(-1, keepdim=True))
+    dv = torch.matmul(_rounded(pd, v.dtype).transpose(-1, -2), dof)
+    ds = _rounded(p * (dp - (dp * p).sum(-1, keepdim=True)), q.dtype)
     dq = torch.matmul(ds, k.float()) * scale
     dk = torch.matmul(ds.transpose(-1, -2), q.float()) * scale
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
@@ -275,85 +323,134 @@ def _check(tensors, key_bias, seed, rate: float) -> None:
                          "inputs' device")
 
 
+def _check_stats(q, stats) -> None:
+    """Raise unless ``stats`` is what B7's bf16 route saved for ``q``."""
+    want = (2,) + tuple(q.shape[:-1])
+    if stats is None:
+        raise ValueError("the bf16 backward needs the row stats its "
+                         "forward returned (fused_short_fwd)")
+    if (tuple(stats.shape) != want or stats.dtype != torch.float32
+            or stats.device != q.device or not stats.is_contiguous()):
+        raise ValueError(f"stats must be contiguous f32 {want} on "
+                         f"{q.device}")
+
+
 def _launch_args(q, key_bias, seed, scale: float, rate: float):
     b, h, s, d = q.shape
     drop = rate > 0.0
     return dict(
         bias=key_bias.data_ptr() if key_bias is not None else None,
         seed=seed.data_ptr() if drop else None,
-        dims=(b * h, h, s, d, _DTYPES[q.dtype]),
+        dims=(b * h, h, s, d),
         thresh=keep_threshold(rate) if drop else 0,
         inv=1.0 / (1.0 - rate) if drop else 1.0,
         scale_log2e=scale * _LOG2E)
 
 
 def fused_short_fwd(q, k, v, key_bias, seed, scale: float, rate: float,
-                    causal: bool) -> torch.Tensor:
-    """B7's wrapper: ``[b, h, s, d]`` contiguous f32/bf16 in, the same out.
-    CPU tensors take :func:`fused_short_attention_plain`; CUDA tensors
-    launch the kernel on the current stream."""
+                    causal: bool):
+    """B7's wrapper: ``[b, h, s, d]`` contiguous f32/bf16 in; ``(o,
+    stats)`` out, ``o`` like ``q`` and ``stats`` the rows' softmax max and
+    sum ``[2, b, h, s]`` f32 that the bf16 backward reads (None on the f32
+    route, whose backward recomputes them). CPU tensors take
+    :func:`fused_short_attention_plain`; CUDA tensors launch the kernel of
+    the dtype's route on the current stream."""
     _check((q, k, v), key_bias, seed, rate)
+    route = fused_short_route(q.dtype)
     if not on_card(q, "fused_short_fwd"):
-        return fused_short_attention_plain(q, k, v, key_bias, scale, rate,
-                                           seed, causal)
+        o, stats = fused_short_attention_plain(q, k, v, key_bias, scale, rate,
+                                               seed, causal, with_stats=True)
+        return o, stats if route == "bf16_tc" else None
     o = torch.empty_like(q)
+    stats = None
     a = _launch_args(q, key_bias, seed, scale, rate)
     lib = load_library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.azt_fused_short_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), a["bias"], a["seed"],
-            o.data_ptr(), *a["dims"], a["scale_log2e"], a["thresh"],
-            a["inv"], int(bool(causal)), stream)
+        if route == "bf16_tc":
+            stats = torch.empty((2,) + q.shape[:-1], dtype=torch.float32,
+                                device=q.device)
+            rc = lib.azt_fused_short_fwd_bf16(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), a["bias"],
+                a["seed"], o.data_ptr(), stats.data_ptr(), *a["dims"],
+                a["scale_log2e"], a["thresh"], a["inv"], int(bool(causal)),
+                stream)
+        else:
+            rc = lib.azt_fused_short_fwd_f32(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), a["bias"],
+                a["seed"], o.data_ptr(), *a["dims"], a["scale_log2e"],
+                a["thresh"], a["inv"], int(bool(causal)), stream)
     launch_counts.launched("fused_short_fwd", rc)
-    return o
+    route_counts.launched(route, rc)
+    return o, stats
 
 
 def fused_short_bwd(q, k, v, do, key_bias, seed, scale: float, rate: float,
-                    causal: bool):
+                    causal: bool, stats=None):
     """B8's wrapper: ``(dq, dk, dv)`` for contiguous ``[b, h, s, d]``
-    inputs and ``do``. CPU tensors take :func:`fused_short_bwd_plain`; CUDA
-    tensors launch the kernel (a dq pass, then a dk/dv pass, both
-    recomputing ``p``: no atomics) on the current stream."""
+    inputs and ``do``. The bf16 route reads the row ``stats`` that
+    :func:`fused_short_fwd` returned; the f32 route recomputes them and
+    ignores the argument. CPU tensors take
+    :func:`fused_short_bwd_plain`; CUDA tensors launch the kernel (a dq
+    pass, then a dk/dv pass, each recomputing ``p``: no atomics) on the
+    current stream."""
     _check((q, k, v, do), key_bias, seed, rate)
+    route = fused_short_route(q.dtype)
+    if route == "bf16_tc":
+        _check_stats(q, stats)
     if not on_card(q, "fused_short_bwd"):
         return fused_short_bwd_plain(q, k, v, do, key_bias, scale, rate,
                                      seed, causal)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     b, h, s, _ = q.shape
-    # per query row: the softmax max, its denominator, rowsum(dp·p)
-    stats = torch.empty((3, b * h, s), dtype=torch.float32, device=q.device)
     a = _launch_args(q, key_bias, seed, scale, rate)
     lib = load_library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.azt_fused_short_bwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            a["bias"], a["seed"], dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), stats.data_ptr(), *a["dims"], a["scale_log2e"],
-            scale, a["thresh"], a["inv"], int(bool(causal)), stream)
+        if route == "bf16_tc":
+            # per query row: rowsum(dp·p), from the dq pass to the dk/dv pass
+            delta = torch.empty((b * h, s), dtype=torch.float32,
+                                device=q.device)
+            rc = lib.azt_fused_short_bwd_bf16(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                a["bias"], a["seed"], stats.data_ptr(), delta.data_ptr(),
+                dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), *a["dims"],
+                a["scale_log2e"], scale, a["thresh"], a["inv"],
+                int(bool(causal)), stream)
+        else:
+            # per query row: the softmax max, its denominator, rowsum(dp·p)
+            st = torch.empty((3, b * h, s), dtype=torch.float32,
+                             device=q.device)
+            rc = lib.azt_fused_short_bwd_f32(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                a["bias"], a["seed"], dq.data_ptr(), dk.data_ptr(),
+                dv.data_ptr(), st.data_ptr(), *a["dims"], a["scale_log2e"],
+                scale, a["thresh"], a["inv"], int(bool(causal)), stream)
     launch_counts.launched("fused_short_bwd", rc)
+    route_counts.launched(route, rc)
     return dq, dk, dv
 
 
 class _FusedShort(torch.autograd.Function):
     """Forward B7, backward B8; the bias is a padding mask and gets no
-    gradient (the JAX package's contract)."""
+    gradient (the JAX package's contract). The bf16 route saves the rows'
+    softmax statistics for its backward."""
 
     @staticmethod
     def forward(ctx, q, k, v, key_bias, seed, scale, rate, causal):
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
         kb = None if key_bias is None else key_bias.float().contiguous()
-        ctx.save_for_backward(q, k, v, kb, seed)
+        o, stats = fused_short_fwd(q, k, v, kb, seed, scale, rate, causal)
+        ctx.save_for_backward(q, k, v, kb, seed, stats)
         ctx.args = (scale, rate, causal)
-        return fused_short_fwd(q, k, v, kb, seed, scale, rate, causal)
+        return o
 
     @staticmethod
     def backward(ctx, g):
-        q, k, v, kb, seed = ctx.saved_tensors
+        q, k, v, kb, seed, stats = ctx.saved_tensors
         scale, rate, causal = ctx.args
         dq, dk, dv = fused_short_bwd(q, k, v, g.contiguous(), kb, seed,
-                                     scale, rate, causal)
+                                     scale, rate, causal, stats)
         return dq, dk, dv, None, None, None, None, None
 
 

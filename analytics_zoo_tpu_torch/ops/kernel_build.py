@@ -117,12 +117,18 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.azt_scatter_rows.argtypes = [p, p, p, ll, ll, ll, p]
     lib.azt_scatter_rows.restype = i
     f, u = ctypes.c_float, ctypes.c_uint32
-    lib.azt_fused_short_fwd.argtypes = [p, p, p, p, p, p, ll, i, i, i, i, f,
-                                        u, f, i, p]
-    lib.azt_fused_short_fwd.restype = i
-    lib.azt_fused_short_bwd.argtypes = [p, p, p, p, p, p, p, p, p, p, ll, i,
-                                        i, i, i, f, f, u, f, i, p]
-    lib.azt_fused_short_bwd.restype = i
+    lib.azt_fused_short_fwd_f32.argtypes = [p] * 6 + [ll, i, i, i, f, u, f,
+                                                      i, p]
+    lib.azt_fused_short_fwd_f32.restype = i
+    lib.azt_fused_short_bwd_f32.argtypes = [p] * 10 + [ll, i, i, i, f, f, u,
+                                                       f, i, p]
+    lib.azt_fused_short_bwd_f32.restype = i
+    lib.azt_fused_short_fwd_bf16.argtypes = [p] * 7 + [ll, i, i, i, f, u, f,
+                                                       i, p]
+    lib.azt_fused_short_fwd_bf16.restype = i
+    lib.azt_fused_short_bwd_bf16.argtypes = [p] * 11 + [ll, i, i, i, f, f,
+                                                        u, f, i, p]
+    lib.azt_fused_short_bwd_bf16.restype = i
     lib.azt_flash_fwd.argtypes = [p, p, p, p, p, p, ll, i, i, i, i, i, f, i,
                                   p]
     lib.azt_flash_fwd.restype = i

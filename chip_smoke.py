@@ -45,22 +45,27 @@ Phases, each of which must pass or the script exits non-zero:
    the wall time of a warm 16-step fit.
 6. attention kernels: the fused short attention forward (B7) and backward
    (B8) are held against their plain versions (B8 against autograd through
-   the plain forward) for seq 1, 17, 128 and 512, head widths 32 and 64, f32
-   and bf16, with and without a padding bias (one row all masked), causal or
-   not, dropout 0 and 0.1: within 2e-5 (f32) and 2e-2 (bf16) of the output's
-   scale, and bit-equal when repeated. Their dropout mask must equal
-   ``dropout_keep_mask`` bit for bit over 1536 x 128 x 128 entries, its kept
-   share within 4 sigma of 0.9. At the BERT-base shape (bf16, padding bias,
-   dropout 0 and 0.1) both are held to the bf16 tolerance again and timed
-   beside their plain versions and ``scaled_dot_product_attention`` with
-   the same mask.
+   the plain forward) for seq 1, 17, 64, 65, 128, 129 and 512, head widths
+   32, 64 and 128, f32 (the CUDA-core route) and bf16 (the tensor-core
+   route, its backward reading the row statistics its forward saved), with
+   and without a padding bias (one row all masked), causal or
+   not, dropout 0 and 0.1: within 2e-5 (f32) and 2e-2 (bf16) of the
+   output's scale, and bit-equal when repeated; each call must count on
+   its dtype's route. Their dropout mask must equal ``dropout_keep_mask``
+   bit for bit over 1536 x 128 x 128 entries in f32 and in bf16, its kept
+   share within 4 sigma of 0.9. The bf16 route at the BERT-base shape
+   (padding bias, dropout 0 and 0.1) and the f32 route at the LM's
+   prefill through B7 ([4, 16, 128, 128], causal) are held to their
+   tolerances again and timed beside their plain versions and
+   ``scaled_dot_product_attention`` with the same mask.
 7. BERT: ``BERTClassifier`` at BERT-base width (``bench.py``'s) with seeded
    random weights, bf16, dropout 0.1, adam, fine-tunes 2 epochs of 1024
    padded records at batch 128, seq 128 (16 steps), then evaluates and
    predicts. Every block launches B7 once per forward and B8 once per
-   step, and the embeddings three row gathers; losses must be finite. The
-   step is timed as in 5. Then the same model in f32 without dropout runs
-   on the card and on the CPU from the same weights: probabilities atol
+   step, all on the bf16 route, and the embeddings three row gathers;
+   losses must be finite. The step is timed as in 5. Then the same model
+   in f32 without dropout runs on the card (B7 and B8 on the f32 route
+   alone) and on the CPU from the same weights: probabilities atol
    1e-5, one step's gradients within 1e-4 in relative L2 norm, two Adam
    steps' losses rtol 1e-5 and parameters (see ``phase_bert_vs_cpu``).
 
@@ -83,8 +88,9 @@ Phases, each of which must pass or the script exits non-zero:
    seeded weights trains 8 steps at batch 8 x 2048 tokens (one B4 and one
    B6 per block and step), then a warm fit and the step are timed; it
    generates 32 tokens greedily for 4 prompts of 1000 tokens (prefill
-   through B4) and of 100 (through B7, causal), each decode step's logits
-   held to a full causal forward (1e-4 of their scale). A long-context
+   through B4) and of 100 (through B7's f32 route, causal), each decode
+   step's logits held to a full causal forward (1e-4 of their scale). A
+   long-context
    step (depth 2, sequence 4096, batch 2) must take B5a + B5b. At depth 2
    the card is held against the CPU from the same weights: a greedy
    generate after a 600-token prompt (tokens equal up to a near-tie of the
@@ -202,6 +208,10 @@ BERT_CPU_RECORDS, BERT_CPU_BATCH = 8, 4
 #: B7/B8 against their plain versions: f32 sums in another order; bf16
 #: outputs round to 8 bits, so both are relative to the output's scale
 ATTN_ATOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+#: B7/B8's grid, every case through both routes: lengths (one tile, one
+#: past it, two and past them, the longest) and head widths
+ATTN_SEQS = (1, 17, 64, 65, 128, 129, 512)
+ATTN_DIMS = (32, 64, 128)
 #: the card-against-CPU check: Adam had "the CPU's gradient" for a
 #: parameter where the card's is within this of it, relative
 GRAD_SAME = 1e-3
@@ -219,6 +229,10 @@ LM_LONG_BATCH, LM_LONG_STEPS = 2, 2
 #: generation: batch 4, 32 new tokens, prompts of 1000 tokens (prefill
 #: bucket 2048, flash) and of 100 (bucket 128, the fused short kernel)
 GEN_BATCH, GEN_NEW, GEN_PROMPTS = 4, 32, (1000, 100)
+#: B7's f32 route where the LM's generate runs it: the 100-token prompt's
+#: prefill bucket of 128, [GEN_BATCH, heads, 128, head width], causal
+ATTN_F32_SHAPE = (GEN_BATCH, LM_CFG["n_head"], 128,
+                  LM_CFG["hidden"] // LM_CFG["n_head"])
 #: card against CPU: full width at depth 2; two Adam steps at batch 2,
 #: sequence 512; a greedy generate of 8 tokens after a 600-token prompt
 LM_CPU = dict(LM_CFG, n_block=2)
@@ -1296,17 +1310,22 @@ def phase_int8_wnd(ek, seed: int, workdir: str):
             "launches": launches}
 
 
-def attention_bound_ms(b, h, s, d, dtype, backward: bool) -> tuple:
+def attention_bound_ms(b, h, s, d, dtype, backward: bool, bias=True,
+                       causal=False) -> tuple:
     """Least time for B7 (or B8) at these shapes, and what bounds it: the
     larger of the bytes each input read once and each output written once
     take at the memory rate and the products' operations at the dtype's
-    peak. B7: q, k, v, the [b, s] f32 bias in, o out; 4·bh·s²·d operations
-    (q·kᵀ and p·v). B8: q, k, v, dO and the bias in, dq, dk, dv out;
-    10·bh·s²·d (q·kᵀ again, dO·vᵀ, pdᵀ·dO, ds·k, dsᵀ·q)."""
+    peak, over the (row, col) pairs the causal mask leaves. B7: q, k, v and
+    the [b, s] f32 bias in, o out; 4·d operations a pair (q·kᵀ, p·v). B8:
+    q, k, v, dO and the bias in, dq, dk, dv out; 10·d a pair (q·kᵀ again,
+    dO·vᵀ, pdᵀ·dO, ds·k, dsᵀ·q). The row statistics the bf16 route passes
+    from B7 to B8 are that design's bytes, not the function's: not
+    counted."""
     size = torch.tensor([], dtype=dtype).element_size()
     tile = b * h * s * d * size
-    bytes_ = (7 if backward else 4) * tile + 4 * b * s
-    flops = (10 if backward else 4) * b * h * s * s * d
+    bytes_ = (7 if backward else 4) * tile + (4 * b * s if bias else 0)
+    pairs = flash_pairs(s, s, causal)
+    flops = (10 if backward else 4) * b * h * pairs * d
     t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
@@ -1328,19 +1347,71 @@ def _rel_err(got, want) -> float:
     return float((got.float() - want.float()).abs().max()) / scale
 
 
+def _fused_pair(at, q, k, v, do, args):
+    """B7 then B8 as ``_FusedShort`` runs them: the forward saves the rows'
+    softmax statistics, which the bf16 backward reads."""
+    o, stats = at.fused_short_fwd(q, k, v, *args)
+    return o, at.fused_short_bwd(q, k, v, do, *args, stats), stats
+
+
+def _attn_timing(at, q, k, v, do, args, library_fwd, library_fwd_bwd):
+    """CUDA-event (and profiler) times of B7, B8, their plain versions and
+    the library's call, and B7's and B8's errors against the plain
+    versions on the same inputs (the bf16 backward from the statistics
+    B7 saved)."""
+    kb, seed_t, scale, rate, causal = args
+    _, _, stats = _fused_pair(at, q, k, v, do, args)
+    fns = {
+        "fwd_ms": lambda: at.fused_short_fwd(q, k, v, *args),
+        "bwd_ms": lambda: at.fused_short_bwd(q, k, v, do, *args, stats),
+        "plain_fwd_ms": lambda: at.fused_short_attention_plain(
+            q, k, v, kb, scale, rate, seed_t, causal, with_stats=True),
+        "plain_bwd_ms": lambda: at.fused_short_bwd_plain(
+            q, k, v, do, kb, scale, rate, seed_t, causal),
+        "library_fwd_ms": library_fwd,
+        "library_fwd_bwd_ms": library_fwd_bwd,
+    }
+    t = {}
+    for key, fn in fns.items():
+        t[key] = cuda_ms(fn, 20)
+        t[key.replace("ms", "device_ms")] = device_ms(fn, calls=5)
+    want, want_stats = at.fused_short_attention_plain(
+        q, k, v, kb, scale, rate, seed_t, causal, with_stats=True)
+    got, grads, _ = _fused_pair(at, q, k, v, do, args)
+    t["fwd_max_abs_err"] = float((got.float() - want.float()).abs().max())
+    t["fwd_rel_err"] = _rel_err(got, want)
+    if stats is not None:
+        t["stats_max_rel_err"] = float(((stats - want_stats).abs()
+                                        / want_stats.abs().clamp_min(1.0)
+                                        ).max())
+    plain = at.fused_short_bwd_plain(q, k, v, do, kb, scale, rate, seed_t,
+                                     causal)
+    t["bwd_max_abs_err"] = max(float((a.float() - b.float()).abs().max())
+                               for a, b in zip(grads, plain))
+    t["bwd_rel_err"] = max(_rel_err(a, b) for a, b in zip(grads, plain))
+    for key in ("fwd", "bwd"):
+        check(t[f"{key}_rel_err"] <= ATTN_ATOL[q.dtype],
+              f"{'B7' if key == 'fwd' else 'B8'} != plain by "
+              f"{t[f'{key}_rel_err']} at {tuple(q.shape)} {q.dtype}, "
+              f"rate {rate}")
+    return t
+
+
 def phase_attention_kernels(at, dev, seed: int):
     """Hold B7 and B8 against their plain versions (autograd through the
-    plain forward for B8) over the grid, check the dropout mask bit for bit
-    and its kept share, then time both at the BERT-base shape beside the
-    plain versions and ``scaled_dot_product_attention``; returns
-    (timings, errors)."""
+    plain forward for B8) over the grid, through both routes (bf16 on the
+    tensor cores, f32 on the CUDA cores), check the dropout mask bit for
+    bit and its kept share in both, then time both routes: bf16 at the
+    BERT-base shape, f32 at the LM's prefill through B7, beside the plain
+    versions and ``scaled_dot_product_attention``; returns timings."""
     gen = torch.Generator().manual_seed(seed)
     seed_t = torch.tensor([seed + 17], dtype=torch.int32, device=dev)
-    errors = {"fwd": 0.0, "bwd": 0.0}
+    errors = {"fwd": 0.0, "bwd": 0.0, "fwd_bf16": 0.0, "bwd_bf16": 0.0}
     cases = 0
-    for s in (1, 17, 128, 512):
-        for d in (32, 64):
+    for s in ATTN_SEQS:
+        for d in ATTN_DIMS:
             for dtype in (torch.float32, torch.bfloat16):
+                route = at.fused_short_route(dtype)
                 q, k, v, do, mask = _attn_case(dev, 2, 3, s, d, dtype, gen)
                 mask[-1] = 0  # a row of all-masked keys
                 bias = ((1.0 - mask) * -1e9).to(dev)
@@ -1348,11 +1419,19 @@ def phase_attention_kernels(at, dev, seed: int):
                     for causal in (False, True):
                         for rate in (0.0, 0.1):
                             args = (kb, seed_t, 0.125, rate, causal)
-                            o = at.fused_short_fwd(q, k, v, *args)
-                            grads = at.fused_short_bwd(q, k, v, do, *args)
-                            check(torch.equal(o, at.fused_short_fwd(
-                                q, k, v, *args)), "B7 not bit-equal twice")
-                            again = at.fused_short_bwd(q, k, v, do, *args)
+                            before = dict(at.route_counts)
+                            o, grads, stats = _fused_pair(at, q, k, v, do,
+                                                          args)
+                            check(at.route_counts[route]
+                                  == before[route] + 2, f"{dtype} took "
+                                  f"{dict(at.route_counts)}, not {route}")
+                            again = at.fused_short_fwd(q, k, v, *args)
+                            check(torch.equal(o, again[0]) and (
+                                stats is None
+                                or torch.equal(stats, again[1])),
+                                "B7 not bit-equal twice")
+                            again = at.fused_short_bwd(q, k, v, do, *args,
+                                                       stats)
                             check(all(torch.equal(a, b) for a, b in
                                       zip(grads, again)),
                                   "B8 not bit-equal twice")
@@ -1373,86 +1452,83 @@ def phase_attention_kernels(at, dev, seed: int):
                             check(e_b <= ATTN_ATOL[dtype],
                                   f"B8 != autograd through plain by {e_b} "
                                   f"at {case}")
-                            errors["fwd"] = max(errors["fwd"], e)
-                            errors["bwd"] = max(errors["bwd"], e_b)
+                            tag = "_bf16" if dtype == torch.bfloat16 else ""
+                            errors["fwd" + tag] = max(errors["fwd" + tag], e)
+                            errors["bwd" + tag] = max(errors["bwd" + tag],
+                                                      e_b)
                             cases += 1
     log(f"B7/B8 within f32 2e-5, bf16 2e-2 (relative to the output's scale) "
-        f"of their plain versions on {cases} cases, bit-equal when repeated;"
-        f" largest errors {json.dumps(errors)}")
+        f"of their plain versions on {cases} cases, each dtype by its own "
+        f"route, bit-equal when repeated; largest errors "
+        f"{json.dumps(errors)}")
 
     # the mask: q = k = 0 makes p = 1/s; v = dO = I reads pd back out of o
-    # and dv, so the kernels' mask is o != 0 (and dvᵀ != 0)
+    # and dv, so the kernels' mask is o != 0 (and dvᵀ != 0); 1/(s·0.9)
+    # is far from 0 in bf16 too
     b, h, s = BERT_BATCH, BERT_CFG["n_head"], BERT_SEQ
-    zeros = torch.zeros(b, h, s, s, device=dev)
-    eye = torch.eye(s, device=dev).expand(b, h, s, s).contiguous()
-    o = at.fused_short_fwd(zeros, zeros, eye, None, seed_t, 1.0, 0.1, False)
-    _, _, dv = at.fused_short_bwd(zeros, zeros, eye, eye, None, seed_t, 1.0,
-                                  0.1, False)
     want = at.dropout_keep_mask(seed_t, b * h, s, 0.1).reshape(b, h, s, s)
-    check(torch.equal(o != 0, want), "B7's dropout mask != dropout_keep_mask")
-    check(torch.equal(dv.transpose(-1, -2) != 0, want),
-          "B8's dropout mask != dropout_keep_mask")
+    for dtype in (torch.float32, torch.bfloat16):
+        zeros = torch.zeros(b, h, s, s, device=dev, dtype=dtype)
+        eye = torch.eye(s, device=dev, dtype=dtype).expand(
+            b, h, s, s).contiguous()
+        o, (_, _, dv), _ = _fused_pair(at, zeros, zeros, eye, eye,
+                                       (None, seed_t, 1.0, 0.1, False))
+        check(torch.equal(o != 0, want),
+              f"B7's {dtype} dropout mask != dropout_keep_mask")
+        check(torch.equal(dv.transpose(-1, -2) != 0, want),
+              f"B8's {dtype} dropout mask != dropout_keep_mask")
+        del zeros, eye, o, dv
     kept = float(want.float().mean())
     sigma = math.sqrt(0.1 * 0.9 / want.numel())
     check(abs(kept - 0.9) <= 4 * sigma, f"kept share {kept} is more than "
           f"4 sigma ({sigma}) from 0.9")
     mask_stats = {"entries": want.numel(), "kept_share": kept,
-                  "sigma": sigma}
+                  "sigma": sigma, "dtypes": ["f32", "bf16"]}
     log("B7/B8 dropout masks == dropout_keep_mask bit for bit " +
         json.dumps(mask_stats))
-    del zeros, eye, o, dv, want
+    del want
 
-    # timing at the BERT-base shape, bf16, padding bias
+    # the bf16 route at the BERT-base shape, padding bias
     d = BERT_CFG["hidden_size"] // h
     q, k, v, do, mask = _attn_case(dev, b, h, s, d, torch.bfloat16, gen)
     kb = ((1.0 - mask) * -1e9).to(dev)
     sdpa_mask = kb[:, None, None, :].to(torch.bfloat16)
     leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    scale = 1.0 / math.sqrt(d)
     timings = {"shape": {"b": b, "h": h, "s": s, "d": d, "dtype": "bf16"},
                "mask": mask_stats, "errors": errors, "cases": cases}
     for rate in (0.0, 0.1):
-        args = (kb, seed_t, scale, rate, False)
-
         def sdpa_fwd_bwd():
             sdpa(*leaves, attn_mask=sdpa_mask, dropout_p=rate).backward(do)
 
-        fns = {
-            "fwd_ms": lambda: at.fused_short_fwd(q, k, v, *args),
-            "bwd_ms": lambda: at.fused_short_bwd(q, k, v, do, *args),
-            "plain_fwd_ms": lambda: at.fused_short_attention_plain(
-                q, k, v, kb, scale, rate, seed_t),
-            "plain_bwd_ms": lambda: at.fused_short_bwd_plain(
-                q, k, v, do, kb, scale, rate, seed_t, False),
-            "library_fwd_ms": lambda: sdpa(q, k, v, attn_mask=sdpa_mask,
-                                           dropout_p=rate),
-            "library_fwd_bwd_ms": sdpa_fwd_bwd,
-        }
-        t = {}
-        for key, fn in fns.items():
-            t[key] = cuda_ms(fn, 20)
-            t[key.replace("ms", "device_ms")] = device_ms(fn, calls=5)
-        want = at.fused_short_attention_plain(q, k, v, kb, scale, rate,
-                                              seed_t)
-        got = at.fused_short_fwd(q, k, v, *args)
-        t["fwd_max_abs_err"] = float((got.float() - want.float()).abs().max())
-        t["fwd_rel_err"] = _rel_err(got, want)
-        got = at.fused_short_bwd(q, k, v, do, *args)
-        plain = at.fused_short_bwd_plain(q, k, v, do, kb, scale, rate,
-                                         seed_t, False)
-        t["bwd_max_abs_err"] = max(float((a.float() - b.float()).abs().max())
-                                   for a, b in zip(got, plain))
-        t["bwd_rel_err"] = max(_rel_err(a, b) for a, b in zip(got, plain))
-        for key in ("fwd", "bwd"):
-            check(t[f"{key}_rel_err"] <= ATTN_ATOL[torch.bfloat16],
-                  f"{'B7' if key == 'fwd' else 'B8'} != plain by "
-                  f"{t[f'{key}_rel_err']} at the BERT-base shape, rate {rate}")
+        t = _attn_timing(
+            at, q, k, v, do, (kb, seed_t, 1.0 / math.sqrt(d), rate, False),
+            lambda: sdpa(q, k, v, attn_mask=sdpa_mask, dropout_p=rate),
+            sdpa_fwd_bwd)
         timings[f"rate_{rate}"] = t
-        log(f"attention timing rate {rate} " + json.dumps(t))
+        log(f"attention timing bf16 rate {rate} " + json.dumps(t))
     for bwd in (False, True):
         bound, by = attention_bound_ms(b, h, s, d, torch.bfloat16, bwd)
         timings["bwd_bound" if bwd else "fwd_bound"] = [bound, by]
+    del q, k, v, do, leaves
+
+    # the f32 route at the LM's prefill through B7: causal, no bias
+    fb, fh, fs = ATTN_F32_SHAPE[:3]
+    fd = ATTN_F32_SHAPE[3]
+    q, k, v, do, _ = _attn_case(dev, fb, fh, fs, fd, torch.float32, gen)
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    t = _attn_timing(
+        at, q, k, v, do, (None, None, 1.0 / math.sqrt(fd), 0.0, True),
+        lambda: sdpa(q, k, v, is_causal=True),
+        lambda: sdpa(*leaves, is_causal=True).backward(do))
+    for bwd in (False, True):
+        bound, by = attention_bound_ms(fb, fh, fs, fd, torch.float32, bwd,
+                                       bias=False, causal=True)
+        t["bwd_bound" if bwd else "fwd_bound"] = [bound, by]
+    t["shape"] = {"b": fb, "h": fh, "s": fs, "d": fd, "dtype": "f32",
+                  "causal": True}
+    timings["f32_lm_prefill"] = t
+    log("attention timing f32 lm prefill " + json.dumps(t))
     return timings
 
 
@@ -1507,6 +1583,7 @@ def phase_bert(at, ek, seed: int):
         torch.cuda.synchronize()
         counts[name] = {**at.launch_counts,
                         "gather_rows": ek.launch_counts["gather_rows"],
+                        "routes": dict(at.route_counts),
                         "s": time.perf_counter() - t0}
         if name == "fit":
             hist = out
@@ -1528,6 +1605,10 @@ def phase_bert(at, ek, seed: int):
         got = {key: counts[name][key] for key in per(1, True)}
         check(got == per(k, backward), f"{name} launched {got}, expected "
               f"{per(k, backward)}")
+        want = blocks * k * (2 if backward else 1)
+        check(counts[name]["routes"] == {"bf16_tc": want, "f32_simt": 0},
+              f"{name} took the routes {counts[name]['routes']}, expected "
+              f"{want} bf16_tc")
     losses = np.asarray(hist["loss_history"])
     check(hist["iterations"] == steps and losses.shape == (steps,)
           and bool(np.isfinite(losses).all()),
@@ -1612,7 +1693,7 @@ def hold_adam_params(w_dev, w_cpu, g_dev, g_cpu, lr: float):
     return held_err, free, free_err
 
 
-def phase_bert_vs_cpu(seed: int):
+def phase_bert_vs_cpu(at, seed: int):
     """BERT-base in f32 with dropout off, fit for two Adam steps on the card
     and on the CPU from the same weights: the forward's probabilities, the
     gradients each step handed to Adam, and the losses and parameters;
@@ -1643,10 +1724,13 @@ def phase_bert_vs_cpu(seed: int):
         clf = BERTClassifier(2, bert_config=cfg, dropout=0.0).build(
             seq, device=dev)
         clf.model.load_state_dict(weights)
+        at.reset_launch_counts()
         probs = clf.predict(tokens, batch_size=batch, device=dev)
         opt = clf.model.get_estimator().optimizer
         seen = record_grads(opt)
         hist = clf.fit(tokens, y, batch_size=batch, epochs=1)
+        if dev == "cuda":
+            launches = {**at.launch_counts, "routes": dict(at.route_counts)}
         runs[dev] = (probs, seen, hist["loss_history"],
                      {k: v.detach().cpu()
                       for k, v in clf.model.state_dict().items()})
@@ -1655,6 +1739,10 @@ def phase_bert_vs_cpu(seed: int):
         runs["cuda"], runs["cpu"])
     probs_err = float(np.abs(p_dev - p_cpu).max())
     check(probs_err <= 1e-5, f"card probabilities differ by {probs_err}")
+    fused = launches["fused_short_fwd"] + launches["fused_short_bwd"]
+    check(launches["fused_short_bwd"] > 0 and launches["routes"] == {
+        "bf16_tc": 0, "f32_simt": fused}, f"the f32 card run launched "
+        f"{launches}, not the f32 route alone")
     steps = len(l_cpu)
     check(len(g_dev) == len(g_cpu) == steps and g_dev[0].keys() == w_cpu.keys()
           and g_cpu[0].keys() == w_cpu.keys(), "different gradients")
@@ -1669,6 +1757,7 @@ def phase_bert_vs_cpu(seed: int):
     held_err, free, free_err = hold_adam_params(w_dev, w_cpu, g_dev, g_cpu,
                                                 lr)
     return {"records": n, "batch": batch, "seq": seq, "adam_steps": steps,
+            "launches": launches,
             "lr": lr, "max_abs_err_probs": probs_err,
             "max_rel_l2_err_grad": grad_rel, "worst_grad": worst,
             "max_rel_err_loss": float(np.max(np.abs(
@@ -2062,6 +2151,7 @@ def phase_lm_generate(at, ek, lm, seed: int):
         torch.cuda.synchronize()
         first_s = time.perf_counter() - t0
         counts = _lm_counts(at, ek)
+        routes = dict(at.route_counts)
         flash = tb > at.FUSED_SHORT_MAX_SEQ
         want = {"flash_fwd": blocks if flash else 0,
                 "fused_short_fwd": 0 if flash else blocks,
@@ -2069,6 +2159,9 @@ def phase_lm_generate(at, ek, lm, seed: int):
                 "fused_short_bwd": 0, "gather_rows": 1 + GEN_NEW}
         check(counts == want, f"generate after {length} tokens launched "
               f"{counts}, expected {want}")
+        check(routes == {"bf16_tc": 0, "f32_simt": want["fused_short_fwd"]},
+              f"generate after {length} tokens took the routes {routes}, "
+              f"expected f32_simt alone")
         check(gen.shape == (GEN_BATCH, GEN_NEW) and bool(
             ((gen >= 0) & (gen < LM_CFG["vocab_size"])).all()),
               "generated tokens malformed")
@@ -2093,7 +2186,8 @@ def phase_lm_generate(at, ek, lm, seed: int):
             "first_call_ms": first_s * 1e3, "total_ms": total_ms,
             "prefill_ms_events": prefill_ms,
             "ms_per_token": (total_ms - prefill_ms) / GEN_NEW,
-            "launches": counts, "decode_vs_full_rel_err": err}
+            "launches": counts, "routes": routes,
+            "decode_vs_full_rel_err": err}
     return launches, stats
 
 
@@ -2654,7 +2748,7 @@ def main() -> int:
         bert_launches, bert_stats = timed("bert", phase_bert, at, ek,
                                           args.seed)
         log("bert " + json.dumps(bert_stats) + f" | {smi}")
-        bert_cpu = timed("bert_vs_cpu", phase_bert_vs_cpu, args.seed)
+        bert_cpu = timed("bert_vs_cpu", phase_bert_vs_cpu, at, args.seed)
         log("bert card vs cpu " + json.dumps(bert_cpu) + f" | {smi}")
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
@@ -2795,8 +2889,13 @@ def main() -> int:
             "bound_ms", "max_abs_err")}],
     }
     main_t = attn["rate_0.1"]  # the fine-tune's attention dropout
+    attn_sources = {
+        "bf16_tc": "analytics_zoo_tpu_torch/csrc/fused_short_attn_bf16.cu",
+        "f32_simt": "analytics_zoo_tpu_torch/csrc/fused_short_attn.cu"}
     attn_shape = (f"b {BERT_BATCH} x h {BERT_CFG['n_head']}, s {BERT_SEQ}, "
                   f"d 64, bf16, padding bias, dropout 0.1")
+    f32_shape = ("b {} x h {}, s {}, d {}, f32, causal (the LM's prefill)"
+                 .format(*ATTN_F32_SHAPE))
     attn_entries = []
     for name, key, line, tpu, bound, library in (
             ("fused_short_fwd", "fwd", 716, "_fused_short_fwd_kernel",
@@ -2808,15 +2907,50 @@ def main() -> int:
                                  "backward (it has no backward alone)"))):
         by_path = {k: c[name] for k, c in bert_launches.items()}
         by_path.update({k: c[name] for k, c in lm_paths.items()})
+        by_path["bert_vs_cpu"] = bert_cpu["launches"][name]
+        # the BERT fine-tune is bf16, the others f32 (both checked)
+        routes = {"bf16_tc": {
+            "source": attn_sources["bf16_tc"],
+            "shape": attn_shape, "ms": main_t[f"{key}_ms"],
+            "device_ms": main_t[f"{key}_device_ms"],
+            "bound_ms": bound[0], "bound_by": bound[1],
+            "plain_ms": main_t[f"plain_{key}_ms"],
+            "library_ms": main_t[library[0]],
+            "library_device_ms": main_t[library[0].replace(
+                "_ms", "_device_ms")],
+            "max_abs_err": main_t[f"{key}_max_abs_err"],
+            "max_rel_err_grid": attn["errors"][f"{key}_bf16"],
+            "launches_by_path": {k: v for k, v in by_path.items()
+                                 if k in bert_launches}}}
+        f32 = attn["f32_lm_prefill"]
+        routes["f32_simt"] = {
+            "source": attn_sources["f32_simt"],
+            "shape": f32_shape, "ms": f32[f"{key}_ms"],
+            "device_ms": f32[f"{key}_device_ms"],
+            "bound_ms": f32[f"{key}_bound"][0],
+            "bound_by": f32[f"{key}_bound"][1],
+            "plain_ms": f32[f"plain_{key}_ms"],
+            "library_ms": f32[library[0]],
+            "library": library[1].replace(
+                "scaled_dot_product_attention",
+                "scaled_dot_product_attention(is_causal=True)"),
+            "library_device_ms": f32[library[0].replace("_ms",
+                                                        "_device_ms")],
+            "max_abs_err": f32[f"{key}_max_abs_err"],
+            "max_rel_err_grid": attn["errors"][key],
+            "launches_by_path": {k: v for k, v in by_path.items()
+                                 if k not in bert_launches}}
+        # the top-level numbers are the main path's: BERT's bf16 route
         attn_entries.append({
             "name": name, "route": "cuda",
-            "source": "analytics_zoo_tpu_torch/csrc/fused_short_attn.cu",
+            "source": attn_sources["bf16_tc"],
             "replaces": f"analytics_zoo_tpu/ops/attention.py:{line}",
             "tpu_kernel": tpu, "launches": sum(by_path.values()),
             "launches_by_path": by_path,
             "launches_per_train_step": by_path["fit"] / bert_stats["steps"],
             "max_abs_err": main_t[f"{key}_max_abs_err"],
-            "max_rel_err_grid": attn["errors"][key],
+            "max_rel_err_grid": {"f32": attn["errors"][key],
+                                 "bf16": attn["errors"][f"{key}_bf16"]},
             "shape": attn_shape, "ms": main_t[f"{key}_ms"],
             "kernel_ms": main_t[f"{key}_ms"],
             "plain_ms": main_t[f"plain_{key}_ms"],
@@ -2825,6 +2959,7 @@ def main() -> int:
             "device_ms": main_t[f"{key}_device_ms"],
             "no_dropout": {k: v for k, v in attn["rate_0.0"].items()
                            if k.startswith((key, "plain_" + key, "library"))},
+            "routes": routes,
         })
     flash_entries = []
     for name, tpu, line, label, key, kind, err in (

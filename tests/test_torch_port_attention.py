@@ -36,26 +36,29 @@ def _padding_bias(b, s, seed=0):
     return (1.0 - mask) * -1e9
 
 
-def _jax_reference(q, k, v, g, bias, causal):
+def _jax_reference(q, k, v, g, bias, causal, dtype=jnp.float32):
     jb = None if bias is None else jnp.asarray(bias)[:, None, None, :]
+    q, k, v, g = (jnp.asarray(a, dtype) for a in (q, k, v, g))
 
     def loss(q, k, v):
-        return jnp.sum(jax_dot_product_attention(q, k, v, bias=jb,
-                                                 causal=causal) * g)
+        out = jax_dot_product_attention(q, k, v, bias=jb, causal=causal)
+        return jnp.sum(out.astype(jnp.float32) * g.astype(jnp.float32))
 
-    out = jax_dot_product_attention(jnp.asarray(q), jnp.asarray(k),
-                                    jnp.asarray(v), bias=jb, causal=causal)
+    out = jax_dot_product_attention(q, k, v, bias=jb, causal=causal)
     grads = jax.grad(loss, argnums=(0, 1, 2))(q, k, v)
-    return np.asarray(out), [np.asarray(x) for x in grads]
+    return (np.asarray(out, np.float32),
+            [np.asarray(x, np.float32) for x in grads])
 
 
-def _port(q, k, v, g, bias, causal, **kw):
-    tq, tk, tv = (torch.tensor(a, requires_grad=True) for a in (q, k, v))
+def _port(q, k, v, g, bias, causal, dtype=torch.float32, **kw):
+    tq, tk, tv = (torch.tensor(a).to(dtype).requires_grad_()
+                  for a in (q, k, v))
     kb = None if bias is None else torch.tensor(bias)
     out = at.fused_short_attention(tq, tk, tv, key_bias=kb, causal=causal,
                                    **kw)
-    (out * torch.tensor(g)).sum().backward()
-    return out.detach().numpy(), [t.grad.numpy() for t in (tq, tk, tv)]
+    out.backward(torch.tensor(g).to(dtype))
+    return (out.detach().float().numpy(),
+            [t.grad.float().numpy() for t in (tq, tk, tv)])
 
 
 @pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
@@ -70,6 +73,139 @@ def test_fused_short_forward_and_backward_match_jax(s, with_bias, causal):
     for name, a, b in zip("qkv", got_grads, want_grads):
         np.testing.assert_allclose(a, b, rtol=0, atol=ATOL,
                                    err_msg=f"d{name}")
+
+
+#: bf16 against a reference: outputs round to 8 bits, so the tolerance is
+#: relative to the output's scale (as on the card)
+BF16_TOL = 2e-2
+
+
+def _close_to_scale(got, want, tol, what=""):
+    scale = max(1.0, float(np.abs(want).max()))
+    err = float(np.abs(got - want).max())
+    assert err <= tol * scale, f"{what}: {err} > {tol} x {scale}"
+
+
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+@pytest.mark.parametrize("with_bias", [False, True], ids=["nobias", "pad"])
+@pytest.mark.parametrize("s", [1, 17, 64])
+def test_bf16_fused_short_forward_and_backward_match_jax_in_bf16(
+        s, with_bias, causal):
+    """The bf16 route's plain versions (p and ds rounded to bf16 where the
+    TPU kernel rounds them) against JAX's attention and its gradient run
+    in bf16 on the same bf16 inputs."""
+    q, k, v, g = _qkv(s, s=s)
+    bias = _padding_bias(2, s, seed=s) if with_bias else None
+    want, want_grads = _jax_reference(q, k, v, g, bias, causal,
+                                      jnp.bfloat16)
+    got, got_grads = _port(q, k, v, g, bias, causal, torch.bfloat16)
+    _close_to_scale(got, want, BF16_TOL, "o")
+    for name, a, b in zip("qkv", got_grads, want_grads):
+        _close_to_scale(a, b, BF16_TOL, f"d{name}")
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+def test_bf16_plain_forward_matches_the_f32_plain_forward(causal, rate):
+    q, k, v, _ = (torch.tensor(a) for a in _qkv(9, s=40))
+    bias = torch.tensor(_padding_bias(2, 40, seed=9))
+    seed = torch.tensor([5], dtype=torch.int32)
+    want = at.fused_short_attention_plain(q, k, v, bias, 0.25, rate, seed,
+                                          causal)
+    # on bf16-rounded inputs, so only the route's own rounding differs
+    r = [t.bfloat16() for t in (q, k, v)]
+    got = at.fused_short_attention_plain(*r, bias, 0.25, rate, seed, causal)
+    ref = at.fused_short_attention_plain(*(t.float() for t in r), bias, 0.25,
+                                         rate, seed, causal)
+    assert got.dtype == torch.bfloat16
+    _close_to_scale(got.float().numpy(), ref.numpy(), BF16_TOL, "o")
+    # and the rounding of the inputs stays inside the same tolerance
+    _close_to_scale(got.float().numpy(), want.numpy(), BF16_TOL, "o vs f32")
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_the_forward_saves_each_rows_max_and_sum(causal):
+    """The statistics the bf16 backward reads: each row's max score (exp2
+    units) and sum, from which exp2(t - max) / sum is the forward's p."""
+    q, k, v, _ = (torch.tensor(a) for a in _qkv(11, s=33))
+    bias = torch.tensor(_padding_bias(2, 33, seed=11))
+    bias[-1] = -1e9  # a batch item whose keys are all masked
+    o, stats = at.fused_short_attention_plain(q, k, v, bias, 0.25, 0.0, None,
+                                              causal, with_stats=True)
+    assert stats.shape == (2, 2, 3, 33) and stats.dtype == torch.float32
+    t = torch.matmul(q, k.transpose(-1, -2)) * (0.25 * at._LOG2E) \
+        + (bias * at._LOG2E)[:, None, None, :]
+    if causal:
+        t = t.masked_fill(torch.ones(33, 33, dtype=torch.bool).triu(1),
+                          -1e30)
+    p = torch.exp2(t - stats[0][..., None]) / stats[1][..., None]
+    np.testing.assert_allclose(p.numpy(), at._probs(q, k, bias, 0.25,
+                                                    causal).numpy(),
+                               rtol=0, atol=1e-6)
+    np.testing.assert_allclose(torch.matmul(p, v).numpy(), o.numpy(),
+                               rtol=0, atol=ATOL)
+    # the all-masked batch item is uniform over the keys a row sees: every
+    # score rounds to the bias (f32's spacing there is 128), so each sum
+    # counts them exactly
+    seen = (torch.arange(1.0, 34.0) if causal
+            else torch.full((33,), 33.0)).expand(3, 33)
+    assert torch.equal(stats[1, 1], seen)
+
+
+def test_the_dtype_picks_the_route():
+    assert at.fused_short_route(torch.bfloat16) == "bf16_tc"
+    assert at.fused_short_route(torch.float32) == "f32_simt"
+    q, k, v, g = (torch.tensor(a).bfloat16() for a in _qkv(12))
+    o, stats = at.fused_short_fwd(q, k, v, None, None, 0.25, 0.0, False)
+    assert stats.shape == (2, 2, 3, 17)
+    # the bf16 backward reads what its forward saved
+    with pytest.raises(ValueError):
+        at.fused_short_bwd(q, k, v, g, None, None, 0.25, 0.0, False)
+    with pytest.raises(ValueError):
+        at.fused_short_bwd(q, k, v, g, None, None, 0.25, 0.0, False,
+                           stats[:, :1].contiguous())
+    dq, dk, dv = at.fused_short_bwd(q, k, v, g, None, None, 0.25, 0.0, False,
+                                    stats)
+    assert dq.dtype == dk.dtype == dv.dtype == torch.bfloat16
+    # f32 saves nothing: its backward recomputes the statistics
+    f = [t.float() for t in (q, k, v)]
+    assert at.fused_short_fwd(*f, None, None, 0.25, 0.0, False)[1] is None
+    assert len(at.fused_short_bwd(*f, g.float(), None, None, 0.25, 0.0,
+                                  False)) == 3
+
+
+def test_the_bf16_rounding_passes_its_gradient_through_in_f32():
+    """The plain forward rounds pd to bf16 before pd·v, as the kernels do;
+    autograd through it must not round the incoming gradient (the kernels
+    keep dp in f32), or the B8 reference gains a rounding of its own."""
+    x = torch.tensor([0.1, 1.0 / 3.0, 2.0], requires_grad=True)
+    w = torch.tensor([1.0 / 3.0, 0.1, 1.0 + 2.0 ** -12])
+    y = at._rounded(x, torch.bfloat16)
+    assert torch.equal(y, x.detach().bfloat16().float())
+    (y * w).sum().backward()
+    assert torch.equal(x.grad, w)
+    assert at._rounded(x, torch.float32) is x
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+def test_bf16_plain_backward_matches_autograd_through_the_plain_forward(
+        causal, rate):
+    """The two B8 references the card is held to agree in bf16: B8's
+    arithmetic written out, and autograd through the plain forward (which
+    differs only in not rounding ds to bf16)."""
+    q, k, v, g = (torch.tensor(a).bfloat16() for a in _qkv(13, s=40))
+    bias = torch.tensor(_padding_bias(2, 40, seed=13))
+    seed = torch.tensor([77], dtype=torch.int32)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    at.fused_short_attention_plain(*leaves, bias, 0.25, rate, seed,
+                                   causal).backward(g)
+    got = at.fused_short_bwd_plain(q, k, v, g, bias, 0.25, rate, seed,
+                                   causal)
+    for name, a, t in zip("qkv", got, leaves):
+        assert a.dtype == torch.bfloat16
+        _close_to_scale(a.float().numpy(), t.grad.float().numpy(), BF16_TOL,
+                        f"d{name}")
 
 
 @pytest.mark.parametrize("causal", [False, True])
@@ -188,7 +324,9 @@ def test_cpu_tensors_take_the_plain_versions_and_launch_nothing():
     at.reset_launch_counts()
     q, k, v, g = _qkv(7)
     _port(q, k, v, g, None, False)
+    _port(q, k, v, g, None, False, torch.bfloat16)
     assert at.launch_counts == {"fused_short_fwd": 0, "fused_short_bwd": 0}
+    assert at.route_counts == {"bf16_tc": 0, "f32_simt": 0}
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take():

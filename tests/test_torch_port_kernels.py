@@ -203,7 +203,8 @@ def test_library_is_keyed_by_a_hash_of_the_sources():
     assert os.path.basename(path).startswith("libazt_kernels-")
     srcs, _ = kernel_build._sources()
     assert {"gather_rows.cu", "gather_pool.cu", "fused_short_attn.cu",
-            "gather_int8.cu", "scatter_rows.cu"} <= {
+            "fused_short_attn_bf16.cu", "gather_int8.cu",
+            "scatter_rows.cu"} <= {
         os.path.basename(s) for s in srcs}
 
 
@@ -464,7 +465,7 @@ def _close(got, want, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("s", [1, 17, 128, 512])
+@pytest.mark.parametrize("s", [1, 17, 64, 65, 128, 129, 512])
 @pytest.mark.parametrize("d", [24, 32, 64, 128])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
@@ -477,9 +478,10 @@ def test_fused_short_kernels_equal_their_plain_versions_on_the_card(
         for causal in (False, True):
             for rate in (0.0, 0.1):
                 before = dict(at.launch_counts)
-                o = at.fused_short_fwd(q, k, v, kb, seed, 0.125, rate, causal)
+                o, stats = at.fused_short_fwd(q, k, v, kb, seed, 0.125, rate,
+                                              causal)
                 grads = at.fused_short_bwd(q, k, v, do, kb, seed, 0.125,
-                                           rate, causal)
+                                           rate, causal, stats)
                 torch.cuda.synchronize()
                 assert at.launch_counts == {
                     "fused_short_fwd": before["fused_short_fwd"] + 1,
@@ -493,25 +495,54 @@ def test_fused_short_kernels_equal_their_plain_versions_on_the_card(
                 assert o.dtype == dtype and _close(o, want, dtype), case
                 for name, g, t in zip("qkv", grads, leaves):
                     assert _close(g, t.grad, dtype), f"d{name} {case}"
+                again = at.fused_short_bwd(q, k, v, do, kb, seed, 0.125,
+                                           rate, causal, stats)
+                assert torch.equal(o, at.fused_short_fwd(
+                    q, k, v, kb, seed, 0.125, rate, causal)[0]), case
+                assert all(torch.equal(a, b) for a, b in zip(grads, again))
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
 def test_the_kernels_dropout_mask_is_the_plain_mask_bit_for_bit(
-        cuda_device):
+        cuda_device, dtype):
     from analytics_zoo_tpu_torch.ops import attention as at
     b, h, s = 4, 3, 128
     # q = k = 0 gives p = 1/s everywhere; v = I reads p·keep back out
-    q = torch.zeros(b, h, s, s, device=cuda_device)
-    eye = torch.eye(s, device=cuda_device).expand(b, h, s, s).contiguous()
+    # (1/(128·0.9) is far from 0 in bf16 too)
+    q = torch.zeros(b, h, s, s, device=cuda_device, dtype=dtype)
+    eye = torch.eye(s, device=cuda_device, dtype=dtype).expand(
+        b, h, s, s).contiguous()
     seed = torch.tensor([99], dtype=torch.int32, device=cuda_device)
-    o = at.fused_short_fwd(q, q, eye, None, seed, 1.0, 0.1, False)
+    o, stats = at.fused_short_fwd(q, q, eye, None, seed, 1.0, 0.1, False)
     _, _, dv = at.fused_short_bwd(q, q, eye, eye, None, seed, 1.0, 0.1,
-                                  False)
+                                  False, stats)
     want = at.dropout_keep_mask(seed, b * h, s, 0.1).reshape(b, h, s, s)
     assert torch.equal(o != 0, want)
     assert torch.equal(dv.transpose(-1, -2) != 0, want)
-    o2 = at.fused_short_fwd(q, q, eye, None, seed, 1.0, 0.1, False)
+    o2, _ = at.fused_short_fwd(q, q, eye, None, seed, 1.0, 0.1, False)
     assert torch.equal(o, o2)
+
+
+@pytest.mark.cuda
+def test_bf16_takes_the_tensor_cores_and_f32_the_cuda_cores(cuda_device):
+    from analytics_zoo_tpu_torch.ops import attention as at
+    for dtype, route in ((torch.bfloat16, "bf16_tc"),
+                         (torch.float32, "f32_simt")):
+        q, k, v, do, bias = _attn_inputs(cuda_device, 2, 2, 40, 64, dtype,
+                                         3)
+        at.reset_launch_counts()
+        o, stats = at.fused_short_fwd(q, k, v, bias, None, 0.125, 0.0,
+                                      False)
+        at.fused_short_bwd(q, k, v, do, bias, None, 0.125, 0.0, False,
+                           stats)
+        assert at.route_counts == {"bf16_tc": 0, "f32_simt": 0, route: 2}
+        assert (stats is None) == (route == "f32_simt")
+    # the bf16 backward reads the forward's row statistics
+    with pytest.raises(ValueError):
+        at.fused_short_bwd(*(t.bfloat16() for t in (q, k, v, do)), bias,
+                           None, 0.125, 0.0, False)
 
 
 @pytest.mark.cuda
@@ -534,6 +565,7 @@ def test_a_bert_step_launches_each_attention_kernel_once_per_block(
     assert steps == 4 and np.isfinite(hist["loss_history"]).all()
     assert at.launch_counts == {"fused_short_fwd": 2 * steps,
                                 "fused_short_bwd": 2 * steps}
+    assert at.route_counts == {"bf16_tc": 4 * steps, "f32_simt": 0}
     assert ek.launch_counts["gather_rows"] == 3 * steps
     at.reset_launch_counts()
     assert clf.predict(tok, batch_size=32).shape == (64, 2)
