@@ -1,5 +1,7 @@
-// Flash attention for Hopper (sm_90a): the forward (B4), the two-pass
-// backward (B5a dq, B5b dk/dv) and the one-pass backward (B6).
+// Flash attention for Hopper (sm_90a) on the CUDA cores: the forward (B4)
+// and the one-pass backward (B6) in f32, the two-pass backward (B5a dq,
+// B5b dk/dv) in f32 and bf16. B4 and B6 in bf16 run on the tensor cores,
+// in flash_attn_bf16.cu.
 //
 // Replaces the TPU kernels in analytics_zoo_tpu/ops/attention.py:
 //   B4  `_flash_fwd_kernel`        (pallas_call in `_flash_fwd_pallas`)
@@ -7,11 +9,12 @@
 //   B5b `_flash_bwd_dkv_kernel`    (pallas_call in `_flash_bwd_pallas`)
 //   B6  `_flash_bwd_fused_kernel`  (pallas_call in `_flash_bwd_fused`)
 //
-// q [bh, sq, d], k and v [bh, skv, d] (f32 or bf16, contiguous, d <= 128,
-// any lengths, sq and skv apart), an optional per-key bias key_bias
-// [bh / heads, skv] f32 in natural-log units (B4 only), and an optional
-// causal mask aligned top-left (key col visible to query row iff
-// col <= row, absolute indices). In f32 throughout, as B7/B8:
+// q [bh, sq, d], k and v [bh, skv, d] (f32, or bf16 for B5a/B5b;
+// contiguous, d <= 128, any lengths, sq and skv apart), an optional
+// per-key bias key_bias [bh / heads, skv] f32 in natural-log units (B4
+// only), and an optional causal mask aligned top-left (key col visible to
+// query row iff col <= row, absolute indices). In f32 throughout, as
+// B7/B8:
 //
 //   t[i, j] = (q_i . k_j) * scale*log2(e) + key_bias[j]*log2(e)
 //   t[i, j] = -1e30 where causal and j > i
@@ -61,9 +64,9 @@
 // is 137 GFLOP for B4 (2.05 ms at the H100 SXM's 67 TFLOP/s f32 rate)
 // against 0.16 ms of bytes at 3.35 TB/s, and 344 GFLOP (5.1 ms) for the
 // backward (NVIDIA's data sheet, not a measurement): operations bound all
-// four. These first kernels run f32 fmas on the CUDA cores; bf16 inputs
-// are widened to f32 in shared memory, so bf16 gets no tensor-core rate
-// (wgmma and TMA are later work).
+// four. These kernels run f32 fmas on the CUDA cores (tensor cores offer
+// f32 only as TF32, which would change the f32 results); B5a/B5b widen
+// bf16 inputs to f32 in shared memory, so they get no tensor-core rate.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -669,12 +672,17 @@ int launch_kv_any(const void* q, const void* k, const void* v,
                         q, k, v, dout, lse, delta, glse, dq_acc, dk, dv, bh,
                         sq, skv, d, scale_log2e, scale, causal, vec, st);
     case 1:
-      return wide ? launch_kv<__nv_bfloat16, 128, kFused>(
-                        q, k, v, dout, lse, delta, glse, dq_acc, dk, dv, bh,
-                        sq, skv, d, scale_log2e, scale, causal, vec, st)
-                  : launch_kv<__nv_bfloat16, 64, kFused>(
-                        q, k, v, dout, lse, delta, glse, dq_acc, dk, dv, bh,
-                        sq, skv, d, scale_log2e, scale, causal, vec, st);
+      if constexpr (kFused) {
+        return (int)cudaErrorInvalidValue;  // B6 in bf16: flash_attn_bf16.cu
+      } else {
+        return wide ? launch_kv<__nv_bfloat16, 128, false>(
+                          q, k, v, dout, lse, delta, glse, dq_acc, dk, dv,
+                          bh, sq, skv, d, scale_log2e, scale, causal, vec, st)
+                    : launch_kv<__nv_bfloat16, 64, false>(
+                          q, k, v, dout, lse, delta, glse, dq_acc, dk, dv,
+                          bh, sq, skv, d, scale_log2e, scale, causal, vec,
+                          st);
+      }
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -685,8 +693,9 @@ int launch_kv_any(const void* q, const void* k, const void* v,
 extern "C" {
 
 // B4 on `stream`; returns cudaGetLastError() (0 on success). q, o: [bh, sq,
-// d]; k, v: [bh, skv, d]; dtype 0 = f32, 1 = bf16. key_bias: [bh / heads,
-// skv] f32 or NULL. lse: [bh, sq] f32. The caller allocates o and lse.
+// d]; k, v: [bh, skv, d]; dtype 0 = f32 (bf16 takes azt_flash_fwd_bf16).
+// key_bias: [bh / heads, skv] f32 or NULL. lse: [bh, sq] f32. The caller
+// allocates o and lse.
 int azt_flash_fwd(const void* q, const void* k, const void* v,
                   const void* key_bias, void* o, void* lse, long long bh,
                   int sq, int skv, int d, int dtype, int heads,
@@ -705,19 +714,13 @@ int azt_flash_fwd(const void* q, const void* k, const void* v,
                   : launch_fwd<float, 64>(q, k, v, key_bias, o, lse, bh,
                                           heads, sq, skv, d, scale_log2e,
                                           causal, vec, st);
-    case 1:
-      return wide ? launch_fwd<__nv_bfloat16, 128>(
-                        q, k, v, key_bias, o, lse, bh, heads, sq, skv, d,
-                        scale_log2e, causal, vec, st)
-                  : launch_fwd<__nv_bfloat16, 64>(
-                        q, k, v, key_bias, o, lse, bh, heads, sq, skv, d,
-                        scale_log2e, causal, vec, st);
     default:
       return (int)cudaErrorInvalidValue;
   }
 }
 
-// B5a on `stream`: dq [bh, sq, d] in the inputs' dtype. lse, delta, glse:
+// B5a on `stream`: dq [bh, sq, d] in the inputs' dtype (0 = f32, 1 =
+// bf16). lse, delta, glse:
 // [bh, sq] f32 (glse may be NULL for zero).
 int azt_flash_bwd_dq(const void* q, const void* k, const void* v,
                      const void* dout, const void* lse, const void* delta,
@@ -762,8 +765,9 @@ int azt_flash_bwd_dkv(const void* q, const void* k, const void* v,
                               causal, static_cast<cudaStream_t>(stream));
 }
 
-// B6 on `stream`: dk, dv [bh, skv, d] in the inputs' dtype, and dq added
-// into dq_acc [bh, sq, d] f32, which the caller zeroes.
+// B6 on `stream`: dk, dv [bh, skv, d] f32 (dtype 0; bf16 takes
+// azt_flash_bwd_fused_bf16), and dq added into dq_acc [bh, sq, d] f32,
+// which the caller zeroes.
 int azt_flash_bwd_fused(const void* q, const void* k, const void* v,
                         const void* dout, const void* lse,
                         const void* delta, const void* glse, void* dq_acc,

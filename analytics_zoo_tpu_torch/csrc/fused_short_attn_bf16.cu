@@ -1,6 +1,8 @@
 // Fused short-sequence attention, forward (B7) and backward (B8), bf16
 // route, on the tensor cores of Hopper (sm_90a). f32 inputs take the
-// CUDA-core route in fused_short_attn.cu; the dtype alone picks it.
+// CUDA-core route in fused_short_attn.cu; the dtype alone picks it. The
+// fragment and tile helpers are mma_bf16.cuh's, shared with the flash
+// kernels' bf16 route (flash_attn_bf16.cu).
 //
 // Replaces the TPU kernels `_fused_short_fwd_kernel` (:716) and
 // `_fused_short_bwd_kernel` (:761) of analytics_zoo_tpu/ops/attention.py.
@@ -83,10 +85,9 @@
 #include <initializer_list>
 
 #include "dropout_hash.cuh"
+#include "mma_bf16.cuh"
 
 namespace {
-
-typedef __nv_bfloat16 bf16;
 
 constexpr int kThreads = 128;  // four warps
 constexpr int kTile = 64;      // a block's rows (keys), a staged tile's rows
@@ -102,213 +103,6 @@ template <int kD>
 constexpr int bwd_min_blocks() { return kD <= 4 ? 4 : 1; }
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
-
-// -- PTX -------------------------------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// four 8x8 b16 matrices; lane i gives the address of row i % 8 of matrix
-// i / 8 and receives, of matrix j in register j, row lane / 4, columns
-// 2 * (lane % 4) and + 1 (.trans: rows 2 * (lane % 4) and + 1, column
-// lane / 4)
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-// c (16 x 8 f32) += a (16 x 16 bf16) . b (16 x 8 bf16). Fragments, g =
-// lane / 4, t = lane % 4: a {(g, 2t..), (g + 8, 2t..), (g, 2t + 8..),
-// (g + 8, 2t + 8..)}; b {(k 2t.., n g), (k 2t + 8.., n g)}; c {(g, 2t),
-// (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1)}.
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// 16 bytes global -> shared; src_bytes 0 writes zeros
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(src_bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// -- tiles -----------------------------------------------------------------
-
-// dst[r][c] (row stride ld) = src[(row0 + r) * d + c] for the 64 rows,
-// zero for rows past s; columns [d, 16 * ceil(d / 16)) are zero too: the
-// element path writes them, the 16-byte path leaves the zeros
-// zero_pad_cols wrote at the start
-__device__ __forceinline__ void load_tile(bf16* dst, int ld,
-                                          const bf16* __restrict__ src,
-                                          int row0, int s, int d, bool vec) {
-  if (vec) {
-    const int chunks = d / 8;
-    for (int i = threadIdx.x; i < kTile * chunks; i += kThreads) {
-      const int r = i / chunks, c = (i - r * chunks) * 8;
-      const int g = row0 + r;
-      cp_async16(dst + r * ld + c, src + (long long)min(g, s - 1) * d + c,
-                 g < s ? 16 : 0);
-    }
-  } else {
-    const int dp = (d + 15) / 16 * 16;
-    for (int i = threadIdx.x; i < kTile * dp; i += kThreads) {
-      const int r = i / dp, c = i - r * dp;
-      const int g = row0 + r;
-      dst[r * ld + c] = g < s && c < d ? src[(long long)g * d + c]
-                                       : __float2bfloat16(0.0f);
-    }
-  }
-}
-
-// zeros in columns [d, 16 * ceil(d / 16)) of `tiles` consecutive tiles
-__device__ __forceinline__ void zero_pad_cols(bf16* tiles, int n_tiles,
-                                              int ld, int d) {
-  const int w = (d + 15) / 16 * 16 - d;
-  for (int i = threadIdx.x; i < n_tiles * kTile * w; i += kThreads) {
-    const int r = i / w;
-    tiles[r * ld + d + (i - r * w)] = __float2bfloat16(0.0f);
-  }
-}
-
-// rows [16 * warp, + 16) of the staged tile xs to out rows row0 + 16 *
-// warp + r below s, columns below d; one warp, no block barrier
-__device__ __forceinline__ void store_warp_rows(bf16* __restrict__ out,
-                                                const bf16* xs, int ld,
-                                                int row0, int s, int d,
-                                                bool vec) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  xs += warp * 16 * ld;
-  row0 += warp * 16;
-  if (vec) {
-    const int chunks = d / 8;
-    for (int i = lane; i < 16 * chunks; i += 32) {
-      const int r = i / chunks, c = (i - r * chunks) * 8;
-      if (row0 + r < s)
-        *reinterpret_cast<uint4*>(out + (long long)(row0 + r) * d + c) =
-            *reinterpret_cast<const uint4*>(xs + r * ld + c);
-    }
-  } else {
-    for (int i = lane; i < 16 * d; i += 32) {
-      const int r = i / d, c = i - r * d;
-      if (row0 + r < s) out[(long long)(row0 + r) * d + c] = xs[r * ld + c];
-    }
-  }
-}
-
-// acc (a warp's 16 rows x 16 * kD columns, fragments) times `mul`, as bf16
-// into the warp's rows of the staged tile xs
-template <int kD>
-__device__ __forceinline__ void stage_acc(bf16* xs, int ld,
-                                          const float (&acc)[2 * kD][4],
-                                          float mul) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  bf16* row = xs + (warp * 16 + g) * ld + 2 * t;
-#pragma unroll
-  for (int n = 0; n < 2 * kD; ++n) {
-    *reinterpret_cast<uint32_t*>(row + n * 8) =
-        pack_bf16(__fmul_rn(acc[n][0], mul), __fmul_rn(acc[n][1], mul));
-    *reinterpret_cast<uint32_t*>(row + 8 * ld + n * 8) =
-        pack_bf16(__fmul_rn(acc[n][2], mul), __fmul_rn(acc[n][3], mul));
-  }
-  __syncwarp();
-}
-
-// c[n] += A . B^T for the warp's 16 rows of `a` (row stride ld) against
-// rows n * 8 .. of `b` (kN n-tiles), over kd chunks of 16 columns: B is
-// stored with its rows as the product's columns (K for q.k^T)
-template <int kN, int kD>
-__device__ __forceinline__ void mma_abt(float (&c)[kN][4], const bf16* a,
-                                        const bf16* b, int ld, int kd) {
-  const int lane = threadIdx.x % 32;
-  const bf16* pa = a + (lane % 16) * ld + (lane / 16) * 8;
-  const bf16* pb = b + ((lane / 16) * 8 + lane % 8) * ld + ((lane / 8) % 2) * 8;
-#pragma unroll
-  for (int kc = 0; kc < kD; ++kc) {
-    if (kc < kd) {
-      uint32_t af[4];
-      ldsm_x4(af, pa + kc * 16);
-#pragma unroll
-      for (int np = 0; np < kN / 2; ++np) {
-        uint32_t bf[4];
-        ldsm_x4(bf, pb + np * 16 * ld + kc * 16);
-        mma(c[2 * np], af, bf[0], bf[1]);
-        mma(c[2 * np + 1], af, bf[2], bf[3]);
-      }
-    }
-  }
-}
-
-// acc += P . X for one chunk of 16 reduction rows: `af` the A fragment
-// (16 rows x 16), x the 16 staged rows of X (row stride ld) whose columns
-// are the product's, over kd chunks of 16 columns
-template <int kD>
-__device__ __forceinline__ void mma_ax(float (&acc)[2 * kD][4],
-                                       const uint32_t (&af)[4], const bf16* x,
-                                       int ld, int kd) {
-  const int lane = threadIdx.x % 32;
-  const bf16* px = x + (((lane / 8) % 2) * 8 + lane % 8) * ld + (lane / 16) * 8;
-#pragma unroll
-  for (int np = 0; np < kD; ++np) {
-    if (np < kd) {
-      uint32_t bf[4];
-      ldsm_x4_t(bf, px + np * 16);
-      mma(acc[2 * np], af, bf[0], bf[1]);
-      mma(acc[2 * np + 1], af, bf[2], bf[3]);
-    }
-  }
-}
-
-// the A fragment of columns [16 j, 16 j + 16) of a 16-row accumulator
-template <int kN>
-__device__ __forceinline__ void to_a(uint32_t (&af)[4], const float (&c)[kN][4],
-                                     int j) {
-  af[0] = pack_bf16(c[2 * j][0], c[2 * j][1]);
-  af[1] = pack_bf16(c[2 * j][2], c[2 * j][3]);
-  af[2] = pack_bf16(c[2 * j + 1][0], c[2 * j + 1][1]);
-  af[3] = pack_bf16(c[2 * j + 1][2], c[2 * j + 1][3]);
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(~0u, x, 1));
-  return fmaxf(x, __shfl_xor_sync(~0u, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(~0u, x, 1);
-  return x + __shfl_xor_sync(~0u, x, 2);
-}
 
 // the score in exp2 units, as the f32 route: no fma contraction
 __device__ __forceinline__ float score(float qk, float scale_log2e,
@@ -354,10 +148,10 @@ fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int kd = (d + 15) / 16;
   const int n_tiles = (s + kTile - 1) / kTile;
 
-  if (vec) zero_pad_cols(qs, 5, ld, d);
-  load_tile(qs, ld, q + base, row0, s, d, vec);
-  load_tile(ks, ld, k + base, 0, s, d, vec);
-  load_tile(vs, ld, v + base, 0, s, d, vec);
+  if (vec) zero_pad_cols<kThreads>(qs, 5 * kTile, ld, d);
+  load_tile<kTile, kThreads>(qs, ld, q + base, row0, s, d, vec);
+  load_tile<kTile, kThreads>(ks, ld, k + base, 0, s, d, vec);
+  load_tile<kTile, kThreads>(vs, ld, v + base, 0, s, d, vec);
   cp_commit();
   const float* bias2 = stage_bias(bs, key_bias, bh / heads, s);
 
@@ -371,10 +165,10 @@ fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int kt = 0; kt < n_tiles; ++kt) {
     const int stage = kt & 1;
     if (kt + 1 < n_tiles) {
-      load_tile(ks + (stage ^ 1) * kTile * ld, ld, k + base, (kt + 1) * kTile,
-                s, d, vec);
-      load_tile(vs + (stage ^ 1) * kTile * ld, ld, v + base, (kt + 1) * kTile,
-                s, d, vec);
+      load_tile<kTile, kThreads>(ks + (stage ^ 1) * kTile * ld, ld, k + base,
+                                 (kt + 1) * kTile, s, d, vec);
+      load_tile<kTile, kThreads>(vs + (stage ^ 1) * kTile * ld, ld, v + base,
+                                 (kt + 1) * kTile, s, d, vec);
       cp_commit();
       cp_wait<1>();
     } else {
@@ -484,11 +278,11 @@ bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int kd = (d + 15) / 16;
   const int n_tiles = (s + kTile - 1) / kTile;
 
-  if (vec) zero_pad_cols(qs, 6, ld, d);
-  load_tile(qs, ld, q + base, row0, s, d, vec);
-  load_tile(dos, ld, dout + base, row0, s, d, vec);
-  load_tile(ks, ld, k + base, 0, s, d, vec);
-  load_tile(vs, ld, v + base, 0, s, d, vec);
+  if (vec) zero_pad_cols<kThreads>(qs, 6 * kTile, ld, d);
+  load_tile<kTile, kThreads>(qs, ld, q + base, row0, s, d, vec);
+  load_tile<kTile, kThreads>(dos, ld, dout + base, row0, s, d, vec);
+  load_tile<kTile, kThreads>(ks, ld, k + base, 0, s, d, vec);
+  load_tile<kTile, kThreads>(vs, ld, v + base, 0, s, d, vec);
   cp_commit();
   const float* bias2 = stage_bias(bs, key_bias, bh / heads, s);
 
@@ -513,8 +307,10 @@ bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int stage = n_tiles == 1 ? 0 : i & 1;
     if (n_tiles > 1 && i + 1 < steps) {
       const int next = (kt + 1) * kTile < s ? (kt + 1) * kTile : 0;
-      load_tile(ks + (stage ^ 1) * kTile * ld, ld, k + base, next, s, d, vec);
-      load_tile(vs + (stage ^ 1) * kTile * ld, ld, v + base, next, s, d, vec);
+      load_tile<kTile, kThreads>(ks + (stage ^ 1) * kTile * ld, ld, k + base,
+                                 next, s, d, vec);
+      load_tile<kTile, kThreads>(vs + (stage ^ 1) * kTile * ld, ld, v + base,
+                                 next, s, d, vec);
       cp_commit();
       cp_wait<1>();
     } else {
@@ -597,11 +393,11 @@ bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int kd = (d + 15) / 16;
   const int n_tiles = sp / kTile;
 
-  if (vec) zero_pad_cols(ks, 6, ld, d);
-  load_tile(ks, ld, k + base, key0, s, d, vec);
-  load_tile(vs, ld, v + base, key0, s, d, vec);
-  load_tile(qs, ld, q + base, 0, s, d, vec);
-  load_tile(dos, ld, dout + base, 0, s, d, vec);
+  if (vec) zero_pad_cols<kThreads>(ks, 6 * kTile, ld, d);
+  load_tile<kTile, kThreads>(ks, ld, k + base, key0, s, d, vec);
+  load_tile<kTile, kThreads>(vs, ld, v + base, key0, s, d, vec);
+  load_tile<kTile, kThreads>(qs, ld, q + base, 0, s, d, vec);
+  load_tile<kTile, kThreads>(dos, ld, dout + base, 0, s, d, vec);
   cp_commit();
   // every query's max, 1 / sum and D; queries past s get p = 0
   for (int i = threadIdx.x; i < sp; i += kThreads) {
@@ -625,10 +421,10 @@ bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int qt = 0; qt < n_tiles; ++qt) {
     const int stage = qt & 1;
     if (qt + 1 < n_tiles) {
-      load_tile(qs + (stage ^ 1) * kTile * ld, ld, q + base, (qt + 1) * kTile,
-                s, d, vec);
-      load_tile(dos + (stage ^ 1) * kTile * ld, ld, dout + base,
-                (qt + 1) * kTile, s, d, vec);
+      load_tile<kTile, kThreads>(qs + (stage ^ 1) * kTile * ld, ld, q + base,
+                                 (qt + 1) * kTile, s, d, vec);
+      load_tile<kTile, kThreads>(dos + (stage ^ 1) * kTile * ld, ld,
+                                 dout + base, (qt + 1) * kTile, s, d, vec);
       cp_commit();
       cp_wait<1>();
     } else {

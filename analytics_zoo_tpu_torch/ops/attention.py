@@ -45,19 +45,25 @@ and stays on the device.
 :func:`flash_attention` (and :func:`flash_attention_lse`) stream over the
 keys for any lengths, ``q_len`` and ``kv_len`` apart, with the causal mask
 aligned top-left (row >= col in absolute indices). On a CUDA tensor the
-forward launches B4 (``csrc/flash_attn.cu``, replacing
-``_flash_fwd_kernel``) and always saves the row logsumexp in natural-log
-units; the backward launches the one-pass B6 (replacing
-``_flash_bwd_fused_kernel``) where :func:`fused_bwd_applicable` holds, else
-B5a then B5b (replacing ``_flash_bwd_dq_kernel`` and
-``_flash_bwd_dkv_kernel``). On a CPU tensor each runs its plain version
+forward launches B4 (replacing ``_flash_fwd_kernel``) and always saves the
+row logsumexp in natural-log units; the backward launches the one-pass B6
+(replacing ``_flash_bwd_fused_kernel``) where :func:`fused_bwd_applicable`
+holds, else B5a then B5b (replacing ``_flash_bwd_dq_kernel`` and
+``_flash_bwd_dkv_kernel``). The dtype picks B4's and B6's route
+(:func:`flash_route`, counted in ``flash_route_counts``): bf16 runs on the
+tensor cores (``csrc/flash_attn_bf16.cu``, ``mma.sync``), f32 on the CUDA
+cores (``csrc/flash_attn.cu``, which also holds B5a and B5b for both
+dtypes). On a CPU tensor each runs its plain version
 (:func:`flash_fwd_plain`, :func:`flash_bwd_dq_plain`,
 :func:`flash_bwd_dkv_plain`, :func:`flash_bwd_fused_plain`), the same
 function in full-row softmax over chunks of query rows. The arithmetic is
-B7's: f32 scores in ``exp2`` units, ``p`` in f32 in every product, masked
-scores ``-1e30``, the denominator floored at ``1e-30``. A ``[b, 1, 1, kv]``
-key bias runs inside B4; its backward is autograd through
-:func:`blockwise_attention`, as in the JAX package.
+B7's: f32 scores in ``exp2`` units, masked scores ``-1e30``, the
+denominator floored at ``1e-30``; B4 and B6 round ``p`` to the inputs'
+dtype before ``p·v`` and ``pᵀ·dO``, and ``ds`` before ``ds·k`` and
+``dsᵀ·q``, where the TPU kernel rounds them (no-ops in f32), while B5a and
+B5b keep both in f32. A ``[b, 1, 1, kv]`` key bias runs inside B4; its
+backward is autograd through :func:`blockwise_attention`, as in the JAX
+package.
 """
 from __future__ import annotations
 
@@ -85,6 +91,9 @@ route_counts = LaunchCounts("bf16_tc", "f32_simt")
 #: B4, B5a, B5b and B6
 flash_launch_counts = LaunchCounts("flash_fwd", "flash_bwd_dq",
                                    "flash_bwd_dkv", "flash_bwd_fused")
+#: B4 and B6 launches by route: bf16 on the tensor cores, f32 on the CUDA
+#: cores (B5a and B5b have one route, the CUDA cores, in both dtypes)
+flash_route_counts = LaunchCounts("bf16_tc", "f32_simt")
 
 
 def reset_launch_counts() -> None:
@@ -92,6 +101,7 @@ def reset_launch_counts() -> None:
     launch_counts.reset()
     route_counts.reset()
     flash_launch_counts.reset()
+    flash_route_counts.reset()
 
 
 def fused_short_route(dtype: torch.dtype) -> str:
@@ -99,6 +109,12 @@ def fused_short_route(dtype: torch.dtype) -> str:
     tensor cores; its backward reads the forward's row statistics) or
     ``"f32_simt"`` (the CUDA cores)."""
     return "bf16_tc" if dtype == torch.bfloat16 else "f32_simt"
+
+
+#: B4's and B6's route for inputs of a dtype, the fused kernels' choice:
+#: ``"bf16_tc"`` (the tensor cores, ``csrc/flash_attn_bf16.cu``) or
+#: ``"f32_simt"`` (the CUDA cores, ``csrc/flash_attn.cu``)
+flash_route = fused_short_route
 
 
 # -- dropout bits ------------------------------------------------------------
@@ -544,7 +560,8 @@ def flash_fwd_plain(q, k, v, key_bias=None, scale: Optional[float] = None,
     """Plain PyTorch version of B4: ``(o, lse)``, ``o`` in q's dtype and
     the row logsumexp ``[b, h, q_len]`` f32 in natural-log units. Full-row
     softmax in exp2 units (max, ``p = exp2(t - max)``, ``o = p·v /
-    max(Σp, 1e-30)``, ``lse = max·ln2 + ln(max(Σp, 1e-30))``)."""
+    max(Σp, 1e-30)`` with ``p`` rounded to v's dtype in ``p·v``, ``lse =
+    max·ln2 + ln(max(Σp, 1e-30))``)."""
     scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
     outs, lses = [], []
     vf = v.float()
@@ -553,7 +570,7 @@ def flash_fwd_plain(q, k, v, key_bias=None, scale: Optional[float] = None,
         m = t.amax(-1, keepdim=True)
         p = torch.exp2(t - m)
         l = p.sum(-1, keepdim=True).clamp_min(1e-30)
-        outs.append(torch.matmul(p, vf) / l)
+        outs.append(torch.matmul(_rounded(p, v.dtype), vf) / l)
         lses.append((m * _LN2 + torch.log(l))[..., 0])
     return torch.cat(outs, -2).to(q.dtype), torch.cat(lses, -1)
 
@@ -583,21 +600,31 @@ def flash_bwd_dq_plain(q, k, v, do, lse, delta, glse, scale: float,
 def flash_bwd_dkv_plain(q, k, v, do, lse, delta, glse, scale: float,
                         causal: bool) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of B5b: ``dk = scale·Σ_i dsᵀ·q_i``,
-    ``dv = Σ_i pᵀ·dO_i``."""
-    return flash_bwd_fused_plain(q, k, v, do, lse, delta, glse, scale,
-                                 causal)[1:]
+    ``dv = Σ_i pᵀ·dO_i``, ``p`` and ``ds`` in f32."""
+    return _bwd_one_pass(q, k, v, do, lse, delta, glse, scale, causal,
+                         torch.float32)[1:]
 
 
 def flash_bwd_fused_plain(q, k, v, do, lse, delta, glse, scale: float,
                           causal: bool):
     """Plain PyTorch version of B6: ``(dq, dk, dv)`` from one pass over
-    the query rows, each ``p`` and ``ds`` computed once."""
+    the query rows, each ``p`` and ``ds`` computed once and rounded to the
+    inputs' dtype before the products."""
+    return _bwd_one_pass(q, k, v, do, lse, delta, glse, scale, causal,
+                         q.dtype)
+
+
+def _bwd_one_pass(q, k, v, do, lse, delta, glse, scale: float,
+                  causal: bool, dtype: torch.dtype):
+    """``(dq, dk, dv)`` over chunks of query rows, ``p`` and ``ds``
+    rounded to ``dtype`` before the products."""
     dk = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
     dv = torch.zeros(v.shape, dtype=torch.float32, device=v.device)
     dq = []
     for r0, r1 in _q_chunks(q.shape[-2]):
         p, ds = _bwd_chunk(q, k, v, do, lse, delta, glse, scale, causal,
                            r0, r1)
+        p, ds = _rounded(p, dtype), _rounded(ds, dtype)
         dq.append(torch.matmul(ds, k.float()) * scale)
         dk += torch.matmul(ds.transpose(-1, -2), q[:, :, r0:r1].float())
         dv += torch.matmul(p.transpose(-1, -2), do[:, :, r0:r1].float())
@@ -654,21 +681,30 @@ def _dims(q, k):
 def flash_fwd(q, k, v, key_bias, scale: float, causal: bool):
     """B4's wrapper: ``(o, lse)`` for contiguous ``[b, h, s, d]`` inputs
     and an optional ``[b, kv_len]`` f32 key bias. CPU tensors take
-    :func:`flash_fwd_plain`; CUDA tensors launch the kernel on the current
-    stream."""
+    :func:`flash_fwd_plain`; CUDA tensors launch the kernel of the dtype's
+    route on the current stream."""
     _flash_check(q, k, v, key_bias=key_bias)
     if not on_card(q, "flash_fwd"):
         return flash_fwd_plain(q, k, v, key_bias, scale, causal)
+    route = flash_route(q.dtype)
     o = torch.empty_like(q)
     lse = torch.empty(q.shape[:-1], dtype=torch.float32, device=q.device)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(key_bias),
+            o.data_ptr(), lse.data_ptr())
+    bh, q_len, kv_len, d, dtype = _dims(q, k)
     lib = load_library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.azt_flash_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(key_bias),
-            o.data_ptr(), lse.data_ptr(), *_dims(q, k), q.shape[1],
-            scale * _LOG2E, int(bool(causal)), stream)
+        if route == "bf16_tc":
+            rc = lib.azt_flash_fwd_bf16(
+                *ptrs, bh, q_len, kv_len, d, q.shape[1], scale * _LOG2E,
+                int(bool(causal)), stream)
+        else:
+            rc = lib.azt_flash_fwd(
+                *ptrs, bh, q_len, kv_len, d, dtype, q.shape[1],
+                scale * _LOG2E, int(bool(causal)), stream)
     flash_launch_counts.launched("flash_fwd", rc)
+    flash_route_counts.launched(route, rc)
     return o, lse
 
 
@@ -722,23 +758,32 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, glse, scale: float,
 def flash_bwd_fused(q, k, v, do, lse, delta, glse, scale: float,
                     causal: bool):
     """B6's wrapper: ``(dq, dk, dv)`` from one launch. CPU tensors take
-    :func:`flash_bwd_fused_plain`; CUDA tensors launch the kernel (a block
-    per 64 keys walking the queries, dk and dv in registers, dq added into
-    an f32 buffer with atomics, so dq sums in no fixed order)."""
+    :func:`flash_bwd_fused_plain`; CUDA tensors launch the kernel of the
+    dtype's route (a block per 64 keys walking the queries, dk and dv in
+    registers, dq added into an f32 buffer with atomics, so dq sums in no
+    fixed order)."""
     ptrs = _bwd_ptrs(q, k, v, do, lse, delta, glse)
     if not on_card(q, "flash_bwd_fused"):
         return flash_bwd_fused_plain(q, k, v, do, lse, delta, glse, scale,
                                      causal)
+    route = flash_route(q.dtype)
     dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
+    outs = (dq.data_ptr(), dk.data_ptr(), dv.data_ptr())
+    bh, q_len, kv_len, d, dtype = _dims(q, k)
     lib = load_library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.azt_flash_bwd_fused(*ptrs, dq.data_ptr(), dk.data_ptr(),
-                                     dv.data_ptr(), *_dims(q, k),
-                                     scale * _LOG2E, scale,
-                                     int(bool(causal)), stream)
+        if route == "bf16_tc":
+            rc = lib.azt_flash_bwd_fused_bf16(
+                *ptrs, *outs, bh, q_len, kv_len, d, scale * _LOG2E, scale,
+                int(bool(causal)), stream)
+        else:
+            rc = lib.azt_flash_bwd_fused(
+                *ptrs, *outs, bh, q_len, kv_len, d, dtype, scale * _LOG2E,
+                scale, int(bool(causal)), stream)
     flash_launch_counts.launched("flash_bwd_fused", rc)
+    flash_route_counts.launched(route, rc)
     return dq.to(q.dtype), dk, dv
 
 

@@ -139,6 +139,11 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.azt_flash_bwd_fused.argtypes = [p] * 10 + [ll, i, i, i, i, f, f, i,
                                                    p]
     lib.azt_flash_bwd_fused.restype = i
+    lib.azt_flash_fwd_bf16.argtypes = [p] * 6 + [ll, i, i, i, i, f, i, p]
+    lib.azt_flash_fwd_bf16.restype = i
+    lib.azt_flash_bwd_fused_bf16.argtypes = [p] * 10 + [ll, i, i, i, f, f,
+                                                        i, p]
+    lib.azt_flash_bwd_fused_bf16.restype = i
     return lib
 
 

@@ -53,7 +53,10 @@ Phases, each of which must pass or the script exits non-zero:
    output's scale, and bit-equal when repeated; each call must count on
    its dtype's route. Their dropout mask must equal ``dropout_keep_mask``
    bit for bit over 1536 x 128 x 128 entries in f32 and in bf16, its kept
-   share within 4 sigma of 0.9. The bf16 route at the BERT-base shape
+   share within 4 sigma of 0.9. At seed 0, on the card and torch build
+   they were recorded on, the grid's largest errors must equal those of
+   commit 5cfb824 bit for bit (its fragment helpers have since moved into
+   ``csrc/mma_bf16.cuh``). The bf16 route at the BERT-base shape
    (padding bias, dropout 0 and 0.1) and the f32 route at the LM's
    prefill through B7 ([4, 16, 128, 128], causal) are held to their
    tolerances again and timed beside their plain versions and
@@ -74,15 +77,32 @@ Phases, each of which must pass or the script exits non-zero:
    one-pass backward (B6, with and without an lse cotangent) are held
    against their plain versions for lengths 1, 17, 513, 1000, 2047, 2048
    and 4096 and four pairs of unequal q/kv lengths, head widths 64 and
-   128, f32 and bf16: within 2e-5 (f32) and 2e-2 (bf16) of the output's
+   128, f32 and bf16, and in bf16 also at widths 24 and 96 for four of
+   those lengths: within 2e-5 (f32) and 2e-2 (bf16) of the output's
    scale (of the three gradients' joint scale for a backward) and, each
-   output and each gradient, in relative L2. The backward must take B6 at
-   [8, 16, 2048, 128] f32 and B5a + B5b at [2, 16, 4096, 128] f32. All
-   four are timed there and at [4, 8, 4096, 128] bf16 beside their plain
-   versions and ``scaled_dot_product_attention(is_causal=True)``, and held
-   to the same tolerances at those shapes. A profiler device time is
-   printed only where every kernel and copy the host issued has its
-   device event in the trace.
+   output and each gradient, in relative L2; B6's dk and dv bit-equal
+   when repeated. The dtype picks B4's and B6's route (bf16 the tensor
+   cores, ``csrc/flash_attn_bf16.cu``; f32 the CUDA cores,
+   ``csrc/flash_attn.cu``) and each call must count on it. The backward
+   must take B6 at [8, 16, 2048, 128] f32 and B5a + B5b at [2, 16, 4096,
+   128] f32. All four are timed there and at bench_longseq's [4, 8, 4096,
+   128] and [8, 8, 4096, 64] bf16 beside their plain versions and
+   ``scaled_dot_product_attention(is_causal=True)``, and held to the same
+   tolerances at those shapes. A profiler device time is printed only
+   where every kernel and copy the host issued has its device event in the
+   trace.
+   Then the long-context step, ``bench.py``'s ``bench_longseq``:
+   ``flash_attention(q, k, v, causal=True)`` in bf16 with the loss
+   ``sum(o)`` in f32, 20 chained steps (each step's inputs the last
+   step's plus eps times its gradients, eps a 0 on the card), at [4, 8,
+   4096, 128] and [8, 8, 4096, 64]. Each shape is gated first as
+   ``_flash_numerics_gate`` does (b 2, h 2, s 1024, output and gradients
+   within 4e-2 of f32 ``blockwise_attention``'s largest magnitude); a
+   step must launch one B4 and one B6, both on the tensor cores, and
+   eps = 0 must give back the inputs bit for bit (finite gradients). It
+   prints ms a step by CUDA events, tokens/s, the share of 989 TFLOP/s at
+   ``9·B·H·S²·D`` FLOPs a step, and the same step through
+   ``scaled_dot_product_attention(is_causal=True)``.
 9. TransformerLM: the full-width model (``bench.py:2337-2338``: vocab
    32000, hidden 2048, 8 blocks, 16 heads, max_len 2048, f32, Adam) with
    seeded weights trains 8 steps at batch 8 x 2048 tokens (one B4 and one
@@ -212,6 +232,13 @@ ATTN_ATOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 #: past it, two and past them, the longest) and head widths
 ATTN_SEQS = (1, 17, 64, 65, 128, 129, 512)
 ATTN_DIMS = (32, 64, 128)
+#: B7/B8's largest grid errors at seed 0 from commit 5cfb824, before their
+#: fragment helpers moved into csrc/mma_bf16.cuh, on this card and torch
+#: build: the move must leave them bit for bit
+ATTN_GRID_ERRORS_5CFB824 = (
+    ("NVIDIA H100 80GB HBM3", "2.11.0+cu128"),
+    {"fwd": 2.8305358204308074e-07, "bwd": 4.98379385249795e-07,
+     "fwd_bf16": 0.007407407407407408, "bwd_bf16": 0.007633587786259542})
 #: the card-against-CPU check: Adam had "the CPU's gradient" for a
 #: parameter where the card's is within this of it, relative
 GRAD_SAME = 1e-3
@@ -283,11 +310,27 @@ LOGIT_TOL = 1e-4
 FLASH_LENGTHS = ((1, 1), (17, 17), (513, 513), (1000, 1000), (2047, 2047),
                  (2048, 2048), (4096, 4096), (513, 1000), (1000, 513),
                  (17, 4096), (2047, 1))
+#: bf16 head widths B4 and B6's tensor-core route also takes, at a few of
+#: those lengths: one ragged chunk of 16 (24) and a partial 128-wide tile
+#: (96)
+FLASH_BF16_DIMS = (24, 96)
+FLASH_BF16_LENGTHS = ((17, 17), (513, 1000), (1000, 513), (2047, 2047))
+#: bench_longseq (bench.py:2874-2925): the headline [4, 8, 4096, 128] and
+#: the d 64 addendum (batch doubled, the same FLOPs a step), bf16, causal,
+#: 20 chained steps
+LONGSEQ_SHAPES = ((4, 8, 4096, 128), (8, 8, 4096, 64))
+LONGSEQ_STEPS = 20
+#: its numerics gate (bench.py:297-330): b 2, h 2, s 1024, the output and
+#: the gradients against f32 blockwise_attention, relative to its largest
+#: magnitude
+LONGSEQ_GATE_TOL = 4e-2
 #: the timed shapes [b, h, s, d]: the LM's step (B4, B6), its long-context
-#: step (B5a, B5b) and bench_longseq's (bf16, B6)
+#: step (B5a, B5b) and bench_longseq's headline and addendum (bf16, B4 and
+#: B6 on the tensor cores)
 FLASH_TIMED = (("lm", (8, 16, 2048, 128), torch.float32),
                ("lm_long", (2, 16, 4096, 128), torch.float32),
-               ("bench_longseq", (4, 8, 4096, 128), torch.bfloat16))
+               ("bench_longseq", LONGSEQ_SHAPES[0], torch.bfloat16),
+               ("bench_longseq_d64", LONGSEQ_SHAPES[1], torch.bfloat16))
 
 
 def log(msg: str) -> None:
@@ -367,10 +410,40 @@ def step_profile(fn, calls: int = 20, top: int = 0,
     return out
 
 
+#: ptxas -v's lines for an entry function of the bf16 flash kernels
+_PTXAS_ENTRY = re.compile(
+    r"entry function '\S*?(flash_(?:fwd|bwd)_bf16_kernel)ILi(\d+)E")
+_PTXAS_SPILL = re.compile(
+    r"(\d+) bytes spill stores, (\d+) bytes spill loads")
+_PTXAS_REGS = re.compile(r"Used (\d+) registers")
+
+
+def ptxas_usage(log: str) -> dict:
+    """Registers and spill bytes of each bf16 flash kernel (by its template
+    width, 16-column chunks of d) from ``nvcc -Xptxas -v`` output."""
+    usage, name = {}, None
+    for line in log.splitlines():
+        m = _PTXAS_ENTRY.search(line)
+        if m:
+            name = f"{m.group(1)}<{m.group(2)}>"
+            usage[name] = {}
+            continue
+        m = _PTXAS_SPILL.search(line)
+        if m and name:
+            usage[name]["spill_store_bytes"] = int(m.group(1))
+            usage[name]["spill_load_bytes"] = int(m.group(2))
+        m = _PTXAS_REGS.search(line)
+        if m and name:
+            usage[name]["registers"] = int(m.group(1))
+            name = None
+    return usage
+
+
 def rebuild_seconds(kernel_build) -> dict:
     """Seconds to build the kernel library again into a scratch directory:
     as ``kernel_build`` does (one ``nvcc`` per source, started together,
-    then a link), and with one ``nvcc`` over every source."""
+    then a link), and with one ``nvcc`` over every source (with ``-Xptxas
+    -v``, whose registers and spills of the bf16 flash kernels are kept)."""
     srcs, _ = kernel_build._sources()
     out = {}
     with tempfile.TemporaryDirectory(dir=kernel_build.BUILD_DIR) as tmp:
@@ -378,11 +451,16 @@ def rebuild_seconds(kernel_build) -> dict:
         kernel_build._build(os.path.join(tmp, "parallel.so"))
         out["nvcc_per_source"] = time.perf_counter() - t0
         t0 = time.perf_counter()
-        subprocess.run([kernel_build._nvcc(), *kernel_build.NVCC_FLAGS,
-                        "-shared", "-I", kernel_build.CSRC_DIR, "-o",
-                        os.path.join(tmp, "one.so"), *srcs],
-                       check=True, capture_output=True)
+        one = subprocess.run([kernel_build._nvcc(), *kernel_build.NVCC_FLAGS,
+                              "-Xptxas", "-v", "-shared", "-I",
+                              kernel_build.CSRC_DIR, "-o",
+                              os.path.join(tmp, "one.so"), *srcs],
+                             check=True, capture_output=True, text=True)
         out["one_nvcc"] = time.perf_counter() - t0
+    out["ptxas_bf16_flash"] = ptxas_usage(one.stdout + one.stderr)
+    check(len(out["ptxas_bf16_flash"]) == 6,
+          f"ptxas -v named {sorted(out['ptxas_bf16_flash'])}, expected the "
+          f"bf16 flash kernels at 3 widths each")
     return out
 
 
@@ -1461,6 +1539,15 @@ def phase_attention_kernels(at, dev, seed: int):
         f"of their plain versions on {cases} cases, each dtype by its own "
         f"route, bit-equal when repeated; largest errors "
         f"{json.dumps(errors)}")
+    where, before = ATTN_GRID_ERRORS_5CFB824
+    if seed == 0 and where == (torch.cuda.get_device_name(0),
+                               torch.__version__):
+        check(errors == before, f"B7/B8's grid errors {errors} differ from "
+              f"commit 5cfb824's {before}")
+        log("B7/B8's grid errors equal commit 5cfb824's bit for bit")
+    else:
+        log(f"B7/B8's grid errors not compared with commit 5cfb824's "
+            f"(recorded at seed 0 on {where})")
 
     # the mask: q = k = 0 makes p = 1/s; v = dO = I reads pd back out of o
     # and dv, so the kernels' mask is o != 0 (and dvᵀ != 0); 1/(s·0.9)
@@ -1840,60 +1927,67 @@ def _grads_errs(got, want, one_key_no_glse: bool):
 
 def phase_flash_kernels(at, dev, seed: int):
     """Hold B4 (bias or not, causal or not), B5a + B5b and B6 (lse
-    cotangent or not) against their plain versions over the grid, check
-    that the backward takes B6 at the LM's shape and B5a + B5b at its
-    long-context shape, then time all four at the timed shapes beside their
-    plain versions and ``scaled_dot_product_attention``; returns (timings,
-    errors)."""
+    cotangent or not) against their plain versions over the grid, each B4
+    and B6 call on its dtype's route, check that the backward takes B6 at
+    the LM's shape and B5a + B5b at its long-context shape, then time all
+    four at the timed shapes beside their plain versions and
+    ``scaled_dot_product_attention``; returns (timings, errors)."""
     gen = torch.Generator().manual_seed(seed)
     errors = {f"{key}_{name}": 0.0 for name in ("f32", "bf16")
               for key in ("fwd", "bwd_two_pass", "bwd_fused", "lse")}
+    grid = [(sq, skv, d, dtype) for sq, skv in FLASH_LENGTHS
+            for d in (64, 128) for dtype in (torch.float32, torch.bfloat16)]
+    grid += [(sq, skv, d, torch.bfloat16) for sq, skv in FLASH_BF16_LENGTHS
+             for d in FLASH_BF16_DIMS]
     cases = 0
-    for sq, skv in FLASH_LENGTHS:
-        for d in (64, 128):
-            for dtype in (torch.float32, torch.bfloat16):
-                q, k, v, do, glse, bias = _flash_case(dev, sq, skv, d, dtype,
-                                                      gen)
-                scale = d ** -0.5
-                tol = ATTN_ATOL[dtype]
-                tag = "f32" if dtype == torch.float32 else "bf16"
-                for causal in (False, True):
-                    case = f"{sq}x{skv} d={d} {dtype} causal={causal}"
-                    for kb in (None, bias):
-                        o, lse = at.flash_fwd(q, k, v, kb, scale, causal)
-                        want_o, want_lse = at.flash_fwd_plain(
-                            q, k, v, kb, scale, causal)
-                        e = max(_rel_err(o, want_o), _rel_l2(o, want_o))
-                        e_l = max(_rel_err(lse, want_lse),
-                                  _rel_l2(lse, want_lse))
-                        check(e <= tol and e_l <= ATTN_ATOL[torch.float32],
-                              f"B4 != plain by {e} (lse {e_l}) at {case} "
-                              f"bias={kb is not None}")
-                        errors[f"fwd_{tag}"] = max(errors[f"fwd_{tag}"], e)
-                        errors[f"lse_{tag}"] = max(errors[f"lse_{tag}"],
-                                                   e_l)
-                    o, lse = at.flash_fwd_plain(q, k, v, None, scale, causal)
-                    delta = (do.float() * o.float()).sum(-1)
-                    for gl in (None, glse):
-                        args = (q, k, v, do, lse, delta, gl, scale, causal)
-                        want = at.flash_bwd_fused_plain(*args)
-                        two = ((at.flash_bwd_dq(*args),)
-                               + at.flash_bwd_dkv(*args))
-                        fused = at.flash_bwd_fused(*args)
-                        torch.cuda.synchronize()
-                        for key, got in (("bwd_two_pass", two),
-                                         ("bwd_fused", fused)):
-                            e = max(_grads_errs(
-                                got, want, skv == 1 and gl is None))
-                            check(e <= tol, f"{key} != plain by {e} at "
-                                  f"{case} glse={gl is not None}")
-                            errors[f"{key}_{tag}"] = max(
-                                errors[f"{key}_{tag}"], e)
-                    cases += 1
+    for sq, skv, d, dtype in grid:
+        q, k, v, do, glse, bias = _flash_case(dev, sq, skv, d, dtype, gen)
+        scale = d ** -0.5
+        tol = ATTN_ATOL[dtype]
+        tag = "f32" if dtype == torch.float32 else "bf16"
+        route = at.flash_route(dtype)
+        routes = dict(at.flash_route_counts)
+        for causal in (False, True):
+            case = f"{sq}x{skv} d={d} {dtype} causal={causal}"
+            for kb in (None, bias):
+                o, lse = at.flash_fwd(q, k, v, kb, scale, causal)
+                want_o, want_lse = at.flash_fwd_plain(
+                    q, k, v, kb, scale, causal)
+                e = max(_rel_err(o, want_o), _rel_l2(o, want_o))
+                e_l = max(_rel_err(lse, want_lse), _rel_l2(lse, want_lse))
+                check(e <= tol and e_l <= ATTN_ATOL[torch.float32],
+                      f"B4 != plain by {e} (lse {e_l}) at {case} "
+                      f"bias={kb is not None}")
+                errors[f"fwd_{tag}"] = max(errors[f"fwd_{tag}"], e)
+                errors[f"lse_{tag}"] = max(errors[f"lse_{tag}"], e_l)
+            o, lse = at.flash_fwd_plain(q, k, v, None, scale, causal)
+            delta = (do.float() * o.float()).sum(-1)
+            for gl in (None, glse):
+                args = (q, k, v, do, lse, delta, gl, scale, causal)
+                want = at.flash_bwd_fused_plain(*args)
+                two = (at.flash_bwd_dq(*args),) + at.flash_bwd_dkv(*args)
+                fused = at.flash_bwd_fused(*args)
+                again = at.flash_bwd_fused(*args)
+                torch.cuda.synchronize()
+                check(torch.equal(fused[1], again[1])
+                      and torch.equal(fused[2], again[2]),
+                      f"B6's dk, dv not bit-equal twice at {case}")
+                for key, got in (("bwd_two_pass", two),
+                                 ("bwd_fused", fused)):
+                    e = max(_grads_errs(got, want, skv == 1 and gl is None))
+                    check(e <= tol, f"{key} != plain by {e} at {case} "
+                          f"glse={gl is not None}")
+                    errors[f"{key}_{tag}"] = max(errors[f"{key}_{tag}"], e)
+        # per causal: two B4 calls and four B6 calls
+        routes[route] += 12
+        check(dict(at.flash_route_counts) == routes,
+              f"{dtype} took {dict(at.flash_route_counts)}, not {route}")
+        cases += 1
     log(f"flash kernels within f32 2e-5, bf16 2e-2 of their plain versions "
-        f"(of the scale and in relative L2) on {cases} cases (each: B4 with and without a bias, B5a + B5b "
-        f"and B6 with and without glse); largest errors "
-        + json.dumps(errors))
+        f"(of the scale and in relative L2) on {cases} cases (each: B4 with "
+        f"and without a bias, B5a + B5b and B6 with and without glse, B4 "
+        f"and B6 on the dtype's route, B6's dk, dv bit-equal twice); "
+        f"largest errors " + json.dumps(errors))
 
     # dispatch: the LM's 2048 keys take B6, 4096 keys B5a + B5b (f32)
     for shape, fused in (((8, 16, 2048, 128), True),
@@ -1984,6 +2078,118 @@ def phase_flash_kernels(at, dev, seed: int):
         del q, k, v, do, o, lse, delta, args, leaves, fns
         torch.cuda.empty_cache()
     return timings
+
+
+def _longseq_gate(at, dev, d: int) -> float:
+    """The port's ``_flash_numerics_gate`` (bench.py:297-330): bf16 flash
+    attention (B4, B6) against f32 ``blockwise_attention`` at [2, 2, 1024,
+    d], causal, inputs ``randn·0.5`` from ``RandomState(7)``: the output
+    and the gradients of ``sum(o·0.01)``, each error over the reference's
+    largest magnitude; returns the largest."""
+    rs = np.random.RandomState(7)
+    base = [torch.from_numpy(rs.randn(2, 2, 1024, d) * 0.5).to(
+        dev, torch.bfloat16) for _ in range(3)]
+    results = []
+    for attn, dtype in ((at.flash_attention, torch.bfloat16),
+                        (at.blockwise_attention, torch.float32)):
+        leaves = [t.to(dtype).detach().requires_grad_() for t in base]
+        o = attn(*leaves, causal=True)
+        (o.float() * 0.01).sum().backward()
+        results.append([o.detach()] + [t.grad for t in leaves])
+    worst = max(float((g.float() - w.float()).abs().max())
+                / max(float(w.float().abs().max()), 1e-6)
+                for g, w in zip(*results))
+    check(worst <= LONGSEQ_GATE_TOL, f"long-context numerics gate at d {d}: "
+          f"{worst} > {LONGSEQ_GATE_TOL}")
+    return worst
+
+
+def _longseq_chain(attn, q, k, v, eps, steps: int):
+    """``steps`` chained training steps of causal attention, the loss
+    ``sum(o)`` in f32: each step's inputs are the last step's plus ``eps``
+    times its gradients (``eps`` a 0 on the card, so the steps run in
+    series), as ``bench.py``'s ``_longseq_once``; returns the last
+    inputs."""
+    for _ in range(steps):
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        attn(*leaves, is_causal=True).float().sum().backward()
+        q, k, v = (t.detach() + eps * t.grad for t in leaves)
+    return q, k, v
+
+
+def _chain_ms(attn, q, k, v, eps, steps: int):
+    """Milliseconds a step of :func:`_longseq_chain` by CUDA events over
+    ``steps`` steps, after two; and the last inputs."""
+    _longseq_chain(attn, q, k, v, eps, 2)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = _longseq_chain(attn, q, k, v, eps, steps)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / steps, out
+
+
+def phase_longseq(at, dev, seed: int):
+    """``bench_longseq`` on the card: at each of its shapes the numerics
+    gate, then 20 chained steps through ``flash_attention`` (one B4 and one
+    B6 a step, on the tensor cores) and through
+    ``scaled_dot_product_attention(is_causal=True)``; returns (launches,
+    stats)."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def flash(q, k, v, is_causal):
+        return at.flash_attention(q, k, v, causal=is_causal)
+
+    launches, stats = {}, {}
+    for b, h, s, d in LONGSEQ_SHAPES:
+        label = f"d{d}"
+        gate = _longseq_gate(at, dev, d)
+        rs = np.random.RandomState(seed + 1)  # bench.py's RandomState(1)
+        q, k, v = (torch.from_numpy(rs.randn(b, h, s, d).astype(np.float32))
+                   .to(dev, torch.bfloat16) for _ in range(3))
+        eps = torch.zeros((), dtype=torch.bfloat16, device=dev)
+        torch.cuda.reset_peak_memory_stats()
+        at.reset_launch_counts()
+        step_ms, out = _chain_ms(flash, q, k, v, eps, LONGSEQ_STEPS)
+        counts = {**at.flash_launch_counts,
+                  **{f"route_{r}": n for r, n in at.flash_route_counts.items()}}
+        n = LONGSEQ_STEPS + 2
+        want = {"flash_fwd": n, "flash_bwd_fused": n, "flash_bwd_dq": 0,
+                "flash_bwd_dkv": 0, "route_bf16_tc": 2 * n,
+                "route_f32_simt": 0}
+        check(counts == want, f"long-context steps at {label} launched "
+              f"{counts}, expected {want}")
+        # eps = 0: the inputs come back bit for bit unless a gradient was
+        # not finite
+        check(all(torch.equal(a, b) for a, b in zip(out, (q, k, v))),
+              f"long-context gradients at {label} not finite")
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        library_ms, _ = _chain_ms(sdpa, q, k, v, eps, LONGSEQ_STEPS)
+        prof = step_profile(
+            lambda: _longseq_chain(flash, q, k, v, eps, 1), calls=3)
+        flops = 9 * b * h * s * s * d
+        stats[label] = {
+            "shape": [b, h, s, d], "dtype": "bf16", "causal": True,
+            "steps": LONGSEQ_STEPS, "numerics_rel_err": gate,
+            "step_ms": step_ms, "tokens_per_s": b * s / step_ms * 1e3,
+            "flops_per_step": flops,
+            "tflops": flops / step_ms / 1e9,
+            "peak_share_989": flops / step_ms / 1e9 / 989.0,
+            "library_step_ms": library_ms,
+            "library_tokens_per_s": b * s / library_ms * 1e3,
+            "library": "scaled_dot_product_attention(is_causal=True)",
+            "step_device_ms": prof["device_ms"],
+            "step_device_launches": prof["device_launches"],
+            "peak_memory_gb": peak_gb,
+            "launches_per_step": {key: c / n for key, c in counts.items()}}
+        launches[label] = {key: c for key, c in counts.items()
+                           if not key.startswith("route_")}
+        log(f"long-context step {label} " + json.dumps(stats[label]))
+        del q, k, v, out
+        torch.cuda.empty_cache()
+    return launches, stats
 
 
 def lm_tokens(seed: int, n: int, s: int) -> np.ndarray:
@@ -2755,6 +2961,9 @@ def main() -> int:
 
     # -- 8. flash kernels, 9. the TransformerLM ------------------------------
     flash = timed("flash_kernels", phase_flash_kernels, at, dev, args.seed)
+    longseq_launches, longseq_stats = timed("longseq", phase_longseq, at,
+                                            dev, args.seed)
+    log("long-context steps " + json.dumps(longseq_stats) + f" | {smi}")
     lm, lm_launches, lm_stats = timed("lm_train", phase_lm_train, at, ek,
                                       args.seed)
     log("lm training " + json.dumps(lm_stats) + f" | {smi}")
@@ -2961,53 +3170,83 @@ def main() -> int:
                            if k.startswith((key, "plain_" + key, "library"))},
             "routes": routes,
         })
+    flash_sources = {
+        "bf16_tc": "analytics_zoo_tpu_torch/csrc/flash_attn_bf16.cu",
+        "f32_simt": "analytics_zoo_tpu_torch/csrc/flash_attn.cu"}
+    flash_paths = {**lm_paths, **{f"longseq_{k}": c
+                                  for k, c in longseq_launches.items()}}
     flash_entries = []
+    # B4 and B6: the top-level numbers are bench_longseq's headline (bf16,
+    # the tensor cores), each route's beside them; B5a and B5b: the LM's
+    # long-context step (f32, their one route)
     for name, tpu, line, label, key, kind, err in (
-            ("flash_fwd", "_flash_fwd_kernel", 203, "lm", "fwd", "fwd",
-             "fwd_max_abs_err"),
+            ("flash_fwd", "_flash_fwd_kernel", 203, "bench_longseq", "fwd",
+             "fwd", "fwd_max_abs_err"),
             ("flash_bwd_dq", "_flash_bwd_dq_kernel", 379, "lm_long", "dq",
              "dq", "two_pass_max_abs_err"),
             ("flash_bwd_dkv", "_flash_bwd_dkv_kernel", 428, "lm_long", "dkv",
              "dkv", "two_pass_max_abs_err"),
-            ("flash_bwd_fused", "_flash_bwd_fused_kernel", 483, "lm",
-             "fused", "bwd", "fused_max_abs_err")):
+            ("flash_bwd_fused", "_flash_bwd_fused_kernel", 483,
+             "bench_longseq", "fused", "bwd", "fused_max_abs_err")):
         t = flash[label]
-        by_path = {k: c[name] for k, c in lm_paths.items()}
+        by_path = {k: c[name] for k, c in flash_paths.items()}
         library = ("library_fwd_ms", "scaled_dot_product_attention("
                    "is_causal=True), forward") if key == "fwd" else (
             "library_fwd_bwd_ms", "scaled_dot_product_attention("
             "is_causal=True), forward and backward (it has no backward "
             "alone)")
-        flash_entries.append({
+
+        def timed_at(lab, key=key, kind=kind, library=library):
+            u = flash[lab]
+            return {"shape": f"{u['shape']} {u['dtype']} causal",
+                    "ms": u[f"{key}_ms"], "device_ms": u[f"{key}_device_ms"],
+                    "plain_ms": u[f"plain_{key}_ms"],
+                    "bound_ms": u[f"{kind}_bound"][0],
+                    "bound_by": u[f"{kind}_bound"][1],
+                    "library_ms": u[library[0]],
+                    "library_device_ms": u[library[0].replace(
+                        "_ms", "_device_ms")]}
+
+        entry_k = {
             "name": name, "route": "cuda",
-            "source": "analytics_zoo_tpu_torch/csrc/flash_attn.cu",
+            "source": flash_sources[
+                "bf16_tc" if key in ("fwd", "fused") else "f32_simt"],
             "replaces": f"analytics_zoo_tpu/ops/attention.py:{line}",
             "tpu_kernel": tpu, "launches": sum(by_path.values()),
             "launches_by_path": by_path,
             "launches_per_train_step": (
                 by_path["lm_long"] / LM_LONG_STEPS if label == "lm_long"
-                else by_path["lm_train"] / LM_STEPS),
+                else by_path["longseq_d128"] / (LONGSEQ_STEPS + 2)),
             "max_abs_err": t[err],
             "max_rel_err_grid": {
                 name: flash["errors"][
                     {"fwd": "fwd", "dq": "bwd_two_pass",
                      "dkv": "bwd_two_pass", "fused": "bwd_fused"}[key]
                     + f"_{name}"] for name in ("f32", "bf16")},
-            "shape": f"{t['shape']} {t['dtype']} causal",
-            "ms": t[f"{key}_ms"], "kernel_ms": t[f"{key}_ms"],
-            "device_ms": t[f"{key}_device_ms"],
-            "plain_ms": t[f"plain_{key}_ms"],
-            "bound_ms": t[f"{kind}_bound"][0],
-            "bound_by": t[f"{kind}_bound"][1],
+            **timed_at(label), "kernel_ms": t[f"{key}_ms"],
             "backward_bound_ms": t["bwd_bound"][0],
-            "library_ms": t[library[0]], "library": library[1],
+            "library": library[1],
             "other_shapes": {
                 lab: {k: flash[lab][k] for k in (
                     "shape", "dtype", "backward_design", f"{key}_ms",
                     f"{key}_device_ms", f"plain_{key}_ms", f"{kind}_bound",
                     "library_fwd_ms", "library_fwd_bwd_ms")}
                 for lab, _, _ in FLASH_TIMED if lab != label},
-        })
+        }
+        if key in ("fwd", "fused"):
+            entry_k["routes"] = {
+                "bf16_tc": {"source": flash_sources["bf16_tc"],
+                            **timed_at("bench_longseq"),
+                            "d64": timed_at("bench_longseq_d64"),
+                            "launches_by_path": {
+                                k: c for k, c in by_path.items()
+                                if k.startswith("longseq")}},
+                "f32_simt": {"source": flash_sources["f32_simt"],
+                             **timed_at("lm"),
+                             "launches_by_path": {
+                                 k: c for k, c in by_path.items()
+                                 if not k.startswith("longseq")}}}
+        flash_entries.append(entry_k)
     print(smi)
     print(json.dumps({"kernels": [entry, pool_entry, scatter_entry,
                                   int8_entry]

@@ -204,7 +204,7 @@ def test_library_is_keyed_by_a_hash_of_the_sources():
     srcs, _ = kernel_build._sources()
     assert {"gather_rows.cu", "gather_pool.cu", "fused_short_attn.cu",
             "fused_short_attn_bf16.cu", "gather_int8.cu",
-            "scatter_rows.cu"} <= {
+            "scatter_rows.cu", "flash_attn.cu", "flash_attn_bf16.cu"} <= {
         os.path.basename(s) for s in srcs}
 
 
@@ -640,7 +640,7 @@ def _flash_inputs(dev, sq, skv, d, dtype, seed, b=1, h=2):
 @pytest.mark.cuda
 @pytest.mark.parametrize("sq,skv", FLASH_LENGTHS,
                          ids=[f"{a}x{b}" for a, b in FLASH_LENGTHS])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [24, 64, 96, 128])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 def test_flash_kernels_equal_their_plain_versions_on_the_card(
@@ -648,20 +648,25 @@ def test_flash_kernels_equal_their_plain_versions_on_the_card(
     """B4 (with and without a key bias, causal or not), B5a + B5b and B6
     (with and without an lse cotangent) against their plain versions:
     within 2e-5 (f32) or 2e-2 (bf16) of the output's scale (the three
-    gradients' joint scale for a backward) and in relative L2. B6 adds dq
-    with atomics in no fixed order, which costs at most skv / 64 partial
-    sums' rounding, far inside the f32 tolerance; dk and dv repeat bit for
-    bit, dq need not."""
+    gradients' joint scale for a backward) and in relative L2. B4 and B6
+    take the dtype's route (bf16 the tensor cores, f32 the CUDA cores);
+    B5a + B5b the CUDA cores in both. B6 adds dq with atomics in no fixed
+    order, which costs at most skv / 64 partial sums' rounding, far inside
+    the f32 tolerance; dk and dv repeat bit for bit, dq need not."""
     from analytics_zoo_tpu_torch.ops import attention as at
     q, k, v, do, glse, bias = _flash_inputs(cuda_device, sq, skv, d, dtype,
                                             sq + skv + d)
     scale = d ** -0.5
+    route = at.flash_route(dtype)
     for causal in (False, True):
         for kb in (None, bias):
             before = at.flash_launch_counts["flash_fwd"]
+            routes = dict(at.flash_route_counts)
             o, lse = at.flash_fwd(q, k, v, kb, scale, causal)
             torch.cuda.synchronize()
             assert at.flash_launch_counts["flash_fwd"] == before + 1
+            routes[route] += 1
+            assert at.flash_route_counts == routes
             want_o, want_lse = at.flash_fwd_plain(q, k, v, kb, scale, causal)
             case = f"causal={causal} bias={kb is not None}"
             assert o.dtype == dtype and _flash_close(o, want_o, dtype), case
@@ -672,6 +677,7 @@ def test_flash_kernels_equal_their_plain_versions_on_the_card(
             args = (q, k, v, do, lse, delta, gl, scale, causal)
             want = at.flash_bwd_fused_plain(*args)
             counts = dict(at.flash_launch_counts)
+            routes = dict(at.flash_route_counts)
             two_pass = (at.flash_bwd_dq(*args),) + at.flash_bwd_dkv(*args)
             fused = at.flash_bwd_fused(*args)
             again = at.flash_bwd_fused(*args)
@@ -682,6 +688,8 @@ def test_flash_kernels_equal_their_plain_versions_on_the_card(
                 counts["flash_bwd_dkv"] + 1
             assert at.flash_launch_counts["flash_bwd_fused"] == \
                 counts["flash_bwd_fused"] + 2
+            routes[route] += 2
+            assert at.flash_route_counts == routes
             case = f"causal={causal} glse={gl is not None}"
             assert all(t.dtype == dtype for t in two_pass + fused)
             one_key = skv == 1 and gl is None
@@ -690,6 +698,30 @@ def test_flash_kernels_equal_their_plain_versions_on_the_card(
             assert torch.equal(fused[1], again[1])
             assert torch.equal(fused[2], again[2])
             assert torch.equal(two_pass[0], at.flash_bwd_dq(*args))
+
+
+@pytest.mark.cuda
+def test_flash_bf16_takes_the_tensor_cores_and_f32_the_cuda_cores(
+        cuda_device):
+    """A causal forward and backward through ``flash_attention`` counts
+    one B4 and one B6 on the dtype's route, and B5a + B5b on neither."""
+    from analytics_zoo_tpu_torch.ops import attention as at
+    for dtype, route in ((torch.bfloat16, "bf16_tc"),
+                         (torch.float32, "f32_simt")):
+        assert at.flash_route(dtype) == route
+        q, k, v, do, _, _ = _flash_inputs(cuda_device, 700, 700, 64, dtype,
+                                          5)
+        leaves = [t.requires_grad_() for t in (q, k, v)]
+        at.reset_launch_counts()
+        at.flash_attention(*leaves, causal=True).backward(do)
+        torch.cuda.synchronize()
+        assert at.flash_route_counts == {"bf16_tc": 0, "f32_simt": 0,
+                                         route: 2}
+        assert at.flash_launch_counts == {
+            "flash_fwd": 1, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+            "flash_bwd_fused": 1}
+        assert all(t.grad.dtype == dtype and bool(t.grad.isfinite().all())
+                   for t in leaves)
 
 
 @pytest.mark.cuda
