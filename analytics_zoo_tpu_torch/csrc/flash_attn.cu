@@ -1,7 +1,7 @@
-// Flash attention for Hopper (sm_90a) on the CUDA cores: the forward (B4)
-// and the one-pass backward (B6) in f32, the two-pass backward (B5a dq,
-// B5b dk/dv) in f32 and bf16. B4 and B6 in bf16 run on the tensor cores,
-// in flash_attn_bf16.cu.
+// Flash attention for Hopper (sm_90a) on the CUDA cores, in f32: the
+// forward (B4), the two-pass backward (B5a dq, B5b dk/dv) and the one-pass
+// backward (B6). In bf16 all four run on the tensor cores, in
+// flash_attn_bf16.cu.
 //
 // Replaces the TPU kernels in analytics_zoo_tpu/ops/attention.py:
 //   B4  `_flash_fwd_kernel`        (pallas_call in `_flash_fwd_pallas`)
@@ -9,8 +9,8 @@
 //   B5b `_flash_bwd_dkv_kernel`    (pallas_call in `_flash_bwd_pallas`)
 //   B6  `_flash_bwd_fused_kernel`  (pallas_call in `_flash_bwd_fused`)
 //
-// q [bh, sq, d], k and v [bh, skv, d] (f32, or bf16 for B5a/B5b;
-// contiguous, d <= 128, any lengths, sq and skv apart), an optional
+// q [bh, sq, d], k and v [bh, skv, d] (f32, contiguous, d <= 128, any
+// lengths, sq and skv apart), an optional
 // per-key bias key_bias [bh / heads, skv] f32 in natural-log units (B4
 // only), and an optional causal mask aligned top-left (key col visible to
 // query row iff col <= row, absolute indices). In f32 throughout, as
@@ -65,10 +65,8 @@
 // against 0.16 ms of bytes at 3.35 TB/s, and 344 GFLOP (5.1 ms) for the
 // backward (NVIDIA's data sheet, not a measurement): operations bound all
 // four. These kernels run f32 fmas on the CUDA cores (tensor cores offer
-// f32 only as TF32, which would change the f32 results); B5a/B5b widen
-// bf16 inputs to f32 in shared memory, so they get no tensor-core rate.
+// f32 only as TF32, which would change the f32 results).
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -86,19 +84,8 @@ constexpr float kLn2 = 0.6931471805599453f;
 __device__ __forceinline__ float4 widen4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
-__device__ __forceinline__ float4 widen4(const __nv_bfloat16* p) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  const float2 a = __bfloat1622float2(
-      *reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-  const float2 b = __bfloat1622float2(
-      *reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-  return make_float4(a.x, a.y, b.x, b.y);
-}
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
@@ -106,21 +93,9 @@ template <>
 __device__ __forceinline__ float from_f32<float>(float x) {
   return x;
 }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
 
 __device__ __forceinline__ void store4(float* p, float4 v) {
   *reinterpret_cast<float4*>(p) = v;
-}
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
-  __nv_bfloat162 a = __floats2bfloat162_rn(v.x, v.y);
-  __nv_bfloat162 b = __floats2bfloat162_rn(v.z, v.w);
-  uint2 raw;
-  raw.x = *reinterpret_cast<uint32_t*>(&a);
-  raw.y = *reinterpret_cast<uint32_t*>(&b);
-  *reinterpret_cast<uint2*>(p) = raw;
 }
 
 __device__ __forceinline__ float comp(const float4& v, int e) {
@@ -646,8 +621,8 @@ bool bad_shape(long long bh, int sq, int skv, int d) {
          tiles(sq) > 65535 || tiles(skv) > 65535 || d < 1 || d > kMaxD;
 }
 
-// rows may be read and written as float4 (f32) or 4 x bf16 when d is a
-// multiple of 4 and every tensor starts on 16 bytes
+// rows may be read and written as float4 when d is a multiple of 4 and
+// every tensor starts on 16 bytes
 int vector_ok(int d, const void* a, const void* b, const void* c,
               const void* e, const void* f, const void* g) {
   return d % 4 == 0 && aligned16(a) && aligned16(b) && aligned16(c) &&
@@ -671,18 +646,6 @@ int launch_kv_any(const void* q, const void* k, const void* v,
                   : launch_kv<float, 64, kFused>(
                         q, k, v, dout, lse, delta, glse, dq_acc, dk, dv, bh,
                         sq, skv, d, scale_log2e, scale, causal, vec, st);
-    case 1:
-      if constexpr (kFused) {
-        return (int)cudaErrorInvalidValue;  // B6 in bf16: flash_attn_bf16.cu
-      } else {
-        return wide ? launch_kv<__nv_bfloat16, 128, false>(
-                          q, k, v, dout, lse, delta, glse, dq_acc, dk, dv,
-                          bh, sq, skv, d, scale_log2e, scale, causal, vec, st)
-                    : launch_kv<__nv_bfloat16, 64, false>(
-                          q, k, v, dout, lse, delta, glse, dq_acc, dk, dv,
-                          bh, sq, skv, d, scale_log2e, scale, causal, vec,
-                          st);
-      }
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -719,9 +682,9 @@ int azt_flash_fwd(const void* q, const void* k, const void* v,
   }
 }
 
-// B5a on `stream`: dq [bh, sq, d] in the inputs' dtype (0 = f32, 1 =
-// bf16). lse, delta, glse:
-// [bh, sq] f32 (glse may be NULL for zero).
+// B5a on `stream`: dq [bh, sq, d] f32 (dtype 0; bf16 takes
+// azt_flash_bwd_dq_bf16). lse, delta, glse: [bh, sq] f32 (glse may be NULL
+// for zero).
 int azt_flash_bwd_dq(const void* q, const void* k, const void* v,
                      const void* dout, const void* lse, const void* delta,
                      const void* glse, void* dq, long long bh, int sq,
@@ -740,19 +703,13 @@ int azt_flash_bwd_dq(const void* q, const void* k, const void* v,
                   : launch_dq<float, 64>(q, k, v, dout, lse, delta, glse, dq,
                                          bh, sq, skv, d, scale_log2e, scale,
                                          causal, vec, st);
-    case 1:
-      return wide ? launch_dq<__nv_bfloat16, 128>(
-                        q, k, v, dout, lse, delta, glse, dq, bh, sq, skv, d,
-                        scale_log2e, scale, causal, vec, st)
-                  : launch_dq<__nv_bfloat16, 64>(
-                        q, k, v, dout, lse, delta, glse, dq, bh, sq, skv, d,
-                        scale_log2e, scale, causal, vec, st);
     default:
       return (int)cudaErrorInvalidValue;
   }
 }
 
-// B5b on `stream`: dk, dv [bh, skv, d] in the inputs' dtype.
+// B5b on `stream`: dk, dv [bh, skv, d] f32 (dtype 0; bf16 takes
+// azt_flash_bwd_dkv_bf16).
 int azt_flash_bwd_dkv(const void* q, const void* k, const void* v,
                       const void* dout, const void* lse, const void* delta,
                       const void* glse, void* dk, void* dv, long long bh,

@@ -49,21 +49,20 @@ forward launches B4 (replacing ``_flash_fwd_kernel``) and always saves the
 row logsumexp in natural-log units; the backward launches the one-pass B6
 (replacing ``_flash_bwd_fused_kernel``) where :func:`fused_bwd_applicable`
 holds, else B5a then B5b (replacing ``_flash_bwd_dq_kernel`` and
-``_flash_bwd_dkv_kernel``). The dtype picks B4's and B6's route
+``_flash_bwd_dkv_kernel``). The dtype picks each kernel's route
 (:func:`flash_route`, counted in ``flash_route_counts``): bf16 runs on the
 tensor cores (``csrc/flash_attn_bf16.cu``, ``mma.sync``), f32 on the CUDA
-cores (``csrc/flash_attn.cu``, which also holds B5a and B5b for both
-dtypes). On a CPU tensor each runs its plain version
-(:func:`flash_fwd_plain`, :func:`flash_bwd_dq_plain`,
+cores (``csrc/flash_attn.cu``). On a CPU tensor each runs its plain
+version (:func:`flash_fwd_plain`, :func:`flash_bwd_dq_plain`,
 :func:`flash_bwd_dkv_plain`, :func:`flash_bwd_fused_plain`), the same
 function in full-row softmax over chunks of query rows. The arithmetic is
 B7's: f32 scores in ``exp2`` units, masked scores ``-1e30``, the
-denominator floored at ``1e-30``; B4 and B6 round ``p`` to the inputs'
-dtype before ``p·v`` and ``pᵀ·dO``, and ``ds`` before ``ds·k`` and
-``dsᵀ·q``, where the TPU kernel rounds them (no-ops in f32), while B5a and
-B5b keep both in f32. A ``[b, 1, 1, kv]`` key bias runs inside B4; its
-backward is autograd through :func:`blockwise_attention`, as in the JAX
-package.
+denominator floored at ``1e-30``; every flash kernel rounds ``p`` to the
+inputs' dtype before ``p·v`` and ``pᵀ·dO``, and ``ds`` before ``ds·k`` and
+``dsᵀ·q``, where the TPU kernel rounds them (no-ops in f32), so the two
+backward designs' plain versions give the same gradients bit for bit. A
+``[b, 1, 1, kv]`` key bias runs inside B4; its backward is autograd
+through :func:`blockwise_attention`, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -91,8 +90,8 @@ route_counts = LaunchCounts("bf16_tc", "f32_simt")
 #: B4, B5a, B5b and B6
 flash_launch_counts = LaunchCounts("flash_fwd", "flash_bwd_dq",
                                    "flash_bwd_dkv", "flash_bwd_fused")
-#: B4 and B6 launches by route: bf16 on the tensor cores, f32 on the CUDA
-#: cores (B5a and B5b have one route, the CUDA cores, in both dtypes)
+#: B4, B5a, B5b and B6 launches by route: bf16 on the tensor cores, f32 on
+#: the CUDA cores
 flash_route_counts = LaunchCounts("bf16_tc", "f32_simt")
 
 
@@ -111,7 +110,7 @@ def fused_short_route(dtype: torch.dtype) -> str:
     return "bf16_tc" if dtype == torch.bfloat16 else "f32_simt"
 
 
-#: B4's and B6's route for inputs of a dtype, the fused kernels' choice:
+#: the flash kernels' route for inputs of a dtype, the fused kernels' choice:
 #: ``"bf16_tc"`` (the tensor cores, ``csrc/flash_attn_bf16.cu``) or
 #: ``"f32_simt"`` (the CUDA cores, ``csrc/flash_attn.cu``)
 flash_route = fused_short_route
@@ -589,20 +588,26 @@ def _bwd_chunk(q, k, v, do, lse, delta, glse, scale, causal, r0, r1):
 def flash_bwd_dq_plain(q, k, v, do, lse, delta, glse, scale: float,
                        causal: bool) -> torch.Tensor:
     """Plain PyTorch version of B5a: ``dq = scale·Σ_j ds·k_j`` with ``p``
-    recomputed from ``lse``; ``delta = Σ dO·O`` per row, ``glse`` the lse
-    cotangent (None for 0), both ``[b, h, q_len]`` f32."""
-    dq = [torch.matmul(_bwd_chunk(q, k, v, do, lse, delta, glse, scale,
-                                  causal, r0, r1)[1], k.float()) * scale
-          for r0, r1 in _q_chunks(q.shape[-2])]
+    recomputed from ``lse`` and ``ds`` rounded to the inputs' dtype before
+    the product; ``delta = Σ dO·O`` per row, ``glse`` the lse cotangent
+    (None for 0), both ``[b, h, q_len]`` f32. Equal to
+    :func:`flash_bwd_fused_plain`'s dq bit for bit."""
+    dq = []
+    for r0, r1 in _q_chunks(q.shape[-2]):
+        ds = _bwd_chunk(q, k, v, do, lse, delta, glse, scale, causal, r0,
+                        r1)[1]
+        dq.append(torch.matmul(_rounded(ds, q.dtype), k.float()) * scale)
     return torch.cat(dq, -2).to(q.dtype)
 
 
 def flash_bwd_dkv_plain(q, k, v, do, lse, delta, glse, scale: float,
                         causal: bool) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of B5b: ``dk = scale·Σ_i dsᵀ·q_i``,
-    ``dv = Σ_i pᵀ·dO_i``, ``p`` and ``ds`` in f32."""
+    ``dv = Σ_i pᵀ·dO_i``, ``p`` and ``ds`` rounded to the inputs' dtype
+    before the products. Equal to :func:`flash_bwd_fused_plain`'s dk and
+    dv bit for bit."""
     return _bwd_one_pass(q, k, v, do, lse, delta, glse, scale, causal,
-                         torch.float32)[1:]
+                         q.dtype)[1:]
 
 
 def flash_bwd_fused_plain(q, k, v, do, lse, delta, glse, scale: float,
@@ -718,40 +723,58 @@ def _bwd_ptrs(q, k, v, do, lse, delta, glse):
 def flash_bwd_dq(q, k, v, do, lse, delta, glse, scale: float,
                  causal: bool) -> torch.Tensor:
     """B5a's wrapper: ``dq``. CPU tensors take :func:`flash_bwd_dq_plain`;
-    CUDA tensors launch the kernel (a block per 64 query rows walking the
-    keys, no atomics)."""
+    CUDA tensors launch the kernel of the dtype's route (a block per query
+    tile walking the keys, no atomics)."""
     ptrs = _bwd_ptrs(q, k, v, do, lse, delta, glse)
     if not on_card(q, "flash_bwd_dq"):
         return flash_bwd_dq_plain(q, k, v, do, lse, delta, glse, scale,
                                   causal)
+    route = flash_route(q.dtype)
     dq = torch.empty_like(q)
+    bh, q_len, kv_len, d, dtype = _dims(q, k)
     lib = load_library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.azt_flash_bwd_dq(*ptrs, dq.data_ptr(), *_dims(q, k),
-                                  scale * _LOG2E, scale, int(bool(causal)),
-                                  stream)
+        if route == "bf16_tc":
+            rc = lib.azt_flash_bwd_dq_bf16(
+                *ptrs, dq.data_ptr(), bh, q_len, kv_len, d, scale * _LOG2E,
+                scale, int(bool(causal)), stream)
+        else:
+            rc = lib.azt_flash_bwd_dq(
+                *ptrs, dq.data_ptr(), bh, q_len, kv_len, d, dtype,
+                scale * _LOG2E, scale, int(bool(causal)), stream)
     flash_launch_counts.launched("flash_bwd_dq", rc)
+    flash_route_counts.launched(route, rc)
     return dq
 
 
 def flash_bwd_dkv(q, k, v, do, lse, delta, glse, scale: float,
                   causal: bool) -> Tuple[torch.Tensor, torch.Tensor]:
     """B5b's wrapper: ``(dk, dv)``. CPU tensors take
-    :func:`flash_bwd_dkv_plain`; CUDA tensors launch the kernel (a block
-    per 64 keys walking the queries, no atomics)."""
+    :func:`flash_bwd_dkv_plain`; CUDA tensors launch the kernel of the
+    dtype's route (a block per key tile walking the queries, no
+    atomics)."""
     ptrs = _bwd_ptrs(q, k, v, do, lse, delta, glse)
     if not on_card(q, "flash_bwd_dkv"):
         return flash_bwd_dkv_plain(q, k, v, do, lse, delta, glse, scale,
                                    causal)
+    route = flash_route(q.dtype)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
+    outs = (dk.data_ptr(), dv.data_ptr())
+    bh, q_len, kv_len, d, dtype = _dims(q, k)
     lib = load_library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.azt_flash_bwd_dkv(*ptrs, dk.data_ptr(), dv.data_ptr(),
-                                   *_dims(q, k), scale * _LOG2E, scale,
-                                   int(bool(causal)), stream)
+        if route == "bf16_tc":
+            rc = lib.azt_flash_bwd_dkv_bf16(
+                *ptrs, *outs, bh, q_len, kv_len, d, scale * _LOG2E, scale,
+                int(bool(causal)), stream)
+        else:
+            rc = lib.azt_flash_bwd_dkv(
+                *ptrs, *outs, bh, q_len, kv_len, d, dtype, scale * _LOG2E,
+                scale, int(bool(causal)), stream)
     flash_launch_counts.launched("flash_bwd_dkv", rc)
+    flash_route_counts.launched(route, rc)
     return dk, dv
 
 

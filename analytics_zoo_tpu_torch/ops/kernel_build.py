@@ -144,6 +144,11 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.azt_flash_bwd_fused_bf16.argtypes = [p] * 10 + [ll, i, i, i, f, f,
                                                         i, p]
     lib.azt_flash_bwd_fused_bf16.restype = i
+    lib.azt_flash_bwd_dq_bf16.argtypes = [p] * 8 + [ll, i, i, i, f, f, i, p]
+    lib.azt_flash_bwd_dq_bf16.restype = i
+    lib.azt_flash_bwd_dkv_bf16.argtypes = [p] * 9 + [ll, i, i, i, f, f, i,
+                                                     p]
+    lib.azt_flash_bwd_dkv_bf16.restype = i
     return lib
 
 

@@ -77,16 +77,17 @@ Phases, each of which must pass or the script exits non-zero:
    one-pass backward (B6, with and without an lse cotangent) are held
    against their plain versions for lengths 1, 17, 513, 1000, 2047, 2048
    and 4096 and four pairs of unequal q/kv lengths, head widths 64 and
-   128, f32 and bf16, and in bf16 also at widths 24 and 96 for four of
-   those lengths: within 2e-5 (f32) and 2e-2 (bf16) of the output's
-   scale (of the three gradients' joint scale for a backward) and, each
-   output and each gradient, in relative L2; B6's dk and dv bit-equal
-   when repeated. The dtype picks B4's and B6's route (bf16 the tensor
-   cores, ``csrc/flash_attn_bf16.cu``; f32 the CUDA cores,
-   ``csrc/flash_attn.cu``) and each call must count on it. The backward
-   must take B6 at [8, 16, 2048, 128] f32 and B5a + B5b at [2, 16, 4096,
-   128] f32. All four are timed there and at bench_longseq's [4, 8, 4096,
-   128] and [8, 8, 4096, 64] bf16 beside their plain versions and
+   128 in f32 and 24, 64, 96 and 128 in bf16: within 2e-5 (f32) and 2e-2
+   (bf16) of the output's scale (of the three gradients' joint scale for a
+   backward) and, each output and each gradient, in relative L2; B5a +
+   B5b's dq, dk and dv and B6's dk and dv bit-equal when repeated. The
+   dtype picks every kernel's route (bf16 the tensor cores,
+   ``csrc/flash_attn_bf16.cu``; f32 the CUDA cores, ``csrc/flash_attn.cu``)
+   and each call must count on it. The backward must take B6 at [8, 16,
+   2048, 128] f32 and [1, 2, 4096, 128] bf16, and B5a + B5b at [2, 16,
+   4096, 128] f32 and [1, 2, 8192, 128] bf16. All four are timed at the
+   LM's two shapes and at bench_longseq's [4, 8, 4096, 128], [8, 8, 4096,
+   64] and [4, 8, 8192, 128] bf16 beside their plain versions and
    ``scaled_dot_product_attention(is_causal=True)``, and held to the same
    tolerances at those shapes. A profiler device time is printed only
    where every kernel and copy the host issued has its device event in the
@@ -95,14 +96,16 @@ Phases, each of which must pass or the script exits non-zero:
    ``flash_attention(q, k, v, causal=True)`` in bf16 with the loss
    ``sum(o)`` in f32, 20 chained steps (each step's inputs the last
    step's plus eps times its gradients, eps a 0 on the card), at [4, 8,
-   4096, 128] and [8, 8, 4096, 64]. Each shape is gated first as
-   ``_flash_numerics_gate`` does (b 2, h 2, s 1024, output and gradients
-   within 4e-2 of f32 ``blockwise_attention``'s largest magnitude); a
-   step must launch one B4 and one B6, both on the tensor cores, and
-   eps = 0 must give back the inputs bit for bit (finite gradients). It
-   prints ms a step by CUDA events, tokens/s, the share of 989 TFLOP/s at
-   ``9·B·H·S²·D`` FLOPs a step, and the same step through
-   ``scaled_dot_product_attention(is_causal=True)``.
+   4096, 128] and [8, 8, 4096, 64], where a step must launch one B4 and
+   one B6, and at [4, 8, 8192, 128], where it must launch one B4, one B5a
+   and one B5b, all on the tensor cores. Each shape is gated first as
+   ``_flash_numerics_gate`` does (output and gradients within 4e-2 of f32
+   ``blockwise_attention``'s largest magnitude, at b 2, h 2, s 1024 for
+   4096 keys and at b 1, h 2, s 8192 for 8192, so that the gate takes the
+   same backward design as the steps); eps = 0 must give back the inputs
+   bit for bit (finite gradients). It prints ms a step by CUDA events,
+   tokens/s, the share of 989 TFLOP/s at ``9·B·H·S²·D`` FLOPs a step, and
+   the same step through ``scaled_dot_product_attention(is_causal=True)``.
 9. TransformerLM: the full-width model (``bench.py:2337-2338``: vocab
    32000, hidden 2048, 8 blocks, 16 heads, max_len 2048, f32, Adam) with
    seeded weights trains 8 steps at batch 8 x 2048 tokens (one B4 and one
@@ -310,27 +313,31 @@ LOGIT_TOL = 1e-4
 FLASH_LENGTHS = ((1, 1), (17, 17), (513, 513), (1000, 1000), (2047, 2047),
                  (2048, 2048), (4096, 4096), (513, 1000), (1000, 513),
                  (17, 4096), (2047, 1))
-#: bf16 head widths B4 and B6's tensor-core route also takes, at a few of
-#: those lengths: one ragged chunk of 16 (24) and a partial 128-wide tile
-#: (96)
-FLASH_BF16_DIMS = (24, 96)
-FLASH_BF16_LENGTHS = ((17, 17), (513, 1000), (1000, 513), (2047, 2047))
-#: bench_longseq (bench.py:2874-2925): the headline [4, 8, 4096, 128] and
-#: the d 64 addendum (batch doubled, the same FLOPs a step), bf16, causal,
-#: 20 chained steps
-LONGSEQ_SHAPES = ((4, 8, 4096, 128), (8, 8, 4096, 64))
+#: the head widths of the grid: f32 at 64 and 128; bf16 also at one
+#: ragged chunk of 16 (24) and a partial 128-wide tile (96)
+FLASH_DIMS = {torch.float32: (64, 128), torch.bfloat16: (24, 64, 96, 128)}
+#: bench_longseq (bench.py:2874-2925), bf16, causal, 20 chained steps, as
+#: (label, shape, the numerics gate's shape): the headline [4, 8, 4096,
+#: 128] and the d 64 addendum (batch doubled, the same FLOPs a step), which
+#: take B6, and the headline with seq raised to 8192, which takes B5a + B5b
+#: (past fused_bwd_applicable)
+LONGSEQ_SHAPES = (("d128", (4, 8, 4096, 128), (2, 2, 1024, 128)),
+                  ("d64", (8, 8, 4096, 64), (2, 2, 1024, 64)),
+                  ("s8192", (4, 8, 8192, 128), (1, 2, 8192, 128)))
 LONGSEQ_STEPS = 20
-#: its numerics gate (bench.py:297-330): b 2, h 2, s 1024, the output and
-#: the gradients against f32 blockwise_attention, relative to its largest
-#: magnitude
+#: its numerics gate (bench.py:297-330): the output and the gradients
+#: against f32 blockwise_attention, relative to its largest magnitude
 LONGSEQ_GATE_TOL = 4e-2
 #: the timed shapes [b, h, s, d]: the LM's step (B4, B6), its long-context
-#: step (B5a, B5b) and bench_longseq's headline and addendum (bf16, B4 and
-#: B6 on the tensor cores)
+#: step (B5a, B5b in f32) and bench_longseq's headline, addendum (bf16, B4
+#: and B6 on the tensor cores) and 8192 keys (bf16, B4, B5a and B5b on the
+#: tensor cores)
 FLASH_TIMED = (("lm", (8, 16, 2048, 128), torch.float32),
                ("lm_long", (2, 16, 4096, 128), torch.float32),
-               ("bench_longseq", LONGSEQ_SHAPES[0], torch.bfloat16),
-               ("bench_longseq_d64", LONGSEQ_SHAPES[1], torch.bfloat16))
+               ("bench_longseq", LONGSEQ_SHAPES[0][1], torch.bfloat16),
+               ("bench_longseq_d64", LONGSEQ_SHAPES[1][1], torch.bfloat16),
+               ("bench_longseq_s8192", LONGSEQ_SHAPES[2][1],
+                torch.bfloat16))
 
 
 def log(msg: str) -> None:
@@ -410,9 +417,13 @@ def step_profile(fn, calls: int = 20, top: int = 0,
     return out
 
 
-#: ptxas -v's lines for an entry function of the bf16 flash kernels
+#: ptxas -v's lines for an entry function of the bf16 flash kernels (B4
+#: ``flash_fwd``, B5a ``flash_bwd_dq``, B5b and B6 ``flash_bwd``) and its
+#: mangled template arguments
 _PTXAS_ENTRY = re.compile(
-    r"entry function '\S*?(flash_(?:fwd|bwd)_bf16_kernel)ILi(\d+)E")
+    r"entry function '\S*?(flash_(?:fwd|bwd|bwd_dq)_bf16_kernel)I"
+    r"((?:L[ib]\d+E)+)E")
+_PTXAS_ARG = re.compile(r"L[ib](\d+)E")
 _PTXAS_SPILL = re.compile(
     r"(\d+) bytes spill stores, (\d+) bytes spill loads")
 _PTXAS_REGS = re.compile(r"Used (\d+) registers")
@@ -420,12 +431,14 @@ _PTXAS_REGS = re.compile(r"Used (\d+) registers")
 
 def ptxas_usage(log: str) -> dict:
     """Registers and spill bytes of each bf16 flash kernel (by its template
-    width, 16-column chunks of d) from ``nvcc -Xptxas -v`` output."""
+    arguments: 16-column chunks of d, and B5b's and B6's keys a block and
+    whether it adds dq) from ``nvcc -Xptxas -v`` output."""
     usage, name = {}, None
     for line in log.splitlines():
         m = _PTXAS_ENTRY.search(line)
         if m:
-            name = f"{m.group(1)}<{m.group(2)}>"
+            args = ",".join(_PTXAS_ARG.findall(m.group(2)))
+            name = f"{m.group(1)}<{args}>"
             usage[name] = {}
             continue
         m = _PTXAS_SPILL.search(line)
@@ -458,9 +471,9 @@ def rebuild_seconds(kernel_build) -> dict:
                              check=True, capture_output=True, text=True)
         out["one_nvcc"] = time.perf_counter() - t0
     out["ptxas_bf16_flash"] = ptxas_usage(one.stdout + one.stderr)
-    check(len(out["ptxas_bf16_flash"]) == 6,
+    check(len(out["ptxas_bf16_flash"]) == 12,
           f"ptxas -v named {sorted(out['ptxas_bf16_flash'])}, expected the "
-          f"bf16 flash kernels at 3 widths each")
+          f"bf16 flash kernels (B4, B5a, B5b, B6) at 3 widths each")
     return out
 
 
@@ -1927,18 +1940,17 @@ def _grads_errs(got, want, one_key_no_glse: bool):
 
 def phase_flash_kernels(at, dev, seed: int):
     """Hold B4 (bias or not, causal or not), B5a + B5b and B6 (lse
-    cotangent or not) against their plain versions over the grid, each B4
-    and B6 call on its dtype's route, check that the backward takes B6 at
-    the LM's shape and B5a + B5b at its long-context shape, then time all
-    four at the timed shapes beside their plain versions and
+    cotangent or not) against their plain versions over the grid, each
+    call on its dtype's route, check that the backward takes B6 at the
+    LM's shape and at bench_longseq's headline and B5a + B5b at the LM's
+    long-context shape and at 8192 keys in bf16, then time all four at the
+    timed shapes beside their plain versions and
     ``scaled_dot_product_attention``; returns (timings, errors)."""
     gen = torch.Generator().manual_seed(seed)
     errors = {f"{key}_{name}": 0.0 for name in ("f32", "bf16")
               for key in ("fwd", "bwd_two_pass", "bwd_fused", "lse")}
     grid = [(sq, skv, d, dtype) for sq, skv in FLASH_LENGTHS
-            for d in (64, 128) for dtype in (torch.float32, torch.bfloat16)]
-    grid += [(sq, skv, d, torch.bfloat16) for sq, skv in FLASH_BF16_LENGTHS
-             for d in FLASH_BF16_DIMS]
+            for dtype, dims in FLASH_DIMS.items() for d in dims]
     cases = 0
     for sq, skv, d, dtype in grid:
         q, k, v, do, glse, bias = _flash_case(dev, sq, skv, d, dtype, gen)
@@ -1966,47 +1978,61 @@ def phase_flash_kernels(at, dev, seed: int):
                 args = (q, k, v, do, lse, delta, gl, scale, causal)
                 want = at.flash_bwd_fused_plain(*args)
                 two = (at.flash_bwd_dq(*args),) + at.flash_bwd_dkv(*args)
+                two_again = (at.flash_bwd_dq(*args),) \
+                    + at.flash_bwd_dkv(*args)
                 fused = at.flash_bwd_fused(*args)
                 again = at.flash_bwd_fused(*args)
                 torch.cuda.synchronize()
                 check(torch.equal(fused[1], again[1])
                       and torch.equal(fused[2], again[2]),
                       f"B6's dk, dv not bit-equal twice at {case}")
+                check(all(torch.equal(a, b) for a, b in zip(two, two_again)),
+                      f"B5a's dq, B5b's dk, dv not bit-equal twice at {case}")
                 for key, got in (("bwd_two_pass", two),
                                  ("bwd_fused", fused)):
                     e = max(_grads_errs(got, want, skv == 1 and gl is None))
                     check(e <= tol, f"{key} != plain by {e} at {case} "
                           f"glse={gl is not None}")
                     errors[f"{key}_{tag}"] = max(errors[f"{key}_{tag}"], e)
-        # per causal: two B4 calls and four B6 calls
-        routes[route] += 12
+        # per causal: two B4 calls, and four each of B5a, B5b and B6
+        routes[route] += 28
         check(dict(at.flash_route_counts) == routes,
               f"{dtype} took {dict(at.flash_route_counts)}, not {route}")
         cases += 1
     log(f"flash kernels within f32 2e-5, bf16 2e-2 of their plain versions "
         f"(of the scale and in relative L2) on {cases} cases (each: B4 with "
-        f"and without a bias, B5a + B5b and B6 with and without glse, B4 "
-        f"and B6 on the dtype's route, B6's dk, dv bit-equal twice); "
-        f"largest errors " + json.dumps(errors))
+        f"and without a bias, B5a + B5b and B6 with and without glse, every "
+        f"call on the dtype's route, B5a + B5b's dq, dk, dv and B6's dk, dv "
+        f"bit-equal twice); largest errors " + json.dumps(errors))
 
-    # dispatch: the LM's 2048 keys take B6, 4096 keys B5a + B5b (f32)
-    for shape, fused in (((8, 16, 2048, 128), True),
-                         ((2, 16, 4096, 128), False)):
-        leaves = [torch.randn(shape, device=dev).requires_grad_()
+    # dispatch by the resident-bytes rule: in f32 the LM's 2048 keys take
+    # B6 and 4096 keys B5a + B5b; in bf16 4096 keys B6, 8192 B5a + B5b
+    for shape, dtype, fused in (
+            ((8, 16, 2048, 128), torch.float32, True),
+            ((2, 16, 4096, 128), torch.float32, False),
+            ((1, 2, 4096, 128), torch.bfloat16, True),
+            ((1, 2, 8192, 128), torch.bfloat16, False)):
+        leaves = [torch.randn(shape, device=dev).to(dtype).requires_grad_()
                   for _ in range(3)]
         at.reset_launch_counts()
         at.flash_attention(*leaves, causal=True).backward(
-            torch.randn(shape, device=dev))
+            torch.randn(shape, device=dev).to(dtype))
         torch.cuda.synchronize()
+        route = at.flash_route(dtype)
         want = {"flash_fwd": 1, "flash_bwd_dq": 0 if fused else 1,
                 "flash_bwd_dkv": 0 if fused else 1,
-                "flash_bwd_fused": 1 if fused else 0}
-        check(dict(at.flash_launch_counts) == want,
-              f"backward at {shape} f32 launched "
-              f"{dict(at.flash_launch_counts)}, expected {want}")
+                "flash_bwd_fused": 1 if fused else 0,
+                f"route_{route}": 2 if fused else 3}
+        got = {**at.flash_launch_counts, f"route_{route}":
+               at.flash_route_counts[route]}
+        check(got == want and sum(at.flash_route_counts.values())
+              == want[f"route_{route}"],
+              f"backward at {shape} {dtype} launched {got} "
+              f"({dict(at.flash_route_counts)}), expected {want}")
         del leaves
     log("flash dispatch: [8, 16, 2048, 128] f32 -> B6, [2, 16, 4096, 128] "
-        "f32 -> B5a + B5b")
+        "f32 -> B5a + B5b, [1, 2, 4096, 128] bf16 -> B6, [1, 2, 8192, 128] "
+        "bf16 -> B5a + B5b, each on its dtype's route")
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
     timings = {"cases": cases, "errors": errors}
@@ -2080,14 +2106,15 @@ def phase_flash_kernels(at, dev, seed: int):
     return timings
 
 
-def _longseq_gate(at, dev, d: int) -> float:
+def _longseq_gate(at, dev, shape) -> float:
     """The port's ``_flash_numerics_gate`` (bench.py:297-330): bf16 flash
-    attention (B4, B6) against f32 ``blockwise_attention`` at [2, 2, 1024,
-    d], causal, inputs ``randn·0.5`` from ``RandomState(7)``: the output
-    and the gradients of ``sum(o·0.01)``, each error over the reference's
-    largest magnitude; returns the largest."""
+    attention (B4, then B6 or B5a + B5b as the shape picks) against f32
+    ``blockwise_attention`` at ``shape``, causal, inputs ``randn·0.5`` from
+    ``RandomState(7)``: the output and the gradients of ``sum(o·0.01)``,
+    each error over the reference's largest magnitude; returns the
+    largest."""
     rs = np.random.RandomState(7)
-    base = [torch.from_numpy(rs.randn(2, 2, 1024, d) * 0.5).to(
+    base = [torch.from_numpy(rs.randn(*shape) * 0.5).to(
         dev, torch.bfloat16) for _ in range(3)]
     results = []
     for attn, dtype in ((at.flash_attention, torch.bfloat16),
@@ -2099,8 +2126,8 @@ def _longseq_gate(at, dev, d: int) -> float:
     worst = max(float((g.float() - w.float()).abs().max())
                 / max(float(w.float().abs().max()), 1e-6)
                 for g, w in zip(*results))
-    check(worst <= LONGSEQ_GATE_TOL, f"long-context numerics gate at d {d}: "
-          f"{worst} > {LONGSEQ_GATE_TOL}")
+    check(worst <= LONGSEQ_GATE_TOL, f"long-context numerics gate at "
+          f"{list(shape)}: {worst} > {LONGSEQ_GATE_TOL}")
     return worst
 
 
@@ -2134,7 +2161,8 @@ def _chain_ms(attn, q, k, v, eps, steps: int):
 def phase_longseq(at, dev, seed: int):
     """``bench_longseq`` on the card: at each of its shapes the numerics
     gate, then 20 chained steps through ``flash_attention`` (one B4 and one
-    B6 a step, on the tensor cores) and through
+    B6 a step at 4096 keys, one B4, one B5a and one B5b at 8192, all on
+    the tensor cores) and through
     ``scaled_dot_product_attention(is_causal=True)``; returns (launches,
     stats)."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -2143,9 +2171,8 @@ def phase_longseq(at, dev, seed: int):
         return at.flash_attention(q, k, v, causal=is_causal)
 
     launches, stats = {}, {}
-    for b, h, s, d in LONGSEQ_SHAPES:
-        label = f"d{d}"
-        gate = _longseq_gate(at, dev, d)
+    for label, (b, h, s, d), gate_shape in LONGSEQ_SHAPES:
+        gate = _longseq_gate(at, dev, gate_shape)
         rs = np.random.RandomState(seed + 1)  # bench.py's RandomState(1)
         q, k, v = (torch.from_numpy(rs.randn(b, h, s, d).astype(np.float32))
                    .to(dev, torch.bfloat16) for _ in range(3))
@@ -2156,8 +2183,11 @@ def phase_longseq(at, dev, seed: int):
         counts = {**at.flash_launch_counts,
                   **{f"route_{r}": n for r, n in at.flash_route_counts.items()}}
         n = LONGSEQ_STEPS + 2
-        want = {"flash_fwd": n, "flash_bwd_fused": n, "flash_bwd_dq": 0,
-                "flash_bwd_dkv": 0, "route_bf16_tc": 2 * n,
+        fused = at.fused_bwd_applicable(s, d, q.element_size())
+        want = {"flash_fwd": n, "flash_bwd_fused": n if fused else 0,
+                "flash_bwd_dq": 0 if fused else n,
+                "flash_bwd_dkv": 0 if fused else n,
+                "route_bf16_tc": (2 if fused else 3) * n,
                 "route_f32_simt": 0}
         check(counts == want, f"long-context steps at {label} launched "
               f"{counts}, expected {want}")
@@ -2173,6 +2203,8 @@ def phase_longseq(at, dev, seed: int):
         stats[label] = {
             "shape": [b, h, s, d], "dtype": "bf16", "causal": True,
             "steps": LONGSEQ_STEPS, "numerics_rel_err": gate,
+            "numerics_gate_shape": list(gate_shape),
+            "backward_design": "B6" if fused else "B5a+B5b",
             "step_ms": step_ms, "tokens_per_s": b * s / step_ms * 1e3,
             "flops_per_step": flops,
             "tflops": flops / step_ms / 1e9,
@@ -3176,16 +3208,17 @@ def main() -> int:
     flash_paths = {**lm_paths, **{f"longseq_{k}": c
                                   for k, c in longseq_launches.items()}}
     flash_entries = []
-    # B4 and B6: the top-level numbers are bench_longseq's headline (bf16,
-    # the tensor cores), each route's beside them; B5a and B5b: the LM's
-    # long-context step (f32, their one route)
+    # the top-level numbers are bf16's, on the tensor cores: B4 and B6 at
+    # bench_longseq's headline, B5a and B5b at its 8192 keys; each route's
+    # beside them (f32: the LM's step for B4 and B6, its long-context step
+    # for B5a and B5b)
     for name, tpu, line, label, key, kind, err in (
             ("flash_fwd", "_flash_fwd_kernel", 203, "bench_longseq", "fwd",
              "fwd", "fwd_max_abs_err"),
-            ("flash_bwd_dq", "_flash_bwd_dq_kernel", 379, "lm_long", "dq",
-             "dq", "two_pass_max_abs_err"),
-            ("flash_bwd_dkv", "_flash_bwd_dkv_kernel", 428, "lm_long", "dkv",
-             "dkv", "two_pass_max_abs_err"),
+            ("flash_bwd_dq", "_flash_bwd_dq_kernel", 379,
+             "bench_longseq_s8192", "dq", "dq", "two_pass_max_abs_err"),
+            ("flash_bwd_dkv", "_flash_bwd_dkv_kernel", 428,
+             "bench_longseq_s8192", "dkv", "dkv", "two_pass_max_abs_err"),
             ("flash_bwd_fused", "_flash_bwd_fused_kernel", 483,
              "bench_longseq", "fused", "bwd", "fused_max_abs_err")):
         t = flash[label]
@@ -3207,16 +3240,16 @@ def main() -> int:
                     "library_device_ms": u[library[0].replace(
                         "_ms", "_device_ms")]}
 
+        two_pass = key in ("dq", "dkv")
         entry_k = {
             "name": name, "route": "cuda",
-            "source": flash_sources[
-                "bf16_tc" if key in ("fwd", "fused") else "f32_simt"],
+            "source": flash_sources["bf16_tc"],
             "replaces": f"analytics_zoo_tpu/ops/attention.py:{line}",
             "tpu_kernel": tpu, "launches": sum(by_path.values()),
             "launches_by_path": by_path,
-            "launches_per_train_step": (
-                by_path["lm_long"] / LM_LONG_STEPS if label == "lm_long"
-                else by_path["longseq_d128"] / (LONGSEQ_STEPS + 2)),
+            "launches_per_train_step": by_path[
+                "longseq_s8192" if two_pass else "longseq_d128"]
+            / (LONGSEQ_STEPS + 2),
             "max_abs_err": t[err],
             "max_rel_err_grid": {
                 name: flash["errors"][
@@ -3233,19 +3266,20 @@ def main() -> int:
                     "library_fwd_ms", "library_fwd_bwd_ms")}
                 for lab, _, _ in FLASH_TIMED if lab != label},
         }
-        if key in ("fwd", "fused"):
-            entry_k["routes"] = {
-                "bf16_tc": {"source": flash_sources["bf16_tc"],
-                            **timed_at("bench_longseq"),
-                            "d64": timed_at("bench_longseq_d64"),
-                            "launches_by_path": {
-                                k: c for k, c in by_path.items()
-                                if k.startswith("longseq")}},
-                "f32_simt": {"source": flash_sources["f32_simt"],
-                             **timed_at("lm"),
-                             "launches_by_path": {
-                                 k: c for k, c in by_path.items()
-                                 if not k.startswith("longseq")}}}
+        others = (("s4096", "bench_longseq"),) if two_pass else (
+            ("d64", "bench_longseq_d64"), ("s8192", "bench_longseq_s8192"))
+        entry_k["routes"] = {
+            "bf16_tc": {"source": flash_sources["bf16_tc"],
+                        **timed_at(label),
+                        **{k: timed_at(lab) for k, lab in others},
+                        "launches_by_path": {
+                            k: c for k, c in by_path.items()
+                            if k.startswith("longseq")}},
+            "f32_simt": {"source": flash_sources["f32_simt"],
+                         **timed_at("lm_long" if two_pass else "lm"),
+                         "launches_by_path": {
+                             k: c for k, c in by_path.items()
+                             if not k.startswith("longseq")}}}
         flash_entries.append(entry_k)
     print(smi)
     print(json.dumps({"kernels": [entry, pool_entry, scatter_entry,

@@ -1,14 +1,15 @@
 """The torch port's flash attention in bf16 against the JAX package on CPU.
 
-In bf16, B4 and B6 round ``p`` to bf16 before ``p·v`` and ``pᵀ·dO``, and
-``ds`` before ``ds·k`` and ``dsᵀ·q``, where the TPU kernel rounds them; on
-a CPU tensor the port runs their plain versions, which round at the same
-places. The JAX package off a TPU runs ``blockwise_attention`` in bf16 and
-autodiff through it. Both take the same bf16 inputs from numpy seeds; the
-outputs and gradients round to 8 bits, so they are held within 2e-2 of
-their scale (``BF16_TOL``, as ``test_torch_port_attention.py``). In f32
-the rounding is the identity: the plain versions are unchanged, and
-``test_torch_port_flash.py`` holds them against JAX at 2e-5.
+In bf16, every flash kernel (B4, B5a, B5b, B6) rounds ``p`` to bf16
+before ``p·v`` and ``pᵀ·dO``, and ``ds`` before ``ds·k`` and ``dsᵀ·q``,
+where the TPU kernel rounds them; on a CPU tensor the port runs their
+plain versions, which round at the same places. The JAX package off a TPU
+runs ``blockwise_attention`` in bf16 and autodiff through it. Both take
+the same bf16 inputs from numpy seeds; the outputs and gradients round to
+8 bits, so they are held within 2e-2 of their scale (``BF16_TOL``, as
+``test_torch_port_attention.py``). In f32 the rounding is the identity:
+the plain versions are unchanged, and ``test_torch_port_flash.py`` holds
+them against JAX at 2e-5.
 """
 import jax
 import jax.numpy as jnp
@@ -97,28 +98,57 @@ def test_bf16_flash_attention_with_a_key_bias_matches_jax_in_bf16(
 
 
 @pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+@pytest.mark.parametrize("sq,skv", LENGTHS,
+                         ids=[f"{a}x{b}" for a, b in LENGTHS])
+def test_bf16_two_pass_plain_gradients_match_jax_in_bf16(sq, skv, causal):
+    """The two-pass backward's plain versions in bf16 (B5a's dq, B5b's dk
+    and dv, p and ds rounded to bf16), from the lse of B4's plain forward
+    and D = rowsum(dO·o) over its bf16 output, against the vjp of JAX's
+    ``flash_attention`` run in bf16 on the same inputs."""
+    q, k, v, g, _ = _inputs(sq * 7 + skv, sq, skv)
+    _, want_grads = _jax_bf16(q, k, v, g, None, causal)
+    tq, tk, tv, tg = (torch.tensor(a).bfloat16() for a in (q, k, v, g))
+    scale = q.shape[-1] ** -0.5
+    o, lse = at.flash_fwd_plain(tq, tk, tv, None, scale, causal)
+    delta = (tg.float() * o.float()).sum(-1)
+    args = (tq, tk, tv, tg, lse, delta, None, scale, causal)
+    got = (at.flash_bwd_dq_plain(*args),) + at.flash_bwd_dkv_plain(*args)
+    for name, a, b in zip("qkv", got, want_grads):
+        assert a.dtype == torch.bfloat16
+        _close_to_scale(a.float().numpy(), b, f"d{name}")
+
+
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
 def test_bf16_plain_versions_round_p_and_ds_and_f32_ones_round_nothing(
         causal):
-    """B4's and B6's plain versions round ``p`` (and ``ds``) to bf16 before
-    each product, B5b's keeps them in f32, as the CUDA kernels do; so in
-    bf16 B6's plain dk, dv differ from B5b's by that rounding alone, and
-    in f32 they are equal bit for bit."""
+    """Every backward plain version rounds ``p`` and ``ds`` to the inputs'
+    dtype before each product, as the TPU kernels and the CUDA kernels do:
+    the two-pass design's plain dq, dk and dv (B5a, B5b) equal the
+    one-pass design's (B6) bit for bit in f32 and in bf16. In bf16 they
+    differ from the same arithmetic with p and ds kept in f32 by that
+    rounding alone; in f32 the rounding is the identity."""
     q, k, v, g, _ = (torch.tensor(a) for a in _inputs(21, 90, 70))
+    glse = torch.from_numpy(
+        np.random.RandomState(3).randn(2, 2, 90).astype(np.float32))
     for dtype in (torch.float32, torch.bfloat16):
         tq, tk, tv, tg = (t.to(dtype) for t in (q, k, v, g))
         o, lse = at.flash_fwd_plain(tq, tk, tv, None, 0.25, causal)
         delta = (tg.float() * o.float()).sum(-1)
-        args = (tq, tk, tv, tg, lse, delta, None, 0.25, causal)
-        fused = at.flash_bwd_fused_plain(*args)
-        two = at.flash_bwd_dkv_plain(*args)
-        assert all(t.dtype == dtype for t in fused + two)
-        if dtype == torch.float32:
-            assert torch.equal(fused[1], two[0])
-            assert torch.equal(fused[2], two[1])
-        else:
-            assert not torch.equal(fused[1], two[0])
-            for a, b in zip(fused[1:], two):
-                _close_to_scale(a.float().numpy(), b.float().numpy(), "dkv")
+        for gl in (None, glse):
+            args = (tq, tk, tv, tg, lse, delta, gl, 0.25, causal)
+            fused = at.flash_bwd_fused_plain(*args)
+            two = (at.flash_bwd_dq_plain(*args),) + \
+                at.flash_bwd_dkv_plain(*args)
+            kept = at._bwd_one_pass(*args, torch.float32)
+            assert all(t.dtype == dtype for t in fused + two + kept)
+            for a, b, c in zip(fused, two, kept):
+                assert torch.equal(a, b)
+                if dtype == torch.float32:
+                    assert torch.equal(b, c)
+                else:
+                    assert not torch.equal(b, c)
+                    _close_to_scale(b.float().numpy(), c.float().numpy(),
+                                    "rounding")
     # the forward: p·v with p rounded to bf16, the sums and lse in f32
     r = [t.bfloat16() for t in (q, k, v)]
     o, lse = at.flash_fwd_plain(*r, None, 0.25, causal)

@@ -648,11 +648,12 @@ def test_flash_kernels_equal_their_plain_versions_on_the_card(
     """B4 (with and without a key bias, causal or not), B5a + B5b and B6
     (with and without an lse cotangent) against their plain versions:
     within 2e-5 (f32) or 2e-2 (bf16) of the output's scale (the three
-    gradients' joint scale for a backward) and in relative L2. B4 and B6
-    take the dtype's route (bf16 the tensor cores, f32 the CUDA cores);
-    B5a + B5b the CUDA cores in both. B6 adds dq with atomics in no fixed
-    order, which costs at most skv / 64 partial sums' rounding, far inside
-    the f32 tolerance; dk and dv repeat bit for bit, dq need not."""
+    gradients' joint scale for a backward) and in relative L2. Every
+    kernel takes the dtype's route (bf16 the tensor cores, f32 the CUDA
+    cores). B6 adds dq with atomics in no fixed order, which costs at most
+    skv / 64 partial sums' rounding, far inside the f32 tolerance; its dk
+    and dv repeat bit for bit, dq need not. B5a + B5b use no atomics: dq,
+    dk and dv repeat bit for bit."""
     from analytics_zoo_tpu_torch.ops import attention as at
     q, k, v, do, glse, bias = _flash_inputs(cuda_device, sq, skv, d, dtype,
                                             sq + skv + d)
@@ -688,7 +689,7 @@ def test_flash_kernels_equal_their_plain_versions_on_the_card(
                 counts["flash_bwd_dkv"] + 1
             assert at.flash_launch_counts["flash_bwd_fused"] == \
                 counts["flash_bwd_fused"] + 2
-            routes[route] += 2
+            routes[route] += 4
             assert at.flash_route_counts == routes
             case = f"causal={causal} glse={gl is not None}"
             assert all(t.dtype == dtype for t in two_pass + fused)
@@ -697,42 +698,52 @@ def test_flash_kernels_equal_their_plain_versions_on_the_card(
             assert _grads_close(fused, want, dtype, one_key), f"B6 {case}"
             assert torch.equal(fused[1], again[1])
             assert torch.equal(fused[2], again[2])
-            assert torch.equal(two_pass[0], at.flash_bwd_dq(*args))
+            two_again = (at.flash_bwd_dq(*args),) + at.flash_bwd_dkv(*args)
+            assert all(torch.equal(a, b)
+                       for a, b in zip(two_pass, two_again)), case
 
 
 @pytest.mark.cuda
 def test_flash_bf16_takes_the_tensor_cores_and_f32_the_cuda_cores(
         cuda_device):
     """A causal forward and backward through ``flash_attention`` counts
-    one B4 and one B6 on the dtype's route, and B5a + B5b on neither."""
+    each of its launches on the dtype's route: one B4 and one B6 at 700
+    keys of d 64; one B4, one B5a and one B5b past the resident-bytes rule
+    (8192 keys of d 128 in bf16, 4096 in f32)."""
     from analytics_zoo_tpu_torch.ops import attention as at
-    for dtype, route in ((torch.bfloat16, "bf16_tc"),
-                         (torch.float32, "f32_simt")):
+    for dtype, route, s, d, fused in (
+            (torch.bfloat16, "bf16_tc", 700, 64, True),
+            (torch.float32, "f32_simt", 700, 64, True),
+            (torch.bfloat16, "bf16_tc", 8192, 128, False),
+            (torch.float32, "f32_simt", 4096, 128, False)):
         assert at.flash_route(dtype) == route
-        q, k, v, do, _, _ = _flash_inputs(cuda_device, 700, 700, 64, dtype,
-                                          5)
+        q, k, v, do, _, _ = _flash_inputs(cuda_device, s, s, d, dtype, 5)
         leaves = [t.requires_grad_() for t in (q, k, v)]
         at.reset_launch_counts()
         at.flash_attention(*leaves, causal=True).backward(do)
         torch.cuda.synchronize()
         assert at.flash_route_counts == {"bf16_tc": 0, "f32_simt": 0,
-                                         route: 2}
+                                         route: 2 if fused else 3}
         assert at.flash_launch_counts == {
-            "flash_fwd": 1, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
-            "flash_bwd_fused": 1}
+            "flash_fwd": 1, "flash_bwd_dq": 0 if fused else 1,
+            "flash_bwd_dkv": 0 if fused else 1,
+            "flash_bwd_fused": 1 if fused else 0}
         assert all(t.grad.dtype == dtype and bool(t.grad.isfinite().all())
                    for t in leaves)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("s,fused", [(2048, True), (4096, False)])
+@pytest.mark.parametrize("dtype,s,fused", [
+    (torch.float32, 2048, True), (torch.float32, 4096, False),
+    (torch.bfloat16, 4096, True), (torch.bfloat16, 8192, False)],
+    ids=["f32-2048", "f32-4096", "bf16-4096", "bf16-8192"])
 def test_flash_backward_takes_the_design_the_resident_bytes_pick(
-        cuda_device, s, fused):
-    """At d 128 in f32, the LM's 2048 keys take the one-pass B6 and 4096
-    keys the two-pass B5a + B5b, as in the JAX package."""
+        cuda_device, dtype, s, fused):
+    """At d 128, the one-pass B6 takes the LM's 2048 keys in f32 and
+    bench_longseq's 4096 in bf16, the two-pass B5a + B5b 4096 keys in f32
+    and 8192 in bf16, as in the JAX package, each on the dtype's route."""
     from analytics_zoo_tpu_torch.ops import attention as at
-    q, k, v, do, _, _ = _flash_inputs(cuda_device, s, s, 128, torch.float32,
-                                      s)
+    q, k, v, do, _, _ = _flash_inputs(cuda_device, s, s, 128, dtype, s)
     leaves = [t.requires_grad_() for t in (q, k, v)]
     at.reset_launch_counts()
     at.flash_attention(*leaves, causal=True).backward(do)
@@ -741,3 +752,5 @@ def test_flash_backward_takes_the_design_the_resident_bytes_pick(
         "flash_fwd": 1, "flash_bwd_dq": 0 if fused else 1,
         "flash_bwd_dkv": 0 if fused else 1,
         "flash_bwd_fused": 1 if fused else 0}
+    assert at.flash_route_counts[at.flash_route(dtype)] == \
+        (2 if fused else 3)
