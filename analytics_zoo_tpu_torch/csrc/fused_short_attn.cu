@@ -1,512 +1,675 @@
 // Fused short-sequence attention, forward (B7) and backward (B8), f32
-// route, on the CUDA cores of Hopper (sm_90a). bf16 inputs take the
-// tensor-core route in fused_short_attn_bf16.cu; the dtype alone picks it.
+// route, on the tensor cores of Hopper (sm_90a) as 3xTF32. bf16 inputs
+// take fused_short_attn_bf16.cu; the dtype alone picks the route. The
+// fragment and tile helpers are mma_tf32.cuh's.
 //
-// Replaces the TPU kernels `_fused_short_fwd_kernel` and
-// `_fused_short_bwd_kernel` in analytics_zoo_tpu/ops/attention.py
-// (pallas_call site `_fused_short_call`). For q, k, v [bh, s, d] (f32,
-// contiguous, s <= 512, d <= 128), an optional per-key bias
-// key_bias [bh / heads, s] f32 in natural-log units, and an optional
-// causal mask, both compute exact softmax attention:
+// Replaces the TPU kernels `_fused_short_fwd_kernel` (:716) and
+// `_fused_short_bwd_kernel` (:761) of analytics_zoo_tpu/ops/attention.py
+// (pallas_call sites :870, :877). For q, k, v [bh, s, d] (f32, contiguous,
+// s <= 512, d <= 128), an optional per-key bias key_bias [bh / heads, s]
+// f32 in natural-log units, and an optional causal mask, both compute
+// exact softmax attention:
 //
 //   t[i, j] = (q_i . k_j) * scale*log2(e) + key_bias[j]*log2(e)   f32
-//   t[i, j] = -1e30 where causal and j > i
-//   p[i, j] = exp2(t[i, j] - max_j t[i, :]) / sum_j exp2(...)     IEEE div
-//   pd      = keep ? p / (1 - rate) : 0                            dropout
-//   o_i     = sum_j pd[i, j] v_j                                   f32 sums
+//   t[i, j] = -1e30 where causal and j > i;  -inf for keys past s
+//   p[i, j] = exp2(t[i, j] - m_i) / l_i,  m_i = max_j t, l_i = sum_j exp2
+//   pd      = keep ? p / (1 - rate) : 0        (dropout_hash.cuh's mask)
+//   o_i     = sum_j pd[i, j] v_j                f32 sums
 //
-// Scale and log2(e) fold into the f32 score, not into q: the TPU kernel
-// pre-scales q and rounds it to q's dtype, which this kernel does not. The
-// bias is applied in f32 (the TPU kernel rounds it to bf16 and broadcasts
-// it to [bh, s, s], a Mosaic workaround not carried over). Every score is
-// one f32 fma chain over d in index order, the same in the forward and both
-// backward passes, so the backward recomputes the forward's p bit for bit.
-// f32 stays off the tensor cores: TF32 keeps about three digits, and this
-// route is held within 2e-5 of its plain version.
+// Every product (q.k^T, p.v; in the backward also dO.v^T, ds.k, k.q^T,
+// v.dO^T, pd^T.dO, ds^T.q) runs as mma.sync m16n8k8 3xTF32 with f32
+// accumulators: each f32 operand is split into two TF32 parts at fragment
+// load, not in shared memory, so the f32 tiles keep their size, and three
+// TF32 products give f32 accuracy (mma_tf32.cuh). Scale and log2(e) fold
+// into the f32 score, not into q: the TPU kernel pre-scales q and rounds it
+// to q's dtype, which this kernel does not; the bias is added in f32 (the
+// TPU kernel rounds it to bf16). The scores never leave registers.
 //
-// Dropout bits: dropout_hash.cuh, read from the seed in device memory (so
-// no host sync draws it).
+// Blocks: each owns 64 rows (queries; keys in the dk/dv pass) in four
+// groups of 16 and walks the other side in tiles held in shared memory,
+// one buffer refilled by 16-byte cp.async after each tile. A row group has
+// one warp walking 32-row tiles, or, for a grid under eight blocks an SM,
+// two warps walking 64-row tiles, 32 rows each (B7 under two blocks an SM:
+// four warps, 128-row tiles), merged at the end (split_for): more warps a
+// block where the grid is too small to fill the card.
 //
-// Backward: two passes, no atomics, so it is deterministic.
-//   dq pass, one block per (bh, 32 query rows): recompute t and p, dp =
-//     dO.v^T through the mask, D = rowsum(dp * p), ds = p * (dp - D),
-//     dq = scale * ds.k; the rows' max, denominator and D go to `stats`.
-//   dk/dv pass, one block per (bh, 32 keys): walk the queries in tiles of
-//     64, recompute p from `stats` and the mask, dv += pd^T.dO and
-//     dk += ds^T.q, then dk *= scale.
+// Forward: an online softmax over the key tiles (running max and sum, the
+// accumulator rescaled per tile), so no [rows, s] block is kept. Each
+// accumulator element's (row, col) decides the bias, the causal mask, the
+// keys past s and the dropout bits in registers; the max and sum reduce
+// over a quad. p feeds p.V as an A fragment from registers (the permuted
+// reduction order of mma_tf32.cuh). Under the causal mask a block walks
+// only the tiles at or below its last row, and a warp skips keys that all
+// lie past its rows. It writes each row's max (exp2 units) and sum to
+// `stats`, as the bf16 route does.
 //
-// Bound: at the LM's prefill (bh = 64, s = 128, d = 128, f32, causal) B7
-// moves q, k, v and o, 16.8 MB: 0.0050 ms at 3.35 TB/s, against 0.27
-// GFLOP (q.k^T and p.v on the causal half), 0.0040 ms at the f32
-// CUDA-core rate of 67 TFLOP/s (H100 SXM data sheet, not measurements).
-// The kernel is simple: f32 fma from the tiles in shared memory, 32 rows
-// to a block, each thread two of them, so a value read from shared memory
-// feeds two (or four) fmas.
+// Backward: two passes, no atomics, so it is deterministic; p comes from
+// the forward's max and sum, D = rowsum(dp * p) from the forward's output
+// as rowsum(dO * o) (equal in exact arithmetic, dropout included; in f32
+// o keeps the digits that bf16 rounding took from the bf16 route).
+//   dq pass, a block per (bh, 64 query rows): D for its rows, written to
+//     `delta`; then per key tile S = Q.K^T, p, dP = dO.V^T through the
+//     mask, ds = p * (dP - D), dq += ds.K; dq *= scale.
+//   dk/dv pass, a block per (bh, 64 keys): per query tile S^T = K.Q^T and
+//     p^T, dP^T = V.dO^T, dv += pd^T.dO, dk += ds^T.Q; dk *= scale. Under
+//     the causal mask it starts at the tile of its first key.
+// S^T on the tensor cores is not S bit for bit: the two passes' p differ
+// by rounding, within the route's 2e-5 of the output's scale.
 //
-// Shared memory: the forward holds a 32 x (d+1) q tile, a 64 x (d+1)
-// k or v tile and the 32 x s block of scores (115 KB at s = 512, d = 128);
-// the dq pass adds a dO tile and a second 32 x s block (195 KB, under the
-// 227 KB a block may have); the dk/dv pass holds 32-row k and v tiles and
-// 64-row q and dO tiles (116 KB). Hence s <= 512 and d <= 128; the caller
-// raises on anything else and on non-contiguous inputs.
+// Ragged shapes: rows and keys past s load as zeros (cp.async's zero
+// fill) and are neither stored nor counted; d is zero-padded in shared
+// memory to a multiple of 8, and the register tiles are sized for d <= 32,
+// 64 or 128. 16-byte copies where d % 4 == 0 and q, k, v, dO are 16-byte
+// aligned, else element by element.
+//
+// Bound (H100 SXM data sheet, not measurements): at the LM's prefill (bh
+// 64, s 128, d 128, causal) B7 moves q, k, v and o, 16.8 MB: 0.0050 ms at
+// 3.35 TB/s, against 0.27 GFLOP, 0.0016 ms at 3xTF32's 164.9 TFLOP/s
+// (494.7 / 3); B8 moves 29.4 MB, 0.0088 ms, against 0.68 GFLOP, 0.0041
+// ms. At BERT-base's shape (bh 1536, s 128, d 64) B7 is 0.060 ms of bytes
+// against 0.039 of operations, B8 0.105 against 0.098. The row statistics
+// and D this design passes between kernels are its own bytes, not the
+// function's.
+//
+// Shared memory a block, with a row stride of 8 * kD + 4 floats, for one
+// warp (two; four) a row group at d 128: the forward holds Q, a K and a V
+// tile and the bias, 70 KiB (103; 170); the dq pass Q, dO, K, V, the bias
+// and D, 101 KiB (137); the dk/dv pass K, V, Q, dO and every query's
+// statistics, 107 KiB (141). At d 64 about half. Registers: `nvcc -Xptxas
+// -v` (PERF.md).
+//
+// The TPU kernel ran one program per bh (or a few) holding the whole
+// [s, s] block in VMEM and emitted dq, dk and dv from one backward
+// program. Here blocks run in parallel with no order, so no block can
+// carry a sum into another: the backward is two passes, each owning its
+// outputs, and the softmax is online over key tiles that fit in registers.
 
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
+#include <initializer_list>
+
 #include "dropout_hash.cuh"
+#include "mma_tf32.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kGroup = 16;  // threads that share a pair of rows
-constexpr int kPairs = kThreads / kGroup;  // 16 pairs of rows
-constexpr int kR = 2;       // a thread's rows: p and p + kPairs
-constexpr int kRows = kR * kPairs;  // 32 rows per block
-constexpr int kKeyTile = 64;  // keys per staged k/v tile (fwd, dq pass)
-constexpr int kQTile = kKeyTile;  // queries per staged tile (dk/dv pass)
-constexpr int kPer = kKeyTile / kGroup;  // a thread's keys per row per tile
+// A block owns 64 rows (queries; keys in the dk/dv pass) in four groups of
+// 16 and walks the other side in tiles of 32 * kSplit rows, one buffer
+// refilled after each tile (two buffers fit half the blocks an SM at d 128:
+// 22-33% slower at s 512, 2-3% faster elsewhere). Each row group has
+// kSplit warps, warp (group, h) taking rows [32 h, 32 h + 32) of every
+// walked tile; at the end the other warps hand their partial results to
+// the first, which merges them in a fixed order (so still no atomics).
+// kSplit 2 or 4 gives a grid too small to fill the card more warps a block
+// and a shorter serial chain of products a warp; a large grid fills the
+// SMs with four-warp blocks, whose registers leave room for more of them
+// (see split_for).
+constexpr int kPart = 32;                // a warp's rows of a walked tile
+constexpr int kRows = 64;                // a block's own rows
+constexpr int kGroupLanes = 4 * 32;      // a warp of each row group
 constexpr int kMaxD = 128;
 constexpr int kMaxSeq = 512;
-// Output columns per row and thread, a template parameter kC: 4 for
-// d <= 64, 8 up to kMaxD. The forward and dq pass keep kR x kC accumulators
-// a thread, the dk/dv pass twice that: sized to the head, so BERT's 64-wide
-// heads do not pay for the registers of 128-wide ones (sized for 128, the
-// dk/dv pass took 103 registers a thread and one block fewer on each SM).
 constexpr float kNegInf = -1e30f;
-constexpr float kFltMax = 3.402823466e38f;  // every score is above -kFltMax
 constexpr float kLog2e = 1.4426950408889634f;
-
-// -- shared pieces ---------------------------------------------------------
-
-// dst[r][c] (row stride d + 1) = src[first + r][c] as f32 for first + r <
-// limit, else 0; src is the [s, d] slice of one bh
-__device__ __forceinline__ void stage(float* dst, const float* __restrict__ src,
-                                      int first, int rows, int limit,
-                                      int d) {
-  // thread t copies column t % d of rows t / d, t / d + step, ...: one
-  // division per thread, neighbouring threads on neighbouring addresses
-  const int step = kThreads / d;  // >= 2, as d <= 128
-  const int c = threadIdx.x % d;
-  for (int r = threadIdx.x / d; step * d > (int)threadIdx.x && r < rows;
-       r += step) {
-    const int g = first + r;
-    dst[r * (d + 1) + c] =
-        g < limit ? src[(long long)g * d + c] : 0.0f;
-  }
-}
-
-// out[i][j] = a_i . b_j for the rows a_i = a + i * a_stride (i < kR) and
-// b_j = b + j * b_stride (j < kPer): each one fma chain over d in index
-// order, the one order every pass sums a score or a dO.v in, so the
-// backward recomputes the forward's scores bit for bit. A thread reads each
-// a_i[x] once for kPer chains and each b_j[x] once for kR.
-__device__ __forceinline__ void dots(float (&out)[kR][kPer], const float* a,
-                                     int a_stride, const float* b,
-                                     int b_stride, int d) {
-#pragma unroll
-  for (int i = 0; i < kR; ++i)
-#pragma unroll
-    for (int j = 0; j < kPer; ++j) out[i][j] = 0.0f;
-  for (int x = 0; x < d; ++x) {
-    float av[kR];
-#pragma unroll
-    for (int i = 0; i < kR; ++i) av[i] = a[i * a_stride + x];
-#pragma unroll
-    for (int j = 0; j < kPer; ++j) {
-      const float bv = b[j * b_stride + x];
-#pragma unroll
-      for (int i = 0; i < kR; ++i) out[i][j] = fmaf(av[i], bv, out[i][j]);
-    }
-  }
-}
 
 // the score in exp2 units: no fma contraction, so the plain version's
 // separate multiply and add round alike
 __device__ __forceinline__ float score(float qk, float scale_log2e,
-                                       const float* bias2, int bias_idx,
-                                       int row, int col, int causal) {
-  float t = __fmul_rn(qk, scale_log2e);
-  if (bias2 != nullptr) t = __fadd_rn(t, bias2[bias_idx]);
-  if (causal && col > row) t = kNegInf;
-  return t;
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(~0u, x, o));
+                                       const float* bias2, int row, int col,
+                                       int s, int causal) {
+  if (col >= s) return -INFINITY;
+  float x = __fmul_rn(qk, scale_log2e);
+  if (bias2 != nullptr) x = __fadd_rn(x, bias2[col]);
+  if (causal && col > row) x = kNegInf;
   return x;
 }
 
-__device__ __forceinline__ float warp_sum(float x) {
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(~0u, x, o);
-  return x;
+// bias * log2(e) for the s keys of batch item b into bs (NULL if none)
+__device__ __forceinline__ const float* stage_bias(
+    float* bs, const float* __restrict__ key_bias, long long b, int s) {
+  if (key_bias == nullptr) return nullptr;
+  for (int c = threadIdx.x; c < s; c += blockDim.x)
+    bs[c] = __fmul_rn(key_bias[b * s + c], kLog2e);
+  return bs;
 }
 
-// per-key bias in exp2 units for keys [first, first + n) of batch item b
-__device__ __forceinline__ void stage_bias(float* bs,
-                                           const float* __restrict__ key_bias,
-                                           long long b, int first, int n,
-                                           int s) {
-  for (int c = threadIdx.x; c < n; c += kThreads) {
-    const int key = first + c;
-    bs[c] = key < s ? __fmul_rn(key_bias[b * s + key], kLog2e) : 0.0f;
-  }
+// the key tiles the forward and the dq pass walk: all of them, or under the
+// causal mask those at or below the block's last row
+template <int kTile>
+__device__ __forceinline__ int key_tiles(int row0, int s, int causal) {
+  const int n = (s + kTile - 1) / kTile;
+  return causal ? min(n, (row0 + kRows - 1) / kTile + 1) : n;
 }
 
-// x . y_j over every key into w (row stride sp + 1) for the block's rows
-// x (row stride d + 1), y staged through ts, keys g, g + kGroup, ... of each
-// tile to this thread; with `scores`, t from score(), else the bare dot
-__device__ __forceinline__ void block_dots(float* w, int sp1, const float* xs,
-                                           float* ts,
-                                           const float* __restrict__ ybh,
-                                           int s, int d, bool scores,
-                                           float scale_log2e,
-                                           const float* bs, int row0,
-                                           int causal) {
-  const int pr = threadIdx.x / kGroup, g = threadIdx.x % kGroup;
-  float out[kR][kPer];
-  for (int k0 = 0; k0 < s; k0 += kKeyTile) {
-    __syncthreads();  // the previous tile is consumed
-    stage(ts, ybh, k0, kKeyTile, s, d);
-    __syncthreads();
-    dots(out, xs + pr * (d + 1), kPairs * (d + 1), ts + g * (d + 1),
-         kGroup * (d + 1), d);
-#pragma unroll
-    for (int i = 0; i < kR; ++i) {
-      const int r = pr + i * kPairs;
-#pragma unroll
-      for (int j = 0; j < kPer; ++j) {
-        const int col = k0 + g + j * kGroup;
-        if (col < s)
-          w[r * sp1 + col] =
-              scores ? score(out[i][j], scale_log2e, bs, col, row0 + r, col,
-                             causal)
-                     : out[i][j];
-      }
-    }
-  }
+// walked tile `tile` of x and y (K and V, or Q and dO) into xs and ys, as
+// one cp.async group
+template <int kD, int kSplit>
+__device__ __forceinline__ void load_walked(float* xs, float* ys,
+                                            const float* __restrict__ x,
+                                            const float* __restrict__ y,
+                                            int ld, int tile, int s, int d,
+                                            bool vec) {
+  constexpr int kTile = kSplit * kPart, kThreads = kSplit * 128;
+  load_tile_f32<kTile, kThreads, kD>(xs, ld, x, tile * kTile, s, d, vec);
+  load_tile_f32<kTile, kThreads, kD>(ys, ld, y, tile * kTile, s, d, vec);
+  cp_commit();
 }
 
-// acc[i][j] (row p + i * kPairs, column g + j * kGroup) += sum_k w[row][k]
-// * x[k][col] over all s keys, x staged through ts
-template <int kC>
-__device__ __forceinline__ void block_apply(float (&acc)[kR][kC],
-                                            const float* ws, int sp1,
-                                            float* ts,
-                                            const float* __restrict__ xbh,
-                                            int s, int d) {
-  const int pr = threadIdx.x / kGroup, g = threadIdx.x % kGroup;
-  for (int k0 = 0; k0 < s; k0 += kKeyTile) {
-    __syncthreads();
-    stage(ts, xbh, k0, kKeyTile, s, d);
-    __syncthreads();
-    const int kn = min(kKeyTile, s - k0);
-    for (int kk = 0; kk < kn; ++kk) {
-      float w[kR];
-#pragma unroll
-      for (int i = 0; i < kR; ++i) w[i] = ws[(pr + i * kPairs) * sp1 + k0 + kk];
-      const float* xrow = ts + kk * (d + 1);
-#pragma unroll
-      for (int j = 0; j < kC; ++j) {
-        const int c = g + j * kGroup;
-        if (c < d) {
-          const float xv = xrow[c];
-#pragma unroll
-          for (int i = 0; i < kR; ++i) acc[i][j] = fmaf(w[i], xv, acc[i][j]);
-        }
-      }
-    }
-  }
-}
-
-// writes acc (times `mul`) to out's rows row0 + p + i * kPairs
-template <int kC>
-__device__ __forceinline__ void store_rows(float* __restrict__ out,
-                                           const float (&acc)[kR][kC],
-                                           float mul, int row0, int s,
-                                           int d) {
-  const int pr = threadIdx.x / kGroup, g = threadIdx.x % kGroup;
-#pragma unroll
-  for (int i = 0; i < kR; ++i) {
-    const int row = row0 + pr + i * kPairs;
-    if (row >= s) continue;
-#pragma unroll
-    for (int j = 0; j < kC; ++j) {
-      const int c = g + j * kGroup;
-      if (c < d)
-        out[(long long)row * d + c] = __fmul_rn(acc[i][j], mul);
-    }
-  }
+// word i of this lane in the exchange between a row group's warps, [i][row
+// group][lane]: a warp writes, and the first reads, 32 consecutive words
+// at a time
+__device__ __forceinline__ int xch_at(int i) {
+  return i * kGroupLanes + threadIdx.x % kGroupLanes;
 }
 
 // -- B7: forward -----------------------------------------------------------
 
-template <int kC>
-__global__ void __launch_bounds__(kThreads)
-fused_short_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+template <int kD, int kSplit>
+__global__ void __launch_bounds__(kSplit * 128)
+fused_short_fwd_kernel(const float* __restrict__ q,
+                       const float* __restrict__ k,
                        const float* __restrict__ v,
                        const float* __restrict__ key_bias,
-                       const int32_t* __restrict__ seed, float* __restrict__ o,
-                       int heads, int s, int d, int row_tiles, int sp,
-                       float scale_log2e, uint32_t thresh, float inv_keep,
-                       int causal) {
-  extern __shared__ float smem[];
-  const int sp1 = sp + 1;
-  float* qs = smem;                      // [kRows][d + 1]
-  float* ts = qs + kRows * (d + 1);      // [kKeyTile][d + 1]
-  float* ss = ts + kKeyTile * (d + 1);   // [kRows][sp + 1]
-  float* bs = ss + kRows * sp1;          // [sp]
+                       const int32_t* __restrict__ seed,
+                       float* __restrict__ o, float* __restrict__ stats,
+                       long long bh_total, int heads, int s, int d,
+                       int row_tiles, float scale_log2e, uint32_t thresh,
+                       float inv_keep, int causal, int vec) {
+  constexpr int ld = 8 * kD + 4;
+  constexpr int kN = kPart / 8;  // 8-key steps of a warp's part
+  constexpr int kTile = kSplit * kPart, kThreads = kSplit * 128;
+  extern __shared__ __align__(16) float smem[];
+  float* qs = smem;              // [kRows][ld]
+  float* ks = qs + kRows * ld;   // [kTile][ld]
+  float* vs = ks + kTile * ld;   // [kTile][ld]
+  float* bs = vs + kTile * ld;   // [s]
   const long long bh = blockIdx.x / row_tiles;
   const int row0 = (int)(blockIdx.x - bh * row_tiles) * kRows;
   const long long base = bh * s * d;
-  const int t = threadIdx.x;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int rg = warp % 4, h = warp / 4;  // row group, part
+  const int g = lane / 4, t = lane % 4;
+  const int kd = (d + 7) / 8;
+  const int n_tiles = key_tiles<kTile>(row0, s, causal);
 
-  stage(qs, q + base, row0, kRows, s, d);
-  const float* bias2 = nullptr;
-  if (key_bias != nullptr) {
-    stage_bias(bs, key_bias, bh / heads, 0, s, s);
-    bias2 = bs;
-  }
-  block_dots(ss, sp1, qs, ts, k + base, s, d, true, scale_log2e, bias2, row0,
-             causal);
-  __syncthreads();
+  if (vec) zero_pad_cols_f32<kThreads>(qs, kRows + 2 * kTile, ld, d);
+  load_tile_f32<kRows, kThreads, kD>(qs, ld, q + base, row0, s, d, vec);
+  load_walked<kD, kSplit>(ks, vs, k + base, v + base, ld, 0, s, d, vec);
+  const float* bias2 = stage_bias(bs, key_bias, bh / heads, s);
 
-  // softmax and dropout, one warp per row
-  const int warp = t / 32, lane = t % 32;
+  const float* qw = qs + rg * 16 * ld;
+  const int rows[2] = {row0 + rg * 16 + g, row0 + rg * 16 + g + 8};
+  const int last_row = row0 + rg * 16 + 15;
   const uint32_t seed_u = seed != nullptr ? (uint32_t)(*seed) : 0u;
-  for (int rr = warp; rr < kRows; rr += kThreads / 32) {
-    const int row = row0 + rr;
-    if (row >= s) continue;
-    float* srow = ss + rr * sp1;
-    float m = -kFltMax;
-    for (int c = lane; c < s; c += 32) m = fmaxf(m, srow[c]);
-    m = warp_max(m);
-    float l = 0.0f;
-    for (int c = lane; c < s; c += 32) {
-      const float e = exp2f(srow[c] - m);
-      srow[c] = e;
-      l += e;
+  const uint32_t rkey[2] = {row_key(seed_u, (uint32_t)bh, rows[0]),
+                            row_key(seed_u, (uint32_t)bh, rows[1])};
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f};
+  float acc[kD][4] = {};
+
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    cp_wait<0>();
+    __syncthreads();
+    const float* kst = ks + h * kPart * ld;
+    const float* vst = vs + h * kPart * ld;
+    const int key0 = kt * kTile + h * kPart;  // the warp's first key
+
+    // the first part of tile 0 is never skipped, so there m is finite from
+    // the first tile on
+    if (key0 < s && !(causal && key0 > last_row)) {
+      float sc[kN][4] = {};
+#pragma unroll
+      for (int kc = 0; kc < kD; ++kc) {
+        if (kc < kd) {
+          FragA a;
+          load_a(a, qw, ld, kc);
+#pragma unroll
+          for (int n = 0; n < kN; ++n) {
+            FragB b;
+            load_bt(b, kst + n * 8 * ld, ld, kc);
+            mma3(sc[n], a, b);
+          }
+        }
+      }
+      float tmax[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int n = 0; n < kN; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          sc[n][e] = score(sc[n][e], scale_log2e, bias2, rows[e / 2],
+                           key0 + n * 8 + 2 * t + (e & 1), s, causal);
+          tmax[e / 2] = fmaxf(tmax[e / 2], sc[n][e]);
+        }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        // a walked part holds a key below s: its max is finite
+        const float m_new = fmaxf(m[i], quad_max(tmax[i]));
+        const float corr = exp2f(m[i] - m_new);
+        m[i] = m_new;
+        l[i] *= corr;
+#pragma unroll
+        for (int n = 0; n < kD; ++n) {
+          acc[n][2 * i] *= corr;
+          acc[n][2 * i + 1] *= corr;
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < kN; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float p = exp2f(sc[n][e] - m[e / 2]);
+          l[e / 2] += p;
+          if (seed != nullptr)
+            p = kept(rkey[e / 2], key0 + n * 8 + 2 * t + (e & 1), thresh)
+                    ? __fmul_rn(p, inv_keep)
+                    : 0.0f;
+          sc[n][e] = p;
+        }
+#pragma unroll
+      for (int n = 0; n < kN; ++n) {
+        if (key0 + n * 8 < s) {
+          FragA a;
+          c_to_a(a, sc[n]);
+#pragma unroll
+          for (int j = 0; j < kD; ++j) {
+            if (j < kd) {
+              FragB b;
+              load_b(b, vst + n * 8 * ld, ld, j);
+              mma3(acc[j], a, b);
+            }
+          }
+        }
+      }
     }
-    l = warp_sum(l);
-    const uint32_t key = row_key(seed_u, (uint32_t)bh, (uint32_t)row);
-    for (int c = lane; c < s; c += 32) {
-      float p = srow[c] / l;
-      if (seed != nullptr)
-        p = kept(key, (uint32_t)c, thresh) ? __fmul_rn(p, inv_keep) : 0.0f;
-      srow[c] = p;
-    }
+    __syncthreads();  // the tile is consumed before it is refilled
+    if (kt + 1 < n_tiles)
+      load_walked<kD, kSplit>(ks, vs, k + base, v + base, ld, kt + 1, s, d,
+                              vec);
   }
 
-  float acc[kR][kC] = {};
-  block_apply<kC>(acc, ss, sp1, ts, v + base, s, d);
-  store_rows<kC>(o + base, acc, 1.0f, row0, s, d);
+  // the row group's other warps hand their max, sum and accumulator to
+  // the first in turn, through the consumed K/V tiles: m = max(m0, m1), c
+  // = exp2(m_w - m), l = l0 c0 + l1 c1, acc = acc0 c0 + acc1 c1 (a warp
+  // that saw no key has m -inf)
+  float* xch = ks;
+  for (int from = 1; from < kSplit; ++from) {
+    if (h == from) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        xch[xch_at(i)] = m[i];
+        xch[xch_at(2 + i)] = l[i];
+      }
+#pragma unroll
+      for (int n = 0; n < kD; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) xch[xch_at(4 + 4 * n + e)] = acc[n][e];
+    }
+    __syncthreads();
+    if (h == 0) {
+      float c0[2], c1[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const float m1 = xch[xch_at(i)];
+        const float mm = fmaxf(m[i], m1);
+        c0[i] = exp2f(m[i] - mm);
+        c1[i] = exp2f(m1 - mm);
+        m[i] = mm;
+        l[i] = l[i] * c0[i] + xch[xch_at(2 + i)] * c1[i];
+      }
+#pragma unroll
+      for (int n = 0; n < kD; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          acc[n][e] = acc[n][e] * c0[e / 2] +
+                      xch[xch_at(4 + 4 * n + e)] * c1[e / 2];
+    }
+    __syncthreads();  // read before the next warp writes
+  }
+  if (h != 0) return;
+
+  float inv[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] = quad_sum(l[i]);
+    inv[i] = 1.0f / l[i];
+  }
+#pragma unroll
+  for (int n = 0; n < kD; ++n) {
+    acc[n][0] *= inv[0];
+    acc[n][1] *= inv[0];
+    acc[n][2] *= inv[1];
+    acc[n][3] *= inv[1];
+  }
+  store_acc<kD>(o + base, acc, 1.0f, row0 + rg * 16, s, d);
+  if (t == 0) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      if (rows[i] < s) {
+        stats[bh * s + rows[i]] = m[i];
+        stats[bh_total * s + bh * s + rows[i]] = l[i];
+      }
+  }
+}
+
+// the row group's other warps' accumulators added to the first's in turn,
+// through xch; returns whether this warp is the first (and holds the sum)
+template <int kD, int kSplit>
+__device__ __forceinline__ bool merge_into_first(float* xch,
+                                                 float (&acc)[kD][4], int h) {
+  for (int from = 1; from < kSplit; ++from) {
+    if (h == from) {
+#pragma unroll
+      for (int n = 0; n < kD; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) xch[xch_at(4 * n + e)] = acc[n][e];
+    }
+    __syncthreads();
+    if (h == 0) {
+#pragma unroll
+      for (int n = 0; n < kD; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[n][e] += xch[xch_at(4 * n + e)];
+    }
+    __syncthreads();  // read before the next warp writes
+  }
+  return h == 0;
 }
 
 // -- B8: backward, dq pass -------------------------------------------------
 
-template <int kC>
-__global__ void __launch_bounds__(kThreads)
+template <int kD, int kSplit>
+__global__ void __launch_bounds__(kSplit * 128)
 fused_short_bwd_dq_kernel(const float* __restrict__ q,
                           const float* __restrict__ k,
                           const float* __restrict__ v,
+                          const float* __restrict__ o,
                           const float* __restrict__ dout,
                           const float* __restrict__ key_bias,
                           const int32_t* __restrict__ seed,
-                          float* __restrict__ dq, float* __restrict__ stats,
+                          const float* __restrict__ stats,
+                          float* __restrict__ delta, float* __restrict__ dq,
                           long long bh_total, int heads, int s, int d,
-                          int row_tiles, int sp, float scale_log2e,
-                          float scale, uint32_t thresh, float inv_keep,
-                          int causal) {
-  extern __shared__ float smem[];
-  const int sp1 = sp + 1;
-  float* qs = smem;                      // [kRows][d + 1]
-  float* dos = qs + kRows * (d + 1);     // [kRows][d + 1]
-  float* ts = dos + kRows * (d + 1);     // [kKeyTile][d + 1]
-  float* ss = ts + kKeyTile * (d + 1);   // [kRows][sp + 1]: t, then p
-  float* ps = ss + kRows * sp1;          // [kRows][sp + 1]: dp, then ds
-  float* bs = ps + kRows * sp1;          // [sp]
+                          int row_tiles, float scale_log2e, float scale,
+                          uint32_t thresh, float inv_keep, int causal,
+                          int vec) {
+  constexpr int ld = 8 * kD + 4;
+  constexpr int kN = kPart / 8;
+  constexpr int kTile = kSplit * kPart, kThreads = kSplit * 128;
+  extern __shared__ __align__(16) float smem[];
+  float* qs = smem;                  // [kRows][ld]
+  float* dos = qs + kRows * ld;      // [kRows][ld]
+  float* ks = dos + kRows * ld;      // [kTile][ld]
+  float* vs = ks + kTile * ld;       // [kTile][ld]
+  float* bs = vs + kTile * ld;       // [s]
+  float* ds = bs + (s + 3) / 4 * 4;  // [kRows]: D
   const long long bh = blockIdx.x / row_tiles;
   const int row0 = (int)(blockIdx.x - bh * row_tiles) * kRows;
   const long long base = bh * s * d;
-  const int t = threadIdx.x;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int rg = warp % 4, h = warp / 4;
+  const int g = lane / 4, t = lane % 4;
+  const int kd = (d + 7) / 8;
+  const int n_tiles = key_tiles<kTile>(row0, s, causal);
 
-  stage(qs, q + base, row0, kRows, s, d);
-  stage(dos, dout + base, row0, kRows, s, d);
-  const float* bias2 = nullptr;
-  if (key_bias != nullptr) {
-    stage_bias(bs, key_bias, bh / heads, 0, s, s);
-    bias2 = bs;
+  if (vec) zero_pad_cols_f32<kThreads>(qs, 2 * kRows + 2 * kTile, ld, d);
+  load_tile_f32<kRows, kThreads, kD>(qs, ld, q + base, row0, s, d, vec);
+  load_tile_f32<kRows, kThreads, kD>(dos, ld, dout + base, row0, s, d, vec);
+  load_walked<kD, kSplit>(ks, vs, k + base, v + base, ld, 0, s, d, vec);
+  const float* bias2 = stage_bias(bs, key_bias, bh / heads, s);
+
+  // D = rowsum(dO * o), each row a warp's sum over the columns; a row
+  // group's 16 rows split over its kSplit warps
+  constexpr int kDRows = 16 / kSplit;
+  for (int r = 0; r < kDRows; ++r) {
+    const int i = rg * 16 + h * kDRows + r, row = row0 + i;
+    float x = 0.0f;
+    if (row < s)
+      for (int c = lane; c < d; c += 32)
+        x = fmaf(dout[base + (long long)row * d + c],
+                 o[base + (long long)row * d + c], x);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(~0u, x, off);
+    if (lane == 0) {
+      ds[i] = x;
+      if (row < s) delta[bh * s + row] = x;
+    }
   }
-  block_dots(ss, sp1, qs, ts, k + base, s, d, true, scale_log2e, bias2, row0,
-             causal);
-  // dp before the mask: dO . v_j, the same fma chain as the dk/dv pass's
-  block_dots(ps, sp1, dos, ts, v + base, s, d, false, 0.0f, nullptr, row0,
-             0);
   __syncthreads();
 
-  const int warp = t / 32, lane = t % 32;
-  const uint32_t seed_u = seed != nullptr ? (uint32_t)(*seed) : 0u;
-  for (int rr = warp; rr < kRows; rr += kThreads / 32) {
-    const int row = row0 + rr;
-    if (row >= s) continue;
-    float* srow = ss + rr * sp1;
-    float* prow = ps + rr * sp1;
-    float m = -kFltMax;
-    for (int c = lane; c < s; c += 32) m = fmaxf(m, srow[c]);
-    m = warp_max(m);
-    float l = 0.0f;
-    for (int c = lane; c < s; c += 32) {
-      const float e = exp2f(srow[c] - m);
-      srow[c] = e;
-      l += e;
-    }
-    l = warp_sum(l);
-    const uint32_t key = row_key(seed_u, (uint32_t)bh, (uint32_t)row);
-    float dsum = 0.0f;
-    for (int c = lane; c < s; c += 32) {
-      const float p = srow[c] / l;
-      float dp = prow[c];
-      if (seed != nullptr)
-        dp = kept(key, (uint32_t)c, thresh) ? __fmul_rn(dp, inv_keep) : 0.0f;
-      srow[c] = p;
-      prow[c] = dp;
-      dsum = fmaf(dp, p, dsum);
-    }
-    dsum = warp_sum(dsum);
-    for (int c = lane; c < s; c += 32)
-      prow[c] = __fmul_rn(srow[c], __fsub_rn(prow[c], dsum));
-    if (lane == 0) {
-      const long long i = bh * s + row;
-      stats[i] = m;
-      stats[bh_total * s + i] = l;
-      stats[2 * bh_total * s + i] = dsum;
-    }
+  const int rows[2] = {row0 + rg * 16 + g, row0 + rg * 16 + g + 8};
+  const int last_row = row0 + rg * 16 + 15;
+  float mrow[2], inv_l[2], dd[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const bool in = rows[i] < s;  // rows past s get p = 0
+    mrow[i] = in ? stats[bh * s + rows[i]] : INFINITY;
+    inv_l[i] = in ? 1.0f / stats[bh_total * s + bh * s + rows[i]] : 0.0f;
+    dd[i] = ds[rows[i] - row0];
   }
+  const uint32_t seed_u = seed != nullptr ? (uint32_t)(*seed) : 0u;
+  const uint32_t rkey[2] = {row_key(seed_u, (uint32_t)bh, rows[0]),
+                            row_key(seed_u, (uint32_t)bh, rows[1])};
+  const float* qw = qs + rg * 16 * ld;
+  const float* dow = dos + rg * 16 * ld;
+  float acc[kD][4] = {};
 
-  float acc[kR][kC] = {};
-  block_apply<kC>(acc, ps, sp1, ts, k + base, s, d);
-  store_rows<kC>(dq + base, acc, scale, row0, s, d);
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    cp_wait<0>();
+    __syncthreads();
+    const float* kst = ks + h * kPart * ld;
+    const float* vst = vs + h * kPart * ld;
+    const int key0 = kt * kTile + h * kPart;
+
+    if (key0 < s && !(causal && key0 > last_row)) {
+      float sc[kN][4] = {}, dp[kN][4] = {};
+#pragma unroll
+      for (int kc = 0; kc < kD; ++kc) {
+        if (kc < kd) {
+          FragA a, ad;
+          load_a(a, qw, ld, kc);
+          load_a(ad, dow, ld, kc);
+#pragma unroll
+          for (int n = 0; n < kN; ++n) {
+            FragB b;
+            load_bt(b, kst + n * 8 * ld, ld, kc);
+            mma3(sc[n], a, b);
+            load_bt(b, vst + n * 8 * ld, ld, kc);
+            mma3(dp[n], ad, b);
+          }
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < kN; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e / 2, col = key0 + n * 8 + 2 * t + (e & 1);
+          const float x =
+              score(sc[n][e], scale_log2e, bias2, rows[r], col, s, causal);
+          const float p = exp2f(x - mrow[r]) * inv_l[r];
+          float dpv = dp[n][e];
+          if (seed != nullptr)
+            dpv = kept(rkey[r], col, thresh) ? __fmul_rn(dpv, inv_keep)
+                                             : 0.0f;
+          sc[n][e] = __fmul_rn(p, __fsub_rn(dpv, dd[r]));  // ds
+        }
+#pragma unroll
+      for (int n = 0; n < kN; ++n) {
+        if (key0 + n * 8 < s) {
+          FragA a;
+          c_to_a(a, sc[n]);
+#pragma unroll
+          for (int j = 0; j < kD; ++j) {
+            if (j < kd) {
+              FragB b;
+              load_b(b, kst + n * 8 * ld, ld, j);
+              mma3(acc[j], a, b);
+            }
+          }
+        }
+      }
+    }
+    __syncthreads();  // the tile is consumed before it is refilled
+    if (kt + 1 < n_tiles)
+      load_walked<kD, kSplit>(ks, vs, k + base, v + base, ld, kt + 1, s, d,
+                              vec);
+  }
+  if (merge_into_first<kD, kSplit>(ks, acc, h))
+    store_acc<kD>(dq + base, acc, scale, row0 + rg * 16, s, d);
 }
 
 // -- B8: backward, dk/dv pass ----------------------------------------------
 
-template <int kC>
-__global__ void __launch_bounds__(kThreads)
+template <int kD, int kSplit>
+__global__ void __launch_bounds__(kSplit * 128)
 fused_short_bwd_dkv_kernel(const float* __restrict__ q,
                            const float* __restrict__ k,
                            const float* __restrict__ v,
                            const float* __restrict__ dout,
                            const float* __restrict__ key_bias,
                            const int32_t* __restrict__ seed,
-                           float* __restrict__ dk, float* __restrict__ dv,
                            const float* __restrict__ stats,
+                           const float* __restrict__ delta,
+                           float* __restrict__ dk, float* __restrict__ dv,
                            long long bh_total, int heads, int s, int d,
-                           int key_tiles, float scale_log2e, float scale,
-                           uint32_t thresh, float inv_keep, int causal) {
-  extern __shared__ float smem[];
-  constexpr int kW = kQTile + 1;
-  float* ks = smem;                      // [kRows][d + 1]
-  float* vs = ks + kRows * (d + 1);      // [kRows][d + 1]
-  float* qs = vs + kRows * (d + 1);      // [kQTile][d + 1]
-  float* dos = qs + kQTile * (d + 1);    // [kQTile][d + 1]
-  float* pds = dos + kQTile * (d + 1);   // [kRows][kQTile + 1]
-  float* dss = pds + kRows * kW;         // [kRows][kQTile + 1]
-  float* mst = dss + kRows * kW;         // [kQTile] x 3: max, denom, D
-  float* lst = mst + kQTile;
-  float* dst = lst + kQTile;
-  float* bs = dst + kQTile;              // [kRows]
-  const long long bh = blockIdx.x / key_tiles;
-  const int key0 = (int)(blockIdx.x - bh * key_tiles) * kRows;
+                           int key_blocks, float scale_log2e, float scale,
+                           uint32_t thresh, float inv_keep, int causal,
+                           int vec) {
+  constexpr int ld = 8 * kD + 4;
+  constexpr int kN = kPart / 8;
+  constexpr int kTile = kSplit * kPart, kThreads = kSplit * 128;
+  extern __shared__ __align__(16) float smem[];
+  float* ks = smem;               // [kRows][ld]
+  float* vs = ks + kRows * ld;    // [kRows][ld]
+  float* qs = vs + kRows * ld;    // [kTile][ld]
+  float* dos = qs + kTile * ld;   // [kTile][ld]
+  const int n_tiles = (s + kTile - 1) / kTile;
+  const int sp = n_tiles * kTile;
+  float* mst = dos + kTile * ld;  // [sp]
+  float* ilst = mst + sp;         // [sp]
+  float* dst = ilst + sp;         // [sp]
+  const long long bh = blockIdx.x / key_blocks;
+  const int key0 = (int)(blockIdx.x - bh * key_blocks) * kRows;
   const long long base = bh * s * d;
-  const int t = threadIdx.x, pr = t / kGroup, g = t % kGroup;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int rg = warp % 4, h = warp / 4;
+  const int g = lane / 4, t = lane % 4;
+  const int kd = (d + 7) / 8;
+  // under the causal mask, queries before the block's first key see none
+  // of its keys
+  const int first = causal ? key0 / kTile : 0;
 
-  stage(ks, k + base, key0, kRows, s, d);
-  stage(vs, v + base, key0, kRows, s, d);
-  const float* bias2 = nullptr;
-  if (key_bias != nullptr) {
-    stage_bias(bs, key_bias, bh / heads, key0, kRows, s);
-    bias2 = bs;
+  if (vec) zero_pad_cols_f32<kThreads>(ks, 2 * kRows + 2 * kTile, ld, d);
+  load_tile_f32<kRows, kThreads, kD>(ks, ld, k + base, key0, s, d, vec);
+  load_tile_f32<kRows, kThreads, kD>(vs, ld, v + base, key0, s, d, vec);
+  load_walked<kD, kSplit>(qs, dos, q + base, dout + base, ld, first, s, d,
+                          vec);
+  // every query's max, 1 / sum and D; queries past s get p = 0
+  for (int i = threadIdx.x; i < sp; i += kThreads) {
+    const bool in = i < s;
+    mst[i] = in ? stats[bh * s + i] : INFINITY;
+    ilst[i] = in ? 1.0f / stats[bh_total * s + bh * s + i] : 0.0f;
+    dst[i] = in ? delta[bh * s + i] : 0.0f;
   }
+
+  const int keys[2] = {key0 + rg * 16 + g, key0 + rg * 16 + g + 8};
+  const int first_key = key0 + rg * 16;
+  float kb[2] = {0.0f, 0.0f};
+  if (key_bias != nullptr)
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      if (keys[i] < s)
+        kb[i] = __fmul_rn(key_bias[(bh / heads) * s + keys[i]], kLog2e);
   const uint32_t seed_u = seed != nullptr ? (uint32_t)(*seed) : 0u;
+  const uint32_t bh_key = mix(seed_u, (uint32_t)bh);  // row_key = mix(., row)
+  const float* kw = ks + rg * 16 * ld;
+  const float* vw = vs + rg * 16 * ld;
+  float acc_k[kD][4] = {}, acc_v[kD][4] = {};
 
-  float acc_k[kR][kC] = {}, acc_v[kR][kC] = {};
-  for (int q0 = 0; q0 < s; q0 += kQTile) {
-    __syncthreads();  // the previous tile is consumed
-    stage(qs, q + base, q0, kQTile, s, d);
-    stage(dos, dout + base, q0, kQTile, s, d);
-    for (int i = t; i < kQTile; i += kThreads) {
-      const int row = q0 + i;
-      const long long at = bh * s + row;
-      mst[i] = row < s ? stats[at] : 0.0f;
-      lst[i] = row < s ? stats[bh_total * s + at] : 1.0f;
-      dst[i] = row < s ? stats[2 * bh_total * s + at] : 0.0f;
-    }
+  for (int qt = first; qt < n_tiles; ++qt) {
+    cp_wait<0>();
     __syncthreads();
-    // this thread's keys against queries g, g + kGroup, ... of the tile
-    float qk[kR][kPer], dpi[kR][kPer];
-    dots(qk, ks + pr * (d + 1), kPairs * (d + 1), qs + g * (d + 1),
-         kGroup * (d + 1), d);
-    dots(dpi, vs + pr * (d + 1), kPairs * (d + 1), dos + g * (d + 1),
-         kGroup * (d + 1), d);
+    const float* qst = qs + h * kPart * ld;
+    const float* dost = dos + h * kPart * ld;
+    const int qf = qt * kTile + h * kPart;  // the warp's first query
+
+    // a warp whose keys all lie past its queries sees none of them
+    if (qf < s && !(causal && qf + kPart - 1 < first_key)) {
+      float st[kN][4] = {}, dpt[kN][4] = {};  // S^T, dP^T: keys x queries
 #pragma unroll
-    for (int i = 0; i < kR; ++i) {
-      const int kr = pr + i * kPairs;
-      const int key = key0 + kr;
+      for (int kc = 0; kc < kD; ++kc) {
+        if (kc < kd) {
+          FragA a, av;
+          load_a(a, kw, ld, kc);
+          load_a(av, vw, ld, kc);
 #pragma unroll
-      for (int j = 0; j < kPer; ++j) {
-        const int qi = g + j * kGroup;
-        const int row = q0 + qi;
-        float pd = 0.0f, ds = 0.0f;
-        if (row < s && key < s) {
-          const float tq = score(qk[i][j], scale_log2e, bias2, kr, row, key,
-                                 causal);
-          const float p = exp2f(tq - mst[qi]) / lst[qi];
-          float dp = dpi[i][j];
-          pd = p;
-          if (seed != nullptr) {
-            const bool keep =
-                kept(row_key(seed_u, (uint32_t)bh, (uint32_t)row),
-                     (uint32_t)key, thresh);
-            pd = keep ? __fmul_rn(p, inv_keep) : 0.0f;
-            dp = keep ? __fmul_rn(dp, inv_keep) : 0.0f;
+          for (int n = 0; n < kN; ++n) {
+            FragB b;
+            load_bt(b, qst + n * 8 * ld, ld, kc);
+            mma3(st[n], a, b);
+            load_bt(b, dost + n * 8 * ld, ld, kc);
+            mma3(dpt[n], av, b);
           }
-          ds = __fmul_rn(p, __fsub_rn(dp, dst[qi]));
         }
-        pds[kr * kW + qi] = pd;
-        dss[kr * kW + qi] = ds;
       }
-    }
-    __syncthreads();
-    const int qn = min(kQTile, s - q0);
-    for (int qi = 0; qi < qn; ++qi) {
-      float a[kR], b[kR];
 #pragma unroll
-      for (int i = 0; i < kR; ++i) {
-        a[i] = pds[(pr + i * kPairs) * kW + qi];
-        b[i] = dss[(pr + i * kPairs) * kW + qi];
-      }
-      const float* dorow = dos + qi * (d + 1);
-      const float* qrow = qs + qi * (d + 1);
+      for (int n = 0; n < kN; ++n)
 #pragma unroll
-      for (int j = 0; j < kC; ++j) {
-        const int c = g + j * kGroup;
-        if (c < d) {
-          const float dov = dorow[c], qv = qrow[c];
+        for (int e = 0; e < 2; ++e) {
+          const int query = qf + n * 8 + 2 * t + e;
+          const float mq = mst[query], ilq = ilst[query], dd = dst[query];
+          const uint32_t qkey = mix(bh_key, (uint32_t)query);
 #pragma unroll
-          for (int i = 0; i < kR; ++i) {
-            acc_v[i][j] = fmaf(a[i], dov, acc_v[i][j]);
-            acc_k[i][j] = fmaf(b[i], qv, acc_k[i][j]);
+          for (int i = 0; i < 2; ++i) {
+            const int idx = 2 * i + e;
+            float x = __fmul_rn(st[n][idx], scale_log2e);
+            if (key_bias != nullptr) x = __fadd_rn(x, kb[i]);
+            if (causal && keys[i] > query) x = kNegInf;
+            const float p = exp2f(x - mq) * ilq;
+            float pd = p, dpv = dpt[n][idx];
+            if (seed != nullptr) {
+              const bool keep = kept(qkey, (uint32_t)keys[i], thresh);
+              pd = keep ? __fmul_rn(p, inv_keep) : 0.0f;
+              dpv = keep ? __fmul_rn(dpv, inv_keep) : 0.0f;
+            }
+            st[n][idx] = pd;
+            dpt[n][idx] = __fmul_rn(p, __fsub_rn(dpv, dd));  // ds
+          }
+        }
+#pragma unroll
+      for (int n = 0; n < kN; ++n) {
+        if (qf + n * 8 < s) {
+          FragA a, ads;
+          c_to_a(a, st[n]);
+          c_to_a(ads, dpt[n]);
+#pragma unroll
+          for (int j = 0; j < kD; ++j) {
+            if (j < kd) {
+              FragB b;
+              load_b(b, dost + n * 8 * ld, ld, j);
+              mma3(acc_v[j], a, b);
+              load_b(b, qst + n * 8 * ld, ld, j);
+              mma3(acc_k[j], ads, b);
+            }
           }
         }
       }
     }
+    __syncthreads();  // the tile is consumed before it is refilled
+    if (qt + 1 < n_tiles)
+      load_walked<kD, kSplit>(qs, dos, q + base, dout + base, ld, qt + 1, s,
+                              d, vec);
   }
-  store_rows<kC>(dk + base, acc_k, scale, key0, s, d);
-  store_rows<kC>(dv + base, acc_v, 1.0f, key0, s, d);
+  // dk through the consumed Q tile, dv through the dO tile
+  const bool holds_sum = merge_into_first<kD, kSplit>(qs, acc_k, h);
+  merge_into_first<kD, kSplit>(dos, acc_v, h);
+  if (holds_sum) {
+    store_acc<kD>(dk + base, acc_k, scale, key0 + rg * 16, s, d);
+    store_acc<kD>(dv + base, acc_v, 1.0f, key0 + rg * 16, s, d);
+  }
 }
 
 // -- launches --------------------------------------------------------------
-
-int padded_seq(int s) { return (s + kKeyTile - 1) / kKeyTile * kKeyTile; }
 
 template <typename K>
 cudaError_t allow_smem(K kernel, size_t bytes) {
@@ -515,48 +678,74 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
                               (int)bytes);
 }
 
+// bytes of a staged tile of `rows` rows
+size_t tile_bytes(int kD, int rows) {
+  return sizeof(float) * rows * (8 * kD + 4);
+}
+
+bool aligned16(std::initializer_list<const void*> ptrs) {
+  for (const void* p : ptrs)
+    if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return false;
+  return true;
+}
+
+// the warps a row group for a grid of `blocks`, at most `most`: four
+// while the grid is under two blocks an SM (B7 only: B8's passes take more
+// registers than a 512-thread block leaves), two while it is under eight,
+// else one. On the H100 at d 128, two made B7 and B8 37% faster at the
+// LM's prefill (128 blocks) and 13% at s 512 (512 blocks); at BERT-base's
+// shape (3072 blocks, d 64) one made B8 17% faster, the four-warp blocks
+// fitting more warps an SM (scripts/fused_short_f32_variants.py).
+int split_for(long long blocks, int most) {
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess)
+    return 2;
+  if (most >= 4 && blocks < 2LL * sms) return 4;
+  return blocks < 8LL * sms ? 2 : 1;
+}
+
+template <int kD, int kSplit>
 int launch_fwd(const void* q, const void* k, const void* v,
-               const void* key_bias, const void* seed, void* o, long long bh,
-               int heads, int s, int d, float scale_log2e, uint32_t thresh,
-               float inv_keep, int causal, cudaStream_t stream) {
+               const void* key_bias, const void* seed, void* o, void* stats,
+               long long bh, int heads, int s, int d, float scale_log2e,
+               uint32_t thresh, float inv_keep, int causal,
+               cudaStream_t stream) {
+  constexpr int kTile = kSplit * kPart;
   const int row_tiles = (s + kRows - 1) / kRows;
-  const int sp = padded_seq(s);
-  const size_t smem =
-      sizeof(float) * ((size_t)(kRows + kKeyTile) * (d + 1) +
-                       (size_t)kRows * (sp + 1) + sp);
-  const long long blocks = bh * row_tiles;
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  auto kernel = d <= 64 ? fused_short_fwd_kernel<4>
-                        : fused_short_fwd_kernel<8>;
+  const int sp = (s + kTile - 1) / kTile * kTile;
+  const size_t smem = tile_bytes(kD, kRows) + 2 * tile_bytes(kD, kTile) +
+                      sizeof(float) * sp;
+  const int vec = d % 4 == 0 && aligned16({q, k, v});
+  auto kernel = fused_short_fwd_kernel<kD, kSplit>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<(unsigned)blocks, kThreads, smem, stream>>>(
+  kernel<<<(unsigned)(bh * row_tiles), kSplit * 128, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(key_bias),
-      static_cast<const int32_t*>(seed), static_cast<float*>(o), heads, s, d,
-      row_tiles, sp, scale_log2e, thresh, inv_keep, causal);
+      static_cast<const int32_t*>(seed), static_cast<float*>(o),
+      static_cast<float*>(stats), bh, heads, s, d, row_tiles, scale_log2e,
+      thresh, inv_keep, causal, vec);
   return (int)cudaGetLastError();
 }
 
-int launch_bwd(const void* q, const void* k, const void* v, const void* dout,
-               const void* key_bias, const void* seed, void* dq, void* dk,
-               void* dv, void* stats, long long bh, int heads, int s, int d,
-               float scale_log2e, float scale, uint32_t thresh,
-               float inv_keep, int causal, cudaStream_t stream) {
-  const int row_tiles = (s + kRows - 1) / kRows;
-  const int sp = padded_seq(s);
-  const size_t smem_dq =
-      sizeof(float) * ((size_t)(2 * kRows + kKeyTile) * (d + 1) +
-                       2 * (size_t)kRows * (sp + 1) + sp);
-  const size_t smem_dkv =
-      sizeof(float) * ((size_t)(2 * kRows + 2 * kQTile) * (d + 1) +
-                       2 * (size_t)kRows * (kQTile + 1) + 3 * kQTile + kRows);
-  const long long blocks = bh * row_tiles;
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  auto dq_kernel = d <= 64 ? fused_short_bwd_dq_kernel<4>
-                           : fused_short_bwd_dq_kernel<8>;
-  auto dkv_kernel = d <= 64 ? fused_short_bwd_dkv_kernel<4>
-                            : fused_short_bwd_dkv_kernel<8>;
+template <int kD, int kSplit>
+int launch_bwd(const void* q, const void* k, const void* v, const void* o,
+               const void* dout, const void* key_bias, const void* seed,
+               const void* stats, void* delta, void* dq, void* dk, void* dv,
+               long long bh, int heads, int s, int d, float scale_log2e,
+               float scale, uint32_t thresh, float inv_keep, int causal,
+               cudaStream_t stream) {
+  constexpr int kTile = kSplit * kPart;
+  const int tiles = (s + kRows - 1) / kRows;
+  const int sp = (s + kTile - 1) / kTile * kTile;
+  const size_t own = 2 * tile_bytes(kD, kRows) + 2 * tile_bytes(kD, kTile);
+  const size_t smem_dq = own + sizeof(float) * (sp + kRows);
+  const size_t smem_dkv = own + sizeof(float) * 3 * sp;
+  const int vec = d % 4 == 0 && aligned16({q, k, v, dout});
+  auto dq_kernel = fused_short_bwd_dq_kernel<kD, kSplit>;
+  auto dkv_kernel = fused_short_bwd_dkv_kernel<kD, kSplit>;
   cudaError_t err = allow_smem(dq_kernel, smem_dq);
   if (err != cudaSuccess) return (int)err;
   err = allow_smem(dkv_kernel, smem_dkv);
@@ -567,19 +756,55 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* dout,
   const float* dot_ = static_cast<const float*>(dout);
   const float* kb = static_cast<const float*>(key_bias);
   const int32_t* sd = static_cast<const int32_t*>(seed);
-  float* st = static_cast<float*>(stats);
-  dq_kernel<<<(unsigned)blocks, kThreads, smem_dq, stream>>>(
-      qt, kt, vt, dot_, kb, sd, static_cast<float*>(dq), st, bh, heads, s, d,
-      row_tiles, sp, scale_log2e, scale, thresh, inv_keep, causal);
+  const float* st = static_cast<const float*>(stats);
+  float* dl = static_cast<float*>(delta);
+  const unsigned blocks = (unsigned)(bh * tiles);
+  dq_kernel<<<blocks, kSplit * 128, smem_dq, stream>>>(
+      qt, kt, vt, static_cast<const float*>(o), dot_, kb, sd, st, dl,
+      static_cast<float*>(dq), bh, heads, s, d, tiles, scale_log2e, scale,
+      thresh, inv_keep, causal, vec);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  // key tiles are 32 rows, like the dq pass's query tiles
-  dkv_kernel<<<(unsigned)blocks, kThreads, smem_dkv, stream>>>(
-      qt, kt, vt, dot_, kb, sd, static_cast<float*>(dk),
-      static_cast<float*>(dv), st, bh, heads, s, d, row_tiles, scale_log2e,
-      scale, thresh, inv_keep, causal);
+  dkv_kernel<<<blocks, kSplit * 128, smem_dkv, stream>>>(
+      qt, kt, vt, dot_, kb, sd, st, dl, static_cast<float*>(dk),
+      static_cast<float*>(dv), bh, heads, s, d, tiles, scale_log2e, scale,
+      thresh, inv_keep, causal, vec);
   return (int)cudaGetLastError();
 }
+
+// F's launch at head width kD (4, 8 or 16 chunks of 8) for the split
+// split_for picks, up to kMost
+template <template <int, int> class F, int kD, int kMost, typename... Args>
+int launch_split(int split, Args... args) {
+  if constexpr (kMost >= 4)
+    if (split == 4) return F<kD, 4>::run(args...);
+  return split == 2 ? F<kD, 2>::run(args...) : F<kD, 1>::run(args...);
+}
+
+template <template <int, int> class F, int kMost, typename... Args>
+int dispatch(long long blocks, int d, Args... args) {
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const int split = split_for(blocks, kMost);
+  if (d <= 32) return launch_split<F, 4, kMost>(split, args...);
+  if (d <= 64) return launch_split<F, 8, kMost>(split, args...);
+  return launch_split<F, 16, kMost>(split, args...);
+}
+
+template <int kD, int kSplit>
+struct Fwd {
+  template <typename... Args>
+  static int run(Args... args) {
+    return launch_fwd<kD, kSplit>(args...);
+  }
+};
+
+template <int kD, int kSplit>
+struct Bwd {
+  template <typename... Args>
+  static int run(Args... args) {
+    return launch_bwd<kD, kSplit>(args...);
+  }
+};
 
 bool bad_shape(long long bh, int heads, int s, int d) {
   return bh < 0 || heads < 1 || s < 1 || s > kMaxSeq || d < 1 || d > kMaxD;
@@ -592,34 +817,41 @@ extern "C" {
 // B7, f32 route, on `stream`; returns cudaGetLastError() (0 on success).
 // q, k, v, o: [bh, s, d] f32. key_bias: [bh / heads, s] f32 or NULL. seed:
 // one int32 on the device, or NULL for no dropout (then thresh and
-// inv_keep are unused). The caller allocates o.
+// inv_keep are unused). stats: [2, bh, s] f32, each row's max in exp2
+// units, then its sum. The caller allocates o and stats.
 int azt_fused_short_fwd_f32(const void* q, const void* k, const void* v,
                             const void* key_bias, const void* seed, void* o,
-                            long long bh, int heads, int s, int d,
-                            float scale_log2e, unsigned int thresh,
+                            void* stats, long long bh, int heads, int s,
+                            int d, float scale_log2e, unsigned int thresh,
                             float inv_keep, int causal, void* stream) {
-  if (bad_shape(bh, heads, s, d)) return (int)cudaErrorInvalidValue;
+  if (bad_shape(bh, heads, s, d) || stats == nullptr)
+    return (int)cudaErrorInvalidValue;
   if (bh == 0) return 0;
-  return launch_fwd(q, k, v, key_bias, seed, o, bh, heads, s, d,
-                    scale_log2e, thresh, inv_keep, causal,
-                    static_cast<cudaStream_t>(stream));
+  return dispatch<Fwd, 4>(bh * ((s + kRows - 1) / kRows), d, q, k, v,
+                          key_bias, seed, o, stats, bh, heads, s, d,
+                          scale_log2e, thresh, inv_keep, causal,
+                          static_cast<cudaStream_t>(stream));
 }
 
 // B8, f32 route, on `stream`: the dq pass, then the dk/dv pass; returns
-// cudaGetLastError(). dout, dq, dk, dv: [bh, s, d] f32; stats: [3, bh, s]
-// f32 scratch. The caller allocates the outputs and stats.
+// cudaGetLastError(). o and stats: the forward's output and [2, bh, s] row
+// statistics; dout, dq, dk, dv: [bh, s, d] f32; delta: [bh, s] f32
+// scratch. The caller allocates the outputs and delta.
 int azt_fused_short_bwd_f32(const void* q, const void* k, const void* v,
-                            const void* dout, const void* key_bias,
-                            const void* seed, void* dq, void* dk, void* dv,
-                            void* stats, long long bh, int heads, int s,
-                            int d, float scale_log2e, float scale,
+                            const void* o, const void* dout,
+                            const void* key_bias, const void* seed,
+                            const void* stats, void* delta, void* dq,
+                            void* dk, void* dv, long long bh, int heads,
+                            int s, int d, float scale_log2e, float scale,
                             unsigned int thresh, float inv_keep, int causal,
                             void* stream) {
-  if (bad_shape(bh, heads, s, d)) return (int)cudaErrorInvalidValue;
+  if (bad_shape(bh, heads, s, d) || stats == nullptr || o == nullptr)
+    return (int)cudaErrorInvalidValue;
   if (bh == 0) return 0;
-  return launch_bwd(q, k, v, dout, key_bias, seed, dq, dk, dv, stats, bh,
-                    heads, s, d, scale_log2e, scale, thresh, inv_keep,
-                    causal, static_cast<cudaStream_t>(stream));
+  return dispatch<Bwd, 2>(bh * ((s + kRows - 1) / kRows), d, q, k, v, o,
+                          dout, key_bias, seed, stats, delta, dq, dk, dv, bh,
+                          heads, s, d, scale_log2e, scale, thresh, inv_keep,
+                          causal, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

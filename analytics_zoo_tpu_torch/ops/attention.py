@@ -13,12 +13,13 @@ natural-log units (the 0 / -1e9 padding bias BERT builds from its mask).
 hand-written CUDA kernel B7 (replacing the TPU's
 ``_fused_short_fwd_kernel``) and its backward B8 (replacing
 ``_fused_short_bwd_kernel``) on a CUDA tensor, or raises; there is no
-fallback. The dtype picks the route: bf16 runs on the tensor cores
-(``csrc/fused_short_attn_bf16.cu``, ``mma.sync``), f32 on the CUDA cores
-(``csrc/fused_short_attn.cu``), and ``route_counts`` counts each launch by
-route. On a CPU tensor each runs its plain PyTorch version
-(:func:`fused_short_attention_plain`, :func:`fused_short_bwd_plain`), the
-same arithmetic, which the tests hold against the JAX package and which
+fallback. The dtype picks the route, and both run on the tensor cores
+(``mma.sync``): bf16 in ``csrc/fused_short_attn_bf16.cu``, f32 as 3xTF32
+(each f32 operand split into two TF32 parts, three TF32 products for one
+f32-grade product) in ``csrc/fused_short_attn.cu``; ``route_counts``
+counts each launch by route. On a CPU tensor each runs its plain PyTorch
+version (:func:`fused_short_attention_plain`, :func:`fused_short_bwd_plain`),
+the same arithmetic, which the tests hold against the JAX package and which
 ``chip_smoke.py`` holds each kernel against on the card.
 
 The arithmetic, in both versions: scores ``q·k`` in f32, times
@@ -29,9 +30,10 @@ mask of ``-1e30`` above the diagonal, softmax in ``exp2`` with IEEE
 division, then dropout, then ``p·v`` with sums in f32. ``pd`` is rounded
 to the inputs' dtype before ``pd·v`` and ``pdᵀ·dO``, and ``ds`` before
 ``ds·k`` and ``dsᵀ·q``, where the TPU kernel rounds them (no-ops in f32).
-The bf16 backward reads each row's softmax max and sum (``stats``) from its
-forward; the f32 backward recomputes them. Both take ``D = rowsum(dp·p)``
-in f32.
+Both backwards read each row's softmax max and sum (``stats``) from their
+forward. The bf16 backward takes ``D = rowsum(dp·p)`` in f32; the f32
+backward takes it as ``rowsum(dO·o)`` from the forward's output, equal in
+exact arithmetic.
 
 Dropout keeps an entry where its 32 random bits are at or above
 ``min(int(rate·2^32), 2^32-1)`` and scales it by ``1/(1-rate)``, the TPU
@@ -84,9 +86,9 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 #: one B8 launch is the two passes of one backward
 launch_counts = LaunchCounts("fused_short_fwd", "fused_short_bwd")
-#: B7 and B8 launches by route: bf16 on the tensor cores, f32 on the CUDA
-#: cores
-route_counts = LaunchCounts("bf16_tc", "f32_simt")
+#: B7 and B8 launches by route: bf16 and f32 (as 3xTF32), both on the
+#: tensor cores
+route_counts = LaunchCounts("bf16_tc", "f32_tc")
 #: B4, B5a, B5b and B6
 flash_launch_counts = LaunchCounts("flash_fwd", "flash_bwd_dq",
                                    "flash_bwd_dkv", "flash_bwd_fused")
@@ -105,15 +107,15 @@ def reset_launch_counts() -> None:
 
 def fused_short_route(dtype: torch.dtype) -> str:
     """The fused kernels' route for inputs of ``dtype``: ``"bf16_tc"`` (the
-    tensor cores; its backward reads the forward's row statistics) or
-    ``"f32_simt"`` (the CUDA cores)."""
+    tensor cores in bf16) or ``"f32_tc"`` (the tensor cores as 3xTF32)."""
+    return "bf16_tc" if dtype == torch.bfloat16 else "f32_tc"
+
+
+def flash_route(dtype: torch.dtype) -> str:
+    """The flash kernels' route for inputs of ``dtype``: ``"bf16_tc"`` (the
+    tensor cores, ``csrc/flash_attn_bf16.cu``) or ``"f32_simt"`` (the CUDA
+    cores, ``csrc/flash_attn.cu``)."""
     return "bf16_tc" if dtype == torch.bfloat16 else "f32_simt"
-
-
-#: the flash kernels' route for inputs of a dtype, the fused kernels' choice:
-#: ``"bf16_tc"`` (the tensor cores, ``csrc/flash_attn_bf16.cu``) or
-#: ``"f32_simt"`` (the CUDA cores, ``csrc/flash_attn.cu``)
-flash_route = fused_short_route
 
 
 # -- dropout bits ------------------------------------------------------------
@@ -238,8 +240,8 @@ def fused_short_attention_plain(q, k, v, key_bias=None,
     """Plain PyTorch version of B7: same inputs, same arithmetic, same
     dropout mask; differentiable, so autograd through it is the reference
     for B8. With ``with_stats``, returns ``(o, stats)``: each row's
-    softmax max (exp2 units) and sum, ``[2, b, h, s]`` f32, as the bf16
-    kernel saves them."""
+    softmax max (exp2 units) and sum, ``[2, b, h, s]`` f32, as the kernels
+    save them."""
     scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
     p, stats = _probs(q, k, key_bias, scale, causal, with_stats=True)
     keep = _keep(seed, q, rate)
@@ -338,16 +340,22 @@ def _check(tensors, key_bias, seed, rate: float) -> None:
                          "inputs' device")
 
 
-def _check_stats(q, stats) -> None:
-    """Raise unless ``stats`` is what B7's bf16 route saved for ``q``."""
+def _check_saved(q, stats, o) -> None:
+    """Raise unless ``stats`` (and, on the f32 route, ``o``) are what B7
+    returned for ``q``."""
     want = (2,) + tuple(q.shape[:-1])
     if stats is None:
-        raise ValueError("the bf16 backward needs the row stats its "
-                         "forward returned (fused_short_fwd)")
+        raise ValueError("the backward needs the row stats its forward "
+                         "returned (fused_short_fwd)")
     if (tuple(stats.shape) != want or stats.dtype != torch.float32
             or stats.device != q.device or not stats.is_contiguous()):
         raise ValueError(f"stats must be contiguous f32 {want} on "
                          f"{q.device}")
+    if q.dtype == torch.float32 and (
+            o is None or o.shape != q.shape or o.dtype != q.dtype
+            or o.device != q.device or not o.is_contiguous()):
+        raise ValueError("the f32 backward needs the forward's output o, "
+                         "contiguous and like q")
 
 
 def _launch_args(q, key_bias, seed, scale: float, rate: float):
@@ -366,53 +374,44 @@ def fused_short_fwd(q, k, v, key_bias, seed, scale: float, rate: float,
                     causal: bool):
     """B7's wrapper: ``[b, h, s, d]`` contiguous f32/bf16 in; ``(o,
     stats)`` out, ``o`` like ``q`` and ``stats`` the rows' softmax max and
-    sum ``[2, b, h, s]`` f32 that the bf16 backward reads (None on the f32
-    route, whose backward recomputes them). CPU tensors take
+    sum ``[2, b, h, s]`` f32 that the backward reads. CPU tensors take
     :func:`fused_short_attention_plain`; CUDA tensors launch the kernel of
     the dtype's route on the current stream."""
     _check((q, k, v), key_bias, seed, rate)
     route = fused_short_route(q.dtype)
     if not on_card(q, "fused_short_fwd"):
-        o, stats = fused_short_attention_plain(q, k, v, key_bias, scale, rate,
-                                               seed, causal, with_stats=True)
-        return o, stats if route == "bf16_tc" else None
+        return fused_short_attention_plain(q, k, v, key_bias, scale, rate,
+                                           seed, causal, with_stats=True)
     o = torch.empty_like(q)
-    stats = None
+    stats = torch.empty((2,) + q.shape[:-1], dtype=torch.float32,
+                        device=q.device)
     a = _launch_args(q, key_bias, seed, scale, rate)
     lib = load_library()
+    fn = (lib.azt_fused_short_fwd_bf16 if route == "bf16_tc"
+          else lib.azt_fused_short_fwd_f32)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        if route == "bf16_tc":
-            stats = torch.empty((2,) + q.shape[:-1], dtype=torch.float32,
-                                device=q.device)
-            rc = lib.azt_fused_short_fwd_bf16(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), a["bias"],
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), a["bias"],
                 a["seed"], o.data_ptr(), stats.data_ptr(), *a["dims"],
                 a["scale_log2e"], a["thresh"], a["inv"], int(bool(causal)),
                 stream)
-        else:
-            rc = lib.azt_fused_short_fwd_f32(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), a["bias"],
-                a["seed"], o.data_ptr(), *a["dims"], a["scale_log2e"],
-                a["thresh"], a["inv"], int(bool(causal)), stream)
     launch_counts.launched("fused_short_fwd", rc)
     route_counts.launched(route, rc)
     return o, stats
 
 
 def fused_short_bwd(q, k, v, do, key_bias, seed, scale: float, rate: float,
-                    causal: bool, stats=None):
+                    causal: bool, stats=None, o=None):
     """B8's wrapper: ``(dq, dk, dv)`` for contiguous ``[b, h, s, d]``
-    inputs and ``do``. The bf16 route reads the row ``stats`` that
-    :func:`fused_short_fwd` returned; the f32 route recomputes them and
-    ignores the argument. CPU tensors take
+    inputs and ``do``. Both routes read the row ``stats`` that
+    :func:`fused_short_fwd` returned; the f32 route also reads its output
+    ``o``, for ``D = rowsum(dO·o)``. CPU tensors take
     :func:`fused_short_bwd_plain`; CUDA tensors launch the kernel (a dq
     pass, then a dk/dv pass, each recomputing ``p``: no atomics) on the
     current stream."""
     _check((q, k, v, do), key_bias, seed, rate)
     route = fused_short_route(q.dtype)
-    if route == "bf16_tc":
-        _check_stats(q, stats)
+    _check_saved(q, stats, o)
     if not on_card(q, "fused_short_bwd"):
         return fused_short_bwd_plain(q, k, v, do, key_bias, scale, rate,
                                      seed, causal)
@@ -420,12 +419,11 @@ def fused_short_bwd(q, k, v, do, key_bias, seed, scale: float, rate: float,
     b, h, s, _ = q.shape
     a = _launch_args(q, key_bias, seed, scale, rate)
     lib = load_library()
+    # per query row: rowsum(dp·p), from the dq pass to the dk/dv pass
+    delta = torch.empty((b * h, s), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         if route == "bf16_tc":
-            # per query row: rowsum(dp·p), from the dq pass to the dk/dv pass
-            delta = torch.empty((b * h, s), dtype=torch.float32,
-                                device=q.device)
             rc = lib.azt_fused_short_bwd_bf16(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
                 a["bias"], a["seed"], stats.data_ptr(), delta.data_ptr(),
@@ -433,14 +431,12 @@ def fused_short_bwd(q, k, v, do, key_bias, seed, scale: float, rate: float,
                 a["scale_log2e"], scale, a["thresh"], a["inv"],
                 int(bool(causal)), stream)
         else:
-            # per query row: the softmax max, its denominator, rowsum(dp·p)
-            st = torch.empty((3, b * h, s), dtype=torch.float32,
-                             device=q.device)
             rc = lib.azt_fused_short_bwd_f32(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-                a["bias"], a["seed"], dq.data_ptr(), dk.data_ptr(),
-                dv.data_ptr(), st.data_ptr(), *a["dims"], a["scale_log2e"],
-                scale, a["thresh"], a["inv"], int(bool(causal)), stream)
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                do.data_ptr(), a["bias"], a["seed"], stats.data_ptr(),
+                delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                dv.data_ptr(), *a["dims"], a["scale_log2e"], scale,
+                a["thresh"], a["inv"], int(bool(causal)), stream)
     launch_counts.launched("fused_short_bwd", rc)
     route_counts.launched(route, rc)
     return dq, dk, dv
@@ -448,24 +444,24 @@ def fused_short_bwd(q, k, v, do, key_bias, seed, scale: float, rate: float,
 
 class _FusedShort(torch.autograd.Function):
     """Forward B7, backward B8; the bias is a padding mask and gets no
-    gradient (the JAX package's contract). The bf16 route saves the rows'
-    softmax statistics for its backward."""
+    gradient (the JAX package's contract). The forward saves the rows'
+    softmax statistics and its output for the backward."""
 
     @staticmethod
     def forward(ctx, q, k, v, key_bias, seed, scale, rate, causal):
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
         kb = None if key_bias is None else key_bias.float().contiguous()
         o, stats = fused_short_fwd(q, k, v, kb, seed, scale, rate, causal)
-        ctx.save_for_backward(q, k, v, kb, seed, stats)
+        ctx.save_for_backward(q, k, v, kb, seed, stats, o)
         ctx.args = (scale, rate, causal)
         return o
 
     @staticmethod
     def backward(ctx, g):
-        q, k, v, kb, seed, stats = ctx.saved_tensors
+        q, k, v, kb, seed, stats, o = ctx.saved_tensors
         scale, rate, causal = ctx.args
         dq, dk, dv = fused_short_bwd(q, k, v, g.contiguous(), kb, seed,
-                                     scale, rate, causal, stats)
+                                     scale, rate, causal, stats, o)
         return dq, dk, dv, None, None, None, None, None
 
 

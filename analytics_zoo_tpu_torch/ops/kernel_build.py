@@ -117,10 +117,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.azt_scatter_rows.argtypes = [p, p, p, ll, ll, ll, p]
     lib.azt_scatter_rows.restype = i
     f, u = ctypes.c_float, ctypes.c_uint32
-    lib.azt_fused_short_fwd_f32.argtypes = [p] * 6 + [ll, i, i, i, f, u, f,
+    lib.azt_fused_short_fwd_f32.argtypes = [p] * 7 + [ll, i, i, i, f, u, f,
                                                       i, p]
     lib.azt_fused_short_fwd_f32.restype = i
-    lib.azt_fused_short_bwd_f32.argtypes = [p] * 10 + [ll, i, i, i, f, f, u,
+    lib.azt_fused_short_bwd_f32.argtypes = [p] * 12 + [ll, i, i, i, f, f, u,
                                                        f, i, p]
     lib.azt_fused_short_bwd_f32.restype = i
     lib.azt_fused_short_fwd_bf16.argtypes = [p] * 7 + [ll, i, i, i, f, u, f,

@@ -9,7 +9,9 @@ Phases, each of which must pass or the script exits non-zero:
 2. build: ``nvcc`` builds the port's kernels from ``analytics_zoo_tpu_torch/
    csrc`` (or reuses the build for the same sources), one process per
    source; then the library is built twice more into a scratch directory,
-   that way and with one ``nvcc`` over every source, and both are timed.
+   that way and with one ``nvcc`` over every source, and both are timed;
+   the second's ``ptxas -v`` gives the registers and spills of the 12 bf16
+   flash kernels and the 21 f32 fused short kernels.
 3. kernels: every kernel of the paths is held bit for bit against its
    plain PyTorch version at the main paths' shapes and on ragged, bag-size,
    bf16/fp16 and out-of-range cases, then timed with CUDA events and the
@@ -46,21 +48,25 @@ Phases, each of which must pass or the script exits non-zero:
 6. attention kernels: the fused short attention forward (B7) and backward
    (B8) are held against their plain versions (B8 against autograd through
    the plain forward) for seq 1, 17, 64, 65, 128, 129 and 512, head widths
-   32, 64 and 128, f32 (the CUDA-core route) and bf16 (the tensor-core
-   route, its backward reading the row statistics its forward saved), with
-   and without a padding bias (one row all masked), causal or
-   not, dropout 0 and 0.1: within 2e-5 (f32) and 2e-2 (bf16) of the
-   output's scale, and bit-equal when repeated; each call must count on
-   its dtype's route. Their dropout mask must equal ``dropout_keep_mask``
-   bit for bit over 1536 x 128 x 128 entries in f32 and in bf16, its kept
-   share within 4 sigma of 0.9. At seed 0, on the card and torch build
-   they were recorded on, the grid's largest errors must equal those of
-   commit 5cfb824 bit for bit (its fragment helpers have since moved into
-   ``csrc/mma_bf16.cuh``). The bf16 route at the BERT-base shape
-   (padding bias, dropout 0 and 0.1) and the f32 route at the LM's
-   prefill through B7 ([4, 16, 128, 128], causal) are held to their
-   tolerances again and timed beside their plain versions and
-   ``scaled_dot_product_attention`` with the same mask.
+   32, 64 and 128, f32 (the tensor cores as 3xTF32, ``f32_tc``) and bf16
+   (the tensor cores, ``bf16_tc``), the backward reading the row
+   statistics its forward saved (and in f32 its output), with and without
+   a padding bias (one row all masked), causal or not, dropout 0 and 0.1:
+   within 2e-5 (f32) and 2e-2 (bf16) of the output's scale, and bit-equal
+   when repeated; each call must count on its dtype's route. Their dropout
+   mask must equal ``dropout_keep_mask`` bit for bit over 1536 x 128 x 128
+   entries in f32 and in bf16, its kept share within 4 sigma of 0.9. At
+   seed 0, on the card and torch build they were recorded on, the grid's
+   largest errors must equal the recorded ones bit for bit: the bf16
+   route's those of commit 5cfb824 (its fragment helpers have since moved
+   into ``csrc/mma_bf16.cuh``), the f32 route's ``ATTN_GRID_ERRORS_F32_TC``.
+   The bf16 route at the BERT-base shape (padding bias, dropout 0 and 0.1)
+   and the f32 route at ``ATTN_F32_TIMED``'s shapes (the LM's prefill
+   [4, 16, 128, 128] causal; BERT-base [128, 12, 128, 64], padding bias,
+   dropout 0.1; [4, 16, 512, 128] causal) are held to their tolerances
+   again and timed beside their plain versions and
+   ``scaled_dot_product_attention`` with the same mask and dropout; the f32
+   bounds at the 3xTF32 rate and at the CUDA cores' f32 rate.
 7. BERT: ``BERTClassifier`` at BERT-base width (``bench.py``'s) with seeded
    random weights, bf16, dropout 0.1, adam, fine-tunes 2 epochs of 1024
    padded records at batch 128, seq 128 (16 steps), then evaluates and
@@ -217,6 +223,9 @@ WND_WIDE_ROWS = 16 + 1000 + 100000
 POOL_LARGE_N, POOL_LARGE_BAG, POOL_LARGE_ROWS = 1 << 20, 8, 1 << 23
 #: H100 SXM dense peaks (NVIDIA data sheet): bf16 tensor cores, f32 without
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+#: f32-grade products on the tensor cores as 3xTF32: three TF32 products
+#: (494.7 TFLOP/s dense, H100 SXM data sheet) for each f32 one
+PEAK_FLOPS_3XTF32 = 494.7e12 / 3
 #: BERT-base at the width bench.py benchmarks (bench.py:880-918):
 #: google-research/bert's uncased_L-12_H-768_A-12
 BERT_CFG = dict(vocab=30522, hidden_size=768, n_block=12, n_head=12,
@@ -237,11 +246,19 @@ ATTN_SEQS = (1, 17, 64, 65, 128, 129, 512)
 ATTN_DIMS = (32, 64, 128)
 #: B7/B8's largest grid errors at seed 0 from commit 5cfb824, before their
 #: fragment helpers moved into csrc/mma_bf16.cuh, on this card and torch
-#: build: the move must leave them bit for bit
+#: build: the bf16 route's must stay bit for bit. Its f32 entries are the
+#: CUDA-core kernel's, which the 3xTF32 kernel replaced: kept as a record,
+#: not compared
 ATTN_GRID_ERRORS_5CFB824 = (
     ("NVIDIA H100 80GB HBM3", "2.11.0+cu128"),
     {"fwd": 2.8305358204308074e-07, "bwd": 4.98379385249795e-07,
      "fwd_bf16": 0.007407407407407408, "bwd_bf16": 0.007633587786259542})
+#: the f32 route's largest grid errors at seed 0 on the tensor cores
+#: (3xTF32), on this card and torch build: a change that leaves the f32
+#: kernels' arithmetic alone leaves them bit for bit
+ATTN_GRID_ERRORS_F32_TC = (
+    ("NVIDIA H100 80GB HBM3", "2.11.0+cu128"),
+    {"fwd": 4.17570171394223e-06, "bwd": 7.523755994632065e-06})
 #: the card-against-CPU check: Adam had "the CPU's gradient" for a
 #: parameter where the card's is within this of it, relative
 GRAD_SAME = 1e-3
@@ -263,6 +280,17 @@ GEN_BATCH, GEN_NEW, GEN_PROMPTS = 4, 32, (1000, 100)
 #: prefill bucket of 128, [GEN_BATCH, heads, 128, head width], causal
 ATTN_F32_SHAPE = (GEN_BATCH, LM_CFG["n_head"], 128,
                   LM_CFG["hidden"] // LM_CFG["n_head"])
+#: B7/B8's f32 route timed as (label, [b, h, s, d], padding bias, dropout,
+#: causal): the LM's prefill; BERT-base fine-tuned at the default dtype
+#: (what each of its 12 layers runs a step); the longest length the kernels
+#: take, at the LM's heads
+ATTN_F32_TIMED = (
+    ("lm_prefill", ATTN_F32_SHAPE, False, 0.0, True),
+    ("bert_base", (BERT_BATCH, BERT_CFG["n_head"], BERT_SEQ,
+                   BERT_CFG["hidden_size"] // BERT_CFG["n_head"]),
+     True, 0.1, False),
+    ("s512", (GEN_BATCH, LM_CFG["n_head"], 512, ATTN_F32_SHAPE[3]),
+     False, 0.0, True))
 #: card against CPU: full width at depth 2; two Adam steps at batch 2,
 #: sequence 512; a greedy generate of 8 tokens after a 600-token prompt
 LM_CPU = dict(LM_CFG, n_block=2)
@@ -418,11 +446,12 @@ def step_profile(fn, calls: int = 20, top: int = 0,
 
 
 #: ptxas -v's lines for an entry function of the bf16 flash kernels (B4
-#: ``flash_fwd``, B5a ``flash_bwd_dq``, B5b and B6 ``flash_bwd``) and its
-#: mangled template arguments
+#: ``flash_fwd``, B5a ``flash_bwd_dq``, B5b and B6 ``flash_bwd``) or of the
+#: f32 fused short kernels (B7 ``fused_short_fwd``, B8's two passes
+#: ``fused_short_bwd_dq`` and ``_dkv``) and its mangled template arguments
 _PTXAS_ENTRY = re.compile(
-    r"entry function '\S*?(flash_(?:fwd|bwd|bwd_dq)_bf16_kernel)I"
-    r"((?:L[ib]\d+E)+)E")
+    r"entry function '\S*?((?:flash_(?:fwd|bwd|bwd_dq)_bf16|"
+    r"fused_short_(?:fwd|bwd_dq|bwd_dkv))_kernel)I((?:L[ib]\d+E)+)E")
 _PTXAS_ARG = re.compile(r"L[ib](\d+)E")
 _PTXAS_SPILL = re.compile(
     r"(\d+) bytes spill stores, (\d+) bytes spill loads")
@@ -432,7 +461,8 @@ _PTXAS_REGS = re.compile(r"Used (\d+) registers")
 def ptxas_usage(log: str) -> dict:
     """Registers and spill bytes of each bf16 flash kernel (by its template
     arguments: 16-column chunks of d, and B5b's and B6's keys a block and
-    whether it adds dq) from ``nvcc -Xptxas -v`` output."""
+    whether it adds dq) and each f32 fused short kernel (8-column chunks of
+    d, and warps a row group) from ``nvcc -Xptxas -v`` output."""
     usage, name = {}, None
     for line in log.splitlines():
         m = _PTXAS_ENTRY.search(line)
@@ -456,7 +486,8 @@ def rebuild_seconds(kernel_build) -> dict:
     """Seconds to build the kernel library again into a scratch directory:
     as ``kernel_build`` does (one ``nvcc`` per source, started together,
     then a link), and with one ``nvcc`` over every source (with ``-Xptxas
-    -v``, whose registers and spills of the bf16 flash kernels are kept)."""
+    -v``, whose registers and spills of the bf16 flash kernels and the f32
+    fused short kernels are kept)."""
     srcs, _ = kernel_build._sources()
     out = {}
     with tempfile.TemporaryDirectory(dir=kernel_build.BUILD_DIR) as tmp:
@@ -470,10 +501,16 @@ def rebuild_seconds(kernel_build) -> dict:
                               os.path.join(tmp, "one.so"), *srcs],
                              check=True, capture_output=True, text=True)
         out["one_nvcc"] = time.perf_counter() - t0
-    out["ptxas_bf16_flash"] = ptxas_usage(one.stdout + one.stderr)
-    check(len(out["ptxas_bf16_flash"]) == 12,
-          f"ptxas -v named {sorted(out['ptxas_bf16_flash'])}, expected the "
-          f"bf16 flash kernels (B4, B5a, B5b, B6) at 3 widths each")
+    usage = ptxas_usage(one.stdout + one.stderr)
+    for key, prefix, want, what in (
+            ("ptxas_bf16_flash", "flash_", 12,
+             "bf16 flash kernels (B4, B5a, B5b, B6)"),
+            ("ptxas_f32_fused", "fused_short_", 21,
+             "f32 fused short kernels (B7 at 3 splits, B8's two passes at "
+             "2)")):
+        out[key] = {k: v for k, v in usage.items() if k.startswith(prefix)}
+        check(len(out[key]) == want, f"ptxas -v named {sorted(out[key])}, "
+              f"expected the {what} at 3 widths")
     return out
 
 
@@ -1402,23 +1439,23 @@ def phase_int8_wnd(ek, seed: int, workdir: str):
 
 
 def attention_bound_ms(b, h, s, d, dtype, backward: bool, bias=True,
-                       causal=False) -> tuple:
+                       causal=False, peak=None) -> tuple:
     """Least time for B7 (or B8) at these shapes, and what bounds it: the
     larger of the bytes each input read once and each output written once
-    take at the memory rate and the products' operations at the dtype's
-    peak, over the (row, col) pairs the causal mask leaves. B7: q, k, v and
-    the [b, s] f32 bias in, o out; 4·d operations a pair (q·kᵀ, p·v). B8:
-    q, k, v, dO and the bias in, dq, dk, dv out; 10·d a pair (q·kᵀ again,
-    dO·vᵀ, pdᵀ·dO, ds·k, dsᵀ·q). The row statistics the bf16 route passes
-    from B7 to B8 are that design's bytes, not the function's: not
-    counted."""
+    take at the memory rate and the products' operations at ``peak``
+    (FLOP/s; the dtype's ``PEAK_FLOPS`` by default), over the (row, col)
+    pairs the causal mask leaves. B7: q, k, v and the [b, s] f32 bias in, o
+    out; 4·d operations a pair (q·kᵀ, p·v). B8: q, k, v, dO and the bias
+    in, dq, dk, dv out; 10·d a pair (q·kᵀ again, dO·vᵀ, pdᵀ·dO, ds·k,
+    dsᵀ·q). What a design passes from B7 to B8 (the row statistics, the
+    output for D) is its own bytes, not the function's: not counted."""
     size = torch.tensor([], dtype=dtype).element_size()
     tile = b * h * s * d * size
     bytes_ = (7 if backward else 4) * tile + (4 * b * s if bias else 0)
     pairs = flash_pairs(s, s, causal)
     flops = (10 if backward else 4) * b * h * pairs * d
     t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    t_ops = flops / (peak or PEAK_FLOPS[dtype]) * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -1440,21 +1477,22 @@ def _rel_err(got, want) -> float:
 
 def _fused_pair(at, q, k, v, do, args):
     """B7 then B8 as ``_FusedShort`` runs them: the forward saves the rows'
-    softmax statistics, which the bf16 backward reads."""
+    softmax statistics, which the backward reads (the f32 route also its
+    output, for D)."""
     o, stats = at.fused_short_fwd(q, k, v, *args)
-    return o, at.fused_short_bwd(q, k, v, do, *args, stats), stats
+    return o, at.fused_short_bwd(q, k, v, do, *args, stats, o), stats
 
 
 def _attn_timing(at, q, k, v, do, args, library_fwd, library_fwd_bwd):
     """CUDA-event (and profiler) times of B7, B8, their plain versions and
     the library's call, and B7's and B8's errors against the plain
-    versions on the same inputs (the bf16 backward from the statistics
-    B7 saved)."""
+    versions on the same inputs (the backward from the statistics and
+    output B7 saved)."""
     kb, seed_t, scale, rate, causal = args
-    _, _, stats = _fused_pair(at, q, k, v, do, args)
+    o, _, stats = _fused_pair(at, q, k, v, do, args)
     fns = {
         "fwd_ms": lambda: at.fused_short_fwd(q, k, v, *args),
-        "bwd_ms": lambda: at.fused_short_bwd(q, k, v, do, *args, stats),
+        "bwd_ms": lambda: at.fused_short_bwd(q, k, v, do, *args, stats, o),
         "plain_fwd_ms": lambda: at.fused_short_attention_plain(
             q, k, v, kb, scale, rate, seed_t, causal, with_stats=True),
         "plain_bwd_ms": lambda: at.fused_short_bwd_plain(
@@ -1471,10 +1509,8 @@ def _attn_timing(at, q, k, v, do, args, library_fwd, library_fwd_bwd):
     got, grads, _ = _fused_pair(at, q, k, v, do, args)
     t["fwd_max_abs_err"] = float((got.float() - want.float()).abs().max())
     t["fwd_rel_err"] = _rel_err(got, want)
-    if stats is not None:
-        t["stats_max_rel_err"] = float(((stats - want_stats).abs()
-                                        / want_stats.abs().clamp_min(1.0)
-                                        ).max())
+    t["stats_max_rel_err"] = float(((stats - want_stats).abs()
+                                    / want_stats.abs().clamp_min(1.0)).max())
     plain = at.fused_short_bwd_plain(q, k, v, do, kb, scale, rate, seed_t,
                                      causal)
     t["bwd_max_abs_err"] = max(float((a.float() - b.float()).abs().max())
@@ -1517,12 +1553,11 @@ def phase_attention_kernels(at, dev, seed: int):
                                   == before[route] + 2, f"{dtype} took "
                                   f"{dict(at.route_counts)}, not {route}")
                             again = at.fused_short_fwd(q, k, v, *args)
-                            check(torch.equal(o, again[0]) and (
-                                stats is None
-                                or torch.equal(stats, again[1])),
-                                "B7 not bit-equal twice")
+                            check(torch.equal(o, again[0])
+                                  and torch.equal(stats, again[1]),
+                                  "B7 not bit-equal twice")
                             again = at.fused_short_bwd(q, k, v, do, *args,
-                                                       stats)
+                                                       stats, o)
                             check(all(torch.equal(a, b) for a, b in
                                       zip(grads, again)),
                                   "B8 not bit-equal twice")
@@ -1552,15 +1587,21 @@ def phase_attention_kernels(at, dev, seed: int):
         f"of their plain versions on {cases} cases, each dtype by its own "
         f"route, bit-equal when repeated; largest errors "
         f"{json.dumps(errors)}")
-    where, before = ATTN_GRID_ERRORS_5CFB824
-    if seed == 0 and where == (torch.cuda.get_device_name(0),
-                               torch.__version__):
-        check(errors == before, f"B7/B8's grid errors {errors} differ from "
-              f"commit 5cfb824's {before}")
-        log("B7/B8's grid errors equal commit 5cfb824's bit for bit")
-    else:
-        log(f"B7/B8's grid errors not compared with commit 5cfb824's "
-            f"(recorded at seed 0 on {where})")
+    for route, (where, before) in (("bf16", ATTN_GRID_ERRORS_5CFB824),
+                                   ("f32", ATTN_GRID_ERRORS_F32_TC)):
+        keys = ("fwd_bf16", "bwd_bf16") if route == "bf16" else ("fwd",
+                                                                 "bwd")
+        got = {k: errors[k] for k in keys}
+        want = {k: before[k] for k in keys}
+        if seed == 0 and where == (torch.cuda.get_device_name(0),
+                                   torch.__version__):
+            check(got == want, f"B7/B8's {route} grid errors {got} differ "
+                  f"from the recorded {want}")
+            log(f"B7/B8's {route} grid errors equal the recorded ones bit "
+                f"for bit")
+        else:
+            log(f"B7/B8's {route} grid errors not compared (recorded at "
+                f"seed 0 on {where})")
 
     # the mask: q = k = 0 makes p = 1/s; v = dO = I reads pd back out of o
     # and dv, so the kernels' mask is o != 0 (and dvᵀ != 0); 1/(s·0.9)
@@ -1611,25 +1652,41 @@ def phase_attention_kernels(at, dev, seed: int):
         bound, by = attention_bound_ms(b, h, s, d, torch.bfloat16, bwd)
         timings["bwd_bound" if bwd else "fwd_bound"] = [bound, by]
     del q, k, v, do, leaves
-
-    # the f32 route at the LM's prefill through B7: causal, no bias
-    fb, fh, fs = ATTN_F32_SHAPE[:3]
-    fd = ATTN_F32_SHAPE[3]
-    q, k, v, do, _ = _attn_case(dev, fb, fh, fs, fd, torch.float32, gen)
-    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
-    t = _attn_timing(
-        at, q, k, v, do, (None, None, 1.0 / math.sqrt(fd), 0.0, True),
-        lambda: sdpa(q, k, v, is_causal=True),
-        lambda: sdpa(*leaves, is_causal=True).backward(do))
-    for bwd in (False, True):
-        bound, by = attention_bound_ms(fb, fh, fs, fd, torch.float32, bwd,
-                                       bias=False, causal=True)
-        t["bwd_bound" if bwd else "fwd_bound"] = [bound, by]
-    t["shape"] = {"b": fb, "h": fh, "s": fs, "d": fd, "dtype": "f32",
-                  "causal": True}
-    timings["f32_lm_prefill"] = t
-    log("attention timing f32 lm prefill " + json.dumps(t))
+    timings["f32"] = f32_attention_timings(at, dev, gen, seed_t)
     return timings
+
+
+def f32_attention_timings(at, dev, gen, seed_t) -> dict:
+    """Time B7 and B8's f32 route at each shape of ``ATTN_F32_TIMED`` (CUDA
+    events and the profiler's device time) beside their plain versions and
+    ``scaled_dot_product_attention`` in f32 with the same mask and
+    dropout, held to the plain versions within ``ATTN_ATOL``; each bound at
+    the 3xTF32 rate (``bound``) and at the CUDA cores' f32 rate
+    (``bound_simt``). Returns the timings by label."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    out = {}
+    for label, (b, h, s, d), bias, rate, causal in ATTN_F32_TIMED:
+        q, k, v, do, mask = _attn_case(dev, b, h, s, d, torch.float32, gen)
+        kb = ((1.0 - mask) * -1e9).to(dev) if bias else None
+        kw = dict(attn_mask=None if kb is None else kb[:, None, None, :],
+                  dropout_p=rate, is_causal=causal)
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        t = _attn_timing(
+            at, q, k, v, do, (kb, seed_t, 1.0 / math.sqrt(d), rate, causal),
+            lambda: sdpa(q, k, v, **kw),
+            lambda: sdpa(*leaves, **kw).backward(do))
+        for key, bwd in (("fwd", False), ("bwd", True)):
+            for tag, peak in (("", PEAK_FLOPS_3XTF32),
+                              ("_simt", PEAK_FLOPS[torch.float32])):
+                t[f"{key}_bound{tag}"] = list(attention_bound_ms(
+                    b, h, s, d, torch.float32, bwd, bias=bias,
+                    causal=causal, peak=peak))
+        t["shape"] = {"b": b, "h": h, "s": s, "d": d, "dtype": "f32",
+                      "bias": bias, "dropout": rate, "causal": causal}
+        out[label] = t
+        log(f"attention timing f32 {label} " + json.dumps(t))
+        del q, k, v, do, leaves
+    return out
 
 
 def bert_records(seed: int, n: int, seq: int):
@@ -1706,7 +1763,7 @@ def phase_bert(at, ek, seed: int):
         check(got == per(k, backward), f"{name} launched {got}, expected "
               f"{per(k, backward)}")
         want = blocks * k * (2 if backward else 1)
-        check(counts[name]["routes"] == {"bf16_tc": want, "f32_simt": 0},
+        check(counts[name]["routes"] == {"bf16_tc": want, "f32_tc": 0},
               f"{name} took the routes {counts[name]['routes']}, expected "
               f"{want} bf16_tc")
     losses = np.asarray(hist["loss_history"])
@@ -1841,7 +1898,7 @@ def phase_bert_vs_cpu(at, seed: int):
     check(probs_err <= 1e-5, f"card probabilities differ by {probs_err}")
     fused = launches["fused_short_fwd"] + launches["fused_short_bwd"]
     check(launches["fused_short_bwd"] > 0 and launches["routes"] == {
-        "bf16_tc": 0, "f32_simt": fused}, f"the f32 card run launched "
+        "bf16_tc": 0, "f32_tc": fused}, f"the f32 card run launched "
         f"{launches}, not the f32 route alone")
     steps = len(l_cpu)
     check(len(g_dev) == len(g_cpu) == steps and g_dev[0].keys() == w_cpu.keys()
@@ -2397,9 +2454,9 @@ def phase_lm_generate(at, ek, lm, seed: int):
                 "fused_short_bwd": 0, "gather_rows": 1 + GEN_NEW}
         check(counts == want, f"generate after {length} tokens launched "
               f"{counts}, expected {want}")
-        check(routes == {"bf16_tc": 0, "f32_simt": want["fused_short_fwd"]},
+        check(routes == {"bf16_tc": 0, "f32_tc": want["fused_short_fwd"]},
               f"generate after {length} tokens took the routes {routes}, "
-              f"expected f32_simt alone")
+              f"expected f32_tc alone")
         check(gen.shape == (GEN_BATCH, GEN_NEW) and bool(
             ((gen >= 0) & (gen < LM_CFG["vocab_size"])).all()),
               "generated tokens malformed")
@@ -3132,11 +3189,9 @@ def main() -> int:
     main_t = attn["rate_0.1"]  # the fine-tune's attention dropout
     attn_sources = {
         "bf16_tc": "analytics_zoo_tpu_torch/csrc/fused_short_attn_bf16.cu",
-        "f32_simt": "analytics_zoo_tpu_torch/csrc/fused_short_attn.cu"}
+        "f32_tc": "analytics_zoo_tpu_torch/csrc/fused_short_attn.cu"}
     attn_shape = (f"b {BERT_BATCH} x h {BERT_CFG['n_head']}, s {BERT_SEQ}, "
                   f"d 64, bf16, padding bias, dropout 0.1")
-    f32_shape = ("b {} x h {}, s {}, d {}, f32, causal (the LM's prefill)"
-                 .format(*ATTN_F32_SHAPE))
     attn_entries = []
     for name, key, line, tpu, bound, library in (
             ("fused_short_fwd", "fwd", 716, "_fused_short_fwd_kernel",
@@ -3163,22 +3218,29 @@ def main() -> int:
             "max_rel_err_grid": attn["errors"][f"{key}_bf16"],
             "launches_by_path": {k: v for k, v in by_path.items()
                                  if k in bert_launches}}}
-        f32 = attn["f32_lm_prefill"]
-        routes["f32_simt"] = {
-            "source": attn_sources["f32_simt"],
-            "shape": f32_shape, "ms": f32[f"{key}_ms"],
-            "device_ms": f32[f"{key}_device_ms"],
-            "bound_ms": f32[f"{key}_bound"][0],
-            "bound_by": f32[f"{key}_bound"][1],
-            "plain_ms": f32[f"plain_{key}_ms"],
-            "library_ms": f32[library[0]],
-            "library": library[1].replace(
-                "scaled_dot_product_attention",
-                "scaled_dot_product_attention(is_causal=True)"),
-            "library_device_ms": f32[library[0].replace("_ms",
-                                                        "_device_ms")],
-            "max_abs_err": f32[f"{key}_max_abs_err"],
+        # the f32 route at each timed shape, the LM's prefill first; its
+        # bound at the 3xTF32 rate, and at the CUDA cores' f32 rate beside
+        def f32_at(label, key=key, library=library):
+            f32 = attn["f32"][label]
+            return {
+                "shape": f32["shape"], "ms": f32[f"{key}_ms"],
+                "device_ms": f32[f"{key}_device_ms"],
+                "bound_ms": f32[f"{key}_bound"][0],
+                "bound_by": f32[f"{key}_bound"][1],
+                "bound_rate": "3xTF32, 494.7 / 3 TFLOP/s",
+                "bound_ms_f32_cuda_cores": f32[f"{key}_bound_simt"][0],
+                "plain_ms": f32[f"plain_{key}_ms"],
+                "library_ms": f32[library[0]],
+                "library_device_ms": f32[library[0].replace(
+                    "_ms", "_device_ms")],
+                "max_abs_err": f32[f"{key}_max_abs_err"]}
+
+        routes["f32_tc"] = {
+            "source": attn_sources["f32_tc"], **f32_at("lm_prefill"),
+            "library": library[1] + ", f32, with the same mask and dropout",
             "max_rel_err_grid": attn["errors"][key],
+            "other_shapes": {label: f32_at(label)
+                             for label, *_ in ATTN_F32_TIMED[1:]},
             "launches_by_path": {k: v for k, v in by_path.items()
                                  if k not in bert_launches}}
         # the top-level numbers are the main path's: BERT's bf16 route

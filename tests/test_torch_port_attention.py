@@ -154,7 +154,7 @@ def test_the_forward_saves_each_rows_max_and_sum(causal):
 
 def test_the_dtype_picks_the_route():
     assert at.fused_short_route(torch.bfloat16) == "bf16_tc"
-    assert at.fused_short_route(torch.float32) == "f32_simt"
+    assert at.fused_short_route(torch.float32) == "f32_tc"
     q, k, v, g = (torch.tensor(a).bfloat16() for a in _qkv(12))
     o, stats = at.fused_short_fwd(q, k, v, None, None, 0.25, 0.0, False)
     assert stats.shape == (2, 2, 3, 17)
@@ -167,11 +167,22 @@ def test_the_dtype_picks_the_route():
     dq, dk, dv = at.fused_short_bwd(q, k, v, g, None, None, 0.25, 0.0, False,
                                     stats)
     assert dq.dtype == dk.dtype == dv.dtype == torch.bfloat16
-    # f32 saves nothing: its backward recomputes the statistics
+    # f32 saves the statistics too, and its backward also reads the output
+    # (D = rowsum(dO·o))
     f = [t.float() for t in (q, k, v)]
-    assert at.fused_short_fwd(*f, None, None, 0.25, 0.0, False)[1] is None
-    assert len(at.fused_short_bwd(*f, g.float(), None, None, 0.25, 0.0,
-                                  False)) == 3
+    o, stats = at.fused_short_fwd(*f, None, None, 0.25, 0.0, False)
+    assert stats.shape == (2, 2, 3, 17)
+    with pytest.raises(ValueError):
+        at.fused_short_bwd(*f, g.float(), None, None, 0.25, 0.0, False)
+    with pytest.raises(ValueError):
+        at.fused_short_bwd(*f, g.float(), None, None, 0.25, 0.0, False,
+                           stats)
+    with pytest.raises(ValueError):
+        at.fused_short_bwd(*f, g.float(), None, None, 0.25, 0.0, False,
+                           stats, o[:, :1].contiguous())
+    dq, dk, dv = at.fused_short_bwd(*f, g.float(), None, None, 0.25, 0.0,
+                                    False, stats, o)
+    assert dq.dtype == dk.dtype == dv.dtype == torch.float32
 
 
 def test_the_bf16_rounding_passes_its_gradient_through_in_f32():
@@ -326,7 +337,7 @@ def test_cpu_tensors_take_the_plain_versions_and_launch_nothing():
     _port(q, k, v, g, None, False)
     _port(q, k, v, g, None, False, torch.bfloat16)
     assert at.launch_counts == {"fused_short_fwd": 0, "fused_short_bwd": 0}
-    assert at.route_counts == {"bf16_tc": 0, "f32_simt": 0}
+    assert at.route_counts == {"bf16_tc": 0, "f32_tc": 0}
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take():

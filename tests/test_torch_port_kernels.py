@@ -481,7 +481,7 @@ def test_fused_short_kernels_equal_their_plain_versions_on_the_card(
                 o, stats = at.fused_short_fwd(q, k, v, kb, seed, 0.125, rate,
                                               causal)
                 grads = at.fused_short_bwd(q, k, v, do, kb, seed, 0.125,
-                                           rate, causal, stats)
+                                           rate, causal, stats, o)
                 torch.cuda.synchronize()
                 assert at.launch_counts == {
                     "fused_short_fwd": before["fused_short_fwd"] + 1,
@@ -496,7 +496,7 @@ def test_fused_short_kernels_equal_their_plain_versions_on_the_card(
                 for name, g, t in zip("qkv", grads, leaves):
                     assert _close(g, t.grad, dtype), f"d{name} {case}"
                 again = at.fused_short_bwd(q, k, v, do, kb, seed, 0.125,
-                                           rate, causal, stats)
+                                           rate, causal, stats, o)
                 assert torch.equal(o, at.fused_short_fwd(
                     q, k, v, kb, seed, 0.125, rate, causal)[0]), case
                 assert all(torch.equal(a, b) for a, b in zip(grads, again))
@@ -517,7 +517,7 @@ def test_the_kernels_dropout_mask_is_the_plain_mask_bit_for_bit(
     seed = torch.tensor([99], dtype=torch.int32, device=cuda_device)
     o, stats = at.fused_short_fwd(q, q, eye, None, seed, 1.0, 0.1, False)
     _, _, dv = at.fused_short_bwd(q, q, eye, eye, None, seed, 1.0, 0.1,
-                                  False, stats)
+                                  False, stats, o)
     want = at.dropout_keep_mask(seed, b * h, s, 0.1).reshape(b, h, s, s)
     assert torch.equal(o != 0, want)
     assert torch.equal(dv.transpose(-1, -2) != 0, want)
@@ -526,23 +526,98 @@ def test_the_kernels_dropout_mask_is_the_plain_mask_bit_for_bit(
 
 
 @pytest.mark.cuda
-def test_bf16_takes_the_tensor_cores_and_f32_the_cuda_cores(cuda_device):
+def test_bf16_and_f32_each_take_their_tensor_core_route(cuda_device):
+    """B7 and B8 count on ``"bf16_tc"`` in bf16 and on ``"f32_tc"`` (3xTF32)
+    in f32, both saving the row statistics; the flash kernels' f32 route
+    stays ``"f32_simt"``."""
     from analytics_zoo_tpu_torch.ops import attention as at
     for dtype, route in ((torch.bfloat16, "bf16_tc"),
-                         (torch.float32, "f32_simt")):
+                         (torch.float32, "f32_tc")):
         q, k, v, do, bias = _attn_inputs(cuda_device, 2, 2, 40, 64, dtype,
                                          3)
         at.reset_launch_counts()
         o, stats = at.fused_short_fwd(q, k, v, bias, None, 0.125, 0.0,
                                       False)
         at.fused_short_bwd(q, k, v, do, bias, None, 0.125, 0.0, False,
-                           stats)
-        assert at.route_counts == {"bf16_tc": 0, "f32_simt": 0, route: 2}
-        assert (stats is None) == (route == "f32_simt")
-    # the bf16 backward reads the forward's row statistics
+                           stats, o)
+        assert at.route_counts == {"bf16_tc": 0, "f32_tc": 0, route: 2}
+        assert at.flash_route_counts == {"bf16_tc": 0, "f32_simt": 0}
+        assert stats.shape == (2, 2, 2, 40)
+    assert at.flash_route(torch.float32) == "f32_simt"
+    # the backward reads the forward's row statistics (and in f32 its output)
     with pytest.raises(ValueError):
         at.fused_short_bwd(*(t.bfloat16() for t in (q, k, v, do)), bias,
                            None, 0.125, 0.0, False)
+    with pytest.raises(ValueError):
+        at.fused_short_bwd(q, k, v, do, bias, None, 0.125, 0.0, False, stats)
+
+
+#: the f32 route's timed shapes (chip_smoke.ATTN_F32_TIMED): the LM's
+#: prefill, BERT-base at the default dtype, the longest length
+_F32_TIMED = {"lm_prefill": ((4, 16, 128, 128), False, 0.0, True),
+              "bert_base": ((128, 12, 128, 64), True, 0.1, False),
+              "s512": ((4, 16, 512, 128), False, 0.0, True)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("label", sorted(_F32_TIMED))
+def test_f32_route_equals_its_plain_versions_at_the_timed_shapes(
+        cuda_device, label):
+    from analytics_zoo_tpu_torch.ops import attention as at
+    (b, h, s, d), bias, rate, causal = _F32_TIMED[label]
+    q, k, v, do, kb = _attn_inputs(cuda_device, b, h, s, d, torch.float32,
+                                   s + d)
+    kb = kb if bias else None
+    seed = torch.tensor([4321], dtype=torch.int32, device=cuda_device)
+    scale = d ** -0.5
+    at.reset_launch_counts()
+    o, stats = at.fused_short_fwd(q, k, v, kb, seed, scale, rate, causal)
+    grads = at.fused_short_bwd(q, k, v, do, kb, seed, scale, rate, causal,
+                               stats, o)
+    assert at.route_counts == {"bf16_tc": 0, "f32_tc": 2}
+    want = at.fused_short_attention_plain(q, k, v, kb, scale, rate, seed,
+                                          causal)
+    assert _close(o, want, torch.float32)
+    plain = at.fused_short_bwd_plain(q, k, v, do, kb, scale, rate, seed,
+                                     causal)
+    for name, g, w in zip("qkv", grads, plain):
+        assert _close(g, w, torch.float32), f"d{name}"
+    assert torch.equal(o, at.fused_short_fwd(q, k, v, kb, seed, scale, rate,
+                                             causal)[0])
+    again = at.fused_short_bwd(q, k, v, do, kb, seed, scale, rate, causal,
+                               stats, o)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,d", [(17, 24), (65, 64), (129, 128)])
+def test_f32_route_equals_its_plain_versions_on_a_grid_of_many_blocks(
+        cuda_device, s, d):
+    """b·h 1536 gives at least 8 blocks an SM, where the f32 kernels take
+    four-warp blocks (``split_for`` in ``csrc/fused_short_attn.cu``); the
+    grid test's small grids take eight-warp ones."""
+    from analytics_zoo_tpu_torch.ops import attention as at
+    q, k, v, do, bias = _attn_inputs(cuda_device, 128, 12, s, d,
+                                     torch.float32, s * d)
+    seed = torch.tensor([77], dtype=torch.int32, device=cuda_device)
+    for kb in (None, bias):
+        for causal in (False, True):
+            for rate in (0.0, 0.1):
+                o, stats = at.fused_short_fwd(q, k, v, kb, seed, 0.125, rate,
+                                              causal)
+                grads = at.fused_short_bwd(q, k, v, do, kb, seed, 0.125,
+                                           rate, causal, stats, o)
+                case = f"bias={kb is not None} causal={causal} rate={rate}"
+                want = at.fused_short_attention_plain(q, k, v, kb, 0.125,
+                                                      rate, seed, causal)
+                assert _close(o, want, torch.float32), case
+                plain = at.fused_short_bwd_plain(q, k, v, do, kb, 0.125,
+                                                 rate, seed, causal)
+                for name, g, w in zip("qkv", grads, plain):
+                    assert _close(g, w, torch.float32), f"d{name} {case}"
+                again = at.fused_short_bwd(q, k, v, do, kb, seed, 0.125,
+                                           rate, causal, stats, o)
+                assert all(torch.equal(a, b) for a, b in zip(grads, again))
 
 
 @pytest.mark.cuda
@@ -565,7 +640,7 @@ def test_a_bert_step_launches_each_attention_kernel_once_per_block(
     assert steps == 4 and np.isfinite(hist["loss_history"]).all()
     assert at.launch_counts == {"fused_short_fwd": 2 * steps,
                                 "fused_short_bwd": 2 * steps}
-    assert at.route_counts == {"bf16_tc": 4 * steps, "f32_simt": 0}
+    assert at.route_counts == {"bf16_tc": 4 * steps, "f32_tc": 0}
     assert ek.launch_counts["gather_rows"] == 3 * steps
     at.reset_launch_counts()
     assert clf.predict(tok, batch_size=32).shape == (64, 2)
