@@ -78,7 +78,8 @@ from .kernel_build import LaunchCounts, load_library, on_card
 #: the longest sequence the fused kernels take (the TPU's VMEM budget for
 #: the [s, s] block; here the shared memory of the backward's dq pass)
 FUSED_SHORT_MAX_SEQ = 512
-#: the widest head the kernels take (16 f32 accumulators per thread)
+#: the widest head the CUDA kernels take (16 f32 accumulators per thread);
+#: the plain versions take any
 FUSED_SHORT_MAX_HEAD_DIM = 128
 _NEG_INF = -1e30
 _LOG2E = 1.4426950408889634
@@ -304,12 +305,22 @@ def dot_product_attention(q, k, v, bias=None, causal: bool = False,
 # -- the kernels' wrappers ---------------------------------------------------
 
 
+def _check_head_dim(q, most: int) -> None:
+    """Raise on an empty head, and on a CUDA tensor's head wider than
+    ``most``, the widest the CUDA kernels take; the plain versions, which
+    CPU tensors take, compute any width, as the JAX package does."""
+    d = q.shape[-1]
+    if d < 1 or (q.device.type == "cuda" and d > most):
+        raise ValueError(f"head_dim {d} outside [1, {most}] (the CUDA "
+                         f"kernels' widths)")
+
+
 def _check(tensors, key_bias, seed, rate: float) -> None:
     """Raise on what the kernels do not take."""
     q = tensors[0]
     if q.dim() != 4:
         raise ValueError(f"q must be [b, h, s, d], got {tuple(q.shape)}")
-    b, _, s, d = q.shape
+    b, _, s, _ = q.shape
     for t in tensors:
         if t.shape != q.shape:
             raise ValueError(f"shapes differ: {tuple(t.shape)} vs "
@@ -324,9 +335,7 @@ def _check(tensors, key_bias, seed, rate: float) -> None:
         raise TypeError(f"dtype {q.dtype} not in {list(_DTYPES)}")
     if not 1 <= s <= FUSED_SHORT_MAX_SEQ:
         raise ValueError(f"seq {s} outside [1, {FUSED_SHORT_MAX_SEQ}]")
-    if not 1 <= d <= FUSED_SHORT_MAX_HEAD_DIM:
-        raise ValueError(f"head_dim {d} outside "
-                         f"[1, {FUSED_SHORT_MAX_HEAD_DIM}]")
+    _check_head_dim(q, FUSED_SHORT_MAX_HEAD_DIM)
     if key_bias is not None and (
             key_bias.shape != (b, s) or key_bias.dtype != torch.float32
             or key_bias.device != q.device or not key_bias.is_contiguous()):
@@ -499,7 +508,7 @@ def fused_short_applicable(q_len: int, kv_len: int, causal: bool) -> bool:
 #: :func:`blockwise_attention` (the kernels cut fixed 64-row tiles)
 DEFAULT_Q_BLOCK = 512
 DEFAULT_KV_BLOCK = 1024
-#: the widest head the flash kernels take
+#: the widest head the CUDA flash kernels take; the plain versions take any
 FLASH_MAX_HEAD_DIM = 128
 _LN2 = 1.0 / _LOG2E
 #: the JAX package's budget for its one-pass backward: K/V in their dtype
@@ -655,8 +664,7 @@ def _flash_check(q, k, v, do=None, key_bias=None, rows=()) -> None:
         raise TypeError(f"dtype {q.dtype} not in {list(_DTYPES)}")
     if q_len < 1 or kv_len < 1:
         raise ValueError("empty sequence")
-    if not 1 <= d <= FLASH_MAX_HEAD_DIM:
-        raise ValueError(f"head_dim {d} outside [1, {FLASH_MAX_HEAD_DIM}]")
+    _check_head_dim(q, FLASH_MAX_HEAD_DIM)
     if key_bias is not None and (
             key_bias.shape != (b, kv_len) or key_bias.dtype != torch.float32
             or key_bias.device != q.device or not key_bias.is_contiguous()):

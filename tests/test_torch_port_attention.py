@@ -351,9 +351,6 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
     with pytest.raises(ValueError):  # non-contiguous
         qt = q.transpose(1, 2).contiguous().transpose(1, 2)
         at.fused_short_fwd(qt, qt, qt, None, None, 0.25, 0.0, False)
-    with pytest.raises(ValueError):  # head_dim > 128
-        w = torch.zeros(1, 1, 8, 129)
-        at.fused_short_fwd(w, w, w, None, None, 0.25, 0.0, False)
     with pytest.raises(ValueError):  # seq > 512
         w = torch.zeros(1, 1, 513, 8)
         at.fused_short_fwd(w, w, w, None, None, 0.25, 0.0, False)

@@ -829,3 +829,32 @@ def test_flash_backward_takes_the_design_the_resident_bytes_pick(
         "flash_bwd_fused": 1 if fused else 0}
     assert at.flash_route_counts[at.flash_route(dtype)] == \
         (2 if fused else 3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_card_wrappers_refuse_heads_past_128_before_any_launch(
+        cuda_device, dtype):
+    """The CUDA kernels take heads up to 128: a wider CUDA tensor raises
+    ``ValueError`` in every attention wrapper and launches nothing (the
+    plain versions, which CPU tensors take, compute any width)."""
+    from analytics_zoo_tpu_torch.ops import attention as at
+    w = torch.zeros(1, 1, 8, 129, device=cuda_device, dtype=dtype)
+    rows = torch.zeros(1, 1, 8, device=cuda_device)
+    at.reset_launch_counts()
+    calls = (
+        lambda: at.fused_short_fwd(w, w, w, None, None, 0.25, 0.0, False),
+        lambda: at.fused_short_bwd(w, w, w, w, None, None, 0.25, 0.0, False,
+                                   torch.zeros(2, 1, 1, 8,
+                                               device=cuda_device), w),
+        lambda: at.flash_fwd(w, w, w, None, 0.1, False),
+        lambda: at.flash_bwd_dq(w, w, w, w, rows, rows, None, 0.1, False),
+        lambda: at.flash_bwd_dkv(w, w, w, w, rows, rows, None, 0.1, False),
+        lambda: at.flash_bwd_fused(w, w, w, w, rows, rows, None, 0.1,
+                                   False))
+    for call in calls:
+        with pytest.raises(ValueError, match="head_dim 129"):
+            call()
+    assert sum(at.launch_counts.values()) == 0
+    assert sum(at.flash_launch_counts.values()) == 0
