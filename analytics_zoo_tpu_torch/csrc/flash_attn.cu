@@ -1,31 +1,25 @@
 // Flash attention for Hopper (sm_90a) on the CUDA cores, in f32: the
-// forward (B4), the two-pass backward (B5a dq, B5b dk/dv) and the one-pass
-// backward (B6). In bf16 all four run on the tensor cores, in
+// two-pass backward's dq pass (B5a) and the one-pass backward (B6). The f32
+// forward (B4) and dk/dv pass (B5b) run on the tensor cores as 3xTF32
+// (flash_attn_tf32.cu); in bf16 all four run on the tensor cores, in
 // flash_attn_bf16.cu.
 //
 // Replaces the TPU kernels in analytics_zoo_tpu/ops/attention.py:
-//   B4  `_flash_fwd_kernel`        (pallas_call in `_flash_fwd_pallas`)
 //   B5a `_flash_bwd_dq_kernel`     (pallas_call in `_flash_bwd_pallas`)
-//   B5b `_flash_bwd_dkv_kernel`    (pallas_call in `_flash_bwd_pallas`)
 //   B6  `_flash_bwd_fused_kernel`  (pallas_call in `_flash_bwd_fused`)
 //
 // q [bh, sq, d], k and v [bh, skv, d] (f32, contiguous, d <= 128, any
-// lengths, sq and skv apart), an optional
-// per-key bias key_bias [bh / heads, skv] f32 in natural-log units (B4
-// only), and an optional causal mask aligned top-left (key col visible to
-// query row iff col <= row, absolute indices). In f32 throughout, as
-// B7/B8:
+// lengths, sq and skv apart), the forward's row logsumexp, and an optional
+// causal mask aligned top-left (key col visible to query row iff col <=
+// row, absolute indices). In f32 throughout, as B7/B8:
 //
-//   t[i, j] = (q_i . k_j) * scale*log2(e) + key_bias[j]*log2(e)
+//   t[i, j] = (q_i . k_j) * scale*log2(e)
 //   t[i, j] = -1e30 where causal and j > i
-//   B4:  m_i = max_j t, l_i = sum_j exp2(t - m_i) by the online softmax
-//        over key tiles, o_i = sum_j exp2(t - m_i) v_j / max(l_i, 1e-30),
-//        lse_i = m_i * ln 2 + ln(max(l_i, 1e-30))
-//   bwd: p = exp2(t - lse_i * log2(e)), dp = dO_i . v_j,
-//        ds = p * (dp - D_i + glse_i) with D_i = sum dO_i * o_i (computed
-//        by the caller) and glse the lse cotangent (NULL for 0);
-//        dq_i = scale * sum_j ds k_j, dk_j = scale * sum_i ds q_i,
-//        dv_j = sum_i p dO_i.
+//   p = exp2(t - lse_i * log2(e)), dp = dO_i . v_j,
+//   ds = p * (dp - D_i + glse_i) with D_i = sum dO_i * o_i (computed by the
+//   caller) and glse the lse cotangent (NULL for 0);
+//   dq_i = scale * sum_j ds k_j, dk_j = scale * sum_i ds q_i,
+//   dv_j = sum_i p dO_i.
 //
 // Tiles are 64 query rows by 64 keys. A key tile wholly above the diagonal
 // is skipped; a ragged tile is masked (columns past skv weigh exactly 0,
@@ -38,34 +32,25 @@
 // float4 along the keys and the 64 x d operand as float4 along d; each
 // float4 read feeds four or eight fmas and no read has a bank conflict.
 //
-//   B4:  a block per (bh, query tile), walking the key tiles; the running
-//        max, denominator and a 4 x 8 f32 accumulator in registers; K and
-//        V share one shared-memory tile (85 KB at d = 128: two blocks an
-//        SM). Heaviest causal tiles are launched first.
 //   B5a: a block per (bh, query tile) walking the key tiles: recompute p,
 //        dp, ds; dq += ds k. No atomics (150 KB).
-//   B5b: a block per (bh, key tile) walking the query tiles from the
-//        diagonal down: dv += p^T dO, dk += ds^T q in registers. No
-//        atomics (167 KB).
-//   B6:  B5b's walk, and each p and ds tile computed once also feeds
-//        dq += ds k, added with atomicAdd into an f32 buffer the caller
-//        zeroed, scaled before the add. 5 tile products where the two
-//        passes take 7. dq then sums its key tiles in no fixed order: at
-//        most skv / 64 f32 partial sums, a relative error of order
-//        (skv / 64) * 2^-24 of the sum of their magnitudes, and dq is not
-//        bit-equal from run to run (dk, dv are). The TPU kernel instead
-//        keeps the whole K and V of a bh in VMEM, which does not carry
-//        over: at skv 2048, d 128 they are 2 MB, against 227 KB of shared
-//        memory.
+//   B6:  a block per (bh, key tile) walking the query tiles from the
+//        diagonal down: dv += p^T dO, dk += ds^T q in registers, and each
+//        p and ds tile computed once also feeds dq += ds k, added with
+//        atomicAdd into an f32 buffer the caller zeroed, scaled before the
+//        add. 5 tile products where the two passes take 7. dq then sums
+//        its key tiles in no fixed order: at most skv / 64 f32 partial
+//        sums, a relative error of order (skv / 64) * 2^-24 of the sum of
+//        their magnitudes, and dq is not bit-equal from run to run (dk, dv
+//        are). The TPU kernel instead keeps the whole K and V of a bh in
+//        VMEM, which does not carry over: at skv 2048, d 128 they are 2 MB,
+//        against 227 KB of shared memory (167 KB here).
 //
-// Bound. The work is 4 * bh * sq * skv * d operations for B4 and
-// 10 * bh * sq * skv * d for a backward (one-pass count), halved by the
-// causal mask. At the LM's shape (bh 128, s 2048, d 128, f32, causal) that
-// is 137 GFLOP for B4 (2.05 ms at the H100 SXM's 67 TFLOP/s f32 rate)
-// against 0.16 ms of bytes at 3.35 TB/s, and 344 GFLOP (5.1 ms) for the
-// backward (NVIDIA's data sheet, not a measurement): operations bound all
-// four. These kernels run f32 fmas on the CUDA cores (tensor cores offer
-// f32 only as TF32, which would change the f32 results).
+// Bound. The work is 10 * bh * sq * skv * d operations for a backward
+// (one-pass count), halved by the causal mask. At the LM's shape (bh 128,
+// s 2048, d 128, f32, causal) that is 344 GFLOP, 5.1 ms at the H100 SXM's
+// 67 TFLOP/s f32 rate (NVIDIA's data sheet, not a measurement): operations
+// bound both. These kernels run f32 fmas on the CUDA cores.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -79,7 +64,6 @@ constexpr int kTP = kTile + 4;   // padded row of a 64 x 64 tile
 constexpr int kMaxD = 128;
 constexpr float kNegInf = -1e30f;  // a masked score, as the TPU kernels
 constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
 
 __device__ __forceinline__ float4 widen4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
@@ -279,93 +263,6 @@ __device__ __forceinline__ int key_end(int q0, int skv, int causal) {
   return causal ? min(skv, q0 + kTile) : skv;
 }
 
-// -- B4: forward -----------------------------------------------------------
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads, 2)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, const float* __restrict__ key_bias,
-                 T* __restrict__ o, float* __restrict__ lse, int heads,
-                 int sq, int skv, int d, float scale_log2e, int causal,
-                 int vec) {
-  extern __shared__ float4 smem4[];
-  constexpr int kLd = D + 4, kH = D / 64;
-  float* qs = reinterpret_cast<float*>(smem4);  // [64][kLd]
-  float* kvs = qs + kTile * kLd;                // [64][kLd]: K, then V
-  float* ps = kvs + kTile * kLd;                // [64][kTP]
-  float* bs = ps + kTile * kTP;                 // [64]
-  const long long bh = blockIdx.x;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kTile;  // heaviest first
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const T* kb = k + bh * skv * d;
-  const T* vb = v + bh * skv * d;
-  const float* biasb =
-      key_bias != nullptr ? key_bias + (bh / heads) * skv : nullptr;
-
-  stage<D>(qs, q + bh * sq * d, q0, sq, d, vec);
-  float m[4], l[4], acc[4][4 * kH];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.0f;
-#pragma unroll
-    for (int c = 0; c < 4 * kH; ++c) acc[i][c] = 0.0f;
-  }
-  const int kend = key_end(q0, skv, causal);
-  for (int k0 = 0; k0 < kend; k0 += kTile) {
-    __syncthreads();  // the previous V tile is consumed
-    stage<D>(kvs, kb, k0, skv, d, vec);
-    if (biasb != nullptr) stage_rows(bs, biasb, k0, skv, kLog2e, 0.0f);
-    __syncthreads();
-    float s[4][4];
-    dots<D>(s, qs, kvs);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + ty + 16 * i;
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = k0 + tx + 16 * j;
-        float t = __fmul_rn(s[i][j], scale_log2e);
-        if (biasb != nullptr) t = __fadd_rn(t, bs[tx + 16 * j]);
-        if (col >= skv)
-          t = -INFINITY;  // past the end: weighs exactly 0
-        else if (causal && col > row)
-          t = kNegInf;
-        s[i][j] = t;
-        mx = fmaxf(mx, t);
-      }
-      const float m_new = fmaxf(m[i], row_max(mx));
-      const float corr = exp2f(m[i] - m_new);
-      float rs = 0.0f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = exp2f(s[i][j] - m_new);
-        ps[(ty + 16 * i) * kTP + tx + 16 * j] = p;
-        rs += p;
-      }
-      l[i] = l[i] * corr + row_sum(rs);
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < 4 * kH; ++c) acc[i][c] *= corr;
-    }
-    __syncthreads();  // K consumed, P written
-    stage<D>(kvs, vb, k0, skv, d, vec);
-    __syncthreads();
-    apply<D>(acc, ps, kvs);
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float den = fmaxf(l[i], 1e-30f);
-#pragma unroll
-    for (int c = 0; c < 4 * kH; ++c) acc[i][c] = __fdiv_rn(acc[i][c], den);
-    const int row = q0 + ty + 16 * i;
-    if (tx == 0 && row < sq)
-      lse[bh * sq + row] = m[i] * kLn2 + logf(den);
-  }
-  store_rows<D>(o + bh * sq * d, acc, 1.0f, q0, sq, d, vec);
-}
-
 // -- shared by the backward kernels ----------------------------------------
 
 // p and ds of one (query tile, key tile) pair for this thread's entries,
@@ -456,13 +353,12 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   store_rows<D>(dq + bh * sq * d, acc, scale, q0, sq, d, vec);
 }
 
-// -- B5b and B6: backward over the queries of one key tile -----------------
+// -- B6: backward over the queries of one key tile ------------------------
 
-// B5b (kFused false): dk, dv. B6 (kFused true): also dq, added into the
-// f32 buffer dq_acc with atomics.
-template <typename T, int D, bool kFused>
+// dk, dv, and dq added into the f32 buffer dq_acc with atomics
+template <typename T, int D>
 __global__ void __launch_bounds__(kThreads, 1)
-flash_bwd_kv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+flash_bwd_fused_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const T* __restrict__ dout,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta,
@@ -514,22 +410,20 @@ flash_bwd_kv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();
     apply<D>(acc_v, ps, dos);
     apply<D>(acc_k, dss, qs);
-    if (kFused) {
-      // this key tile's share of dq for the query tile: ds^T k
-      float acc_q[4][4 * kH] = {};
-      apply_t<D>(acc_q, dss, ks);
-      float* dqb = dq_acc + bh * sq * d;
+    // this key tile's share of dq for the query tile: ds^T k
+    float acc_q[4][4 * kH] = {};
+    apply_t<D>(acc_q, dss, ks);
+    float* dqb = dq_acc + bh * sq * d;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int row = q0 + ty + 16 * i;
-        if (row >= sq) continue;
+    for (int i = 0; i < 4; ++i) {
+      const int row = q0 + ty + 16 * i;
+      if (row >= sq) continue;
 #pragma unroll
-        for (int c = 0; c < 4 * kH; ++c) {
-          const int col = 64 * (c / 4) + 4 * tx + c % 4;
-          if (col < d)
-            atomicAdd(dqb + (long long)row * d + col,
-                      __fmul_rn(acc_q[i][c], scale));
-        }
+      for (int c = 0; c < 4 * kH; ++c) {
+        const int col = 64 * (c / 4) + 4 * tx + c % 4;
+        if (col < d)
+          atomicAdd(dqb + (long long)row * d + col,
+                    __fmul_rn(acc_q[i][c], scale));
       }
     }
   }
@@ -559,24 +453,6 @@ bool aligned16(const void* p) {
 int tiles(int n) { return (n + kTile - 1) / kTile; }
 
 template <typename T, int D>
-int launch_fwd(const void* q, const void* k, const void* v,
-               const void* key_bias, void* o, void* lse, long long bh,
-               int heads, int sq, int skv, int d, float scale_log2e,
-               int causal, int vec, cudaStream_t stream) {
-  const size_t smem = tiles_bytes(D, 2, 1, 1);
-  auto kernel = flash_fwd_kernel<T, D>;
-  cudaError_t err = allow_smem(kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<dim3((unsigned)bh, (unsigned)tiles(sq)), kThreads, smem,
-           stream>>>(static_cast<const T*>(q), static_cast<const T*>(k),
-                     static_cast<const T*>(v),
-                     static_cast<const float*>(key_bias), static_cast<T*>(o),
-                     static_cast<float*>(lse), heads, sq, skv, d,
-                     scale_log2e, causal, vec);
-  return (int)cudaGetLastError();
-}
-
-template <typename T, int D>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const void* lse, const void* delta, const void* glse, void* dq,
               long long bh, int sq, int skv, int d, float scale_log2e,
@@ -595,14 +471,14 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
   return (int)cudaGetLastError();
 }
 
-template <typename T, int D, bool kFused>
-int launch_kv(const void* q, const void* k, const void* v, const void* dout,
-              const void* lse, const void* delta, const void* glse,
-              void* dq_acc, void* dk, void* dv, long long bh, int sq,
-              int skv, int d, float scale_log2e, float scale, int causal,
-              int vec, cudaStream_t stream) {
+template <typename T, int D>
+int launch_fused(const void* q, const void* k, const void* v,
+                 const void* dout, const void* lse, const void* delta,
+                 const void* glse, void* dq_acc, void* dk, void* dv,
+                 long long bh, int sq, int skv, int d, float scale_log2e,
+                 float scale, int causal, int vec, cudaStream_t stream) {
   const size_t smem = tiles_bytes(D, 4, 2, 3);
-  auto kernel = flash_bwd_kv_kernel<T, D, kFused>;
+  auto kernel = flash_bwd_fused_kernel<T, D>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
   kernel<<<dim3((unsigned)bh, (unsigned)tiles(skv)), kThreads, smem,
@@ -629,62 +505,13 @@ int vector_ok(int d, const void* a, const void* b, const void* c,
          aligned16(e) && aligned16(f) && aligned16(g);
 }
 
-template <bool kFused>
-int launch_kv_any(const void* q, const void* k, const void* v,
-                  const void* dout, const void* lse, const void* delta,
-                  const void* glse, void* dq_acc, void* dk, void* dv,
-                  long long bh, int sq, int skv, int d, int dtype,
-                  float scale_log2e, float scale, int causal,
-                  cudaStream_t st) {
-  const int vec = vector_ok(d, q, k, v, dout, dk, dv);
-  const bool wide = d > 64;
-  switch (dtype) {
-    case 0:
-      return wide ? launch_kv<float, 128, kFused>(
-                        q, k, v, dout, lse, delta, glse, dq_acc, dk, dv, bh,
-                        sq, skv, d, scale_log2e, scale, causal, vec, st)
-                  : launch_kv<float, 64, kFused>(
-                        q, k, v, dout, lse, delta, glse, dq_acc, dk, dv, bh,
-                        sq, skv, d, scale_log2e, scale, causal, vec, st);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-}
-
 }  // namespace
 
 extern "C" {
 
-// B4 on `stream`; returns cudaGetLastError() (0 on success). q, o: [bh, sq,
-// d]; k, v: [bh, skv, d]; dtype 0 = f32 (bf16 takes azt_flash_fwd_bf16).
-// key_bias: [bh / heads, skv] f32 or NULL. lse: [bh, sq] f32. The caller
-// allocates o and lse.
-int azt_flash_fwd(const void* q, const void* k, const void* v,
-                  const void* key_bias, void* o, void* lse, long long bh,
-                  int sq, int skv, int d, int dtype, int heads,
-                  float scale_log2e, int causal, void* stream) {
-  if (bad_shape(bh, sq, skv, d) || heads < 1)
-    return (int)cudaErrorInvalidValue;
-  if (bh == 0) return 0;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int vec = vector_ok(d, q, k, v, o, nullptr, nullptr);
-  const bool wide = d > 64;
-  switch (dtype) {
-    case 0:
-      return wide ? launch_fwd<float, 128>(q, k, v, key_bias, o, lse, bh,
-                                           heads, sq, skv, d, scale_log2e,
-                                           causal, vec, st)
-                  : launch_fwd<float, 64>(q, k, v, key_bias, o, lse, bh,
-                                          heads, sq, skv, d, scale_log2e,
-                                          causal, vec, st);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-}
-
-// B5a on `stream`: dq [bh, sq, d] f32 (dtype 0; bf16 takes
-// azt_flash_bwd_dq_bf16). lse, delta, glse: [bh, sq] f32 (glse may be NULL
-// for zero).
+// B5a on `stream`; returns cudaGetLastError() (0 on success). dq [bh, sq,
+// d] f32 (dtype 0; bf16 takes azt_flash_bwd_dq_bf16). lse, delta, glse:
+// [bh, sq] f32 (glse may be NULL for zero).
 int azt_flash_bwd_dq(const void* q, const void* k, const void* v,
                      const void* dout, const void* lse, const void* delta,
                      const void* glse, void* dq, long long bh, int sq,
@@ -708,23 +535,9 @@ int azt_flash_bwd_dq(const void* q, const void* k, const void* v,
   }
 }
 
-// B5b on `stream`: dk, dv [bh, skv, d] f32 (dtype 0; bf16 takes
-// azt_flash_bwd_dkv_bf16).
-int azt_flash_bwd_dkv(const void* q, const void* k, const void* v,
-                      const void* dout, const void* lse, const void* delta,
-                      const void* glse, void* dk, void* dv, long long bh,
-                      int sq, int skv, int d, int dtype, float scale_log2e,
-                      float scale, int causal, void* stream) {
-  if (bad_shape(bh, sq, skv, d)) return (int)cudaErrorInvalidValue;
-  if (bh == 0) return 0;
-  return launch_kv_any<false>(q, k, v, dout, lse, delta, glse, nullptr, dk,
-                              dv, bh, sq, skv, d, dtype, scale_log2e, scale,
-                              causal, static_cast<cudaStream_t>(stream));
-}
-
-// B6 on `stream`: dk, dv [bh, skv, d] f32 (dtype 0; bf16 takes
-// azt_flash_bwd_fused_bf16), and dq added into dq_acc [bh, sq, d] f32,
-// which the caller zeroes.
+// B6 on `stream`; returns cudaGetLastError(). dk, dv [bh, skv, d] f32
+// (dtype 0; bf16 takes azt_flash_bwd_fused_bf16), and dq added into dq_acc
+// [bh, sq, d] f32, which the caller zeroes.
 int azt_flash_bwd_fused(const void* q, const void* k, const void* v,
                         const void* dout, const void* lse,
                         const void* delta, const void* glse, void* dq_acc,
@@ -733,9 +546,20 @@ int azt_flash_bwd_fused(const void* q, const void* k, const void* v,
                         int causal, void* stream) {
   if (bad_shape(bh, sq, skv, d)) return (int)cudaErrorInvalidValue;
   if (bh == 0) return 0;
-  return launch_kv_any<true>(q, k, v, dout, lse, delta, glse, dq_acc, dk,
-                             dv, bh, sq, skv, d, dtype, scale_log2e, scale,
-                             causal, static_cast<cudaStream_t>(stream));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int vec = vector_ok(d, q, k, v, dout, dk, dv);
+  const bool wide = d > 64;
+  switch (dtype) {
+    case 0:
+      return wide ? launch_fused<float, 128>(
+                        q, k, v, dout, lse, delta, glse, dq_acc, dk, dv, bh,
+                        sq, skv, d, scale_log2e, scale, causal, vec, st)
+                  : launch_fused<float, 64>(
+                        q, k, v, dout, lse, delta, glse, dq_acc, dk, dv, bh,
+                        sq, skv, d, scale_log2e, scale, causal, vec, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // extern "C"

@@ -88,27 +88,15 @@
 #include <math.h>
 #include <stdint.h>
 
-#include <initializer_list>
-
 #include "dropout_hash.cuh"
 #include "mma_tf32.cuh"
 
 namespace {
 
-// A block owns 64 rows (queries; keys in the dk/dv pass) in four groups of
-// 16 and walks the other side in tiles of 32 * kSplit rows, one buffer
+// The walk is mma_tf32.cuh's (kRows own rows, kSplit warps a row group,
+// walked tiles of kSplit * kPart rows), with one buffer of walked tiles
 // refilled after each tile (two buffers fit half the blocks an SM at d 128:
-// 22-33% slower at s 512, 2-3% faster elsewhere). Each row group has
-// kSplit warps, warp (group, h) taking rows [32 h, 32 h + 32) of every
-// walked tile; at the end the other warps hand their partial results to
-// the first, which merges them in a fixed order (so still no atomics).
-// kSplit 2 or 4 gives a grid too small to fill the card more warps a block
-// and a shorter serial chain of products a warp; a large grid fills the
-// SMs with four-warp blocks, whose registers leave room for more of them
-// (see split_for).
-constexpr int kPart = 32;                // a warp's rows of a walked tile
-constexpr int kRows = 64;                // a block's own rows
-constexpr int kGroupLanes = 4 * 32;      // a warp of each row group
+// 22-33% slower at s 512, 2-3% faster elsewhere).
 constexpr int kMaxD = 128;
 constexpr int kMaxSeq = 512;
 constexpr float kNegInf = -1e30f;
@@ -155,13 +143,6 @@ __device__ __forceinline__ void load_walked(float* xs, float* ys,
   load_tile_f32<kTile, kThreads, kD>(xs, ld, x, tile * kTile, s, d, vec);
   load_tile_f32<kTile, kThreads, kD>(ys, ld, y, tile * kTile, s, d, vec);
   cp_commit();
-}
-
-// word i of this lane in the exchange between a row group's warps, [i][row
-// group][lane]: a warp writes, and the first reads, 32 consecutive words
-// at a time
-__device__ __forceinline__ int xch_at(int i) {
-  return i * kGroupLanes + threadIdx.x % kGroupLanes;
 }
 
 // -- B7: forward -----------------------------------------------------------
@@ -350,30 +331,6 @@ fused_short_fwd_kernel(const float* __restrict__ q,
         stats[bh_total * s + bh * s + rows[i]] = l[i];
       }
   }
-}
-
-// the row group's other warps' accumulators added to the first's in turn,
-// through xch; returns whether this warp is the first (and holds the sum)
-template <int kD, int kSplit>
-__device__ __forceinline__ bool merge_into_first(float* xch,
-                                                 float (&acc)[kD][4], int h) {
-  for (int from = 1; from < kSplit; ++from) {
-    if (h == from) {
-#pragma unroll
-      for (int n = 0; n < kD; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) xch[xch_at(4 * n + e)] = acc[n][e];
-    }
-    __syncthreads();
-    if (h == 0) {
-#pragma unroll
-      for (int n = 0; n < kD; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[n][e] += xch[xch_at(4 * n + e)];
-    }
-    __syncthreads();  // read before the next warp writes
-  }
-  return h == 0;
 }
 
 // -- B8: backward, dq pass -------------------------------------------------
@@ -671,41 +628,6 @@ fused_short_bwd_dkv_kernel(const float* __restrict__ q,
 
 // -- launches --------------------------------------------------------------
 
-template <typename K>
-cudaError_t allow_smem(K kernel, size_t bytes) {
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)bytes);
-}
-
-// bytes of a staged tile of `rows` rows
-size_t tile_bytes(int kD, int rows) {
-  return sizeof(float) * rows * (8 * kD + 4);
-}
-
-bool aligned16(std::initializer_list<const void*> ptrs) {
-  for (const void* p : ptrs)
-    if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return false;
-  return true;
-}
-
-// the warps a row group for a grid of `blocks`, at most `most`: four
-// while the grid is under two blocks an SM (B7 only: B8's passes take more
-// registers than a 512-thread block leaves), two while it is under eight,
-// else one. On the H100 at d 128, two made B7 and B8 37% faster at the
-// LM's prefill (128 blocks) and 13% at s 512 (512 blocks); at BERT-base's
-// shape (3072 blocks, d 64) one made B8 17% faster, the four-warp blocks
-// fitting more warps an SM (scripts/fused_short_f32_variants.py).
-int split_for(long long blocks, int most) {
-  int dev = 0, sms = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
-          cudaSuccess)
-    return 2;
-  if (most >= 4 && blocks < 2LL * sms) return 4;
-  return blocks < 8LL * sms ? 2 : 1;
-}
-
 template <int kD, int kSplit>
 int launch_fwd(const void* q, const void* k, const void* v,
                const void* key_bias, const void* seed, void* o, void* stats,
@@ -770,24 +692,6 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* o,
       static_cast<float*>(dv), bh, heads, s, d, tiles, scale_log2e, scale,
       thresh, inv_keep, causal, vec);
   return (int)cudaGetLastError();
-}
-
-// F's launch at head width kD (4, 8 or 16 chunks of 8) for the split
-// split_for picks, up to kMost
-template <template <int, int> class F, int kD, int kMost, typename... Args>
-int launch_split(int split, Args... args) {
-  if constexpr (kMost >= 4)
-    if (split == 4) return F<kD, 4>::run(args...);
-  return split == 2 ? F<kD, 2>::run(args...) : F<kD, 1>::run(args...);
-}
-
-template <template <int, int> class F, int kMost, typename... Args>
-int dispatch(long long blocks, int d, Args... args) {
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  const int split = split_for(blocks, kMost);
-  if (d <= 32) return launch_split<F, 4, kMost>(split, args...);
-  if (d <= 64) return launch_split<F, 8, kMost>(split, args...);
-  return launch_split<F, 16, kMost>(split, args...);
 }
 
 template <int kD, int kSplit>

@@ -1,9 +1,11 @@
 // 3xTF32 tensor-core building blocks for Hopper (sm_90a), for products
-// held to f32 accuracy: the fused short attention's f32 route
-// (fused_short_attn.cu, B7/B8). mma.sync m16n8k8 TF32 -> f32, each f32
+// held to f32 accuracy: the f32 routes of the fused short attention
+// (fused_short_attn.cu, B7/B8) and of the flash forward and dk/dv pass
+// (flash_attn_tf32.cu, B4/B5b). mma.sync m16n8k8 TF32 -> f32, each f32
 // operand split into two TF32 parts, fragment loads from f32 tiles in
-// shared memory, an f32 accumulator fed back as an A fragment, and staging
-// tiles of f32 rows. cp.async and the quad reductions are mma_bf16.cuh's.
+// shared memory, an f32 accumulator fed back as an A fragment, staging
+// tiles of f32 rows, and the walk both files share (below). cp.async and
+// the quad reductions are mma_bf16.cuh's.
 //
 // 3xTF32: x = big + small + r, big = tf32(x) and small = tf32(x - big),
 // both rounded to nearest (ties away, as cvt.rna); x - big is exact in f32,
@@ -32,6 +34,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <initializer_list>
 
 #include "mma_bf16.cuh"
 
@@ -76,6 +80,21 @@ __device__ __forceinline__ void mma3(float (&c)[4], const FragA& a,
   mma_tf32(c, a.small, b.big);
   mma_tf32(c, a.big, b.small);
   mma_tf32(c, a.big, b.big);
+}
+
+// c += a . b in 3xTF32 as two levels: the three products summed from zero,
+// then added to c by one rounded f32 add an element. Summed straight into
+// c, a long reduction drifts: on the H100, B5b's dk and dv over 4096
+// queries missed the plain version by 4.7e-5 of scale, and by 3.2e-6 this
+// way, at 3-4% more time (scripts/flash_f32_timing.py's variants): the
+// mma's own accumulation loses bits relative to c, which grows, and here
+// relative to one 8-step's sum.
+__device__ __forceinline__ void mma3_add(float (&c)[4], const FragA& a,
+                                         const FragB& b) {
+  float t[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  mma3(t, a, b);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) c[e] = __fadd_rn(c[e], t[e]);
 }
 
 // -- fragments from shared memory -------------------------------------------
@@ -187,6 +206,109 @@ __device__ __forceinline__ void store_acc(float* __restrict__ out,
       if (c + 1 < d) o[c + 1] = __fmul_rn(acc[n][2 * i + 1], mul);
     }
   }
+}
+
+// -- the walk -----------------------------------------------------------------
+
+// A block owns 64 rows (queries; keys in a dk/dv pass) in four groups of
+// 16 and walks the other side in tiles of 32 * kSplit rows held in shared
+// memory. Each row group has kSplit warps, warp (group, h) taking rows
+// [32 h, 32 h + 32) of every walked tile; at the end the other warps hand
+// their partial results to the first, which merges them in a fixed order
+// (so still no atomics). kSplit 2 or 4 gives a grid too small to fill the
+// card more warps a block and a shorter serial chain of products a warp;
+// a large grid fills the SMs with four-warp blocks, whose registers leave
+// room for more of them (see split_for).
+constexpr int kPart = 32;            // a warp's rows of a walked tile
+constexpr int kRows = 64;            // a block's own rows
+constexpr int kGroupLanes = 4 * 32;  // a warp of each row group
+
+// word i of this lane in the exchange between a row group's warps, [i][row
+// group][lane]: a warp writes, and the first reads, 32 consecutive words
+// at a time
+__device__ __forceinline__ int xch_at(int i) {
+  return i * kGroupLanes + threadIdx.x % kGroupLanes;
+}
+
+// the row group's other warps' accumulators added to the first's in turn,
+// through xch; returns whether this warp is the first (and holds the sum)
+template <int kD, int kSplit>
+__device__ __forceinline__ bool merge_into_first(float* xch,
+                                                 float (&acc)[kD][4], int h) {
+  for (int from = 1; from < kSplit; ++from) {
+    if (h == from) {
+#pragma unroll
+      for (int n = 0; n < kD; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) xch[xch_at(4 * n + e)] = acc[n][e];
+    }
+    __syncthreads();
+    if (h == 0) {
+#pragma unroll
+      for (int n = 0; n < kD; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[n][e] += xch[xch_at(4 * n + e)];
+    }
+    __syncthreads();  // read before the next warp writes
+  }
+  return h == 0;
+}
+
+// -- launches -----------------------------------------------------------------
+
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t bytes) {
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)bytes);
+}
+
+// bytes of a staged tile of `rows` rows
+inline size_t tile_bytes(int kD, int rows) {
+  return sizeof(float) * rows * (8 * kD + 4);
+}
+
+inline bool aligned16(std::initializer_list<const void*> ptrs) {
+  for (const void* p : ptrs)
+    if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return false;
+  return true;
+}
+
+// the warps a row group for a grid of `blocks`, at most `most`: four
+// while the grid is under two blocks an SM (B7 only: B8's passes, B4 and
+// B5b take more registers or shared memory than a 512-thread block
+// leaves), two while it is under eight, else one. On the H100 at d 128,
+// two made B7 and B8 37% faster at the LM's prefill (128 blocks) and 13%
+// at s 512 (512 blocks); at BERT-base's shape (3072 blocks, d 64) one made
+// B8 17% faster, the four-warp blocks fitting more warps an SM
+// (scripts/fused_short_f32_variants.py).
+inline int split_for(long long blocks, int most) {
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess)
+    return 2;
+  if (most >= 4 && blocks < 2LL * sms) return 4;
+  return blocks < 8LL * sms ? 2 : 1;
+}
+
+// F's launch at head width kD (4, 8 or 16 chunks of 8) for the split
+// split_for picks, up to kMost
+template <template <int, int> class F, int kD, int kMost, typename... Args>
+int launch_split(int split, Args... args) {
+  if constexpr (kMost >= 4)
+    if (split == 4) return F<kD, 4>::run(args...);
+  return split == 2 ? F<kD, 2>::run(args...) : F<kD, 1>::run(args...);
+}
+
+// F<kD, split>::run(args...) for head width d and a grid of `blocks`
+template <template <int, int> class F, int kMost, typename... Args>
+int dispatch(long long blocks, int d, Args... args) {
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const int split = split_for(blocks, kMost);
+  if (d <= 32) return launch_split<F, 4, kMost>(split, args...);
+  if (d <= 64) return launch_split<F, 8, kMost>(split, args...);
+  return launch_split<F, 16, kMost>(split, args...);
 }
 
 }  // namespace

@@ -51,10 +51,12 @@ forward launches B4 (replacing ``_flash_fwd_kernel``) and always saves the
 row logsumexp in natural-log units; the backward launches the one-pass B6
 (replacing ``_flash_bwd_fused_kernel``) where :func:`fused_bwd_applicable`
 holds, else B5a then B5b (replacing ``_flash_bwd_dq_kernel`` and
-``_flash_bwd_dkv_kernel``). The dtype picks each kernel's route
+``_flash_bwd_dkv_kernel``). The dtype and the kernel pick its route
 (:func:`flash_route`, counted in ``flash_route_counts``): bf16 runs on the
-tensor cores (``csrc/flash_attn_bf16.cu``, ``mma.sync``), f32 on the CUDA
-cores (``csrc/flash_attn.cu``). On a CPU tensor each runs its plain
+tensor cores (``csrc/flash_attn_bf16.cu``, ``mma.sync``); f32 B4 and B5b
+on the tensor cores as 3xTF32 (``csrc/flash_attn_tf32.cu``), f32 B5a and
+B6 on the CUDA cores (``csrc/flash_attn.cu``). On a CPU tensor each runs
+its plain
 version (:func:`flash_fwd_plain`, :func:`flash_bwd_dq_plain`,
 :func:`flash_bwd_dkv_plain`, :func:`flash_bwd_fused_plain`), the same
 function in full-row softmax over chunks of query rows. The arithmetic is
@@ -93,9 +95,11 @@ route_counts = LaunchCounts("bf16_tc", "f32_tc")
 #: B4, B5a, B5b and B6
 flash_launch_counts = LaunchCounts("flash_fwd", "flash_bwd_dq",
                                    "flash_bwd_dkv", "flash_bwd_fused")
-#: B4, B5a, B5b and B6 launches by route: bf16 on the tensor cores, f32 on
-#: the CUDA cores
-flash_route_counts = LaunchCounts("bf16_tc", "f32_simt")
+#: B4, B5a, B5b and B6 launches by route: bf16 on the tensor cores, f32 B4
+#: and B5b on the tensor cores as 3xTF32, f32 B5a and B6 on the CUDA cores
+flash_route_counts = LaunchCounts("bf16_tc", "f32_tc", "f32_simt")
+#: the flash kernels whose f32 route runs on the tensor cores (3xTF32)
+_FLASH_F32_TC = ("flash_fwd", "flash_bwd_dkv")
 
 
 def reset_launch_counts() -> None:
@@ -112,11 +116,19 @@ def fused_short_route(dtype: torch.dtype) -> str:
     return "bf16_tc" if dtype == torch.bfloat16 else "f32_tc"
 
 
-def flash_route(dtype: torch.dtype) -> str:
-    """The flash kernels' route for inputs of ``dtype``: ``"bf16_tc"`` (the
-    tensor cores, ``csrc/flash_attn_bf16.cu``) or ``"f32_simt"`` (the CUDA
-    cores, ``csrc/flash_attn.cu``)."""
-    return "bf16_tc" if dtype == torch.bfloat16 else "f32_simt"
+def flash_route(dtype: torch.dtype, kernel: str) -> str:
+    """The route of the flash ``kernel`` (a ``flash_launch_counts`` name:
+    ``"flash_fwd"`` B4, ``"flash_bwd_dq"`` B5a, ``"flash_bwd_dkv"`` B5b,
+    ``"flash_bwd_fused"`` B6) for inputs of ``dtype``: ``"bf16_tc"`` (the
+    tensor cores, ``csrc/flash_attn_bf16.cu``), ``"f32_tc"`` (f32 B4 and
+    B5b, the tensor cores as 3xTF32, ``csrc/flash_attn_tf32.cu``) or
+    ``"f32_simt"`` (f32 B5a and B6, the CUDA cores,
+    ``csrc/flash_attn.cu``)."""
+    if kernel not in flash_launch_counts:
+        raise ValueError(f"no flash kernel {kernel!r}")
+    if dtype == torch.bfloat16:
+        return "bf16_tc"
+    return "f32_tc" if kernel in _FLASH_F32_TC else "f32_simt"
 
 
 # -- dropout bits ------------------------------------------------------------
@@ -690,12 +702,12 @@ def _dims(q, k):
 def flash_fwd(q, k, v, key_bias, scale: float, causal: bool):
     """B4's wrapper: ``(o, lse)`` for contiguous ``[b, h, s, d]`` inputs
     and an optional ``[b, kv_len]`` f32 key bias. CPU tensors take
-    :func:`flash_fwd_plain`; CUDA tensors launch the kernel of the dtype's
-    route on the current stream."""
+    :func:`flash_fwd_plain`; CUDA tensors launch the kernel of its route
+    (:func:`flash_route`) on the current stream."""
     _flash_check(q, k, v, key_bias=key_bias)
     if not on_card(q, "flash_fwd"):
         return flash_fwd_plain(q, k, v, key_bias, scale, causal)
-    route = flash_route(q.dtype)
+    route = flash_route(q.dtype, "flash_fwd")
     o = torch.empty_like(q)
     lse = torch.empty(q.shape[:-1], dtype=torch.float32, device=q.device)
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(key_bias),
@@ -727,13 +739,13 @@ def _bwd_ptrs(q, k, v, do, lse, delta, glse):
 def flash_bwd_dq(q, k, v, do, lse, delta, glse, scale: float,
                  causal: bool) -> torch.Tensor:
     """B5a's wrapper: ``dq``. CPU tensors take :func:`flash_bwd_dq_plain`;
-    CUDA tensors launch the kernel of the dtype's route (a block per query
-    tile walking the keys, no atomics)."""
+    CUDA tensors launch the kernel of its route (:func:`flash_route`; a
+    block per query tile walking the keys, no atomics)."""
     ptrs = _bwd_ptrs(q, k, v, do, lse, delta, glse)
     if not on_card(q, "flash_bwd_dq"):
         return flash_bwd_dq_plain(q, k, v, do, lse, delta, glse, scale,
                                   causal)
-    route = flash_route(q.dtype)
+    route = flash_route(q.dtype, "flash_bwd_dq")
     dq = torch.empty_like(q)
     bh, q_len, kv_len, d, dtype = _dims(q, k)
     lib = load_library()
@@ -755,14 +767,14 @@ def flash_bwd_dq(q, k, v, do, lse, delta, glse, scale: float,
 def flash_bwd_dkv(q, k, v, do, lse, delta, glse, scale: float,
                   causal: bool) -> Tuple[torch.Tensor, torch.Tensor]:
     """B5b's wrapper: ``(dk, dv)``. CPU tensors take
-    :func:`flash_bwd_dkv_plain`; CUDA tensors launch the kernel of the
-    dtype's route (a block per key tile walking the queries, no
-    atomics)."""
+    :func:`flash_bwd_dkv_plain`; CUDA tensors launch the kernel of its
+    route (:func:`flash_route`; a block per key tile walking the queries,
+    no atomics)."""
     ptrs = _bwd_ptrs(q, k, v, do, lse, delta, glse)
     if not on_card(q, "flash_bwd_dkv"):
         return flash_bwd_dkv_plain(q, k, v, do, lse, delta, glse, scale,
                                    causal)
-    route = flash_route(q.dtype)
+    route = flash_route(q.dtype, "flash_bwd_dkv")
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     outs = (dk.data_ptr(), dv.data_ptr())
     bh, q_len, kv_len, d, dtype = _dims(q, k)
@@ -785,15 +797,15 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, glse, scale: float,
 def flash_bwd_fused(q, k, v, do, lse, delta, glse, scale: float,
                     causal: bool):
     """B6's wrapper: ``(dq, dk, dv)`` from one launch. CPU tensors take
-    :func:`flash_bwd_fused_plain`; CUDA tensors launch the kernel of the
-    dtype's route (a block per 64 keys walking the queries, dk and dv in
-    registers, dq added into an f32 buffer with atomics, so dq sums in no
-    fixed order)."""
+    :func:`flash_bwd_fused_plain`; CUDA tensors launch the kernel of its
+    route (:func:`flash_route`; a block per 64 keys walking the queries,
+    dk and dv in registers, dq added into an f32 buffer with atomics, so
+    dq sums in no fixed order)."""
     ptrs = _bwd_ptrs(q, k, v, do, lse, delta, glse)
     if not on_card(q, "flash_bwd_fused"):
         return flash_bwd_fused_plain(q, k, v, do, lse, delta, glse, scale,
                                      causal)
-    route = flash_route(q.dtype)
+    route = flash_route(q.dtype, "flash_bwd_fused")
     dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     outs = (dq.data_ptr(), dk.data_ptr(), dv.data_ptr())

@@ -11,7 +11,8 @@ Phases, each of which must pass or the script exits non-zero:
    source; then the library is built twice more into a scratch directory,
    that way and with one ``nvcc`` over every source, and both are timed;
    the second's ``ptxas -v`` gives the registers and spills of the 12 bf16
-   flash kernels and the 21 f32 fused short kernels.
+   flash kernels, the 12 f32 flash kernels on the tensor cores and the 21
+   f32 fused short kernels.
 3. kernels: every kernel of the paths is held bit for bit against its
    plain PyTorch version at the main paths' shapes and on ragged, bag-size,
    bf16/fp16 and out-of-range cases, then timed with CUDA events and the
@@ -82,20 +83,24 @@ Phases, each of which must pass or the script exits non-zero:
    padding bias, causal or not), the two-pass backward (B5a + B5b) and the
    one-pass backward (B6, with and without an lse cotangent) are held
    against their plain versions for lengths 1, 17, 513, 1000, 2047, 2048
-   and 4096 and four pairs of unequal q/kv lengths, head widths 64 and
-   128 in f32 and 24, 64, 96 and 128 in bf16: within 2e-5 (f32) and 2e-2
-   (bf16) of the output's scale (of the three gradients' joint scale for a
-   backward) and, each output and each gradient, in relative L2; B5a +
-   B5b's dq, dk and dv and B6's dk and dv bit-equal when repeated. The
-   dtype picks every kernel's route (bf16 the tensor cores,
-   ``csrc/flash_attn_bf16.cu``; f32 the CUDA cores, ``csrc/flash_attn.cu``)
-   and each call must count on it. The backward must take B6 at [8, 16,
+   and 4096 and four pairs of unequal q/kv lengths, head widths 24, 64, 96
+   and 128 in f32 and in bf16: within 2e-5 (f32) and 2e-2 (bf16) of the
+   output's scale (of the three gradients' joint scale for a backward)
+   and, each output and each gradient, in relative L2; B5a + B5b's dq, dk
+   and dv and B6's dk and dv bit-equal when repeated. The dtype and the
+   kernel pick its route (bf16 the tensor cores,
+   ``csrc/flash_attn_bf16.cu``; f32 B4 and B5b the tensor cores as 3xTF32,
+   ``csrc/flash_attn_tf32.cu``; f32 B5a and B6 the CUDA cores,
+   ``csrc/flash_attn.cu``) and each call must count on it, here and on the
+   LM's paths. The backward must take B6 at [8, 16,
    2048, 128] f32 and [1, 2, 4096, 128] bf16, and B5a + B5b at [2, 16,
    4096, 128] f32 and [1, 2, 8192, 128] bf16. All four are timed at the
    LM's two shapes and at bench_longseq's [4, 8, 4096, 128], [8, 8, 4096,
    64] and [4, 8, 8192, 128] bf16 beside their plain versions and
    ``scaled_dot_product_attention(is_causal=True)``, and held to the same
-   tolerances at those shapes. A profiler device time is printed only
+   tolerances at those shapes; each bound at the rate of the kernel's
+   route, and in f32 at both the 3xTF32 and the CUDA cores' rate. A
+   profiler device time is printed only
    where every kernel and copy the host issued has its device event in the
    trace.
    Then the long-context step, ``bench.py``'s ``bench_longseq``:
@@ -341,9 +346,10 @@ LOGIT_TOL = 1e-4
 FLASH_LENGTHS = ((1, 1), (17, 17), (513, 513), (1000, 1000), (2047, 2047),
                  (2048, 2048), (4096, 4096), (513, 1000), (1000, 513),
                  (17, 4096), (2047, 1))
-#: the head widths of the grid: f32 at 64 and 128; bf16 also at one
-#: ragged chunk of 16 (24) and a partial 128-wide tile (96)
-FLASH_DIMS = {torch.float32: (64, 128), torch.bfloat16: (24, 64, 96, 128)}
+#: the head widths of the grid, in both dtypes: 64 and 128, one ragged
+#: chunk of 8 or 16 (24) and a partial 128-wide tile (96)
+FLASH_DIMS = {torch.float32: (24, 64, 96, 128),
+              torch.bfloat16: (24, 64, 96, 128)}
 #: bench_longseq (bench.py:2874-2925), bf16, causal, 20 chained steps, as
 #: (label, shape, the numerics gate's shape): the headline [4, 8, 4096,
 #: 128] and the d 64 addendum (batch doubled, the same FLOPs a step), which
@@ -446,11 +452,14 @@ def step_profile(fn, calls: int = 20, top: int = 0,
 
 
 #: ptxas -v's lines for an entry function of the bf16 flash kernels (B4
-#: ``flash_fwd``, B5a ``flash_bwd_dq``, B5b and B6 ``flash_bwd``) or of the
-#: f32 fused short kernels (B7 ``fused_short_fwd``, B8's two passes
-#: ``fused_short_bwd_dq`` and ``_dkv``) and its mangled template arguments
+#: ``flash_fwd``, B5a ``flash_bwd_dq``, B5b and B6 ``flash_bwd``), of the
+#: f32 flash kernels on the tensor cores (B4 ``flash_fwd_tf32``, B5b
+#: ``flash_bwd_dkv_tf32``) or of the f32 fused short kernels (B7
+#: ``fused_short_fwd``, B8's two passes ``fused_short_bwd_dq`` and
+#: ``_dkv``) and its mangled template arguments
 _PTXAS_ENTRY = re.compile(
     r"entry function '\S*?((?:flash_(?:fwd|bwd|bwd_dq)_bf16|"
+    r"flash_(?:fwd|bwd_dkv)_tf32|"
     r"fused_short_(?:fwd|bwd_dq|bwd_dkv))_kernel)I((?:L[ib]\d+E)+)E")
 _PTXAS_ARG = re.compile(r"L[ib](\d+)E")
 _PTXAS_SPILL = re.compile(
@@ -461,8 +470,10 @@ _PTXAS_REGS = re.compile(r"Used (\d+) registers")
 def ptxas_usage(log: str) -> dict:
     """Registers and spill bytes of each bf16 flash kernel (by its template
     arguments: 16-column chunks of d, and B5b's and B6's keys a block and
-    whether it adds dq) and each f32 fused short kernel (8-column chunks of
-    d, and warps a row group) from ``nvcc -Xptxas -v`` output."""
+    whether it adds dq), each f32 flash kernel on the tensor cores
+    (8-column chunks of d, warps a row group, buffers of walked tiles) and
+    each f32 fused short kernel (8-column chunks of d, and warps a row
+    group) from ``nvcc -Xptxas -v`` output."""
     usage, name = {}, None
     for line in log.splitlines():
         m = _PTXAS_ENTRY.search(line)
@@ -486,8 +497,8 @@ def rebuild_seconds(kernel_build) -> dict:
     """Seconds to build the kernel library again into a scratch directory:
     as ``kernel_build`` does (one ``nvcc`` per source, started together,
     then a link), and with one ``nvcc`` over every source (with ``-Xptxas
-    -v``, whose registers and spills of the bf16 flash kernels and the f32
-    fused short kernels are kept)."""
+    -v``, whose registers and spills of the bf16 and f32 flash kernels and
+    of the f32 fused short kernels are kept)."""
     srcs, _ = kernel_build._sources()
     out = {}
     with tempfile.TemporaryDirectory(dir=kernel_build.BUILD_DIR) as tmp:
@@ -502,13 +513,16 @@ def rebuild_seconds(kernel_build) -> dict:
                              check=True, capture_output=True, text=True)
         out["one_nvcc"] = time.perf_counter() - t0
     usage = ptxas_usage(one.stdout + one.stderr)
-    for key, prefix, want, what in (
-            ("ptxas_bf16_flash", "flash_", 12,
+    for key, kind, want, what in (
+            ("ptxas_bf16_flash", "_bf16_", 12,
              "bf16 flash kernels (B4, B5a, B5b, B6)"),
+            ("ptxas_f32_flash", "_tf32_", 12,
+             "f32 flash kernels on the tensor cores (B4, B5b, at 2 splits "
+             "each)"),
             ("ptxas_f32_fused", "fused_short_", 21,
              "f32 fused short kernels (B7 at 3 splits, B8's two passes at "
              "2)")):
-        out[key] = {k: v for k, v in usage.items() if k.startswith(prefix)}
+        out[key] = {k: v for k, v in usage.items() if kind in k}
         check(len(out[key]) == want, f"ptxas -v named {sorted(out[key])}, "
               f"expected the {what} at 3 widths")
     return out
@@ -1934,11 +1948,13 @@ def flash_pairs(sq: int, skv: int, causal: bool) -> int:
     return int(np.minimum(rows + 1, skv).sum())
 
 
-def flash_bound_ms(b, h, sq, skv, d, dtype, kind: str, causal=True):
+def flash_bound_ms(b, h, sq, skv, d, dtype, kind: str, causal=True,
+                   peak=None):
     """Least time for a flash kernel at these shapes, and what bounds it:
     the larger of the bytes each input read once and each output written
-    once take at the memory rate and the operations at the dtype's peak,
-    counting only the (row, col) pairs the causal mask leaves. ``fwd``
+    once take at the memory rate and the operations at ``peak`` (FLOP/s;
+    the dtype's ``PEAK_FLOPS`` by default), counting only the (row, col)
+    pairs the causal mask leaves. ``fwd``
     (B4): q, k, v in, o and the f32 lse out, 4·d operations a pair (q·kᵀ,
     p·v). ``bwd`` (the backward function, one-pass count, whichever design
     runs): q, k, v, dO, lse, D in, dq, dk, dv out, 10·d a pair. ``dq``
@@ -1955,7 +1971,7 @@ def flash_bound_ms(b, h, sq, skv, d, dtype, kind: str, causal=True):
         "dkv": (2 * qt + 4 * kt + 2 * rows, 8)}[kind]
     flops = per_pair * b * h * d * flash_pairs(sq, skv, causal)
     t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    t_ops = flops / (peak or PEAK_FLOPS[dtype]) * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -1995,10 +2011,21 @@ def _grads_errs(got, want, one_key_no_glse: bool):
     return abs_err, l2
 
 
+def flash_routes_of(at, dtype, launches: dict) -> dict:
+    """The flash route counts that these flash launches (by kernel name)
+    of ``dtype`` make, every route named: each kernel counts on its own
+    route (``at.flash_route``)."""
+    routes = {r: 0 for r in at.flash_route_counts}
+    for kernel, n in launches.items():
+        if kernel in at.flash_launch_counts:
+            routes[at.flash_route(dtype, kernel)] += n
+    return routes
+
+
 def phase_flash_kernels(at, dev, seed: int):
     """Hold B4 (bias or not, causal or not), B5a + B5b and B6 (lse
     cotangent or not) against their plain versions over the grid, each
-    call on its dtype's route, check that the backward takes B6 at the
+    call on its route, check that the backward takes B6 at the
     LM's shape and at bench_longseq's headline and B5a + B5b at the LM's
     long-context shape and at 8192 keys in bf16, then time all four at the
     timed shapes beside their plain versions and
@@ -2006,6 +2033,12 @@ def phase_flash_kernels(at, dev, seed: int):
     gen = torch.Generator().manual_seed(seed)
     errors = {f"{key}_{name}": 0.0 for name in ("f32", "bf16")
               for key in ("fwd", "bwd_two_pass", "bwd_fused", "lse")}
+    worst = {}  # the case of each largest error
+
+    def record(key, e, case):
+        if e > errors[key]:
+            errors[key], worst[key] = e, case
+
     grid = [(sq, skv, d, dtype) for sq, skv in FLASH_LENGTHS
             for dtype, dims in FLASH_DIMS.items() for d in dims]
     cases = 0
@@ -2014,7 +2047,6 @@ def phase_flash_kernels(at, dev, seed: int):
         scale = d ** -0.5
         tol = ATTN_ATOL[dtype]
         tag = "f32" if dtype == torch.float32 else "bf16"
-        route = at.flash_route(dtype)
         routes = dict(at.flash_route_counts)
         for causal in (False, True):
             case = f"{sq}x{skv} d={d} {dtype} causal={causal}"
@@ -2027,8 +2059,9 @@ def phase_flash_kernels(at, dev, seed: int):
                 check(e <= tol and e_l <= ATTN_ATOL[torch.float32],
                       f"B4 != plain by {e} (lse {e_l}) at {case} "
                       f"bias={kb is not None}")
-                errors[f"fwd_{tag}"] = max(errors[f"fwd_{tag}"], e)
-                errors[f"lse_{tag}"] = max(errors[f"lse_{tag}"], e_l)
+                where = f"{case} bias={kb is not None}"
+                record(f"fwd_{tag}", e, where)
+                record(f"lse_{tag}", e_l, where)
             o, lse = at.flash_fwd_plain(q, k, v, None, scale, causal)
             delta = (do.float() * o.float()).sum(-1)
             for gl in (None, glse):
@@ -2050,17 +2083,22 @@ def phase_flash_kernels(at, dev, seed: int):
                     e = max(_grads_errs(got, want, skv == 1 and gl is None))
                     check(e <= tol, f"{key} != plain by {e} at {case} "
                           f"glse={gl is not None}")
-                    errors[f"{key}_{tag}"] = max(errors[f"{key}_{tag}"], e)
+                    record(f"{key}_{tag}", e,
+                           f"{case} glse={gl is not None}")
         # per causal: two B4 calls, and four each of B5a, B5b and B6
-        routes[route] += 28
+        for route, n in flash_routes_of(at, dtype, {
+                "flash_fwd": 4, "flash_bwd_dq": 8, "flash_bwd_dkv": 8,
+                "flash_bwd_fused": 8}).items():
+            routes[route] += n
         check(dict(at.flash_route_counts) == routes,
-              f"{dtype} took {dict(at.flash_route_counts)}, not {route}")
+              f"{dtype} took {dict(at.flash_route_counts)}, not {routes}")
         cases += 1
     log(f"flash kernels within f32 2e-5, bf16 2e-2 of their plain versions "
         f"(of the scale and in relative L2) on {cases} cases (each: B4 with "
         f"and without a bias, B5a + B5b and B6 with and without glse, every "
-        f"call on the dtype's route, B5a + B5b's dq, dk, dv and B6's dk, dv "
-        f"bit-equal twice); largest errors " + json.dumps(errors))
+        f"call on its route, B5a + B5b's dq, dk, dv and B6's dk, dv "
+        f"bit-equal twice); largest errors " + json.dumps(errors)
+        + ", at " + json.dumps(worst))
 
     # dispatch by the resident-bytes rule: in f32 the LM's 2048 keys take
     # B6 and 4096 keys B5a + B5b; in bf16 4096 keys B6, 8192 B5a + B5b
@@ -2075,25 +2113,34 @@ def phase_flash_kernels(at, dev, seed: int):
         at.flash_attention(*leaves, causal=True).backward(
             torch.randn(shape, device=dev).to(dtype))
         torch.cuda.synchronize()
-        route = at.flash_route(dtype)
         want = {"flash_fwd": 1, "flash_bwd_dq": 0 if fused else 1,
                 "flash_bwd_dkv": 0 if fused else 1,
-                "flash_bwd_fused": 1 if fused else 0,
-                f"route_{route}": 2 if fused else 3}
-        got = {**at.flash_launch_counts, f"route_{route}":
-               at.flash_route_counts[route]}
-        check(got == want and sum(at.flash_route_counts.values())
-              == want[f"route_{route}"],
-              f"backward at {shape} {dtype} launched {got} "
-              f"({dict(at.flash_route_counts)}), expected {want}")
+                "flash_bwd_fused": 1 if fused else 0}
+        want_routes = flash_routes_of(at, dtype, want)
+        check(dict(at.flash_launch_counts) == want
+              and dict(at.flash_route_counts) == want_routes,
+              f"backward at {shape} {dtype} launched "
+              f"{dict(at.flash_launch_counts)} "
+              f"({dict(at.flash_route_counts)}), expected {want} "
+              f"({want_routes})")
         del leaves
     log("flash dispatch: [8, 16, 2048, 128] f32 -> B6, [2, 16, 4096, 128] "
         "f32 -> B5a + B5b, [1, 2, 4096, 128] bf16 -> B6, [1, 2, 8192, 128] "
-        "bf16 -> B5a + B5b, each on its dtype's route")
+        "bf16 -> B5a + B5b, each kernel on its route")
 
+    return {"cases": cases, "errors": errors,
+            **flash_timings(at, dev, FLASH_TIMED)}
+
+
+def flash_timings(at, dev, timed) -> dict:
+    """Time B4, B5a, B5b and B6 at each ``(label, [b, h, s, d], dtype)`` of
+    ``timed``, causal (CUDA events and the profiler's device time), beside
+    their plain versions and ``scaled_dot_product_attention(is_causal=
+    True)``, each held to its plain version within ``ATTN_ATOL`` of the
+    scale and in relative L2; returns the timings by label."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    timings = {"cases": cases, "errors": errors}
-    for label, (b, h, s, d), dtype in FLASH_TIMED:
+    timings = {}
+    for label, (b, h, s, d), dtype in timed:
         q, k, v, do = (torch.randn(b, h, s, d, device=dev).to(dtype)
                        for _ in range(4))
         scale = d ** -0.5
@@ -2153,9 +2200,22 @@ def phase_flash_kernels(at, dev, seed: int):
                   <= ATTN_ATOL[dtype],
                   f"{key} != plain by {t[f'{key}_rel_err']} (relative L2 "
                   f"{t[f'{key}_rel_l2_err']}) at {label}")
-        for kind in ("fwd", "bwd", "dq", "dkv"):
-            t[f"{kind}_bound"] = list(flash_bound_ms(b, h, s, s, d, dtype,
-                                                     kind))
+        # each bound at the rate of the route that runs the kernel (the
+        # whole backward's at B6's); in f32 also at both f32 rates
+        t["routes"] = {}
+        for kind, kernel in (("fwd", "flash_fwd"), ("bwd", "flash_bwd_fused"),
+                             ("dq", "flash_bwd_dq"),
+                             ("dkv", "flash_bwd_dkv")):
+            route = at.flash_route(dtype, kernel)
+            t["routes"][kernel] = route
+            t[f"{kind}_bound"] = list(flash_bound_ms(
+                b, h, s, s, d, dtype, kind,
+                peak=PEAK_FLOPS_3XTF32 if route == "f32_tc" else None))
+            if dtype == torch.float32:
+                for tag, peak in (("_3xtf32", PEAK_FLOPS_3XTF32),
+                                  ("_simt", PEAK_FLOPS[torch.float32])):
+                    t[f"{kind}_bound{tag}"] = list(flash_bound_ms(
+                        b, h, s, s, d, dtype, kind, peak=peak))
         timings[label] = t
         log(f"flash timing {label} " + json.dumps(t))
         del q, k, v, do, o, lse, delta, args, leaves, fns
@@ -2245,7 +2305,7 @@ def phase_longseq(at, dev, seed: int):
                 "flash_bwd_dq": 0 if fused else n,
                 "flash_bwd_dkv": 0 if fused else n,
                 "route_bf16_tc": (2 if fused else 3) * n,
-                "route_f32_simt": 0}
+                "route_f32_tc": 0, "route_f32_simt": 0}
         check(counts == want, f"long-context steps at {label} launched "
               f"{counts}, expected {want}")
         # eps = 0: the inputs come back bit for bit unless a gradient was
@@ -2343,6 +2403,9 @@ def phase_lm_train(at, ek, seed: int):
             "fused_short_fwd": 0, "fused_short_bwd": 0,
             "gather_rows": LM_STEPS}
     check(launches == want, f"LM fit launched {launches}, expected {want}")
+    flash_routes = dict(at.flash_route_counts)
+    check(flash_routes == flash_routes_of(at, torch.float32, launches),
+          f"LM fit's flash routes {flash_routes}")
     losses = np.asarray(hist["loss_history"])
     check(hist["iterations"] == LM_STEPS and losses.shape == (LM_STEPS,)
           and bool(np.isfinite(losses).all()),
@@ -2368,6 +2431,7 @@ def phase_lm_train(at, ek, seed: int):
              "fit_tokens_per_s": LM_STEPS * LM_BATCH * LM_CFG["max_len"]
              / wall_s,
              "peak_memory_gb": peak_gb, "launches": launches,
+             "flash_routes": flash_routes,
              "launches_per_step": {k: v / LM_STEPS
                                    for k, v in launches.items()}}
     stats.update(_lm_step_stats(lm, tokens, LM_BATCH, 2, 1))
@@ -2400,6 +2464,9 @@ def phase_lm_long(at, ek, seed: int):
             "gather_rows": LM_LONG_STEPS}
     check(launches == want, f"long-context fit launched {launches}, "
           f"expected {want}")
+    flash_routes = dict(at.flash_route_counts)
+    check(flash_routes == flash_routes_of(at, torch.float32, launches),
+          f"long-context fit's flash routes {flash_routes}")
     check(bool(np.isfinite(hist["loss_history"]).all()),
           "long-context losses not finite")
     stats = {"config": LM_LONG, "batch": LM_LONG_BATCH,
@@ -2407,7 +2474,7 @@ def phase_lm_long(at, ek, seed: int):
              "reduced": "n_block 8 -> 2, for time",
              "losses": list(hist["loss_history"]), "first_fit_s": fit_s,
              "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
-             "launches": launches,
+             "launches": launches, "flash_routes": flash_routes,
              "launches_per_step": {k: v / LM_LONG_STEPS
                                    for k, v in launches.items()}}
     stats.update(_lm_step_stats(lm, tokens, LM_LONG_BATCH, 2, 1))
@@ -2457,6 +2524,10 @@ def phase_lm_generate(at, ek, lm, seed: int):
         check(routes == {"bf16_tc": 0, "f32_tc": want["fused_short_fwd"]},
               f"generate after {length} tokens took the routes {routes}, "
               f"expected f32_tc alone")
+        flash_routes = dict(at.flash_route_counts)
+        check(flash_routes == flash_routes_of(at, torch.float32, counts),
+              f"generate after {length} tokens took the flash routes "
+              f"{flash_routes}")
         check(gen.shape == (GEN_BATCH, GEN_NEW) and bool(
             ((gen >= 0) & (gen < LM_CFG["vocab_size"])).all()),
               "generated tokens malformed")
@@ -2482,6 +2553,7 @@ def phase_lm_generate(at, ek, lm, seed: int):
             "prefill_ms_events": prefill_ms,
             "ms_per_token": (total_ms - prefill_ms) / GEN_NEW,
             "launches": counts, "routes": routes,
+            "flash_routes": flash_routes,
             "decode_vs_full_rel_err": err}
     return launches, stats
 
@@ -3266,14 +3338,15 @@ def main() -> int:
         })
     flash_sources = {
         "bf16_tc": "analytics_zoo_tpu_torch/csrc/flash_attn_bf16.cu",
+        "f32_tc": "analytics_zoo_tpu_torch/csrc/flash_attn_tf32.cu",
         "f32_simt": "analytics_zoo_tpu_torch/csrc/flash_attn.cu"}
     flash_paths = {**lm_paths, **{f"longseq_{k}": c
                                   for k, c in longseq_launches.items()}}
     flash_entries = []
     # the top-level numbers are bf16's, on the tensor cores: B4 and B6 at
     # bench_longseq's headline, B5a and B5b at its 8192 keys; each route's
-    # beside them (f32: the LM's step for B4 and B6, its long-context step
-    # for B5a and B5b)
+    # beside them (f32, on each kernel's f32 route: the LM's step for B4
+    # and B6, its long-context step for B5a and B5b)
     for name, tpu, line, label, key, kind, err in (
             ("flash_fwd", "_flash_fwd_kernel", 203, "bench_longseq", "fwd",
              "fwd", "fwd_max_abs_err"),
@@ -3293,11 +3366,15 @@ def main() -> int:
 
         def timed_at(lab, key=key, kind=kind, library=library):
             u = flash[lab]
+            # f32: the bound at the route's rate, and at both f32 rates
+            rates = {f"bound_ms{tag}": u[f"{kind}_bound{tag}"][0]
+                     for tag in ("_3xtf32", "_simt")
+                     if f"{kind}_bound{tag}" in u}
             return {"shape": f"{u['shape']} {u['dtype']} causal",
                     "ms": u[f"{key}_ms"], "device_ms": u[f"{key}_device_ms"],
                     "plain_ms": u[f"plain_{key}_ms"],
                     "bound_ms": u[f"{kind}_bound"][0],
-                    "bound_by": u[f"{kind}_bound"][1],
+                    "bound_by": u[f"{kind}_bound"][1], **rates,
                     "library_ms": u[library[0]],
                     "library_device_ms": u[library[0].replace(
                         "_ms", "_device_ms")]}
@@ -3330,6 +3407,8 @@ def main() -> int:
         }
         others = (("s4096", "bench_longseq"),) if two_pass else (
             ("d64", "bench_longseq_d64"), ("s8192", "bench_longseq_s8192"))
+        f32_route = at.flash_route(torch.float32, name)
+        f32_label = "lm_long" if two_pass else "lm"
         entry_k["routes"] = {
             "bf16_tc": {"source": flash_sources["bf16_tc"],
                         **timed_at(label),
@@ -3337,11 +3416,17 @@ def main() -> int:
                         "launches_by_path": {
                             k: c for k, c in by_path.items()
                             if k.startswith("longseq")}},
-            "f32_simt": {"source": flash_sources["f32_simt"],
-                         **timed_at("lm_long" if two_pass else "lm"),
-                         "launches_by_path": {
-                             k: c for k, c in by_path.items()
-                             if not k.startswith("longseq")}}}
+            # f32: B4 and B5b on the tensor cores, B5a and B6 on the CUDA
+            # cores; at the LM's long-context shape for the two-pass
+            # kernels, its step's shape for the others
+            f32_route: {"source": flash_sources[f32_route],
+                        **timed_at(f32_label),
+                        "other_shapes": {
+                            lab: timed_at(lab) for lab in ("lm", "lm_long")
+                            if lab != f32_label},
+                        "launches_by_path": {
+                            k: c for k, c in by_path.items()
+                            if not k.startswith("longseq")}}}
         flash_entries.append(entry_k)
     print(smi)
     print(json.dumps({"kernels": [entry, pool_entry, scatter_entry,

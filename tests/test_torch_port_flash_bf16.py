@@ -160,14 +160,23 @@ def test_bf16_plain_versions_round_p_and_ds_and_f32_ones_round_nothing(
 
 
 def test_flash_route_by_dtype():
-    assert at.flash_route(torch.bfloat16) == "bf16_tc"
-    assert at.flash_route(torch.float32) == "f32_simt"
+    kernels = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+               "flash_bwd_fused")
+    assert [at.flash_route(torch.bfloat16, k) for k in kernels] == \
+        ["bf16_tc"] * 4
+    # f32: B4 and B5b on the tensor cores as 3xTF32, B5a and B6 on the CUDA
+    # cores
+    assert [at.flash_route(torch.float32, k) for k in kernels] == \
+        ["f32_tc", "f32_simt", "f32_tc", "f32_simt"]
+    with pytest.raises(ValueError):
+        at.flash_route(torch.float32, "flash_bwd")
     q, k, v, g, _ = (torch.tensor(a).bfloat16() for a in _inputs(2, 40, 40))
     at.reset_launch_counts()
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
     at.flash_attention(*leaves, causal=True).backward(g)
-    # CPU tensors take the plain versions: no launch on either route
-    assert at.flash_route_counts == {"bf16_tc": 0, "f32_simt": 0}
+    # CPU tensors take the plain versions: no launch on any route
+    assert at.flash_route_counts == {"bf16_tc": 0, "f32_tc": 0,
+                                     "f32_simt": 0}
     assert all(t.grad.dtype == torch.bfloat16 for t in leaves)
 
 

@@ -204,8 +204,8 @@ def test_library_is_keyed_by_a_hash_of_the_sources():
     srcs, _ = kernel_build._sources()
     assert {"gather_rows.cu", "gather_pool.cu", "fused_short_attn.cu",
             "fused_short_attn_bf16.cu", "gather_int8.cu",
-            "scatter_rows.cu", "flash_attn.cu", "flash_attn_bf16.cu"} <= {
-        os.path.basename(s) for s in srcs}
+            "scatter_rows.cu", "flash_attn.cu", "flash_attn_bf16.cu",
+            "flash_attn_tf32.cu"} <= {os.path.basename(s) for s in srcs}
 
 
 # -- on the card --------------------------------------------------------------
@@ -528,8 +528,9 @@ def test_the_kernels_dropout_mask_is_the_plain_mask_bit_for_bit(
 @pytest.mark.cuda
 def test_bf16_and_f32_each_take_their_tensor_core_route(cuda_device):
     """B7 and B8 count on ``"bf16_tc"`` in bf16 and on ``"f32_tc"`` (3xTF32)
-    in f32, both saving the row statistics; the flash kernels' f32 route
-    stays ``"f32_simt"``."""
+    in f32, both saving the row statistics, and no flash route counts;
+    the flash kernels' f32 route is ``"f32_tc"`` for B4 and B5b and
+    ``"f32_simt"`` for B5a and B6."""
     from analytics_zoo_tpu_torch.ops import attention as at
     for dtype, route in ((torch.bfloat16, "bf16_tc"),
                          (torch.float32, "f32_tc")):
@@ -541,9 +542,12 @@ def test_bf16_and_f32_each_take_their_tensor_core_route(cuda_device):
         at.fused_short_bwd(q, k, v, do, bias, None, 0.125, 0.0, False,
                            stats, o)
         assert at.route_counts == {"bf16_tc": 0, "f32_tc": 0, route: 2}
-        assert at.flash_route_counts == {"bf16_tc": 0, "f32_simt": 0}
+        assert at.flash_route_counts == {"bf16_tc": 0, "f32_tc": 0,
+                                         "f32_simt": 0}
         assert stats.shape == (2, 2, 2, 40)
-    assert at.flash_route(torch.float32) == "f32_simt"
+    assert [at.flash_route(torch.float32, k) for k in (
+        "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "flash_bwd_fused")] \
+        == ["f32_tc", "f32_simt", "f32_tc", "f32_simt"]
     # the backward reads the forward's row statistics (and in f32 its output)
     with pytest.raises(ValueError):
         at.fused_short_bwd(*(t.bfloat16() for t in (q, k, v, do)), bias,
@@ -724,8 +728,8 @@ def test_flash_kernels_equal_their_plain_versions_on_the_card(
     (with and without an lse cotangent) against their plain versions:
     within 2e-5 (f32) or 2e-2 (bf16) of the output's scale (the three
     gradients' joint scale for a backward) and in relative L2. Every
-    kernel takes the dtype's route (bf16 the tensor cores, f32 the CUDA
-    cores). B6 adds dq with atomics in no fixed order, which costs at most
+    kernel counts on its route (bf16 the tensor cores; f32 B4 and B5b the
+    tensor cores as 3xTF32, f32 B5a and B6 the CUDA cores). B6 adds dq with atomics in no fixed order, which costs at most
     skv / 64 partial sums' rounding, far inside the f32 tolerance; its dk
     and dv repeat bit for bit, dq need not. B5a + B5b use no atomics: dq,
     dk and dv repeat bit for bit."""
@@ -733,7 +737,6 @@ def test_flash_kernels_equal_their_plain_versions_on_the_card(
     q, k, v, do, glse, bias = _flash_inputs(cuda_device, sq, skv, d, dtype,
                                             sq + skv + d)
     scale = d ** -0.5
-    route = at.flash_route(dtype)
     for causal in (False, True):
         for kb in (None, bias):
             before = at.flash_launch_counts["flash_fwd"]
@@ -741,7 +744,7 @@ def test_flash_kernels_equal_their_plain_versions_on_the_card(
             o, lse = at.flash_fwd(q, k, v, kb, scale, causal)
             torch.cuda.synchronize()
             assert at.flash_launch_counts["flash_fwd"] == before + 1
-            routes[route] += 1
+            routes[at.flash_route(dtype, "flash_fwd")] += 1
             assert at.flash_route_counts == routes
             want_o, want_lse = at.flash_fwd_plain(q, k, v, kb, scale, causal)
             case = f"causal={causal} bias={kb is not None}"
@@ -764,7 +767,9 @@ def test_flash_kernels_equal_their_plain_versions_on_the_card(
                 counts["flash_bwd_dkv"] + 1
             assert at.flash_launch_counts["flash_bwd_fused"] == \
                 counts["flash_bwd_fused"] + 2
-            routes[route] += 4
+            for kernel, n in (("flash_bwd_dq", 1), ("flash_bwd_dkv", 1),
+                              ("flash_bwd_fused", 2)):
+                routes[at.flash_route(dtype, kernel)] += n
             assert at.flash_route_counts == routes
             case = f"causal={causal} glse={gl is not None}"
             assert all(t.dtype == dtype for t in two_pass + fused)
@@ -782,23 +787,25 @@ def test_flash_kernels_equal_their_plain_versions_on_the_card(
 def test_flash_bf16_takes_the_tensor_cores_and_f32_the_cuda_cores(
         cuda_device):
     """A causal forward and backward through ``flash_attention`` counts
-    each of its launches on the dtype's route: one B4 and one B6 at 700
+    each of its launches on its route: in bf16 every kernel on the tensor
+    cores; in f32 B4 and B5b on the tensor cores as 3xTF32 (``f32_tc``),
+    B5a and B6 on the CUDA cores (``f32_simt``). One B4 and one B6 at 700
     keys of d 64; one B4, one B5a and one B5b past the resident-bytes rule
     (8192 keys of d 128 in bf16, 4096 in f32)."""
     from analytics_zoo_tpu_torch.ops import attention as at
-    for dtype, route, s, d, fused in (
-            (torch.bfloat16, "bf16_tc", 700, 64, True),
-            (torch.float32, "f32_simt", 700, 64, True),
-            (torch.bfloat16, "bf16_tc", 8192, 128, False),
-            (torch.float32, "f32_simt", 4096, 128, False)):
-        assert at.flash_route(dtype) == route
+    for dtype, routes, s, d, fused in (
+            (torch.bfloat16, {"bf16_tc": 2}, 700, 64, True),
+            (torch.float32, {"f32_tc": 1, "f32_simt": 1}, 700, 64, True),
+            (torch.bfloat16, {"bf16_tc": 3}, 8192, 128, False),
+            (torch.float32, {"f32_tc": 2, "f32_simt": 1}, 4096, 128,
+             False)):
         q, k, v, do, _, _ = _flash_inputs(cuda_device, s, s, d, dtype, 5)
         leaves = [t.requires_grad_() for t in (q, k, v)]
         at.reset_launch_counts()
         at.flash_attention(*leaves, causal=True).backward(do)
         torch.cuda.synchronize()
-        assert at.flash_route_counts == {"bf16_tc": 0, "f32_simt": 0,
-                                         route: 2 if fused else 3}
+        assert at.flash_route_counts == {"bf16_tc": 0, "f32_tc": 0,
+                                         "f32_simt": 0, **routes}
         assert at.flash_launch_counts == {
             "flash_fwd": 1, "flash_bwd_dq": 0 if fused else 1,
             "flash_bwd_dkv": 0 if fused else 1,
@@ -816,7 +823,7 @@ def test_flash_backward_takes_the_design_the_resident_bytes_pick(
         cuda_device, dtype, s, fused):
     """At d 128, the one-pass B6 takes the LM's 2048 keys in f32 and
     bench_longseq's 4096 in bf16, the two-pass B5a + B5b 4096 keys in f32
-    and 8192 in bf16, as in the JAX package, each on the dtype's route."""
+    and 8192 in bf16, as in the JAX package, each kernel on its route."""
     from analytics_zoo_tpu_torch.ops import attention as at
     q, k, v, do, _, _ = _flash_inputs(cuda_device, s, s, 128, dtype, s)
     leaves = [t.requires_grad_() for t in (q, k, v)]
@@ -827,8 +834,10 @@ def test_flash_backward_takes_the_design_the_resident_bytes_pick(
         "flash_fwd": 1, "flash_bwd_dq": 0 if fused else 1,
         "flash_bwd_dkv": 0 if fused else 1,
         "flash_bwd_fused": 1 if fused else 0}
-    assert at.flash_route_counts[at.flash_route(dtype)] == \
-        (2 if fused else 3)
+    routes = {"bf16_tc": 0, "f32_tc": 0, "f32_simt": 0}
+    for kernel, n in at.flash_launch_counts.items():
+        routes[at.flash_route(dtype, kernel)] += n
+    assert at.flash_route_counts == routes
 
 
 @pytest.mark.cuda

@@ -1,7 +1,10 @@
-"""The 3xTF32 arithmetic of B7/B8's f32 route, emulated on the CPU.
+"""The 3xTF32 arithmetic of B7/B8's f32 route and of B4's and B5b's,
+emulated on the CPU.
 
 ``csrc/fused_short_attn.cu`` runs every product of the fused short
-attention's f32 route on the tensor cores as ``mma.sync.m16n8k8`` TF32:
+attention's f32 route, and ``csrc/flash_attn_tf32.cu`` every product of the
+flash forward (B4) and dk/dv pass (B5b) in f32, on the tensor cores as
+``mma.sync.m16n8k8`` TF32:
 each f32 operand is split into ``big = tf32(x)`` and ``small = tf32(x -
 big)`` (``cvt.rna.tf32.f32``: the mantissa rounded to 10 bits, ties away
 from zero), and ``a·b`` is taken as ``small·big + big·small + big·big``
@@ -15,7 +18,11 @@ torch, and B7's and B8's function run through them at the grid's worst
 shapes (s 512, d 64 and 128; padding bias, causal, dropout 0.1) are held
 within 2e-5 of the output's scale against the plain versions, the route's
 tolerance; one TF32 product alone misses it, so the split cannot be dropped
-quietly. The tensor cores' own accumulation inside an ``mma`` is not
+quietly. B4 (its output and lse) and B5b (dk and dv, with an lse
+cotangent) are held the same way against ``flash_fwd_plain`` and
+``flash_bwd_dkv_plain`` at 1024 keys and at 513 queries over 1000 keys,
+causal or not, d 64 and 128; a reduction whose length is no multiple of 8
+is padded with zeros, as the kernels' tiles are. The tensor cores' own accumulation inside an ``mma`` is not
 emulated: each 8-step's products are summed exactly and added to the f32
 accumulator with one rounding. ``chip_smoke.py`` and
 ``tests/test_torch_port_kernels.py`` hold the kernels themselves on the
@@ -32,6 +39,7 @@ from analytics_zoo_tpu_torch.ops import attention as at
 #: the f32 route against its plain versions, relative to the output's scale
 ATOL = 2e-5
 _LOG2E = 1.4426950408889634
+_LN2 = 0.6931471805599453
 
 
 def _tf32(x: torch.Tensor) -> torch.Tensor:
@@ -56,11 +64,16 @@ def _perm(n: int) -> torch.Tensor:
 
 def _mm(a: torch.Tensor, b: torch.Tensor, terms: int = 3,
         permuted: bool = False) -> torch.Tensor:
-    """``a @ b`` (f32, ``[..., m, k] @ [..., k, n]``, k a multiple of 8) as
-    the kernel's ``mma.sync.m16n8k8`` runs it: per 8-step of the reduction,
+    """``a @ b`` (f32, ``[..., m, k] @ [..., k, n]``, k padded to a
+    multiple of 8) as the kernel's ``mma.sync.m16n8k8`` runs it: per 8-step
+    of the reduction,
     small·big, big·small and big·big (``terms`` 3), or big·big alone
     (``terms`` 1), each summed exactly and added to the f32 accumulator.
     With ``permuted``, the reduction index in c_to_a's order."""
+    pad = -a.shape[-1] % 8  # zero rows and columns, as a ragged tile's
+    if pad:
+        a = torch.nn.functional.pad(a, (0, pad))
+        b = torch.nn.functional.pad(b, (0, 0, 0, pad))
     if permuted:
         idx = _perm(a.shape[-1])
         a, b = a[..., idx], b[..., idx, :]
@@ -207,3 +220,74 @@ def test_an_accumulator_feeds_the_next_product_in_the_permuted_order():
         b[t, g], b[t + 4, g] = x[2 * t, g], x[2 * t + 1, g]
     torch.testing.assert_close(a @ b, p @ x, rtol=1e-12, atol=1e-12)
     assert torch.equal(a, p[:, _perm(8)]) and torch.equal(b, x[_perm(8)])
+
+
+# -- B4 and B5b (csrc/flash_attn_tf32.cu) ---------------------------------
+
+
+def _flash_emulated(q, k, v, do, lse, delta, glse, scale, causal, terms):
+    """B4's ``(o, lse)`` and B5b's ``(dk, dv)`` with every product
+    emulated by :func:`_mm`: the forward's online softmax as one max and
+    sum; the dk/dv pass's Sᵀ = K·Qᵀ, pᵀ from the given ``lse`` and
+    dPᵀ = V·dOᵀ, then ``pᵀ·dO`` and ``dsᵀ·Q`` in the permuted order."""
+    sq, skv = q.shape[-2], k.shape[-2]
+    above = torch.arange(skv)[None, :] > torch.arange(sq)[:, None]
+    # B4
+    t = _mm(q, k.transpose(-1, -2), terms) * (scale * _LOG2E)
+    if causal:
+        t = t.masked_fill(above, -1e30)
+    m = t.amax(-1, keepdim=True)
+    e = torch.exp2(t - m)
+    l = e.sum(-1, keepdim=True).clamp_min(1e-30)
+    o = _mm(e, v, terms, permuted=True) / l
+    lse_o = (m * _LN2 + torch.log(l))[..., 0]
+    # B5b: keys x queries
+    tt = _mm(k, q.transpose(-1, -2), terms) * (scale * _LOG2E)
+    if causal:
+        tt = tt.masked_fill(above.T, -1e30)
+    pt = torch.exp2(tt - (lse * _LOG2E)[..., None, :])
+    rest = _mm(v, do.transpose(-1, -2), terms) - delta[..., None, :]
+    if glse is not None:
+        rest = rest + glse[..., None, :]
+    dv = _mm(pt, do, terms, permuted=True)
+    dk = _mm(pt * rest, q, terms, permuted=True) * scale
+    return (o, lse_o), (dk, dv)
+
+
+_FLASH_CASES = [(d, sq, skv, causal) for d in (64, 128)
+                for sq, skv in ((1024, 1024), (513, 1000))
+                for causal in (False, True)]
+
+
+@pytest.fixture(scope="module", params=_FLASH_CASES,
+                ids=[f"d{d}-{sq}x{skv}-{'causal' if c else 'full'}"
+                     for d, sq, skv, c in _FLASH_CASES])
+def flash_case(request):
+    """Inputs at the case's shape (b 1, h 2), an lse cotangent, and the
+    plain versions' ``(o, lse)`` and ``(dk, dv)``, the backward from the
+    plain forward's lse and D = rowsum(dO·o)."""
+    d, sq, skv, causal = request.param
+    gen = torch.Generator().manual_seed(d + sq + skv + causal)
+    q, do = (torch.randn(1, 2, sq, d, generator=gen) for _ in range(2))
+    k, v = (torch.randn(1, 2, skv, d, generator=gen) for _ in range(2))
+    glse = torch.randn(1, 2, sq, generator=gen)
+    scale = 1.0 / math.sqrt(d)
+    o, lse = at.flash_fwd_plain(q, k, v, None, scale, causal)
+    delta = (do * o).sum(-1)
+    args = (q, k, v, do, lse, delta, glse, scale, causal)
+    return args, (o, lse), at.flash_bwd_dkv_plain(*args)
+
+
+def test_flash_3xtf32_holds_the_f32_tolerance(flash_case):
+    args, want_fwd, want_dkv = flash_case
+    fwd, dkv = _flash_emulated(*args, terms=3)
+    for name, got, want in zip(("o", "lse", "dk", "dv"), fwd + dkv,
+                               want_fwd + want_dkv):
+        assert _rel_err(got, want) <= ATOL, name
+
+
+def test_flash_one_tf32_product_misses_the_f32_tolerance(flash_case):
+    args, want_fwd, want_dkv = flash_case
+    fwd, dkv = _flash_emulated(*args, terms=1)
+    assert max(_rel_err(g, w) for g, w in zip(fwd, want_fwd)) > ATOL
+    assert max(_rel_err(g, w) for g, w in zip(dkv, want_dkv)) > ATOL
