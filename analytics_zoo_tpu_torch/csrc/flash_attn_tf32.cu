@@ -63,7 +63,7 @@
 // second (the next tile's copy overlapping this one's products) made B4
 // 26-29% and B5b 57-62% slower at the LM's shapes on the H100, the blocks
 // an SM falling from three to two and from two to one
-// (scripts/flash_f32_timing.py's variants, PERF.md). Shared memory at d
+// (PERF.md). Shared memory at d
 // 128, one warp a row group: B4 Q (64 rows), a K and a V tile of 32 keys
 // and their bias, 67,712 bytes (three blocks an SM); B5b K and V (64
 // rows), a Q and a dO tile of 32 and their rows' statistics, 101,760
@@ -94,13 +94,10 @@ constexpr int kMaxD = 128;
 constexpr float kNegInf = -1e30f;  // a masked score, as the TPU kernels
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
-// buffers of walked tiles (1 or 2; scripts/flash_f32_timing.py times 2)
-constexpr int kFwdStages = 1;
-constexpr int kDkvStages = 1;
 
 // -- B4: forward -----------------------------------------------------------
 
-template <int kD, int kSplit, int kStages>
+template <int kD, int kSplit>
 __global__ void __launch_bounds__(kSplit * 128)
 flash_fwd_tf32_kernel(const float* __restrict__ q,
                       const float* __restrict__ k,
@@ -114,8 +111,8 @@ flash_fwd_tf32_kernel(const float* __restrict__ q,
   constexpr int kTile = kSplit * kPart, kThreads = kSplit * 128;
   extern __shared__ __align__(16) float smem[];
   float* qs = smem;                             // [kRows][ld]
-  float* kvs = qs + kRows * ld;                 // [kStages][K, V][kTile][ld]
-  float* bs = kvs + kStages * 2 * kTile * ld;   // [kStages][kTile]
+  float* kvs = qs + kRows * ld;                 // [K, V][kTile][ld]
+  float* bs = kvs + 2 * kTile * ld;             // [kTile]
   const long long bh = blockIdx.x;
   const int row0 = (gridDim.y - 1 - blockIdx.y) * kRows;  // heaviest first
   const long long qbase = bh * sq * d, kbase = bh * skv * d;
@@ -128,27 +125,24 @@ flash_fwd_tf32_kernel(const float* __restrict__ q,
   const int kend = causal ? min(skv, row0 + kRows) : skv;
   const int n_tiles = (kend + kTile - 1) / kTile;
 
-  // key tile `kt` into stage `st`: K and V by cp.async as one group, the
-  // bias (times log2 e) by plain loads
-  auto load_kv = [&](int kt, int st) {
-    float* ks = kvs + st * 2 * kTile * ld;
-    load_tile_f32<kTile, kThreads, kD>(ks, ld, k + kbase, kt * kTile, skv,
+  // key tile `kt`: K and V by cp.async as one group, the bias (times
+  // log2 e) by plain loads
+  auto load_kv = [&](int kt) {
+    load_tile_f32<kTile, kThreads, kD>(kvs, ld, k + kbase, kt * kTile, skv,
                                        d, vec);
-    load_tile_f32<kTile, kThreads, kD>(ks + kTile * ld, ld, v + kbase,
+    load_tile_f32<kTile, kThreads, kD>(kvs + kTile * ld, ld, v + kbase,
                                        kt * kTile, skv, d, vec);
     cp_commit();
     if (biasb != nullptr)
       for (int c = threadIdx.x; c < kTile; c += kThreads) {
         const int col = kt * kTile + c;
-        bs[st * kTile + c] =
-            col < skv ? __fmul_rn(biasb[col], kLog2e) : 0.0f;
+        bs[c] = col < skv ? __fmul_rn(biasb[col], kLog2e) : 0.0f;
       }
   };
 
-  if (vec)
-    zero_pad_cols_f32<kThreads>(qs, kRows + kStages * 2 * kTile, ld, d);
+  if (vec) zero_pad_cols_f32<kThreads>(qs, kRows + 2 * kTile, ld, d);
   load_tile_f32<kRows, kThreads, kD>(qs, ld, q + qbase, row0, sq, d, vec);
-  load_kv(0, 0);
+  load_kv(0);
 
   const float* qw = qs + rg * 16 * ld;
   const int rows[2] = {row0 + rg * 16 + g, row0 + rg * 16 + g + 8};
@@ -157,17 +151,11 @@ flash_fwd_tf32_kernel(const float* __restrict__ q,
   float acc[kD][4] = {};
 
   for (int kt = 0; kt < n_tiles; ++kt) {
-    const int st = kStages == 2 ? kt & 1 : 0;
-    if (kStages == 2 && kt + 1 < n_tiles) {
-      load_kv(kt + 1, st ^ 1);  // its stage was consumed last tile
-      cp_wait<1>();
-    } else {
-      cp_wait<0>();
-    }
+    cp_wait<0>();
     __syncthreads();
-    const float* kst = kvs + (st * 2 * kTile + h * kPart) * ld;
+    const float* kst = kvs + h * kPart * ld;
     const float* vst = kst + kTile * ld;
-    const float* bst = bs + st * kTile + h * kPart;  // the warp's keys' bias
+    const float* bst = bs + h * kPart;  // the warp's keys' bias
     const int key0 = kt * kTile + h * kPart;         // the warp's first key
 
     // the first part of tile 0 is never skipped, so there m is finite from
@@ -241,8 +229,8 @@ flash_fwd_tf32_kernel(const float* __restrict__ q,
         }
       }
     }
-    __syncthreads();  // the stage is consumed before it is refilled
-    if (kStages == 1 && kt + 1 < n_tiles) load_kv(kt + 1, 0);
+    __syncthreads();  // the tile is consumed before it is refilled
+    if (kt + 1 < n_tiles) load_kv(kt + 1);
   }
 
   // the row group's other warps hand their max, sum and accumulator to
@@ -304,7 +292,7 @@ flash_fwd_tf32_kernel(const float* __restrict__ q,
 
 // -- B5b: backward, dk/dv --------------------------------------------------
 
-template <int kD, int kSplit, int kStages>
+template <int kD, int kSplit>
 __global__ void __launch_bounds__(kSplit * 128)
 flash_bwd_dkv_tf32_kernel(const float* __restrict__ q,
                           const float* __restrict__ k,
@@ -322,8 +310,8 @@ flash_bwd_dkv_tf32_kernel(const float* __restrict__ q,
   extern __shared__ __align__(16) float smem[];
   float* ks = smem;                              // [kRows][ld]
   float* vs = ks + kRows * ld;                   // [kRows][ld]
-  float* qds = vs + kRows * ld;                  // [kStages][Q, dO][kTile][ld]
-  float* rs = qds + kStages * 2 * kTile * ld;    // [kStages][3][kTile]
+  float* qds = vs + kRows * ld;                  // [Q, dO][kTile][ld]
+  float* rs = qds + 2 * kTile * ld;              // [3][kTile]
   const long long bh = blockIdx.x;
   const int key0 = blockIdx.y * kRows;  // the first key tiles see the most rows
   const long long qbase = bh * sq * d, kbase = bh * skv * d;
@@ -339,33 +327,28 @@ flash_bwd_dkv_tf32_kernel(const float* __restrict__ q,
   // of its keys
   const int first = causal ? key0 / kTile : 0;
 
-  // query tile `qt` into stage `st`: Q and dO by cp.async as one group, the
-  // rows' lse * log2 e (+inf past sq, so p = 0 there), D and glse by plain
-  // loads
-  auto load_qdo = [&](int qt, int st) {
-    float* qs = qds + st * 2 * kTile * ld;
-    load_tile_f32<kTile, kThreads, kD>(qs, ld, q + qbase, qt * kTile, sq, d,
+  // query tile `qt`: Q and dO by cp.async as one group, the rows' lse *
+  // log2 e (+inf past sq, so p = 0 there), D and glse by plain loads
+  auto load_qdo = [&](int qt) {
+    load_tile_f32<kTile, kThreads, kD>(qds, ld, q + qbase, qt * kTile, sq, d,
                                        vec);
-    load_tile_f32<kTile, kThreads, kD>(qs + kTile * ld, ld, dout + qbase,
+    load_tile_f32<kTile, kThreads, kD>(qds + kTile * ld, ld, dout + qbase,
                                        qt * kTile, sq, d, vec);
     cp_commit();
-    float* r = rs + st * 3 * kTile;
     for (int i = threadIdx.x; i < kTile; i += kThreads) {
       const int row = qt * kTile + i;
       const bool in = row < sq;
-      r[i] = in ? __fmul_rn(lseb[row], kLog2e) : INFINITY;
-      r[kTile + i] = in ? deltab[row] : 0.0f;
-      r[2 * kTile + i] = in && glseb != nullptr ? glseb[row] : 0.0f;
+      rs[i] = in ? __fmul_rn(lseb[row], kLog2e) : INFINITY;
+      rs[kTile + i] = in ? deltab[row] : 0.0f;
+      rs[2 * kTile + i] = in && glseb != nullptr ? glseb[row] : 0.0f;
     }
   };
 
   if (first < n_tiles) {  // else no query reaches these keys: dk = dv = 0
-    if (vec)
-      zero_pad_cols_f32<kThreads>(ks, 2 * kRows + kStages * 2 * kTile, ld,
-                                  d);
+    if (vec) zero_pad_cols_f32<kThreads>(ks, 2 * kRows + 2 * kTile, ld, d);
     load_tile_f32<kRows, kThreads, kD>(ks, ld, k + kbase, key0, skv, d, vec);
     load_tile_f32<kRows, kThreads, kD>(vs, ld, v + kbase, key0, skv, d, vec);
-    load_qdo(first, 0);
+    load_qdo(first);
   }
 
   const int keys[2] = {key0 + rg * 16 + g, key0 + rg * 16 + g + 8};
@@ -375,17 +358,11 @@ flash_bwd_dkv_tf32_kernel(const float* __restrict__ q,
   float acc_k[kD][4] = {}, acc_v[kD][4] = {};
 
   for (int qt = first; qt < n_tiles; ++qt) {
-    const int st = kStages == 2 ? (qt - first) & 1 : 0;
-    if (kStages == 2 && qt + 1 < n_tiles) {
-      load_qdo(qt + 1, st ^ 1);  // its stage was consumed last tile
-      cp_wait<1>();
-    } else {
-      cp_wait<0>();
-    }
+    cp_wait<0>();
     __syncthreads();
-    const float* qst = qds + (st * 2 * kTile + h * kPart) * ld;
+    const float* qst = qds + h * kPart * ld;
     const float* dost = qst + kTile * ld;
-    const float* rst = rs + st * 3 * kTile + h * kPart;  // the warp's rows
+    const float* rst = rs + h * kPart;  // the warp's rows
     const int qf = qt * kTile + h * kPart;  // the warp's first query
 
     // a warp whose keys all lie past its queries sees none of them
@@ -444,8 +421,8 @@ flash_bwd_dkv_tf32_kernel(const float* __restrict__ q,
         }
       }
     }
-    __syncthreads();  // the stage is consumed before it is refilled
-    if (kStages == 1 && qt + 1 < n_tiles) load_qdo(qt + 1, 0);
+    __syncthreads();  // the tile is consumed before it is refilled
+    if (qt + 1 < n_tiles) load_qdo(qt + 1);
   }
   // dk through the consumed Q tile, dv through the dO tile
   const bool holds_sum = merge_into_first<kD, kSplit>(qds, acc_k, h);
@@ -467,11 +444,10 @@ struct Fwd {
                  int heads, int sq, int skv, int d, float scale_log2e,
                  int causal, cudaStream_t stream) {
     constexpr int kTile = kSplit * kPart;
-    const size_t smem = tile_bytes(kD, kRows) +
-                        kFwdStages * (2 * tile_bytes(kD, kTile) +
-                                      sizeof(float) * kTile);
+    const size_t smem = tile_bytes(kD, kRows) + 2 * tile_bytes(kD, kTile) +
+                        sizeof(float) * kTile;
     const int vec = d % 4 == 0 && aligned16({q, k, v});
-    auto kernel = flash_fwd_tf32_kernel<kD, kSplit, kFwdStages>;
+    auto kernel = flash_fwd_tf32_kernel<kD, kSplit>;
     cudaError_t err = allow_smem(kernel, smem);
     if (err != cudaSuccess) return (int)err;
     kernel<<<dim3((unsigned)bh, (unsigned)tiles(sq)), kSplit * 128, smem,
@@ -494,10 +470,9 @@ struct Dkv {
                  cudaStream_t stream) {
     constexpr int kTile = kSplit * kPart;
     const size_t smem = 2 * tile_bytes(kD, kRows) +
-                        kDkvStages * (2 * tile_bytes(kD, kTile) +
-                                      3 * sizeof(float) * kTile);
+                        2 * tile_bytes(kD, kTile) + 3 * sizeof(float) * kTile;
     const int vec = d % 4 == 0 && aligned16({q, k, v, dout});
-    auto kernel = flash_bwd_dkv_tf32_kernel<kD, kSplit, kDkvStages>;
+    auto kernel = flash_bwd_dkv_tf32_kernel<kD, kSplit>;
     cudaError_t err = allow_smem(kernel, smem);
     if (err != cudaSuccess) return (int)err;
     kernel<<<dim3((unsigned)bh, (unsigned)tiles(skv)), kSplit * 128, smem,

@@ -283,6 +283,7 @@ inline bool aligned16(std::initializer_list<const void*> ptrs) {
 // B8 17% faster, the four-warp blocks fitting more warps an SM
 // (scripts/fused_short_f32_variants.py).
 inline int split_for(long long blocks, int most) {
+  if (most < 2) return 1;
   int dev = 0, sms = 0;
   if (cudaGetDevice(&dev) != cudaSuccess ||
       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
@@ -298,7 +299,9 @@ template <template <int, int> class F, int kD, int kMost, typename... Args>
 int launch_split(int split, Args... args) {
   if constexpr (kMost >= 4)
     if (split == 4) return F<kD, 4>::run(args...);
-  return split == 2 ? F<kD, 2>::run(args...) : F<kD, 1>::run(args...);
+  if constexpr (kMost >= 2)
+    if (split == 2) return F<kD, 2>::run(args...);
+  return F<kD, 1>::run(args...);
 }
 
 // F<kD, split>::run(args...) for head width d and a grid of `blocks`

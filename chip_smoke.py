@@ -346,6 +346,12 @@ LOGIT_TOL = 1e-4
 FLASH_LENGTHS = ((1, 1), (17, 17), (513, 513), (1000, 1000), (2047, 2047),
                  (2048, 2048), (4096, 4096), (513, 1000), (1000, 513),
                  (17, 4096), (2047, 1))
+#: f32 B4 and B5b at a batch of 16-head rows whose grid is at least eight
+#: 64-row blocks an SM (``many_blocks_batch``), as the LM's grids are: the
+#: grid above runs b·h 2
+FLASH_MANY_LENGTHS = ((513, 1000), (1000, 513), (17, 4096), (2047, 1),
+                      (4096, 4096))
+FLASH_MANY_HEADS = 16
 #: the head widths of the grid, in both dtypes: 64 and 128, one ragged
 #: chunk of 8 or 16 (24) and a partial 128-wide tile (96)
 FLASH_DIMS = {torch.float32: (24, 64, 96, 128),
@@ -2011,14 +2017,24 @@ def _grads_errs(got, want, one_key_no_glse: bool):
     return abs_err, l2
 
 
+#: the route each flash kernel must count on, written out here so that the
+#: route checks hold the wrappers' table (``at.flash_route``) to it: bf16
+#: on the tensor cores; f32 B4 and B5b on the tensor cores as 3xTF32, B5a
+#: and B6 on the CUDA cores
+FLASH_ROUTES = {
+    torch.bfloat16: {"flash_fwd": "bf16_tc", "flash_bwd_dq": "bf16_tc",
+                     "flash_bwd_dkv": "bf16_tc", "flash_bwd_fused": "bf16_tc"},
+    torch.float32: {"flash_fwd": "f32_tc", "flash_bwd_dq": "f32_simt",
+                    "flash_bwd_dkv": "f32_tc", "flash_bwd_fused": "f32_simt"}}
+
+
 def flash_routes_of(at, dtype, launches: dict) -> dict:
     """The flash route counts that these flash launches (by kernel name)
-    of ``dtype`` make, every route named: each kernel counts on its own
-    route (``at.flash_route``)."""
+    of ``dtype`` must make, every route named, by ``FLASH_ROUTES``."""
     routes = {r: 0 for r in at.flash_route_counts}
     for kernel, n in launches.items():
         if kernel in at.flash_launch_counts:
-            routes[at.flash_route(dtype, kernel)] += n
+            routes[FLASH_ROUTES[dtype][kernel]] += n
     return routes
 
 
@@ -2100,6 +2116,10 @@ def phase_flash_kernels(at, dev, seed: int):
         f"bit-equal twice); largest errors " + json.dumps(errors)
         + ", at " + json.dumps(worst))
 
+    many = phase_flash_many_blocks(at, dev, seed)
+    log("f32 B4 and B5b at grids of at least eight blocks an SM within 2e-5 "
+        "of their plain versions: " + json.dumps(many))
+
     # dispatch by the resident-bytes rule: in f32 the LM's 2048 keys take
     # B6 and 4096 keys B5a + B5b; in bf16 4096 keys B6, 8192 B5a + B5b
     for shape, dtype, fused in (
@@ -2128,8 +2148,86 @@ def phase_flash_kernels(at, dev, seed: int):
         "f32 -> B5a + B5b, [1, 2, 4096, 128] bf16 -> B6, [1, 2, 8192, 128] "
         "bf16 -> B5a + B5b, each kernel on its route")
 
-    return {"cases": cases, "errors": errors,
+    return {"cases": cases, "errors": errors, "many_blocks": many,
             **flash_timings(at, dev, FLASH_TIMED)}
+
+
+def many_blocks_batch(dev, rows: int, h: int) -> int:
+    """The least batch whose ``b·h·ceil(rows / 64)`` blocks make at least
+    eight an SM of this card."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return -(-8 * sms // (h * -(-rows // 64)))
+
+
+def phase_flash_many_blocks(at, dev, seed: int) -> dict:
+    """f32 B4 (bias or not) and B5b (lse cotangent or not), causal or not,
+    at ``FLASH_MANY_LENGTHS`` x ``FLASH_DIMS[f32]`` and a batch that gives
+    each kernel's grid at least eight blocks an SM, against
+    ``flash_fwd_plain`` and ``flash_bwd_dkv_plain`` within 2e-5 of the scale
+    and in relative L2, each launch on ``f32_tc``; returns the cases and
+    largest errors with where each occurred."""
+    h, tol = FLASH_MANY_HEADS, ATTN_ATOL[torch.float32]
+    gen = torch.Generator(device=dev).manual_seed(seed + 11)
+    errors = {"fwd": 0.0, "lse": 0.0, "dkv": 0.0}
+    worst, cases = {}, 0
+
+    def record(key, e, case):
+        if e > errors[key]:
+            errors[key], worst[key] = e, case
+
+    def draw(b, rows, d):
+        return torch.randn(b, h, rows, d, generator=gen, device=dev)
+
+    for sq, skv in FLASH_MANY_LENGTHS:
+        for d in FLASH_DIMS[torch.float32]:
+            scale = d ** -0.5
+            b = many_blocks_batch(dev, sq, h)  # B4: 64 queries a block
+            q, k, v = draw(b, sq, d), draw(b, skv, d), draw(b, skv, d)
+            bias = (torch.rand(b, skv, generator=gen, device=dev)
+                    < 0.2).float() * -1e9
+            for causal in (False, True):
+                for kb in (None, bias):
+                    case = (f"{sq}x{skv} d={d} b={b} causal={causal} "
+                            f"bias={kb is not None}")
+                    before = at.flash_route_counts["f32_tc"]
+                    o, lse = at.flash_fwd(q, k, v, kb, scale, causal)
+                    check(at.flash_route_counts["f32_tc"] == before + 1,
+                          f"B4 not on f32_tc at {case}")
+                    want_o, want_lse = at.flash_fwd_plain(q, k, v, kb,
+                                                          scale, causal)
+                    e = max(_rel_err(o, want_o), _rel_l2(o, want_o))
+                    e_l = max(_rel_err(lse, want_lse),
+                              _rel_l2(lse, want_lse))
+                    check(e <= tol and e_l <= tol,
+                          f"B4 != plain by {e} (lse {e_l}) at {case}")
+                    record("fwd", e, case)
+                    record("lse", e_l, case)
+            del q, k, v, o, lse, want_o, want_lse
+            b = many_blocks_batch(dev, skv, h)  # B5b: 64 keys a block
+            q, do = draw(b, sq, d), draw(b, sq, d)
+            k, v = draw(b, skv, d), draw(b, skv, d)
+            glse = torch.randn(b, h, sq, generator=gen, device=dev)
+            for causal in (False, True):
+                o, lse = at.flash_fwd_plain(q, k, v, None, scale, causal)
+                delta = (do * o).sum(-1)
+                for gl in (None, glse):
+                    case = (f"{sq}x{skv} d={d} b={b} causal={causal} "
+                            f"glse={gl is not None}")
+                    args = (q, k, v, do, lse, delta, gl, scale, causal)
+                    before = at.flash_route_counts["f32_tc"]
+                    got = at.flash_bwd_dkv(*args)
+                    check(at.flash_route_counts["f32_tc"] == before + 1,
+                          f"B5b not on f32_tc at {case}")
+                    # one key with no lse cotangent: dk is rounding alone,
+                    # held to the joint norm (_grads_errs)
+                    e = max(_grads_errs(got, at.flash_bwd_dkv_plain(*args),
+                                        skv == 1 and gl is None))
+                    check(e <= tol, f"B5b != plain by {e} at {case}")
+                    record("dkv", e, case)
+            del q, k, v, do, glse, o, lse, delta, got
+            torch.cuda.empty_cache()
+            cases += 1
+    return {"cases": cases, "heads": h, "errors": errors, "worst": worst}
 
 
 def flash_timings(at, dev, timed) -> dict:
@@ -2206,7 +2304,7 @@ def flash_timings(at, dev, timed) -> dict:
         for kind, kernel in (("fwd", "flash_fwd"), ("bwd", "flash_bwd_fused"),
                              ("dq", "flash_bwd_dq"),
                              ("dkv", "flash_bwd_dkv")):
-            route = at.flash_route(dtype, kernel)
+            route = FLASH_ROUTES[dtype][kernel]
             t["routes"][kernel] = route
             t[f"{kind}_bound"] = list(flash_bound_ms(
                 b, h, s, s, d, dtype, kind,
@@ -3407,7 +3505,7 @@ def main() -> int:
         }
         others = (("s4096", "bench_longseq"),) if two_pass else (
             ("d64", "bench_longseq_d64"), ("s8192", "bench_longseq_s8192"))
-        f32_route = at.flash_route(torch.float32, name)
+        f32_route = FLASH_ROUTES[torch.float32][name]
         f32_label = "lm_long" if two_pass else "lm"
         entry_k["routes"] = {
             "bf16_tc": {"source": flash_sources["bf16_tc"],

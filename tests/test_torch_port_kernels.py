@@ -783,6 +783,77 @@ def test_flash_kernels_equal_their_plain_versions_on_the_card(
                        for a, b in zip(two_pass, two_again)), case
 
 
+#: lengths of the grid above, each at a batch (``_many_blocks_batch``)
+#: whose grid of 64-row blocks is at least eight blocks an SM
+FLASH_MANY_LENGTHS = [(513, 1000), (1000, 513), (17, 4096), (2047, 1),
+                      (4096, 4096)]
+
+
+def _many_blocks_batch(dev, rows, h):
+    """The least batch whose ``b·h·ceil(rows / 64)`` blocks make at least
+    eight an SM of this card."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return -(-8 * sms // (h * -(-rows // 64)))
+
+
+def _flash_inputs_on_card(dev, sq, skv, d, b, h, seed):
+    """Seeded q, k, v, dO, glse and a padding bias, drawn on the card (the
+    batches here reach 2 GiB a tensor)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q, do = (torch.randn(b, h, sq, d, generator=gen, device=dev)
+             for _ in range(2))
+    k, v = (torch.randn(b, h, skv, d, generator=gen, device=dev)
+            for _ in range(2))
+    glse = torch.randn(b, h, sq, generator=gen, device=dev)
+    mask = (torch.rand(b, skv, generator=gen, device=dev) < 0.2).float()
+    return q, k, v, do, glse, mask * -1e9
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sq,skv", FLASH_MANY_LENGTHS,
+                         ids=[f"{a}x{b}" for a, b in FLASH_MANY_LENGTHS])
+@pytest.mark.parametrize("d", [24, 64, 96, 128])
+def test_f32_flash_tensor_core_kernels_on_grids_of_many_blocks(
+        cuda_device, sq, skv, d):
+    """f32 B4 (with and without a key bias) and B5b (with and without an
+    lse cotangent), causal or not, at 16 heads and a batch that gives each
+    kernel's grid at least eight blocks an SM, against
+    ``flash_fwd_plain`` and ``flash_bwd_dkv_plain``: within 2e-5 of the
+    scale and in relative L2 (dk and dv over their joint norm where a
+    single key and no lse cotangent leave dk rounding alone). The grid
+    test above runs b·h 2."""
+    from analytics_zoo_tpu_torch.ops import attention as at
+    h, scale, f32 = 16, d ** -0.5, torch.float32
+    b = _many_blocks_batch(cuda_device, sq, h)  # B4: 64 queries a block
+    q, k, v, _, _, bias = _flash_inputs_on_card(cuda_device, sq, skv, d, b,
+                                                h, sq + skv + d)
+    for causal in (False, True):
+        for kb in (None, bias):
+            before = at.flash_route_counts["f32_tc"]
+            o, lse = at.flash_fwd(q, k, v, kb, scale, causal)
+            assert at.flash_route_counts["f32_tc"] == before + 1
+            want_o, want_lse = at.flash_fwd_plain(q, k, v, kb, scale, causal)
+            case = f"b={b} causal={causal} bias={kb is not None}"
+            assert _flash_close(o, want_o, f32), case
+            assert _flash_close(lse, want_lse, f32), case
+    del q, k, v, o, lse, want_o, want_lse
+    b = _many_blocks_batch(cuda_device, skv, h)  # B5b: 64 keys a block
+    q, k, v, do, glse, _ = _flash_inputs_on_card(cuda_device, sq, skv, d, b,
+                                                 h, sq + skv + d + 1)
+    for causal in (False, True):
+        o, lse = at.flash_fwd_plain(q, k, v, None, scale, causal)
+        delta = (do * o).sum(-1)
+        for gl in (None, glse):
+            args = (q, k, v, do, lse, delta, gl, scale, causal)
+            before = at.flash_route_counts["f32_tc"]
+            got = at.flash_bwd_dkv(*args)
+            assert at.flash_route_counts["f32_tc"] == before + 1
+            want = at.flash_bwd_dkv_plain(*args)
+            case = f"b={b} causal={causal} glse={gl is not None}"
+            assert _grads_close(got, want, f32, skv == 1 and gl is None), \
+                case
+
+
 @pytest.mark.cuda
 def test_flash_bf16_takes_the_tensor_cores_and_f32_the_cuda_cores(
         cuda_device):
