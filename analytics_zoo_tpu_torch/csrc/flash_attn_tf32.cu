@@ -28,18 +28,21 @@
 // fragments: each f32 operand split into two TF32 parts at fragment load,
 // three TF32 products for one f32-grade product, and an accumulator (p, ds)
 // fed back as the next product's A fragment in the permuted reduction
-// order. The walk is mma_tf32.cuh's and B7/B8's: a block owns 64 rows in
-// four row groups of 16 and walks the other side in tiles that cp.async
-// stages into shared memory; a row group has one warp, or two for a grid
-// under eight blocks an SM (split_for), merged in a fixed order.
+// order. The walk is mma_tf32.cuh's and B7/B8's at one warp a row group:
+// a block of four warps owns 64 rows in four row groups of 16 and walks
+// the other side in 32-row tiles that cp.async stages into shared memory.
+// B7/B8's two warps a row group under eight blocks an SM (split_for) made
+// B4 28% and B5b 3% slower at 1024 blocks (the LM's prefill at batch 2)
+// on the H100; at 512 blocks B4 2% slower and B5b 2-4% faster; at the
+// LM's grids of 2048-4096 blocks split_for picks one (PERF.md).
 //
 //   B4:  a block per (bh, 64 query rows), Q resident, K/V tiles walked
 //        with the online softmax in registers; the blocks with the most
 //        causal key tiles launch first. Under the causal mask a block
 //        walks only the key tiles at or below its last row, and a warp
-//        skips keys that all lie past its rows. The bias is staged per
-//        key tile (bias * log2 e). Rows past sq are computed from zeros and
-//        not stored; keys past skv score -inf and weigh exactly 0.
+//        skips a tile whose keys all lie past its rows. The bias is staged
+//        per key tile (bias * log2 e). Rows past sq are computed from zeros
+//        and not stored; keys past skv score -inf and weigh exactly 0.
 //   B5b: a block per (bh, 64 keys), K and V resident, query tiles walked
 //        from the first a causal key tile reaches (its first key's tile);
 //        each tile's rows' lse * log2 e, D and glse staged beside it. Per
@@ -62,13 +65,11 @@
 // One buffer of walked tiles each, refilled after the tile is consumed: a
 // second (the next tile's copy overlapping this one's products) made B4
 // 26-29% and B5b 57-62% slower at the LM's shapes on the H100, the blocks
-// an SM falling from three to two and from two to one
-// (PERF.md). Shared memory at d
-// 128, one warp a row group: B4 Q (64 rows), a K and a V tile of 32 keys
-// and their bias, 67,712 bytes (three blocks an SM); B5b K and V (64
-// rows), a Q and a dO tile of 32 and their rows' statistics, 101,760
-// bytes (two blocks an SM). Rows are 8 * ceil(d / 8) + 4 floats; at d 64
-// about half.
+// an SM falling from three to two and from two to one (PERF.md). Shared
+// memory at d 128: B4 Q (64 rows), a K and a V tile of 32 keys and their
+// bias, 67,712 bytes (three blocks an SM); B5b K and V (64 rows), a Q and
+// a dO tile of 32 and their rows' statistics, 101,760 bytes (two blocks
+// an SM). Rows are 8 * ceil(d / 8) + 4 floats; at d 64 about half.
 //
 // Bound (H100 SXM data sheet, not measurements): at the LM's shape (bh 128,
 // s 2048, d 128, causal) B4 does 137.5 GFLOP over the pairs the mask
@@ -94,11 +95,13 @@ constexpr int kMaxD = 128;
 constexpr float kNegInf = -1e30f;  // a masked score, as the TPU kernels
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
+constexpr int kTile = kPart;  // rows of a walked tile: a warp's
+constexpr int kThreads = 128;  // a warp for each of the four row groups
 
 // -- B4: forward -----------------------------------------------------------
 
-template <int kD, int kSplit>
-__global__ void __launch_bounds__(kSplit * 128)
+template <int kD>
+__global__ void __launch_bounds__(kThreads)
 flash_fwd_tf32_kernel(const float* __restrict__ q,
                       const float* __restrict__ k,
                       const float* __restrict__ v,
@@ -107,8 +110,7 @@ flash_fwd_tf32_kernel(const float* __restrict__ q,
                       int heads, int sq, int skv, int d, float scale_log2e,
                       int causal, int vec) {
   constexpr int ld = 8 * kD + 4;
-  constexpr int kN = kPart / 8;  // 8-key steps of a warp's part
-  constexpr int kTile = kSplit * kPart, kThreads = kSplit * 128;
+  constexpr int kN = kTile / 8;  // 8-key steps of a tile
   extern __shared__ __align__(16) float smem[];
   float* qs = smem;                             // [kRows][ld]
   float* kvs = qs + kRows * ld;                 // [K, V][kTile][ld]
@@ -118,8 +120,7 @@ flash_fwd_tf32_kernel(const float* __restrict__ q,
   const long long qbase = bh * sq * d, kbase = bh * skv * d;
   const float* biasb =
       key_bias != nullptr ? key_bias + (bh / heads) * skv : nullptr;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int rg = warp % 4, h = warp / 4;  // row group, part
+  const int rg = threadIdx.x / 32, lane = threadIdx.x % 32;  // row group
   const int g = lane / 4, t = lane % 4;
   const int kd = (d + 7) / 8;
   const int kend = causal ? min(skv, row0 + kRows) : skv;
@@ -153,13 +154,11 @@ flash_fwd_tf32_kernel(const float* __restrict__ q,
   for (int kt = 0; kt < n_tiles; ++kt) {
     cp_wait<0>();
     __syncthreads();
-    const float* kst = kvs + h * kPart * ld;
-    const float* vst = kst + kTile * ld;
-    const float* bst = bs + h * kPart;  // the warp's keys' bias
-    const int key0 = kt * kTile + h * kPart;         // the warp's first key
+    const float* kst = kvs;
+    const float* vst = kvs + kTile * ld;
+    const int key0 = kt * kTile;  // the tile's first key
 
-    // the first part of tile 0 is never skipped, so there m is finite from
-    // the first tile on
+    // tile 0 is never skipped, so there m is finite from the first tile on
     if (key0 < skv && !(causal && key0 > last_row)) {
       float sc[kN][4] = {};
 #pragma unroll
@@ -184,7 +183,7 @@ flash_fwd_tf32_kernel(const float* __restrict__ q,
           // add round alike
           const int c = n * 8 + 2 * t + (e & 1), col = key0 + c;
           float x = __fmul_rn(sc[n][e], scale_log2e);
-          if (biasb != nullptr) x = __fadd_rn(x, bst[c]);
+          if (biasb != nullptr) x = __fadd_rn(x, bs[c]);
           if (col >= skv)
             x = -INFINITY;  // past the end: weighs exactly 0
           else if (causal && col > rows[e / 2])
@@ -194,7 +193,7 @@ flash_fwd_tf32_kernel(const float* __restrict__ q,
         }
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
-        // a walked part holds a key below skv: its max is finite
+        // a walked tile holds a key below skv: its max is finite
         const float m_new = fmaxf(m[i], quad_max(tmax[i]));
         const float corr = exp2f(m[i] - m_new);
         m[i] = m_new;
@@ -233,46 +232,6 @@ flash_fwd_tf32_kernel(const float* __restrict__ q,
     if (kt + 1 < n_tiles) load_kv(kt + 1);
   }
 
-  // the row group's other warps hand their max, sum and accumulator to
-  // the first in turn, through the consumed K/V tiles: m = max(m0, m1), c
-  // = exp2(m_w - m), l = l0 c0 + l1 c1, acc = acc0 c0 + acc1 c1 (a warp
-  // that saw no key has m -inf)
-  float* xch = kvs;
-  for (int from = 1; from < kSplit; ++from) {
-    if (h == from) {
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        xch[xch_at(i)] = m[i];
-        xch[xch_at(2 + i)] = l[i];
-      }
-#pragma unroll
-      for (int n = 0; n < kD; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) xch[xch_at(4 + 4 * n + e)] = acc[n][e];
-    }
-    __syncthreads();
-    if (h == 0) {
-      float c0[2], c1[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const float m1 = xch[xch_at(i)];
-        const float mm = fmaxf(m[i], m1);
-        c0[i] = exp2f(m[i] - mm);
-        c1[i] = exp2f(m1 - mm);
-        m[i] = mm;
-        l[i] = l[i] * c0[i] + xch[xch_at(2 + i)] * c1[i];
-      }
-#pragma unroll
-      for (int n = 0; n < kD; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          acc[n][e] = acc[n][e] * c0[e / 2] +
-                      xch[xch_at(4 + 4 * n + e)] * c1[e / 2];
-    }
-    __syncthreads();  // read before the next warp writes
-  }
-  if (h != 0) return;
-
   float den[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) den[i] = fmaxf(quad_sum(l[i]), 1e-30f);
@@ -292,8 +251,8 @@ flash_fwd_tf32_kernel(const float* __restrict__ q,
 
 // -- B5b: backward, dk/dv --------------------------------------------------
 
-template <int kD, int kSplit>
-__global__ void __launch_bounds__(kSplit * 128)
+template <int kD>
+__global__ void __launch_bounds__(kThreads)
 flash_bwd_dkv_tf32_kernel(const float* __restrict__ q,
                           const float* __restrict__ k,
                           const float* __restrict__ v,
@@ -305,8 +264,7 @@ flash_bwd_dkv_tf32_kernel(const float* __restrict__ q,
                           int sq, int skv, int d, float scale_log2e,
                           float scale, int causal, int vec) {
   constexpr int ld = 8 * kD + 4;
-  constexpr int kN = kPart / 8;  // 8-query steps of a warp's part
-  constexpr int kTile = kSplit * kPart, kThreads = kSplit * 128;
+  constexpr int kN = kTile / 8;  // 8-query steps of a tile
   extern __shared__ __align__(16) float smem[];
   float* ks = smem;                              // [kRows][ld]
   float* vs = ks + kRows * ld;                   // [kRows][ld]
@@ -318,8 +276,7 @@ flash_bwd_dkv_tf32_kernel(const float* __restrict__ q,
   const float* lseb = lse + bh * sq;
   const float* deltab = delta + bh * sq;
   const float* glseb = glse != nullptr ? glse + bh * sq : nullptr;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int rg = warp % 4, h = warp / 4;
+  const int rg = threadIdx.x / 32, lane = threadIdx.x % 32;  // row group
   const int g = lane / 4, t = lane % 4;
   const int kd = (d + 7) / 8;
   const int n_tiles = (sq + kTile - 1) / kTile;
@@ -360,13 +317,13 @@ flash_bwd_dkv_tf32_kernel(const float* __restrict__ q,
   for (int qt = first; qt < n_tiles; ++qt) {
     cp_wait<0>();
     __syncthreads();
-    const float* qst = qds + h * kPart * ld;
-    const float* dost = qst + kTile * ld;
-    const float* rst = rs + h * kPart;  // the warp's rows
-    const int qf = qt * kTile + h * kPart;  // the warp's first query
+    const float* qst = qds;
+    const float* dost = qds + kTile * ld;
+    const float* rst = rs;  // the tile's rows' statistics
+    const int qf = qt * kTile;  // the tile's first query
 
-    // a warp whose keys all lie past its queries sees none of them
-    if (qf < sq && !(causal && qf + kPart - 1 < first_key)) {
+    // a warp whose keys all lie past the tile's queries sees none of them
+    if (qf < sq && !(causal && qf + kTile - 1 < first_key)) {
       float sT[kN][4] = {}, dpT[kN][4] = {};  // S^T, dP^T: keys x queries
 #pragma unroll
       for (int kc = 0; kc < kD; ++kc) {
@@ -424,33 +381,27 @@ flash_bwd_dkv_tf32_kernel(const float* __restrict__ q,
     __syncthreads();  // the tile is consumed before it is refilled
     if (qt + 1 < n_tiles) load_qdo(qt + 1);
   }
-  // dk through the consumed Q tile, dv through the dO tile
-  const bool holds_sum = merge_into_first<kD, kSplit>(qds, acc_k, h);
-  merge_into_first<kD, kSplit>(qds + kTile * ld, acc_v, h);
-  if (holds_sum) {
-    store_acc<kD>(dk + kbase, acc_k, scale, key0 + rg * 16, skv, d);
-    store_acc<kD>(dv + kbase, acc_v, 1.0f, key0 + rg * 16, skv, d);
-  }
+  store_acc<kD>(dk + kbase, acc_k, scale, key0 + rg * 16, skv, d);
+  store_acc<kD>(dv + kbase, acc_v, 1.0f, key0 + rg * 16, skv, d);
 }
 
 // -- launches --------------------------------------------------------------
 
 int tiles(int n) { return (n + kRows - 1) / kRows; }
 
-template <int kD, int kSplit>
+template <int kD>
 struct Fwd {
   static int run(const void* q, const void* k, const void* v,
                  const void* key_bias, void* o, void* lse, long long bh,
                  int heads, int sq, int skv, int d, float scale_log2e,
                  int causal, cudaStream_t stream) {
-    constexpr int kTile = kSplit * kPart;
     const size_t smem = tile_bytes(kD, kRows) + 2 * tile_bytes(kD, kTile) +
                         sizeof(float) * kTile;
     const int vec = d % 4 == 0 && aligned16({q, k, v});
-    auto kernel = flash_fwd_tf32_kernel<kD, kSplit>;
+    auto kernel = flash_fwd_tf32_kernel<kD>;
     cudaError_t err = allow_smem(kernel, smem);
     if (err != cudaSuccess) return (int)err;
-    kernel<<<dim3((unsigned)bh, (unsigned)tiles(sq)), kSplit * 128, smem,
+    kernel<<<dim3((unsigned)bh, (unsigned)tiles(sq)), kThreads, smem,
              stream>>>(static_cast<const float*>(q),
                        static_cast<const float*>(k),
                        static_cast<const float*>(v),
@@ -461,21 +412,20 @@ struct Fwd {
   }
 };
 
-template <int kD, int kSplit>
+template <int kD>
 struct Dkv {
   static int run(const void* q, const void* k, const void* v,
                  const void* dout, const void* lse, const void* delta,
                  const void* glse, void* dk, void* dv, long long bh, int sq,
                  int skv, int d, float scale_log2e, float scale, int causal,
                  cudaStream_t stream) {
-    constexpr int kTile = kSplit * kPart;
     const size_t smem = 2 * tile_bytes(kD, kRows) +
                         2 * tile_bytes(kD, kTile) + 3 * sizeof(float) * kTile;
     const int vec = d % 4 == 0 && aligned16({q, k, v, dout});
-    auto kernel = flash_bwd_dkv_tf32_kernel<kD, kSplit>;
+    auto kernel = flash_bwd_dkv_tf32_kernel<kD>;
     cudaError_t err = allow_smem(kernel, smem);
     if (err != cudaSuccess) return (int)err;
-    kernel<<<dim3((unsigned)bh, (unsigned)tiles(skv)), kSplit * 128, smem,
+    kernel<<<dim3((unsigned)bh, (unsigned)tiles(skv)), kThreads, smem,
              stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<const float*>(dout),
@@ -486,6 +436,14 @@ struct Dkv {
     return (int)cudaGetLastError();
   }
 };
+
+// F<kD>::run(args...) at head width d, kD its chunks of 8 (4, 8 or 16)
+template <template <int> class F, typename... Args>
+int by_width(int d, Args... args) {
+  if (d <= 32) return F<4>::run(args...);
+  if (d <= 64) return F<8>::run(args...);
+  return F<16>::run(args...);
+}
 
 bool bad_shape(long long bh, int sq, int skv, int d) {
   return bh < 0 || bh > 0x7fffffffLL || sq < 1 || skv < 1 ||
@@ -507,9 +465,9 @@ int azt_flash_fwd(const void* q, const void* k, const void* v,
   if (bad_shape(bh, sq, skv, d) || heads < 1 || dtype != 0)
     return (int)cudaErrorInvalidValue;
   if (bh == 0) return 0;
-  return dispatch<Fwd, 2>(bh * tiles(sq), d, q, k, v, key_bias, o, lse, bh,
-                          heads, sq, skv, d, scale_log2e, causal,
-                          static_cast<cudaStream_t>(stream));
+  return by_width<Fwd>(d, q, k, v, key_bias, o, lse, bh, heads, sq, skv, d,
+                       scale_log2e, causal,
+                       static_cast<cudaStream_t>(stream));
 }
 
 // B5b, f32, on `stream`: dk, dv [bh, skv, d] f32 (dtype 0; bf16 takes
@@ -523,9 +481,9 @@ int azt_flash_bwd_dkv(const void* q, const void* k, const void* v,
   if (bad_shape(bh, sq, skv, d) || dtype != 0)
     return (int)cudaErrorInvalidValue;
   if (bh == 0) return 0;
-  return dispatch<Dkv, 2>(bh * tiles(skv), d, q, k, v, dout, lse, delta,
-                          glse, dk, dv, bh, sq, skv, d, scale_log2e, scale,
-                          causal, static_cast<cudaStream_t>(stream));
+  return by_width<Dkv>(d, q, k, v, dout, lse, delta, glse, dk, dv, bh, sq,
+                       skv, d, scale_log2e, scale, causal,
+                       static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -218,7 +218,8 @@ __device__ __forceinline__ void store_acc(float* __restrict__ out,
 // (so still no atomics). kSplit 2 or 4 gives a grid too small to fill the
 // card more warps a block and a shorter serial chain of products a warp;
 // a large grid fills the SMs with four-warp blocks, whose registers leave
-// room for more of them (see split_for).
+// room for more of them (see split_for). The flash kernels (B4, B5b) walk
+// with one warp a row group at every grid (flash_attn_tf32.cu).
 constexpr int kPart = 32;            // a warp's rows of a walked tile
 constexpr int kRows = 64;            // a block's own rows
 constexpr int kGroupLanes = 4 * 32;  // a warp of each row group
@@ -275,15 +276,14 @@ inline bool aligned16(std::initializer_list<const void*> ptrs) {
 }
 
 // the warps a row group for a grid of `blocks`, at most `most`: four
-// while the grid is under two blocks an SM (B7 only: B8's passes, B4 and
-// B5b take more registers or shared memory than a 512-thread block
-// leaves), two while it is under eight, else one. On the H100 at d 128,
+// while the grid is under two blocks an SM (B7 only: B8's passes take
+// more registers or shared memory than a 512-thread block leaves), two
+// while it is under eight, else one. On the H100 at d 128,
 // two made B7 and B8 37% faster at the LM's prefill (128 blocks) and 13%
 // at s 512 (512 blocks); at BERT-base's shape (3072 blocks, d 64) one made
 // B8 17% faster, the four-warp blocks fitting more warps an SM
 // (scripts/fused_short_f32_variants.py).
 inline int split_for(long long blocks, int most) {
-  if (most < 2) return 1;
   int dev = 0, sms = 0;
   if (cudaGetDevice(&dev) != cudaSuccess ||
       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
@@ -299,9 +299,7 @@ template <template <int, int> class F, int kD, int kMost, typename... Args>
 int launch_split(int split, Args... args) {
   if constexpr (kMost >= 4)
     if (split == 4) return F<kD, 4>::run(args...);
-  if constexpr (kMost >= 2)
-    if (split == 2) return F<kD, 2>::run(args...);
-  return F<kD, 1>::run(args...);
+  return split == 2 ? F<kD, 2>::run(args...) : F<kD, 1>::run(args...);
 }
 
 // F<kD, split>::run(args...) for head width d and a grid of `blocks`

@@ -11,7 +11,7 @@ Phases, each of which must pass or the script exits non-zero:
    source; then the library is built twice more into a scratch directory,
    that way and with one ``nvcc`` over every source, and both are timed;
    the second's ``ptxas -v`` gives the registers and spills of the 12 bf16
-   flash kernels, the 12 f32 flash kernels on the tensor cores and the 21
+   flash kernels, the 6 f32 flash kernels on the tensor cores and the 21
    f32 fused short kernels.
 3. kernels: every kernel of the paths is held bit for bit against its
    plain PyTorch version at the main paths' shapes and on ragged, bag-size,
@@ -522,9 +522,8 @@ def rebuild_seconds(kernel_build) -> dict:
     for key, kind, want, what in (
             ("ptxas_bf16_flash", "_bf16_", 12,
              "bf16 flash kernels (B4, B5a, B5b, B6)"),
-            ("ptxas_f32_flash", "_tf32_", 12,
-             "f32 flash kernels on the tensor cores (B4, B5b, at 2 splits "
-             "each)"),
+            ("ptxas_f32_flash", "_tf32_", 6,
+             "f32 flash kernels on the tensor cores (B4, B5b)"),
             ("ptxas_f32_fused", "fused_short_", 21,
              "f32 fused short kernels (B7 at 3 splits, B8's two passes at "
              "2)")):

@@ -19,11 +19,10 @@ With ``--variants``: each variant is ``csrc/flash_attn_tf32.cu`` and
 ``csrc/mma_tf32.cuh`` with the named text edits of ``EDITS`` applied (all
 of them when none is named), built by its own ``nvcc -Xptxas -v`` (all
 started together) into ``build/flash_f32_variants/`` and loaded with
-``ctypes``; B4 and B5b are timed by CUDA events at ``VARIANT_SHAPES``,
-the variants in turns over two rounds, and held to the plain versions
-(2e-5 of the scale; ``UNCHECKED`` variants' errors are printed, not
-checked). This is how the committed warps a row group and the two-level
-sums were chosen.
+``ctypes``; B4 and B5b are timed by CUDA events at both shapes, the
+variants in turns over two rounds, and held to the plain versions (2e-5 of
+the scale; ``UNCHECKED`` variants' errors are printed, not checked). This
+is how the two-level sums were chosen.
 
 Each line printed is one JSON object; the last names the card and its
 power limit. Needs one NVIDIA card and ``nvcc``.
@@ -51,24 +50,10 @@ FILES = (("cu", SOURCE), ("cuh", "mma_tf32.cuh"))
 TOL = chip_smoke.ATTN_ATOL[torch.float32]
 #: the LM's two f32 shapes of chip_smoke.FLASH_TIMED
 TIMED = tuple(t for t in chip_smoke.FLASH_TIMED if t[2] == torch.float32)
-#: the variants' shapes [b, h, s, d], causal: the LM's two (grids of 2048
-#: and 4096 blocks of 64 rows) and two grids under eight blocks an SM of
-#: the H100's 132: the prefill of the LM's card-against-CPU generate
-#: (chip_smoke.phase_lm_vs_cpu, batch 2 at the 2048 bucket, 1024 blocks)
-#: and its batch of one (512)
-VARIANT_SHAPES = tuple((label, shape) for label, shape, _ in TIMED) + (
-    ("lm_prefill_b2", (2, 16, 2048, 128)), ("lm_prefill_b1",
-                                            (1, 16, 2048, 128)))
 
 #: name -> [(file, old, new)]: each old text must occur in the file
 EDITS = {
     "committed": [],
-    # one warp a row group at every grid (B4 and B5b)
-    "split1": [("cu", "dispatch<Fwd, 2>", "dispatch<Fwd, 1>"),
-               ("cu", "dispatch<Dkv, 2>", "dispatch<Dkv, 1>")],
-    # two warps a row group at every grid (B4 and B5b)
-    "split2": [("cuh", "  return blocks < 8LL * sms ? 2 : 1;",
-                "  return 2;")],
     # p.V, p^T.dO, ds^T.Q and dP^T = V.dO^T summed straight into their
     # sums (one level), as B7/B8 do
     "one_level": [("cuh", """  float t[4] = {0.0f, 0.0f, 0.0f, 0.0f};
@@ -164,7 +149,7 @@ def variants(names) -> int:
     libs = build(names)
     dev = torch.device("cuda", 0)
     failed = []
-    for label, (b, h, s, d) in VARIANT_SHAPES:
+    for label, (b, h, s, d), _ in TIMED:
         gen = torch.Generator().manual_seed(s + d)
         q, k, v, do = (torch.randn(b, h, s, d, generator=gen).to(dev)
                        for _ in range(4))
