@@ -1,15 +1,15 @@
 // Flash attention, bf16 route, on the tensor cores of Hopper (sm_90a): the
 // forward (B4), the one-pass backward (B6) and the two-pass backward (B5a
-// dq, B5b dk and dv). f32 inputs take the CUDA-core kernels of
-// flash_attn.cu; the dtype alone picks the route.
+// dq, B5b dk and dv). f32 inputs take the 3xTF32 kernels of
+// flash_attn_tf32.cu; the dtype alone picks the route.
 //
 // Replaces the TPU kernels of analytics_zoo_tpu/ops/attention.py:
 // `_flash_fwd_kernel` (pallas_call in `_flash_fwd_pallas`),
 // `_flash_bwd_dq_kernel` and `_flash_bwd_dkv_kernel` (pallas_calls in
 // `_flash_bwd_pallas`) and `_flash_bwd_fused_kernel` (pallas_call in
-// `_flash_bwd_fused`). The contract is flash_attn.cu's: q [bh, sq, d], k
-// and v [bh, skv, d] bf16 (contiguous, d <= 128, any lengths, sq and skv
-// apart), an optional per-key bias key_bias [bh / heads, skv] f32 in
+// `_flash_bwd_fused`). The contract is flash_attn_tf32.cu's: q [bh, sq,
+// d], k and v [bh, skv, d] bf16 (contiguous, d <= 128, any lengths, sq and
+// skv apart), an optional per-key bias key_bias [bh / heads, skv] f32 in
 // natural-log units (B4), an optional causal mask aligned top-left (key
 // col visible to query row iff col <= row). Scores, softmax and sums in
 // f32:

@@ -1,7 +1,7 @@
 // 3xTF32 tensor-core building blocks for Hopper (sm_90a), for products
 // held to f32 accuracy: the f32 routes of the fused short attention
-// (fused_short_attn.cu, B7/B8) and of the flash forward and dk/dv pass
-// (flash_attn_tf32.cu, B4/B5b). mma.sync m16n8k8 TF32 -> f32, each f32
+// (fused_short_attn.cu, B7/B8) and of the flash kernels (flash_attn_tf32.cu,
+// B4, B5a, B5b, B6). mma.sync m16n8k8 TF32 -> f32, each f32
 // operand split into two TF32 parts, fragment loads from f32 tiles in
 // shared memory, an f32 accumulator fed back as an A fragment, staging
 // tiles of f32 rows, and the walk both files share (below). cp.async and
@@ -218,8 +218,8 @@ __device__ __forceinline__ void store_acc(float* __restrict__ out,
 // (so still no atomics). kSplit 2 or 4 gives a grid too small to fill the
 // card more warps a block and a shorter serial chain of products a warp;
 // a large grid fills the SMs with four-warp blocks, whose registers leave
-// room for more of them (see split_for). The flash kernels (B4, B5b) walk
-// with one warp a row group at every grid (flash_attn_tf32.cu).
+// room for more of them (see split_for). The flash kernels (B4, B5a, B5b,
+// B6) walk with one warp a row group at every grid (flash_attn_tf32.cu).
 constexpr int kPart = 32;            // a warp's rows of a walked tile
 constexpr int kRows = 64;            // a block's own rows
 constexpr int kGroupLanes = 4 * 32;  // a warp of each row group

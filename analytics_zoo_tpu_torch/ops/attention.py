@@ -52,11 +52,10 @@ row logsumexp in natural-log units; the backward launches the one-pass B6
 (replacing ``_flash_bwd_fused_kernel``) where :func:`fused_bwd_applicable`
 holds, else B5a then B5b (replacing ``_flash_bwd_dq_kernel`` and
 ``_flash_bwd_dkv_kernel``). The dtype and the kernel pick its route
-(:func:`flash_route`, counted in ``flash_route_counts``): bf16 runs on the
-tensor cores (``csrc/flash_attn_bf16.cu``, ``mma.sync``); f32 B4 and B5b
-on the tensor cores as 3xTF32 (``csrc/flash_attn_tf32.cu``), f32 B5a and
-B6 on the CUDA cores (``csrc/flash_attn.cu``). On a CPU tensor each runs
-its plain
+(:func:`flash_route`, counted in ``flash_route_counts``): every kernel
+runs on the tensor cores (``mma.sync``), bf16 in
+``csrc/flash_attn_bf16.cu`` and f32 as 3xTF32 in
+``csrc/flash_attn_tf32.cu``. On a CPU tensor each runs its plain
 version (:func:`flash_fwd_plain`, :func:`flash_bwd_dq_plain`,
 :func:`flash_bwd_dkv_plain`, :func:`flash_bwd_fused_plain`), the same
 function in full-row softmax over chunks of query rows. The arithmetic is
@@ -85,7 +84,7 @@ FUSED_SHORT_MAX_SEQ = 512
 FUSED_SHORT_MAX_HEAD_DIM = 128
 _NEG_INF = -1e30
 _LOG2E = 1.4426950408889634
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = (torch.float32, torch.bfloat16)
 
 #: one B8 launch is the two passes of one backward
 launch_counts = LaunchCounts("fused_short_fwd", "fused_short_bwd")
@@ -95,11 +94,9 @@ route_counts = LaunchCounts("bf16_tc", "f32_tc")
 #: B4, B5a, B5b and B6
 flash_launch_counts = LaunchCounts("flash_fwd", "flash_bwd_dq",
                                    "flash_bwd_dkv", "flash_bwd_fused")
-#: B4, B5a, B5b and B6 launches by route: bf16 on the tensor cores, f32 B4
-#: and B5b on the tensor cores as 3xTF32, f32 B5a and B6 on the CUDA cores
-flash_route_counts = LaunchCounts("bf16_tc", "f32_tc", "f32_simt")
-#: the flash kernels whose f32 route runs on the tensor cores (3xTF32)
-_FLASH_F32_TC = ("flash_fwd", "flash_bwd_dkv")
+#: B4, B5a, B5b and B6 launches by route: bf16 and f32 (as 3xTF32), both
+#: on the tensor cores
+flash_route_counts = LaunchCounts("bf16_tc", "f32_tc")
 
 
 def reset_launch_counts() -> None:
@@ -120,15 +117,11 @@ def flash_route(dtype: torch.dtype, kernel: str) -> str:
     """The route of the flash ``kernel`` (a ``flash_launch_counts`` name:
     ``"flash_fwd"`` B4, ``"flash_bwd_dq"`` B5a, ``"flash_bwd_dkv"`` B5b,
     ``"flash_bwd_fused"`` B6) for inputs of ``dtype``: ``"bf16_tc"`` (the
-    tensor cores, ``csrc/flash_attn_bf16.cu``), ``"f32_tc"`` (f32 B4 and
-    B5b, the tensor cores as 3xTF32, ``csrc/flash_attn_tf32.cu``) or
-    ``"f32_simt"`` (f32 B5a and B6, the CUDA cores,
-    ``csrc/flash_attn.cu``)."""
+    tensor cores, ``csrc/flash_attn_bf16.cu``) or ``"f32_tc"`` (the tensor
+    cores as 3xTF32, ``csrc/flash_attn_tf32.cu``)."""
     if kernel not in flash_launch_counts:
         raise ValueError(f"no flash kernel {kernel!r}")
-    if dtype == torch.bfloat16:
-        return "bf16_tc"
-    return "f32_tc" if kernel in _FLASH_F32_TC else "f32_simt"
+    return "bf16_tc" if dtype == torch.bfloat16 else "f32_tc"
 
 
 # -- dropout bits ------------------------------------------------------------
@@ -696,7 +689,7 @@ def _ptr(t: Optional[torch.Tensor]):
 
 def _dims(q, k):
     b, h, q_len, d = q.shape
-    return b * h, q_len, k.shape[-2], d, _DTYPES[q.dtype]
+    return b * h, q_len, k.shape[-2], d
 
 
 def flash_fwd(q, k, v, key_bias, scale: float, causal: bool):
@@ -712,7 +705,7 @@ def flash_fwd(q, k, v, key_bias, scale: float, causal: bool):
     lse = torch.empty(q.shape[:-1], dtype=torch.float32, device=q.device)
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(key_bias),
             o.data_ptr(), lse.data_ptr())
-    bh, q_len, kv_len, d, dtype = _dims(q, k)
+    bh, q_len, kv_len, d = _dims(q, k)
     lib = load_library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -722,8 +715,8 @@ def flash_fwd(q, k, v, key_bias, scale: float, causal: bool):
                 int(bool(causal)), stream)
         else:
             rc = lib.azt_flash_fwd(
-                *ptrs, bh, q_len, kv_len, d, dtype, q.shape[1],
-                scale * _LOG2E, int(bool(causal)), stream)
+                *ptrs, bh, q_len, kv_len, d, q.shape[1], scale * _LOG2E,
+                int(bool(causal)), stream)
     flash_launch_counts.launched("flash_fwd", rc)
     flash_route_counts.launched(route, rc)
     return o, lse
@@ -747,7 +740,7 @@ def flash_bwd_dq(q, k, v, do, lse, delta, glse, scale: float,
                                   causal)
     route = flash_route(q.dtype, "flash_bwd_dq")
     dq = torch.empty_like(q)
-    bh, q_len, kv_len, d, dtype = _dims(q, k)
+    bh, q_len, kv_len, d = _dims(q, k)
     lib = load_library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -757,8 +750,8 @@ def flash_bwd_dq(q, k, v, do, lse, delta, glse, scale: float,
                 scale, int(bool(causal)), stream)
         else:
             rc = lib.azt_flash_bwd_dq(
-                *ptrs, dq.data_ptr(), bh, q_len, kv_len, d, dtype,
-                scale * _LOG2E, scale, int(bool(causal)), stream)
+                *ptrs, dq.data_ptr(), bh, q_len, kv_len, d, scale * _LOG2E,
+                scale, int(bool(causal)), stream)
     flash_launch_counts.launched("flash_bwd_dq", rc)
     flash_route_counts.launched(route, rc)
     return dq
@@ -777,7 +770,7 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, glse, scale: float,
     route = flash_route(q.dtype, "flash_bwd_dkv")
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     outs = (dk.data_ptr(), dv.data_ptr())
-    bh, q_len, kv_len, d, dtype = _dims(q, k)
+    bh, q_len, kv_len, d = _dims(q, k)
     lib = load_library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -787,8 +780,8 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, glse, scale: float,
                 int(bool(causal)), stream)
         else:
             rc = lib.azt_flash_bwd_dkv(
-                *ptrs, *outs, bh, q_len, kv_len, d, dtype, scale * _LOG2E,
-                scale, int(bool(causal)), stream)
+                *ptrs, *outs, bh, q_len, kv_len, d, scale * _LOG2E, scale,
+                int(bool(causal)), stream)
     flash_launch_counts.launched("flash_bwd_dkv", rc)
     flash_route_counts.launched(route, rc)
     return dk, dv
@@ -809,7 +802,7 @@ def flash_bwd_fused(q, k, v, do, lse, delta, glse, scale: float,
     dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     outs = (dq.data_ptr(), dk.data_ptr(), dv.data_ptr())
-    bh, q_len, kv_len, d, dtype = _dims(q, k)
+    bh, q_len, kv_len, d = _dims(q, k)
     lib = load_library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -819,8 +812,8 @@ def flash_bwd_fused(q, k, v, do, lse, delta, glse, scale: float,
                 int(bool(causal)), stream)
         else:
             rc = lib.azt_flash_bwd_fused(
-                *ptrs, *outs, bh, q_len, kv_len, d, dtype, scale * _LOG2E,
-                scale, int(bool(causal)), stream)
+                *ptrs, *outs, bh, q_len, kv_len, d, scale * _LOG2E, scale,
+                int(bool(causal)), stream)
     flash_launch_counts.launched("flash_bwd_fused", rc)
     flash_route_counts.launched(route, rc)
     return dq.to(q.dtype), dk, dv

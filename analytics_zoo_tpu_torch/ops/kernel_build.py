@@ -129,15 +129,13 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.azt_fused_short_bwd_bf16.argtypes = [p] * 11 + [ll, i, i, i, f, f,
                                                         u, f, i, p]
     lib.azt_fused_short_bwd_bf16.restype = i
-    lib.azt_flash_fwd.argtypes = [p, p, p, p, p, p, ll, i, i, i, i, i, f, i,
-                                  p]
+    lib.azt_flash_fwd.argtypes = [p] * 6 + [ll, i, i, i, i, f, i, p]
     lib.azt_flash_fwd.restype = i
-    lib.azt_flash_bwd_dq.argtypes = [p] * 8 + [ll, i, i, i, i, f, f, i, p]
+    lib.azt_flash_bwd_dq.argtypes = [p] * 8 + [ll, i, i, i, f, f, i, p]
     lib.azt_flash_bwd_dq.restype = i
-    lib.azt_flash_bwd_dkv.argtypes = [p] * 9 + [ll, i, i, i, i, f, f, i, p]
+    lib.azt_flash_bwd_dkv.argtypes = [p] * 9 + [ll, i, i, i, f, f, i, p]
     lib.azt_flash_bwd_dkv.restype = i
-    lib.azt_flash_bwd_fused.argtypes = [p] * 10 + [ll, i, i, i, i, f, f, i,
-                                                   p]
+    lib.azt_flash_bwd_fused.argtypes = [p] * 10 + [ll, i, i, i, f, f, i, p]
     lib.azt_flash_bwd_fused.restype = i
     lib.azt_flash_fwd_bf16.argtypes = [p] * 6 + [ll, i, i, i, i, f, i, p]
     lib.azt_flash_fwd_bf16.restype = i

@@ -88,13 +88,14 @@ Phases, each of which must pass or the script exits non-zero:
    output's scale (of the three gradients' joint scale for a backward)
    and, each output and each gradient, in relative L2; B5a + B5b's dq, dk
    and dv and B6's dk and dv bit-equal when repeated. The dtype and the
-   kernel pick its route (bf16 the tensor cores,
-   ``csrc/flash_attn_bf16.cu``; f32 B4 and B5b the tensor cores as 3xTF32,
-   ``csrc/flash_attn_tf32.cu``; f32 B5a and B6 the CUDA cores,
-   ``csrc/flash_attn.cu``) and each call must count on it, here and on the
-   LM's paths. The backward must take B6 at [8, 16,
-   2048, 128] f32 and [1, 2, 4096, 128] bf16, and B5a + B5b at [2, 16,
-   4096, 128] f32 and [1, 2, 8192, 128] bf16. All four are timed at the
+   kernel pick its route (both on the tensor cores: bf16 in
+   ``csrc/flash_attn_bf16.cu``, f32 as 3xTF32 in
+   ``csrc/flash_attn_tf32.cu``) and each call must count on it, here and
+   on the LM's paths. The f32 kernels are also held at a batch of 16 heads
+   whose grids are at least eight blocks an SM, as the LM's are. The
+   backward must take B6 at [8, 16, 2048, 128] f32 and [1, 2, 4096, 128]
+   bf16, and B5a + B5b at [2, 16, 4096, 128] f32 and [1, 2, 8192, 128]
+   bf16. All four are timed at the
    LM's two shapes and at bench_longseq's [4, 8, 4096, 128], [8, 8, 4096,
    64] and [4, 8, 8192, 128] bf16 beside their plain versions and
    ``scaled_dot_product_attention(is_causal=True)``, and held to the same
@@ -158,7 +159,9 @@ Phases, each of which must pass or the script exits non-zero:
    row repeats, within 2e-5 of the output's scale where rows repeat (f32
    atomics add them in no fixed order). Timed at the Wide&Deep shard
    ([25,000,254, 2], n = 4 x 6144) and at a 1 GiB block ([2^22, 64], 2^20
-   uniform rows) beside its plain version and ``zeros`` + ``index_add_``.
+   uniform rows) beside its plain version and ``zeros`` + ``index_add_``;
+   at the shard also in turns with that library call (kernel, library,
+   library, kernel; ten calls after five each, by device time and events).
 14. vocab-sharded Wide&Deep: 4 gloo ranks (``torch.multiprocessing``) share
    the card, each holding a quarter of every table. At the columns of 5,
    ``SGD(0.1)``, 4 steps of the global batch 8192: parameters within 1e-5
@@ -318,6 +321,9 @@ SCATTER_ROWS = (7, 250, 5000, 25000254)
 WND_SHARD_ROWS, WND_SHARD_N = 25000254, 4 * 6144
 #: a shard block L2 cannot hold: 2^22 x 64 f32 = 1 GiB, 2^20 uniform rows
 SCATTER_HBM = (1 << 22, 64, 1 << 20)
+#: rounds of B3 and its library call in turns at the shard (each a turn
+#: of each, then of each again in the other order)
+SCATTER_TURNS = 3
 #: vocab-sharded Wide&Deep: gloo ranks sharing the one card, the global
 #: batch (bench_widedeep_sharded's), and steps held to the replicated run
 SHARD_RANKS, SHARD_BATCH, SHARD_STEPS = 4, 8192, 4
@@ -346,9 +352,9 @@ LOGIT_TOL = 1e-4
 FLASH_LENGTHS = ((1, 1), (17, 17), (513, 513), (1000, 1000), (2047, 2047),
                  (2048, 2048), (4096, 4096), (513, 1000), (1000, 513),
                  (17, 4096), (2047, 1))
-#: f32 B4 and B5b at a batch of 16-head rows whose grid is at least eight
-#: 64-row blocks an SM (``many_blocks_batch``), as the LM's grids are: the
-#: grid above runs b·h 2
+#: f32 B4, B5a, B5b and B6 at a batch of 16-head rows whose grid is at
+#: least eight 64-row blocks an SM (``many_blocks_batch``), as the LM's
+#: grids are: the grid above runs b·h 2
 FLASH_MANY_LENGTHS = ((513, 1000), (1000, 513), (17, 4096), (2047, 1),
                       (4096, 4096))
 FLASH_MANY_HEADS = 16
@@ -405,6 +411,24 @@ def cuda_ms(fn, iters: int, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
+def turns_ms(fns: dict, rounds: int, calls: int = 10,
+             warmup: int = 5) -> dict:
+    """Each of ``fns`` (``{name: fn}``) timed in turns, forward then
+    backward through the names (a, b, b, a for two) ``rounds`` times: per
+    turn ``warmup`` calls, then ``calls`` calls by CUDA events and
+    ``calls`` under the profiler. Returns ``{name: {"ms": [...],
+    "device_ms": [...]}}``, a list entry a turn (device None where the
+    trace lost events)."""
+    names = list(fns)
+    out = {n: {"ms": [], "device_ms": []} for n in names}
+    for _ in range(rounds):
+        for n in names + names[::-1]:
+            out[n]["ms"].append(cuda_ms(fns[n], calls, warmup))
+            out[n]["device_ms"].append(
+                step_profile(fns[n], calls, warmup=False)["device_ms"])
+    return out
+
+
 def device_ms(fn, calls: int = 20):
     """Device time per call of the kernels and copies ``fn`` issues, summed
     from a ``torch.profiler`` trace; None when the trace is incomplete (see
@@ -459,13 +483,12 @@ def step_profile(fn, calls: int = 20, top: int = 0,
 
 #: ptxas -v's lines for an entry function of the bf16 flash kernels (B4
 #: ``flash_fwd``, B5a ``flash_bwd_dq``, B5b and B6 ``flash_bwd``), of the
-#: f32 flash kernels on the tensor cores (B4 ``flash_fwd_tf32``, B5b
-#: ``flash_bwd_dkv_tf32``) or of the f32 fused short kernels (B7
+#: f32 flash kernels (B4 ``flash_fwd_tf32``, B5a ``flash_bwd_dq_tf32``,
+#: B5b and B6 ``flash_bwd_tf32``) or of the f32 fused short kernels (B7
 #: ``fused_short_fwd``, B8's two passes ``fused_short_bwd_dq`` and
 #: ``_dkv``) and its mangled template arguments
 _PTXAS_ENTRY = re.compile(
-    r"entry function '\S*?((?:flash_(?:fwd|bwd|bwd_dq)_bf16|"
-    r"flash_(?:fwd|bwd_dkv)_tf32|"
+    r"entry function '\S*?((?:flash_(?:fwd|bwd|bwd_dq)_(?:bf16|tf32)|"
     r"fused_short_(?:fwd|bwd_dq|bwd_dkv))_kernel)I((?:L[ib]\d+E)+)E")
 _PTXAS_ARG = re.compile(r"L[ib](\d+)E")
 _PTXAS_SPILL = re.compile(
@@ -476,8 +499,8 @@ _PTXAS_REGS = re.compile(r"Used (\d+) registers")
 def ptxas_usage(log: str) -> dict:
     """Registers and spill bytes of each bf16 flash kernel (by its template
     arguments: 16-column chunks of d, and B5b's and B6's keys a block and
-    whether it adds dq), each f32 flash kernel on the tensor cores
-    (8-column chunks of d, warps a row group, buffers of walked tiles) and
+    whether it adds dq), each f32 flash kernel (8-column chunks of d, and
+    for B5b and B6 whether it adds dq) and
     each f32 fused short kernel (8-column chunks of d, and warps a row
     group) from ``nvcc -Xptxas -v`` output."""
     usage, name = {}, None
@@ -522,8 +545,8 @@ def rebuild_seconds(kernel_build) -> dict:
     for key, kind, want, what in (
             ("ptxas_bf16_flash", "_bf16_", 12,
              "bf16 flash kernels (B4, B5a, B5b, B6)"),
-            ("ptxas_f32_flash", "_tf32_", 6,
-             "f32 flash kernels on the tensor cores (B4, B5b)"),
+            ("ptxas_f32_flash", "_tf32_", 12,
+             "f32 flash kernels (B4, B5a, B5b, B6)"),
             ("ptxas_f32_fused", "fused_short_", 21,
              "f32 fused short kernels (B7 at 3 splits, B8's two passes at "
              "2)")):
@@ -885,6 +908,11 @@ def phase_scatter_kernel(ek, dev, seed: int):
         for key, fn in fns.items():
             t[key] = cuda_ms(fn, iters)
             t[key.replace("ms", "device_ms")] = device_ms(fn)
+        if label == "wnd_shard":
+            # B3 and its library call in turns, to tell them apart
+            t["turns"] = turns_ms({"kernel": fns["ms"],
+                                   "library": fns["library_ms"]},
+                                  SCATTER_TURNS)
         timings.append(t)
         log("scatter timing " + json.dumps(t))
         del fns, rows, g, rows_m, g_m
@@ -2018,13 +2046,12 @@ def _grads_errs(got, want, one_key_no_glse: bool):
 
 #: the route each flash kernel must count on, written out here so that the
 #: route checks hold the wrappers' table (``at.flash_route``) to it: bf16
-#: on the tensor cores; f32 B4 and B5b on the tensor cores as 3xTF32, B5a
-#: and B6 on the CUDA cores
+#: on the tensor cores, f32 on the tensor cores as 3xTF32
 FLASH_ROUTES = {
     torch.bfloat16: {"flash_fwd": "bf16_tc", "flash_bwd_dq": "bf16_tc",
                      "flash_bwd_dkv": "bf16_tc", "flash_bwd_fused": "bf16_tc"},
-    torch.float32: {"flash_fwd": "f32_tc", "flash_bwd_dq": "f32_simt",
-                    "flash_bwd_dkv": "f32_tc", "flash_bwd_fused": "f32_simt"}}
+    torch.float32: {"flash_fwd": "f32_tc", "flash_bwd_dq": "f32_tc",
+                    "flash_bwd_dkv": "f32_tc", "flash_bwd_fused": "f32_tc"}}
 
 
 def flash_routes_of(at, dtype, launches: dict) -> dict:
@@ -2116,8 +2143,8 @@ def phase_flash_kernels(at, dev, seed: int):
         + ", at " + json.dumps(worst))
 
     many = phase_flash_many_blocks(at, dev, seed)
-    log("f32 B4 and B5b at grids of at least eight blocks an SM within 2e-5 "
-        "of their plain versions: " + json.dumps(many))
+    log("f32 B4, B5a, B5b and B6 at grids of at least eight blocks an SM "
+        "within 2e-5 of their plain versions: " + json.dumps(many))
 
     # dispatch by the resident-bytes rule: in f32 the LM's 2048 keys take
     # B6 and 4096 keys B5a + B5b; in bf16 4096 keys B6, 8192 B5a + B5b
@@ -2159,15 +2186,15 @@ def many_blocks_batch(dev, rows: int, h: int) -> int:
 
 
 def phase_flash_many_blocks(at, dev, seed: int) -> dict:
-    """f32 B4 (bias or not) and B5b (lse cotangent or not), causal or not,
-    at ``FLASH_MANY_LENGTHS`` x ``FLASH_DIMS[f32]`` and a batch that gives
-    each kernel's grid at least eight blocks an SM, against
-    ``flash_fwd_plain`` and ``flash_bwd_dkv_plain`` within 2e-5 of the scale
-    and in relative L2, each launch on ``f32_tc``; returns the cases and
-    largest errors with where each occurred."""
+    """f32 B4 (bias or not), B5a, B5b and B6 (lse cotangent or not), causal
+    or not, at ``FLASH_MANY_LENGTHS`` x ``FLASH_DIMS[f32]`` and a batch that
+    gives each kernel's grid at least eight blocks an SM, against their
+    plain versions within 2e-5 of the scale and in relative L2, each launch
+    on ``f32_tc``; returns the cases and largest errors with where each
+    occurred."""
     h, tol = FLASH_MANY_HEADS, ATTN_ATOL[torch.float32]
     gen = torch.Generator(device=dev).manual_seed(seed + 11)
-    errors = {"fwd": 0.0, "lse": 0.0, "dkv": 0.0}
+    errors = {"fwd": 0.0, "lse": 0.0, "dq": 0.0, "dkv": 0.0, "fused": 0.0}
     worst, cases = {}, 0
 
     def record(key, e, case):
@@ -2180,8 +2207,10 @@ def phase_flash_many_blocks(at, dev, seed: int) -> dict:
     for sq, skv in FLASH_MANY_LENGTHS:
         for d in FLASH_DIMS[torch.float32]:
             scale = d ** -0.5
-            b = many_blocks_batch(dev, sq, h)  # B4: 64 queries a block
-            q, k, v = draw(b, sq, d), draw(b, skv, d), draw(b, skv, d)
+            b = many_blocks_batch(dev, sq, h)  # B4, B5a: 64 queries a block
+            q, do = draw(b, sq, d), draw(b, sq, d)
+            k, v = draw(b, skv, d), draw(b, skv, d)
+            glse = torch.randn(b, h, sq, generator=gen, device=dev)
             bias = (torch.rand(b, skv, generator=gen, device=dev)
                     < 0.2).float() * -1e9
             for causal in (False, True):
@@ -2201,8 +2230,26 @@ def phase_flash_many_blocks(at, dev, seed: int) -> dict:
                           f"B4 != plain by {e} (lse {e_l}) at {case}")
                     record("fwd", e, case)
                     record("lse", e_l, case)
-            del q, k, v, o, lse, want_o, want_lse
-            b = many_blocks_batch(dev, skv, h)  # B5b: 64 keys a block
+                o, lse = at.flash_fwd_plain(q, k, v, None, scale, causal)
+                delta = (do * o).sum(-1)
+                for gl in (None, glse):
+                    case = (f"{sq}x{skv} d={d} b={b} causal={causal} "
+                            f"glse={gl is not None}")
+                    args = (q, k, v, do, lse, delta, gl, scale, causal)
+                    before = at.flash_route_counts["f32_tc"]
+                    dq = at.flash_bwd_dq(*args)
+                    check(at.flash_route_counts["f32_tc"] == before + 1,
+                          f"B5a not on f32_tc at {case}")
+                    # beside the plain dk and dv: one key with no lse
+                    # cotangent leaves dq rounding alone, held to the three
+                    # gradients' joint norm (_grads_errs)
+                    want = at.flash_bwd_fused_plain(*args)
+                    e = max(_grads_errs((dq,) + want[1:], want,
+                                        skv == 1 and gl is None))
+                    check(e <= tol, f"B5a != plain by {e} at {case}")
+                    record("dq", e, case)
+            del q, k, v, do, glse, o, lse, delta, want_o, want_lse, dq, want
+            b = many_blocks_batch(dev, skv, h)  # B5b, B6: 64 keys a block
             q, do = draw(b, sq, d), draw(b, sq, d)
             k, v = draw(b, skv, d), draw(b, skv, d)
             glse = torch.randn(b, h, sq, generator=gen, device=dev)
@@ -2223,6 +2270,14 @@ def phase_flash_many_blocks(at, dev, seed: int) -> dict:
                                         skv == 1 and gl is None))
                     check(e <= tol, f"B5b != plain by {e} at {case}")
                     record("dkv", e, case)
+                    before = at.flash_route_counts["f32_tc"]
+                    got = at.flash_bwd_fused(*args)
+                    check(at.flash_route_counts["f32_tc"] == before + 1,
+                          f"B6 not on f32_tc at {case}")
+                    e = max(_grads_errs(got, at.flash_bwd_fused_plain(*args),
+                                        skv == 1 and gl is None))
+                    check(e <= tol, f"B6 != plain by {e} at {case}")
+                    record("fused", e, case)
             del q, k, v, do, glse, o, lse, delta, got
             torch.cuda.empty_cache()
             cases += 1
@@ -2402,7 +2457,7 @@ def phase_longseq(at, dev, seed: int):
                 "flash_bwd_dq": 0 if fused else n,
                 "flash_bwd_dkv": 0 if fused else n,
                 "route_bf16_tc": (2 if fused else 3) * n,
-                "route_f32_tc": 0, "route_f32_simt": 0}
+                "route_f32_tc": 0}
         check(counts == want, f"long-context steps at {label} launched "
               f"{counts}, expected {want}")
         # eps = 0: the inputs come back bit for bit unless a gradient was
@@ -3350,6 +3405,7 @@ def main() -> int:
         "bound_by": "bytes", "library_ms": wnd_shard["library_ms"],
         "library": "torch.zeros, then index_add_ of the in-range rows "
                    "(two calls)",
+        "turns": wnd_shard["turns"],
         "large": [{k: hbm_block[k] for k in (
             "rows", "dim", "n", "ms", "device_ms", "plain_ms",
             "plain_device_ms", "library_ms", "library_device_ms",
@@ -3435,8 +3491,7 @@ def main() -> int:
         })
     flash_sources = {
         "bf16_tc": "analytics_zoo_tpu_torch/csrc/flash_attn_bf16.cu",
-        "f32_tc": "analytics_zoo_tpu_torch/csrc/flash_attn_tf32.cu",
-        "f32_simt": "analytics_zoo_tpu_torch/csrc/flash_attn.cu"}
+        "f32_tc": "analytics_zoo_tpu_torch/csrc/flash_attn_tf32.cu"}
     flash_paths = {**lm_paths, **{f"longseq_{k}": c
                                   for k, c in longseq_launches.items()}}
     flash_entries = []
@@ -3513,9 +3568,9 @@ def main() -> int:
                         "launches_by_path": {
                             k: c for k, c in by_path.items()
                             if k.startswith("longseq")}},
-            # f32: B4 and B5b on the tensor cores, B5a and B6 on the CUDA
-            # cores; at the LM's long-context shape for the two-pass
-            # kernels, its step's shape for the others
+            # f32, on the tensor cores as 3xTF32: at the LM's long-context
+            # shape for the two-pass kernels, its step's shape for the
+            # others
             f32_route: {"source": flash_sources[f32_route],
                         **timed_at(f32_label),
                         "other_shapes": {

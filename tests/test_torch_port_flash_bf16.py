@@ -164,10 +164,9 @@ def test_flash_route_by_dtype():
                "flash_bwd_fused")
     assert [at.flash_route(torch.bfloat16, k) for k in kernels] == \
         ["bf16_tc"] * 4
-    # f32: B4 and B5b on the tensor cores as 3xTF32, B5a and B6 on the CUDA
-    # cores
+    # f32: every kernel on the tensor cores as 3xTF32
     assert [at.flash_route(torch.float32, k) for k in kernels] == \
-        ["f32_tc", "f32_simt", "f32_tc", "f32_simt"]
+        ["f32_tc"] * 4
     with pytest.raises(ValueError):
         at.flash_route(torch.float32, "flash_bwd")
     q, k, v, g, _ = (torch.tensor(a).bfloat16() for a in _inputs(2, 40, 40))
@@ -175,8 +174,7 @@ def test_flash_route_by_dtype():
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
     at.flash_attention(*leaves, causal=True).backward(g)
     # CPU tensors take the plain versions: no launch on any route
-    assert at.flash_route_counts == {"bf16_tc": 0, "f32_tc": 0,
-                                     "f32_simt": 0}
+    assert at.flash_route_counts == {"bf16_tc": 0, "f32_tc": 0}
     assert all(t.grad.dtype == torch.bfloat16 for t in leaves)
 
 

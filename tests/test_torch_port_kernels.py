@@ -204,7 +204,7 @@ def test_library_is_keyed_by_a_hash_of_the_sources():
     srcs, _ = kernel_build._sources()
     assert {"gather_rows.cu", "gather_pool.cu", "fused_short_attn.cu",
             "fused_short_attn_bf16.cu", "gather_int8.cu",
-            "scatter_rows.cu", "flash_attn.cu", "flash_attn_bf16.cu",
+            "scatter_rows.cu", "flash_attn_bf16.cu",
             "flash_attn_tf32.cu"} <= {os.path.basename(s) for s in srcs}
 
 
@@ -529,8 +529,7 @@ def test_the_kernels_dropout_mask_is_the_plain_mask_bit_for_bit(
 def test_bf16_and_f32_each_take_their_tensor_core_route(cuda_device):
     """B7 and B8 count on ``"bf16_tc"`` in bf16 and on ``"f32_tc"`` (3xTF32)
     in f32, both saving the row statistics, and no flash route counts;
-    the flash kernels' f32 route is ``"f32_tc"`` for B4 and B5b and
-    ``"f32_simt"`` for B5a and B6."""
+    the flash kernels' f32 route is ``"f32_tc"`` (3xTF32) for all four."""
     from analytics_zoo_tpu_torch.ops import attention as at
     for dtype, route in ((torch.bfloat16, "bf16_tc"),
                          (torch.float32, "f32_tc")):
@@ -542,12 +541,11 @@ def test_bf16_and_f32_each_take_their_tensor_core_route(cuda_device):
         at.fused_short_bwd(q, k, v, do, bias, None, 0.125, 0.0, False,
                            stats, o)
         assert at.route_counts == {"bf16_tc": 0, "f32_tc": 0, route: 2}
-        assert at.flash_route_counts == {"bf16_tc": 0, "f32_tc": 0,
-                                         "f32_simt": 0}
+        assert at.flash_route_counts == {"bf16_tc": 0, "f32_tc": 0}
         assert stats.shape == (2, 2, 2, 40)
     assert [at.flash_route(torch.float32, k) for k in (
         "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "flash_bwd_fused")] \
-        == ["f32_tc", "f32_simt", "f32_tc", "f32_simt"]
+        == ["f32_tc"] * 4
     # the backward reads the forward's row statistics (and in f32 its output)
     with pytest.raises(ValueError):
         at.fused_short_bwd(*(t.bfloat16() for t in (q, k, v, do)), bias,
@@ -728,11 +726,27 @@ def test_flash_kernels_equal_their_plain_versions_on_the_card(
     (with and without an lse cotangent) against their plain versions:
     within 2e-5 (f32) or 2e-2 (bf16) of the output's scale (the three
     gradients' joint scale for a backward) and in relative L2. Every
-    kernel counts on its route (bf16 the tensor cores; f32 B4 and B5b the
-    tensor cores as 3xTF32, f32 B5a and B6 the CUDA cores). B6 adds dq with atomics in no fixed order, which costs at most
+    kernel counts on its route (the tensor cores: bf16, and f32 as
+    3xTF32). B6 adds dq with atomics in no fixed order, which costs at most
     skv / 64 partial sums' rounding, far inside the f32 tolerance; its dk
     and dv repeat bit for bit, dq need not. B5a + B5b use no atomics: dq,
     dk and dv repeat bit for bit."""
+    _hold_flash_kernels(cuda_device, sq, skv, d, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sq,skv", [(17, 17), (513, 1000), (1000, 513)],
+                         ids=["17x17", "513x1000", "1000x513"])
+@pytest.mark.parametrize("d", [5, 6, 30])
+def test_f32_flash_kernels_at_widths_off_a_multiple_of_four(cuda_device, sq,
+                                                            skv, d):
+    """As above, in f32, at head widths whose rows are no 16-byte vectors:
+    the kernels stage them element by element, and B6 adds dq by scalar
+    atomics where it adds float4 at the widths above."""
+    _hold_flash_kernels(cuda_device, sq, skv, d, torch.float32)
+
+
+def _hold_flash_kernels(cuda_device, sq, skv, d, dtype):
     from analytics_zoo_tpu_torch.ops import attention as at
     q, k, v, do, glse, bias = _flash_inputs(cuda_device, sq, skv, d, dtype,
                                             sq + skv + d)
@@ -815,18 +829,19 @@ def _flash_inputs_on_card(dev, sq, skv, d, b, h, seed):
 @pytest.mark.parametrize("d", [24, 64, 96, 128])
 def test_f32_flash_tensor_core_kernels_on_grids_of_many_blocks(
         cuda_device, sq, skv, d):
-    """f32 B4 (with and without a key bias) and B5b (with and without an
-    lse cotangent), causal or not, at 16 heads and a batch that gives each
-    kernel's grid at least eight blocks an SM, against
-    ``flash_fwd_plain`` and ``flash_bwd_dkv_plain``: within 2e-5 of the
-    scale and in relative L2 (dk and dv over their joint norm where a
-    single key and no lse cotangent leave dk rounding alone). The grid
-    test above runs b·h 2."""
+    """f32 B4 (with and without a key bias), B5a, B5b and B6 (with and
+    without an lse cotangent), causal or not, at 16 heads and a batch that
+    gives each kernel's grid at least eight blocks an SM, against their
+    plain versions: within 2e-5 of the scale and in relative L2 (over the
+    three gradients' joint norm where a single key and no lse cotangent
+    leave dq and dk rounding alone; B5a's dq is held beside the plain dk
+    and dv for that). The grid test above runs b·h 2."""
     from analytics_zoo_tpu_torch.ops import attention as at
     h, scale, f32 = 16, d ** -0.5, torch.float32
-    b = _many_blocks_batch(cuda_device, sq, h)  # B4: 64 queries a block
-    q, k, v, _, _, bias = _flash_inputs_on_card(cuda_device, sq, skv, d, b,
-                                                h, sq + skv + d)
+    # B4 and B5a: 64 queries a block
+    b = _many_blocks_batch(cuda_device, sq, h)
+    q, k, v, do, glse, bias = _flash_inputs_on_card(cuda_device, sq, skv, d,
+                                                    b, h, sq + skv + d)
     for causal in (False, True):
         for kb in (None, bias):
             before = at.flash_route_counts["f32_tc"]
@@ -836,8 +851,20 @@ def test_f32_flash_tensor_core_kernels_on_grids_of_many_blocks(
             case = f"b={b} causal={causal} bias={kb is not None}"
             assert _flash_close(o, want_o, f32), case
             assert _flash_close(lse, want_lse, f32), case
-    del q, k, v, o, lse, want_o, want_lse
-    b = _many_blocks_batch(cuda_device, skv, h)  # B5b: 64 keys a block
+        o, lse = at.flash_fwd_plain(q, k, v, None, scale, causal)
+        delta = (do * o).sum(-1)
+        for gl in (None, glse):
+            args = (q, k, v, do, lse, delta, gl, scale, causal)
+            before = at.flash_route_counts["f32_tc"]
+            dq = at.flash_bwd_dq(*args)
+            assert at.flash_route_counts["f32_tc"] == before + 1
+            want = at.flash_bwd_fused_plain(*args)
+            case = f"B5a b={b} causal={causal} glse={gl is not None}"
+            assert _grads_close((dq,) + want[1:], want, f32,
+                                skv == 1 and gl is None), case
+    del q, k, v, do, glse, o, lse, want_o, want_lse, dq, want
+    # B5b and B6: 64 keys a block
+    b = _many_blocks_batch(cuda_device, skv, h)
     q, k, v, do, glse, _ = _flash_inputs_on_card(cuda_device, sq, skv, d, b,
                                                  h, sq + skv + d + 1)
     for causal in (False, True):
@@ -847,36 +874,37 @@ def test_f32_flash_tensor_core_kernels_on_grids_of_many_blocks(
             args = (q, k, v, do, lse, delta, gl, scale, causal)
             before = at.flash_route_counts["f32_tc"]
             got = at.flash_bwd_dkv(*args)
-            assert at.flash_route_counts["f32_tc"] == before + 1
+            fused = at.flash_bwd_fused(*args)
+            assert at.flash_route_counts["f32_tc"] == before + 2
             want = at.flash_bwd_dkv_plain(*args)
             case = f"b={b} causal={causal} glse={gl is not None}"
-            assert _grads_close(got, want, f32, skv == 1 and gl is None), \
-                case
+            one_key = skv == 1 and gl is None
+            assert _grads_close(got, want, f32, one_key), f"B5b {case}"
+            assert _grads_close(fused, at.flash_bwd_fused_plain(*args), f32,
+                                one_key), f"B6 {case}"
 
 
 @pytest.mark.cuda
-def test_flash_bf16_takes_the_tensor_cores_and_f32_the_cuda_cores(
-        cuda_device):
+def test_flash_takes_the_tensor_cores_in_bf16_and_in_f32(cuda_device):
     """A causal forward and backward through ``flash_attention`` counts
     each of its launches on its route: in bf16 every kernel on the tensor
-    cores; in f32 B4 and B5b on the tensor cores as 3xTF32 (``f32_tc``),
-    B5a and B6 on the CUDA cores (``f32_simt``). One B4 and one B6 at 700
-    keys of d 64; one B4, one B5a and one B5b past the resident-bytes rule
-    (8192 keys of d 128 in bf16, 4096 in f32)."""
+    cores (``bf16_tc``), in f32 every kernel on the tensor cores as 3xTF32
+    (``f32_tc``). One B4 and one B6 at 700 keys of d 64; one B4, one B5a
+    and one B5b past the resident-bytes rule (8192 keys of d 128 in bf16,
+    4096 in f32)."""
     from analytics_zoo_tpu_torch.ops import attention as at
     for dtype, routes, s, d, fused in (
             (torch.bfloat16, {"bf16_tc": 2}, 700, 64, True),
-            (torch.float32, {"f32_tc": 1, "f32_simt": 1}, 700, 64, True),
+            (torch.float32, {"f32_tc": 2}, 700, 64, True),
             (torch.bfloat16, {"bf16_tc": 3}, 8192, 128, False),
-            (torch.float32, {"f32_tc": 2, "f32_simt": 1}, 4096, 128,
-             False)):
+            (torch.float32, {"f32_tc": 3}, 4096, 128, False)):
         q, k, v, do, _, _ = _flash_inputs(cuda_device, s, s, d, dtype, 5)
         leaves = [t.requires_grad_() for t in (q, k, v)]
         at.reset_launch_counts()
         at.flash_attention(*leaves, causal=True).backward(do)
         torch.cuda.synchronize()
         assert at.flash_route_counts == {"bf16_tc": 0, "f32_tc": 0,
-                                         "f32_simt": 0, **routes}
+                                         **routes}
         assert at.flash_launch_counts == {
             "flash_fwd": 1, "flash_bwd_dq": 0 if fused else 1,
             "flash_bwd_dkv": 0 if fused else 1,
@@ -905,7 +933,7 @@ def test_flash_backward_takes_the_design_the_resident_bytes_pick(
         "flash_fwd": 1, "flash_bwd_dq": 0 if fused else 1,
         "flash_bwd_dkv": 0 if fused else 1,
         "flash_bwd_fused": 1 if fused else 0}
-    routes = {"bf16_tc": 0, "f32_tc": 0, "f32_simt": 0}
+    routes = {"bf16_tc": 0, "f32_tc": 0}
     for kernel, n in at.flash_launch_counts.items():
         routes[at.flash_route(dtype, kernel)] += n
     assert at.flash_route_counts == routes

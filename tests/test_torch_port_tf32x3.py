@@ -1,9 +1,10 @@
-"""The 3xTF32 arithmetic of B7/B8's f32 route and of B4's and B5b's,
-emulated on the CPU.
+"""The 3xTF32 arithmetic of B7/B8's f32 route and of the flash kernels'
+(B4, B5a, B5b, B6), emulated on the CPU.
 
 ``csrc/fused_short_attn.cu`` runs every product of the fused short
 attention's f32 route, and ``csrc/flash_attn_tf32.cu`` every product of the
-flash forward (B4) and dk/dv pass (B5b) in f32, on the tensor cores as
+flash forward (B4), the two-pass backward (B5a's dq, B5b's dk and dv) and
+the one-pass backward (B6) in f32, on the tensor cores as
 ``mma.sync.m16n8k8`` TF32:
 each f32 operand is split into ``big = tf32(x)`` and ``small = tf32(x -
 big)`` (``cvt.rna.tf32.f32``: the mantissa rounded to 10 bits, ties away
@@ -18,13 +19,16 @@ torch, and B7's and B8's function run through them at the grid's worst
 shapes (s 512, d 64 and 128; padding bias, causal, dropout 0.1) are held
 within 2e-5 of the output's scale against the plain versions, the route's
 tolerance; one TF32 product alone misses it, so the split cannot be dropped
-quietly. B4 (its output and lse) and B5b (dk and dv, with an lse
-cotangent) are held the same way against ``flash_fwd_plain`` and
-``flash_bwd_dkv_plain`` at 1024 keys and at 513 queries over 1000 keys,
-causal or not, d 64 and 128; a reduction whose length is no multiple of 8
-is padded with zeros, as the kernels' tiles are. The tensor cores' own accumulation inside an ``mma`` is not
-emulated: each 8-step's products are summed exactly and added to the f32
-accumulator with one rounding. ``chip_smoke.py`` and
+quietly. B4 (its output and lse), B5b (dk and dv, with an lse cotangent),
+B5a (dq) and B6 (dq, dk and dv; its dq summed over each 64-key block, then
+added across the blocks in f32, as its atomics add) are held the same way
+against ``flash_fwd_plain``, ``flash_bwd_dkv_plain``, ``flash_bwd_dq_plain``
+and ``flash_bwd_fused_plain`` at 1024 keys and at 513 queries over 1000
+keys, causal or not, d 64 and 128; a reduction whose length is no multiple
+of 8 is padded with zeros, as the kernels' tiles are. The tensor cores'
+own accumulation inside an ``mma`` is not emulated: each 8-step's
+products are summed exactly and added to the f32 accumulator with one
+rounding. ``chip_smoke.py`` and
 ``tests/test_torch_port_kernels.py`` hold the kernels themselves on the
 card. The plain versions against JAX are
 ``test_torch_port_attention.py::test_fused_short_forward_and_backward_match_jax``.
@@ -222,14 +226,22 @@ def test_an_accumulator_feeds_the_next_product_in_the_permuted_order():
     assert torch.equal(a, p[:, _perm(8)]) and torch.equal(b, x[_perm(8)])
 
 
-# -- B4 and B5b (csrc/flash_attn_tf32.cu) ---------------------------------
+# -- B4, B5a, B5b and B6 (csrc/flash_attn_tf32.cu) ------------------------
+
+#: B6's keys a block: its dq is summed over a block's keys, then added
+_B6_KEYS = 64
 
 
 def _flash_emulated(q, k, v, do, lse, delta, glse, scale, causal, terms):
-    """B4's ``(o, lse)`` and B5b's ``(dk, dv)`` with every product
-    emulated by :func:`_mm`: the forward's online softmax as one max and
-    sum; the dk/dv pass's Sᵀ = K·Qᵀ, pᵀ from the given ``lse`` and
-    dPᵀ = V·dOᵀ, then ``pᵀ·dO`` and ``dsᵀ·Q`` in the permuted order."""
+    """B4's ``(o, lse)``, B5b's ``(dk, dv)`` (B6's too: the same kernel)
+    and the dq of B5a and of B6 with every product emulated by
+    :func:`_mm`: the forward's online softmax as one max and sum; the
+    dk/dv pass's Sᵀ = K·Qᵀ, pᵀ from the given ``lse`` and dPᵀ = V·dOᵀ,
+    then ``pᵀ·dO`` and ``dsᵀ·Q`` in the permuted order; B5a's S = Q·Kᵀ
+    and dP = dO·Vᵀ, then ``ds·K`` in the permuted order; B6's ``ds·K``
+    with ds read transposed from the dk/dv pass's dsᵀ, in the permuted
+    order over each block of 64 keys, the blocks' shares times scale
+    added in f32."""
     sq, skv = q.shape[-2], k.shape[-2]
     above = torch.arange(skv)[None, :] > torch.arange(sq)[:, None]
     # B4
@@ -249,9 +261,26 @@ def _flash_emulated(q, k, v, do, lse, delta, glse, scale, causal, terms):
     rest = _mm(v, do.transpose(-1, -2), terms) - delta[..., None, :]
     if glse is not None:
         rest = rest + glse[..., None, :]
+    dst = pt * rest
     dv = _mm(pt, do, terms, permuted=True)
-    dk = _mm(pt * rest, q, terms, permuted=True) * scale
-    return (o, lse_o), (dk, dv)
+    dk = _mm(dst, q, terms, permuted=True) * scale
+    # B5a: queries x keys
+    t = _mm(q, k.transpose(-1, -2), terms) * (scale * _LOG2E)
+    if causal:
+        t = t.masked_fill(above, -1e30)
+    p = torch.exp2(t - (lse * _LOG2E)[..., None])
+    rest = _mm(do, v.transpose(-1, -2), terms) - delta[..., None]
+    if glse is not None:
+        rest = rest + glse[..., None]
+    dq = _mm(p * rest, k, terms, permuted=True) * scale
+    # B6: each key block's share of dq from ds^T, added in f32
+    ds = dst.transpose(-1, -2)
+    dq_b6 = torch.zeros_like(dq)
+    for k0 in range(0, skv, _B6_KEYS):
+        k1 = min(k0 + _B6_KEYS, skv)
+        dq_b6 = dq_b6 + _mm(ds[..., k0:k1], k[..., k0:k1, :], terms,
+                            permuted=True) * scale
+    return (o, lse_o), (dk, dv), (dq, dq_b6)
 
 
 _FLASH_CASES = [(d, sq, skv, causal) for d in (64, 128)
@@ -264,8 +293,8 @@ _FLASH_CASES = [(d, sq, skv, causal) for d in (64, 128)
                      for d, sq, skv, c in _FLASH_CASES])
 def flash_case(request):
     """Inputs at the case's shape (b 1, h 2), an lse cotangent, and the
-    plain versions' ``(o, lse)`` and ``(dk, dv)``, the backward from the
-    plain forward's lse and D = rowsum(dO·o)."""
+    plain versions' ``(o, lse)``, ``(dk, dv)`` and ``(dq, dk, dv)``, the
+    backward from the plain forward's lse and D = rowsum(dO·o)."""
     d, sq, skv, causal = request.param
     gen = torch.Generator().manual_seed(d + sq + skv + causal)
     q, do = (torch.randn(1, 2, sq, d, generator=gen) for _ in range(2))
@@ -275,19 +304,28 @@ def flash_case(request):
     o, lse = at.flash_fwd_plain(q, k, v, None, scale, causal)
     delta = (do * o).sum(-1)
     args = (q, k, v, do, lse, delta, glse, scale, causal)
-    return args, (o, lse), at.flash_bwd_dkv_plain(*args)
+    return (args, (o, lse), at.flash_bwd_dkv_plain(*args),
+            at.flash_bwd_fused_plain(*args))
 
 
 def test_flash_3xtf32_holds_the_f32_tolerance(flash_case):
-    args, want_fwd, want_dkv = flash_case
-    fwd, dkv = _flash_emulated(*args, terms=3)
+    """B4, B5b, B5a's dq (against ``flash_bwd_dq_plain``) and B6's dq, dk
+    and dv (against ``flash_bwd_fused_plain``)."""
+    args, want_fwd, want_dkv, want_bwd = flash_case
+    fwd, dkv, (dq, dq_b6) = _flash_emulated(*args, terms=3)
     for name, got, want in zip(("o", "lse", "dk", "dv"), fwd + dkv,
                                want_fwd + want_dkv):
         assert _rel_err(got, want) <= ATOL, name
+    assert _rel_err(dq, at.flash_bwd_dq_plain(*args)) <= ATOL, "B5a dq"
+    for name, got, want in zip(("dq", "dk", "dv"), (dq_b6,) + dkv,
+                               want_bwd):
+        assert _rel_err(got, want) <= ATOL, f"B6 {name}"
 
 
 def test_flash_one_tf32_product_misses_the_f32_tolerance(flash_case):
-    args, want_fwd, want_dkv = flash_case
-    fwd, dkv = _flash_emulated(*args, terms=1)
+    args, want_fwd, want_dkv, want_bwd = flash_case
+    fwd, dkv, (dq, dq_b6) = _flash_emulated(*args, terms=1)
     assert max(_rel_err(g, w) for g, w in zip(fwd, want_fwd)) > ATOL
     assert max(_rel_err(g, w) for g, w in zip(dkv, want_dkv)) > ATOL
+    assert _rel_err(dq, at.flash_bwd_dq_plain(*args)) > ATOL, "B5a dq"
+    assert _rel_err(dq_b6, want_bwd[0]) > ATOL, "B6 dq"
