@@ -19,65 +19,185 @@
 // is bound by launch latency, not by bytes.
 //
 // Design: the TPU version scalar-prefetches 256 ids per grid step and
-// double-buffers one DMA per row through VMEM. Here blocks run in parallel
-// and in no order, so there is nothing to carry between steps: each block
-// reads its own ids, one warp copies one output row, and neighbouring lanes
-// touch neighbouring 16-byte words (one uint4 per lane) when the row width
-// and both base pointers allow it; otherwise each lane copies whole
-// elements (2 or 4 bytes). The copy is bit-exact for any element type, so
-// f32, bf16 and fp16 share one kernel keyed only on the element size.
+// double-buffers one DMA per row through VMEM. Here the copy moves in
+// units of 16 bytes where the row width and both base pointers allow it,
+// else 8, 4 or 2 (one element): the copy is bit-exact for any element type,
+// so f32, bf16 and fp16 share one kernel keyed on the unit. Blocks are 2
+// warps (small batches spread over as many SMs as they can fill), and the
+// lanes are packed to the row width:
+//
+//   units <= 32  a warp copies 32 / units whole rows at once, neighbouring
+//                lanes on neighbouring units of one row, then the next
+//                row's (NCF's 64 f32: 2 rows a warp; W&D's width 8: 16; the
+//                width-2 f32 wide table moves 8-byte units, 32 rows a
+//                warp): one row a thread while the grid has a row slot for
+//                every row; past the card's resident threads the grid is
+//                capped and walks the rows in a grid-stride loop, each
+//                thread reading kUnroll ids, issuing their kUnroll
+//                independent loads, then storing;
+//   units > 32   a warp copies a row, every lane busy, kUnroll units a lane
+//                in flight (the LM's 8 KB rows: 512 units, 16 a lane), a
+//                warp for every row.
+//
+// At NCF's 256 ids the copy is launch-bound, so the first load must come
+// soon: a grid with a row slot for every row copies straight, with no
+// loop (a loop the compiler unrolled computed its trip count with a
+// 64-bit division first, 0.25 us), and a lane's row comes from a multiply
+// by a reciprocal the host computes, not a division. A call is one launch
+// (wide rows: for n up to 2^32, a grid of at most 2^31 - 1 blocks).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kWarpsPerBlock = 8;
-constexpr int kThreads = kWarpsPerBlock * 32;
+constexpr int kThreads = 64;
+constexpr int kWarps = kThreads / 32;
+constexpr int kBlocksPerSm = 32;  // 2048 threads: all an SM holds
+constexpr int kUnroll = 4;        // rows (or units) a thread has in flight
+// registers a thread at most (launch bounds): 64 keep the one-warp-a-row
+// kernel at 16 blocks an SM; the unrolled narrow kernel fits 80, where
+// ptxas left to itself took up to 128 and ran 20-30% slower at 2^20 ids
+constexpr int kWideRegs = 64, kNarrowRegs = 80;
+constexpr int kMaxDevices = 64;
 
-template <typename Unit>
-__global__ void __launch_bounds__(kThreads)
-gather_rows_kernel(const Unit* __restrict__ table,
-                   const int32_t* __restrict__ ids,
-                   Unit* __restrict__ out,
-                   long long n, long long rows, long long units_per_row,
-                   int clip) {
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const long long i = (long long)blockIdx.x * kWarpsPerBlock + warp;
-  if (i >= n) return;
-  long long row = ids[i];
-  Unit* dst = out + i * units_per_row;
-  if (row < 0 || row >= rows) {
-    if (!clip) {
-      for (long long j = lane; j < units_per_row; j += 32) dst[j] = Unit{};
-      return;
-    }
-    row = row < 0 ? 0 : rows - 1;
+// The table row an id reads: clamped in clip mode, -1 (a zero row) for an
+// id outside [0, rows) in fill mode.
+__device__ __forceinline__ long long source_row(const int32_t* ids,
+                                                long long i, long long rows,
+                                                int clip) {
+  long long r = ids[i];
+  if (r < 0 || r >= rows) {
+    if (!clip) return -1;
+    r = r < 0 ? 0 : rows - 1;
   }
-  const Unit* src = table + row * units_per_row;
-  for (long long j = lane; j < units_per_row; j += 32) dst[j] = src[j];
+  return r;
+}
+
+// One path an instantiation: kWide (units > 32) copies a row a warp,
+// kUnroll units a lane in flight, a warp for every row; else each warp
+// copies rows_per_warp rows of `lanes` lanes, one a thread while the grid
+// has a row slot for every row (kLoop false), else kUnroll rows a thread
+// a pass of a grid-stride loop. Only that loop is a loop: a row slot for
+// every row is one straight copy, its index in 32 bits (the grid holds at
+// most a few hundred thousand row slots).
+template <typename Unit, bool kLoop, bool kWide>
+__global__ void __launch_bounds__(
+    kThreads, 65536 / ((kWide ? kWideRegs : kNarrowRegs) * kThreads))
+gather_rows_kernel(const Unit* __restrict__ table,
+                   const int32_t* __restrict__ ids, Unit* __restrict__ out,
+                   long long n, long long rows, int units, int lanes,
+                   int lane_div, int rows_per_warp, int clip) {
+  const int lane = threadIdx.x & 31;
+  if constexpr (kWide) {
+    const long long i = ((long long)blockIdx.x * kThreads + threadIdx.x) >> 5;
+    if (i >= n) return;
+    const long long src = source_row(ids, i, rows, clip);
+    const Unit* s = table + (src < 0 ? 0 : src) * units;
+    Unit* d = out + i * units;
+    // not unrolled by the compiler: a trip count costs a division
+#pragma unroll 1
+    for (int u = lane; u < units; u += kUnroll * 32) {
+      Unit v[kUnroll];
+#pragma unroll
+      for (int k = 0; k < kUnroll; ++k) {
+        const int uk = u + 32 * k;
+        v[k] = (src >= 0 && uk < units) ? s[uk] : Unit{};
+      }
+#pragma unroll
+      for (int k = 0; k < kUnroll; ++k) {
+        const int uk = u + 32 * k;
+        if (uk < units) d[uk] = v[k];
+      }
+    }
+  } else {
+    const int sub = (lane * lane_div) >> 16;  // lane / lanes: its row
+    const int u0 = lane - sub * lanes;        // its unit of that row
+    if (sub >= rows_per_warp || u0 >= units) return;  // idle lanes
+    const int warp_row =
+        (blockIdx.x * kWarps + (threadIdx.x >> 5)) * rows_per_warp + sub;
+    if constexpr (!kLoop) {
+      if (warp_row >= n) return;
+      const long long src = source_row(ids, warp_row, rows, clip);
+      out[(long long)warp_row * units + u0] =
+          src >= 0 ? table[src * units + u0] : Unit{};
+    } else {
+      const long long step =
+          (long long)gridDim.x * kWarps * rows_per_warp;
+      // not unrolled by the compiler: a trip count costs a 64-bit division
+#pragma unroll 1
+      for (long long i0 = warp_row; i0 < n; i0 += kUnroll * step) {
+        long long src[kUnroll];
+#pragma unroll
+        for (int k = 0; k < kUnroll; ++k) {
+          const long long i = i0 + k * step;
+          src[k] = i < n ? source_row(ids, i, rows, clip) : -1;
+        }
+        Unit v[kUnroll];
+#pragma unroll
+        for (int k = 0; k < kUnroll; ++k)
+          v[k] = src[k] >= 0 ? table[src[k] * units + u0] : Unit{};
+#pragma unroll
+        for (int k = 0; k < kUnroll; ++k) {
+          const long long i = i0 + k * step;
+          if (i < n) out[i * units + u0] = v[k];
+        }
+      }
+    }
+  }
+}
+
+// The current device's SM count, read once a device.
+int sm_count() {
+  static int counts[kMaxDevices];
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= kMaxDevices)
+    return 132;
+  if (counts[dev] == 0) {
+    int c = 0;
+    cudaDeviceGetAttribute(&c, cudaDevAttrMultiProcessorCount, dev);
+    counts[dev] = c > 0 ? c : 132;
+  }
+  return counts[dev];
 }
 
 template <typename Unit>
 int launch(const void* table, const void* ids, void* out, long long n,
-           long long rows, long long units_per_row, int clip,
-           cudaStream_t stream) {
-  const long long blocks = (n + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  gather_rows_kernel<Unit><<<(unsigned)blocks, kThreads, 0, stream>>>(
+           long long rows, long long units, int clip, cudaStream_t stream) {
+  if (units > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  const int u = (int)units;
+  const int lanes = u < 32 ? u : 32;
+  const int rows_per_warp = 32 / lanes;
+  // one row a row slot (rows_per_warp a warp): small batches spread over
+  // as many SMs as they can fill; past the card's resident threads the
+  // grid is capped and each thread takes kUnroll rows a pass. Wide rows
+  // take a warp each, every row at once.
+  const long long per_block = (long long)kWarps * rows_per_warp;
+  const long long blocks = (n + per_block - 1) / per_block;
+  const long long cap = (long long)sm_count() * kBlocksPerSm;
+  if (u > 32 && blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  // lane / lanes as (lane * lane_div) >> 16, exact for lane < 32
+  const int lane_div = (65536 + lanes - 1) / lanes;
+  auto kernel = u > 32          ? gather_rows_kernel<Unit, false, true>
+                : blocks <= cap ? gather_rows_kernel<Unit, false, false>
+                                : gather_rows_kernel<Unit, true, false>;
+  const unsigned grid = (unsigned)(u > 32 || blocks <= cap ? blocks : cap);
+  kernel<<<grid, kThreads, 0, stream>>>(
       static_cast<const Unit*>(table), static_cast<const int32_t*>(ids),
-      static_cast<Unit*>(out), n, rows, units_per_row, clip);
+      static_cast<Unit*>(out), n, rows, u, lanes, lane_div, rows_per_warp,
+      clip);
   return (int)cudaGetLastError();
 }
 
-// 16 when every row start is 16-byte aligned in both tensors (the uint4
-// path), else the element size the copy falls back to.
+// The widest unit (16, 8 or 4 bytes) that divides the row width and both
+// base pointers, else the element size.
 int copy_unit(const void* table, const void* out, long long dim,
               int elem_bytes) {
   const long long row_bytes = dim * (long long)elem_bytes;
-  if (row_bytes % 16 == 0 && (uintptr_t)table % 16 == 0 &&
-      (uintptr_t)out % 16 == 0)
-    return 16;
+  for (int unit = 16; unit > elem_bytes; unit >>= 1)
+    if (row_bytes % unit == 0 && (uintptr_t)table % unit == 0 &&
+        (uintptr_t)out % unit == 0)
+      return unit;
   return elem_bytes;
 }
 
@@ -92,17 +212,18 @@ int azt_gather_rows(const void* table, const void* ids, void* out,
                     int elem_bytes, int clip, void* stream) {
   if (n <= 0) return 0;
   if (rows <= 0 || dim <= 0) return (int)cudaErrorInvalidValue;
-  if (n > (long long)0x7fffffff * kWarpsPerBlock)
-    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (copy_unit(table, out, dim, elem_bytes)) {
+  const int unit = copy_unit(table, out, dim, elem_bytes);
+  const long long units = dim * elem_bytes / unit;
+  switch (unit) {
     case 16:
-      return launch<uint4>(table, ids, out, n, rows,
-                           dim * elem_bytes / 16, clip, s);
+      return launch<uint4>(table, ids, out, n, rows, units, clip, s);
+    case 8:
+      return launch<uint2>(table, ids, out, n, rows, units, clip, s);
     case 4:
-      return launch<uint32_t>(table, ids, out, n, rows, dim, clip, s);
+      return launch<uint32_t>(table, ids, out, n, rows, units, clip, s);
     case 2:
-      return launch<uint16_t>(table, ids, out, n, rows, dim, clip, s);
+      return launch<uint16_t>(table, ids, out, n, rows, units, clip, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -262,6 +262,22 @@ def scatter_rows_plain(g: torch.Tensor, rows: torch.Tensor,
     return out
 
 
+#: the scatter kernel's fill counters, one a (device, stream): two int64
+#: that each launch finds and leaves at zero
+_fill_counters: dict = {}
+
+
+def fill_counter(device: torch.device) -> torch.Tensor:
+    """The scatter kernel's fill counter for ``device``'s current stream,
+    made (zeroed) at the stream's first launch."""
+    key = (device.index, torch.cuda.current_stream(device).cuda_stream)
+    counter = _fill_counters.get(key)
+    if counter is None:
+        counter = torch.zeros(2, dtype=torch.int64, device=device)
+        _fill_counters[key] = counter
+    return counter
+
+
 def scatter_rows(g_flat: torch.Tensor, rows: torch.Tensor,
                  num_rows: int) -> torch.Tensor:
     """The scatter kernel's wrapper: the row-subset cotangent ``[num_rows,
@@ -269,8 +285,8 @@ def scatter_rows(g_flat: torch.Tensor, rows: torch.Tensor,
     block for ``rows[j]`` in ``[0, num_rows)``, the rest dropped, for
     contiguous f32 ``g_flat`` ``[n, dim]`` and flat int32 ``rows``. CPU
     tensors take :func:`scatter_rows_plain`; CUDA tensors launch the kernel
-    on the current stream (duplicate rows add with atomics, in no fixed
-    order)."""
+    on the current stream, one launch for the fill and the adds
+    (duplicate rows add with atomics, in no fixed order)."""
     if g_flat.dim() != 2 or rows.dim() != 1 \
             or rows.shape[0] != g_flat.shape[0]:
         raise ValueError(f"g must be [n, dim] and rows [n], got "
@@ -297,7 +313,9 @@ def scatter_rows(g_flat: torch.Tensor, rows: torch.Tensor,
     with torch.cuda.device(g_flat.device):
         stream = torch.cuda.current_stream(g_flat.device).cuda_stream
         rc = lib.azt_scatter_rows(g_flat.data_ptr(), rows.data_ptr(),
-                                  out.data_ptr(), n, num_rows, dim, stream)
+                                  out.data_ptr(), n, num_rows, dim,
+                                  fill_counter(g_flat.device).data_ptr(),
+                                  stream)
     launch_counts.launched("scatter_rows", rc)
     return out
 

@@ -114,7 +114,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.azt_gather_pool.restype = i
     lib.azt_gather_int8.argtypes = [p, p, p, p, ll, ll, ll, p]
     lib.azt_gather_int8.restype = i
-    lib.azt_scatter_rows.argtypes = [p, p, p, ll, ll, ll, p]
+    lib.azt_scatter_rows.argtypes = [p, p, p, ll, ll, ll, p, p]
     lib.azt_scatter_rows.restype = i
     f, u = ctypes.c_float, ctypes.c_uint32
     lib.azt_fused_short_fwd_f32.argtypes = [p] * 7 + [ll, i, i, i, f, u, f,

@@ -17,9 +17,12 @@ Phases, each of which must pass or the script exits non-zero:
    plain PyTorch version at the main paths' shapes and on ragged, bag-size,
    bf16/fp16 and out-of-range cases, then timed with CUDA events and the
    profiler beside the plain version and the one PyTorch call that computes
-   the same function. The row gather: at the serving batch and at 2^20 ids,
-   from a table that fits in L2 and from one of 1 GiB with every id
-   distinct. The gather+pool: at the Wide&Deep wide table ([101016, 2],
+   the same function. The row gather (on tables at three base alignments,
+   widths of 1 to 2048): at the serving batch; at 2^20 ids, from a table
+   that fits in L2 and from one of 1 GiB with every id distinct, also in
+   turns with ``index_select``; at the LM's embedding, BERT-base's three
+   tables and the sharded Wide&Deep's wide and ``occ_e`` shards (fill
+   mode). The gather+pool: at the Wide&Deep wide table ([101016, 2],
    8192 bags of 3) and at 2^20 bags of 8 over a 64-wide table of 2^23 rows
    (2 GiB) with every id distinct, beside ``embedding_bag`` (sum and mean).
 4. serving: NeuralCF at MovieLens-1M width with seeded random weights is
@@ -154,14 +157,17 @@ Phases, each of which must pass or the script exits non-zero:
    CPU's scales loaded on the card, predictions at buckets 1, 16 and 256
    within 1e-5 of the CPU's (buckets 1 and 16 pad for ``torch._int_mm``).
 13. row scatter-add kernel (B3): held against its plain version for widths
-   1, 2, 3, 8, 64 and 130, 0 to 4096 grad rows, blocks of 7, 5000 and
-   25,000,254 rows, rows out of range on both sides: bit for bit where no
+   1, 2, 3, 8, 64 and 130, 0 to 24,576 grad rows, blocks of 7, 250, 5000,
+   100,003 and 25,000,254 rows, rows out of range on both sides, spread
+   over the block or all inside its first fill chunk: bit for bit where no
    row repeats, within 2e-5 of the output's scale where rows repeat (f32
    atomics add them in no fixed order). Timed at the Wide&Deep shard
    ([25,000,254, 2], n = 4 x 6144) and at a 1 GiB block ([2^22, 64], 2^20
-   uniform rows) beside its plain version and ``zeros`` + ``index_add_``;
-   at the shard also in turns with that library call (kernel, library,
-   library, kernel; ten calls after five each, by device time and events).
+   uniform rows) beside its plain version and ``zeros`` + ``index_add_``,
+   and in turns with that library call and the fills alone
+   (``cudaMemsetAsync``, ``torch.zeros``, B3 with no rows): forward then
+   backward through the names, ten calls after five each, by device time
+   and events.
 14. vocab-sharded Wide&Deep: 4 gloo ranks (``torch.multiprocessing``) share
    the card, each holding a quarter of every table. At the columns of 5,
    ``SGD(0.1)``, 4 steps of the global batch 8192: parameters within 1e-5
@@ -186,6 +192,7 @@ card's
 and the ``{"ok": true, ...}`` line.
 """
 import argparse
+import ctypes
 import json
 import math
 import os
@@ -312,17 +319,18 @@ INT8_HBM_ROWS = 1 << 24
 #: B3's grid: widths (the wide table's 2, the embed tables' 8), grad
 #: counts (those of the sharded step: 4 ranks x 2048 rows for an embed
 #: table, x 3 wide ids for the wide table), and block rows (small, the
-#: occ_e shard's 250, and the full-width Wide&Deep shard's)
+#: occ_e shard's 250, one that no 32 KB fill chunk divides, and the
+#: full-width Wide&Deep shard's)
 SCATTER_DIMS = (1, 2, 3, 8, 64, 130)
 SCATTER_NS = (0, 1, 255, 256, 257, 4096, 8192, 24576)
-SCATTER_ROWS = (7, 250, 5000, 25000254)
+SCATTER_ROWS = (7, 250, 5000, 100003, 25000254)
 #: the full-width Wide&Deep shard: 100,001,016 wide rows over 4 ranks, and
 #: one step's exchanged grads there (4 ranks x 2048 rows x 3 wide ids)
 WND_SHARD_ROWS, WND_SHARD_N = 25000254, 4 * 6144
 #: a shard block L2 cannot hold: 2^22 x 64 f32 = 1 GiB, 2^20 uniform rows
 SCATTER_HBM = (1 << 22, 64, 1 << 20)
-#: rounds of B3 and its library call in turns at the shard (each a turn
-#: of each, then of each again in the other order)
+#: rounds of B3 and its library call in turns, and of the fills alone
+#: (each a turn of each, then of each again in the other order)
 SCATTER_TURNS = 3
 #: vocab-sharded Wide&Deep: gloo ranks sharing the one card, the global
 #: batch (bench_widedeep_sharded's), and steps held to the replicated run
@@ -556,75 +564,189 @@ def rebuild_seconds(kernel_build) -> dict:
     return out
 
 
-def gather_bound_ms(table: torch.Tensor, ids: torch.Tensor) -> float:
-    """Least time for a clip gather of these ids at the memory rate: each id
+def gather_bound_ms(table: torch.Tensor, ids: torch.Tensor,
+                    clip: bool = True) -> float:
+    """Least time for a gather of these ids at the memory rate: each id
     read once, each output row written once, and each distinct table row
-    the ids reach read once (a row asked for twice is read once)."""
-    n, dim = ids.shape[0], table.shape[1]
-    distinct = int(torch.unique(ids.clamp(0, table.shape[0] - 1)).numel())
+    the ids reach read once (a row asked for twice is read once; in fill
+    mode an id outside the table reaches no row)."""
+    n, rows, dim = ids.shape[0], table.shape[0], table.shape[1]
+    reached = (ids.clamp(0, rows - 1) if clip
+               else ids[(ids >= 0) & (ids < rows)])
+    distinct = int(torch.unique(reached).numel())
     row = dim * table.element_size()
     return (n * row + 4 * n + distinct * row) / HBM_BYTES_PER_S * 1e3
 
 
-def phase_kernels(ek, dev, gen):
-    """Hold the gather kernel against its plain version, then time both
-    and ``index_select``; returns (timings per shape, largest error)."""
-    cases = [(rows, dim, torch.float32, SERVE_BATCH)
-             for _, rows, dim in NCF_TABLES]
-    cases += [(6041, 64, torch.float32, 1), (6041, 64, torch.float32, 257),
-              (50, 3, torch.float32, 257), (50, 33, torch.float32, 256),
-              (6041, 64, torch.bfloat16, 256), (50, 33, torch.bfloat16, 7),
-              (3707, 32, torch.float16, 256), (50, 8, torch.float32, 0)]
-    max_err = 0.0
-    for rows, dim, dtype, n in cases:
-        table = torch.randn(rows, dim, generator=gen).to(dtype).to(dev)
+def _table_views(rows: int, dim: int, dtype, gen, dev) -> list:
+    """The same seeded ``[rows, dim]`` table three times: at the start of
+    its storage (16-byte aligned) and at one and two elements past it (4-
+    and 8-byte aligned in f32, 2 and 4 in bf16 and fp16), so the gather
+    takes every copy unit a width allows."""
+    flat = torch.randn(rows * dim + 2, generator=gen).to(dtype).to(dev)
+    return [(off, flat[off:off + rows * dim].view(rows, dim))
+            for off in (0, 1, 2)]
+
+
+def shard_request_ids(seed: int, table: str) -> tuple:
+    """The ids the sharded Wide&Deep step gathers from rank 1's shard of
+    one table at ``bench_widedeep_sharded``'s width (``FULL_CROSS``
+    buckets): each of the ``SHARD_RANKS`` ranks sends, for its
+    ``SHARD_BATCH // SHARD_RANKS`` records, a block of one slot an id
+    holding the sorted local rows of its unique ids that rank 1 owns, then
+    the SENTINEL ``rows_per_shard`` (``parallel/embedding.py``
+    ``_routing``, ``_lookup_body``). ``table`` is ``"wide"`` (the
+    100,001,016-row wide table, 3 ids a record) or ``"occ_e"`` (1000 rows
+    of 8, 1 id a record). Returns (rows_per_shard, dim, ids int32)."""
+    cols = wnd_columns(FULL_CROSS)
+    (wide, _, emb, _), _ = wnd_records_at(seed, SHARD_BATCH, cols)
+    if table == "wide":  # the wide table: a row of 2 class logits an id
+        ids, dim = wide, 2
+        vocab = sum(cols["wide_base_dims"] + cols["wide_cross_dims"])
+    else:
+        ids, dim = emb[:, 1], cols["embed_out_dims"][1]
+        vocab = cols["embed_in_dims"][1]
+    rps = -(-vocab // SHARD_RANKS)
+    blocks = []
+    for part in np.split(ids, SHARD_RANKS):
+        u = np.unique(part)
+        mine = u[np.minimum(u // rps, SHARD_RANKS - 1) == 1] - rps
+        block = np.full(part.size, rps, np.int32)
+        block[:mine.size] = mine
+        blocks.append(block)
+    return rps, dim, np.concatenate(blocks)
+
+
+def gather_timed_cases(dev, gen, seed: int):
+    """B1's timed shapes, made one at a time: (label, table, ids, clip,
+    calls). The NCF serving batch's four tables; 2^20 ids from a table L2
+    holds and from a 1 GiB one (every id distinct); the LM's embedding (8 x
+    2048 uniform tokens); BERT-base's word, position and type tables at a
+    fine-tuning batch (128 x 128 ids as ``bert_records`` and
+    ``bert_input_pack`` make them); and the sharded Wide&Deep's wide and
+    ``occ_e`` shards in fill mode (``shard_request_ids``)."""
+    dev_gen = torch.Generator(device=dev).manual_seed(gen.initial_seed())
+    for name, rows, dim in NCF_TABLES:
+        yield (name, torch.randn(rows, dim, generator=gen).to(dev),
+               torch.randint(0, rows, (SERVE_BATCH,), generator=gen,
+                             dtype=torch.int32).to(dev), True, 500)
+    yield ("mlp_user_table", torch.randn(6041, 64, generator=gen).to(dev),
+           torch.randint(0, 6041, (LARGE_N,), generator=gen,
+                         dtype=torch.int32).to(dev), True, 50)
+    # every id distinct, so every row comes from device memory
+    yield ("hbm_table", torch.randn(HBM_ROWS, 64, generator=dev_gen,
+                                    device=dev),
+           torch.randperm(HBM_ROWS, generator=dev_gen, device=dev)[
+               :LARGE_N].to(torch.int32), True, 50)
+    vocab, hidden = LM_CFG["vocab_size"], LM_CFG["hidden"]
+    yield ("lm_embed", torch.randn(vocab, hidden, generator=dev_gen,
+                                   device=dev),
+           torch.from_numpy(lm_tokens(seed, LM_BATCH, LM_CFG["max_len"])
+                            .reshape(-1)).to(torch.int32).to(dev),
+           True, 50)
+    tokens, _ = bert_records(seed, BERT_BATCH, BERT_SEQ)
+    bert_ids = {
+        "bert_word": (BERT_CFG["vocab"], tokens),
+        "bert_position": (BERT_CFG["max_position_len"],
+                          np.broadcast_to(np.arange(BERT_SEQ),
+                                          tokens.shape)),
+        "bert_type": (2, np.zeros_like(tokens))}
+    for name, (rows, ids) in bert_ids.items():
+        yield (name, torch.randn(rows, BERT_CFG["hidden_size"],
+                                 generator=dev_gen, device=dev).to(
+                                     torch.bfloat16),
+               torch.from_numpy(np.ascontiguousarray(ids).reshape(-1))
+               .to(torch.int32).to(dev), True, 200)
+    for table in ("wide", "occ_e"):
+        rows, dim, ids = shard_request_ids(seed, table)
+        yield (f"wnd_{table}_shard", torch.randn(rows, dim,
+                                                 generator=dev_gen,
+                                                 device=dev),
+               torch.from_numpy(ids).to(dev), False, 200)
+
+
+#: B1's grid: (rows, dim, dtype, n), every case run on three table views
+#: (``_table_views``) in both modes. The NCF serving tables; f32 widths of
+#: 1, 2, 8, 16, 32 and 64 (32, 32, 16, 8, 4 and 2 rows a warp, in 4-, 8-
+#: and 16-byte units), bf16 and fp16 at odd widths, rows wider than
+#: a warp's units (BERT's 768 bf16, the LM's 2048 f32, 129 fp16), and id
+#: counts that are no multiple of a warp's or a block's rows, past one
+#: pass of the grid (101,377 at 64 f32)
+GATHER_GRID = tuple(
+    [(rows, dim, torch.float32, SERVE_BATCH) for _, rows, dim in NCF_TABLES]
+    + [(6041, 64, torch.float32, 1), (6041, 64, torch.float32, 257),
+       (50, 3, torch.float32, 257), (50, 33, torch.float32, 256),
+       (6041, 64, torch.bfloat16, 256), (50, 33, torch.bfloat16, 7),
+       (3707, 32, torch.float16, 256), (50, 8, torch.float32, 0),
+       (100, 1, torch.float32, 1025), (100, 2, torch.float32, 1000),
+       (100, 8, torch.float32, 33), (100, 16, torch.float32, 4099),
+       (100, 32, torch.float32, 100003), (1000, 64, torch.float32, 101377),
+       (50, 7, torch.bfloat16, 1000), (50, 5, torch.float16, 333),
+       (50, 129, torch.float16, 77), (600, 768, torch.bfloat16, 1000),
+       (64, 2048, torch.float32, 300)])
+#: rounds of B1 and ``index_select`` in turns at 2^20 x 64
+GATHER_TURNS = 3
+
+
+def phase_kernels(ek, dev, gen, seed: int):
+    """Hold the gather kernel against its plain version on ``GATHER_GRID``,
+    then time both and ``index_select`` at ``gather_timed_cases``' shapes
+    (at 2^20 ids also B1 and ``index_select`` in turns); returns (timings
+    per shape, largest error, cases)."""
+    max_err, checked = 0.0, 0
+    for rows, dim, dtype, n in GATHER_GRID:
         # ids below 0 and at or past the end, in both modes
         ids = torch.randint(-3, rows + 3, (n,), generator=gen,
                             dtype=torch.int32)
         if n >= 2:
             ids[0], ids[1] = -1, rows
         ids = ids.to(dev)
-        for clip in (True, False):
-            got = ek.gather(table, ids, clip)
-            want = ek.gather_plain(table, ids, clip)
-            torch.cuda.synchronize()
-            check(torch.equal(got, want),
-                  f"gather kernel != plain at rows={rows} dim={dim} "
-                  f"{dtype} n={n} clip={clip}")
-            if n:
-                max_err = max(max_err, float(
-                    (got.float() - want.float()).abs().max()))
-    log(f"kernel == plain (torch.equal) on {len(cases)} shapes x 2 modes")
+        for off, table in _table_views(rows, dim, dtype, gen, dev):
+            for clip in (True, False):
+                got = ek.gather(table, ids, clip)
+                want = ek.gather_plain(table, ids, clip)
+                torch.cuda.synchronize()
+                check(torch.equal(got, want),
+                      f"gather kernel != plain at rows={rows} dim={dim} "
+                      f"{dtype} n={n} offset={off} clip={clip}")
+                if n:
+                    max_err = max(max_err, float(
+                        (got.float() - want.float()).abs().max()))
+                checked += 1
+    log(f"kernel == plain (torch.equal) on {len(GATHER_GRID)} shapes x 3 "
+        f"table offsets x 2 modes")
 
     timings = []
-    dev_gen = torch.Generator(device=dev).manual_seed(gen.initial_seed())
-    for label, rows, dim, n, iters in (
-            [(name, rows, dim, SERVE_BATCH, 500)
-             for name, rows, dim in NCF_TABLES]
-            + [("mlp_user_table", 6041, 64, LARGE_N, 50),
-               ("hbm_table", HBM_ROWS, 64, LARGE_N, 50)]):
-        if rows == HBM_ROWS:
-            # every id distinct, so every row comes from device memory
-            table = torch.randn(rows, dim, generator=dev_gen, device=dev)
-            ids = torch.randperm(rows, generator=dev_gen, device=dev)[:n]
-            ids = ids.to(torch.int32)
-        else:
-            table = torch.randn(rows, dim, generator=gen).to(dev)
-            ids = torch.randint(0, rows, (n,), generator=gen,
-                                dtype=torch.int32).to(dev)
-        fns = {"ms": lambda: ek.gather(table, ids, True),
-               "plain_ms": lambda: ek.gather_plain(table, ids, True),
-               "library_ms": lambda: torch.index_select(table, 0, ids)}
-        t = {"table": label, "rows": rows, "dim": dim, "n": n,
-             "bound_ms": gather_bound_ms(table, ids)}
+    for label, table, ids, clip, iters in gather_timed_cases(dev, gen,
+                                                             seed):
+        # index_select has no fill mode: in fill mode it is timed on the
+        # ids clamped into the table (the same bytes, not the function)
+        lib_ids = ids if clip else ids.clamp(0, table.shape[0] - 1)
+        fns = {"ms": lambda: ek.gather(table, ids, clip),
+               "plain_ms": lambda: ek.gather_plain(table, ids, clip),
+               "library_ms": lambda: torch.index_select(table, 0, lib_ids)}
+        check(torch.equal(fns["ms"](), fns["plain_ms"]()),
+              f"gather kernel != plain at {label}")
+        t = {"table": label, "rows": table.shape[0], "dim": table.shape[1],
+             "dtype": str(table.dtype).replace("torch.", ""),
+             "n": ids.shape[0], "clip": clip,
+             "bound_ms": gather_bound_ms(table, ids, clip),
+             "library": "index_select" if clip
+             else "index_select of the ids clamped into the table"}
         # *ms: CUDA events around back-to-back calls, what a caller issuing
         # them from Python sees; *device_ms: the profiler's kernel time
         for key, fn in fns.items():
             t[key] = cuda_ms(fn, iters)
             t[key.replace("ms", "device_ms")] = device_ms(fn)
+        if ids.shape[0] == LARGE_N:
+            t["turns"] = turns_ms({"kernel": fns["ms"],
+                                   "library": fns["library_ms"]},
+                                  GATHER_TURNS)
         timings.append(t)
         log("gather timing " + json.dumps(t))
-    return timings, max_err
+        del fns, table, ids, lib_ids
+        torch.cuda.empty_cache()
+    return timings, max_err, checked
 
 
 def pool_bound_ms(table: torch.Tensor, ids: torch.Tensor, clip: bool) -> float:
@@ -817,23 +939,26 @@ def phase_int8_kernels(ek, dev, seed: int):
 
 
 def scatter_bound_ms(num_rows: int, dim: int, n: int) -> float:
-    """Least time for the scatter at the memory rate: the zero fill of the
-    ``[num_rows, dim]`` f32 block written once, and per grad row its row
-    id read, its ``dim`` f32 read, and its output row read and written."""
-    return ((num_rows * dim * 4 + n * (4 + 3 * dim * 4)) / HBM_BYTES_PER_S
+    """Least time for the scatter at the memory rate: each input byte read
+    once (per grad row its row id and its ``dim`` f32) and each output byte
+    written once (the ``[num_rows, dim]`` f32 block)."""
+    return ((num_rows * dim * 4 + n * (4 + dim * 4)) / HBM_BYTES_PER_S
             * 1e3)
 
 
-def _scatter_rows_input(dev, n: int, num_rows: int, repeat: bool):
-    """Rows for the B3 grid: out of range on both sides (negatives,
-    ``num_rows`` and past it) and, with ``repeat``, in-range rows that
-    repeat; without, every row distinct."""
-    if repeat:
-        pool = torch.randint(-3, num_rows + 3, (max(1, n // 4),),
-                             device=dev)
-        rows = pool[torch.randint(0, pool.numel(), (n,), device=dev)]
-    else:
+def _scatter_rows_input(dev, n: int, num_rows: int, kind: str):
+    """Rows for the B3 grid, out of range on both sides (negatives,
+    ``num_rows`` and past it) and in range: every row distinct
+    (``"distinct"``), rows that repeat (``"repeat"``), or every in-range
+    row among the first 4, inside the kernel's first fill chunk, their adds
+    on a few lines (``"one_chunk"``)."""
+    if kind == "distinct":
         rows = torch.randperm(num_rows + 6, device=dev)[:n] - 3
+    else:
+        hi = num_rows if kind == "repeat" else min(4, num_rows)
+        pool = torch.randint(-3, hi + 3, (max(1, n // 4),), device=dev)
+        pool[pool >= hi] += num_rows - hi  # past the end: the SENTINEL on
+        rows = pool[torch.randint(0, pool.numel(), (n,), device=dev)]
     return rows.to(torch.int32)
 
 
@@ -859,25 +984,70 @@ def _held_to_plain(ek, g, rows, num_rows: int, what: str) -> tuple:
     return err, err / scale
 
 
+def cuda_memset_fn(out: torch.Tensor):
+    """A call of the CUDA runtime's ``cudaMemsetAsync`` zeroing ``out`` on
+    the current stream (the fill B3 ran before it was one launch), or None
+    where no runtime library loads."""
+    cuda_home = os.path.dirname(os.path.dirname(
+        shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"))
+    for name in ("libcudart.so.12", "libcudart.so",
+                 os.path.join(cuda_home, "lib64", "libcudart.so")):
+        try:
+            rt = ctypes.CDLL(name)
+            break
+        except OSError:
+            continue
+    else:
+        return None
+    rt.cudaMemsetAsync.argtypes = [ctypes.c_void_p, ctypes.c_int,
+                                   ctypes.c_size_t, ctypes.c_void_p]
+    rt.cudaMemsetAsync.restype = ctypes.c_int
+    nbytes = out.numel() * out.element_size()
+
+    def memset():
+        rc = rt.cudaMemsetAsync(out.data_ptr(), 0, nbytes,
+                                torch.cuda.current_stream().cuda_stream)
+        check(rc == 0, f"cudaMemsetAsync failed: {rc}")
+    return memset
+
+
+def scatter_fill_fn(ek, lib, out: torch.Tensor):
+    """A call of B3's C entry with no grad rows: its fill alone, the same
+    launch as a scatter's without the barrier and the adds (not counted:
+    no wrapper runs)."""
+    counter = ek.fill_counter(out.device)
+
+    def fill():
+        rc = lib.azt_scatter_rows(None, None, out.data_ptr(), 0,
+                                  out.shape[0], out.shape[1],
+                                  counter.data_ptr(),
+                                  torch.cuda.current_stream().cuda_stream)
+        check(rc == 0, f"B3's fill failed: {rc}")
+    return fill
+
+
 def phase_scatter_kernel(ek, dev, seed: int):
     """Hold the row scatter-add kernel (B3) against its plain version on the
     grid, then time both and ``zeros`` + ``index_add_`` at the Wide&Deep
-    shard and at a 1 GiB block, holding B3 to plain there too; returns
-    (timings, largest error, largest error relative to scale with
-    repeated rows, cases)."""
+    shard and at a 1 GiB block, holding B3 to plain there too, in turns
+    with the library call and the fills that split its time
+    (``cudaMemsetAsync``, ``torch.zeros``, B3 with no rows); returns
+    (timings, largest error, largest error relative to scale with repeated
+    rows, cases)."""
+    from analytics_zoo_tpu_torch.ops import kernel_build
     torch.manual_seed(seed)
     abs_err, repeat_err, cases = 0.0, 0.0, 0
     for num_rows in SCATTER_ROWS:
         for dim in SCATTER_DIMS:
             for n in SCATTER_NS:
-                for repeat in (False, True):
-                    if not repeat and n > num_rows + 6:
+                for kind in ("distinct", "repeat", "one_chunk"):
+                    if kind == "distinct" and n > num_rows + 6:
                         continue
-                    rows = _scatter_rows_input(dev, n, num_rows, repeat)
+                    rows = _scatter_rows_input(dev, n, num_rows, kind)
                     g = torch.randn(n, dim, device=dev)
                     err, rel = _held_to_plain(
                         ek, g, rows, num_rows,
-                        f"rows={num_rows} dim={dim} n={n}")
+                        f"rows={num_rows} dim={dim} n={n} {kind}")
                     abs_err = max(abs_err, err)
                     repeat_err = max(repeat_err, rel or 0.0)
                     cases += 1
@@ -886,6 +1056,7 @@ def phase_scatter_kernel(ek, dev, seed: int):
     log(f"scatter kernel against plain on {cases} cases: bit for bit "
         f"without repeated rows, {repeat_err:.3g} of scale with them")
 
+    lib = kernel_build.load_library()
     timings = []
     for label, num_rows, dim, n, iters in (
             ("wnd_shard", WND_SHARD_ROWS, 2, WND_SHARD_N, 50),
@@ -908,14 +1079,21 @@ def phase_scatter_kernel(ek, dev, seed: int):
         for key, fn in fns.items():
             t[key] = cuda_ms(fn, iters)
             t[key.replace("ms", "device_ms")] = device_ms(fn)
-        if label == "wnd_shard":
-            # B3 and its library call in turns, to tell them apart
-            t["turns"] = turns_ms({"kernel": fns["ms"],
-                                   "library": fns["library_ms"]},
-                                  SCATTER_TURNS)
+        # B3 and its library call in turns, to tell them apart, and in the
+        # same turns the fills alone that split B3's time: the runtime's
+        # memset, PyTorch's fill kernel, and B3's launch with no rows
+        block = torch.empty(num_rows, dim, device=dev)
+        turned = {"kernel": fns["ms"], "library": fns["library_ms"],
+                  "zeros": lambda: torch.zeros(num_rows, dim, device=dev),
+                  "kernel_fill": scatter_fill_fn(ek, lib, block)}
+        memset = cuda_memset_fn(block)
+        if memset is not None:
+            turned["memset"] = memset
+        t["turns"] = turns_ms(turned, SCATTER_TURNS)
+        check(int(torch.count_nonzero(block)) == 0, f"B3's fill at {label}")
         timings.append(t)
         log("scatter timing " + json.dumps(t))
-        del fns, rows, g, rows_m, g_m
+        del fns, turned, memset, block, rows, g, rows_m, g_m
         torch.cuda.empty_cache()
     return timings, abs_err, repeat_err, cases
 
@@ -3224,7 +3402,8 @@ def main() -> int:
 
     # -- 3. kernels against their plain versions ------------------------------
     gen = torch.Generator().manual_seed(args.seed)
-    timings, max_err = timed("gather_kernel", phase_kernels, ek, dev, gen)
+    timings, max_err, gather_cases = timed("gather_kernel", phase_kernels,
+                                           ek, dev, gen, args.seed)
     pool_timings, pool_err = timed("pool_kernel", phase_pool_kernels, ek, dev,
                                    gen, args.seed)
     attn = timed("attention_kernels", phase_attention_kernels, at, dev,
@@ -3324,10 +3503,12 @@ def main() -> int:
         "plain_ms": serve["plain_ms"], "bound_ms": serve["bound_ms"],
         "bound_by": "bytes", "library_ms": serve["library_ms"],
         "device_ms": serve["device_ms"],
+        "grid_cases": gather_cases,
+        # 2^20 ids, then the LM's, BERT's and the sharded W&D's lookups
         "large": [{k: t[k] for k in (
-            "table", "rows", "n", "dim", "ms", "plain_ms", "library_ms",
-            "bound_ms", "device_ms", "plain_device_ms", "library_device_ms")}
-            for t in timings if t["n"] == LARGE_N],
+            "table", "rows", "n", "dim", "dtype", "clip", "ms", "plain_ms",
+            "library_ms", "bound_ms", "device_ms", "plain_device_ms",
+            "library_device_ms")} for t in timings[len(NCF_TABLES):]],
     }
     int8_serve = quant["int8"][0]
     int8_by_path = {"serving_int8": int8_serve["gather_int8"],
@@ -3409,7 +3590,7 @@ def main() -> int:
         "large": [{k: hbm_block[k] for k in (
             "rows", "dim", "n", "ms", "device_ms", "plain_ms",
             "plain_device_ms", "library_ms", "library_device_ms",
-            "bound_ms", "max_abs_err")}],
+            "bound_ms", "max_abs_err", "turns")}],
     }
     main_t = attn["rate_0.1"]  # the fine-tune's attention dropout
     attn_sources = {

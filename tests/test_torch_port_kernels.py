@@ -9,6 +9,7 @@ a small BERT on the card:
         tests/test_torch_port_kernels.py
 """
 import ast
+import importlib.util
 import os
 
 import numpy as np
@@ -224,26 +225,42 @@ def cuda_device():
     (6041, 32, torch.float32, 256), (3707, 32, torch.float32, 256),
     (50, 3, torch.float32, 257), (50, 33, torch.float32, 1),
     (50, 64, torch.bfloat16, 257), (50, 33, torch.float16, 100),
-    (50, 8, torch.float32, 0)])
+    (50, 8, torch.float32, 0),
+    # f32 widths that pack 32, 32, 16, 8 and 4 rows a warp, at id counts
+    # that are no multiple of a warp's or a block's rows, and past one
+    # pass of the grid (64 f32: 2 rows a warp)
+    (100, 1, torch.float32, 1025), (100, 2, torch.float32, 1000),
+    (100, 8, torch.float32, 33), (100, 16, torch.float32, 4099),
+    (100, 32, torch.float32, 100003), (1000, 64, torch.float32, 101377),
+    # bf16 and fp16 at odd widths, and rows wider than a warp's units
+    (50, 7, torch.bfloat16, 1000), (50, 5, torch.float16, 333),
+    (50, 129, torch.float16, 77), (600, 768, torch.bfloat16, 1000),
+    (64, 2048, torch.float32, 300)])
 def test_kernel_equals_its_plain_version_on_the_card(cuda_device, rows, dim,
                                                       dtype, n):
     gen = torch.Generator().manual_seed(rows + dim + n)
-    table = torch.randn(rows, dim, generator=gen).to(dtype).to(cuda_device)
+    flat = torch.randn(rows * dim + 2, generator=gen).to(dtype).to(
+        cuda_device)
     ids = torch.randint(-3, rows + 3, (n,), generator=gen,
                         dtype=torch.int32).to(cuda_device)
-    for clip in (True, False):
-        before = ek.launch_counts["gather_rows"]
-        got = ek.gather(table, ids, clip)
-        torch.cuda.synchronize()
-        assert ek.launch_counts["gather_rows"] == before + (1 if n else 0)
-        want = ek.gather_plain(table, ids, clip)
-        assert torch.equal(got, want)
-        host = table.float().cpu().numpy()
-        idn = ids.cpu().numpy()
-        ref = host[np.clip(idn, 0, rows - 1)]
-        if not clip:
-            ref[(idn < 0) | (idn >= rows)] = 0
-        assert np.array_equal(got.float().cpu().numpy(), ref)
+    # the table at the storage's start and one and two elements past it:
+    # 16-byte aligned, then not (every copy unit the width allows)
+    for off in (0, 1, 2):
+        table = flat[off:off + rows * dim].view(rows, dim)
+        for clip in (True, False):
+            before = ek.launch_counts["gather_rows"]
+            got = ek.gather(table, ids, clip)
+            torch.cuda.synchronize()
+            assert ek.launch_counts["gather_rows"] == before + (
+                1 if n else 0)
+            want = ek.gather_plain(table, ids, clip)
+            assert torch.equal(got, want)
+            host = table.float().cpu().numpy()
+            idn = ids.cpu().numpy()
+            ref = host[np.clip(idn, 0, rows - 1)]
+            if not clip:
+                ref[(idn < 0) | (idn >= rows)] = 0
+            assert np.array_equal(got.float().cpu().numpy(), ref)
 
 
 @pytest.mark.cuda
@@ -404,14 +421,42 @@ def test_a_wide_and_deep_step_launches_pool_once_and_gather_twice(
 # -- the row scatter-add (B3) on the card --------------------------------------
 
 
-def _scatter_case(n, dim, num_rows, repeat, seed):
+def test_chip_smoke_counts_each_byte_once_in_the_gather_and_scatter_bounds():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(REPO, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    # B3: the block written once, each grad row and its id read once, at
+    # the W&D shard and at the 1 GiB block
+    assert smoke.scatter_bound_ms(25000254, 2, 24576) == pytest.approx(
+        (25000254 * 2 * 4 + 24576 * (4 + 2 * 4)) / 3.35e9, rel=1e-12)
+    assert smoke.scatter_bound_ms(25000254, 2, 24576) == pytest.approx(
+        0.0597901, rel=1e-6)
+    assert smoke.scatter_bound_ms(1 << 22, 64, 1 << 20) == pytest.approx(
+        0.4019020, rel=1e-6)
+    # B1: in fill mode an id outside the table reads no row; in clip mode
+    # it reads the clamped row; a row asked for twice is read once
+    table = torch.zeros(10, 4)
+    ids = torch.tensor([-1, 3, 3, 10], dtype=torch.int32)
+    row, out = 16, 4 * 16 + 4 * 4
+    assert smoke.gather_bound_ms(table, ids, clip=False) == pytest.approx(
+        (out + 1 * row) / 3.35e9, rel=1e-12)
+    assert smoke.gather_bound_ms(table, ids, clip=True) == pytest.approx(
+        (out + 3 * row) / 3.35e9, rel=1e-12)
+
+
+def _scatter_case(n, dim, num_rows, kind, seed):
     """f32 grads and int32 rows with negatives, ``num_rows`` and past it;
-    with ``repeat`` some in-range rows repeat."""
+    in range every row distinct (``"distinct"``), some repeating
+    (``"repeat"``), or all among the first 4, inside the kernel's first
+    fill chunk, their adds on a few lines (``"one_chunk"``)."""
     gen = torch.Generator().manual_seed(seed)
-    if repeat:
-        rows = torch.randint(-3, num_rows + 3, (n,), generator=gen)
-    else:
+    if kind == "distinct":
         rows = torch.randperm(num_rows + 6, generator=gen)[:n] - 3
+    else:
+        hi = num_rows if kind == "repeat" else min(4, num_rows)
+        rows = torch.randint(-3, hi + 3, (n,), generator=gen)
+        rows[rows >= hi] += num_rows - hi  # past the end: SENTINEL and on
     g = torch.randn(n, dim, generator=gen)
     return g, rows.to(torch.int32)
 
@@ -421,10 +466,16 @@ def _scatter_case(n, dim, num_rows, repeat, seed):
 @pytest.mark.parametrize("n", [0, 1, 255, 256, 257, 4096, 8192, 24576])
 def test_scatter_kernel_equals_its_plain_version_on_the_card(cuda_device,
                                                              dim, n):
-    for num_rows, repeat in ((5000, False), (7, True), (300, True)):
+    # 100,003 rows: no 32 KB fill chunk divides the block (at odd widths
+    # nor 16 bytes); "one_chunk": every row in the first fill chunk
+    for num_rows, kind in ((5000, "distinct"), (7, "repeat"),
+                           (300, "repeat"), (100003, "distinct"),
+                           (100003, "repeat"), (5000, "one_chunk"),
+                           (7, "one_chunk")):
+        repeat = kind != "distinct"
         if not repeat and n > num_rows:
             continue
-        g, rows = _scatter_case(n, dim, num_rows, repeat, seed=n + dim)
+        g, rows = _scatter_case(n, dim, num_rows, kind, seed=n + dim)
         want = ek.scatter_rows_plain(g, rows, num_rows)
         ek.reset_launch_counts()
         got = ek.scatter_rows(g.to(cuda_device), rows.to(cuda_device),
