@@ -34,8 +34,7 @@
 //      grid's blocks would start, and no block can drift behind the others
 //      and hold up the barrier (a fixed grid-stride split of the same fill
 //      measured 2-3% slower in turns);
-//   2. a grid-wide barrier (cooperative_groups' grid.sync()), skipped
-//      when there are no rows to add;
+//   2. a grid-wide barrier (cooperative_groups' grid.sync());
 //   3. the adds: every in-range g row with vector f32 atomics (float4,
 //      float2 or float, as dim allows), lanes packed to the row width (one
 //      lane a row at width 2), in a grid-stride loop over the rows. Each
@@ -44,17 +43,25 @@
 //      the Wide&Deep shard (one row or none a thread) the adds after the
 //      barrier are atomics on L2-resident lines and nothing else.
 //
+// The grid is as many blocks as the fill's chunks or the adds' rows can
+// use, at most kBlocksPerSm an SM: at a small block with many rows (the
+// Wide&Deep embed shards, 8192 rows of 8) as many as hold one row a
+// thread's lanes.
+//
 // The counter (two u64, zero before the launch) is the caller's, one a
 // stream so that launches on two streams never share one; the last block
-// to finish drawing leaves it at zero for the next launch. One launch
+// to finish drawing leaves it at zero for the next launch. A block of no
+// more chunks than the grid has blocks (the Wide&Deep embed shards) needs
+// no draws and leaves the counter alone: its two dependent atomics cost
+// more than a microsecond at a launch that takes three. One launch
 // replaces a cudaMemsetAsync and a second kernel that waited for it to
 // drain.
 //
-// Timed against it (PERF.md): design (b), `scripts/scatter_rows_range_
-// owner.cu`, where each block owns a range of rows, zeroes it and adds
-// only the rows landing there after a __syncthreads, with no grid
-// barrier; its every-block scan of the row ids, starved by the fill's
-// stores, made it slower at both timed shapes.
+// Timed against it (PERF.md): design (b), at commit 714f1b4 in
+// scripts/scatter_rows_range_owner.cu, where each block owns a range of
+// rows, zeroes it and adds only the rows landing there after a
+// __syncthreads, with no grid barrier; its every-block scan of the row
+// ids, starved by the fill's stores, made it slower at both timed shapes.
 //
 // Where rows do not repeat each element of out receives one add onto
 // +0.0, so the result equals the plain version bit for bit; where a row
@@ -113,7 +120,7 @@ scatter_rows_kernel(const float* __restrict__ g,
   const int sub = lane / lanes;
   const int v0 = lane - sub * lanes;
   const long long slots = (long long)gridDim.x * (kThreads / 32) * per_warp;
-  const bool adds = n > 0 && sub < per_warp;
+  const bool adds = sub < per_warp;
   // this thread's first row and its first g vector, read while the grid
   // fills (the rest of its rows, if any, after the barrier)
   const long long j0 =
@@ -126,14 +133,16 @@ scatter_rows_kernel(const float* __restrict__ g,
     if (r0 >= 0 && r0 < num_rows) g0 = load_vec<W>(g + j0 * dim + v0 * W);
   }
 
-  // each block's first chunk is its own; the counter hands out the rest
+  // each block's first chunk is its own; the counter hands out the rest,
+  // if any (a block of at most gridDim.x chunks never touches it)
+  const bool draws = chunks > gridDim.x;
   if (threadIdx.x == 0) ticket[0] = blockIdx.x;
   __syncthreads();
   for (int it = 0;; it ^= 1) {
     const unsigned long long c = ticket[it];
     if (c >= chunks) break;
     if (threadIdx.x == 0)
-      ticket[it ^ 1] = gridDim.x + atomicAdd(counter, 1ull);
+      ticket[it ^ 1] = draws ? gridDim.x + atomicAdd(counter, 1ull) : chunks;
     const long long base = (long long)c * kChunk + threadIdx.x;
 #pragma unroll
     for (int k = 0; k < kFillUnroll; ++k) {
@@ -148,7 +157,7 @@ scatter_rows_kernel(const float* __restrict__ g,
     for (long long e = 4 * n4 + threadIdx.x; e < total; e += kThreads)
       __stcs(out + e, 0.f);
   }
-  if (threadIdx.x == 0) {  // the last block done drawing resets the counter
+  if (draws && threadIdx.x == 0) {  // the last block done drawing resets it
     __threadfence();
     if (atomicAdd(counter + 1, 1ull) == gridDim.x - 1) {
       counter[0] = 0;
@@ -158,7 +167,6 @@ scatter_rows_kernel(const float* __restrict__ g,
   const bool first = r0 >= 0 && r0 < num_rows;
   if (first)  // its target line into L2 while the other blocks finish
     asm volatile("prefetch.global.L2 [%0];" ::"l"(out + r0 * dim + v0 * W));
-  if (n == 0) return;
   cg::this_grid().sync();
 
   if (!adds) return;
@@ -202,7 +210,10 @@ int launch(const void* g, const void* rows, void* out, long long n,
            cudaStream_t stream) {
   // no more blocks than the fill's chunks and the adds' rows can use
   const long long chunks = (num_rows * dim / 4 + kChunk - 1) / kChunk;
-  const long long add_blocks = (n * 32 + kThreads - 1) / kThreads;
+  const long long vecs = dim / W;
+  const long long rows_a_block =
+      (kThreads / 32) * (vecs < 32 ? 32 / vecs : 1);
+  const long long add_blocks = (n + rows_a_block - 1) / rows_a_block;
   long long blocks = chunks > add_blocks ? chunks : add_blocks;
   if (blocks < 1) blocks = 1;
   const int cap = grid_blocks<W>();
@@ -224,13 +235,13 @@ extern "C" {
 
 // Zeroes `out` [num_rows, dim] and adds the in-range rows of `g` in one
 // launch on `stream`; returns the launch's CUDA error (0 on success).
-// n == 0 only zeroes. The caller allocates `out`, 16-byte aligned, as
-// torch.empty does, and `counter`: two u64, zero, used by one stream only
-// (the launch leaves them zero).
+// The caller allocates `out`, 16-byte aligned, as torch.empty does, and
+// `counter`: two u64, zero, used by one stream only (the launch leaves
+// them zero); it handles n == 0 (a zero block, no launch).
 int azt_scatter_rows(const void* g, const void* rows, void* out, long long n,
                      long long num_rows, long long dim, void* counter,
                      void* stream) {
-  if (n < 0 || num_rows <= 0 || dim <= 0 || (uintptr_t)out % 16 != 0 ||
+  if (n <= 0 || num_rows <= 0 || dim <= 0 || (uintptr_t)out % 16 != 0 ||
       counter == nullptr)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);

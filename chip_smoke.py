@@ -22,7 +22,8 @@ Phases, each of which must pass or the script exits non-zero:
    that fits in L2 and from one of 1 GiB with every id distinct, also in
    turns with ``index_select``; at the LM's embedding, BERT-base's three
    tables and the sharded Wide&Deep's wide and ``occ_e`` shards (fill
-   mode). The gather+pool: at the Wide&Deep wide table ([101016, 2],
+   mode); where a shape's bytes fit in L2, also with L2 evicted before
+   each call, the time its device-memory bound holds for. The gather+pool: at the Wide&Deep wide table ([101016, 2],
    8192 bags of 3) and at 2^20 bags of 8 over a 64-wide table of 2^23 rows
    (2 GiB) with every id distinct, beside ``embedding_bag`` (sum and mean).
 4. serving: NeuralCF at MovieLens-1M width with seeded random weights is
@@ -162,12 +163,14 @@ Phases, each of which must pass or the script exits non-zero:
    over the block or all inside its first fill chunk: bit for bit where no
    row repeats, within 2e-5 of the output's scale where rows repeat (f32
    atomics add them in no fixed order). Timed at the Wide&Deep shard
-   ([25,000,254, 2], n = 4 x 6144) and at a 1 GiB block ([2^22, 64], 2^20
-   uniform rows) beside its plain version and ``zeros`` + ``index_add_``,
-   and in turns with that library call and the fills alone
-   (``cudaMemsetAsync``, ``torch.zeros``, B3 with no rows): forward then
-   backward through the names, ten calls after five each, by device time
-   and events.
+   ([25,000,254, 2], n = 4 x 6144 uniform rows), at the three blocks a
+   sharded step scatters into on one rank with the rows it receives (the
+   wide shard, ``edu_e`` [4, 8] and ``occ_e`` [250, 8] at n = 8192) and at
+   a 1 GiB block ([2^22, 64], 2^20 uniform rows) beside its plain version
+   and ``zeros`` + ``index_add_``, and in turns with that library call,
+   the fills alone (``cudaMemsetAsync``, ``torch.zeros``) and B3 with
+   every row dropped: forward then backward through the names, ten calls
+   after five each, by device time and events.
 14. vocab-sharded Wide&Deep: 4 gloo ranks (``torch.multiprocessing``) share
    the card, each holding a quarter of every table. At the columns of 5,
    ``SGD(0.1)``, 4 steps of the global batch 8192: parameters within 1e-5
@@ -329,8 +332,8 @@ SCATTER_ROWS = (7, 250, 5000, 100003, 25000254)
 WND_SHARD_ROWS, WND_SHARD_N = 25000254, 4 * 6144
 #: a shard block L2 cannot hold: 2^22 x 64 f32 = 1 GiB, 2^20 uniform rows
 SCATTER_HBM = (1 << 22, 64, 1 << 20)
-#: rounds of B3 and its library call in turns, and of the fills alone
-#: (each a turn of each, then of each again in the other order)
+#: rounds of B3 and its library call in turns, and of what splits B3's
+#: time (each a turn of each, then of each again in the other order)
 SCATTER_TURNS = 3
 #: vocab-sharded Wide&Deep: gloo ranks sharing the one card, the global
 #: batch (bench_widedeep_sharded's), and steps held to the replicated run
@@ -442,6 +445,45 @@ def device_ms(fn, calls: int = 20):
     from a ``torch.profiler`` trace; None when the trace is incomplete (see
     :func:`step_profile`)."""
     return step_profile(fn, calls)["device_ms"]
+
+
+#: bytes written between calls by :func:`cold_device_ms` to evict L2 (50 MB
+#: on the H100)
+L2_FLUSH_BYTES = 256 << 20
+
+
+def cold_device_ms(fn, calls: int = 20):
+    """Device time per call of the kernels ``fn`` issues with L2 evicted
+    before each call: a write of ``L2_FLUSH_BYTES`` between calls (left out
+    of the sum), so that ``fn`` reads its inputs from device memory and
+    each line it writes evicts a dirty one. None when the trace is
+    incomplete (see :func:`step_profile`)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    buf = torch.empty(L2_FLUSH_BYTES // 4, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as alone:
+        buf.fill_(1.0)
+        torch.cuda.synchronize()
+    flush_keys = {e.key for e in alone.key_averages()
+                  if e.device_type == DeviceType.CUDA}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            buf.fill_(1.0)
+            fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    dev = [e for e in events if e.device_type == DeviceType.CUDA]
+    issued = sum(e.count for e in events if e.device_type == DeviceType.CPU
+                 and _DEVICE_WORK_CALL.match(e.key))
+    flushes = sum(e.count for e in dev if e.key in flush_keys)
+    us = sum(e.self_device_time_total for e in dev
+             if e.key not in flush_keys)
+    if sum(e.count for e in dev) != issued or flushes != calls or us <= 0:
+        return None
+    return us / 1e3 / calls
 
 
 #: host calls that put a kernel, copy or fill on the card, as the profiler
@@ -564,18 +606,28 @@ def rebuild_seconds(kernel_build) -> dict:
     return out
 
 
-def gather_bound_ms(table: torch.Tensor, ids: torch.Tensor,
-                    clip: bool = True) -> float:
-    """Least time for a gather of these ids at the memory rate: each id
-    read once, each output row written once, and each distinct table row
-    the ids reach read once (a row asked for twice is read once; in fill
-    mode an id outside the table reaches no row)."""
+def gather_bytes(table: torch.Tensor, ids: torch.Tensor,
+                 clip: bool = True) -> int:
+    """Bytes a gather of these ids must move: each id read once, each
+    output row written once, and each distinct table row the ids reach
+    read once (a row asked for twice is read once; in fill mode an id
+    outside the table reaches no row)."""
     n, rows, dim = ids.shape[0], table.shape[0], table.shape[1]
     reached = (ids.clamp(0, rows - 1) if clip
                else ids[(ids >= 0) & (ids < rows)])
     distinct = int(torch.unique(reached).numel())
     row = dim * table.element_size()
-    return (n * row + 4 * n + distinct * row) / HBM_BYTES_PER_S * 1e3
+    return n * row + 4 * n + distinct * row
+
+
+def gather_bound_ms(table: torch.Tensor, ids: torch.Tensor,
+                    clip: bool = True) -> float:
+    """Least time for a gather of these ids at the memory rate: its
+    :func:`gather_bytes` from and to device memory. Where those bytes fit
+    in L2, calls back to back find the rows and the last call's output
+    lines there and may beat it: the bound holds for the time with L2
+    evicted before each call (:func:`cold_device_ms`)."""
+    return gather_bytes(table, ids, clip) / HBM_BYTES_PER_S * 1e3
 
 
 def _table_views(rows: int, dim: int, dtype, gen, dev) -> list:
@@ -596,16 +648,19 @@ def shard_request_ids(seed: int, table: str) -> tuple:
     holding the sorted local rows of its unique ids that rank 1 owns, then
     the SENTINEL ``rows_per_shard`` (``parallel/embedding.py``
     ``_routing``, ``_lookup_body``). ``table`` is ``"wide"`` (the
-    100,001,016-row wide table, 3 ids a record) or ``"occ_e"`` (1000 rows
-    of 8, 1 id a record). Returns (rows_per_shard, dim, ids int32)."""
+    100,001,016-row wide table, 3 ids a record) or an embed column
+    (``"edu_e"``, 16 rows of 8, or ``"occ_e"``, 1000 rows of 8, 1 id a
+    record). The backward's row scatter-add (B3) gets the same rows, a
+    gradient row a slot. Returns (rows_per_shard, dim, ids int32)."""
     cols = wnd_columns(FULL_CROSS)
     (wide, _, emb, _), _ = wnd_records_at(seed, SHARD_BATCH, cols)
     if table == "wide":  # the wide table: a row of 2 class logits an id
         ids, dim = wide, 2
         vocab = sum(cols["wide_base_dims"] + cols["wide_cross_dims"])
     else:
-        ids, dim = emb[:, 1], cols["embed_out_dims"][1]
-        vocab = cols["embed_in_dims"][1]
+        col = cols["embed_cols"].index(table)
+        ids, dim = emb[:, col], cols["embed_out_dims"][col]
+        vocab = cols["embed_in_dims"][col]
     rps = -(-vocab // SHARD_RANKS)
     blocks = []
     for part in np.split(ids, SHARD_RANKS):
@@ -691,8 +746,9 @@ GATHER_TURNS = 3
 def phase_kernels(ek, dev, gen, seed: int):
     """Hold the gather kernel against its plain version on ``GATHER_GRID``,
     then time both and ``index_select`` at ``gather_timed_cases``' shapes
-    (at 2^20 ids also B1 and ``index_select`` in turns); returns (timings
-    per shape, largest error, cases)."""
+    (at 2^20 ids also B1 and ``index_select`` in turns; where the bytes fit
+    in L2 also both with L2 evicted before each call); returns (timings per
+    shape, largest error, cases)."""
     max_err, checked = 0.0, 0
     for rows, dim, dtype, n in GATHER_GRID:
         # ids below 0 and at or past the end, in both modes
@@ -738,6 +794,13 @@ def phase_kernels(ek, dev, gen, seed: int):
         for key, fn in fns.items():
             t[key] = cuda_ms(fn, iters)
             t[key.replace("ms", "device_ms")] = device_ms(fn)
+        # where the bytes fit in L2, warm calls beat device memory's rate:
+        # the kernel and the library call also with L2 evicted before each
+        t["l2_resident"] = gather_bytes(table, ids, clip) <= \
+            torch.cuda.get_device_properties(dev).L2_cache_size
+        if t["l2_resident"]:
+            t["cold_device_ms"] = cold_device_ms(fns["ms"])
+            t["library_cold_device_ms"] = cold_device_ms(fns["library_ms"])
         if ids.shape[0] == LARGE_N:
             t["turns"] = turns_ms({"kernel": fns["ms"],
                                    "library": fns["library_ms"]},
@@ -1011,30 +1074,35 @@ def cuda_memset_fn(out: torch.Tensor):
     return memset
 
 
-def scatter_fill_fn(ek, lib, out: torch.Tensor):
-    """A call of B3's C entry with no grad rows: its fill alone, the same
-    launch as a scatter's without the barrier and the adds (not counted:
-    no wrapper runs)."""
-    counter = ek.fill_counter(out.device)
-
-    def fill():
-        rc = lib.azt_scatter_rows(None, None, out.data_ptr(), 0,
-                                  out.shape[0], out.shape[1],
-                                  counter.data_ptr(),
-                                  torch.cuda.current_stream().cuda_stream)
-        check(rc == 0, f"B3's fill failed: {rc}")
-    return fill
+def scatter_timed_cases(dev, seed: int):
+    """B3's timed shapes, made one at a time: (label, num_rows, dim, rows
+    int32, calls). The full-width Wide&Deep shard with 24,576 uniform rows
+    (every add in range); the three blocks one sharded step scatters into
+    on rank 1, with the rows that rank receives (``shard_request_ids``:
+    the wide shard, and the ``edu_e`` and ``occ_e`` shards at 8192 slots,
+    most of them the SENTINEL); and a 1 GiB block with 2^20 uniform
+    rows."""
+    def uniform(num_rows, n):
+        return torch.randint(0, num_rows, (n,), device=dev,
+                             dtype=torch.int32)
+    yield ("wnd_shard", WND_SHARD_ROWS, 2, uniform(WND_SHARD_ROWS,
+                                                   WND_SHARD_N), 50)
+    for table in ("wide", "edu_e", "occ_e"):
+        rows, dim, ids = shard_request_ids(seed, table)
+        yield (f"wnd_{table}_request", rows, dim,
+               torch.from_numpy(ids).to(dev), 50 if table == "wide" else 200)
+    num_rows, dim, n = SCATTER_HBM
+    yield ("hbm_block", num_rows, dim, uniform(num_rows, n), 20)
 
 
 def phase_scatter_kernel(ek, dev, seed: int):
     """Hold the row scatter-add kernel (B3) against its plain version on the
-    grid, then time both and ``zeros`` + ``index_add_`` at the Wide&Deep
-    shard and at a 1 GiB block, holding B3 to plain there too, in turns
-    with the library call and the fills that split its time
-    (``cudaMemsetAsync``, ``torch.zeros``, B3 with no rows); returns
-    (timings, largest error, largest error relative to scale with repeated
-    rows, cases)."""
-    from analytics_zoo_tpu_torch.ops import kernel_build
+    grid, then time both and ``zeros`` + ``index_add_`` at
+    ``scatter_timed_cases``' shapes, holding B3 to plain there too, in
+    turns with the library call and what splits its time
+    (``cudaMemsetAsync``, ``torch.zeros``, B3 with every row dropped);
+    returns (timings, largest error, largest error relative to scale with
+    repeated rows, cases)."""
     torch.manual_seed(seed)
     abs_err, repeat_err, cases = 0.0, 0.0, 0
     for num_rows in SCATTER_ROWS:
@@ -1056,13 +1124,9 @@ def phase_scatter_kernel(ek, dev, seed: int):
     log(f"scatter kernel against plain on {cases} cases: bit for bit "
         f"without repeated rows, {repeat_err:.3g} of scale with them")
 
-    lib = kernel_build.load_library()
     timings = []
-    for label, num_rows, dim, n, iters in (
-            ("wnd_shard", WND_SHARD_ROWS, 2, WND_SHARD_N, 50),
-            ("hbm_block",) + SCATTER_HBM + (20,)):
-        rows = torch.randint(0, num_rows, (n,), device=dev,
-                             dtype=torch.int32)
+    for label, num_rows, dim, rows, iters in scatter_timed_cases(dev, seed):
+        n = rows.shape[0]
         g = torch.randn(n, dim, device=dev)
         ok = (rows >= 0) & (rows < num_rows)
         rows_m, g_m = rows[ok].long(), g[ok]
@@ -1074,26 +1138,32 @@ def phase_scatter_kernel(ek, dev, seed: int):
         abs_err = max(abs_err, err)
         repeat_err = max(repeat_err, rel or 0.0)
         t = {"shape": label, "rows": num_rows, "dim": dim, "n": n,
+             "in_range": int(ok.sum()),
              "bound_ms": scatter_bound_ms(num_rows, dim, n),
              "max_abs_err": err, "repeated_rows": rel is not None}
         for key, fn in fns.items():
             t[key] = cuda_ms(fn, iters)
             t[key.replace("ms", "device_ms")] = device_ms(fn)
         # B3 and its library call in turns, to tell them apart, and in the
-        # same turns the fills alone that split B3's time: the runtime's
-        # memset, PyTorch's fill kernel, and B3's launch with no rows
+        # same turns what splits B3's time: the runtime's memset and
+        # PyTorch's fill kernel alone, and B3 with every row dropped (its
+        # fill and barrier without the adds)
+        dropped = torch.full_like(rows, -1)
+        check(int(torch.count_nonzero(ek.scatter_rows(g, dropped,
+                                                      num_rows))) == 0,
+              f"B3 with every row dropped left nonzeros at {label}")
         block = torch.empty(num_rows, dim, device=dev)
         turned = {"kernel": fns["ms"], "library": fns["library_ms"],
                   "zeros": lambda: torch.zeros(num_rows, dim, device=dev),
-                  "kernel_fill": scatter_fill_fn(ek, lib, block)}
+                  "kernel_no_adds": lambda: ek.scatter_rows(g, dropped,
+                                                            num_rows)}
         memset = cuda_memset_fn(block)
         if memset is not None:
             turned["memset"] = memset
         t["turns"] = turns_ms(turned, SCATTER_TURNS)
-        check(int(torch.count_nonzero(block)) == 0, f"B3's fill at {label}")
         timings.append(t)
         log("scatter timing " + json.dumps(t))
-        del fns, turned, memset, block, rows, g, rows_m, g_m
+        del fns, turned, memset, block, rows, g, rows_m, g_m, dropped
         torch.cuda.empty_cache()
     return timings, abs_err, repeat_err, cases
 
@@ -3504,11 +3574,16 @@ def main() -> int:
         "bound_by": "bytes", "library_ms": serve["library_ms"],
         "device_ms": serve["device_ms"],
         "grid_cases": gather_cases,
-        # 2^20 ids, then the LM's, BERT's and the sharded W&D's lookups
-        "large": [{k: t[k] for k in (
+        "l2_resident": serve["l2_resident"],
+        "cold_device_ms": serve.get("cold_device_ms"),
+        # 2^20 ids, then the LM's, BERT's and the sharded W&D's lookups;
+        # where the bytes fit in L2 (l2_resident) bound_ms holds for the
+        # cold time, not the warm one
+        "large": [{k: t.get(k) for k in (
             "table", "rows", "n", "dim", "dtype", "clip", "ms", "plain_ms",
             "library_ms", "bound_ms", "device_ms", "plain_device_ms",
-            "library_device_ms")} for t in timings[len(NCF_TABLES):]],
+            "library_device_ms", "l2_resident", "cold_device_ms",
+            "library_cold_device_ms")} for t in timings[len(NCF_TABLES):]],
     }
     int8_serve = quant["int8"][0]
     int8_by_path = {"serving_int8": int8_serve["gather_int8"],
@@ -3565,7 +3640,8 @@ def main() -> int:
     shard_launches = {job: sum(r[job]["launches"]["scatter_rows"]
                                for r in shard_ranks)
                       for job in ("correct", "full")}
-    wnd_shard, hbm_block = scatter_timings
+    by_shape = {t["shape"]: t for t in scatter_timings}
+    wnd_shard = by_shape.pop("wnd_shard")
     scatter_entry = {
         "name": "scatter_rows", "route": "cuda",
         "source": "analytics_zoo_tpu_torch/csrc/scatter_rows.cu",
@@ -3587,10 +3663,11 @@ def main() -> int:
         "library": "torch.zeros, then index_add_ of the in-range rows "
                    "(two calls)",
         "turns": wnd_shard["turns"],
-        "large": [{k: hbm_block[k] for k in (
-            "rows", "dim", "n", "ms", "device_ms", "plain_ms",
-            "plain_device_ms", "library_ms", "library_device_ms",
-            "bound_ms", "max_abs_err", "turns")}],
+        # a sharded step's three blocks on rank 1, then the 1 GiB block
+        "large": [{k: t[k] for k in (
+            "shape", "rows", "dim", "n", "in_range", "ms", "device_ms",
+            "plain_ms", "plain_device_ms", "library_ms", "library_device_ms",
+            "bound_ms", "max_abs_err", "turns")} for t in by_shape.values()],
     }
     main_t = attn["rate_0.1"]  # the fine-tune's attention dropout
     attn_sources = {

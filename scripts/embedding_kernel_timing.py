@@ -3,28 +3,27 @@
 turns with earlier designs and with their library calls.
 
     python3 scripts/embedding_kernel_timing.py
-    python3 scripts/embedding_kernel_timing.py --was DIR --b3 ALT.cu
+    python3 scripts/embedding_kernel_timing.py --was DIR
     python3 scripts/embedding_kernel_timing.py --variants [variant ...]
 
 Builds the kernel library (``ops/kernel_build``), and with ``--was DIR``
 a second library from ``DIR/gather_rows.cu`` and ``DIR/scatter_rows.cu``
 (an earlier B1 and B3 with the same C entries, e.g. commit dcaa81e's:
 ``git show dcaa81e:analytics_zoo_tpu_torch/csrc/gather_rows.cu >
-DIR/gather_rows.cu``, since the card's copy has no ``.git``), with
-``--b3 ALT.cu`` a third from another B3 source with the same C entry
-(``scripts/scatter_rows_range_owner.cu``: each block owns a range of rows
-and adds only the rows landing there, no grid-wide barrier), and with
-``--variants`` one more for each named text edit of ``EDITS`` applied to
-``csrc/gather_rows.cu`` and ``csrc/scatter_rows.cu`` (all of them when
-none is named). Each is built by its own ``nvcc``, all started together,
-into ``build/embedding_kernel_timing/`` and loaded with ``ctypes``.
+DIR/gather_rows.cu``, since the card's copy has no ``.git``; the earlier
+B3 takes no fill counter), and with ``--variants`` one more for each named
+text edit of ``EDITS`` applied to ``csrc/gather_rows.cu`` and
+``csrc/scatter_rows.cu`` (all of them when none is named). Each is built
+by its own ``nvcc``, all started together, into
+``build/embedding_kernel_timing/`` and loaded with ``ctypes``.
 
-B3, at ``chip_smoke``'s Wide&Deep shard ([25,000,254, 2], 24,576 uniform
-rows) and 1 GiB block ([2^22, 64], 2^20 uniform rows): every build's C
-entry, ``torch.zeros`` + ``index_add_``, the fills alone
-(``cudaMemsetAsync``, ``torch.zeros``, each build's C entry with no rows)
-and the committed B3 with every row out of range (its fill and barrier
-without the adds), in turns (forward then backward through the names,
+B3, at ``chip_smoke.scatter_timed_cases``' shapes (the Wide&Deep shard
+[25,000,254, 2] with 24,576 uniform rows, the three blocks a sharded step
+scatters into on one rank with the rows it receives, and a 1 GiB block
+[2^22, 64] with 2^20 uniform rows): every build's C entry, ``torch.zeros``
++ ``index_add_``, the fills alone (``cudaMemsetAsync``, ``torch.zeros``)
+and the committed B3 with every row dropped (its fill and barrier without
+the adds), in turns (forward then backward through the names,
 ``--rounds`` rounds (3), ten calls after five a turn, CUDA events and the
 profiler's device time), each output held to the plain version (bit for
 bit where no row repeats, else within 2e-5 of the scale).
@@ -33,7 +32,10 @@ B1, at ``chip_smoke.gather_timed_cases``' shapes (the NCF serving tables,
 2^20 ids from L2 and from device memory, the LM's embedding, BERT-base's
 three tables, the sharded Wide&Deep's two shards in fill mode): every
 build's C entry and ``index_select`` (of the clamped ids in fill mode) in
-turns, each output equal to the plain version.
+turns, each output equal to the plain version; where the bytes fit in L2,
+the same again with L2 evicted before each call
+(``chip_smoke.cold_device_ms``, the time the device-memory bound holds
+for).
 
 Each line printed is one JSON object with the bounds ``chip_smoke``
 computes; the last names the card and its power limit. Needs one NVIDIA
@@ -61,14 +63,16 @@ GATHER, SCATTER = "gather_rows.cu", "scatter_rows.cu"
 #: name -> [(source, old, new)]: each old text must occur in the source
 #: the committed B3's fill loop, which ``b3_static_fill`` replaces
 DYNAMIC_FILL = """\
-  // each block's first chunk is its own; the counter hands out the rest
+  // each block's first chunk is its own; the counter hands out the rest,
+  // if any (a block of at most gridDim.x chunks never touches it)
+  const bool draws = chunks > gridDim.x;
   if (threadIdx.x == 0) ticket[0] = blockIdx.x;
   __syncthreads();
   for (int it = 0;; it ^= 1) {
     const unsigned long long c = ticket[it];
     if (c >= chunks) break;
     if (threadIdx.x == 0)
-      ticket[it ^ 1] = gridDim.x + atomicAdd(counter, 1ull);
+      ticket[it ^ 1] = draws ? gridDim.x + atomicAdd(counter, 1ull) : chunks;
     const long long base = (long long)c * kChunk + threadIdx.x;
 #pragma unroll
     for (int k = 0; k < kFillUnroll; ++k) {
@@ -87,7 +91,9 @@ EDITS = {
                       (GATHER, "constexpr int kBlocksPerSm = 32;",
                        "constexpr int kBlocksPerSm = 16;")],
     # B3's fill as a fixed grid-stride split, no counter
-    "b3_static_fill": [(SCATTER, DYNAMIC_FILL, """  {
+    "b3_static_fill": [(SCATTER, DYNAMIC_FILL, """\
+  const bool draws = false;  // no counter
+  {
     const long long threads = (long long)gridDim.x * kThreads;
 #pragma unroll 1
     for (long long u = (long long)blockIdx.x * kThreads + threadIdx.x;
@@ -107,6 +113,28 @@ EDITS = {
   if (first)  // its target line into L2 while the other blocks finish
     asm volatile("prefetch.global.L2 [%0];" ::"l"(out + r0 * dim + v0 * W));
 """, "")],
+    # B3's grid sized as a warp a grad row (the grid before it packed the
+    # adds' lanes): up to kBlocksPerSm an SM at the 8192-row embed shards
+    "b3_warp_a_row_grid": [(SCATTER, """\
+  const long long vecs = dim / W;
+  const long long rows_a_block =
+      (kThreads / 32) * (vecs < 32 ? 32 / vecs : 1);
+  const long long add_blocks = (n + rows_a_block - 1) / rows_a_block;
+""", """\
+  const long long add_blocks = (n * 32 + kThreads - 1) / kThreads;
+""")],
+    # B3 drawing from the counter (and resetting it) at every block, even
+    # one of no more chunks than the grid has blocks
+    "b3_always_draw": [
+        (SCATTER, "ticket[it ^ 1] = draws ? gridDim.x + atomicAdd(counter, "
+                  "1ull) : chunks;",
+         "ticket[it ^ 1] = gridDim.x + atomicAdd(counter, 1ull);"),
+        (SCATTER, "if (draws && threadIdx.x == 0) {",
+         "if (threadIdx.x == 0) {")],
+    # B3 at 1 block of 512 an SM: half the blocks to draw and to meet at
+    # the barrier
+    "b3_blocks1": [(SCATTER, "constexpr int kBlocksPerSm = 2;",
+                    "constexpr int kBlocksPerSm = 1;")],
     # B3 at 4 blocks of 512 an SM (2048 threads)
     "b3_blocks4": [(SCATTER, "constexpr int kBlocksPerSm = 2;",
                     "constexpr int kBlocksPerSm = 4;")],
@@ -114,12 +142,6 @@ EDITS = {
     "b3_threads1024": [(SCATTER, "constexpr int kThreads = 512;",
                         "constexpr int kThreads = 1024;")],
 }
-#: B3's timed shapes: (label, num_rows, dim, n, calls a turn)
-SCATTER_SHAPES = (("wnd_shard", chip_smoke.WND_SHARD_ROWS, 2,
-                   chip_smoke.WND_SHARD_N, 10),
-                  ("hbm_block",) + chip_smoke.SCATTER_HBM + (10,))
-
-
 def variant_sources(name: str) -> list:
     """``csrc/gather_rows.cu`` and ``csrc/scatter_rows.cu`` with the edits
     of ``EDITS[name]``, written under ``OUT/name``; returns their paths."""
@@ -205,18 +227,31 @@ def summary(turns: dict) -> dict:
     out = {}
     for name, t in turns.items():
         dev = [x for x in t["device_ms"] if x is not None]
-        out[name] = {"ms": [min(t["ms"]), max(t["ms"])],
+        out[name] = {"ms": [min(t["ms"]), max(t["ms"])] if "ms" in t
+                     else None,
                      "device_ms": [min(dev), max(dev)] if dev else None}
     return out
 
 
-def time_scatter(libs: dict, dev, rounds: int) -> None:
-    for label, num_rows, dim, n, calls in SCATTER_SHAPES:
-        rows = torch.randint(0, num_rows, (n,), device=dev,
-                             dtype=torch.int32)
+def cold_turns(fns: dict, rounds: int) -> dict:
+    """``fns`` in turns as ``chip_smoke.turns_ms`` takes them, each turn
+    ``chip_smoke.cold_device_ms`` (L2 evicted before each call)."""
+    names = list(fns)
+    out = {n: {"device_ms": []} for n in names}
+    for _ in range(rounds):
+        for n in names + names[::-1]:
+            out[n]["device_ms"].append(chip_smoke.cold_device_ms(fns[n]))
+    return out
+
+
+def time_scatter(libs: dict, dev, seed: int, rounds: int) -> None:
+    for label, num_rows, dim, rows, _ in chip_smoke.scatter_timed_cases(
+            dev, seed):
+        n = rows.shape[0]
         g = torch.randn(n, dim, device=dev)
         want = ek.scatter_rows_plain(g, rows, num_rows)
-        repeats = torch.unique(rows).numel() < n
+        kept = rows[(rows >= 0) & (rows < num_rows)]
+        repeats = torch.unique(kept).numel() < kept.numel()
         scale = max(1.0, float(want.abs().max()))
         fns = {name: scatter_fn(lib, g, rows, num_rows, name == "was")
                for name, lib in libs.items() if not name.startswith("b1_")}
@@ -231,37 +266,35 @@ def time_scatter(libs: dict, dev, rounds: int) -> None:
         dropped = torch.full_like(rows, -1)
         fns["kernel_no_adds"] = scatter_fn(libs["kernel"], g, dropped,
                                            num_rows, False)
-        rows_m, g_m = rows.long(), g
+        chip_smoke.check(int(torch.count_nonzero(fns["kernel_no_adds"]()))
+                         == 0, f"B3 with no adds left nonzeros at {label}")
+        ok = (rows >= 0) & (rows < num_rows)
+        rows_m, g_m = rows[ok].long(), g[ok]
         fns["library"] = lambda: torch.zeros(
             num_rows, dim, device=dev).index_add_(0, rows_m, g_m)
-        # the fills alone in the same turns: the runtime's memset,
-        # PyTorch's fill kernel, each build's launch with no rows (the
-        # earlier B3 takes no n == 0: its fill was the memset)
+        # the fills alone in the same turns: the runtime's memset (the
+        # earlier B3's fill) and PyTorch's fill kernel
+        fns["zeros"] = lambda: torch.zeros(num_rows, dim, device=dev)
         block = torch.empty(num_rows, dim, device=dev)
-        fills = {"zeros": lambda: torch.zeros(num_rows, dim, device=dev),
-                 **{f"{name}_fill": chip_smoke.scatter_fill_fn(ek, lib,
-                                                               block)
-                    for name, lib in libs.items()
-                    if name != "was" and not name.startswith("b1_")}}
         memset = chip_smoke.cuda_memset_fn(block)
         if memset is not None:
-            fills["memset"] = memset
-        turns = chip_smoke.turns_ms({**fns, **fills}, rounds, calls)
-        chip_smoke.check(int(torch.count_nonzero(block)) == 0,
-                         f"a fill left nonzeros at {label}")
+            fns["memset"] = memset
+        turns = chip_smoke.turns_ms(fns, rounds, 10)
         print(json.dumps({
             "kernel": "B3", "shape": label, "rows": num_rows, "dim": dim,
-            "n": n, "bound_ms": chip_smoke.scatter_bound_ms(num_rows, dim, n),
+            "n": n, "in_range": int(ok.sum()),
+            "bound_ms": chip_smoke.scatter_bound_ms(num_rows, dim, n),
             "fill_bound_ms": num_rows * dim * 4
             / chip_smoke.HBM_BYTES_PER_S * 1e3,
             "max_abs_err": errs, "repeated_rows": repeats,
             "summary": summary(turns), "turns": turns}), flush=True)
-        del fns, fills, memset, block, rows, g, dropped
+        del fns, memset, block, rows, g, dropped, rows_m, g_m
         torch.cuda.empty_cache()
 
 
 def time_gather(libs: dict, dev, seed: int, rounds: int) -> None:
     gen = torch.Generator().manual_seed(seed)
+    l2 = torch.cuda.get_device_properties(dev).L2_cache_size
     for label, table, ids, clip, calls in chip_smoke.gather_timed_cases(
             dev, gen, seed):
         want = ek.gather_plain(table, ids, clip)
@@ -276,13 +309,20 @@ def time_gather(libs: dict, dev, seed: int, rounds: int) -> None:
         lib_ids = ids if clip else ids.clamp(0, table.shape[0] - 1)
         fns["library"] = lambda: torch.index_select(table, 0, lib_ids)
         turns = chip_smoke.turns_ms(fns, rounds, min(calls, 50))
-        print(json.dumps({
+        nbytes = chip_smoke.gather_bytes(table, ids, clip)
+        line = {
             "kernel": "B1", "table": label, "rows": table.shape[0],
             "dim": table.shape[1],
             "dtype": str(table.dtype).replace("torch.", ""),
             "n": ids.shape[0], "clip": clip,
             "bound_ms": chip_smoke.gather_bound_ms(table, ids, clip),
-            "summary": summary(turns), "turns": turns}), flush=True)
+            "l2_resident": nbytes <= l2,
+            "summary": summary(turns), "turns": turns}
+        if nbytes <= l2:  # the time the device-memory bound holds for
+            cold = cold_turns(fns, rounds)
+            line["cold_summary"] = summary(cold)
+            line["cold_turns"] = cold
+        print(json.dumps(line), flush=True)
         del fns, table, ids, lib_ids
         torch.cuda.empty_cache()
 
@@ -291,8 +331,6 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--was", help="directory of an earlier "
                         "gather_rows.cu and scatter_rows.cu")
-    parser.add_argument("--b3", help="another B3 source (C entry "
-                        "azt_scatter_rows)")
     parser.add_argument("--variants", nargs="*", choices=sorted(EDITS),
                         help="text edits of the committed sources")
     parser.add_argument("--rounds", type=int, default=3,
@@ -309,15 +347,13 @@ def main() -> int:
     if args.was:
         extra["was"] = [os.path.join(args.was, f) for f in
                         ("gather_rows.cu", "scatter_rows.cu")]
-    if args.b3:
-        extra["b3_alt"] = [args.b3]
     if args.variants is not None:
         for name in args.variants or sorted(EDITS):
             extra[name] = variant_sources(name)
     libs = {"kernel": kernel_build.load_library(), **build(extra)}
     torch.manual_seed(args.seed)
     if args.only != "b1":
-        time_scatter(libs, dev, args.rounds)
+        time_scatter(libs, dev, args.seed, args.rounds)
     if args.only != "b3":
         time_gather(libs, dev, args.seed, args.rounds)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -445,6 +445,27 @@ def test_chip_smoke_counts_each_byte_once_in_the_gather_and_scatter_bounds():
         (out + 3 * row) / 3.35e9, rel=1e-12)
 
 
+@pytest.mark.parametrize("table, rows_per_shard, dim", [
+    ("wide", 25000254, 2), ("edu_e", 4, 8), ("occ_e", 250, 8)])
+def test_chip_smoke_times_the_rows_a_sharded_step_receives(table,
+                                                           rows_per_shard,
+                                                           dim):
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(REPO, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    rps, got_dim, ids = smoke.shard_request_ids(0, table)
+    assert (rps, got_dim) == (rows_per_shard, dim)
+    # each source rank's block: its distinct local rows, then the SENTINEL
+    blocks = np.split(ids, smoke.SHARD_RANKS)
+    assert ids.size == smoke.SHARD_BATCH * (3 if table == "wide" else 1)
+    for block in blocks:
+        mine = block[block != rps]
+        assert mine.size and np.all(np.diff(mine) > 0)
+        assert mine.min() >= 0 and mine.max() < rps
+        assert np.all(block[mine.size:] == rps)
+
+
 def _scatter_case(n, dim, num_rows, kind, seed):
     """f32 grads and int32 rows with negatives, ``num_rows`` and past it;
     in range every row distinct (``"distinct"``), some repeating
