@@ -49,6 +49,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "row_grid.cuh"
+
 namespace {
 
 constexpr int kThreads = 64;
@@ -59,7 +61,6 @@ constexpr int kUnroll = 4;        // rows (or units) a thread has in flight
 // kernel at 16 blocks an SM; the unrolled narrow kernel fits 80, where
 // ptxas left to itself took up to 128 and ran 20-30% slower at 2^20 ids
 constexpr int kWideRegs = 64, kNarrowRegs = 80;
-constexpr int kMaxDevices = 64;
 
 // The table row an id reads: clamped in clip mode, -1 (a zero row) for an
 // id outside [0, rows) in fill mode.
@@ -147,58 +148,26 @@ gather_rows_kernel(const Unit* __restrict__ table,
   }
 }
 
-// The current device's SM count, read once a device.
-int sm_count() {
-  static int counts[kMaxDevices];
-  int dev = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= kMaxDevices)
-    return 132;
-  if (counts[dev] == 0) {
-    int c = 0;
-    cudaDeviceGetAttribute(&c, cudaDevAttrMultiProcessorCount, dev);
-    counts[dev] = c > 0 ? c : 132;
-  }
-  return counts[dev];
-}
-
 template <typename Unit>
 int launch(const void* table, const void* ids, void* out, long long n,
            long long rows, long long units, int clip, cudaStream_t stream) {
-  if (units > 0x7fffffff) return (int)cudaErrorInvalidValue;
-  const int u = (int)units;
-  const int lanes = u < 32 ? u : 32;
-  const int rows_per_warp = 32 / lanes;
   // one row a row slot (rows_per_warp a warp): small batches spread over
   // as many SMs as they can fill; past the card's resident threads the
   // grid is capped and each thread takes kUnroll rows a pass. Wide rows
   // take a warp each, every row at once.
-  const long long per_block = (long long)kWarps * rows_per_warp;
-  const long long blocks = (n + per_block - 1) / per_block;
-  const long long cap = (long long)sm_count() * kBlocksPerSm;
-  if (u > 32 && blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
-  // lane / lanes as (lane * lane_div) >> 16, exact for lane < 32
-  const int lane_div = (65536 + lanes - 1) / lanes;
-  auto kernel = u > 32          ? gather_rows_kernel<Unit, false, true>
-                : blocks <= cap ? gather_rows_kernel<Unit, false, false>
-                                : gather_rows_kernel<Unit, true, false>;
-  const unsigned grid = (unsigned)(u > 32 || blocks <= cap ? blocks : cap);
-  kernel<<<grid, kThreads, 0, stream>>>(
+  azt_rows::RowGrid g;
+  if (!azt_rows::row_grid(n, units, kThreads, kBlocksPerSm, g))
+    return (int)cudaErrorInvalidValue;
+  auto kernel = g.path == azt_rows::RowPath::kWide
+                    ? gather_rows_kernel<Unit, false, true>
+                : g.path == azt_rows::RowPath::kStraight
+                    ? gather_rows_kernel<Unit, false, false>
+                    : gather_rows_kernel<Unit, true, false>;
+  kernel<<<g.grid, kThreads, 0, stream>>>(
       static_cast<const Unit*>(table), static_cast<const int32_t*>(ids),
-      static_cast<Unit*>(out), n, rows, u, lanes, lane_div, rows_per_warp,
-      clip);
+      static_cast<Unit*>(out), n, rows, g.units, g.lanes, g.lane_div,
+      g.rows_per_warp, clip);
   return (int)cudaGetLastError();
-}
-
-// The widest unit (16, 8 or 4 bytes) that divides the row width and both
-// base pointers, else the element size.
-int copy_unit(const void* table, const void* out, long long dim,
-              int elem_bytes) {
-  const long long row_bytes = dim * (long long)elem_bytes;
-  for (int unit = 16; unit > elem_bytes; unit >>= 1)
-    if (row_bytes % unit == 0 && (uintptr_t)table % unit == 0 &&
-        (uintptr_t)out % unit == 0)
-      return unit;
-  return elem_bytes;
 }
 
 }  // namespace
@@ -213,7 +182,7 @@ int azt_gather_rows(const void* table, const void* ids, void* out,
   if (n <= 0) return 0;
   if (rows <= 0 || dim <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int unit = copy_unit(table, out, dim, elem_bytes);
+  const int unit = azt_rows::copy_unit(table, out, dim, elem_bytes);
   const long long units = dim * elem_bytes / unit;
   switch (unit) {
     case 16:

@@ -371,24 +371,25 @@ def gather_pool_int8(qtable: torch.Tensor, scale: torch.Tensor,
     """:func:`gather_pool` over a :func:`quantize_table` table, routed as
     the JAX package routes it on the TPU; f32 out, forward only.
 
-    ``combiner=None`` gathers ``idx.shape + (dim,)`` through the int8
-    kernel (:func:`gather_int8`), then with ``mask_negative`` multiplies by
-    ``idx >= 0``. A pooled combiner (``sum``, ``mean``, ``sqrtn``) runs the
-    plain dequantize, mask and pool ops on every device, as JAX does on the
-    TPU too: rows of ids outside ``[0, rows)`` are zero, as the kernel's;
-    with ``mask_negative`` the mean/sqrtn count is the number of ids
-    ``>= 0``, otherwise the bag size. Error against the f32 table:
-    :func:`int8_error_bound`."""
+    ``combiner=None`` returns the int8 kernel's rows (:func:`gather_int8`)
+    reshaped to ``idx.shape + (dim,)``, one launch on the card and no op
+    after it, masked or not. The JAX package multiplies the TPU kernel's
+    rows by ``idx >= 0`` when ``mask_negative``; that multiply is an
+    identity on them, bit for bit: the kernel, and its plain version here,
+    already write a zero row for every id outside ``[0, rows)``, negative
+    ids included, and every other row is multiplied by 1.0. A pooled
+    combiner (``sum``, ``mean``, ``sqrtn``) runs the plain dequantize, mask
+    and pool ops on every device, as JAX does on the TPU too: rows of ids
+    outside ``[0, rows)`` are zero, as the kernel's; with ``mask_negative``
+    the mean/sqrtn count is the number of ids ``>= 0``, otherwise the bag
+    size. Error against the f32 table: :func:`int8_error_bound`."""
     if combiner is not None and combiner not in _COMBINERS:
         raise ValueError(f"unknown combiner {combiner!r}")
     ids = idx.to(torch.int32).contiguous()
     dim = qtable.shape[1]
     if combiner is None:
         rows = gather_int8(qtable, scale, ids.reshape(-1))
-        out = rows.reshape(tuple(ids.shape) + (dim,))
-        if mask_negative:
-            out = out * (ids >= 0).to(out.dtype)[..., None]
-        return out
+        return rows.reshape(tuple(ids.shape) + (dim,))
     if ids.dim() < 2:
         raise ValueError("a pooled gather_pool_int8 needs idx.ndim >= 2")
     nrows = qtable.shape[0]

@@ -23,9 +23,13 @@ Phases, each of which must pass or the script exits non-zero:
    turns with ``index_select``; at the LM's embedding, BERT-base's three
    tables and the sharded Wide&Deep's wide and ``occ_e`` shards (fill
    mode); where a shape's bytes fit in L2, also with L2 evicted before
-   each call, the time its device-memory bound holds for. The gather+pool: at the Wide&Deep wide table ([101016, 2],
-   8192 bags of 3) and at 2^20 bags of 8 over a 64-wide table of 2^23 rows
-   (2 GiB) with every id distinct, beside ``embedding_bag`` (sum and mean).
+   each call, the time its device-memory bound holds for. The gather+pool
+   (``POOL_GRID``: tables at four base alignments, so every copy unit;
+   bags of 1 to 64 across its in-flight chunk; id counts past its capped
+   grid; every dtype, combiner and mode): at the Wide&Deep wide table
+   ([101016, 2], 8192 bags of 3) and at 2^20 bags of 8 over a 64-wide
+   table of 2^23 rows (2 GiB) with every id distinct, beside
+   ``embedding_bag`` (sum and mean).
 4. serving: NeuralCF at MovieLens-1M width with seeded random weights is
    saved, loaded by ``ClusterServing`` on the card and answers the requests
    sent through the file spool: first a burst published before the server
@@ -137,19 +141,23 @@ Phases, each of which must pass or the script exits non-zero:
    1e-5, parameters as in 7).
 
 10. int8 gather kernel (B9): held bit for bit against its plain version on
-   NCF's four tables quantized as ``quantize_table`` does, for n 0-257,
-   widths 1, 3, 4, 5, 31, 32, 33, 64 and 130, ids out of range on both
-   sides, a scale that is a device tensor, and a table whose base is not
-   4-byte aligned; then timed at the served lookup ([6041, 64], n 256) and
-   over a 1 GiB table ([2^24, 64], 2^20 distinct ids) beside its plain
-   version and ``index_select`` then ``* scale`` (two calls).
+   NCF's four tables quantized as ``quantize_table`` does and on widths 1
+   to 1024 (``INT8_DIMS``), for n 0-257 and past its capped grid, ids out
+   of range on both sides, a scale that is a device tensor, and table
+   bases 16-byte aligned and 1, 4 and 8 bytes past it: the byte path,
+   4-byte units, a warp a row and the capped grid-stride loop; then timed
+   at NCF's four tables at 256 ids and at one (``INT8_TIMED``) and over a
+   1 GiB table ([2^24, 64], 2^20 distinct ids) beside its plain version
+   and ``index_select`` then ``* scale`` (two calls).
 11. quantized serving: the NCF that phase 4 saved is served through
    ``ClusterServing`` with ``quantize: int8`` and ``quantize: bf16`` (a
    burst of 512, then 16 single requests each). Every request is answered
    once, equal to a direct card forward of the same quantized model at the
    served batch shapes (rtol 1e-5) and to the CPU's quantized forward (atol
    1e-5 int8, 2e-2 bf16); a served batch launches 4 B9 and no B1 in int8,
-   4 B1 on bf16 tables in bf16; int8 frees about 3/4 of the weight bytes.
+   4 B1 on bf16 tables in bf16; in int8 the profiler shows each of a
+   batch's 4 lookups issuing one launch, a B9 (``lookup_kernels``); int8
+   frees about 3/4 of the weight bytes.
    Records/s, latency, and drift and argmax agreement against the f32
    model are printed.
 12. calibrated int8: ``InferenceModel.quantize("int8", calibration_data=)``
@@ -314,9 +322,15 @@ ATTN_F32_TIMED = (
 LM_CPU = dict(LM_CFG, n_block=2)
 LM_CPU_RECORDS, LM_CPU_BATCH, LM_CPU_SEQ = 4, 2, 512
 LM_CPU_PROMPT, LM_CPU_NEW = 600, 8
-#: B9's grid: widths that are and are not whole 4-byte words, and id counts
-INT8_DIMS = (1, 3, 4, 5, 31, 32, 33, 64, 130)
-INT8_NS = (0, 1, 2, 31, 32, 33, 255, 256, 257)
+#: B9's grid: widths that are and are not whole 4-byte units, rows past 32
+#: units (130 bytes a row on the byte path, 1024 on 4-byte units: a warp a
+#: row), and id counts (None: past the gathers' capped grid,
+#: ``past_the_cap``), each on four table bases
+INT8_DIMS = (1, 3, 4, 5, 8, 16, 31, 32, 33, 64, 130, 1024)
+INT8_NS = (0, 1, 2, 31, 32, 33, 255, 256, 257, None)
+#: B9's table bases: 16-byte aligned and 1, 4 and 8 bytes past it (the
+#: byte path at 1; 4-byte units, where the width allows, at 0, 4 and 8)
+INT8_OFFSETS = (0, 1, 4, 8)
 #: the timed int8 table that L2 cannot hold: 16 Mi x 64 int8 = 1 GiB
 INT8_HBM_ROWS = 1 << 24
 #: B3's grid: widths (the wide table's 2, the embed tables' 8), grad
@@ -630,14 +644,96 @@ def gather_bound_ms(table: torch.Tensor, ids: torch.Tensor,
     return gather_bytes(table, ids, clip) / HBM_BYTES_PER_S * 1e3
 
 
-def _table_views(rows: int, dim: int, dtype, gen, dev) -> list:
-    """The same seeded ``[rows, dim]`` table three times: at the start of
-    its storage (16-byte aligned) and at one and two elements past it (4-
-    and 8-byte aligned in f32, 2 and 4 in bf16 and fp16), so the gather
-    takes every copy unit a width allows."""
-    flat = torch.randn(rows * dim + 2, generator=gen).to(dtype).to(dev)
+def _table_views(rows: int, dim: int, dtype, gen, dev,
+                 offsets=(0, 1, 2)) -> list:
+    """The same seeded ``[rows, dim]`` table at each of ``offsets``
+    elements past the start of its storage (16-byte aligned): at one and
+    two it is 4- and 8-byte aligned in f32, 2 and 4 in bf16 and fp16 (four
+    gives bf16 and fp16 8 bytes), so the gathers take every copy unit a
+    width allows."""
+    flat = torch.randn(rows * dim + max(offsets), generator=gen).to(
+        dtype).to(dev)
     return [(off, flat[off:off + rows * dim].view(rows, dim))
-            for off in (0, 1, 2)]
+            for off in offsets]
+
+
+def past_the_cap(dev) -> int:
+    """More rows (or bags) than the gathers' capped grid holds at any
+    packing (32 blocks of 64 threads an SM, at most one row a thread), so
+    B1, B2 and B9 walk them in their grid-stride loop."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return sms * 32 * 64 + 77
+
+
+def lookup_kernels(ek, fn) -> dict:
+    """What the card ran inside each ``ek.gather_pool_int8`` call while
+    ``fn`` runs, by ``torch.profiler``, a list a lookup in order: the host
+    calls that put a kernel, copy or fill on the card from inside it
+    (``launches_per_lookup``, their sum ``launches_in_lookups``) and the
+    device work that those calls' correlation ids name
+    (``kernels_per_lookup``, by kind: ``gather_int8`` for B9, else the
+    kernel's name). ``kernels`` counts the whole trace's device kernels by
+    kind, or is None where the trace lost device events (see
+    :func:`step_profile`); a ``warning`` says when a lookup's launches
+    have no linked device kernel, so that only its host launches show what
+    it ran."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    real = ek.gather_pool_int8
+
+    def traced(*args, **kwargs):
+        with record_function("int8_lookup"):
+            return real(*args, **kwargs)
+
+    def kind(name: str) -> str:
+        return "gather_int8" if "gather_int8" in name else name[:72]
+
+    fn()  # warm: the library built, the allocator's blocks cached
+    torch.cuda.synchronize()
+    ek.gather_pool_int8 = traced
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+    finally:
+        ek.gather_pool_int8 = real
+    events = prof.events()
+    host = [e for e in events if e.device_type == DeviceType.CPU]
+    spans = sorted((e.time_range for e in host if e.name == "int8_lookup"),
+                   key=lambda s: s.start)
+    issued = [e for e in host if _DEVICE_WORK_CALL.match(e.name)]
+    # the range's own device-side span is no kernel
+    device = [e for e in events if e.device_type == DeviceType.CUDA
+              and e.name != "int8_lookup"]
+    # a launch and the work it put on the card share a correlation id
+    by_call = {}
+    for e in device:
+        by_call.setdefault(e.id, []).append(kind(e.name))
+
+    def inside(s) -> list:
+        return [r for r in issued
+                if s.start <= r.time_range.start and r.time_range.end <= s.end]
+
+    per_lookup = [len(inside(s)) for s in spans]
+    kernels_per_lookup = [[k for r in inside(s) for k in by_call.get(r.id, [])]
+                          for s in spans]
+    kernels = {}
+    for e in device:
+        kernels[kind(e.name)] = kernels.get(kind(e.name), 0) + 1
+    seen = {"lookups": len(spans), "launches_per_lookup": per_lookup,
+            "launches_in_lookups": sum(per_lookup),
+            "kernels_per_lookup": kernels_per_lookup, "issued": len(issued),
+            "kernels": kernels if sum(kernels.values()) == len(issued)
+            else None}
+    unlinked = sum(n > len(k) for n, k in zip(per_lookup, kernels_per_lookup))
+    if unlinked:
+        seen["warning"] = (
+            f"{unlinked} of {len(spans)} lookups made more launches than "
+            f"the trace kept device work for (it kept "
+            f"{sum(kernels.values())} device kernels of {len(issued)} "
+            "launches): there only the lookup's host launches were counted")
+    return seen
 
 
 def shard_request_ids(seed: int, table: str) -> tuple:
@@ -832,46 +928,58 @@ def wide_ids(rs: np.random.RandomState, n: int) -> np.ndarray:
                      for d, off in zip(dims, offsets)], 1).astype(np.int32)
 
 
+#: B2's grid: (rows, dim, bag, n, dtype), every case on four table views
+#: (``_table_views`` at ``POOL_OFFSETS``: every copy unit a width allows),
+#: three combiners, masked and clamped. The W&D wide-table call; widths of
+#: 8-byte rows (a thread a bag), 16-byte rows and 64 f32 (16 lanes a bag),
+#: rows past 32 units (a warp a bag); bags of 1, 3, 8, 9, 17 and 64 across
+#: the in-flight chunk; n past the capped grid (None, ``past_the_cap``)
+POOL_GRID = (
+    (WND_WIDE_ROWS, 2, 3, 8192, torch.float32),
+    (50, 2, 1, 257, torch.float32), (50, 2, 17, 100, torch.float32),
+    (50, 8, 17, 100, torch.float32), (50, 33, 3, 64, torch.float32),
+    (300, 64, 8, 129, torch.float32), (300, 64, 1, 33, torch.float32),
+    (300, 64, 9, 255, torch.float32), (300, 64, 64, 256, torch.float32),
+    (300, 64, 3, 64, torch.bfloat16), (50, 2, 3, 256, torch.bfloat16),
+    (50, 33, 17, 31, torch.float16), (50, 8, 3, 90, torch.float16),
+    (50, 8, 3, 0, torch.float32), (50, 200, 9, 257, torch.float32),
+    (50, 520, 3, 31, torch.bfloat16), (1000, 2, 3, None, torch.float32),
+    (1000, 64, 9, None, torch.float32), (1000, 8, 1, None, torch.bfloat16))
+POOL_OFFSETS = (0, 1, 2, 4)
+
+
 def phase_pool_kernels(ek, dev, gen, seed: int):
-    """Hold the gather+pool kernel against its plain version, then time it,
-    the plain version and ``embedding_bag``; returns (timings, largest
-    error)."""
-    cases = [(rows, dim, bag, n, dtype)
-             for rows, dim, bag, n, dtype in (
-                 (WND_WIDE_ROWS, 2, 3, 8192, torch.float32),
-                 (50, 2, 1, 257, torch.float32),
-                 (50, 2, 17, 100, torch.float32),
-                 (50, 8, 17, 100, torch.float32),
-                 (50, 33, 3, 64, torch.float32),
-                 (300, 64, 8, 129, torch.float32),
-                 (300, 64, 1, 33, torch.float32),
-                 (300, 64, 3, 64, torch.bfloat16),
-                 (50, 2, 3, 256, torch.bfloat16),
-                 (50, 33, 17, 31, torch.float16),
-                 (50, 8, 3, 90, torch.float16),
-                 (50, 8, 3, 0, torch.float32))]
+    """Hold the gather+pool kernel against its plain version bit for bit
+    on ``POOL_GRID``, then time it, the plain version and
+    ``embedding_bag`` at the W&D wide-table call and at a 2 GiB table;
+    returns (timings, largest error)."""
     max_err = 0.0
     checked = 0
-    for rows, dim, bag, n, dtype in cases:
-        table = torch.randn(rows, dim, generator=gen).to(dtype).to(dev)
+    past = past_the_cap(dev)
+    for rows, dim, bag, n, dtype in POOL_GRID:
+        n = past if n is None else n
         # ids below 0 and at or past the end: masked, or clamped with clip
         ids = torch.randint(-3, rows + 3, (n, bag), generator=gen,
                             dtype=torch.int32)
-        if n >= 2:
+        if n >= 2 and bag:
             ids[0, 0], ids[1, -1] = -1, rows
         ids = ids.to(dev)
-        for combiner in ("sum", "mean", "sqrtn"):
-            for clip in (True, False):
-                got = ek.pool(table, ids, combiner, clip)
-                want = ek.gather_pool_plain(table, ids, combiner, clip)
-                torch.cuda.synchronize()
-                check(torch.equal(got, want),
-                      f"pool kernel != plain at rows={rows} dim={dim} "
-                      f"bag={bag} n={n} {dtype} {combiner} clip={clip}")
-                checked += 1
-                if n:
-                    max_err = max(max_err, float(
-                        (got.float() - want.float()).abs().max()))
+        for off, table in _table_views(rows, dim, dtype, gen, dev,
+                                       POOL_OFFSETS):
+            for combiner in ("sum", "mean", "sqrtn"):
+                for clip in (True, False):
+                    got = ek.pool(table, ids, combiner, clip)
+                    want = ek.gather_pool_plain(table, ids, combiner, clip)
+                    torch.cuda.synchronize()
+                    check(torch.equal(got, want),
+                          f"pool kernel != plain at rows={rows} dim={dim} "
+                          f"bag={bag} n={n} {dtype} offset={off} "
+                          f"{combiner} clip={clip}")
+                    checked += 1
+                    if n:
+                        max_err = max(max_err, float(
+                            (got.float() - want.float()).abs().max()))
+        del ids
     # the W&D forward's own call: validated (in-range) offset ids, clamped
     rs = np.random.RandomState(seed)
     table = torch.randn(WND_WIDE_ROWS, 2, generator=gen).to(dev)
@@ -879,8 +987,8 @@ def phase_pool_kernels(ek, dev, gen, seed: int):
     got = ek.gather_pool(table, ids, "sum", mask_negative=False)
     check(torch.equal(got, ek.gather_pool_plain(table, ids, "sum", True)),
           "pool kernel != plain at the W&D wide-table call")
-    log(f"pool kernel == plain (torch.equal) on {checked} shape x combiner "
-        f"x mode cases and the W&D wide-table call")
+    log(f"pool kernel == plain (torch.equal) on {checked} shape x offset "
+        f"x combiner x mode cases and the W&D wide-table call")
 
     timings = []
     dev_gen = torch.Generator(device=dev).manual_seed(seed)
@@ -929,49 +1037,64 @@ def int8_bound_ms(qtable: torch.Tensor, ids: torch.Tensor) -> float:
     return (distinct * dim + n * dim * 4 + 4 * n) / HBM_BYTES_PER_S * 1e3
 
 
+#: B9's timed lookups: (label, rows, dim, n, calls). NCF's four tables at
+#: the serving batch and at a single request, then 2^20 distinct ids of a
+#: 1 GiB table
+INT8_TIMED = tuple(
+    [(name, rows, dim, n, 500) for n in (SERVE_BATCH, 1)
+     for name, rows, dim in NCF_TABLES]
+    + [("hbm_table", INT8_HBM_ROWS, 64, LARGE_N, 50)])
+
+
 def phase_int8_kernels(ek, dev, seed: int):
     """Hold the int8 gather kernel (B9) against its plain version bit for
-    bit, then time both and ``index_select`` + ``* scale``; returns
-    (timings, largest error, cases checked)."""
+    bit on NCF's tables and ``INT8_DIMS``, each at ``INT8_NS`` ids and on
+    ``INT8_OFFSETS`` table bases, then time both and ``index_select`` +
+    ``* scale`` at ``INT8_TIMED``; returns (timings, largest error, cases
+    checked)."""
     gen = torch.Generator().manual_seed(seed)
-    cases = []
+    tables = []
     for _, rows, dim in NCF_TABLES:  # NCF's tables, as quantize makes them
         q, scale, _ = ek.quantize_table(
             torch.randn(rows, dim, generator=gen) * 0.05)
-        cases += [(q, scale, n) for n in INT8_NS]
+        tables.append((q, scale))
     for dim in INT8_DIMS:
         q = torch.randint(-127, 128, (50, dim), generator=gen,
                           dtype=torch.int8)
-        scale = torch.rand((), generator=gen) * 0.02 + 1e-3
-        cases += [(q, scale, n) for n in INT8_NS]
+        tables.append((q, torch.rand((), generator=gen) * 0.02 + 1e-3))
+    past = past_the_cap(dev)
     max_err, checked = 0.0, 0
-    for q, scale, n in cases:
+    for q, scale in tables:
         rows, dim = q.shape
-        ids = torch.randint(-3, rows + 3, (n,), generator=gen,
-                            dtype=torch.int32)
-        if n >= 2:
-            ids[0], ids[1] = -1, rows
-        ids, scale_dev = ids.to(dev), scale.to(dev)
-        # the table as allocated, and at an odd address (the byte path)
-        raw = torch.zeros(q.numel() + 1, dtype=torch.int8, device=dev)
-        raw[1:] = q.reshape(-1).to(dev)
-        for table in (q.to(dev), raw[1:].view(rows, dim)):
-            got = ek.gather_int8(table, scale_dev, ids)
-            want = ek.gather_int8_plain(table, scale_dev, ids)
-            torch.cuda.synchronize()
-            check(got.dtype == torch.float32 and torch.equal(got, want),
-                  f"int8 kernel != plain at rows={rows} dim={dim} n={n} "
-                  f"aligned={table.data_ptr() % 4 == 0}")
-            checked += 1
-            if n:
-                max_err = max(max_err, float((got - want).abs().max()))
+        scale_dev = scale.to(dev)
+        views = []
+        for off in INT8_OFFSETS:  # the table at 16-byte aligned + off
+            raw = torch.zeros(q.numel() + off, dtype=torch.int8, device=dev)
+            raw[off:] = q.reshape(-1).to(dev)
+            views.append((off, raw[off:].view(rows, dim)))
+        for n in INT8_NS:
+            n = past if n is None else n
+            ids = torch.randint(-3, rows + 3, (n,), generator=gen,
+                                dtype=torch.int32)
+            if n >= 2:
+                ids[0], ids[1] = -1, rows
+            ids = ids.to(dev)
+            for off, table in views:
+                got = ek.gather_int8(table, scale_dev, ids)
+                want = ek.gather_int8_plain(table, scale_dev, ids)
+                torch.cuda.synchronize()
+                check(got.dtype == torch.float32 and torch.equal(got, want),
+                      f"int8 kernel != plain at rows={rows} dim={dim} n={n} "
+                      f"offset={off}")
+                checked += 1
+                if n:
+                    max_err = max(max_err, float((got - want).abs().max()))
+        del views
     log(f"int8 kernel == plain (torch.equal) on {checked} cases")
 
     timings = []
     dev_gen = torch.Generator(device=dev).manual_seed(seed)
-    for label, rows, dim, n, iters in (
-            ("mlp_user_table", 6041, 64, SERVE_BATCH, 500),
-            ("hbm_table", INT8_HBM_ROWS, 64, LARGE_N, 50)):
+    for label, rows, dim, n, iters in INT8_TIMED:
         if rows == INT8_HBM_ROWS:
             # every id distinct, so every row comes from device memory
             q = torch.randint(-127, 128, (rows, dim), generator=dev_gen,
@@ -987,11 +1110,15 @@ def phase_int8_kernels(ek, dev, seed: int):
         fns = {"ms": lambda: ek.gather_int8(q, scale, ids),
                "plain_ms": lambda: ek.gather_int8_plain(q, scale, ids),
                "library_ms": lambda: torch.index_select(q, 0, ids) * scale}
+        check(torch.equal(fns["ms"](), fns["plain_ms"]()),
+              f"int8 kernel != plain at {label} n={n}")
         t = {"table": label, "rows": rows, "dim": dim, "n": n,
              "bound_ms": int8_bound_ms(q, ids),
              "library_max_abs_diff": float(
-                 (ek.gather_int8(q, scale, ids)
-                  - torch.index_select(q, 0, ids) * scale).abs().max())}
+                 (fns["ms"]() - fns["library_ms"]()).abs().max())}
+        # *ms: CUDA events around back-to-back calls, what a caller issuing
+        # them from Python sees (the host's time a call where it is
+        # launch-bound); *device_ms: the profiler's kernel time
         for key, fn in fns.items():
             t[key] = cuda_ms(fn, iters)
             t[key.replace("ms", "device_ms")] = device_ms(fn)
@@ -3346,7 +3473,22 @@ def phase_quantized_serving(ek, seed: int, workdir: str):
             "argmax_agreement_vs_f32": float(
                 (served.argmax(1) == ref.argmax(1)).mean())}
         if mode == "int8":
-            stats.update({"weight_bytes_f32": wbytes,
+            # a served batch's lookups: one B9 each and nothing else
+            seen = lookup_kernels(
+                ek, lambda: server.model.predict(x[:SERVE_BATCH]))
+            tables_n = len(NCF_TABLES)
+            check(seen["lookups"] == tables_n
+                  and seen["launches_per_lookup"] == [1] * tables_n
+                  and all(k in ([], ["gather_int8"])
+                          for k in seen["kernels_per_lookup"])
+                  and (seen["kernels"] is None
+                       or seen["kernels"].get("gather_int8") == tables_n),
+                  f"int8: a served batch's lookups ran {seen}, expected "
+                  f"{tables_n} lookups of one B9 launch each")
+            if "warning" in seen:
+                log(f"int8 lookups: {seen['warning']}")
+            stats.update({"lookup_kernels": seen,
+                          "weight_bytes_f32": wbytes,
                           "allocated_before": before,
                           "allocated_after": after,
                           "freed_share_of_weight_bytes": freed})
@@ -3589,7 +3731,7 @@ def main() -> int:
     int8_by_path = {"serving_int8": int8_serve["gather_int8"],
                     "serving_bf16": quant["bf16"][0]["gather_int8"],
                     "calibrated_int8": calib_launches["gather_int8"]}
-    served8, large8 = int8_timings
+    served8 = int8_timings[0]
     int8_entry = {
         "name": "gather_int8", "route": "cuda",
         "source": "analytics_zoo_tpu_torch/csrc/gather_int8.cu",
@@ -3607,10 +3749,13 @@ def main() -> int:
         "bound_by": "bytes", "library_ms": served8["library_ms"],
         "library": "torch.index_select, then * scale (two calls)",
         "device_ms": served8["device_ms"],
-        "large": [{k: large8[k] for k in (
+        # NCF's other tables at 256 ids, all four at one id, then 2^20 ids
+        # of the 1 GiB table
+        "large": [{k: t[k] for k in (
             "table", "rows", "n", "dim", "ms", "plain_ms", "library_ms",
             "bound_ms", "device_ms", "plain_device_ms", "library_device_ms",
-            "library_max_abs_diff")}],
+            "library_max_abs_diff")} for t in int8_timings[1:]],
+        "served_lookup_kernels": quant["int8"][1]["lookup_kernels"],
     }
     wide = pool_timings[0]
     pool_entry = {

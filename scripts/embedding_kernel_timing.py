@@ -1,21 +1,24 @@
 #!/usr/bin/env python3
-"""Time the row gather (B1) and the row scatter-add (B3) on one card, in
-turns with earlier designs and with their library calls.
+"""Time the embedding kernels on one card, in turns with earlier designs
+and with their library calls: the row gather (B1), the row scatter-add
+(B3), the gather+pool (B2) and the int8 row gather (B9).
 
-    python3 scripts/embedding_kernel_timing.py
+    python3 scripts/embedding_kernel_timing.py [--only b1 b2 b3 b9]
     python3 scripts/embedding_kernel_timing.py --was DIR
     python3 scripts/embedding_kernel_timing.py --variants [variant ...]
 
 Builds the kernel library (``ops/kernel_build``), and with ``--was DIR``
-a second library from ``DIR/gather_rows.cu`` and ``DIR/scatter_rows.cu``
-(an earlier B1 and B3 with the same C entries, e.g. commit dcaa81e's:
-``git show dcaa81e:analytics_zoo_tpu_torch/csrc/gather_rows.cu >
-DIR/gather_rows.cu``, since the card's copy has no ``.git``; the earlier
-B3 takes no fill counter), and with ``--variants`` one more for each named
-text edit of ``EDITS`` applied to ``csrc/gather_rows.cu`` and
-``csrc/scatter_rows.cu`` (all of them when none is named). Each is built
-by its own ``nvcc``, all started together, into
-``build/embedding_kernel_timing/`` and loaded with ``ctypes``.
+a second library from whichever of ``gather_rows.cu``, ``scatter_rows.cu``,
+``gather_pool.cu`` and ``gather_int8.cu`` ``DIR`` holds (earlier sources
+with the same C entries, e.g. commit dd78eba's B2 and B9: ``git show
+dd78eba:analytics_zoo_tpu_torch/csrc/gather_pool.cu >
+DIR/gather_pool.cu``, since the card's copy has no ``.git``; an earlier
+B3 there is taken to be dcaa81e's, which takes no fill counter), and with
+``--variants`` one more for each named text edit of ``EDITS``, built from
+the sources it edits (all of them when none is named). Each is built by
+its own ``nvcc``, all started together, into
+``build/embedding_kernel_timing/`` and loaded with ``ctypes``; a kernel is
+timed in every library that holds its C entry.
 
 B3, at ``chip_smoke.scatter_timed_cases``' shapes (the Wide&Deep shard
 [25,000,254, 2] with 24,576 uniform rows, the three blocks a sharded step
@@ -37,6 +40,18 @@ the same again with L2 evicted before each call
 (``chip_smoke.cold_device_ms``, the time the device-memory bound holds
 for).
 
+B2, at the Wide&Deep forward's wide-table call ([101016, 2] f32, 8192
+bags of 3 validated ids, sum, clamped) and at a 2 GiB table ([2^23, 64]
+f32, 2^20 bags of 8 distinct ids): every build's C entry, the wrapper
+(``ek.pool``: its CUDA events over back-to-back calls are the host's time
+a call where the kernel is launch-bound) and ``embedding_bag``, in turns,
+each output equal to the plain version (the library's within 1e-5 of it).
+
+B9, at ``chip_smoke.INT8_TIMED`` (NCF's four int8 tables at 256 ids and at
+one, 2^20 distinct ids of a 1 GiB table): every build's C entry, the
+wrapper (``ek.gather_int8``) and ``index_select`` + ``* scale``, in turns,
+each output equal to the plain version.
+
 Each line printed is one JSON object with the bounds ``chip_smoke``
 computes; the last names the card and its power limit. Needs one NVIDIA
 card and ``nvcc``.
@@ -49,6 +64,7 @@ import shutil
 import subprocess
 import sys
 
+import numpy as np
 import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -60,6 +76,8 @@ from analytics_zoo_tpu_torch.ops import kernel_build  # noqa: E402
 
 OUT = os.path.join(REPO, "build", "embedding_kernel_timing")
 GATHER, SCATTER = "gather_rows.cu", "scatter_rows.cu"
+POOL, INT8 = "gather_pool.cu", "gather_int8.cu"
+SOURCES = (GATHER, SCATTER, POOL, INT8)
 #: name -> [(source, old, new)]: each old text must occur in the source
 #: the committed B3's fill loop, which ``b3_static_fill`` replaces
 DYNAMIC_FILL = """\
@@ -141,14 +159,52 @@ EDITS = {
     # B3 in 1024-thread blocks, 2 an SM (64 KB chunks)
     "b3_threads1024": [(SCATTER, "constexpr int kThreads = 512;",
                         "constexpr int kThreads = 1024;")],
+    # B2 walking its bag one id at a time (the parent's dependent trips,
+    # on the new grid and units), or 8 ids in flight, not 4
+    "b2_chunk1": [(POOL, "constexpr int kChunk = 4;",
+                   "constexpr int kChunk = 1;")],
+    "b2_chunk8": [(POOL, "constexpr int kChunk = 4;",
+                   "constexpr int kChunk = 8;")],
+    # B2 with units of at most 4 or 8 bytes, not 16
+    "b2_unit4": [(POOL, "constexpr int kMaxUnit = 16;",
+                  "constexpr int kMaxUnit = 4;")],
+    "b2_unit8": [(POOL, "constexpr int kMaxUnit = 16;",
+                  "constexpr int kMaxUnit = 8;")],
+    # B2 in 8-warp blocks, 8 an SM
+    "b2_threads256": [(POOL, "constexpr int kThreads = 64;",
+                       "constexpr int kThreads = 256;"),
+                      (POOL, "constexpr int kBlocksPerSm = 32;",
+                       "constexpr int kBlocksPerSm = 8;")],
+    # B9 with 2 or 8 rows (or units) a thread in flight once the grid is
+    # capped, not 4
+    "b9_rows2": [(INT8, "constexpr int kUnroll = 4;",
+                  "constexpr int kUnroll = 2;")],
+    "b9_rows8": [(INT8, "constexpr int kUnroll = 4;",
+                  "constexpr int kUnroll = 8;")],
+    # B9 in 4- or 8-warp blocks, 16 or 8 an SM
+    "b9_threads128": [(INT8, "constexpr int kThreads = 64;",
+                       "constexpr int kThreads = 128;"),
+                      (INT8, "constexpr int kBlocksPerSm = 32;",
+                       "constexpr int kBlocksPerSm = 16;")],
+    "b9_threads256": [(INT8, "constexpr int kThreads = 64;",
+                       "constexpr int kThreads = 256;"),
+                      (INT8, "constexpr int kBlocksPerSm = 32;",
+                       "constexpr int kBlocksPerSm = 8;")],
+    # B9 writing with streaming stores (evict first)
+    "b9_stcs": [(INT8, "*reinterpret_cast<float4*>(out) =",
+                 "__stcs(reinterpret_cast<float4*>(out),"),
+                (INT8, ": make_float4(0.f, 0.f, 0.f, 0.f);",
+                 ": make_float4(0.f, 0.f, 0.f, 0.f));"),
+                (INT8, "*out = ok ? (float)v * s : 0.f;",
+                 "__stcs(out, ok ? (float)v * s : 0.f);")],
 }
 def variant_sources(name: str) -> list:
-    """``csrc/gather_rows.cu`` and ``csrc/scatter_rows.cu`` with the edits
-    of ``EDITS[name]``, written under ``OUT/name``; returns their paths."""
+    """The sources that ``EDITS[name]`` edits, with its edits, written
+    under ``OUT/name``; returns their paths."""
     d = os.path.join(OUT, name)
     os.makedirs(d, exist_ok=True)
     paths = []
-    for src in (GATHER, SCATTER):
+    for src in sorted({file for file, _, _ in EDITS[name]}):
         with open(os.path.join(kernel_build.CSRC_DIR, src)) as f:
             text = f.read()
         for file, old, new in EDITS[name]:
@@ -183,10 +239,18 @@ def build(extra: dict) -> dict:
         if hasattr(lib, "azt_gather_rows"):
             lib.azt_gather_rows.argtypes = [p, p, p, ll, ll, ll, i, i, p]
             lib.azt_gather_rows.restype = i
-        # the earlier B3 (``was``) takes no fill counter
-        lib.azt_scatter_rows.argtypes = [p, p, p, ll, ll, ll] + (
-            [p] if name == "was" else [p, p])
-        lib.azt_scatter_rows.restype = i
+        if hasattr(lib, "azt_scatter_rows"):
+            # the earlier B3 (``was``) takes no fill counter
+            lib.azt_scatter_rows.argtypes = [p, p, p, ll, ll, ll] + (
+                [p] if name == "was" else [p, p])
+            lib.azt_scatter_rows.restype = i
+        if hasattr(lib, "azt_gather_pool"):
+            lib.azt_gather_pool.argtypes = [p, p, p, ll, i, ll, ll, i, i, i,
+                                            p]
+            lib.azt_gather_pool.restype = i
+        if hasattr(lib, "azt_gather_int8"):
+            lib.azt_gather_int8.argtypes = [p, p, p, p, ll, ll, ll, p]
+            lib.azt_gather_int8.restype = i
         libs[name] = lib
     return libs
 
@@ -218,6 +282,32 @@ def gather_fn(lib, table, ids, clip: bool):
                                  table.shape[0], table.shape[1],
                                  table.element_size(), int(clip), stream())
         chip_smoke.check(rc == 0, f"gather launch failed: {rc}")
+        return out
+    return call
+
+
+def pool_fn(lib, table, ids, combiner: int, clip: bool):
+    def call():
+        out = torch.empty(ids.shape[0], table.shape[1], dtype=table.dtype,
+                          device=table.device)
+        rc = lib.azt_gather_pool(table.data_ptr(), ids.data_ptr(),
+                                 out.data_ptr(), ids.shape[0], ids.shape[1],
+                                 table.shape[0], table.shape[1],
+                                 ek._DTYPE_CODES[table.dtype], combiner,
+                                 int(clip), stream())
+        chip_smoke.check(rc == 0, f"pool launch failed: {rc}")
+        return out
+    return call
+
+
+def int8_fn(lib, q, scale, ids):
+    def call():
+        out = torch.empty(ids.shape[0], q.shape[1], device=q.device)
+        rc = lib.azt_gather_int8(q.data_ptr(), scale.data_ptr(),
+                                 ids.data_ptr(), out.data_ptr(),
+                                 ids.shape[0], q.shape[0], q.shape[1],
+                                 stream())
+        chip_smoke.check(rc == 0, f"int8 gather launch failed: {rc}")
         return out
     return call
 
@@ -254,7 +344,8 @@ def time_scatter(libs: dict, dev, seed: int, rounds: int) -> None:
         repeats = torch.unique(kept).numel() < kept.numel()
         scale = max(1.0, float(want.abs().max()))
         fns = {name: scatter_fn(lib, g, rows, num_rows, name == "was")
-               for name, lib in libs.items() if not name.startswith("b1_")}
+               for name, lib in libs.items()
+               if hasattr(lib, "azt_scatter_rows")}
         errs = {}
         for name, fn in fns.items():
             err = float((fn() - want).abs().max())
@@ -300,8 +391,7 @@ def time_gather(libs: dict, dev, seed: int, rounds: int) -> None:
         want = ek.gather_plain(table, ids, clip)
         fns = {name: gather_fn(lib, table, ids, clip)
                for name, lib in libs.items()
-               if hasattr(lib, "azt_gather_rows")
-               and not name.startswith("b3_")}
+               if hasattr(lib, "azt_gather_rows")}
         for name, fn in fns.items():
             chip_smoke.check(torch.equal(fn(), want),
                              f"{name} B1 != plain at {label}")
@@ -327,16 +417,103 @@ def time_gather(libs: dict, dev, seed: int, rounds: int) -> None:
         torch.cuda.empty_cache()
 
 
+def pool_timed_cases(dev, seed: int):
+    """B2's timed shapes, made one at a time: (label, table, ids, calls).
+    The W&D forward's wide-table call (offset bucket ids as ``bench.py``
+    makes them, all in range) and 2^20 bags of 8 distinct ids of a 2 GiB
+    table."""
+    gen = torch.Generator().manual_seed(seed)
+    yield ("wide_table",
+           torch.randn(chip_smoke.WND_WIDE_ROWS, 2, generator=gen).to(dev),
+           torch.from_numpy(chip_smoke.wide_ids(
+               np.random.RandomState(seed), 8192)).to(dev), 200)
+    dev_gen = torch.Generator(device=dev).manual_seed(seed)
+    rows = chip_smoke.POOL_LARGE_ROWS
+    yield ("hbm_table",
+           torch.randn(rows, 64, generator=dev_gen, device=dev),
+           torch.randperm(rows, generator=dev_gen, device=dev).to(
+               torch.int32).reshape(chip_smoke.POOL_LARGE_N,
+                                    chip_smoke.POOL_LARGE_BAG), 10)
+
+
+def time_pool(libs: dict, dev, seed: int, rounds: int) -> None:
+    for label, table, ids, calls in pool_timed_cases(dev, seed):
+        want = ek.gather_pool_plain(table, ids, "sum", True)
+        fns = {name: pool_fn(lib, table, ids, 0, True)
+               for name, lib in libs.items()
+               if hasattr(lib, "azt_gather_pool")}
+        fns["wrapper"] = lambda: ek.pool(table, ids, "sum", True)
+        for name, fn in fns.items():
+            chip_smoke.check(torch.equal(fn(), want),
+                             f"{name} B2 != plain at {label}")
+        ids64 = ids.long()  # embedding_bag takes int64 ids
+        fns["library"] = lambda: torch.nn.functional.embedding_bag(
+            ids64, table, mode="sum")
+        lib_err = float((fns["library"]() - want).abs().max())
+        chip_smoke.check(lib_err <= 1e-5 * max(1.0, float(
+            want.abs().max())), f"embedding_bag off plain by {lib_err}")
+        del want
+        turns = chip_smoke.turns_ms(fns, rounds, calls)
+        print(json.dumps({
+            "kernel": "B2", "table": label, "rows": table.shape[0],
+            "dim": table.shape[1], "n": ids.shape[0], "bag": ids.shape[1],
+            "combiner": "sum", "clip": True,
+            "bound_ms": chip_smoke.pool_bound_ms(table, ids, clip=True),
+            "library": "embedding_bag(mode='sum')",
+            "library_max_abs_diff": lib_err,
+            "summary": summary(turns), "turns": turns}), flush=True)
+        del fns, table, ids, ids64
+        torch.cuda.empty_cache()
+
+
+def time_int8(libs: dict, dev, seed: int, rounds: int) -> None:
+    gen = torch.Generator().manual_seed(seed)
+    dev_gen = torch.Generator(device=dev).manual_seed(seed)
+    for label, rows, dim, n, calls in chip_smoke.INT8_TIMED:
+        if rows == chip_smoke.INT8_HBM_ROWS:
+            # every id distinct, so every row comes from device memory
+            q = torch.randint(-127, 128, (rows, dim), generator=dev_gen,
+                              device=dev, dtype=torch.int8)
+            ids = torch.randperm(rows, generator=dev_gen, device=dev)[
+                :n].to(torch.int32)
+            scale = torch.tensor(0.0123, device=dev)
+        else:
+            q, scale, _ = ek.quantize_table(
+                torch.randn(rows, dim, generator=gen).to(dev) * 0.05)
+            ids = torch.randint(0, rows, (n,), generator=gen,
+                                dtype=torch.int32).to(dev)
+        want = ek.gather_int8_plain(q, scale, ids)
+        fns = {name: int8_fn(lib, q, scale, ids)
+               for name, lib in libs.items()
+               if hasattr(lib, "azt_gather_int8")}
+        fns["wrapper"] = lambda: ek.gather_int8(q, scale, ids)
+        for name, fn in fns.items():
+            chip_smoke.check(torch.equal(fn(), want),
+                             f"{name} B9 != plain at {label} n={n}")
+        del want
+        fns["library"] = lambda: torch.index_select(q, 0, ids) * scale
+        turns = chip_smoke.turns_ms(fns, rounds, min(calls, 50))
+        print(json.dumps({
+            "kernel": "B9", "table": label, "rows": rows, "dim": dim,
+            "n": n, "bound_ms": chip_smoke.int8_bound_ms(q, ids),
+            "library": "index_select, then * scale",
+            "summary": summary(turns), "turns": turns}), flush=True)
+        del fns, q, ids
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--was", help="directory of an earlier "
-                        "gather_rows.cu and scatter_rows.cu")
+    parser.add_argument("--was", help="directory of earlier sources "
+                        f"(any of {', '.join(SOURCES)})")
     parser.add_argument("--variants", nargs="*", choices=sorted(EDITS),
                         help="text edits of the committed sources")
     parser.add_argument("--rounds", type=int, default=3,
                         help="rounds of turns (each name twice a round)")
     parser.add_argument("--seed", type=int, default=0)
-    parser.add_argument("--only", choices=("b1", "b3"))
+    parser.add_argument("--only", nargs="+",
+                        choices=("b1", "b2", "b3", "b9"),
+                        help="the kernels to time (all when not given)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("needs an NVIDIA card", file=sys.stderr)
@@ -345,17 +522,20 @@ def main() -> int:
     shutil.rmtree(OUT, ignore_errors=True)
     extra = {}
     if args.was:
-        extra["was"] = [os.path.join(args.was, f) for f in
-                        ("gather_rows.cu", "scatter_rows.cu")]
+        extra["was"] = [os.path.join(args.was, f) for f in SOURCES
+                        if os.path.exists(os.path.join(args.was, f))]
+        if not extra["was"]:
+            parser.error(f"--was {args.was}: none of {SOURCES} there")
     if args.variants is not None:
         for name in args.variants or sorted(EDITS):
             extra[name] = variant_sources(name)
     libs = {"kernel": kernel_build.load_library(), **build(extra)}
     torch.manual_seed(args.seed)
-    if args.only != "b1":
-        time_scatter(libs, dev, args.seed, args.rounds)
-    if args.only != "b3":
-        time_gather(libs, dev, args.seed, args.rounds)
+    only = set(args.only or ("b1", "b2", "b3", "b9"))
+    for kernel, time_it in (("b9", time_int8), ("b2", time_pool),
+                            ("b3", time_scatter), ("b1", time_gather)):
+        if kernel in only:
+            time_it(libs, dev, args.seed, args.rounds)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip())

@@ -219,6 +219,16 @@ def cuda_device():
     return torch.device("cuda")
 
 
+@pytest.fixture(scope="module")
+def smoke():
+    """``chip_smoke.py`` as a module (it is a script, not a package)."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(REPO, "chip_smoke.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("rows,dim,dtype,n", [
     (6041, 64, torch.float32, 256), (3707, 64, torch.float32, 256),
@@ -276,39 +286,65 @@ def test_served_batches_launch_the_kernel_four_times_whatever_the_knob(
         assert ek.launch_counts["gather_rows"] == 4 * batch
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("rows,dim,bag,n,dtype", [
+#: the pool kernel's grid: W&D's wide-table call; widths of 8-byte rows
+#: (one thread a bag), 16-byte rows and 64 f32 (16 lanes a bag), rows past
+#: 32 units (a warp a bag); bags of 1, 3, 8, 9, 17 and 64 across the
+#: in-flight chunk; n of 0, 1, 255, 256, 257 and past the grid's cap
+#: (None, ``chip_smoke.past_the_cap``); every dtype. Each runs on four
+#: table offsets (every copy unit)
+POOL_GRID = [
     (101016, 2, 3, 8192, torch.float32), (50, 2, 1, 257, torch.float32),
     (50, 8, 17, 100, torch.float32), (50, 33, 3, 64, torch.float32),
     (300, 64, 5, 129, torch.float32), (300, 64, 3, 64, torch.bfloat16),
-    (50, 33, 17, 31, torch.float16), (50, 8, 3, 0, torch.float32)])
-def test_pool_kernel_equals_its_plain_version_on_the_card(cuda_device, rows,
-                                                          dim, bag, n, dtype):
+    (50, 33, 17, 31, torch.float16), (50, 8, 3, 0, torch.float32),
+    (300, 64, 8, 1, torch.float32), (300, 64, 9, 255, torch.float32),
+    (300, 64, 64, 256, torch.float32), (50, 4, 17, 257, torch.bfloat16),
+    (50, 16, 8, 256, torch.float16), (50, 3, 64, 255, torch.bfloat16),
+    (50, 200, 9, 257, torch.float32), (50, 520, 3, 31, torch.bfloat16),
+    (1000, 2, 3, None, torch.float32), (1000, 64, 9, None, torch.float32),
+    (1000, 8, 1, None, torch.bfloat16), (1000, 4, 17, None, torch.float16)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,dim,bag,n,dtype", POOL_GRID)
+def test_pool_kernel_equals_its_plain_version_on_the_card(cuda_device, smoke,
+                                                          rows, dim, bag, n,
+                                                          dtype):
+    n = smoke.past_the_cap(cuda_device) if n is None else n
     gen = torch.Generator().manual_seed(rows + dim + bag + n)
-    table = torch.randn(rows, dim, generator=gen).to(dtype).to(cuda_device)
+    flat = torch.randn(rows * dim + 4, generator=gen).to(dtype).to(
+        cuda_device)
     ids = torch.randint(-3, rows + 3, (n, bag), generator=gen,
                         dtype=torch.int32).to(cuda_device)
-    for combiner in ("sum", "mean", "sqrtn"):
-        for clip in (True, False):
-            before = ek.launch_counts["gather_pool"]
-            got = ek.pool(table, ids, combiner, clip)
-            torch.cuda.synchronize()
-            assert ek.launch_counts["gather_pool"] == before + (1 if n else 0)
-            assert got.dtype == dtype and got.shape == (n, dim)
-            # the same f32 adds in the same bag order: bit for bit
-            assert torch.equal(got, ek.gather_pool_plain(table, ids,
-                                                         combiner, clip))
+    # the table at the storage's start and 1, 2 and 4 elements past it:
+    # 16-byte aligned, then not (every copy unit the width allows)
+    for off in (0, 1, 2, 4):
+        table = flat[off:off + rows * dim].view(rows, dim)
+        for combiner in ("sum", "mean", "sqrtn"):
+            for clip in (True, False):
+                before = ek.launch_counts["gather_pool"]
+                got = ek.pool(table, ids, combiner, clip)
+                torch.cuda.synchronize()
+                assert ek.launch_counts["gather_pool"] == before + (
+                    1 if n else 0)
+                assert got.dtype == dtype and got.shape == (n, dim)
+                # the same f32 adds in the same bag order: bit for bit
+                assert torch.equal(got, ek.gather_pool_plain(
+                    table, ids, combiner, clip))
 
 
-#: the int8 kernel's grid: widths that are and are not whole 4-byte words
-INT8_DIMS = (1, 3, 4, 5, 31, 32, 33, 64, 130)
+#: the int8 kernel's grid: widths that are and are not whole 4-byte units,
+#: rows past 32 units (130 on the byte path, 1024 on 4-byte units: a warp a
+#: row), and n of 0, 1, 31, 255, 256, 257 and past the grid's cap (None)
+INT8_DIMS = (1, 3, 4, 5, 8, 16, 31, 32, 33, 64, 130, 1024)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dim", INT8_DIMS)
-@pytest.mark.parametrize("n", [0, 1, 31, 256, 257])
-def test_int8_kernel_equals_its_plain_version_on_the_card(cuda_device, dim,
-                                                         n):
+@pytest.mark.parametrize("n", [0, 1, 31, 255, 256, 257, None])
+def test_int8_kernel_equals_its_plain_version_on_the_card(cuda_device, smoke,
+                                                         dim, n):
+    n = smoke.past_the_cap(cuda_device) if n is None else n
     gen = torch.Generator().manual_seed(dim * 1000 + n)
     rows = 50
     q = torch.randint(-127, 128, (rows, dim), generator=gen,
@@ -316,12 +352,17 @@ def test_int8_kernel_equals_its_plain_version_on_the_card(cuda_device, dim,
     ids = torch.randint(-3, rows + 3, (n,), generator=gen, dtype=torch.int32)
     if n >= 2:
         ids[0], ids[1] = -1, rows
-    # a table whose base is not 4-byte aligned takes the byte path
-    raw = torch.zeros(rows * dim + 1, dtype=torch.int8)
-    raw[1:] = q.reshape(-1)
+    # the table at bases 16-byte aligned and 1, 4 and 8 bytes past it: the
+    # byte path at 1, 4-byte units where the width allows at 0, 4 and 8
+    raw = torch.zeros(rows * dim + 8, dtype=torch.int8)
     scale = torch.tensor(0.0173, device=cuda_device)
-    for table in (q.to(cuda_device),
-                  raw.to(cuda_device)[1:].view(rows, dim)):
+    idn = ids.numpy()[:4096]  # the numpy reference on the first rows
+    ref = q.numpy()[np.clip(idn, 0, rows - 1)].astype(np.float32) \
+        * np.float32(0.0173)
+    ref[(idn < 0) | (idn >= rows)] = 0
+    for off in (0, 1, 4, 8):
+        raw[off:off + rows * dim] = q.reshape(-1)
+        table = raw.to(cuda_device)[off:off + rows * dim].view(rows, dim)
         before = ek.launch_counts["gather_int8"]
         got = ek.gather_int8(table, scale, ids.to(cuda_device))
         torch.cuda.synchronize()
@@ -329,11 +370,30 @@ def test_int8_kernel_equals_its_plain_version_on_the_card(cuda_device, dim,
         assert got.dtype == torch.float32 and got.shape == (n, dim)
         want = ek.gather_int8_plain(table, scale, ids.to(cuda_device))
         assert torch.equal(got, want)  # one exact convert, one f32 multiply
-        idn = ids.numpy()
-        ref = q.numpy()[np.clip(idn, 0, rows - 1)].astype(np.float32) \
-            * np.float32(0.0173)
-        ref[(idn < 0) | (idn >= rows)] = 0
-        assert np.array_equal(got.cpu().numpy(), ref)
+        assert np.array_equal(got[:4096].cpu().numpy(), ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mask_negative", [True, False])
+def test_an_unpooled_int8_lookup_is_one_kernel_on_the_card(cuda_device,
+                                                          smoke,
+                                                          mask_negative):
+    gen = torch.Generator().manual_seed(5)
+    q, scale, _ = ek.quantize_table(torch.randn(6041, 64, generator=gen))
+    q, scale = q.to(cuda_device), scale.to(cuda_device)
+    ids = torch.randint(-3, 6044, (256, 1), generator=gen,
+                        dtype=torch.int32).to(cuda_device)
+    calls = 20
+    seen = smoke.lookup_kernels(ek, lambda: [ek.gather_pool_int8(
+        q, scale, ids, None, mask_negative) for _ in range(calls)])
+    # every lookup issued one launch, and every kernel the card ran was B9
+    # (where the trace kept its device events)
+    assert seen["launches_per_lookup"] == [1] * calls
+    assert seen["issued"] == calls
+    assert all(k in ([], ["gather_int8"]) for k in seen["kernels_per_lookup"])
+    assert ("warning" in seen) == ([] in seen["kernels_per_lookup"])
+    if seen["kernels"] is not None:
+        assert seen["kernels"] == {"gather_int8": calls}
 
 
 @pytest.mark.cuda
@@ -421,11 +481,8 @@ def test_a_wide_and_deep_step_launches_pool_once_and_gather_twice(
 # -- the row scatter-add (B3) on the card --------------------------------------
 
 
-def test_chip_smoke_counts_each_byte_once_in_the_gather_and_scatter_bounds():
-    spec = importlib.util.spec_from_file_location(
-        "chip_smoke", os.path.join(REPO, "chip_smoke.py"))
-    smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(smoke)
+def test_chip_smoke_counts_each_byte_once_in_the_gather_and_scatter_bounds(
+        smoke):
     # B3: the block written once, each grad row and its id read once, at
     # the W&D shard and at the 1 GiB block
     assert smoke.scatter_bound_ms(25000254, 2, 24576) == pytest.approx(
@@ -447,13 +504,9 @@ def test_chip_smoke_counts_each_byte_once_in_the_gather_and_scatter_bounds():
 
 @pytest.mark.parametrize("table, rows_per_shard, dim", [
     ("wide", 25000254, 2), ("edu_e", 4, 8), ("occ_e", 250, 8)])
-def test_chip_smoke_times_the_rows_a_sharded_step_receives(table,
+def test_chip_smoke_times_the_rows_a_sharded_step_receives(smoke, table,
                                                            rows_per_shard,
                                                            dim):
-    spec = importlib.util.spec_from_file_location(
-        "chip_smoke", os.path.join(REPO, "chip_smoke.py"))
-    smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(smoke)
     rps, got_dim, ids = smoke.shard_request_ids(0, table)
     assert (rps, got_dim) == (rows_per_shard, dim)
     # each source rank's block: its distinct local rows, then the SENTINEL

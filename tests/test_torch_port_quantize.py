@@ -223,7 +223,33 @@ def test_gather_pool_int8_masks_negative_ids_as_padding():
                                   combiner).numpy()
         want = np.asarray(jax_ek.gather_pool_int8(jq, js, jnp.asarray(idx),
                                                   combiner))
-        np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+        if combiner is None:
+            # the kernel's zero rows are JAX's rows times (idx >= 0), bit
+            # for bit (array_equal: JAX's -0.0 equals the kernel's 0.0)
+            assert np.array_equal(got, want)
+        else:
+            np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("mask_negative", [True, False])
+def test_unpooled_gather_pool_int8_adds_no_op_after_the_int8_kernel(
+        monkeypatch, mask_negative):
+    table, idx = _int8_inputs(6, lo=-3)
+    pq, ps, _ = ek.quantize_table(torch.from_numpy(table))
+    returned = []
+    real = ek.gather_int8
+
+    def spy(qtable, scale, ids):
+        returned.append(real(qtable, scale, ids))
+        return returned[-1]
+
+    monkeypatch.setattr(ek, "gather_int8", spy)
+    got = ek.gather_pool_int8(pq, ps, torch.from_numpy(idx), None,
+                              mask_negative)
+    assert len(returned) == 1 and got.shape == idx.shape + (DIM,)
+    # a view of the kernel's rows: nothing ran after the kernel
+    assert got._base is returned[0]
+    assert got.data_ptr() == returned[0].data_ptr()
 
 
 def _int8_contract(q, scale, ids):
