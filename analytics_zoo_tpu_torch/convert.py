@@ -7,6 +7,17 @@ The port keeps the same layer and parameter names and the same layouts (a
 Dense ``kernel`` is ``[in, out]`` in both), and a list item's index is its
 name (``nn.ModuleList``'s), so the map is by name alone.
 
+A model's state crosses beside its params the same way. The JAX package's
+``Model.build`` returns ``(params, state)``, the state a tree of the same
+shape holding what the optimizer never sees: BatchNorm's ``moving_mean``
+and ``moving_var``. In the port those are buffers of the same names, so
+``from_jax_params(state)`` gives their state-dict keys
+(``stem_bn.moving_mean``), and ``{**from_jax_params(params),
+**from_jax_params(state)}`` loads strictly into the port's model (a
+convolution kernel keeps the JAX package's HWIO layout; the layer permutes
+it in its forward). ``Estimator.set_model_state`` takes the state tree
+alone.
+
 A tree from the JAX package's ``quantize_params`` crosses too: an int8
 leaf ``{"q", "scale"[, "act_scale"]}`` flattens to ``<layer>.<param>.q``,
 ``.scale`` and ``.act_scale``, the buffers of the port's

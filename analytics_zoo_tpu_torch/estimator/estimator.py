@@ -31,6 +31,19 @@ that loss over full batches and the unpadded tail. Such a model may be any
 The device is the card unless the caller passes ``device="cpu"``; without a
 card the constructor raises ``NoCudaDeviceError``.
 
+``compute_dtype`` (e.g. ``torch.bfloat16``) is the JAX package's mixed
+precision: the float inputs of ``train``, ``evaluate`` and ``predict`` are
+cast to it on the device (integer inputs stay as they are), each layer
+casts its f32 parameters to its input's dtype, and the loss, the metrics
+and the predictions take the model's output cast to f32. Parameters and
+optimizer state stay f32.
+
+A model's buffers are its state (the JAX package's ``model_state``): the
+BatchNorm statistics, which move in training mode and which the optimizer
+never sees. ``get_model_state``/``set_model_state`` read and write them
+as a ``{layer: {name: array}}`` tree, and a checkpoint holds them with the
+parameters (``state_dict``).
+
 On a mesh (``mesh=``, or the default mesh ``parallel.mesh.init_mesh``
 installs) every rank runs its own Estimator over the same ``FeatureSet``,
 and training is data parallel: each rank steps on its share of every
@@ -116,12 +129,14 @@ class Estimator:
                  device: DeviceLike = None, seed: int = 42,
                  direct_loss_fn: Optional[Callable] = None,
                  forward_fn: Optional[Callable] = None,
-                 mesh: Optional[Mesh] = None):
+                 mesh: Optional[Mesh] = None,
+                 compute_dtype: Optional[torch.dtype] = None):
         """``model`` is a keras ``Model`` (built or not: an unbuilt model is
         built from ``seed`` on ``device`` at first use), or with
         ``direct_loss_fn`` any ``nn.Module``. ``mesh`` (default: the default
         mesh, if any) makes this Estimator one rank of a data-parallel run,
-        on ``mesh.device`` unless ``device`` names another."""
+        on ``mesh.device`` unless ``device`` names another.
+        ``compute_dtype`` casts the float inputs (mixed precision)."""
         self.mesh = mesh if mesh is not None else default_mesh()
         if self.mesh is not None and device is None:
             device = self.mesh.device
@@ -135,6 +150,10 @@ class Estimator:
                           if optimizer is not None else None)
         self.metrics = [metrics_mod.get(m) for m in (metrics or [])]
         self.seed = seed
+        if compute_dtype is not None and not compute_dtype.is_floating_point:
+            raise ValueError(f"compute_dtype {compute_dtype} is not a float "
+                             f"dtype")
+        self.compute_dtype = compute_dtype
         self.opt_state: Optional[Dict[str, Any]] = None
         self.dropout_generator: Optional[torch.Generator] = None
         self.global_step = 0
@@ -222,6 +241,24 @@ class Estimator:
                 "a captured (direct) loss on a mesh of more than one rank "
                 "is not ported")
 
+    def _check_mesh_statistics(self) -> None:
+        """Batch statistics (BatchNorm in training) over more than one rank
+        are not ported: they would be each rank's, not the global
+        batch's."""
+        if self._ranks > 1 and any(getattr(m, "batch_statistics", False)
+                                   for m in self.model.modules()):
+            from ..keras.layers.norm import SYNC_BN_TODO
+            raise NotImplementedError(SYNC_BN_TODO.format(ranks=self._ranks))
+
+    def _cast_inputs(self, x):
+        """Mixed precision: float tensors of ``x`` -> ``compute_dtype``;
+        integer ones stay as they are."""
+        if self.compute_dtype is None:
+            return x
+        dtype = self.compute_dtype
+        return tree_map(lambda t: t.to(dtype) if isinstance(t, torch.Tensor)
+                        and t.is_floating_point() else t, x)
+
     def _ensure_initialized(self, features=None) -> None:
         """Build the model (for the shape of ``features``, a numpy tree with
         the record axis first, where it needs one), put it on the device,
@@ -253,6 +290,7 @@ class Estimator:
         loss on the device (nothing here waits for the device, except the
         collectives on a mesh)."""
         params = self._params()
+        x = self._cast_inputs(x)
         if self.direct_loss_fn is not None:
             loss = self.direct_loss_fn(self.model, x, y).float()
         else:
@@ -325,6 +363,7 @@ class Estimator:
                 or self.optimizer is None:
             raise RuntimeError("train needs a loss_fn and an optimizer")
         self._check_mesh_loss()
+        self._check_mesh_statistics()
         if batch_size % self._ranks:
             raise ValueError(f"the global batch {batch_size} does not divide "
                              f"over {self._ranks} ranks")
@@ -461,11 +500,12 @@ class Estimator:
         with torch.inference_mode():
             for bx, by, valid in DeviceFeed(
                     val_set.eval_iterator(local_batch), self.device):
-                total += self.direct_loss_fn(self.model, bx, by).double() \
-                    * valid
+                total += self.direct_loss_fn(
+                    self.model, self._cast_inputs(bx), by).double() * valid
         return {"loss": float(total) / val_set.size}
 
     def _forward(self, x):
+        x = self._cast_inputs(x)
         return (self.forward_fn(self.model, x) if self.forward_fn is not None
                 else self.model(x))
 
@@ -531,6 +571,40 @@ class Estimator:
         with torch.no_grad():
             for k, p in named.items():
                 p.copy_(flat[k].to(p.dtype))
+
+    def _state_names(self) -> List[str]:
+        """The state-dict keys of the model's buffers (its state)."""
+        params = set(self._params())
+        return [k for k in self.model.state_dict() if k not in params]
+
+    def get_model_state(self) -> Dict[str, Any]:
+        """The model's state, ``{layer: {name: ndarray}}`` (the BatchNorm
+        statistics; the JAX package's ``model_state``)."""
+        self._ensure_initialized()
+        sd = self.model.state_dict()
+        return params_tree((k, sd[k]) for k in self._state_names())
+
+    def set_model_state(self, state) -> None:
+        """Load a ``{layer: {name: array}}`` state tree (the JAX package's
+        ``model_state``, or :meth:`get_model_state`') or a flat
+        ``{"layer.name": array}`` dict; it must name every buffer of the
+        model."""
+        self._ensure_initialized()
+        if any(isinstance(v, Mapping) for v in state.values()):
+            flat = from_jax_params(state)
+        else:
+            flat = {k: torch.as_tensor(np.asarray(v)) for k, v in
+                    state.items()}
+        names = self._state_names()
+        if set(flat) != set(names):
+            raise ValueError(
+                f"state does not match the model: missing "
+                f"{sorted(set(names) - set(flat))}, unexpected "
+                f"{sorted(set(flat) - set(names))}")
+        sd = self.model.state_dict()
+        with torch.no_grad():
+            for k in names:
+                sd[k].copy_(flat[k].to(sd[k].dtype))
 
     def _snapshot(self) -> Dict[str, Any]:
         self._ensure_initialized()

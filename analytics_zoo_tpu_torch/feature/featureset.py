@@ -12,15 +12,42 @@ seed), so every rank draws the same global batches; each gathers only its
 own rows of each (``parallel.mesh.shard_batch`` on the batch's record
 indices), and an evaluation tail is padded to the same length on every
 rank.
+
+The memory tier is ``MemoryType.DRAM``; the JAX package's ``DISK`` tier
+(arrays spilled to ``np.memmap``) is not ported yet and raises.
 """
 from __future__ import annotations
 
 import json
+from enum import Enum
 from typing import Any, Dict, Iterator, Optional, Tuple, Union
 
 import numpy as np
 
 ArrayTree = Union[np.ndarray, Tuple[np.ndarray, ...], Dict[str, np.ndarray]]
+
+
+class MemoryType(Enum):
+    DRAM = "dram"
+    DISK = "disk"
+
+
+def column_matrix(df, cols) -> np.ndarray:
+    """DataFrame columns -> one float32 array: array-valued cells stack
+    (``[n, *cell shape]``), scalar columns give one dimension each
+    (``[n, 1]`` for one scalar column); several columns concatenate along
+    axis 1. Used by NNFrames."""
+    if isinstance(cols, str):
+        cols = [cols]
+    parts = []
+    for c in cols:
+        col = df[c].to_numpy()
+        if len(col) and isinstance(col[0], (list, tuple, np.ndarray)):
+            parts.append(np.stack([np.asarray(v, np.float32) for v in col]))
+        else:
+            parts.append(col.astype(np.float32)[:, None])
+    out = np.concatenate(parts, axis=1) if len(parts) > 1 else parts[0]
+    return np.ascontiguousarray(out, dtype=np.float32)
 
 
 def _normalize(tree):
@@ -51,7 +78,11 @@ class FeatureSet:
 
     def __init__(self, features: ArrayTree,
                  labels: Optional[ArrayTree] = None, shuffle: bool = True,
-                 seed: int = 0):
+                 seed: int = 0, memory_type: MemoryType = MemoryType.DRAM):
+        if MemoryType(memory_type) is not MemoryType.DRAM:
+            raise NotImplementedError(
+                f"FeatureSet memory_type {memory_type} is not ported yet "
+                f"(DRAM only): ROADMAP Queue A item 5")
         features = _normalize(features)
         labels = _normalize(labels)
         n = _leaves(features)[0].shape[0]
