@@ -3,7 +3,9 @@ capture/``). Ported so far: the BERT task estimators of ``text.py``,
 ``GraphModel.from_loss`` and ``TransformerLM``."""
 from .graph_model import GraphModel
 from .lm import PREFILL_BUCKETS, TransformerLM, prefill_bucket
-from .text import BERTClassifier, BERTNER, bert_input_pack
+from .text import (BERTClassifier, BERTNER, bert_input_pack,
+                   bert_serving_forward)
 
 __all__ = ["BERTClassifier", "BERTNER", "GraphModel", "PREFILL_BUCKETS",
-           "TransformerLM", "bert_input_pack", "prefill_bucket"]
+           "TransformerLM", "bert_input_pack", "bert_serving_forward",
+           "prefill_bucket"]

@@ -5,7 +5,8 @@ Each wraps BERT and a task head into a compiled ``Sequential`` whose input
 is the four-array pack ``[token_ids, token_type_ids, position_ids,
 attention_mask]``. ``fit``, ``evaluate`` and ``predict`` run on the card
 unless ``device="cpu"`` is passed; later calls reuse the device of the
-first. ``BERTSQuAD`` is not ported yet.
+first. ``bert_serving_forward`` serves a classifier from token rows
+through ``InferenceModel.load_forward``. ``BERTSQuAD`` is not ported yet.
 """
 from __future__ import annotations
 
@@ -33,6 +34,29 @@ def bert_input_pack(token_ids: np.ndarray,
     positions = np.broadcast_to(np.arange(s, dtype=np.int32), (b, s)).copy()
     return [token_ids.astype(np.int32), np.asarray(token_type_ids, np.int32),
             positions, np.asarray(attention_mask, np.float32)]
+
+
+def bert_serving_forward(model: torch.nn.Module):
+    """``forward(params, x)`` for ``InferenceModel.load_forward``: ``x`` is
+    ``[b, s]`` token rows as float32 (the serving wire's tensor records;
+    float32 carries an id exactly below 2^24), and the four-array input is
+    built on ``x``'s device, as ``bench.py`` builds it inside its trace:
+    the ids cast to int, type ids 0, positions ``arange(s)``, the mask
+    ``tokens != 0``. ``params`` (``model``'s state-dict keys, e.g. from
+    ``convert.from_jax_params``) run ``model`` through
+    ``torch.func.functional_call``; ``model`` is put in eval mode."""
+    model.eval()
+
+    def forward(params, x):
+        tokens = x.to(torch.int32)
+        b, s = tokens.shape
+        positions = torch.arange(s, dtype=torch.int32,
+                                 device=x.device).repeat(b, 1)
+        packed = [tokens, torch.zeros_like(tokens), positions,
+                  (tokens != 0).to(torch.float32)]
+        return torch.func.functional_call(model, params, (packed,))
+
+    return forward
 
 
 def _make_bert(bert_config: Optional[Dict[str, Any]]) -> BERT:

@@ -1,7 +1,7 @@
 """Local-path subset of ``analytics_zoo_tpu/common/file_io.py``: what the
-serving ``FileQueue`` and model save/load use. ``file://`` URIs are stripped
-to local paths; other ``scheme://`` URIs (object stores) are not ported yet
-and raise."""
+serving ``FileQueue``, model save/load and ``ImageSet.read`` use.
+``file://`` URIs are stripped to local paths; other ``scheme://`` URIs
+(object stores) are not ported yet and raise."""
 from __future__ import annotations
 
 import os
@@ -44,6 +44,10 @@ def fopen(path: str, mode: str = "r", encoding: Optional[str] = None):
 
 def exists(path: str) -> bool:
     return os.path.exists(local_path(path))
+
+
+def isdir(path: str) -> bool:
+    return os.path.isdir(local_path(path))
 
 
 def listdir(path: str) -> List[str]:

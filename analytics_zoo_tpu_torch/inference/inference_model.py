@@ -12,6 +12,10 @@ so the serving loop decodes the next batch while the card works.
 :meth:`quantize` is the JAX package's: bf16, weight-only int8, or int8
 calibrated on sample batches (``inference/quantize.py``).
 
+:meth:`load_forward` is the JAX package's ``load_jax``: a raw
+``forward_fn(params, x)`` with its params, here a torch callable and a dict
+of tensors.
+
 A model of several inputs (Wide&Deep's four) takes a list of arrays, as
 in the JAX package, or one flat ``[n, sum of widths]`` array when every
 input is ``[n, width]``: the flat array is split into the inputs in order.
@@ -31,7 +35,8 @@ import numpy as np
 import torch
 
 from ..common.context import DeviceLike, resolve_device
-from .quantize import observe_activation_scales, quantize_params
+from .quantize import (QuantizedWeight, _qleaf, observe_activation_scales,
+                       quantize_params)
 
 _BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024)
 
@@ -77,6 +82,37 @@ def _bucket(n: int) -> int:
     return ((n + 1023) // 1024) * 1024
 
 
+class _Forward(torch.nn.Module):
+    """``forward_fn(params, x)`` over a dict of tensors held on the device.
+    After a weight-only int8 :meth:`InferenceModel.quantize` an entry is a
+    :class:`QuantizedWeight`, handed to ``forward_fn`` as its f32
+    ``q * scale``, as the JAX package's forward dequantizes the tree."""
+
+    def __init__(self, forward_fn: Callable, params: Dict[str, torch.Tensor]):
+        super().__init__()
+        self.forward_fn = forward_fn
+        self.params = params
+
+    def forward(self, x):
+        return self.forward_fn(
+            {k: v.dequantize() if isinstance(v, QuantizedWeight) else v
+             for k, v in self.params.items()}, x)
+
+    def quantize(self, dtype: str) -> None:
+        """The JAX package's ``quantize_params`` over the dict: bf16 casts
+        every float tensor; int8 keeps every float tensor of two or more
+        dimensions as int8 with an f32 scale."""
+        if dtype in ("bf16", "bfloat16"):
+            self.params = {k: v.to(torch.bfloat16) if v.is_floating_point()
+                           else v for k, v in self.params.items()}
+        elif dtype == "int8":
+            self.params = {k: _qleaf(v) if v.is_floating_point()
+                           and v.dim() >= 2 else v
+                           for k, v in self.params.items()}
+        else:
+            raise ValueError(f"unsupported quantization dtype {dtype}")
+
+
 class InferenceModel:
     def __init__(self, concurrent_num: int = 1, device: DeviceLike = None):
         if concurrent_num < 1:
@@ -109,6 +145,40 @@ class InferenceModel:
         if state_dict is not None:
             model.load_state_dict(state_dict, strict=True)
         self._set_module(model.to(self.device).eval())
+        return self
+
+    def load_forward(self, forward_fn: Callable,
+                     params: Dict[str, torch.Tensor]) -> "InferenceModel":
+        """A raw ``forward_fn(params, x)`` and its ``params``, a dict of
+        tensors moved once to this model's device (the JAX package's
+        ``load_jax``). ``predict`` calls ``forward_fn`` under
+        ``torch.inference_mode()`` with the device's params and the padded
+        batch; buckets, ``prewarm`` and ``concurrent_num`` are
+        :meth:`load_keras`'s. A bf16 output comes back f32 (the same
+        values).
+
+        BERT served from token rows, as ``bench.py`` serves it: the
+        records are ``[seq]`` float32 rows, which carry an id exactly below
+        2^24 (vocab 30522 is far below), and the four-array input is built
+        on the device::
+
+            clf = BERTClassifier(2, bert_config=cfg)
+            clf.build(seq, device=dev)
+            im = InferenceModel(device=dev).load_forward(
+                bert_serving_forward(clf.model),
+                from_jax_params(jax_params))
+
+        (``capture.bert_serving_forward``: ``torch.func.functional_call``
+        of the model with ``params``.)
+
+        :meth:`quantize` follows the JAX package's opaque forward: ``bf16``
+        casts the float params and the output comes back f32; ``int8``
+        keeps the params of two or more dimensions int8 and hands
+        ``forward_fn`` their f32 ``q * scale``; ``int8`` with
+        ``calibration_data`` raises ``ValueError``."""
+        params = {k: torch.as_tensor(v).to(self.device)
+                  for k, v in params.items()}
+        self._set_module(_Forward(forward_fn, params))
         return self
 
     def _set_module(self, module: torch.nn.Module) -> None:
@@ -145,7 +215,10 @@ class InferenceModel:
             quantize_params(self._module, "int8", act_scales=act_scales)
             self._act_scales = act_scales
             return self
-        quantize_params(self._module, dtype)
+        if isinstance(self._module, _Forward):
+            self._module.quantize(dtype)
+        else:
+            quantize_params(self._module, dtype)
         self._output_f32 = dtype != "int8"
         return self
 
@@ -179,7 +252,7 @@ class InferenceModel:
               for x in xs]
         with self._slots, torch.inference_mode():
             y = self._module(ts[0] if len(ts) == 1 else ts)
-            if self._output_f32:
+            if self._output_f32 or y.dtype == torch.bfloat16:
                 y = y.to(torch.float32)
             if self.device.type == "cuda":
                 host = torch.empty(y.shape, dtype=y.dtype, pin_memory=True)

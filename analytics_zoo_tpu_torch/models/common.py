@@ -3,7 +3,10 @@ common.py``): ``ZooModel``, ``Recommender`` and the class registry.
 
 A saved model is a directory holding ``zoo_model.json`` (the JAX package's
 format, byte for byte) and ``weights/model.pt``, a ``torch.save`` of the
-``state_dict`` where the JAX package keeps an orbax checkpoint.
+``state_dict`` where the JAX package keeps an orbax checkpoint. A
+pretrained bundle (``save_pretrained``) holds ``zoo_bundle.json`` (the JAX
+package's: format tag, class, config, label map and preprocessing spec)
+beside the same ``weights/``.
 """
 from __future__ import annotations
 
@@ -80,20 +83,94 @@ class ZooModel:
         self._ensure_built().save_model(file_io.join(path, "weights"))
 
     @staticmethod
+    def _instantiate_and_load(cls_name: str, config: Dict[str, Any],
+                              weights_path: str,
+                              device: DeviceLike) -> "ZooModel":
+        """Registry lookup -> build on ``device`` -> load the weights."""
+        cls = _MODEL_REGISTRY.get(cls_name)
+        if cls is None:
+            raise ValueError(f"unknown zoo model class {cls_name}; "
+                             f"registered: {sorted(_MODEL_REGISTRY)}")
+        inst = cls(**config)
+        inst.build(device=device)
+        inst.model.load_weights(weights_path)
+        inst.model.eval()
+        return inst
+
+    @staticmethod
     def load_model(path: str, device: DeviceLike = None) -> "ZooModel":
         """Registry lookup -> build on ``device`` (the card when omitted;
         raises without one unless ``device="cpu"``) -> load the weights."""
         with file_io.fopen(file_io.join(path, "zoo_model.json")) as f:
             spec = json.loads(f.read())
-        cls = _MODEL_REGISTRY.get(spec["class"])
-        if cls is None:
-            raise ValueError(f"unknown zoo model class {spec['class']}; "
-                             f"registered: {sorted(_MODEL_REGISTRY)}")
-        inst = cls(**spec["config"])
-        inst.build(device=device)
-        inst.model.load_weights(file_io.join(path, "weights"))
-        inst.model.eval()
+        return ZooModel._instantiate_and_load(
+            spec["class"], spec["config"], file_io.join(path, "weights"),
+            device)
+
+    # -- pretrained bundles ---------------------------------------------------
+    #
+    # The reference zoo ships loadable pretrained artifacts carrying the
+    # model weights and their label map + per-model preprocessing config
+    # (ImageClassifier.scala:37 label maps; ObjectDetectionConfig.scala:1
+    # per-variant preproc). A bundle is one directory:
+    #   zoo_bundle.json   format tag, class, config, labels, preproc spec
+    #   weights/          the weights (save_model's layout)
+
+    BUNDLE_FORMAT = "zoo-tpu-bundle/1"
+
+    def preprocessing_spec(self) -> Optional[List[Dict[str, Any]]]:
+        """Serializable inference preprocessing (``feature/image/spec.py``);
+        None when the model has no canonical input chain."""
+        return None
+
+    def save_pretrained(self, path: str) -> None:
+        """Write one pretrained artifact: weights, config, label map and
+        preprocessing spec."""
+        file_io.makedirs(path, exist_ok=True)
+        bundle = {
+            "format": self.BUNDLE_FORMAT,
+            "class": type(self).__name__,
+            "config": self.get_config(),
+            "labels": getattr(self, "labels", None),
+            "preprocessing": self.preprocessing_spec(),
+        }
+        with file_io.fopen(file_io.join(path, "zoo_bundle.json"), "w") as f:
+            f.write(json.dumps(bundle, indent=2))
+        self._ensure_built().save_model(file_io.join(path, "weights"))
+
+    @staticmethod
+    def load_pretrained(path: str, device: DeviceLike = None) -> "ZooModel":
+        """Load a bundle written by :meth:`save_pretrained` onto ``device``
+        (as :meth:`load_model`); the model predicts with its labels and
+        gives the bundled chain through :meth:`bundled_preprocessing`. A
+        directory without a bundle's format tag raises ``ValueError``
+        (``load_model`` reads a bare checkpoint)."""
+        bundle_path = file_io.join(path, "zoo_bundle.json")
+        bundle = {}
+        if file_io.exists(bundle_path):
+            with file_io.fopen(bundle_path) as f:
+                bundle = json.loads(f.read())
+        fmt = bundle.get("format")
+        if fmt != ZooModel.BUNDLE_FORMAT:
+            raise ValueError(f"{path!r} is not a zoo-tpu pretrained bundle "
+                             f"(format {fmt!r}); for bare checkpoints use "
+                             f"ZooModel.load_model")
+        inst = ZooModel._instantiate_and_load(
+            bundle["class"], bundle["config"], file_io.join(path, "weights"),
+            device)
+        if bundle.get("labels") is not None:
+            inst.labels = bundle["labels"]
+        inst._bundle_preprocessing = bundle.get("preprocessing")
         return inst
+
+    def bundled_preprocessing(self):
+        """The preprocessing chain this model was bundled with (else the
+        model's own canonical spec's)."""
+        from ..feature.image.spec import build_preprocessing
+        spec = getattr(self, "_bundle_preprocessing", None)
+        if spec is None:
+            spec = self.preprocessing_spec()
+        return build_preprocessing(spec)
 
 
 class Recommender(ZooModel):

@@ -9,10 +9,13 @@ model state (the BatchNorm statistics) flattened: ``from_jax_params`` of
 both, merged, loads strictly. Activations are NHWC; the convolutions run
 on cuDNN (``keras/layers/conv.py``).
 
+``ImageClassifier`` carries its preprocessing chain (``preprocessing_spec``,
+saved in a pretrained bundle) and labels ``predict_image_set``'s top-k
+through its label map.
+
 Not ported yet, and raising ``NotImplementedError``: ``dataflow="int8"``
-and ``int8_training`` (ROADMAP Queue A item 3); the image preprocessing
-chain and ``predict_image_set``, which need ``feature/image/`` (item 2);
-``load_pretrained_torch``, which needs ``net/torch_import.py`` (item 6).
+and ``int8_training`` (ROADMAP Queue A item 3); ``load_pretrained_torch``,
+which needs ``net/torch_import.py`` (item 6).
 """
 from __future__ import annotations
 
@@ -34,10 +37,6 @@ RESNET_BLOCKS = {18: (2, 2, 2, 2), 34: (3, 4, 6, 3), 50: (3, 4, 6, 3),
 #: ImageNet statistics in pixel units
 IMAGENET_MEAN = np.asarray([0.485, 0.456, 0.406], np.float32) * 255.0
 IMAGENET_STD = np.asarray([0.229, 0.224, 0.225], np.float32) * 255.0
-
-_IMAGE_TODO = ("{what} needs feature/image/ (the image decoding and "
-               "transform chain), which is not ported yet: ROADMAP Queue A "
-               "item 2")
 
 
 class _ImagenetNormalize(Layer):
@@ -417,13 +416,34 @@ class ImageClassifier(ZooModel):
                      metrics=["accuracy"])
 
     def preprocessing_spec(self):
-        raise NotImplementedError(_IMAGE_TODO.format(
-            what="preprocessing_spec"))
+        """Serializable input chain, persisted in pretrained bundles."""
+        from ...feature.image.spec import classification_spec
+        h, w, _ = self.input_shape
+        return classification_spec(h, w, IMAGENET_MEAN.tolist(),
+                                   IMAGENET_STD.tolist())
 
     def preprocessing(self):
-        raise NotImplementedError(_IMAGE_TODO.format(what="preprocessing"))
+        """The model's input chain (reference per-model configs); a
+        bundle-loaded classifier uses the chain it shipped with."""
+        return self.bundled_preprocessing()
 
     def predict_image_set(self, image_set, top_k: int = 5,
                           batch_size: int = 32):
-        raise NotImplementedError(_IMAGE_TODO.format(
-            what="predict_image_set"))
+        """Top-k ``(label, probability)`` pairs per image (reference
+        ``ImageClassifier.predictImageSet`` with the label map; the class
+        index where there is no map), the images run through
+        :meth:`preprocessing` first, on the device the model was built on
+        (the card when it is not built yet)."""
+        fs = image_set.transform(self.preprocessing()).to_featureset(
+            shuffle=False)
+        model = self._ensure_built()
+        probs = np.asarray(model.predict(
+            fs, batch_size=batch_size,
+            device=model.device if model.built else None))
+        top = np.argsort(-probs, axis=1)[:, :top_k]
+        out = []
+        for row, p in zip(top, probs):
+            labeled = [((self.labels[i] if self.labels else int(i)),
+                        float(p[i])) for i in row]
+            out.append(labeled)
+        return out

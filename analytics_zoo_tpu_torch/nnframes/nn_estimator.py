@@ -10,8 +10,9 @@ setters are the JAX package's.
 
 The device is the card unless the constructor is given ``device="cpu"``;
 without a card the constructor raises ``NoCudaDeviceError``.
+``NNImageReader.read_images`` reads an image folder into a DataFrame.
 ``set_tensorboard`` waits for ``utils/tensorboard.py`` (ROADMAP Queue A
-item 5) and ``NNImageReader`` for ``feature/image/`` (item 2): both raise.
+item 5) and raises.
 """
 from __future__ import annotations
 
@@ -176,12 +177,23 @@ class NNClassifierModel(NNModel):
 
 
 class NNImageReader:
-    """Reads an image folder into a DataFrame (waits for
-    ``feature/image/``)."""
+    """Read an image folder into a DataFrame of decoded image arrays
+    (reference ``NNImageReader.scala``: the image schema DataFrame)."""
 
     @staticmethod
     def read_images(path: str, resize_h: Optional[int] = None,
                     resize_w: Optional[int] = None, with_label: bool = False):
-        raise NotImplementedError(
-            "NNImageReader needs feature/image/ (ImageSet, Resize), which is "
-            "not ported yet: ROADMAP Queue A item 2")
+        """``image`` (float32 HWC, BGR), ``origin`` (the file's path) and,
+        with ``with_label``, ``label`` (``ImageSet.read``'s one-based
+        alphabetical class labels) columns; each image resized to
+        ``resize_h`` x ``resize_w`` when both are given."""
+        import pandas as pd
+        from ..feature.image import ImageSet, Resize
+        iset = ImageSet.read(path, with_label=with_label)
+        if resize_h and resize_w:
+            iset = iset.transform(Resize(resize_h, resize_w))
+        data = {"image": [np.asarray(i, np.float32) for i in iset.images],
+                "origin": iset.paths}
+        if with_label:
+            data["label"] = iset.labels
+        return pd.DataFrame(data)

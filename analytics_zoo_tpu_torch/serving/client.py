@@ -1,5 +1,6 @@
 """Serving client (counterpart of ``analytics_zoo_tpu/serving/client.py``):
-``InputQueue.enqueue_tensor`` and ``OutputQueue.query``/``dequeue``.
+``InputQueue.enqueue_image``/``enqueue_tensor`` and ``OutputQueue.query``/
+``dequeue``.
 
 Every enqueue stamps ``enqueue_t`` (client wall clock, the only clock two
 processes share) and a ``trace_id``, as the JAX client does, so records
@@ -16,7 +17,7 @@ import numpy as np
 
 from ..common.config import global_config
 from ..common.utils import wall_clock
-from .queues import FileQueue, QueueBackend, make_queue
+from .queues import FileQueue, QueueBackend, encode_image, make_queue
 
 
 def _transient(e: BaseException) -> bool:
@@ -65,6 +66,20 @@ class InputQueue(_API):
         if criticality is not None:
             payload["criticality"] = str(criticality)
         return payload
+
+    def enqueue_image(self, uri: str, img,
+                      deadline_ms: Optional[int] = None,
+                      criticality: Optional[str] = None) -> None:
+        """Enqueue one image: an HWC ndarray (sent as a base64 jpg), encoded
+        bytes (sent as they are) or a path (read with ``cv2.imread``)."""
+        if isinstance(img, str):
+            import cv2
+            data = cv2.imread(img)
+            if data is None:
+                raise ValueError(f"unreadable image path {img}")
+            img = data
+        self.queue.enqueue(uri, self._stamp({"image": encode_image(img)},
+                                            deadline_ms, criticality))
 
     def enqueue_tensor(self, uri: str, tensor,
                        deadline_ms: Optional[int] = None,

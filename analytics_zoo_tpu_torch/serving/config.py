@@ -1,6 +1,6 @@
 """Serving config (counterpart of ``analytics_zoo_tpu/serving/config.py``):
-the one-shot serving fields and the YAML schema of ``from_yaml``. Image
-payloads (``input_dtype``), the generative, brownout and health-file fields
+the one-shot serving fields, image payloads' ``input_dtype`` and the YAML
+schema of ``from_yaml``. The generative, brownout and health-file fields
 are later slices."""
 from __future__ import annotations
 
@@ -14,6 +14,9 @@ class ServingConfig:
     model_type: str = "zoo"  # only zoo models are ported so far
     data_src: str = "dir:///tmp/zoo_serving"
     image_shape: Sequence[int] = (224, 224, 3)
+    input_dtype: str = "float32"  # "uint8" moves a quarter of the bytes to
+    #   the card (pair with a model that normalizes on the device, e.g.
+    #   resnet(preprocess="imagenet_uint8")); tensor records stay float32
     filter_top_n: Optional[int] = None
     batch_size: int = 4
     batch_wait_ms: int = 20  # micro-batch window
@@ -39,6 +42,10 @@ class ServingConfig:
         cfg.model_path = model.get("path", cfg.model_path)
         cfg.model_type = model.get("type", cfg.model_type)
         cfg.data_src = data.get("src") or cfg.data_src
+        cfg.input_dtype = data.get("input_dtype", cfg.input_dtype)
+        if cfg.input_dtype not in ("float32", "uint8"):
+            raise ValueError(f"input_dtype must be float32 or uint8, got "
+                             f"{cfg.input_dtype!r}")
         if data.get("image_shape"):
             shape = data["image_shape"]
             if isinstance(shape, str):

@@ -1,6 +1,7 @@
 """Queue backends for serving (counterpart of ``analytics_zoo_tpu/serving/
 queues.py``): ``QueueBackend``, the local-spool ``FileQueue`` and
-``make_queue``.
+``make_queue``, and the image payload codec ``encode_image`` /
+``decode_image``.
 
 The spool layout (``requests/``, ``claimed/``, ``results/``), the file
 names and the JSON records are the JAX package's, so a JAX client and a
@@ -10,6 +11,7 @@ Requests are claimed by atomic rename. Remote ``scheme://`` spools and
 """
 from __future__ import annotations
 
+import base64
 import hashlib
 import json
 import logging
@@ -225,3 +227,28 @@ def make_queue(src: str) -> QueueBackend:
             f"queue src {src!r}: RedisQueue is not ported yet; use a "
             f"dir:///path file queue")
     return FileQueue(file_io.local_path(src))
+
+
+def encode_image(img) -> str:
+    """ndarray (HWC) or encoded bytes -> base64 string: an array is
+    encoded as jpg by ``cv2.imencode``, bytes pass through unencoded."""
+    if isinstance(img, (bytes, bytearray)):
+        return base64.b64encode(bytes(img)).decode()
+    import cv2
+    import numpy as np
+    ok, buf = cv2.imencode(".jpg", np.asarray(img))
+    if not ok:
+        raise ValueError("image encode failed")
+    return base64.b64encode(buf.tobytes()).decode()
+
+
+def decode_image(b64: str):
+    """base64 image payload -> HWC uint8 array in BGR order
+    (``cv2.imdecode(..., IMREAD_COLOR)``)."""
+    import cv2
+    import numpy as np
+    buf = np.frombuffer(base64.b64decode(b64), np.uint8)
+    img = cv2.imdecode(buf, cv2.IMREAD_COLOR)
+    if img is None:
+        raise ValueError("image decode failed")
+    return img

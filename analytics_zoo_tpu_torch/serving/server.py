@@ -3,6 +3,12 @@
 queue -> drop expired records -> decode on host threads -> drop records
 that expired meanwhile -> dispatch to the card -> write results back.
 
+A record is a ``tensor`` (float32 always) or an ``image``: a base64 jpg,
+decoded by ``cv2.imdecode`` (BGR), resized to ``image_shape`` when its size
+differs, and kept uint8 or made float32 by ``input_dtype``. On the uint8
+wire the batch reaches the card as uint8, a quarter of float32's bytes,
+and the model normalizes it there.
+
 The invariant is the JAX package's: **every claimed request receives
 exactly one terminal result**, a value or an explicit error, whatever
 fails. Deadlines are checked at claim, after decode and before dispatch;
@@ -11,7 +17,7 @@ in-flight work before it stops.
 
 Later slices bring brownout, the ops-plane events, fault-injection sites,
 trace flow points, TensorBoard summaries, ``reload_model``, the
-``health.json`` writer, image payloads and ``GenerativeServing``.
+``health.json`` writer and ``GenerativeServing``.
 """
 from __future__ import annotations
 
@@ -28,7 +34,7 @@ from ..common.context import DeviceLike
 from ..common.utils import time_it, wall_clock
 from ..inference.inference_model import InferenceModel
 from .config import ServingConfig
-from .queues import QueueBackend, make_queue
+from .queues import QueueBackend, decode_image, make_queue
 
 logger = logging.getLogger("analytics_zoo_tpu_torch.serving")
 
@@ -100,18 +106,29 @@ class ClusterServing:
         return im
 
     def _example_batch(self) -> np.ndarray:
-        """A zeros batch shaped like :meth:`_prepare`'s output."""
-        return np.zeros((self.config.batch_size,)
-                        + tuple(self.config.image_shape), np.float32)
+        """A zeros batch shaped like :meth:`_prepare`'s output: image
+        records decode to ``image_shape`` arrays (uint8 or float32 by
+        ``input_dtype``), tensor records are always float32."""
+        cfg = self.config
+        dtype = np.uint8 if cfg.input_dtype == "uint8" else np.float32
+        return np.zeros((cfg.batch_size,) + tuple(cfg.image_shape), dtype)
 
     # -- record prep ----------------------------------------------------------
 
     def _prepare(self, record: Dict[str, Any]) -> np.ndarray:
-        if "tensor" in record:  # raw numeric payload: always float32
+        cfg = self.config
+        if "image" in record:  # base64-encoded image bytes
+            img = decode_image(record["image"])
+            h, w = cfg.image_shape[0], cfg.image_shape[1]
+            if img.shape[:2] != (h, w):
+                import cv2
+                img = cv2.resize(img, (w, h))
+            # the uint8 wire is for images only: pixels are uint8 already
+            dtype = np.uint8 if cfg.input_dtype == "uint8" else np.float32
+            return np.asarray(img, dtype)
+        if "tensor" in record:  # raw numeric payload: always float32, as a
+            # uint8 cast would wrap the client's floats
             return np.asarray(record["tensor"], np.float32)
-        if "image" in record:
-            raise ValueError("image records are not supported by the torch "
-                             "port yet; send tensor records")
         raise ValueError(f"record has neither image nor tensor: "
                          f"{sorted(record)}")
 

@@ -219,6 +219,30 @@ Phases, each of which must pass or the script exits non-zero:
    cuDNN's deterministic algorithms a checkpoint resume equals the straight
    card run exactly; a bf16 forward is held to the CPU's within 2e-2.
 
+17. Cluster Serving (north-star #5, ``bench.py:1268-1392``), each model
+   through ``ClusterServing`` and the file spool, a burst of distinct
+   records published before the server starts (its drain rate is the
+   records/s), then requests one at a time (their latency; the first ones
+   of the burst again). Every request must get exactly one value, equal to
+   a direct card forward of the batches as dispatched (rtol 1e-5) and to
+   the CPU's forward from the same weights on the records sent twice
+   (``SERVE_CPU_ATOL``). (a) ``resnet50_serving``: ``resnet(50, 10,
+   (224, 224, 3), preprocess="imagenet_uint8")`` in f32, batch 64,
+   ``input_dtype: uint8``, 512 seeded 224 x 224 jpgs (base64), then 64:
+   every batch must reach the card as uint8, each row ``decode_image`` of
+   its payload bit for bit; ``filter_top_n`` answers (top 5 of the first
+   64 records) must carry the values' classes; no kernel of the port's
+   own runs (every launch count 0). (b) ``bert_serving``:
+   ``BERTClassifier(2)`` at BERT-base width in bf16 through
+   ``InferenceModel.load_forward`` and ``bert_serving_forward`` (the
+   four-array input built on the card from float32 token rows), batch 32,
+   seq 128, 256 seeded padded records, then 32: a served batch must launch
+   12 B7 on the bf16 route, 3 B1 and no B8. Each prints records/s, the
+   latencies (p50, max and which single paid it), a batch's forward by
+   CUDA events and a served predict's device time by the profiler, the
+   busy share, ``serving.decode_batch`` seconds a batch, a record's bytes
+   in the spool and a batch's bytes to the card.
+
 Each phase's seconds are printed. The last three lines of output are the
 card's
 ``nvidia-smi`` name and power limit, the ``{"kernels": [...]}`` line,
@@ -4021,6 +4045,394 @@ def resnet_vs_cpu(seed: int, workdir: str) -> dict:
             "bf16_forward_err_of_scale": bf16_err}
 
 
+#: north-star #5, Cluster Serving (bench.py:1339-1392 and :1268-1336):
+#: ResNet-50 (10 classes, 224 x 224 x 3, imagenet_uint8, f32) on 224 x 224
+#: jpgs over the uint8 wire in batches of 64, and BERT-base (bf16) on
+#: float32 token rows of 128 through a forward function in batches of 32.
+#: Each serves a burst of distinct records published before the server
+#: starts, then requests one at a time, the same records as the burst's
+#: first ones (their answers are held to the CPU)
+RESNET_SERVE = dict(batch=64, burst=512, single=64, classes=10)
+BERT_SERVE = dict(batch=32, burst=256, single=32, seq=128)
+#: served probabilities against the CPU's forward from the same weights:
+#: ResNet-50 f32 (TF32 off; 53 convolutions whose sums run in other
+#: orders), BERT-base bf16 (``ATTN_ATOL``'s bf16 tolerance, of the
+#: probabilities' scale)
+SERVE_CPU_ATOL = {"resnet50": 1e-4, "bert": 2e-2}
+
+
+class ServedBatches:
+    """What a ``ClusterServing`` dispatched, in order: each batch's array
+    as the card got it, and its uris (from the writeback, which takes the
+    batches in dispatch order)."""
+
+    def __init__(self, server):
+        self.xs, self.uris = [], []
+        dispatch, writeback = server._dispatch, server._writeback
+
+        def _dispatch(x):
+            self.xs.append(x)
+            return dispatch(x)
+
+        def _writeback(uris, probs, elapsed):
+            self.uris.append(list(uris))
+            return writeback(uris, probs, elapsed)
+
+        server._dispatch, server._writeback = _dispatch, _writeback
+
+
+def serve_burst_then_singles(server, queue, send, n_burst: int,
+                             singles: list, timeout_s: float = 300):
+    """Start ``server`` on the burst already published (``n_burst``
+    records), wait until every one has its terminal result, then send
+    ``singles`` one at a time with ``send(uri)``, each awaited; drain.
+    Returns the drain seconds, the burst's batches, the stage spans and
+    each single's latency in ms."""
+    from analytics_zoo_tpu_torch.common.utils import timers
+    timers.reset()
+    t_start = time.perf_counter()
+    server.start()
+    try:
+        deadline = time.monotonic() + timeout_s
+        while (server.records_served + sum(server.counters.values())
+               < n_burst and time.monotonic() < deadline):
+            server.check_health()
+            time.sleep(0.002)
+        drain_s = time.perf_counter() - t_start
+        burst_batches = server.batches_dispatched
+        spans = {k: {"s": v[0], "calls": v[1]}
+                 for k, v in timers.stats().items()}
+        single = []
+        for uri in singles:
+            t = time.perf_counter()
+            send(uri)
+            while (queue.get_result(uri) is None
+                   and time.monotonic() < deadline):
+                server.check_health()
+                time.sleep(0.0005)
+            single.append((time.perf_counter() - t) * 1e3)
+    finally:
+        server.drain(timeout_s=60)
+    return drain_s, burst_batches, spans, single
+
+
+def served_values(outq, queue, uris: list) -> np.ndarray:
+    """Every uri answered exactly once, with a value; the values."""
+    results = outq.dequeue()
+    check(sorted(results) == sorted(uris),
+          f"{len(results)} results for {len(uris)} requests")
+    check(queue.posts == {u: 1 for u in uris},
+          "a request got no terminal result or more than one")
+    errors = [u for u in uris if "error" in results[u]]
+    check(not errors, f"{len(errors)} error results, e.g. "
+          f"{results[errors[0]] if errors else None}")
+    return {u: np.asarray(results[u]["value"], np.float32) for u in uris}
+
+
+def held_to_direct(module, batches: ServedBatches, values: dict) -> float:
+    """Each dispatched batch forwarded again on the card, padded to its
+    bucket with its last row as ``InferenceModel.predict`` pads it: the
+    served values within rtol 1e-5. Returns the largest difference."""
+    from analytics_zoo_tpu_torch.inference.inference_model import _bucket
+    check(len(batches.xs) == len(batches.uris),
+          f"{len(batches.xs)} batches dispatched, {len(batches.uris)} "
+          f"written back")
+    worst = 0.0
+    for x, uris in zip(batches.xs, batches.uris):
+        n = len(uris)
+        padded = np.concatenate([x, np.repeat(x[-1:], _bucket(n) - n, 0)])
+        with torch.inference_mode():
+            direct = module(torch.from_numpy(padded).cuda()).float().cpu() \
+                .numpy()[:n]
+        served = np.stack([values[u] for u in uris])
+        np.testing.assert_allclose(served, direct, rtol=1e-5, atol=0)
+        worst = max(worst, float(np.abs(served - direct).max()))
+    return worst
+
+
+def serving_figures(server, module, x_batch: np.ndarray, n_burst: int,
+                    drain_s: float, burst_batches: int, spans: dict,
+                    single: list) -> dict:
+    """The serving line's numbers: the burst's drain rate, latencies, a
+    batch's forward on a batch already on the card by CUDA events and by
+    the profiler, a served predict (copy in, forward, copy out) by the
+    profiler with its top kernels and host operators, the busy share, and
+    the host's decode seconds a batch. Where the profiler's trace lost
+    device events its device ms are null and the ``_at_least`` figures are
+    the time the trace kept."""
+    xb = torch.from_numpy(x_batch).cuda()
+    with torch.inference_mode():
+        forward_ms = cuda_ms(lambda: module(xb), 20)
+        forward = step_profile(lambda: module(xb), 10,
+                               split=lambda name: "kept")
+    predict = step_profile(lambda: server.model.predict(x_batch), 10,
+                           top=8, split=lambda name: "kept")
+    predict_device_ms = predict["device_ms"]
+    kept_ms = predict["split_ms"].get("kept", 0.0)
+    decode = spans.get("serving.decode_batch", {"s": 0.0, "calls": 0})
+    worst = int(np.argmax(single))
+    return {"records_per_s": n_burst / drain_s, "burst_s": drain_s,
+            "burst_batches": burst_batches,
+            "batches": server.batches_dispatched,
+            "burst_latency_p50_ms": server.latency_ms(0.50),
+            "single_latency_p50_ms": sorted(single)[len(single) // 2],
+            "single_latency_max_ms": single[worst],
+            "single_latency_max_at": worst,
+            "single_latency_first_ms": single[0],
+            "forward_ms_batch": forward_ms,
+            "forward_device_ms_batch": forward["device_ms"],
+            "forward_device_ms_at_least": forward["split_ms"].get("kept"),
+            "predict_device_ms_batch": predict_device_ms,
+            "predict_device_ms_at_least": kept_ms,
+            "predict_device_launches": predict["device_launches"],
+            "predict_issued_launches": predict["issued_launches"],
+            "predict_top_kernels": predict["top_device"],
+            "predict_top_host_ops": predict["top_host"],
+            "device_busy_share": (
+                burst_batches * predict_device_ms / (drain_s * 1e3)
+                if predict_device_ms is not None else None),
+            "device_busy_share_at_least":
+                burst_batches * kept_ms / (drain_s * 1e3),
+            "decode_s_per_batch": decode["s"] / max(decode["calls"], 1),
+            "batch_bytes_to_card": int(x_batch.nbytes),
+            "spans": spans}
+
+
+def spool_record_bytes(spool_dir: str) -> float:
+    """Mean size of the request files waiting in the spool."""
+    req = os.path.join(spool_dir, "requests")
+    sizes = [os.path.getsize(os.path.join(req, f)) for f in os.listdir(req)
+             if not f.startswith(".")]
+    return sum(sizes) / max(len(sizes), 1)
+
+
+def phase_resnet50_serving(at, ek, seed: int, workdir: str) -> dict:
+    """ResNet-50 served on the card (north-star #5, ``bench_serving``):
+    ``resnet(50, 10, (224, 224, 3), preprocess="imagenet_uint8")`` with
+    seeded weights in f32, ``ClusterServing`` at batch 64 with
+    ``input_dtype: uint8``, 512 distinct seeded 224 x 224 jpgs (base64)
+    published before the server starts, then 64 of them one at a time.
+    Every request gets one value; each batch reaches the card as uint8,
+    its rows ``decode_image`` of their payloads bit for bit; the values
+    equal a direct card forward of the same batches (rtol 1e-5) and the
+    CPU's forward from the same weights (``SERVE_CPU_ATOL``, the first 64
+    records' burst and single answers); ``filter_top_n`` answers carry the
+    values' classes. No kernel of the port's own is on this path: every
+    launch count stays 0. Returns stats."""
+    import cv2
+
+    from analytics_zoo_tpu_torch.inference import InferenceModel
+    from analytics_zoo_tpu_torch.models.image import resnet
+    from analytics_zoo_tpu_torch.serving import (ClusterServing, FileQueue,
+                                                 InputQueue, OutputQueue,
+                                                 ServingConfig)
+    from analytics_zoo_tpu_torch.serving.queues import (decode_image,
+                                                        encode_image)
+
+    cfg_s = RESNET_SERVE
+    b, n, s = cfg_s["batch"], cfg_s["burst"], RESNET_SIZE
+    _reset_counts(at, ek)
+    t0 = time.perf_counter()
+    model = resnet(50, num_classes=cfg_s["classes"], input_shape=(s, s, 3),
+                   preprocess="imagenet_uint8").build(
+        torch.Generator().manual_seed(seed), device="cuda")
+    im = InferenceModel(concurrent_num=2, device="cuda").load_keras(model)
+    spool_dir = os.path.join(workdir, "resnet_spool")
+    src = "dir://" + spool_dir
+    cfg = ServingConfig(data_src=src, batch_size=b, batch_wait_ms=5,
+                        input_dtype="uint8", image_shape=(s, s, 3))
+    queue = CountingQueue(FileQueue(spool_dir))
+    server = ClusterServing(cfg, model=im, queue=queue)
+    up_s = time.perf_counter() - t0
+    batches = ServedBatches(server)
+    rs = np.random.RandomState(seed + 5)
+    jpgs = [cv2.imencode(".jpg", rs.randint(0, 256, (s, s, 3),
+                                            dtype=np.uint8))[1].tobytes()
+            for _ in range(n)]
+    payloads = {f"req-{i}": encode_image(j) for i, j in enumerate(jpgs)}
+    singles = [f"one-{j}" for j in range(cfg_s["single"])]
+    payloads.update({u: payloads[f"req-{j}"] for j, u in enumerate(singles)})
+    inq, outq = InputQueue(src), OutputQueue(src)
+    t0 = time.perf_counter()
+    for i, jpg in enumerate(jpgs):
+        inq.enqueue_image(f"req-{i}", jpg)
+    enqueue_s = time.perf_counter() - t0
+    record_bytes = spool_record_bytes(spool_dir)
+    drain_s, burst_batches, spans, single = serve_burst_then_singles(
+        server, queue,
+        lambda uri: inq.enqueue_image(uri, jpgs[int(uri[4:])]), n, singles)
+    uris = list(payloads)
+    values = served_values(outq, queue, uris)
+    check(all(v.shape == (cfg_s["classes"],) and np.isfinite(v).all()
+              for v in values.values()), "served values malformed")
+    # the wire: uint8 up to the card, each row its payload's pixels
+    for x, batch_uris in zip(batches.xs, batches.uris):
+        check(x.dtype == np.uint8 and x.shape[1:] == (s, s, 3),
+              f"a batch reached the card as {x.dtype} {x.shape}")
+        for row, uri in zip(x, batch_uris):
+            check(np.array_equal(row, decode_image(payloads[uri])),
+                  f"{uri}: served pixels differ from decode_image")
+    err_direct = held_to_direct(model, batches, values)
+    firsts = [f"req-{j}" for j in range(len(singles))]
+    pixels = np.stack([decode_image(payloads[u]) for u in firsts])
+    figures = serving_figures(server, model, pixels[:b], n, drain_s,
+                              burst_batches, spans, single)
+    # the CPU from the same weights, on the first 64 records (burst and
+    # single answers)
+    t0 = time.perf_counter()
+    cpu = resnet(50, num_classes=cfg_s["classes"], input_shape=(s, s, 3),
+                 preprocess="imagenet_uint8").build(device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()},
+                        strict=True)
+    cpu.eval()
+    with torch.inference_mode():
+        want = np.concatenate([cpu(torch.from_numpy(pixels[i:i + 16]))
+                               .numpy() for i in range(0, len(firsts), 16)])
+    cpu_s = time.perf_counter() - t0
+    err_cpu = 0.0
+    for group in (firsts, singles):
+        got = np.stack([values[u] for u in group])
+        np.testing.assert_allclose(got, want, rtol=0,
+                                   atol=SERVE_CPU_ATOL["resnet50"])
+        err_cpu = max(err_cpu, float(np.abs(got - want).max()))
+    # filter_top_n: the first batch's records again, answered as top 5
+    top_dir = os.path.join(workdir, "resnet_top")
+    top_src = "dir://" + top_dir
+    top_server = ClusterServing(ServingConfig(
+        data_src=top_src, batch_size=b, batch_wait_ms=5, input_dtype="uint8",
+        image_shape=(s, s, 3), filter_top_n=5), model=im,
+        queue=FileQueue(top_dir))
+    top_in = InputQueue(top_src)
+    for u in firsts:
+        top_in.enqueue_image(u, jpgs[int(u[4:])])
+    served = 0
+    while served < len(firsts):
+        got = top_server.serve_once()
+        check(got > 0, "the top-N server claimed nothing")
+        served += got
+    tops = OutputQueue(top_src).dequeue()
+    swapped = 0
+    for u in firsts:
+        classes = [t["class"] for t in tops[u]["topN"]]
+        v = values[u]
+        rank = list(np.argsort(-v)[:5])
+        # a swap only between probabilities equal within rtol 1e-5 (the
+        # top-N forward's batch is not the value's)
+        np.testing.assert_allclose(v[classes], v[rank], rtol=1e-5, atol=0)
+        np.testing.assert_allclose([t["prob"] for t in tops[u]["topN"]],
+                                   v[classes], rtol=1e-5, atol=0)
+        swapped += classes != rank
+    counts = {**_lm_counts(at, ek), **_launches(ek)}
+    check(not any(counts.values()), f"ResNet serving launched the port's "
+          f"kernels: {counts}")
+    return {"config": "resnet(50, num_classes=10, input_shape=(224, 224, 3)"
+                      ", preprocess='imagenet_uint8'), f32, batch 64, "
+                      "input_dtype uint8 (bench.py:1339-1392)",
+            "requests": len(uris), "burst": n, "single": len(singles),
+            "server_up_s": up_s, "enqueue_records_per_s": n / enqueue_s,
+            "record_bytes": record_bytes, **figures,
+            "max_abs_err_vs_card_forward": err_direct,
+            "max_abs_err_vs_cpu": err_cpu, "cpu_check_s": cpu_s,
+            "cpu_atol": SERVE_CPU_ATOL["resnet50"],
+            "top5_near_tie_swaps": swapped,
+            "port_kernel_launches": counts}
+
+
+def phase_bert_serving(at, ek, seed: int, workdir: str):
+    """BERT-base served on the card (north-star #5, ``bench.py``'s
+    ``_bert_serving_rate``): ``BERTClassifier(2)`` at ``BERT_CFG`` in bf16
+    with seeded weights, through ``InferenceModel.load_forward`` with
+    ``bert_serving_forward`` (the four-array input built on the card from
+    float32 token rows), ``ClusterServing`` at batch 32: a burst of 256
+    seeded padded records, then 32 of them one at a time. Every request
+    gets one value, equal to a direct card forward of the same batches
+    (rtol 1e-5) and to the CPU's bf16 forward from the same weights
+    (``SERVE_CPU_ATOL``, the first 32 records' burst and single answers);
+    a served batch launches 12 B7 on the bf16 route, 3 B1 and no B8.
+    Returns (launches, stats)."""
+    from analytics_zoo_tpu_torch.capture import (BERTClassifier,
+                                                 bert_serving_forward)
+    from analytics_zoo_tpu_torch.inference import InferenceModel
+    from analytics_zoo_tpu_torch.serving import (ClusterServing, FileQueue,
+                                                 InputQueue, OutputQueue,
+                                                 ServingConfig)
+
+    cfg_s = BERT_SERVE
+    b, n, seq = cfg_s["batch"], cfg_s["burst"], cfg_s["seq"]
+    bert_cfg = dict(BERT_CFG, compute_dtype="bfloat16")
+    blocks = bert_cfg["n_block"]
+    t0 = time.perf_counter()
+    clf = BERTClassifier(2, bert_config=bert_cfg).build(
+        seq, torch.Generator().manual_seed(seed), device="cuda")
+    params = {k: v.detach().cpu() for k, v in clf.model.state_dict().items()}
+    im = InferenceModel(concurrent_num=2, device="cuda").load_forward(
+        bert_serving_forward(clf.model), params)
+    spool_dir = os.path.join(workdir, "bert_spool")
+    src = "dir://" + spool_dir
+    cfg = ServingConfig(data_src=src, batch_size=b, batch_wait_ms=5,
+                        input_dtype="float32", image_shape=(seq,))
+    queue = CountingQueue(FileQueue(spool_dir))
+    server = ClusterServing(cfg, model=im, queue=queue)
+    up_s = time.perf_counter() - t0
+    batches = ServedBatches(server)
+    tokens, _ = bert_records(seed + 6, n, seq)
+    rows = tokens.astype(np.float32)  # exact: every id is below 2^24
+    singles = [f"one-{j}" for j in range(cfg_s["single"])]
+    inq, outq = InputQueue(src), OutputQueue(src)
+    t0 = time.perf_counter()
+    for i, row in enumerate(rows):
+        inq.enqueue_tensor(f"req-{i}", row)
+    enqueue_s = time.perf_counter() - t0
+    record_bytes = spool_record_bytes(spool_dir)
+    _reset_counts(at, ek)
+    drain_s, burst_batches, spans, single = serve_burst_then_singles(
+        server, queue, lambda uri: inq.enqueue_tensor(uri, rows[int(
+            uri[4:])]), n, singles)
+    launches = {**at.launch_counts, "routes": dict(at.route_counts),
+                "gather_rows": ek.launch_counts["gather_rows"]}
+    k = server.batches_dispatched
+    want_launches = {"fused_short_fwd": blocks * k, "fused_short_bwd": 0,
+                     "routes": {"bf16_tc": blocks * k, "f32_tc": 0},
+                     "gather_rows": 3 * k}
+    check(launches == want_launches, f"{k} served batches launched "
+          f"{launches}, expected {want_launches}")
+    uris = [f"req-{i}" for i in range(n)] + singles
+    values = served_values(outq, queue, uris)
+    check(all(v.shape == (2,) and np.isfinite(v).all()
+              for v in values.values()), "served values malformed")
+    check(all(x.dtype == np.float32 for x in batches.xs),
+          "a token batch reached the card as another dtype than float32")
+    err_direct = held_to_direct(im._module, batches, values)
+    figures = serving_figures(server, im._module, rows[:b], n, drain_s,
+                              burst_batches, spans, single)
+    t0 = time.perf_counter()
+    cpu_clf = BERTClassifier(2, bert_config=bert_cfg).build(seq,
+                                                            device="cpu")
+    want = InferenceModel(device="cpu").load_forward(
+        bert_serving_forward(cpu_clf.model), params).predict(
+        rows[:len(singles)])
+    cpu_s = time.perf_counter() - t0
+    err_cpu = 0.0
+    for group in ([f"req-{j}" for j in range(len(singles))], singles):
+        got = np.stack([values[u] for u in group])
+        np.testing.assert_allclose(got, want, rtol=0,
+                                   atol=SERVE_CPU_ATOL["bert"])
+        err_cpu = max(err_cpu, float(np.abs(got - want).max()))
+    stats = {"config": "BERTClassifier(2), vocab 30522, hidden 768, 12 "
+                       "blocks, 12 heads, intermediate 3072, bf16, batch "
+                       "32, seq 128 (bench.py:1268-1336)",
+             "requests": len(uris), "burst": n, "single": len(singles),
+             "server_up_s": up_s, "enqueue_records_per_s": n / enqueue_s,
+             "record_bytes": record_bytes, **figures,
+             "launches": launches, "launches_per_batch": {
+                 "fused_short_fwd": launches["fused_short_fwd"] / k,
+                 "gather_rows": launches["gather_rows"] / k},
+             "max_abs_err_vs_card_forward": err_direct,
+             "max_abs_err_vs_cpu": err_cpu, "cpu_check_s": cpu_s,
+             "cpu_atol": SERVE_CPU_ATOL["bert"]}
+    return launches, stats
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -4144,6 +4556,18 @@ def main() -> int:
         shutil.rmtree(workdir, ignore_errors=True)
     for part, part_stats in resnet_stats.items():
         log(f"resnet50 {part} " + json.dumps(part_stats) + f" | {smi}")
+    # -- 17. ResNet-50 and BERT-base served (north-star #5) -------------------
+    torch.cuda.empty_cache()
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_", dir=build)
+    try:
+        resnet_serving = timed("resnet50_serving", phase_resnet50_serving,
+                               at, ek, args.seed, workdir)
+        log("resnet50_serving " + json.dumps(resnet_serving) + f" | {smi}")
+        bert_serving_launches, bert_serving = timed(
+            "bert_serving", phase_bert_serving, at, ek, args.seed, workdir)
+        log("bert_serving " + json.dumps(bert_serving) + f" | {smi}")
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
     log("phases, s: " + json.dumps(phase_s))
 
     # -- 8. the kernels line, 9. the result line ------------------------------
@@ -4160,6 +4584,7 @@ def main() -> int:
                          for r in shard_ranks for job in ("correct", "full")),
                      "bert": sum(c["gather_rows"]
                                  for c in bert_launches.values()),
+                     "bert_serving": bert_serving_launches["gather_rows"],
                      **{k: c["gather_rows"] for k, c in lm_paths.items()}}
     entry = {
         "name": "gather_rows", "route": "cuda",
@@ -4293,8 +4718,10 @@ def main() -> int:
                                  "scaled_dot_product_attention, forward and "
                                  "backward (it has no backward alone)"))):
         by_path = {k: c[name] for k, c in bert_launches.items()}
+        by_path["bert_serving"] = bert_serving_launches[name]
         by_path.update({k: c[name] for k, c in lm_paths.items()})
         by_path["bert_vs_cpu"] = bert_cpu["launches"][name]
+        bf16_paths = set(bert_launches) | {"bert_serving"}
         # the BERT fine-tune is bf16, the others f32 (both checked)
         routes = {"bf16_tc": {
             "source": attn_sources["bf16_tc"],
@@ -4308,7 +4735,7 @@ def main() -> int:
             "max_abs_err": main_t[f"{key}_max_abs_err"],
             "max_rel_err_grid": attn["errors"][f"{key}_bf16"],
             "launches_by_path": {k: v for k, v in by_path.items()
-                                 if k in bert_launches}}}
+                                 if k in bf16_paths}}}
         # the f32 route at each timed shape, the LM's prefill first; its
         # bound at the 3xTF32 rate, and at the CUDA cores' f32 rate beside
         def f32_at(label, key=key, library=library):
@@ -4333,7 +4760,7 @@ def main() -> int:
             "other_shapes": {label: f32_at(label)
                              for label, *_ in ATTN_F32_TIMED[1:]},
             "launches_by_path": {k: v for k, v in by_path.items()
-                                 if k not in bert_launches}}
+                                 if k not in bf16_paths}}
         # the top-level numbers are the main path's: BERT's bf16 route
         attn_entries.append({
             "name": name, "route": "cuda",

@@ -63,7 +63,14 @@ def test_port_and_chip_smoke_import_no_jax():
             os.path.join(PKG, "ops", "int8_dataflow.py"),
             os.path.join(PKG, "inference", "quantize.py"),
             os.path.join(PKG, "parallel", "mesh.py"),
-            os.path.join(PKG, "parallel", "embedding.py")} <= set(sources)
+            os.path.join(PKG, "parallel", "embedding.py"),
+            os.path.join(PKG, "serving", "queues.py"),
+            os.path.join(PKG, "feature", "preprocessing.py"),
+            os.path.join(PKG, "feature", "image", "__init__.py"),
+            os.path.join(PKG, "feature", "image", "transforms.py"),
+            os.path.join(PKG, "feature", "image", "spec.py"),
+            os.path.join(PKG, "feature", "image", "image_set.py")} <= set(
+                sources)
     bad = {os.path.relpath(p, REPO): m for p in sources
            for m in _imports(p) if _forbidden(m)}
     assert bad == {}
@@ -772,6 +779,50 @@ def test_a_bert_step_launches_each_attention_kernel_once_per_block(
     at.reset_launch_counts()
     assert clf.predict(tok, batch_size=32).shape == (64, 2)
     assert at.launch_counts == {"fused_short_fwd": 4, "fused_short_bwd": 0}
+
+
+@pytest.mark.cuda
+def test_a_served_bert_batch_launches_b7_per_block_and_three_b1(
+        cuda_device, tmp_path):
+    """BERT (2 blocks, bf16) served from float32 token rows through
+    ``load_forward``: a batch at [4, 2, 128, 64] launches one B7 a block on
+    the bf16 route, three row gathers and no B8, and its answers are a
+    direct forward's."""
+    from analytics_zoo_tpu_torch.capture import (BERTClassifier,
+                                                 bert_input_pack,
+                                                 bert_serving_forward)
+    from analytics_zoo_tpu_torch.ops import attention as at
+    from analytics_zoo_tpu_torch.serving import InputQueue, OutputQueue
+    cfg = dict(vocab=100, hidden_size=128, n_block=2, n_head=2,
+               intermediate_size=256, max_position_len=128,
+               compute_dtype="bfloat16")
+    clf = BERTClassifier(2, bert_config=cfg).build(128, device=cuda_device)
+    params = {k: v.detach().clone() for k, v in
+              clf.model.state_dict().items()}
+    im = InferenceModel(device=cuda_device).load_forward(
+        bert_serving_forward(clf.model), params)
+    src = f"dir://{tmp_path}"
+    server = ClusterServing(ServingConfig(data_src=src, image_shape=(128,),
+                                          batch_size=4, batch_wait_ms=5),
+                            model=im)
+    rng = np.random.default_rng(0)
+    tok = rng.integers(1, 100, (4, 128))
+    tok[1, 70:] = 0
+    inq = InputQueue(src)
+    for i, row in enumerate(tok.astype(np.float32)):
+        inq.enqueue_tensor(f"t{i}", row)
+    at.reset_launch_counts()
+    ek.reset_launch_counts()
+    assert server.serve_once() == 4
+    assert at.launch_counts == {"fused_short_fwd": 2, "fused_short_bwd": 0}
+    assert at.route_counts == {"bf16_tc": 2, "f32_tc": 0}
+    assert ek.launch_counts["gather_rows"] == 3
+    res = OutputQueue(src).dequeue()
+    served = np.array([res[f"t{i}"]["value"] for i in range(4)], np.float32)
+    with torch.inference_mode():
+        direct = clf.model([torch.from_numpy(a).to(cuda_device) for a in
+                            bert_input_pack(tok)]).float().cpu().numpy()
+    np.testing.assert_allclose(served, direct, rtol=1e-5, atol=0)
 
 
 @pytest.mark.cuda

@@ -63,7 +63,7 @@ from analytics_zoo_tpu_torch.keras import Input, Model, optimizers
 from analytics_zoo_tpu_torch.keras import layers
 from analytics_zoo_tpu_torch.models import ZooModel
 from analytics_zoo_tpu_torch.models.image import imageclassification as pic
-from analytics_zoo_tpu_torch.nnframes import NNClassifier, NNImageReader
+from analytics_zoo_tpu_torch.nnframes import NNClassifier
 from analytics_zoo_tpu_torch.parallel.mesh import (DATA_AXIS, Mesh,
                                                    set_default_mesh)
 
@@ -525,10 +525,6 @@ def test_parts_not_ported_raise_naming_their_roadmap_item():
     ic = pic.ImageClassifier("resnet18", 2, (SIZE, SIZE, 3))
     pm = _small_convnet(layers, Input, Model)
     cases = [
-        (lambda: ic.predict_image_set(None), "item 2"),
-        (ic.preprocessing, "item 2"),
-        (ic.preprocessing_spec, "item 2"),
-        (lambda: NNImageReader.read_images("."), "item 2"),
         (lambda: pic.resnet(18, 2, dataflow="int8"), "item 3"),
         (lambda: pic.resnet(18, 2, int8_training=True), "item 3"),
         (lambda: NNClassifier(pm, device="cpu").set_tensorboard("d", "a"),
