@@ -16,7 +16,12 @@ and ``moving_var``. In the port those are buffers of the same names, so
 **from_jax_params(state)}`` loads strictly into the port's model (a
 convolution kernel keeps the JAX package's HWIO layout; the layer permutes
 it in its forward). ``Estimator.set_model_state`` takes the state tree
-alone.
+alone. The int8-dataflow backbone's trees nest one level deeper, and
+cross the same way: ``int8_backbone.<conv>.kernel`` (``.gamma``,
+``.beta``) from its params, ``int8_backbone.in_amax``,
+``int8_backbone.<conv>.mid_amax`` (``.out_amax``, ``.running_mean``,
+``.running_var``) and ``int8_backbone.<block>_add.out_amax`` from its
+state, the buffers of ``Int8DataflowBackbone``.
 
 A tree from the JAX package's ``quantize_params`` crosses too: an int8
 leaf ``{"q", "scale"[, "act_scale"]}`` flattens to ``<layer>.<param>.q``,

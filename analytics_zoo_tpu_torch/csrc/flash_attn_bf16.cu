@@ -8,7 +8,7 @@
 // `_flash_bwd_dq_kernel` and `_flash_bwd_dkv_kernel` (pallas_calls in
 // `_flash_bwd_pallas`) and `_flash_bwd_fused_kernel` (pallas_call in
 // `_flash_bwd_fused`). The contract is flash_attn_tf32.cu's: q [bh, sq,
-// d], k and v [bh, skv, d] bf16 (contiguous, d <= 128, any lengths, sq and
+// d], k and v [bh, skv, d] bf16 (contiguous, d <= 256, any lengths, sq and
 // skv apart), an optional per-key bias key_bias [bh / heads, skv] f32 in
 // natural-log units (B4), an optional causal mask aligned top-left (key
 // col visible to query row iff col <= row). Scores, softmax and sums in
@@ -93,6 +93,17 @@
 // 128 at d 64 1.91 against 1.71. No atomics: dq, dk and dv of B5a + B5b
 // are bit-equal from run to run.
 //
+// Heads wider than 128 (up to 256, one instance of each kernel at 16
+// chunks of 16 columns): one block an SM with up to 255 registers a
+// thread, since B4's and B5a's output accumulators alone are 128 floats a
+// thread. B4 keeps its tiles (198.5 KiB of shared memory), B5a its 32-key
+// tiles (198 KiB), B6 and B5b hold 64 keys a block (eight warps; 150.75
+// and 216.75 KiB, B5b with its two Q and dO buffers), and B6's dq step
+// forms its 128 columns in two groups of 64 one after the other,
+// re-reading ds from shared memory, so that its accumulators stay at 32
+// floats beside dk's and dv's 128. Registers and spills: chip_smoke.py's
+// build line.
+//
 // Ragged shapes: rows and keys past the lengths load as zeros (cp.async's
 // zero fill) and are neither stored nor weighed; d is zero-padded in shared
 // memory to a multiple of 16. 16-byte copies where d % 8 == 0 and every
@@ -122,7 +133,7 @@
 namespace {
 
 constexpr int kPad = 8;        // bf16 of padding at the end of a smem row
-constexpr int kMaxD = 128;
+constexpr int kMaxD = 256;
 constexpr int kKeyTile = 64;   // keys a staged K or V tile holds
 constexpr int kFwdRows = 128;  // B4's query rows a block
 constexpr int kFwdThreads = 256;
@@ -132,10 +143,11 @@ constexpr int kDqKeysWide = 32;    // keys a staged K or V tile of B5a
 constexpr int kDqKeysNarrow = 64;  // holds, at d > 64 and at d <= 64
 constexpr int kDqPass = 64;  // the most keys whose scores a B5a warp holds
 constexpr int kBwdKeys = 64;   // B6's keys a block
-constexpr int kDkvKeysWide = 128;   // B5b's keys a block at d > 64
-constexpr int kDkvKeysNarrow = 64;  // and at d <= 64
+constexpr int kDkvKeysWide = 128;   // B5b's keys a block at 64 < d <= 128
+constexpr int kDkvKeysNarrow = 64;  // and at d <= 64 and d > 128
 constexpr int kDkvStages = 2;  // B5b's buffers of Q and dO tiles
 constexpr int kBwdRows = 64;   // B5b's and B6's query rows a step
+constexpr int kDqChunks = 4;   // B6's 16-column chunks of dq formed at once
 constexpr float kNegInf = -1e30f;  // a masked score, as the TPU kernels
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
@@ -166,9 +178,16 @@ __host__ __device__ constexpr int bwd_threads(int keys) {
   return 32 * 2 * keys / 16;
 }
 
-// B5b's keys a block at 16 * kD columns
+// B5b's keys a block at 16 * kD columns: at 16 chunks, 128 keys (512
+// threads, at most 128 registers a thread) could not hold dk and dv
 __host__ __device__ constexpr int dkv_keys(int kD) {
-  return kD > 4 ? kDkvKeysWide : kDkvKeysNarrow;
+  return kD > 4 && kD <= 8 ? kDkvKeysWide : kDkvKeysNarrow;
+}
+
+// blocks an SM the launch bounds ask for: one (255 registers a thread)
+// for heads past 128, whose accumulators need them
+__host__ __device__ constexpr int wide_or(int kD, int blocks) {
+  return kD > 8 ? 1 : blocks;
 }
 
 // 2^x by the special-function unit (ex2.approx: relative error below
@@ -191,7 +210,7 @@ __device__ __forceinline__ void stage_bias(float* bst,
 }
 
 template <int kD>
-__global__ void __launch_bounds__(kFwdThreads, 2)
+__global__ void __launch_bounds__(kFwdThreads, wide_or(kD, 2))
 flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                       const bf16* __restrict__ v,
                       const float* __restrict__ key_bias,
@@ -506,8 +525,9 @@ __device__ __forceinline__ void store_rows(bf16* __restrict__ out,
 // kDkvStages buffers of Q and dO, the next tile's filled during steps (1)
 // and (2).
 template <int kD, int kKeys, bool kDq>
-__global__ void __launch_bounds__(bwd_threads(kKeys),
-                                  512 / bwd_threads(kKeys))  // 128 registers
+__global__ void __launch_bounds__(
+    bwd_threads(kKeys),
+    wide_or(kD, 512 / bwd_threads(kKeys)))  // 128 registers; 255 past d 128
 flash_bwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                       const bf16* __restrict__ v,
                       const bf16* __restrict__ dout,
@@ -657,22 +677,28 @@ flash_bwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     if constexpr (kDq) {
       // (3) dq += ds K for queries [16 qr, + 16), column group cg; ds
       // (queries x keys) read transposed from ds^T
-      const int qr = warp % 4, cq = warp / 4 * kDg;
-      const int kdq = min(kDg, kd - cq);
-      if (kdq > 0) {
-        float acc_q[2 * kDg][4] = {};
-        const bf16* da = dsts + ((lane / 16) * 8 + lane % 8) * ldp +
-                         qr * 16 + ((lane / 8) % 2) * 8;
+      // in groups of at most kDqChunks (two groups at d > 128)
+      constexpr int kDs = kDg < kDqChunks ? kDg : kDqChunks;
+      const int qr = warp % 4;
+      const bf16* da = dsts + ((lane / 16) * 8 + lane % 8) * ldp + qr * 16 +
+                       ((lane / 8) % 2) * 8;
 #pragma unroll
-        for (int kc = 0; kc < kKeys / 16; ++kc) {
-          if (k0 + kc * 16 < skv) {
-            uint32_t af[4];
-            ldsm_x4_t(af, da + kc * 16 * ldp);
-            mma_ax<kDg>(acc_q, af, ks + kc * 16 * ld + cq * 16, ld, kdq);
+      for (int sub = 0; sub < kDg / kDs; ++sub) {
+        const int cq = warp / 4 * kDg + sub * kDs;
+        const int kdq = min(kDs, kd - cq);
+        if (kdq > 0) {
+          float acc_q[2 * kDs][4] = {};
+#pragma unroll
+          for (int kc = 0; kc < kKeys / 16; ++kc) {
+            if (k0 + kc * 16 < skv) {
+              uint32_t af[4];
+              ldsm_x4_t(af, da + kc * 16 * ldp);
+              mma_ax<kDs>(acc_q, af, ks + kc * 16 * ld + cq * 16, ld, kdq);
+            }
           }
+          add_dq<2 * kDs>(dq_acc + bh * sq * d, acc_q, q0 + qr * 16, cq * 16,
+                          sq, d, scale);
         }
-        add_dq<2 * kDg>(dq_acc + bh * sq * d, acc_q, q0 + qr * 16, cq * 16,
-                        sq, d, scale);
       }
     }
   }
@@ -798,8 +824,11 @@ int azt_flash_fwd_bf16(const void* q, const void* k, const void* v,
   if (d <= 64)
     return launch_fwd<4>(q, k, v, key_bias, o, lse, bh, heads, sq, skv, d,
                          scale_log2e, causal, st);
-  return launch_fwd<8>(q, k, v, key_bias, o, lse, bh, heads, sq, skv, d,
-                       scale_log2e, causal, st);
+  if (d <= 128)
+    return launch_fwd<8>(q, k, v, key_bias, o, lse, bh, heads, sq, skv, d,
+                         scale_log2e, causal, st);
+  return launch_fwd<16>(q, k, v, key_bias, o, lse, bh, heads, sq, skv, d,
+                        scale_log2e, causal, st);
 }
 
 // B6, bf16 route, on `stream`: dk, dv [bh, skv, d] bf16, and dq added into
@@ -822,9 +851,13 @@ int azt_flash_bwd_fused_bf16(const void* q, const void* k, const void* v,
     return launch_bwd<4, kBwdKeys, true>(q, k, v, dout, lse, delta, glse,
                                          dq_acc, dk, dv, bh, sq, skv, d,
                                          scale_log2e, scale, causal, st);
-  return launch_bwd<8, kBwdKeys, true>(q, k, v, dout, lse, delta, glse,
-                                       dq_acc, dk, dv, bh, sq, skv, d,
-                                       scale_log2e, scale, causal, st);
+  if (d <= 128)
+    return launch_bwd<8, kBwdKeys, true>(q, k, v, dout, lse, delta, glse,
+                                         dq_acc, dk, dv, bh, sq, skv, d,
+                                         scale_log2e, scale, causal, st);
+  return launch_bwd<16, kBwdKeys, true>(q, k, v, dout, lse, delta, glse,
+                                        dq_acc, dk, dv, bh, sq, skv, d,
+                                        scale_log2e, scale, causal, st);
 }
 
 // B5a, bf16 route, on `stream`: dq [bh, sq, d] bf16. lse, delta, glse:
@@ -844,8 +877,11 @@ int azt_flash_bwd_dq_bf16(const void* q, const void* k, const void* v,
   if (d <= 64)
     return launch_dq<4>(q, k, v, dout, lse, delta, glse, dq, bh, sq, skv, d,
                         scale_log2e, scale, causal, st);
-  return launch_dq<8>(q, k, v, dout, lse, delta, glse, dq, bh, sq, skv, d,
-                      scale_log2e, scale, causal, st);
+  if (d <= 128)
+    return launch_dq<8>(q, k, v, dout, lse, delta, glse, dq, bh, sq, skv, d,
+                        scale_log2e, scale, causal, st);
+  return launch_dq<16>(q, k, v, dout, lse, delta, glse, dq, bh, sq, skv, d,
+                       scale_log2e, scale, causal, st);
 }
 
 // B5b, bf16 route, on `stream`: dk, dv [bh, skv, d] bf16.
@@ -866,7 +902,11 @@ int azt_flash_bwd_dkv_bf16(const void* q, const void* k, const void* v,
     return launch_bwd<4, dkv_keys(4), false>(
         q, k, v, dout, lse, delta, glse, nullptr, dk, dv, bh, sq, skv, d,
         scale_log2e, scale, causal, st);
-  return launch_bwd<8, dkv_keys(8), false>(
+  if (d <= 128)
+    return launch_bwd<8, dkv_keys(8), false>(
+        q, k, v, dout, lse, delta, glse, nullptr, dk, dv, bh, sq, skv, d,
+        scale_log2e, scale, causal, st);
+  return launch_bwd<16, dkv_keys(16), false>(
       q, k, v, dout, lse, delta, glse, nullptr, dk, dv, bh, sq, skv, d,
       scale_log2e, scale, causal, st);
 }

@@ -8,7 +8,7 @@
 //   B5b `_flash_bwd_dkv_kernel`    (:428, pallas_call in `_flash_bwd_pallas`)
 //   B6  `_flash_bwd_fused_kernel`  (:483, pallas_call in `_flash_bwd_fused`)
 //
-// q [bh, sq, d], k and v [bh, skv, d] (f32, contiguous, d <= 128, any
+// q [bh, sq, d], k and v [bh, skv, d] (f32, contiguous, d <= 256, any
 // lengths, sq and skv apart), an optional per-key bias key_bias [bh /
 // heads, skv] f32 in natural-log units (B4 only), and an optional causal
 // mask aligned top-left (key col visible to query row iff col <= row,
@@ -79,6 +79,14 @@
 // another order: the two passes' p differ by rounding, within the route's
 // 2e-5 of the output's scale.
 //
+// Past d 128 (one instance of each kernel at 32 chunks of 8 columns, rows
+// of 1040 bytes): B4 and B5a keep their design (130 and 195 KiB of shared
+// memory, one block an SM, 128 output accumulators a thread); B5b and B6
+// walk the queries twice, once for each 128-wide half of dk's and dv's
+// columns, S^T and dP^T computed again over all of d each time (dk and dv
+// whole would be 256 accumulators a thread), and B6's dq step adds the
+// same half of dq's columns in each walk (204 KiB).
+//
 // The running sums over the walk (B4's o, B5a's dq, B5b's and B6's dk and
 // dv) and dP take each 8-step's three products summed from zero, then one
 // rounded f32 add (mma3_add). On the H100, summed straight into the
@@ -124,7 +132,9 @@
 
 namespace {
 
-constexpr int kMaxD = 128;
+constexpr int kMaxD = 256;
+// 8-column chunks of dk and dv one walk of B5b and B6 holds
+constexpr int kOutChunks = 16;
 constexpr float kNegInf = -1e30f;  // a masked score, as the TPU kernels
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
@@ -412,16 +422,17 @@ flash_bwd_dq_tf32_kernel(const float* __restrict__ q,
 // ds[r][key] k[key][c], for the tile's kTile queries r (those below sq)
 // and this warp's quarter of the columns: ds read transposed from dst
 // ([kRows keys][kLdS]) in the permuted order, k the resident K ([kRows]
-// [ld]); float4 atomics where d is a multiple of 4, else scalar ones
+// [ld]); float4 atomics where d is a multiple of 4, else scalar ones. Of
+// the kD chunks of 8 columns from chunk0, each warp takes a quarter.
 template <int kD>
 __device__ __forceinline__ void add_dq_share(float* __restrict__ dq_acc,
                                              const float* dst,
                                              const float* ks, int ld,
                                              int nk, int qf, int sq, int d,
-                                             float scale) {
+                                             float scale, int chunk0) {
   constexpr int kQ = kD / 4;  // 8-column chunks a warp
   const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
-  const int c0 = threadIdx.x / 32 * kQ;  // the warp's first chunk
+  const int c0 = chunk0 + threadIdx.x / 32 * kQ;  // the warp's first chunk
   const int kd = (d + 7) / 8;
   if (c0 >= kd) return;
   float acc[2][kQ][4] = {};  // two 16-query halves of the tile
@@ -511,6 +522,9 @@ flash_bwd_tf32_kernel(const float* __restrict__ q,
                       float scale_log2e, float scale, int causal, int vec) {
   constexpr int ld = 8 * kD + 4;
   constexpr int kN = kTile / 8;  // 8-query steps of a tile
+  // dk's and dv's columns a walk holds: all of d up to 128, else a half
+  constexpr int kDo = kD < kOutChunks ? kD : kOutChunks;
+  constexpr int kPasses = kD / kDo;
   extern __shared__ __align__(16) float smem[];
   float* ks = smem;                              // [kRows][ld]
   float* vs = ks + kRows * ld;                   // [kRows][ld]
@@ -559,100 +573,107 @@ flash_bwd_tf32_kernel(const float* __restrict__ q,
   const int first_key = key0 + rg * 16;
   const float* kw = ks + rg * 16 * ld;
   const float* vw = vs + rg * 16 * ld;
-  float acc_k[kD][4] = {}, acc_v[kD][4] = {};
 
-  for (int qt = first; qt < n_tiles; ++qt) {
-    cp_wait<0>();
-    __syncthreads();
-    const float* qst = qds;
-    const float* dost = qds + kTile * ld;
-    const float* rst = rs;  // the tile's rows' statistics
-    const int qf = qt * kTile;  // the tile's first query, below sq
+  for (int pass = 0; pass < kPasses; ++pass) {
+    const int c0 = pass * kDo;  // the walk's first chunk of dk and dv
+    // the last walk's tiles are consumed: the first query tile again
+    if (pass > 0 && first < n_tiles) load_qdo(first);
+    float acc_k[kDo][4] = {}, acc_v[kDo][4] = {};
 
-    // a warp whose keys all lie past the tile's queries sees none of them
-    if (!(causal && qf + kTile - 1 < first_key)) {
-      float sT[kN][4] = {}, dpT[kN][4] = {};  // S^T, dP^T: keys x queries
-      // unrolled twice, not in full: B6 0.3-2% and B5b 1-2% faster on the
-      // H100 (the file's header)
+    for (int qt = first; qt < n_tiles; ++qt) {
+      cp_wait<0>();
+      __syncthreads();
+      const float* qst = qds;
+      const float* dost = qds + kTile * ld;
+      const float* rst = rs;  // the tile's rows' statistics
+      const int qf = qt * kTile;  // the tile's first query, below sq
+
+      // a warp whose keys all lie past the tile's queries sees none of them
+      if (!(causal && qf + kTile - 1 < first_key)) {
+        float sT[kN][4] = {}, dpT[kN][4] = {};  // S^T, dP^T: keys x queries
+        // unrolled twice, not in full: B6 0.3-2% and B5b 1-2% faster on the
+        // H100 (the file's header)
 #pragma unroll 2
-      for (int kc = 0; kc < kD; ++kc) {
-        if (kc < kd) {
-          FragA a, av;
-          load_a(a, kw, ld, kc);
-          load_a(av, vw, ld, kc);
+        for (int kc = 0; kc < kD; ++kc) {
+          if (kc < kd) {
+            FragA a, av;
+            load_a(a, kw, ld, kc);
+            load_a(av, vw, ld, kc);
 #pragma unroll
-          for (int n = 0; n < kN; ++n) {
-            FragB b;
-            load_bt(b, qst + n * 8 * ld, ld, kc);
-            mma3(sT[n], a, b);
-            load_bt(b, dost + n * 8 * ld, ld, kc);
-            mma3_add(dpT[n], av, b);
+            for (int n = 0; n < kN; ++n) {
+              FragB b;
+              load_bt(b, qst + n * 8 * ld, ld, kc);
+              mma3(sT[n], a, b);
+              load_bt(b, dost + n * 8 * ld, ld, kc);
+              mma3_add(dpT[n], av, b);
+            }
           }
         }
-      }
-#pragma unroll
-      for (int n = 0; n < kN; ++n)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int r = n * 8 + 2 * t + e, query = qf + r;
-          const float lse2 = rst[r], dl = rst[kTile + r],
-                      gl = rst[2 * kTile + r];
-#pragma unroll
-          for (int i = 0; i < 2; ++i) {
-            const int idx = 2 * i + e;
-            float x = __fmul_rn(sT[n][idx], scale_log2e);
-            if (causal && keys[i] > query) x = kNegInf;
-            // keys past skv weigh exactly 0: B6 reads their ds
-            const float p = keys[i] < skv ? exp2f(x - lse2) : 0.0f;
-            sT[n][idx] = p;
-            dpT[n][idx] =
-                __fmul_rn(p, __fadd_rn(__fsub_rn(dpT[n][idx], dl), gl));
-          }
-        }
-      if constexpr (kDq) {
-        // ds^T (this warp's 16 keys x the tile's queries) for the dq step
 #pragma unroll
         for (int n = 0; n < kN; ++n)
 #pragma unroll
-          for (int i = 0; i < 2; ++i)
-            *reinterpret_cast<float2*>(
-                dst + (rg * 16 + g + 8 * i) * kLdS + n * 8 + 2 * t) =
-                make_float2(dpT[n][2 * i], dpT[n][2 * i + 1]);
-      }
+          for (int e = 0; e < 2; ++e) {
+            const int r = n * 8 + 2 * t + e, query = qf + r;
+            const float lse2 = rst[r], dl = rst[kTile + r],
+                        gl = rst[2 * kTile + r];
 #pragma unroll
-      for (int n = 0; n < kN; ++n) {
-        if (qf + n * 8 < sq) {
-          FragA a, ads;
-          c_to_a(a, sT[n]);
-          c_to_a(ads, dpT[n]);
+            for (int i = 0; i < 2; ++i) {
+              const int idx = 2 * i + e;
+              float x = __fmul_rn(sT[n][idx], scale_log2e);
+              if (causal && keys[i] > query) x = kNegInf;
+              // keys past skv weigh exactly 0: B6 reads their ds
+              const float p = keys[i] < skv ? exp2f(x - lse2) : 0.0f;
+              sT[n][idx] = p;
+              dpT[n][idx] =
+                  __fmul_rn(p, __fadd_rn(__fsub_rn(dpT[n][idx], dl), gl));
+            }
+          }
+        if constexpr (kDq) {
+          // ds^T (this warp's 16 keys x the tile's queries) for the dq step
 #pragma unroll
-          for (int j = 0; j < kD; ++j) {
-            if (j < kd) {
-              FragB b;
-              load_b(b, dost + n * 8 * ld, ld, j);
-              mma3_add(acc_v[j], a, b);
-              load_b(b, qst + n * 8 * ld, ld, j);
-              mma3_add(acc_k[j], ads, b);
+          for (int n = 0; n < kN; ++n)
+#pragma unroll
+            for (int i = 0; i < 2; ++i)
+              *reinterpret_cast<float2*>(
+                  dst + (rg * 16 + g + 8 * i) * kLdS + n * 8 + 2 * t) =
+                  make_float2(dpT[n][2 * i], dpT[n][2 * i + 1]);
+        }
+#pragma unroll
+        for (int n = 0; n < kN; ++n) {
+          if (qf + n * 8 < sq) {
+            FragA a, ads;
+            c_to_a(a, sT[n]);
+            c_to_a(ads, dpT[n]);
+#pragma unroll
+            for (int j = 0; j < kDo; ++j) {
+              if (c0 + j < kd) {
+                FragB b;
+                load_b(b, dost + n * 8 * ld, ld, c0 + j);
+                mma3_add(acc_v[j], a, b);
+                load_b(b, qst + n * 8 * ld, ld, c0 + j);
+                mma3_add(acc_k[j], ads, b);
+              }
             }
           }
         }
       }
+      // Q and dO are consumed (and B6's ds^T written) before they are
+      // refilled; the copy overlaps B6's dq step
+      __syncthreads();
+      if (qt + 1 < n_tiles) load_qdo(qt + 1);
+      if constexpr (kDq) {
+        // the keys that reach the tile's queries: below skv, and under the
+        // causal mask at or before its last query (a multiple of 8 past
+        // key0, so a skipped warp's stale rows are never read)
+        int nk = min(kRows, skv - key0);
+        if (causal) nk = min(nk, qf + kTile - key0);
+        add_dq_share<kDo>(dq_acc + qbase, dst, ks, ld, nk, qf, sq, d, scale,
+                          c0);
+      }
     }
-    // Q and dO are consumed (and B6's ds^T written) before they are
-    // refilled; the copy overlaps B6's dq step
-    __syncthreads();
-    if (qt + 1 < n_tiles) load_qdo(qt + 1);
-    if constexpr (kDq) {
-      // the keys that reach the tile's queries: below skv, and under the
-      // causal mask at or before its last query (a multiple of 8 past
-      // key0, so a skipped warp's stale rows are never read)
-      int nk = min(kRows, skv - key0);
-      if (causal) nk = min(nk, qf + kTile - key0);
-      add_dq_share<kD>(dq_acc + qbase, dst, ks, ld, nk, qf, sq, d, scale);
-    }
+    store_acc<kDo>(dk + kbase, acc_k, scale, key0 + rg * 16, skv, d, 8 * c0);
+    store_acc<kDo>(dv + kbase, acc_v, 1.0f, key0 + rg * 16, skv, d, 8 * c0);
   }
-  store_acc<kD>(dk + kbase, acc_k, scale, key0 + rg * 16, skv, d);
-  store_acc<kD>(dv + kbase, acc_v, 1.0f, key0 + rg * 16, skv, d);
 }
 
 // -- launches --------------------------------------------------------------
@@ -736,12 +757,13 @@ struct Dkv : Bwd<kD, false> {};
 template <int kD>
 struct Fused : Bwd<kD, true> {};
 
-// F<kD>::run(args...) at head width d, kD its chunks of 8 (4, 8 or 16)
+// F<kD>::run(args...) at head width d, kD its chunks of 8 (4, 8, 16 or 32)
 template <template <int> class F, typename... Args>
 int by_width(int d, Args... args) {
   if (d <= 32) return F<4>::run(args...);
   if (d <= 64) return F<8>::run(args...);
-  return F<16>::run(args...);
+  if (d <= 128) return F<16>::run(args...);
+  return F<32>::run(args...);
 }
 
 bool bad_shape(long long bh, int sq, int skv, int d) {

@@ -6,7 +6,7 @@
 // Replaces the TPU kernels `_fused_short_fwd_kernel` (:716) and
 // `_fused_short_bwd_kernel` (:761) of analytics_zoo_tpu/ops/attention.py
 // (pallas_call sites :870, :877). For q, k, v [bh, s, d] (f32, contiguous,
-// s <= 512, d <= 128), an optional per-key bias key_bias [bh / heads, s]
+// s <= 512, d <= 256), an optional per-key bias key_bias [bh / heads, s]
 // f32 in natural-log units, and an optional causal mask, both compute
 // exact softmax attention:
 //
@@ -52,14 +52,17 @@
 //     mask, ds = p * (dP - D), dq += ds.K; dq *= scale.
 //   dk/dv pass, a block per (bh, 64 keys): per query tile S^T = K.Q^T and
 //     p^T, dP^T = V.dO^T, dv += pd^T.dO, dk += ds^T.Q; dk *= scale. Under
-//     the causal mask it starts at the tile of its first key.
+//     the causal mask it starts at the tile of its first key. Past d 128
+//     it walks the queries twice, once for each 128-wide half of dk's and
+//     dv's columns (S^T and dP^T again over all of d): both whole would be
+//     256 accumulators a thread.
 // S^T on the tensor cores is not S bit for bit: the two passes' p differ
 // by rounding, within the route's 2e-5 of the output's scale.
 //
 // Ragged shapes: rows and keys past s load as zeros (cp.async's zero
 // fill) and are neither stored nor counted; d is zero-padded in shared
 // memory to a multiple of 8, and the register tiles are sized for d <= 32,
-// 64 or 128. 16-byte copies where d % 4 == 0 and q, k, v, dO are 16-byte
+// 64, 128 or 256. 16-byte copies where d % 4 == 0 and q, k, v, dO are 16-byte
 // aligned, else element by element.
 //
 // Bound (H100 SXM data sheet, not measurements): at the LM's prefill (bh
@@ -75,8 +78,10 @@
 // warp (two; four) a row group at d 128: the forward holds Q, a K and a V
 // tile and the bias, 70 KiB (103; 170); the dq pass Q, dO, K, V, the bias
 // and D, 101 KiB (137); the dk/dv pass K, V, Q, dO and every query's
-// statistics, 107 KiB (141). At d 64 about half. Registers: `nvcc -Xptxas
-// -v` (PERF.md).
+// statistics, 107 KiB (141). At d 64 about half. At d 256 the rows are
+// 1040 bytes, so B7 takes at most two warps a row group (197 KiB) and B8
+// one (195 and 201 KiB at s 512). Registers: `nvcc -Xptxas -v`
+// (chip_smoke.py's build line, PERF.md).
 //
 // The TPU kernel ran one program per bh (or a few) holding the whole
 // [s, s] block in VMEM and emitted dq, dk and dv from one backward
@@ -97,7 +102,9 @@ namespace {
 // walked tiles of kSplit * kPart rows), with one buffer of walked tiles
 // refilled after each tile (two buffers fit half the blocks an SM at d 128:
 // 22-33% slower at s 512, 2-3% faster elsewhere).
-constexpr int kMaxD = 128;
+constexpr int kMaxD = 256;
+// 8-column chunks of dk and dv one walk of the dk/dv pass holds
+constexpr int kOutChunks = 16;
 constexpr int kMaxSeq = 512;
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
@@ -121,6 +128,19 @@ __device__ __forceinline__ const float* stage_bias(
   for (int c = threadIdx.x; c < s; c += blockDim.x)
     bs[c] = __fmul_rn(key_bias[b * s + c], kLog2e);
   return bs;
+}
+
+// dP (dP^T) += a . b over one 8-column step of d: past d 128 in two
+// levels (mma3_add), since a reduction over 256 columns straight into dP
+// drifts past the route's 2e-5 where ds = p (dP - D) cancels (one key:
+// 2.9e-5 of scale on the H100); at the narrower widths as before
+template <int kD>
+__device__ __forceinline__ void dp_add(float (&c)[4], const FragA& a,
+                                       const FragB& b) {
+  if constexpr (kD > 16)
+    mma3_add(c, a, b);
+  else
+    mma3(c, a, b);
 }
 
 // the key tiles the forward and the dq pass walk: all of them, or under the
@@ -432,7 +452,7 @@ fused_short_bwd_dq_kernel(const float* __restrict__ q,
             load_bt(b, kst + n * 8 * ld, ld, kc);
             mma3(sc[n], a, b);
             load_bt(b, vst + n * 8 * ld, ld, kc);
-            mma3(dp[n], ad, b);
+            dp_add<kD>(dp[n], ad, b);
           }
         }
       }
@@ -495,6 +515,9 @@ fused_short_bwd_dkv_kernel(const float* __restrict__ q,
   constexpr int ld = 8 * kD + 4;
   constexpr int kN = kPart / 8;
   constexpr int kTile = kSplit * kPart, kThreads = kSplit * 128;
+  // dk's and dv's columns a walk holds: all of d up to 128, else a half
+  constexpr int kDo = kD < kOutChunks ? kD : kOutChunks;
+  constexpr int kPasses = kD / kDo;
   extern __shared__ __align__(16) float smem[];
   float* ks = smem;               // [kRows][ld]
   float* vs = ks + kRows * ld;    // [kRows][ld]
@@ -541,88 +564,95 @@ fused_short_bwd_dkv_kernel(const float* __restrict__ q,
   const uint32_t bh_key = mix(seed_u, (uint32_t)bh);  // row_key = mix(., row)
   const float* kw = ks + rg * 16 * ld;
   const float* vw = vs + rg * 16 * ld;
-  float acc_k[kD][4] = {}, acc_v[kD][4] = {};
 
-  for (int qt = first; qt < n_tiles; ++qt) {
-    cp_wait<0>();
-    __syncthreads();
-    const float* qst = qs + h * kPart * ld;
-    const float* dost = dos + h * kPart * ld;
-    const int qf = qt * kTile + h * kPart;  // the warp's first query
-
-    // a warp whose keys all lie past its queries sees none of them
-    if (qf < s && !(causal && qf + kPart - 1 < first_key)) {
-      float st[kN][4] = {}, dpt[kN][4] = {};  // S^T, dP^T: keys x queries
-#pragma unroll
-      for (int kc = 0; kc < kD; ++kc) {
-        if (kc < kd) {
-          FragA a, av;
-          load_a(a, kw, ld, kc);
-          load_a(av, vw, ld, kc);
-#pragma unroll
-          for (int n = 0; n < kN; ++n) {
-            FragB b;
-            load_bt(b, qst + n * 8 * ld, ld, kc);
-            mma3(st[n], a, b);
-            load_bt(b, dost + n * 8 * ld, ld, kc);
-            mma3(dpt[n], av, b);
-          }
-        }
-      }
-#pragma unroll
-      for (int n = 0; n < kN; ++n)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int query = qf + n * 8 + 2 * t + e;
-          const float mq = mst[query], ilq = ilst[query], dd = dst[query];
-          const uint32_t qkey = mix(bh_key, (uint32_t)query);
-#pragma unroll
-          for (int i = 0; i < 2; ++i) {
-            const int idx = 2 * i + e;
-            float x = __fmul_rn(st[n][idx], scale_log2e);
-            if (key_bias != nullptr) x = __fadd_rn(x, kb[i]);
-            if (causal && keys[i] > query) x = kNegInf;
-            const float p = exp2f(x - mq) * ilq;
-            float pd = p, dpv = dpt[n][idx];
-            if (seed != nullptr) {
-              const bool keep = kept(qkey, (uint32_t)keys[i], thresh);
-              pd = keep ? __fmul_rn(p, inv_keep) : 0.0f;
-              dpv = keep ? __fmul_rn(dpv, inv_keep) : 0.0f;
-            }
-            st[n][idx] = pd;
-            dpt[n][idx] = __fmul_rn(p, __fsub_rn(dpv, dd));  // ds
-          }
-        }
-#pragma unroll
-      for (int n = 0; n < kN; ++n) {
-        if (qf + n * 8 < s) {
-          FragA a, ads;
-          c_to_a(a, st[n]);
-          c_to_a(ads, dpt[n]);
-#pragma unroll
-          for (int j = 0; j < kD; ++j) {
-            if (j < kd) {
-              FragB b;
-              load_b(b, dost + n * 8 * ld, ld, j);
-              mma3(acc_v[j], a, b);
-              load_b(b, qst + n * 8 * ld, ld, j);
-              mma3(acc_k[j], ads, b);
-            }
-          }
-        }
-      }
-    }
-    __syncthreads();  // the tile is consumed before it is refilled
-    if (qt + 1 < n_tiles)
-      load_walked<kD, kSplit>(qs, dos, q + base, dout + base, ld, qt + 1, s,
+  for (int pass = 0; pass < kPasses; ++pass) {
+    const int c0 = pass * kDo;  // the pass's first chunk of dk and dv
+    if (pass > 0)  // the last walk's tiles are consumed (and merged)
+      load_walked<kD, kSplit>(qs, dos, q + base, dout + base, ld, first, s,
                               d, vec);
-  }
-  // dk through the consumed Q tile, dv through the dO tile
-  const bool holds_sum = merge_into_first<kD, kSplit>(qs, acc_k, h);
-  merge_into_first<kD, kSplit>(dos, acc_v, h);
-  if (holds_sum) {
-    store_acc<kD>(dk + base, acc_k, scale, key0 + rg * 16, s, d);
-    store_acc<kD>(dv + base, acc_v, 1.0f, key0 + rg * 16, s, d);
+    float acc_k[kDo][4] = {}, acc_v[kDo][4] = {};
+
+    for (int qt = first; qt < n_tiles; ++qt) {
+      cp_wait<0>();
+      __syncthreads();
+      const float* qst = qs + h * kPart * ld;
+      const float* dost = dos + h * kPart * ld;
+      const int qf = qt * kTile + h * kPart;  // the warp's first query
+
+      // a warp whose keys all lie past its queries sees none of them
+      if (qf < s && !(causal && qf + kPart - 1 < first_key)) {
+        float st[kN][4] = {}, dpt[kN][4] = {};  // S^T, dP^T: keys x queries
+#pragma unroll
+        for (int kc = 0; kc < kD; ++kc) {
+          if (kc < kd) {
+            FragA a, av;
+            load_a(a, kw, ld, kc);
+            load_a(av, vw, ld, kc);
+#pragma unroll
+            for (int n = 0; n < kN; ++n) {
+              FragB b;
+              load_bt(b, qst + n * 8 * ld, ld, kc);
+              mma3(st[n], a, b);
+              load_bt(b, dost + n * 8 * ld, ld, kc);
+              dp_add<kD>(dpt[n], av, b);
+            }
+          }
+        }
+#pragma unroll
+        for (int n = 0; n < kN; ++n)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int query = qf + n * 8 + 2 * t + e;
+            const float mq = mst[query], ilq = ilst[query], dd = dst[query];
+            const uint32_t qkey = mix(bh_key, (uint32_t)query);
+#pragma unroll
+            for (int i = 0; i < 2; ++i) {
+              const int idx = 2 * i + e;
+              float x = __fmul_rn(st[n][idx], scale_log2e);
+              if (key_bias != nullptr) x = __fadd_rn(x, kb[i]);
+              if (causal && keys[i] > query) x = kNegInf;
+              const float p = exp2f(x - mq) * ilq;
+              float pd = p, dpv = dpt[n][idx];
+              if (seed != nullptr) {
+                const bool keep = kept(qkey, (uint32_t)keys[i], thresh);
+                pd = keep ? __fmul_rn(p, inv_keep) : 0.0f;
+                dpv = keep ? __fmul_rn(dpv, inv_keep) : 0.0f;
+              }
+              st[n][idx] = pd;
+              dpt[n][idx] = __fmul_rn(p, __fsub_rn(dpv, dd));  // ds
+            }
+          }
+#pragma unroll
+        for (int n = 0; n < kN; ++n) {
+          if (qf + n * 8 < s) {
+            FragA a, ads;
+            c_to_a(a, st[n]);
+            c_to_a(ads, dpt[n]);
+#pragma unroll
+            for (int j = 0; j < kDo; ++j) {
+              if (c0 + j < kd) {
+                FragB b;
+                load_b(b, dost + n * 8 * ld, ld, c0 + j);
+                mma3(acc_v[j], a, b);
+                load_b(b, qst + n * 8 * ld, ld, c0 + j);
+                mma3(acc_k[j], ads, b);
+              }
+            }
+          }
+        }
+      }
+      __syncthreads();  // the tile is consumed before it is refilled
+      if (qt + 1 < n_tiles)
+        load_walked<kD, kSplit>(qs, dos, q + base, dout + base, ld, qt + 1, s,
+                                d, vec);
+    }
+    // dk through the consumed Q tile, dv through the dO tile
+    const bool holds_sum = merge_into_first<kDo, kSplit>(qs, acc_k, h);
+    merge_into_first<kDo, kSplit>(dos, acc_v, h);
+    if (holds_sum) {
+      store_acc<kDo>(dk + base, acc_k, scale, key0 + rg * 16, s, d, 8 * c0);
+      store_acc<kDo>(dv + base, acc_v, 1.0f, key0 + rg * 16, s, d, 8 * c0);
+    }
   }
 }
 

@@ -6,7 +6,7 @@
 //
 // Replaces the TPU kernels `_fused_short_fwd_kernel` (:716) and
 // `_fused_short_bwd_kernel` (:761) of analytics_zoo_tpu/ops/attention.py.
-// For q, k, v [bh, s, d] bf16 (contiguous, s <= 512, d <= 128), an
+// For q, k, v [bh, s, d] bf16 (contiguous, s <= 512, d <= 256), an
 // optional per-key bias key_bias [bh / heads, s] f32 in natural-log units,
 // an optional causal mask and dropout, it computes what the f32 route does:
 //
@@ -46,13 +46,16 @@
 //     it left dq 0.03 off.
 //   dk/dv pass, one block per (bh, 64 keys): per query tile, S^T = K.Q^T
 //     and p^T, dP^T = V.dO^T, dv += bf16(pd)^T.dO, dk += bf16(ds)^T.Q;
-//     dk *= scale.
+//     dk *= scale. Past d 128 a warp's dk and dv would hold 256 floats a
+//     thread, so the pass walks the queries twice, once for each 128-wide
+//     half of the columns (S^T and dP^T computed again over all of d), and
+//     stores each half from registers.
 //
 // Ragged shapes: rows and keys past s load as zeros (cp.async's zero
 // fill) and are neither stored nor counted; d is zero-padded in shared
 // memory to a multiple of 16, and the register tiles are sized for d <= 32,
-// 64 or 128. 16-byte copies where d % 8 == 0 and every pointer is 16-byte
-// aligned, else element by element.
+// 64, 128 or 256. 16-byte copies where d % 8 == 0 and every pointer is
+// 16-byte aligned, else element by element.
 //
 // Bound at BERT-base's shape (bh 1536, s 128, d 64, bf16): bytes. B7 reads
 // q, k, v and the bias and writes o, 100.7 MB: 0.0301 ms at 3.35 TB/s,
@@ -68,8 +71,9 @@
 // and s 128 (4 blocks an SM) and 86 KiB at d 128 (2); the dq pass Q, dO
 // and two stages of K and V (6 tiles) and the bias, 55 KiB at d 64; the
 // dk/dv pass K, V and two stages of Q and dO and the rows' statistics, 56
-// KiB at d 64 and 104 KiB at d 128. Registers: `nvcc -Xptxas -v`
-// (PERF.md).
+// KiB at d 64 and 104 KiB at d 128. At d 256 (one block an SM): 167, 200
+// and 204 KiB at s 512. Registers: `nvcc -Xptxas -v` (chip_smoke.py's
+// build line, PERF.md).
 //
 // The TPU kernel ran one program per bh (or a few) holding the whole
 // [s, s] block in VMEM and emitted dq, dk and dv from one backward
@@ -91,10 +95,11 @@ namespace {
 
 constexpr int kThreads = 128;  // four warps
 constexpr int kTile = 64;      // a block's rows (keys), a staged tile's rows
-constexpr int kMaxD = 128;
+constexpr int kMaxD = 256;
 constexpr int kMaxSeq = 512;
 constexpr int kPad = 8;        // bf16 of padding at the end of a smem row
 constexpr int kQChunk = 32;    // queries per step of the dk/dv pass
+constexpr int kOutChunks = 8;  // 16-column chunks of dk and dv a dk/dv walk
 // the backward passes' blocks an SM for heads up to 64 wide (kD <= 4): 4
 // caps them at 128 registers, for a few bytes of spill, where they would
 // take 150-170 and fit 3 (8-11% faster at BERT-base's shape); at 128 wide
@@ -128,12 +133,13 @@ __device__ __forceinline__ const float* stage_bias(
 
 template <int kD>
 __global__ void __launch_bounds__(kThreads)
-fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-           const bf16* __restrict__ v, const float* __restrict__ key_bias,
-           const int32_t* __restrict__ seed, bf16* __restrict__ o,
-           float* __restrict__ stats, long long bh_total, int heads, int s,
-           int d, int row_tiles, float scale_log2e, uint32_t thresh,
-           float inv_keep, int causal, int vec) {
+fused_short_fwd_bf16_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, const float* __restrict__ key_bias,
+    const int32_t* __restrict__ seed, bf16* __restrict__ o,
+    float* __restrict__ stats, long long bh_total, int heads, int s, int d,
+    int row_tiles, float scale_log2e, uint32_t thresh, float inv_keep,
+    int causal, int vec) {
   constexpr int ld = 16 * kD + kPad;
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* qs = reinterpret_cast<bf16*>(smem);  // [kTile][ld]
@@ -255,14 +261,14 @@ fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 template <int kD>
 __global__ void __launch_bounds__(kThreads, bwd_min_blocks<kD>())
-bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-              const bf16* __restrict__ v, const bf16* __restrict__ dout,
-              const float* __restrict__ key_bias,
-              const int32_t* __restrict__ seed,
-              const float* __restrict__ stats, float* __restrict__ delta,
-              bf16* __restrict__ dq, long long bh_total, int heads, int s,
-              int d, int row_tiles, float scale_log2e, float scale,
-              uint32_t thresh, float inv_keep, int causal, int vec) {
+fused_short_bwd_dq_bf16_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+    const float* __restrict__ key_bias, const int32_t* __restrict__ seed,
+    const float* __restrict__ stats, float* __restrict__ delta,
+    bf16* __restrict__ dq, long long bh_total, int heads, int s, int d,
+    int row_tiles, float scale_log2e, float scale, uint32_t thresh,
+    float inv_keep, int causal, int vec) {
   constexpr int ld = 16 * kD + kPad;
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* qs = reinterpret_cast<bf16*>(smem);  // [kTile][ld]
@@ -366,16 +372,19 @@ bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 template <int kD>
 __global__ void __launch_bounds__(kThreads, bwd_min_blocks<kD>())
-bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-               const bf16* __restrict__ v, const bf16* __restrict__ dout,
-               const float* __restrict__ key_bias,
-               const int32_t* __restrict__ seed,
-               const float* __restrict__ stats,
-               const float* __restrict__ delta, bf16* __restrict__ dk,
-               bf16* __restrict__ dv, long long bh_total, int heads, int s,
-               int d, int key_tiles, float scale_log2e, float scale,
-               uint32_t thresh, float inv_keep, int causal, int vec) {
+fused_short_bwd_dkv_bf16_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+    const float* __restrict__ key_bias, const int32_t* __restrict__ seed,
+    const float* __restrict__ stats, const float* __restrict__ delta,
+    bf16* __restrict__ dk, bf16* __restrict__ dv, long long bh_total,
+    int heads, int s, int d, int key_tiles, float scale_log2e, float scale,
+    uint32_t thresh, float inv_keep, int causal, int vec) {
   constexpr int ld = 16 * kD + kPad;
+  // the columns of dk and dv one walk over the queries holds: all of d up
+  // to 128, else a half, each with its own walk
+  constexpr int kDo = kD < kOutChunks ? kD : kOutChunks;
+  constexpr int kPasses = kD / kDo;
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* ks = reinterpret_cast<bf16*>(smem);  // [kTile][ld]
   bf16* vs = ks + kTile * ld;                 // [kTile][ld]
@@ -416,71 +425,87 @@ bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         kb[i] = __fmul_rn(key_bias[(bh / heads) * s + keys[i]], kLog2e);
   const uint32_t seed_u = seed != nullptr ? (uint32_t)(*seed) : 0u;
   const uint32_t bh_key = mix(seed_u, (uint32_t)bh);  // row_key = mix(., row)
-  float acc_k[2 * kD][4] = {}, acc_v[2 * kD][4] = {};
 
-  for (int qt = 0; qt < n_tiles; ++qt) {
-    const int stage = qt & 1;
-    if (qt + 1 < n_tiles) {
-      load_tile<kTile, kThreads>(qs + (stage ^ 1) * kTile * ld, ld, q + base,
-                                 (qt + 1) * kTile, s, d, vec);
-      load_tile<kTile, kThreads>(dos + (stage ^ 1) * kTile * ld, ld,
-                                 dout + base, (qt + 1) * kTile, s, d, vec);
+  for (int pass = 0; pass < kPasses; ++pass) {
+    const int c0 = pass * kDo, kdo = min(kDo, kd - c0);  // the pass's chunks
+    if (pass > 0) {  // the last walk's tiles are consumed: Q and dO tile 0
+      load_tile<kTile, kThreads>(qs, ld, q + base, 0, s, d, vec);
+      load_tile<kTile, kThreads>(dos, ld, dout + base, 0, s, d, vec);
       cp_commit();
-      cp_wait<1>();
-    } else {
-      cp_wait<0>();
     }
-    __syncthreads();
+    float acc_k[2 * kDo][4] = {}, acc_v[2 * kDo][4] = {};
+
+    for (int qt = 0; qt < n_tiles; ++qt) {
+      const int stage = qt & 1;
+      if (qt + 1 < n_tiles) {
+        load_tile<kTile, kThreads>(qs + (stage ^ 1) * kTile * ld, ld,
+                                   q + base, (qt + 1) * kTile, s, d, vec);
+        load_tile<kTile, kThreads>(dos + (stage ^ 1) * kTile * ld, ld,
+                                   dout + base, (qt + 1) * kTile, s, d, vec);
+        cp_commit();
+        cp_wait<1>();
+      } else {
+        cp_wait<0>();
+      }
+      __syncthreads();
 #pragma unroll
-    for (int h = 0; h < kTile / kQChunk; ++h) {
-      const int qf = qt * kTile + h * kQChunk;  // the chunk's first query
-      if (qf >= s) break;
-      const bf16* qst = qs + (stage * kTile + h * kQChunk) * ld;
-      const bf16* dost = dos + (stage * kTile + h * kQChunk) * ld;
-      float st[4][4] = {}, dpt[4][4] = {};  // S^T, dP^T: keys x queries
-      mma_abt<4, kD>(st, ks + warp * 16 * ld, qst, ld, kd);
-      mma_abt<4, kD>(dpt, vs + warp * 16 * ld, dost, ld, kd);
+      for (int h = 0; h < kTile / kQChunk; ++h) {
+        const int qf = qt * kTile + h * kQChunk;  // the chunk's first query
+        if (qf >= s) break;
+        const bf16* qst = qs + (stage * kTile + h * kQChunk) * ld;
+        const bf16* dost = dos + (stage * kTile + h * kQChunk) * ld;
+        float st[4][4] = {}, dpt[4][4] = {};  // S^T, dP^T: keys x queries
+        mma_abt<4, kD>(st, ks + warp * 16 * ld, qst, ld, kd);
+        mma_abt<4, kD>(dpt, vs + warp * 16 * ld, dost, ld, kd);
 #pragma unroll
-      for (int n = 0; n < 4; ++n)
+        for (int n = 0; n < 4; ++n)
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int query = qf + n * 8 + 2 * t + e;
-          const float mq = mst[query], ilq = ilst[query], dd = dst[query];
-          const uint32_t qkey = mix(bh_key, (uint32_t)query);
+          for (int e = 0; e < 2; ++e) {
+            const int query = qf + n * 8 + 2 * t + e;
+            const float mq = mst[query], ilq = ilst[query], dd = dst[query];
+            const uint32_t qkey = mix(bh_key, (uint32_t)query);
 #pragma unroll
-          for (int i = 0; i < 2; ++i) {
-            const int idx = 2 * i + e;
-            float x = __fmul_rn(st[n][idx], scale_log2e);
-            if (key_bias != nullptr) x = __fadd_rn(x, kb[i]);
-            if (causal && keys[i] > query) x = kNegInf;
-            const float p = exp2f(x - mq) * ilq;
-            float pd = p, dpv = dpt[n][idx];
-            if (seed != nullptr) {
-              const bool keep = kept(qkey, (uint32_t)keys[i], thresh);
-              pd = keep ? __fmul_rn(p, inv_keep) : 0.0f;
-              dpv = keep ? __fmul_rn(dpv, inv_keep) : 0.0f;
+            for (int i = 0; i < 2; ++i) {
+              const int idx = 2 * i + e;
+              float x = __fmul_rn(st[n][idx], scale_log2e);
+              if (key_bias != nullptr) x = __fadd_rn(x, kb[i]);
+              if (causal && keys[i] > query) x = kNegInf;
+              const float p = exp2f(x - mq) * ilq;
+              float pd = p, dpv = dpt[n][idx];
+              if (seed != nullptr) {
+                const bool keep = kept(qkey, (uint32_t)keys[i], thresh);
+                pd = keep ? __fmul_rn(p, inv_keep) : 0.0f;
+                dpv = keep ? __fmul_rn(dpv, inv_keep) : 0.0f;
+              }
+              st[n][idx] = pd;
+              dpt[n][idx] = __fmul_rn(p, __fsub_rn(dpv, dd));  // ds
             }
-            st[n][idx] = pd;
-            dpt[n][idx] = __fmul_rn(p, __fsub_rn(dpv, dd));  // ds
+          }
+#pragma unroll
+        for (int j = 0; j < kQChunk / 16; ++j) {
+          if (qf + j * 16 < s) {
+            uint32_t af[4];
+            to_a<4>(af, st, j);
+            mma_ax<kDo>(acc_v, af, dost + j * 16 * ld + c0 * 16, ld, kdo);
+            to_a<4>(af, dpt, j);
+            mma_ax<kDo>(acc_k, af, qst + j * 16 * ld + c0 * 16, ld, kdo);
           }
         }
-#pragma unroll
-      for (int j = 0; j < kQChunk / 16; ++j) {
-        if (qf + j * 16 < s) {
-          uint32_t af[4];
-          to_a<4>(af, st, j);
-          mma_ax<kD>(acc_v, af, dost + j * 16 * ld, ld, kd);
-          to_a<4>(af, dpt, j);
-          mma_ax<kD>(acc_k, af, qst + j * 16 * ld, ld, kd);
-        }
       }
+      __syncthreads();
     }
-    __syncthreads();
+    if constexpr (kPasses == 1) {
+      stage_acc<kD>(ks, ld, acc_k, scale);  // the warp's own K and V rows
+      stage_acc<kD>(vs, ld, acc_v, 1.0f);
+      store_warp_rows(dk + base, ks, ld, key0, s, d, vec);
+      store_warp_rows(dv + base, vs, ld, key0, s, d, vec);
+    } else {  // K and V are read by the next walk: store from registers
+      store_frag<2 * kDo>(dk + base, acc_k, key0 + warp * 16, c0 * 16, s, d,
+                          scale);
+      store_frag<2 * kDo>(dv + base, acc_v, key0 + warp * 16, c0 * 16, s, d,
+                          1.0f);
+    }
   }
-  stage_acc<kD>(ks, ld, acc_k, scale);  // the warp's own K and V rows
-  stage_acc<kD>(vs, ld, acc_v, 1.0f);
-  store_warp_rows(dk + base, ks, ld, key0, s, d, vec);
-  store_warp_rows(dv + base, vs, ld, key0, s, d, vec);
 }
 
 // -- launches --------------------------------------------------------------
@@ -513,9 +538,10 @@ int launch_fwd(const void* q, const void* k, const void* v,
   const long long blocks = bh * row_tiles;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   const int vec = d % 8 == 0 && aligned16({q, k, v, o});
-  cudaError_t err = allow_smem(fwd_kernel<kD>, smem);
+  cudaError_t err = allow_smem(fused_short_fwd_bf16_kernel<kD>, smem);
   if (err != cudaSuccess) return (int)err;
-  fwd_kernel<kD><<<(unsigned)blocks, kThreads, smem, stream>>>(
+  fused_short_fwd_bf16_kernel<kD>
+      <<<(unsigned)blocks, kThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const float*>(key_bias),
       static_cast<const int32_t*>(seed), static_cast<bf16*>(o),
@@ -538,9 +564,9 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* dout,
   const long long blocks = bh * tiles;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   const int vec = d % 8 == 0 && aligned16({q, k, v, dout, dq, dk, dv});
-  cudaError_t err = allow_smem(bwd_dq_kernel<kD>, smem_dq);
+  cudaError_t err = allow_smem(fused_short_bwd_dq_bf16_kernel<kD>, smem_dq);
   if (err != cudaSuccess) return (int)err;
-  err = allow_smem(bwd_dkv_kernel<kD>, smem_dkv);
+  err = allow_smem(fused_short_bwd_dkv_bf16_kernel<kD>, smem_dkv);
   if (err != cudaSuccess) return (int)err;
   const bf16* qt = static_cast<const bf16*>(q);
   const bf16* kt = static_cast<const bf16*>(k);
@@ -550,12 +576,14 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* dout,
   const int32_t* sd = static_cast<const int32_t*>(seed);
   const float* st = static_cast<const float*>(stats);
   float* dl = static_cast<float*>(delta);
-  bwd_dq_kernel<kD><<<(unsigned)blocks, kThreads, smem_dq, stream>>>(
+  fused_short_bwd_dq_bf16_kernel<kD>
+      <<<(unsigned)blocks, kThreads, smem_dq, stream>>>(
       qt, kt, vt, dot_, kb, sd, st, dl, static_cast<bf16*>(dq), bh, heads, s,
       d, tiles, scale_log2e, scale, thresh, inv_keep, causal, vec);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  bwd_dkv_kernel<kD><<<(unsigned)blocks, kThreads, smem_dkv, stream>>>(
+  fused_short_bwd_dkv_bf16_kernel<kD>
+      <<<(unsigned)blocks, kThreads, smem_dkv, stream>>>(
       qt, kt, vt, dot_, kb, sd, st, dl, static_cast<bf16*>(dk),
       static_cast<bf16*>(dv), bh, heads, s, d, tiles, scale_log2e, scale,
       thresh, inv_keep, causal, vec);
@@ -590,8 +618,11 @@ int azt_fused_short_fwd_bf16(const void* q, const void* k, const void* v,
   if (d <= 64)
     return launch_fwd<4>(q, k, v, key_bias, seed, o, stats, bh, heads, s, d,
                          scale_log2e, thresh, inv_keep, causal, st);
-  return launch_fwd<8>(q, k, v, key_bias, seed, o, stats, bh, heads, s, d,
-                       scale_log2e, thresh, inv_keep, causal, st);
+  if (d <= 128)
+    return launch_fwd<8>(q, k, v, key_bias, seed, o, stats, bh, heads, s, d,
+                         scale_log2e, thresh, inv_keep, causal, st);
+  return launch_fwd<16>(q, k, v, key_bias, seed, o, stats, bh, heads, s, d,
+                        scale_log2e, thresh, inv_keep, causal, st);
 }
 
 // B8, bf16 route, on `stream`: the dq pass, then the dk/dv pass; returns
@@ -618,9 +649,13 @@ int azt_fused_short_bwd_bf16(const void* q, const void* k, const void* v,
     return launch_bwd<4>(q, k, v, dout, key_bias, seed, stats, delta, dq, dk,
                          dv, bh, heads, s, d, scale_log2e, scale, thresh,
                          inv_keep, causal, st);
-  return launch_bwd<8>(q, k, v, dout, key_bias, seed, stats, delta, dq, dk,
-                       dv, bh, heads, s, d, scale_log2e, scale, thresh,
-                       inv_keep, causal, st);
+  if (d <= 128)
+    return launch_bwd<8>(q, k, v, dout, key_bias, seed, stats, delta, dq, dk,
+                         dv, bh, heads, s, d, scale_log2e, scale, thresh,
+                         inv_keep, causal, st);
+  return launch_bwd<16>(q, k, v, dout, key_bias, seed, stats, delta, dq, dk,
+                        dv, bh, heads, s, d, scale_log2e, scale, thresh,
+                        inv_keep, causal, st);
 }
 
 }  // extern "C"

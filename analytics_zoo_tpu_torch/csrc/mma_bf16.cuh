@@ -84,16 +84,16 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // zero for rows past s; columns [d, 16 * ceil(d / 16)) are zero too: the
 // element path writes them, the 16-byte path leaves the zeros
 // zero_pad_cols wrote at the start. kThreads threads share the copy; on
-// the 16-byte path thread x copies 8 columns from 8 * (x % 16) (so d <=
-// 128) of rows x / 16, + kThreads / 16, ...: no division by d in the loop.
+// the 16-byte path thread x copies 8 columns from 8 * (x % 16) (and from
+// 128 more, where d > 128) of rows x / 16, + kThreads / 16, ...: no
+// division by d in the loop.
 template <int kRows, int kThreads>
 __device__ __forceinline__ void load_tile(bf16* dst, int ld,
                                           const bf16* __restrict__ src,
                                           int row0, int s, int d, bool vec) {
   static_assert(kThreads % 16 == 0, "16 threads a row");
   if (vec) {
-    const int c = (threadIdx.x % 16) * 8;
-    if (c < d) {
+    for (int c = (threadIdx.x % 16) * 8; c < d; c += 128) {
       for (int r = threadIdx.x / 16; r < kRows; r += kThreads / 16) {
         const int g = row0 + r;
         cp_async16(dst + r * ld + c, src + (long long)min(g, s - 1) * d + c,
@@ -164,6 +164,31 @@ __device__ __forceinline__ void stage_acc(bf16* xs, int ld,
         pack_bf16(__fmul_rn(acc[n][2], mul), __fmul_rn(acc[n][3], mul));
   }
   __syncwarp();
+}
+
+// acc (the warp's 16 rows x 8 * kN columns from col0, fragments) times
+// `mul`, as bf16 to out's rows row0 + r below s, columns below d, straight
+// from registers: for the wide heads' passes, whose halves of the columns
+// cannot be staged over tiles still in use
+template <int kN>
+__device__ __forceinline__ void store_frag(bf16* __restrict__ out,
+                                           const float (&acc)[kN][4],
+                                           int row0, int col0, int s, int d,
+                                           float mul) {
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + g + 8 * i;
+    if (row >= s) continue;
+    bf16* o = out + (long long)row * d;
+#pragma unroll
+    for (int n = 0; n < kN; ++n) {
+      const int c = col0 + 8 * n + 2 * t;
+      if (c < d) o[c] = __float2bfloat16(__fmul_rn(acc[n][2 * i], mul));
+      if (c + 1 < d)
+        o[c + 1] = __float2bfloat16(__fmul_rn(acc[n][2 * i + 1], mul));
+    }
+  }
 }
 
 // c[n] += A . B^T for the warp's 16 rows of `a` (row stride ld) against

@@ -186,13 +186,13 @@ __device__ __forceinline__ void zero_pad_cols_f32(float* tiles, int rows,
   }
 }
 
-// acc (16 rows x 8 kD columns, fragments) times `mul` to out's rows row0 +
-// r below s, columns below d
+// acc (16 rows x 8 kD columns from col0, fragments) times `mul` to out's
+// rows row0 + r below s, columns below d
 template <int kD>
 __device__ __forceinline__ void store_acc(float* __restrict__ out,
                                           const float (&acc)[kD][4],
-                                          float mul, int row0, int s,
-                                          int d) {
+                                          float mul, int row0, int s, int d,
+                                          int col0 = 0) {
   const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
@@ -201,7 +201,7 @@ __device__ __forceinline__ void store_acc(float* __restrict__ out,
     float* o = out + (long long)row * d;
 #pragma unroll
     for (int n = 0; n < kD; ++n) {
-      const int c = 8 * n + 2 * t;
+      const int c = col0 + 8 * n + 2 * t;
       if (c < d) o[c] = __fmul_rn(acc[n][2 * i], mul);
       if (c + 1 < d) o[c + 1] = __fmul_rn(acc[n][2 * i + 1], mul);
     }
@@ -293,23 +293,28 @@ inline int split_for(long long blocks, int most) {
   return blocks < 8LL * sms ? 2 : 1;
 }
 
-// F's launch at head width kD (4, 8 or 16 chunks of 8) for the split
+// F's launch at head width kD (4, 8, 16 or 32 chunks of 8) for the split
 // split_for picks, up to kMost
 template <template <int, int> class F, int kD, int kMost, typename... Args>
 int launch_split(int split, Args... args) {
   if constexpr (kMost >= 4)
-    if (split == 4) return F<kD, 4>::run(args...);
-  return split == 2 ? F<kD, 2>::run(args...) : F<kD, 1>::run(args...);
+    if (split >= 4) return F<kD, 4>::run(args...);
+  if constexpr (kMost >= 2)
+    if (split >= 2) return F<kD, 2>::run(args...);
+  return F<kD, 1>::run(args...);
 }
 
-// F<kD, split>::run(args...) for head width d and a grid of `blocks`
+// F<kD, split>::run(args...) for head width d and a grid of `blocks`;
+// past d 128 at most half the split, whose walked tiles would not fit in
+// shared memory beside 64 rows of 256 floats
 template <template <int, int> class F, int kMost, typename... Args>
 int dispatch(long long blocks, int d, Args... args) {
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   const int split = split_for(blocks, kMost);
   if (d <= 32) return launch_split<F, 4, kMost>(split, args...);
   if (d <= 64) return launch_split<F, 8, kMost>(split, args...);
-  return launch_split<F, 16, kMost>(split, args...);
+  if (d <= 128) return launch_split<F, 16, kMost>(split, args...);
+  return launch_split<F, 32, kMost / 2>(split, args...);
 }
 
 }  // namespace

@@ -13,10 +13,11 @@ quantize.py``), on the port's modules rather than on a parameter pytree.
   scale`` in f32 each time its code reads the attribute, as the JAX package
   dequantizes the whole tree before each forward.
 - int8, calibrated: :func:`observe_activation_scales` records each
-  ``Dense`` layer's input range over calibration batches; only those
-  layers' kernels are quantized, each carrying its f32 ``act_scale``, and
-  ``Dense`` then snaps its input to the int8 grid and multiplies int8 by
-  int8 with int32 accumulation.
+  ``Dense`` and ``Convolution2D`` layer's input range over calibration
+  batches; only those layers' kernels are quantized, each carrying its f32
+  ``act_scale``, and the layer then snaps its input to the int8 grid and
+  multiplies (or convolves) int8 by int8 with int32 accumulation
+  (:func:`qdense_apply`, :func:`qconv_apply`).
 
 A :class:`QuantizedWeight` is a submodule named as the parameter it
 replaces, so the state dict reads ``<layer>.kernel.q``,
@@ -26,8 +27,6 @@ package's ``{"q", "scale", "act_scale"}`` leaves as
 package's: scales are f32 (``max(max|t|, 1e-8) / 127``), values quantize by
 an f32 division rounded half to even, and an activation scale is rounded to
 f32 from the double it is computed in.
-
-``Convolution2D`` and ``qconv_apply`` wait for the convolution layers.
 """
 from __future__ import annotations
 
@@ -62,9 +61,10 @@ def _is_qleaf(x) -> bool:
 
 def _qleaf(t: torch.Tensor,
            act_scale: Optional[float] = None) -> QuantizedWeight:
+    from ..ops.int8_dataflow import per_127, quant_int8
     t = t.detach()
-    scale = torch.clamp(t.abs().max(), min=1e-8) / 127.0
-    q = torch.clamp(torch.round(t / scale), -127, 127).to(torch.int8)
+    scale = per_127(torch.clamp(t.abs().max(), min=1e-8))
+    q = quant_int8(t, scale)
     act = None if act_scale is None else torch.tensor(
         act_scale, dtype=torch.float32, device=t.device)
     return QuantizedWeight(q, scale.to(torch.float32), act)
@@ -86,9 +86,10 @@ def _float_params(model: nn.Module, min_dim: int = 0):
 
 def _consumes_int8(module: nn.Module, name: str) -> bool:
     """Whether ``module`` runs with its parameter ``name`` int8."""
+    from ..keras.layers.conv import Convolution2D
     from ..keras.layers.core import Dense
     from ..keras.layers.embedding import Embedding
-    return ((isinstance(module, Dense) and name == "kernel")
+    return ((isinstance(module, (Dense, Convolution2D)) and name == "kernel")
             or (type(module) is Embedding and name == "embeddings"))
 
 
@@ -133,13 +134,13 @@ def quantize_params(model: nn.Module, dtype: str = "bf16",
 
     ``bf16`` casts every float parameter. ``int8`` replaces every float
     parameter of two or more dimensions by a :class:`QuantizedWeight`
-    (biases and scalars stay f32): ``Dense`` kernels and ``Embedding``
-    tables run int8, and every other module holding one reads it
-    dequantized (:func:`_dequantize_on_read`). With ``act_scales``
-    (``{layer name: activation scale}`` from
+    (biases and scalars stay f32): ``Dense`` and ``Convolution2D`` kernels
+    and ``Embedding`` tables run int8, and every other module holding one
+    reads it dequantized (:func:`_dequantize_on_read`). With
+    ``act_scales`` (``{layer name: activation scale}`` from
     :func:`observe_activation_scales`) only the kernels of those ``Dense``
-    layers are quantized, each carrying its ``act_scale``; every other
-    parameter stays f32."""
+    and ``Convolution2D`` layers are quantized, each carrying its
+    ``act_scale``; every other parameter stays f32."""
     if dtype in ("bf16", "bfloat16"):
         for m, name, p in _float_params(model):
             m._parameters[name] = nn.Parameter(
@@ -153,9 +154,8 @@ def quantize_params(model: nn.Module, dtype: str = "bf16",
             if not _consumes_int8(m, name):
                 _dequantize_on_read(m)
         return model
-    from ..keras.layers.core import Dense
-    for m in model.modules():
-        p = m._parameters.get("kernel") if isinstance(m, Dense) else None
+    for m in _quantizable_layers(model):
+        p = m._parameters.get("kernel")
         if (p is not None and m.name in act_scales and p.is_floating_point()
                 and p.dim() >= 2):
             _replace(m, "kernel", _qleaf(p, act_scales[m.name]))
@@ -184,10 +184,11 @@ def dequantize_params(model: nn.Module,
 
 
 def _quantizable_layers(model: nn.Module) -> List[nn.Module]:
-    """The ``Dense`` layers reachable through ``model``'s ``Sequential``
-    and functional ``Model`` containers (the layers with a static-int8
-    path; ``Convolution2D`` is not ported)."""
+    """The ``Dense`` and ``Convolution2D`` layers reachable through
+    ``model``'s ``Sequential`` and functional ``Model`` containers (the
+    layers with a static-int8 path)."""
     from ..keras.engine import Model, Sequential
+    from ..keras.layers.conv import Convolution2D
     from ..keras.layers.core import Dense
     out: List[nn.Module] = []
 
@@ -201,7 +202,7 @@ def _quantizable_layers(model: nn.Module) -> List[nn.Module]:
                 if id(node.layer) not in seen:
                     seen.add(id(node.layer))
                     walk(node.layer)
-        elif isinstance(m, Dense):
+        elif isinstance(m, (Dense, Convolution2D)):
             out.append(m)
 
     walk(model)
@@ -211,7 +212,8 @@ def _quantizable_layers(model: nn.Module) -> List[nn.Module]:
 def observe_activation_scales(model: nn.Module, batches: Iterable,
                               percentile: float = 99.9) -> Dict[str, float]:
     """Run calibration ``batches`` through ``model`` in inference mode,
-    recording each ``Dense`` layer's input magnitude (``percentile`` of
+    recording each ``Dense`` and ``Convolution2D`` layer's input magnitude
+    (``percentile`` of
     ``|x|`` by ``np.percentile``, or the max at 100); returns ``{layer
     name: max(range, 1e-8) / 127}`` for :func:`quantize_params`. A batch is
     an array, or a tuple whose first item is the input. The observers are
@@ -249,7 +251,7 @@ def observe_activation_scales(model: nn.Module, batches: Iterable,
     return {name: max(v, 1e-8) / 127.0 for name, v in stats.items()}
 
 
-# -- static-int8 execution (called by Dense) ------------------------------------
+# -- static-int8 execution (called by Dense and Convolution2D) ----------------
 
 
 def _round_up(n: int, m: int) -> int:
@@ -285,7 +287,27 @@ def qdense_apply(inputs: torch.Tensor,
     s_w, s_a = qkernel.scale, qkernel.act_scale
     if s_a is None:
         return inputs @ (qkernel.q.to(inputs.dtype) * s_w.to(inputs.dtype))
-    xq = torch.clamp(torch.round(inputs.to(torch.float32) / s_a),
-                     -127, 127).to(torch.int8)
-    y = int8_matmul(xq, qkernel.q)
+    from ..ops.int8_dataflow import quant_int8
+    y = int8_matmul(quant_int8(inputs.to(torch.float32), s_a), qkernel.q)
+    return y.to(torch.float32) * (s_a * s_w)
+
+
+def qconv_apply(inputs: torch.Tensor, qkernel: QuantizedWeight, strides,
+                padding, dilation, groups: int) -> torch.Tensor:
+    """The convolution of NHWC ``inputs`` with an int8 HWIO kernel. With a
+    calibrated ``act_scale`` the inputs snap to the int8 grid (an f32
+    division rounded half to even), the convolution runs int8 by int8 in
+    int32 (``ops.int8_dataflow.int8_conv2d``: on the card ``torch._int_mm``
+    over patches, never a float convolution) and the result scales by the
+    f32 ``act_scale * scale``; without, the kernel dequantizes in the
+    inputs' dtype and the float convolution runs."""
+    from ..keras.layers.conv import conv2d_nhwc
+    from ..ops.int8_dataflow import int8_conv2d, quant_int8
+    s_w, s_a = qkernel.scale, qkernel.act_scale
+    if s_a is None:
+        dt = inputs.dtype
+        return conv2d_nhwc(inputs, qkernel.q.to(dt) * s_w.to(dt), strides,
+                           padding, dilation, groups)
+    y = int8_conv2d(quant_int8(inputs.to(torch.float32), s_a), qkernel.q,
+                    strides, padding, dilation, groups)
     return y.to(torch.float32) * (s_a * s_w)

@@ -18,6 +18,13 @@ pool pad (0, 1)), which ``torch.nn.functional.conv2d`` cannot say, so the
 excess is padded explicitly. An int or a pair pads both sides alike (the
 JAX package's torch geometry). Max pooling pads with -inf; average pooling
 pads with zeros and divides by the whole window, padding included.
+
+``Convolution2D`` has the JAX package's two int8 routes: a kernel that
+``inference.quantize`` made a ``QuantizedWeight`` runs through
+``qconv_apply`` (weight-only: dequantized in the inputs' dtype; calibrated:
+int8 by int8 in int32), and ``int8_training=True`` runs
+``ops.int8_training.int8_train_conv`` (an int8 forward with dynamic scales,
+straight-through bf16 gradients).
 """
 from __future__ import annotations
 
@@ -30,14 +37,9 @@ from torch import nn
 from .. import initializers
 from ..engine import Layer
 from .core import get_activation
-from ...inference.quantize import QuantizedWeight
+from ...inference.quantize import QuantizedWeight, qconv_apply
 
 Padding = Union[str, Tuple[Tuple[int, int], ...]]
-
-#: what raises for the int8 convolution paths, which wait for the quantized
-#: ResNet
-INT8_CONV_TODO = ("int8 convolution ({what}) is not ported yet: ROADMAP "
-                  "Queue A item 3 (quantized ResNet)")
 
 
 def _pair(v) -> Tuple[int, int]:
@@ -87,20 +89,39 @@ def _pads(sizes: Sequence[int], window: Sequence[int],
 
 def _split_pads(pads, value: float, x: torch.Tensor):
     """``x`` (channels first) padded with ``value`` by the excess of each
-    axis's ``hi`` pad over its ``lo`` (never negative: SAME pads at least
-    as much after as before) at the end, and the symmetric ``lo`` pads
-    left for the operation. ``F.pad`` takes the last axis first."""
-    extra = [n for lo, hi in reversed(pads) for n in (0, hi - lo)]
+    axis's larger pad over its smaller one, on that side (SAME pads at
+    least as much after as before; an explicit pair may pad more before),
+    and the symmetric pads left for the operation. ``F.pad`` takes the
+    last axis first."""
+    sym = tuple(min(lo, hi) for lo, hi in pads)
+    extra = [n for (lo, hi), m in zip(reversed(pads), reversed(sym))
+             for n in (lo - m, hi - m)]
     if any(extra):
         x = F.pad(x, extra, value=value)
-    return x, tuple(lo for lo, _ in pads)
+    return x, sym
+
+
+def conv2d_nhwc(x: torch.Tensor, w: torch.Tensor, strides: Sequence[int],
+                padding: Padding, dilation: Sequence[int] = (1, 1),
+                groups: int = 1) -> torch.Tensor:
+    """The float convolution of NHWC ``x`` with the HWIO kernel ``w`` (cast
+    to ``x``'s dtype) and XLA's padding, on cuDNN through the NCHW view of
+    channels_last memory: NHWC out, contiguous."""
+    xc = x.permute(0, 3, 1, 2)  # NCHW view of channels_last memory
+    pads = _pads(xc.shape[2:], w.shape[:2], strides, padding, dilation)
+    xc, sym = _split_pads(pads, 0.0, xc)
+    wt = w.permute(3, 2, 0, 1).to(x.dtype, memory_format=torch.channels_last)
+    return F.conv2d(xc, wt, None, tuple(strides), sym, tuple(dilation),
+                    groups).permute(0, 2, 3, 1)
 
 
 class Convolution2D(Layer):
     """2-D convolution over NHWC inputs, kernel ``[kh, kw, cin / groups,
     cout]``, with strides (``subsample``), dilation, ``groups`` (a
     depthwise conv when it equals the channels), bias and activation. The
-    product runs in the inputs' dtype."""
+    product runs in the inputs' dtype; ``int8_training`` runs it int8 by
+    int8 with straight-through gradients (opt-in: quantization noise
+    changes the training numerics)."""
 
     def __init__(self, nb_filter: int, nb_row: int, nb_col: int,
                  activation=None, subsample=(1, 1), border_mode="valid",
@@ -109,9 +130,6 @@ class Convolution2D(Layer):
                  int8_training: bool = False,
                  name: Optional[str] = None):
         super().__init__(name)
-        if int8_training:
-            raise NotImplementedError(INT8_CONV_TODO.format(
-                what="int8_training"))
         self.filters = nb_filter
         self.kernel_size = (nb_row, nb_col)
         self.strides = _pair(subsample)
@@ -121,6 +139,7 @@ class Convolution2D(Layer):
         self.use_bias = bias
         self.dilation = _pair(dilation)
         self.groups = groups
+        self.int8_training = int8_training
 
     def build(self, generator, input_shape, device):
         cin = input_shape[-1]
@@ -132,17 +151,17 @@ class Convolution2D(Layer):
         self.built = True
 
     def forward(self, inputs):
-        if isinstance(self._modules.get("kernel"), QuantizedWeight):
-            raise NotImplementedError(INT8_CONV_TODO.format(
-                what="an int8 QuantizedWeight kernel, qconv_apply"))
-        x = inputs.permute(0, 3, 1, 2)  # NCHW view of channels_last memory
-        pads = _pads(x.shape[2:], self.kernel_size, self.strides,
-                     self.padding, self.dilation)
-        x, sym = _split_pads(pads, 0.0, x)
-        w = self.kernel.permute(3, 2, 0, 1).to(
-            inputs.dtype, memory_format=torch.channels_last)
-        y = F.conv2d(x, w, None, self.strides, sym, self.dilation,
-                     self.groups).permute(0, 2, 3, 1)
+        kernel = self.kernel
+        if isinstance(kernel, QuantizedWeight):
+            y = qconv_apply(inputs, kernel, self.strides, self.padding,
+                            self.dilation, self.groups)
+        elif self.int8_training:
+            from ...ops.int8_training import int8_train_conv
+            y = int8_train_conv(inputs, kernel, self.strides, self.padding,
+                                self.dilation, self.groups)
+        else:
+            y = conv2d_nhwc(inputs, kernel, self.strides, self.padding,
+                            self.dilation, self.groups)
         if self.use_bias:
             y = y + self.bias.to(y.dtype)
         return self.activation(y)

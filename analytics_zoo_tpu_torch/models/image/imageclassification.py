@@ -13,9 +13,14 @@ on cuDNN (``keras/layers/conv.py``).
 saved in a pretrained bundle) and labels ``predict_image_set``'s top-k
 through its label map.
 
-Not ported yet, and raising ``NotImplementedError``: ``dataflow="int8"``
-and ``int8_training`` (ROADMAP Queue A item 3); ``load_pretrained_torch``,
-which needs ``net/torch_import.py`` (item 6).
+``resnet(dataflow="int8")`` swaps the backbone for
+:class:`Int8DataflowBackbone` (int8 tensors between layers,
+``ops/int8_dataflow.py``); ``resnet(int8_training=True)`` keeps the layers
+and runs every convolution int8 (``Convolution2D(int8_training=True)``).
+
+Not ported yet, and raising ``NotImplementedError``:
+``load_pretrained_torch``, which needs ``net/torch_import.py`` (ROADMAP
+Queue A item 6).
 """
 from __future__ import annotations
 
@@ -23,6 +28,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
 from ..common import ZooModel, register_zoo_model
 from ...keras import Input, Layer, Model
@@ -71,35 +77,121 @@ def _input_preprocess(x, mode: Optional[str]):
 
 
 def _conv_bn(x, filters, k, stride=1, activation="relu", name="",
-             border_mode="same"):
+             border_mode="same", int8=False):
     x = Convolution2D(filters, k, k, subsample=(stride, stride),
                       border_mode=border_mode, bias=False,
-                      name=f"{name}_conv")(x)
-    x = BatchNormalization(name=f"{name}_bn")(x)
+                      int8_training=int8, name=f"{name}_conv")(x)
+    x = BatchNormalization(exact_statistics=int8, name=f"{name}_bn")(x)
     if activation:
         x = Activation(activation, name=f"{name}_act")(x)
     return x
 
 
-def _basic_block(x, filters, stride, name, pad3="same"):
+def _basic_block(x, filters, stride, name, pad3="same", int8=False):
     shortcut = x
-    y = _conv_bn(x, filters, 3, stride, "relu", f"{name}_a", pad3)
-    y = _conv_bn(y, filters, 3, 1, None, f"{name}_b", pad3)
+    y = _conv_bn(x, filters, 3, stride, "relu", f"{name}_a", pad3, int8)
+    y = _conv_bn(y, filters, 3, 1, None, f"{name}_b", pad3, int8)
     if stride != 1 or x.shape[-1] != filters:
-        shortcut = _conv_bn(x, filters, 1, stride, None, f"{name}_sc")
+        shortcut = _conv_bn(x, filters, 1, stride, None, f"{name}_sc",
+                            int8=int8)
     return Activation("relu", name=f"{name}_out")(
         merge([y, shortcut], mode="sum"))
 
 
-def _bottleneck_block(x, filters, stride, name, pad3="same"):
+def _bottleneck_block(x, filters, stride, name, pad3="same", int8=False):
     shortcut = x
-    y = _conv_bn(x, filters, 1, 1, "relu", f"{name}_a")
-    y = _conv_bn(y, filters, 3, stride, "relu", f"{name}_b", pad3)
-    y = _conv_bn(y, filters * 4, 1, 1, None, f"{name}_c")
+    y = _conv_bn(x, filters, 1, 1, "relu", f"{name}_a", int8=int8)
+    y = _conv_bn(y, filters, 3, stride, "relu", f"{name}_b", pad3, int8)
+    y = _conv_bn(y, filters * 4, 1, 1, None, f"{name}_c", int8=int8)
     if stride != 1 or x.shape[-1] != filters * 4:
-        shortcut = _conv_bn(x, filters * 4, 1, stride, None, f"{name}_sc")
+        shortcut = _conv_bn(x, filters * 4, 1, stride, None, f"{name}_sc",
+                            int8=int8)
     return Activation("relu", name=f"{name}_out")(
         merge([y, shortcut], mode="sum"))
+
+
+class _Int8ConvState(nn.Module):
+    """One conv of the int8 backbone: ``kernel`` (HWIO), ``gamma`` and
+    ``beta`` parameters; ``mid_amax``, ``out_amax``, ``running_mean`` and
+    ``running_var`` buffers."""
+
+    def __init__(self, params: Dict[str, torch.Tensor],
+                 state: Dict[str, torch.Tensor]):
+        super().__init__()
+        for k, v in params.items():
+            setattr(self, k, nn.Parameter(v))
+        for k, v in state.items():
+            self.register_buffer(k, v)
+
+
+class _AmaxState(nn.Module):
+    """A residual add's ``out_amax`` buffer."""
+
+    def __init__(self, out_amax: torch.Tensor):
+        super().__init__()
+        self.register_buffer("out_amax", out_amax)
+
+
+class Int8DataflowBackbone(Layer):
+    """The whole ResNet backbone with int8 tensors between layers (delayed
+    scaling, one autograd function over the backbone; see
+    ``ops/int8_dataflow.py``). One layer, because its int8 edges carry
+    (int8, scale) pairs the layer graph does not thread.
+
+    Its parameters and state are the JAX package's nested trees as
+    submodules: ``<conv>.kernel``, ``.gamma``, ``.beta`` (parameters),
+    ``in_amax``, ``<conv>.mid_amax``, ``.out_amax``, ``.running_mean``,
+    ``.running_var`` and ``<block>_add.out_amax`` (buffers, the model
+    state). A training forward moves the state, as ``BatchNormalization``
+    moves its statistics."""
+
+    #: the statistics are the batch's, per rank (see ``norm.SYNC_BN_TODO``)
+    batch_statistics = True
+
+    def __init__(self, depth: int, input_shape: Tuple[int, int, int],
+                 name: Optional[str] = None):
+        super().__init__(name)
+        from ...ops.int8_dataflow import Int8ResNetDataflow
+        self._flow = Int8ResNetDataflow(depth, input_shape)
+
+    def build(self, generator, input_shape, device):
+        params, state = self._flow.init(generator, device)
+        self.register_buffer("in_amax", state.pop("in_amax"))
+        for name, st in state.items():
+            self.add_module(name, _AmaxState(st["out_amax"])
+                            if name.endswith("_add")
+                            else _Int8ConvState(params[name], st))
+        self.built = True
+
+    def _trees(self):
+        params, state = {}, {"in_amax": self.in_amax}
+        for name, m in self.named_children():
+            state[name] = dict(m.named_buffers())
+            if isinstance(m, _Int8ConvState):
+                params[name] = dict(m.named_parameters())
+        return params, state
+
+    def forward(self, inputs):
+        params, state = self._trees()
+        from ...parallel.mesh import default_mesh
+        mesh = default_mesh()
+        if self.training and mesh is not None and mesh.size > 1:
+            from ...keras.layers.norm import SYNC_BN_TODO
+            raise NotImplementedError(SYNC_BN_TODO.format(ranks=mesh.size))
+        feats, new_state = self._flow.apply(params, state, inputs,
+                                            self.training)
+        if self.training:
+            with torch.no_grad():
+                self.in_amax.copy_(new_state["in_amax"])
+                for name, m in self.named_children():
+                    for k, buf in m.named_buffers():
+                        buf.copy_(new_state[name][k])
+        return feats
+
+    def compute_output_shape(self, input_shape):
+        h, w = input_shape[1], input_shape[2]
+        return (input_shape[0], -(-h // 32), -(-w // 32),
+                self._flow.out_channels)
 
 
 def resnet(depth: int = 50, num_classes: int = 1000,
@@ -112,14 +204,28 @@ def resnet(depth: int = 50, num_classes: int = 1000,
     """ResNet-v1 (18/34/50/101/152): basic blocks below 50, bottlenecks
     from 50. ``padding_mode="torch"`` pads the stride-2 convs and the stem
     pool symmetrically (torchvision's geometry) where SAME pads one more
-    after than before."""
+    after than before. ``int8_training`` runs every convolution int8 by
+    int8 with straight-through gradients; ``dataflow="int8"`` swaps the
+    backbone for :class:`Int8DataflowBackbone` (its own SAME-padded int8
+    convolutions throughout, so it takes neither of the other two)."""
     if depth not in RESNET_BLOCKS:
         raise ValueError(f"unsupported depth {depth}; have "
                          f"{sorted(RESNET_BLOCKS)}")
-    if dataflow == "int8" or int8_training:
-        raise NotImplementedError(
-            "the int8 ResNet (dataflow='int8', int8_training) is not ported "
-            "yet: ROADMAP Queue A item 3 (quantized ResNet)")
+    if dataflow == "int8":
+        if padding_mode != "same" or int8_training:
+            raise ValueError(
+                "dataflow='int8' uses its own backbone (SAME padding, int8 "
+                "convs throughout); it composes with neither "
+                "padding_mode='torch' nor the per-layer int8_training flag")
+        inp = Input(input_shape, name="image")
+        x = _input_preprocess(inp, preprocess)
+        x = Int8DataflowBackbone(depth, input_shape,
+                                 name="int8_backbone")(x)
+        if not include_top:
+            return Model(inp, x, name=f"resnet{depth}_int8_features")
+        x = GlobalAveragePooling2D(name="avg_pool")(x)
+        out = Dense(num_classes, activation="softmax", name="logits")(x)
+        return Model(inp, out, name=f"resnet{depth}_int8")
     if dataflow is not None:
         raise ValueError(f"unknown dataflow mode {dataflow!r}")
     torch_geo = padding_mode == "torch"
@@ -128,7 +234,8 @@ def resnet(depth: int = 50, num_classes: int = 1000,
     pad3 = 1 if torch_geo else "same"
     inp = Input(input_shape, name="image")
     x = _input_preprocess(inp, preprocess)
-    x = _conv_bn(x, 64, 7, 2, "relu", "stem", 3 if torch_geo else "same")
+    x = _conv_bn(x, 64, 7, 2, "relu", "stem", 3 if torch_geo else "same",
+                 int8=int8_training)
     x = MaxPooling2D((3, 3), strides=(2, 2),
                      border_mode=1 if torch_geo else "same",
                      name="stem_pool")(x)
@@ -137,7 +244,8 @@ def resnet(depth: int = 50, num_classes: int = 1000,
         for i in range(n):
             stride = 2 if (i == 0 and stage > 0) else 1
             x = block_fn(x, filters, stride,
-                         f"stage{stage + 1}_block{i + 1}", pad3)
+                         f"stage{stage + 1}_block{i + 1}", pad3,
+                         int8=int8_training)
         filters *= 2
     if not include_top:
         return Model(inp, x, name=f"resnet{depth}_features")

@@ -79,9 +79,10 @@ from .kernel_build import LaunchCounts, load_library, on_card
 #: the longest sequence the fused kernels take (the TPU's VMEM budget for
 #: the [s, s] block; here the shared memory of the backward's dq pass)
 FUSED_SHORT_MAX_SEQ = 512
-#: the widest head the CUDA kernels take (16 f32 accumulators per thread);
-#: the plain versions take any
-FUSED_SHORT_MAX_HEAD_DIM = 128
+#: the widest head the CUDA kernels take (an instance at 256 columns, whose
+#: dk/dv pass walks the queries once per 128-wide half of the columns); the
+#: plain versions take any
+FUSED_SHORT_MAX_HEAD_DIM = 256
 _NEG_INF = -1e30
 _LOG2E = 1.4426950408889634
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -513,8 +514,9 @@ def fused_short_applicable(q_len: int, kv_len: int, causal: bool) -> bool:
 #: :func:`blockwise_attention` (the kernels cut fixed 64-row tiles)
 DEFAULT_Q_BLOCK = 512
 DEFAULT_KV_BLOCK = 1024
-#: the widest head the CUDA flash kernels take; the plain versions take any
-FLASH_MAX_HEAD_DIM = 128
+#: the widest head the CUDA flash kernels take (an instance of each at 256
+#: columns, one block an SM); the plain versions take any
+FLASH_MAX_HEAD_DIM = 256
 _LN2 = 1.0 / _LOG2E
 #: the JAX package's budget for its one-pass backward: K/V in their dtype
 #: and dk/dv f32 accumulators per batch·head, ``kv_len·d·(2·itemsize + 8)``

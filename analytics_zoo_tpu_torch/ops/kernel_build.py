@@ -8,6 +8,9 @@ never at import, and lands in ``build/analytics_zoo_tpu_torch/`` beside the
 package. The library's file name carries a hash of the sources and flags, so
 a second process or run reuses it; a build writes a temporary file and
 renames it into place, so two processes building at once never tear it.
+The compilers' ``ptxas -v`` output (each kernel's registers, shared memory
+and spills) is kept beside the library under the same hash
+(:func:`build_log`).
 """
 from __future__ import annotations
 
@@ -71,20 +74,32 @@ def library_path() -> str:
     return os.path.join(BUILD_DIR, f"libazt_kernels-{h.hexdigest()[:16]}.so")
 
 
-def _run_all(cmds) -> None:
+def _log_path(library: str) -> str:
+    return library[:-len(".so")] + ".ptxas.txt"
+
+
+def build_log() -> str:
+    """The ``ptxas -v`` output of the build of the current library."""
+    with open(_log_path(library_path())) as f:
+        return f.read()
+
+
+def _run_all(cmds) -> str:
     """Start every ``nvcc`` command at once, wait for all, raise if any
-    failed."""
+    failed; returns their output."""
     procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True)
              for cmd in cmds]
-    failed = []
+    failed, outs = [], []
     for cmd, proc in zip(cmds, procs):
         out = proc.communicate()[0]
+        outs.append(out)
         if proc.returncode != 0:
             failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}"
                           f"\n{out}")
     if failed:
         raise RuntimeError("\n".join(failed))
+    return "\n".join(outs)
 
 
 def _build(out: str) -> None:
@@ -92,16 +107,20 @@ def _build(out: str) -> None:
     os.makedirs(BUILD_DIR, exist_ok=True)
     stem = os.path.join(BUILD_DIR, f".{uuid.uuid4().hex}")
     objs = [f"{stem}.{os.path.basename(src)}.o" for src in srcs]
-    tmp = f"{stem}.tmp.so"
+    tmp, tmp_log = f"{stem}.tmp.so", f"{stem}.tmp.txt"
     nvcc = [_nvcc(), *NVCC_FLAGS]
     try:
         # one nvcc per source, all started together, then one link
-        _run_all([[*nvcc, "-I", CSRC_DIR, "-c", "-o", obj, src]
-                  for src, obj in zip(srcs, objs)])
+        log = _run_all([[*nvcc, "-Xptxas", "-v", "-I", CSRC_DIR, "-c", "-o",
+                         obj, src] for src, obj in zip(srcs, objs)])
         _run_all([[*nvcc, "-shared", "-o", tmp, *objs]])
-        os.replace(tmp, out)  # atomic: a concurrent loader never sees a tear
+        with open(tmp_log, "w") as f:
+            f.write(log)
+        # atomic, the log first: a loader that finds the library finds both
+        os.replace(tmp_log, _log_path(out))
+        os.replace(tmp, out)
     finally:
-        for path in objs + [tmp]:
+        for path in objs + [tmp, tmp_log]:
             if os.path.exists(path):
                 os.remove(path)
 

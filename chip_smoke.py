@@ -8,11 +8,10 @@ Phases, each of which must pass or the script exits non-zero:
 1. device: a CUDA card is required; TF32 is off for the float32 matmuls.
 2. build: ``nvcc`` builds the port's kernels from ``analytics_zoo_tpu_torch/
    csrc`` (or reuses the build for the same sources), one process per
-   source; then the library is built twice more into a scratch directory,
-   that way and with one ``nvcc`` over every source, and both are timed;
-   the second's ``ptxas -v`` gives the registers and spills of the 12 bf16
-   flash kernels, the 6 f32 flash kernels on the tensor cores and the 21
-   f32 fused short kernels.
+   source, with ``ptxas -v``, which gives the registers and spills of the
+   16 bf16 and 16 f32 flash kernels, the 12 bf16 fused short kernels and
+   the 25 f32 ones (each at its head widths, 256 among them); where the
+   build was reused, their four sources are compiled again for it.
 3. kernels: every kernel of the paths is held bit for bit against its
    plain PyTorch version at the main paths' shapes and on ragged, bag-size,
    bf16/fp16 and out-of-range cases, then timed with CUDA events and the
@@ -57,7 +56,8 @@ Phases, each of which must pass or the script exits non-zero:
 6. attention kernels: the fused short attention forward (B7) and backward
    (B8) are held against their plain versions (B8 against autograd through
    the plain forward) for seq 1, 17, 64, 65, 128, 129 and 512, head widths
-   32, 64 and 128, f32 (the tensor cores as 3xTF32, ``f32_tc``) and bf16
+   32, 64, 128, 192 and 256, f32 (the tensor cores as 3xTF32, ``f32_tc``)
+   and bf16
    (the tensor cores, ``bf16_tc``), the backward reading the row
    statistics its forward saved (and in f32 its output), with and without
    a padding bias (one row all masked), causal or not, dropout 0 and 0.1:
@@ -91,12 +91,12 @@ Phases, each of which must pass or the script exits non-zero:
    padding bias, causal or not), the two-pass backward (B5a + B5b) and the
    one-pass backward (B6, with and without an lse cotangent) are held
    against their plain versions for lengths 1, 17, 513, 1000, 2047, 2048
-   and 4096 and four pairs of unequal q/kv lengths, head widths 24, 64, 96
-   and 128 in f32 and in bf16: within 2e-5 (f32) and 2e-2 (bf16) of the
-   output's scale (of the three gradients' joint scale for a backward)
-   and, each output and each gradient, in relative L2; B5a + B5b's dq, dk
-   and dv and B6's dk and dv bit-equal when repeated. The dtype and the
-   kernel pick its route (both on the tensor cores: bf16 in
+   and 4096 and four pairs of unequal q/kv lengths, head widths 24, 64, 96,
+   128, 192 and 256 in f32 and in bf16: within 2e-5 (f32) and 2e-2 (bf16)
+   of the output's scale (of the three gradients' joint scale for a
+   backward) and, each output and each gradient, in relative L2; B5a +
+   B5b's dq, dk and dv and B6's dk and dv bit-equal when repeated. The
+   dtype and the kernel pick its route (both on the tensor cores: bf16 in
    ``csrc/flash_attn_bf16.cu``, f32 as 3xTF32 in
    ``csrc/flash_attn_tf32.cu``) and each call must count on it, here and
    on the LM's paths. The f32 kernels are also held at a batch of 16 heads
@@ -243,6 +243,35 @@ Phases, each of which must pass or the script exits non-zero:
    busy share, ``serving.decode_batch`` seconds a batch, a record's bytes
    in the spool and a batch's bytes to the card.
 
+18. heads of 256 (``phase_wide_heads``): B7/B8 at [16, 8, 512, 256] and
+   B4, B5a, B5b and B6 at [4, 8, 2048, 256] causal, in bf16 and f32, timed
+   beside their plain versions and ``scaled_dot_product_attention`` and
+   held to the plain versions; a TransformerLM step in f32 at 8 x 2048
+   with hidden 2048 in 8 heads of 256, depth 2 (each block one B4, one B5a
+   and one B5b a step: 8.4 MB resident a head, past the one-pass rule);
+   a bf16 flash step at [4, 8, 2048, 256] (one B4 and one B6), beside
+   SDPA's.
+19. the int8 ResNet. (a) ``resnet18_quantized``: ``bench_quantized``'s
+   configuration (ResNet-18, 1000 classes, 224 x 224, batch 32, f32,
+   seeded) through ``InferenceModel``, fp32, ``quantize("bf16")`` and
+   ``quantize("int8", calibration_data=[x[:8]])``: images/s of each by
+   CUDA events; the int8 forward's device ms by kind (int8 GEMMs, the
+   patch copies by their profiler range, elementwise) with no float
+   convolution or product; drift and argmax agreement against fp32; every
+   calibrated conv's int32 sums equal to the CPU's bit for bit; the
+   activation scales and the answers from the CPU's quantized weights
+   against the CPU's (``QUANT_SCALE_RTOL``, ``QUANT_CARD_CPU_ATOL``). (b)
+   ``resnet50_int8``: ``bench_resnet50_int8``'s configuration, not cut
+   (``resnet(50, 2, (224, 224, 3), dataflow="int8")``, SGD(0.1, momentum
+   0.9), bf16 compute, batch 256): 2 warm steps, then the step by CUDA
+   events and the profiler (device ms by kind, the patch copies, busy
+   share, peak memory) beside the bf16 step of 16 (a); ResNet-18 at 64 x
+   64, batch 16, 3 steps, each from the CPU's state (``INT8_CPU_TOL``).
+   (c) ``int8_training``: ``resnet(18, int8_training=True)`` the same way,
+   and one ``Convolution2D(int8_training=True)`` at [256, 56, 56, 64], 64
+   filters 3x3, forward and backward timed beside the bf16 conv. None of
+   the three launches a kernel of the port's own.
+
 Each phase's seconds are printed. The last three lines of output are the
 card's
 ``nvidia-smi`` name and power limit, the ``{"kernels": [...]}`` line,
@@ -313,9 +342,12 @@ BERT_CPU_RECORDS, BERT_CPU_BATCH = 8, 4
 #: outputs round to 8 bits, so both are relative to the output's scale
 ATTN_ATOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 #: B7/B8's grid, every case through both routes: lengths (one tile, one
-#: past it, two and past them, the longest) and head widths
+#: past it, two and past them, the longest) and head widths; the first
+#: ATTN_PINNED widths run first, as before heads past 128 were taken, so
+#: that their largest errors stay comparable with the recorded ones below
 ATTN_SEQS = (1, 17, 64, 65, 128, 129, 512)
-ATTN_DIMS = (32, 64, 128)
+ATTN_DIMS = (32, 64, 128, 192, 256)
+ATTN_PINNED = 3
 #: B7/B8's largest grid errors at seed 0 from commit 5cfb824, before their
 #: fragment helpers moved into csrc/mma_bf16.cuh, on this card and torch
 #: build: the bf16 route's must stay bit for bit. Its f32 entries are the
@@ -430,9 +462,10 @@ FLASH_MANY_LENGTHS = ((513, 1000), (1000, 513), (17, 4096), (2047, 1),
                       (4096, 4096))
 FLASH_MANY_HEADS = 16
 #: the head widths of the grid, in both dtypes: 64 and 128, one ragged
-#: chunk of 8 or 16 (24) and a partial 128-wide tile (96)
-FLASH_DIMS = {torch.float32: (24, 64, 96, 128),
-              torch.bfloat16: (24, 64, 96, 128)}
+#: chunk of 8 or 16 (24), a partial 128-wide tile (96), and past 128 the
+#: wide instances, partly (192) and wholly (256) filled
+FLASH_DIMS = {torch.float32: (24, 64, 96, 128, 192, 256),
+              torch.bfloat16: (24, 64, 96, 128, 192, 256)}
 #: bench_longseq (bench.py:2874-2925), bf16, causal, 20 chained steps, as
 #: (label, shape, the numerics gate's shape): the headline [4, 8, 4096,
 #: 128] and the d 64 addendum (batch doubled, the same FLOPs a step), which
@@ -559,11 +592,15 @@ def step_profile(fn, calls: int = 20, top: int = 0,
     host calls that issued them, and with ``top`` the ``top`` longest
     kernels and the ``top`` host operators with the most self time, as
     ``[name, ms, count]``; with ``split`` (kernel name -> kind) the device
-    ms by kind. The device time is None unless every issued kernel, copy
-    and fill has its device event: the profiler can drop device events in
-    short windows, and a partial sum is not a time."""
+    ms by kind; the names of the kernels; and the device ms of the kernels
+    inside the int8 convolution's patch range (None if none ran). The
+    device time is None unless every issued kernel, copy and fill has its
+    device event: the profiler can drop device events in short windows,
+    and a partial sum is not a time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    from analytics_zoo_tpu_torch.ops.int8_dataflow import PATCH_RANGE
     if warmup:
         fn()
     torch.cuda.synchronize()
@@ -573,15 +610,21 @@ def step_profile(fn, calls: int = 20, top: int = 0,
             fn()
         torch.cuda.synchronize()
     events = prof.key_averages()
-    dev = [e for e in events if e.device_type == DeviceType.CUDA]
+    # the device side of a ``record_function`` range is a span, not work
+    dev = [e for e in events if e.device_type == DeviceType.CUDA
+           and e.key != PATCH_RANGE]
     host = [e for e in events if e.device_type == DeviceType.CPU]
     us = sum(e.self_device_time_total for e in dev)
+    patch_us = sum(e.device_time_total for e in host if e.key == PATCH_RANGE)
     n_dev = sum(e.count for e in dev)
     issued = sum(e.count for e in host if _DEVICE_WORK_CALL.match(e.key))
     out = {"device_ms": us / 1e3 / calls if us > 0 and n_dev == issued
            else None,
            "device_launches": n_dev / calls,
-           "issued_launches": issued / calls}
+           "issued_launches": issued / calls,
+           "kernel_names": sorted({e.key for e in dev}),
+           "patch_device_ms": patch_us / 1e3 / calls if patch_us > 0
+           else None}
     if split is not None:
         kinds: dict = {}
         for e in dev:
@@ -602,12 +645,14 @@ def step_profile(fn, calls: int = 20, top: int = 0,
 #: ptxas -v's lines for an entry function of the bf16 flash kernels (B4
 #: ``flash_fwd``, B5a ``flash_bwd_dq``, B5b and B6 ``flash_bwd``), of the
 #: f32 flash kernels (B4 ``flash_fwd_tf32``, B5a ``flash_bwd_dq_tf32``,
-#: B5b and B6 ``flash_bwd_tf32``) or of the f32 fused short kernels (B7
+#: B5b and B6 ``flash_bwd_tf32``) or of the fused short kernels (B7
 #: ``fused_short_fwd``, B8's two passes ``fused_short_bwd_dq`` and
-#: ``_dkv``) and its mangled template arguments
+#: ``_dkv``, ``_bf16`` after each name on the bf16 route) and its mangled
+#: template arguments
 _PTXAS_ENTRY = re.compile(
     r"entry function '\S*?((?:flash_(?:fwd|bwd|bwd_dq)_(?:bf16|tf32)|"
-    r"fused_short_(?:fwd|bwd_dq|bwd_dkv))_kernel)I((?:L[ib]\d+E)+)E")
+    r"fused_short_(?:fwd|bwd_dq|bwd_dkv)(?:_bf16)?)_kernel)I((?:L[ib]\d+E)+)"
+    r"E")
 _PTXAS_ARG = re.compile(r"L[ib](\d+)E")
 _PTXAS_SPILL = re.compile(
     r"(\d+) bytes spill stores, (\d+) bytes spill loads")
@@ -640,37 +685,26 @@ def ptxas_usage(log: str) -> dict:
     return usage
 
 
-def rebuild_seconds(kernel_build) -> dict:
-    """Seconds to build the kernel library again into a scratch directory:
-    as ``kernel_build`` does (one ``nvcc`` per source, started together,
-    then a link), and with one ``nvcc`` over every source (with ``-Xptxas
-    -v``, whose registers and spills of the bf16 and f32 flash kernels and
-    of the f32 fused short kernels are kept)."""
-    srcs, _ = kernel_build._sources()
+def ptxas_report(kernel_build) -> dict:
+    """``ptxas -v`` registers and spills of the flash kernels and of the
+    fused short kernels, each at its head widths, from the build's log
+    kept beside the library."""
     out = {}
-    with tempfile.TemporaryDirectory(dir=kernel_build.BUILD_DIR) as tmp:
-        t0 = time.perf_counter()
-        kernel_build._build(os.path.join(tmp, "parallel.so"))
-        out["nvcc_per_source"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        one = subprocess.run([kernel_build._nvcc(), *kernel_build.NVCC_FLAGS,
-                              "-Xptxas", "-v", "-shared", "-I",
-                              kernel_build.CSRC_DIR, "-o",
-                              os.path.join(tmp, "one.so"), *srcs],
-                             check=True, capture_output=True, text=True)
-        out["one_nvcc"] = time.perf_counter() - t0
-    usage = ptxas_usage(one.stdout + one.stderr)
-    for key, kind, want, what in (
-            ("ptxas_bf16_flash", "_bf16_", 12,
-             "bf16 flash kernels (B4, B5a, B5b, B6)"),
-            ("ptxas_f32_flash", "_tf32_", 12,
-             "f32 flash kernels (B4, B5a, B5b, B6)"),
-            ("ptxas_f32_fused", "fused_short_", 21,
+    usage = ptxas_usage(kernel_build.build_log())
+    for key, kind, bf16, want, what in (
+            ("ptxas_bf16_flash", "flash_", True, 16,
+             "bf16 flash kernels (B4, B5a, B5b, B6) at 4 widths"),
+            ("ptxas_f32_flash", "flash_", False, 16,
+             "f32 flash kernels (B4, B5a, B5b, B6) at 4 widths"),
+            ("ptxas_bf16_fused", "fused_short_", True, 12,
+             "bf16 fused short kernels (B7, B8's two passes) at 4 widths"),
+            ("ptxas_f32_fused", "fused_short_", False, 25,
              "f32 fused short kernels (B7 at 3 splits, B8's two passes at "
-             "2)")):
-        out[key] = {k: v for k, v in usage.items() if kind in k}
+             "2, at 3 widths; at d 256 B7 at 2 and B8 at 1)")):
+        out[key] = {k: v for k, v in usage.items()
+                    if k.startswith(kind) and ("_bf16_" in k) == bf16}
         check(len(out[key]) == want, f"ptxas -v named {sorted(out[key])}, "
-              f"expected the {what} at 3 widths")
+              f"expected the {what}")
     return out
 
 
@@ -2010,59 +2044,62 @@ def phase_attention_kernels(at, dev, seed: int):
     gen = torch.Generator().manual_seed(seed)
     seed_t = torch.tensor([seed + 17], dtype=torch.int32, device=dev)
     errors = {"fwd": 0.0, "bwd": 0.0, "fwd_bf16": 0.0, "bwd_bf16": 0.0}
+    wide_errors = dict(errors)  # heads past 128
     cases = 0
-    for s in ATTN_SEQS:
-        for d in ATTN_DIMS:
-            for dtype in (torch.float32, torch.bfloat16):
-                route = at.fused_short_route(dtype)
-                q, k, v, do, mask = _attn_case(dev, 2, 3, s, d, dtype, gen)
-                mask[-1] = 0  # a row of all-masked keys
-                bias = ((1.0 - mask) * -1e9).to(dev)
-                for kb in (None, bias):
-                    for causal in (False, True):
-                        for rate in (0.0, 0.1):
-                            args = (kb, seed_t, 0.125, rate, causal)
-                            before = dict(at.route_counts)
-                            o, grads, stats = _fused_pair(at, q, k, v, do,
-                                                          args)
-                            check(at.route_counts[route]
-                                  == before[route] + 2, f"{dtype} took "
-                                  f"{dict(at.route_counts)}, not {route}")
-                            again = at.fused_short_fwd(q, k, v, *args)
-                            check(torch.equal(o, again[0])
-                                  and torch.equal(stats, again[1]),
-                                  "B7 not bit-equal twice")
-                            again = at.fused_short_bwd(q, k, v, do, *args,
-                                                       stats, o)
-                            check(all(torch.equal(a, b) for a, b in
-                                      zip(grads, again)),
-                                  "B8 not bit-equal twice")
-                            leaves = [t.detach().clone().requires_grad_()
-                                      for t in (q, k, v)]
-                            want = at.fused_short_attention_plain(
-                                *leaves, kb, 0.125, rate, seed_t, causal)
-                            want.backward(do)
-                            torch.cuda.synchronize()
-                            case = (f"s={s} d={d} {dtype} bias="
-                                    f"{kb is not None} causal={causal} "
-                                    f"rate={rate}")
-                            e = _rel_err(o, want)
-                            check(e <= ATTN_ATOL[dtype],
-                                  f"B7 != plain by {e} at {case}")
-                            e_b = max(_rel_err(g, t.grad)
-                                      for g, t in zip(grads, leaves))
-                            check(e_b <= ATTN_ATOL[dtype],
-                                  f"B8 != autograd through plain by {e_b} "
-                                  f"at {case}")
-                            tag = "_bf16" if dtype == torch.bfloat16 else ""
-                            errors["fwd" + tag] = max(errors["fwd" + tag], e)
-                            errors["bwd" + tag] = max(errors["bwd" + tag],
-                                                      e_b)
-                            cases += 1
+    pinned = [(s, d) for s in ATTN_SEQS for d in ATTN_DIMS[:ATTN_PINNED]]
+    for s, d in pinned + [(s, d) for s in ATTN_SEQS
+                          for d in ATTN_DIMS[ATTN_PINNED:]]:
+        errs = errors if (s, d) in pinned else wide_errors
+        for dtype in (torch.float32, torch.bfloat16):
+            route = at.fused_short_route(dtype)
+            q, k, v, do, mask = _attn_case(dev, 2, 3, s, d, dtype, gen)
+            mask[-1] = 0  # a row of all-masked keys
+            bias = ((1.0 - mask) * -1e9).to(dev)
+            for kb in (None, bias):
+                for causal in (False, True):
+                    for rate in (0.0, 0.1):
+                        args = (kb, seed_t, 0.125, rate, causal)
+                        before = dict(at.route_counts)
+                        o, grads, stats = _fused_pair(at, q, k, v, do,
+                                                      args)
+                        check(at.route_counts[route]
+                              == before[route] + 2, f"{dtype} took "
+                              f"{dict(at.route_counts)}, not {route}")
+                        again = at.fused_short_fwd(q, k, v, *args)
+                        check(torch.equal(o, again[0])
+                              and torch.equal(stats, again[1]),
+                              "B7 not bit-equal twice")
+                        again = at.fused_short_bwd(q, k, v, do, *args,
+                                                   stats, o)
+                        check(all(torch.equal(a, b) for a, b in
+                                  zip(grads, again)),
+                              "B8 not bit-equal twice")
+                        leaves = [t.detach().clone().requires_grad_()
+                                  for t in (q, k, v)]
+                        want = at.fused_short_attention_plain(
+                            *leaves, kb, 0.125, rate, seed_t, causal)
+                        want.backward(do)
+                        torch.cuda.synchronize()
+                        case = (f"s={s} d={d} {dtype} bias="
+                                f"{kb is not None} causal={causal} "
+                                f"rate={rate}")
+                        e = _rel_err(o, want)
+                        check(e <= ATTN_ATOL[dtype],
+                              f"B7 != plain by {e} at {case}")
+                        e_b = max(_rel_err(g, t.grad)
+                                  for g, t in zip(grads, leaves))
+                        check(e_b <= ATTN_ATOL[dtype],
+                              f"B8 != autograd through plain by {e_b} "
+                              f"at {case}")
+                        tag = "_bf16" if dtype == torch.bfloat16 else ""
+                        errs["fwd" + tag] = max(errs["fwd" + tag], e)
+                        errs["bwd" + tag] = max(errs["bwd" + tag], e_b)
+                        cases += 1
     log(f"B7/B8 within f32 2e-5, bf16 2e-2 (relative to the output's scale) "
         f"of their plain versions on {cases} cases, each dtype by its own "
         f"route, bit-equal when repeated; largest errors "
-        f"{json.dumps(errors)}")
+        f"{json.dumps(errors)}, at heads of {ATTN_DIMS[ATTN_PINNED:]} "
+        f"{json.dumps(wide_errors)}")
     for route, (where, before) in (("bf16", ATTN_GRID_ERRORS_5CFB824),
                                    ("f32", ATTN_GRID_ERRORS_F32_TC)):
         keys = ("fwd_bf16", "bwd_bf16") if route == "bf16" else ("fwd",
@@ -2113,7 +2150,8 @@ def phase_attention_kernels(at, dev, seed: int):
     leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
     sdpa = torch.nn.functional.scaled_dot_product_attention
     timings = {"shape": {"b": b, "h": h, "s": s, "d": d, "dtype": "bf16"},
-               "mask": mask_stats, "errors": errors, "cases": cases}
+               "mask": mask_stats, "errors": errors,
+               "wide_head_errors": wide_errors, "cases": cases}
     for rate in (0.0, 0.1):
         def sdpa_fwd_bwd():
             sdpa(*leaves, attn_mask=sdpa_mask, dropout_p=rate).backward(do)
@@ -4433,6 +4471,515 @@ def phase_bert_serving(at, ek, seed: int, workdir: str):
     return launches, stats
 
 
+#: heads past 128: B7/B8 at d 256 in both dtypes, [b, h, s, d]
+#: (the longest sequence the fused kernels take), no bias, no dropout,
+#: timed beside their plain versions and scaled_dot_product_attention
+ATTN_WIDE_TIMED = (16, 8, 512, 256)
+#: B4, B5a, B5b and B6 at d 256, causal, beside the same: bf16 takes B6
+#: (2048 keys of 256 are under the one-pass rule's bytes), f32 B5a + B5b
+FLASH_WIDE_TIMED = (("d256_bf16", (4, 8, 2048, 256), torch.bfloat16),
+                    ("d256_f32", (4, 8, 2048, 256), torch.float32))
+#: a TransformerLM step with heads of 256: hidden 2048 in 8 heads (the
+#: attention width of Gemma-2B's heads, without its multi-query sharing,
+#: which the JAX LM lacks), depth 2 (cut for time), f32, batch 8 x 2048:
+#: each block launches B4, B5a and B5b (8.4 MB resident a head, past the
+#: one-pass rule's 6.6 MB)
+LM_WIDE = dict(LM_CFG, n_block=2, n_head=8)
+LM_WIDE_BATCH, LM_WIDE_STEPS = 8, 2
+#: a bf16 flash step at d 256, causal (B4 and B6), CUDA events
+FLASH_WIDE_STEP = (4, 8, 2048, 256)
+#: bench_quantized's configuration (bench.py:3020-3082): ResNet-18, 1000
+#: classes, 224 x 224, f32, seeded weights and images in [0, 1), batch 32;
+#: calibrated int8 on the first 8 images
+QUANT_RESNET = dict(depth=18, classes=1000, size=224, batch=32, calib=8)
+#: forwards timed by CUDA events, then under the profiler
+QUANT_TIMED, QUANT_PROFILED = 20, 3
+#: images of each conv's int8 input whose int32 sums are held bit for bit,
+#: card against CPU
+QUANT_EXACT_IMAGES = 2
+#: the card's calibrated int8 ResNet-18 against the CPU's from the same
+#: quantized weights and activation scales (the probabilities): the int32
+#: sums are equal, the f32 around them (the scale products, BatchNorm in
+#: eval, the pooling, the softmax) is summed in other orders, and where an
+#: activation lands on a rounding tie its code moves by one (3.3e-6 on an
+#: H100 80GB HBM3 at 700 W)
+QUANT_CARD_CPU_ATOL = 1e-5
+#: the activation scales calibrated on the card against the CPU's (f32
+#: activations from cuDNN's convolutions, TF32 off, against the CPU's;
+#: 1.9e-6 on the H100)
+QUANT_SCALE_RTOL = 1e-5
+#: bench_resnet50_int8's configuration (bench.py:521-560), not cut:
+#: resnet(50, 2, (224, 224, 3), dataflow="int8"), SGD(0.1, momentum 0.9),
+#: bf16 compute, batch 256 of seeded images in [0, 1); 2 warm steps through
+#: Estimator.train, then the step timed by CUDA events and the profiler
+INT8_RESNET_BATCH, INT8_RESNET_WARM = 256, 2
+INT8_RESNET_TIMED, INT8_RESNET_PROFILED = 8, 2
+#: card against CPU, each step from the CPU's state: ResNet-18, 10
+#: classes, 64 x 64, batch 16, bf16 compute, SGD(0.1, momentum 0.9), for
+#: the int8 dataflow and for int8_training (f32 compute there)
+INT8_CPU = dict(depth=18, classes=10, size=64, batch=16, steps=3)
+#: the card's step against the CPU's from the same state: the loss
+#: (relative), the update of all parameters (relative L2) and the state
+#: (each tensor of its scale). The int32 sums are equal and the scales are
+#: the CPU's (``per_127``, ``_rsqrt``). Dataflow: its batch statistics are
+#: f32 sums in other orders, and a code at a rounding tie moves by one.
+#: int8_training: its BatchNormalization layers take ``exact_statistics``
+#: (f64 sums rounded once, a correctly rounded ``1 / sqrt``, no fused
+#: multiply-add), so the forward's codes are the CPU's: without it one
+#: flipped code moved about ten codes of the next layer, 40% of the last
+#: stage's codes differed and the update was 0.44 apart (H100, 700 W).
+#: What is left is the bf16 gradients' sums (cuDNN's order) and the head's
+#: f32 sums. On an H100 80GB HBM3 at 700 W the worst of 3 steps were,
+#: dataflow: loss 6.8e-4, update 9.9e-3, state 8.5e-7; int8_training:
+#: loss 9.6e-8, update 8.8e-3, state 0 (no code flipped in any of the 20
+#: convs). Each bound is about twice that (the state's one f32 unit)
+INT8_CPU_TOL = {"dataflow": dict(loss=2e-3, update=2e-2, state=2e-6),
+                "int8_training": dict(loss=2e-7, update=2e-2, state=1e-7)}
+#: one int8_training conv at a ResNet-50 3x3 shape, timed alone (forward
+#: and backward) beside the bf16 convolution: input [256, 56, 56, 64], 64
+#: filters, SAME
+INT8_CONV_TIMED = ((256, 56, 56, 64), 64, 3)
+#: the H100 SXM's dense int8 tensor-core rate (NVIDIA data sheet)
+PEAK_INT8_OPS = 1979e12
+
+
+def int8_kernel_class(name: str) -> str:
+    """The kind of a device kernel of an int8 ResNet forward or step:
+    cuBLASLt's int8 GEMMs (``s8``/``i8``/``imma`` in their names), then
+    ``resnet_kernel_class``'s kinds (cuDNN's float convolutions, which an
+    int8 forward must not launch, and its dgrad and wgrad in a step;
+    PyTorch's elementwise, reduction and pooling kernels; copies and
+    fills)."""
+    n = name.lower()
+    if "at::" not in n and re.search(r"s8|i8|imma|int8|igemm", n):
+        return "int8_gemm"
+    return resnet_kernel_class(name)
+
+
+#: a float convolution's or float product's kernel, by its name (cuDNN's
+#: convolutions, cuBLAS's float GEMMs): an int8 forward launches none
+_FLOAT_CONV_OR_GEMM = re.compile(
+    r"conv|fprop|dgrad|wgrad|cudnn|sgemm|hgemm|f32f32|bf16bf16|f16f16|"
+    r"gemm_f32|gemm_bf16", re.I)
+
+
+def _seeded_resnet(cfg, dev, seed: int, **kw):
+    from analytics_zoo_tpu_torch.models.image import resnet
+    return resnet(cfg["depth"], cfg["classes"],
+                  (cfg["size"], cfg["size"], 3), **kw).build(
+        torch.Generator().manual_seed(seed), device=dev)
+
+
+def int8_conv_bound_ms(n, oh, ow, k_taps, cout) -> float:
+    """Least time of an int8 conv's products at the dense int8 rate: 2 ops
+    a multiply-add."""
+    return 2.0 * n * oh * ow * k_taps * cout / PEAK_INT8_OPS * 1e3
+
+
+def phase_resnet18_quantized(seed: int) -> dict:
+    """bench_quantized's configuration through ``InferenceModel`` on the
+    card: fp32, ``quantize("bf16")`` and ``quantize("int8",
+    calibration_data=[x[:8]])``. Images/s of each forward by CUDA events;
+    the int8 forward's device ms by kind (its int8 GEMMs, the patch copies
+    by their profiler range, the rest) and no float convolution; drift and
+    argmax agreement of bf16 and int8 against f32; every calibrated conv's
+    int32 sums on the card equal to the CPU's bit for bit; the activation
+    scales against the CPU's, and the card's int8 answers against the
+    CPU's from the same quantized weights and scales."""
+    from analytics_zoo_tpu_torch.inference import InferenceModel
+    from analytics_zoo_tpu_torch.inference.quantize import QuantizedWeight
+    from analytics_zoo_tpu_torch.keras.layers import Convolution2D
+    from analytics_zoo_tpu_torch.ops.int8_dataflow import int8_conv2d
+
+    cfg = QUANT_RESNET
+    b, s = cfg["batch"], cfg["size"]
+    x = np.random.RandomState(seed).rand(b, s, s, 3).astype(np.float32)
+    calib = [x[:cfg["calib"]]]
+    init = _seeded_resnet(cfg, "cpu", seed).state_dict()
+
+    def served(dev, mode):
+        model = _seeded_resnet(cfg, dev, seed)
+        model.load_state_dict(init, strict=True)
+        im = InferenceModel(device=dev).load_keras(model)
+        if mode == "int8":
+            return im.quantize("int8", calibration_data=calib)
+        return im if mode == "fp32" else im.quantize(mode)
+
+    xb = torch.from_numpy(x).cuda()
+    out = {"config": f"resnet({cfg['depth']}, num_classes="
+                     f"{cfg['classes']}, input_shape=({s}, {s}, 3)), f32, "
+                     f"seeded weights (bench.py:3020-3082)", "batch": b}
+    probs = {}
+    for mode in ("fp32", "bf16", "int8"):
+        im = served("cuda", mode)
+        module = im._module
+
+        def fwd(module=module):
+            with torch.inference_mode():
+                return module(xb)
+
+        ms = cuda_ms(fwd, QUANT_TIMED, warmup=3)
+        probs[mode] = im.predict(x, batch_size=b)
+        out[mode] = {"forward_ms_events": ms,
+                     "images_per_s_events": b / ms * 1e3}
+        if mode != "int8":
+            continue
+        prof = step_profile(fwd, calls=QUANT_PROFILED, top=8,
+                            split=int8_kernel_class)
+        kinds = prof["split_ms"]
+        convs = [m for m in module.modules()
+                 if isinstance(m, Convolution2D)]
+        check(len(convs) == 20 and all(
+            isinstance(m.kernel, QuantizedWeight)
+            and m.kernel.act_scale is not None for m in convs),
+            "calibrated int8 left a conv unquantized")
+        library = [n for n in prof["kernel_names"] if "at::" not in n]
+        floats = [n for n in library if int8_kernel_class(n) != "int8_gemm"
+                  and _FLOAT_CONV_OR_GEMM.search(n)]
+        check(kinds.get("int8_gemm", 0.0) > 0.0 and not floats,
+              f"the int8 forward's device ms by kind {kinds}: it must run "
+              f"int8 GEMMs and no float convolution or product, ran "
+              f"{floats}")
+        out["int8"].update({
+            "device_ms": prof["device_ms"],
+            "device_ms_by_kind": kinds,
+            "patch_copy_device_ms": prof["patch_device_ms"],
+            "top_kernels": prof["top_device"],
+            "library_kernels": [n[:96] for n in library],
+            "int8_gemm_bound_ms": 0.0})
+        # every calibrated conv's int8 sums, card against CPU, bit for bit
+        seen = []
+        hooks = [m.register_forward_pre_hook(
+            lambda m, args: seen.append((m, args[0]))) for m in convs]
+        try:
+            fwd()
+        finally:
+            for h in hooks:
+                h.remove()
+        n_img = QUANT_EXACT_IMAGES
+        for m, inp in seen:
+            qw = m.kernel
+            xq = torch.clamp(torch.round(inp[:n_img].float() / qw.act_scale),
+                             -127, 127).to(torch.int8)
+            card = int8_conv2d(xq, qw.q, m.strides, m.padding, m.dilation,
+                               m.groups)
+            host = int8_conv2d(xq.cpu(), qw.q.cpu(), m.strides, m.padding,
+                               m.dilation, m.groups)
+            check(card.dtype == torch.int32 and torch.equal(card.cpu(), host),
+                  f"{m.name}: the card's int32 sums differ from the CPU's")
+            n_, oh, ow, cout = card.shape
+            kh, kw_, cg, _ = qw.q.shape
+            out["int8"]["int8_gemm_bound_ms"] += int8_conv_bound_ms(
+                b, oh, ow, kh * kw_ * cg, cout)
+        out["int8"]["convs_bit_equal_to_cpu"] = len(seen)
+    for mode in ("bf16", "int8"):
+        out[mode]["max_abs_drift_vs_fp32"] = float(
+            np.abs(probs[mode] - probs["fp32"]).max())
+        out[mode]["argmax_agreement_vs_fp32"] = float(
+            (probs[mode].argmax(1) == probs["fp32"].argmax(1)).mean())
+    # the CPU's calibration, and its quantized weights and scales on the
+    # card
+    cpu = served("cpu", "int8")
+    card = served("cuda", "int8")
+    scale_err = max(abs(card._act_scales[k] - v) / v
+                    for k, v in cpu._act_scales.items())
+    check(set(card._act_scales) == set(cpu._act_scales)
+          and scale_err <= QUANT_SCALE_RTOL,
+          f"activation scales {scale_err} (relative) from the CPU's")
+    card._module.load_state_dict(cpu._module.state_dict(), strict=True)
+    got, want = card.predict(x, batch_size=b), cpu.predict(x, batch_size=b)
+    err = float(np.abs(got - want).max())
+    check(err <= QUANT_CARD_CPU_ATOL, f"calibrated int8 on the card {err} "
+          f"from the CPU's")
+    out["int8"].update({"act_scale_max_rel_err_vs_cpu": scale_err,
+                        "max_abs_err_vs_cpu": err,
+                        "argmax_agreement_vs_cpu": float(
+                            (got.argmax(1) == want.argmax(1)).mean()),
+                        "cpu_atol": QUANT_CARD_CPU_ATOL})
+    return out
+
+
+def int8_card_vs_cpu(seed: int, kind: str) -> dict:
+    """``INT8_CPU``'s ResNet-18 (``dataflow="int8"`` in bf16, or
+    ``int8_training`` in f32) stepped on the CPU, then on the card from the
+    CPU's state before each step: the loss, the update and the state
+    against ``INT8_CPU_TOL``; the free card run's losses finite."""
+    from analytics_zoo_tpu_torch.estimator import Estimator
+    from analytics_zoo_tpu_torch.feature import FeatureSet
+    from analytics_zoo_tpu_torch.keras import optimizers
+
+    cfg, tol = INT8_CPU, INT8_CPU_TOL[kind]
+    b, s, steps = cfg["batch"], cfg["size"], cfg["steps"]
+    rs = np.random.RandomState(seed + 5)
+    x = rs.rand(b * steps, s, s, 3).astype(np.float32)
+    y = rs.randint(0, cfg["classes"], b * steps).astype(np.float32)
+    kw = ({"dataflow": "int8"} if kind == "dataflow"
+          else {"int8_training": True})
+    dtype = torch.bfloat16 if kind == "dataflow" else None
+    init = _seeded_resnet(cfg, "cpu", seed, **kw).state_dict()
+
+    def make(dev):
+        model = _seeded_resnet(cfg, dev, seed, **kw)
+        model.load_state_dict(init, strict=True)
+        return Estimator(model, "sparse_categorical_crossentropy",
+                         optimizers.SGD(0.1, momentum=0.9), device=dev,
+                         compute_dtype=dtype, seed=seed)
+
+    def step(est, k):
+        fs = FeatureSet.from_ndarrays(x[k * b:(k + 1) * b],
+                                      y[k * b:(k + 1) * b], shuffle=False)
+        return est.train(fs, batch_size=b, epochs=est.epoch)[
+            "loss_history"][0]
+
+    cpu, snaps, cpu_losses = make("cpu"), [], []
+    for k in range(steps):
+        snaps.append(_resnet_snapshot(cpu))
+        cpu_losses.append(step(cpu, k))
+    snaps.append(_resnet_snapshot(cpu))
+    card = make("cuda")
+    card_losses = [step(card, k) for k in range(steps)]
+    check(bool(np.isfinite(card_losses).all()), f"{kind} card losses "
+          f"{card_losses}")
+    params = [k for k, _ in card.model.named_parameters()]
+    by_step = []
+    for k in range(steps):
+        est = make("cuda")
+        _step_from(est, snaps[k])
+        loss = step(est, k)
+        got = _resnet_snapshot(est)["state"]
+        want, prev = snaps[k + 1]["state"], snaps[k]["state"]
+        diff = sum(float((got[n] - want[n]).double().square().sum())
+                   for n in params)
+        upd = sum(float((want[n] - prev[n]).double().square().sum())
+                  for n in params)
+        errs = {"loss": abs(loss - cpu_losses[k]) / abs(cpu_losses[k]),
+                "update": math.sqrt(diff / max(upd, 1e-300)),
+                "state": max(float((got[n] - want[n]).abs().max())
+                             / max(float(want[n].abs().max()), 1e-30)
+                             for n in want if n not in params)}
+        by_step.append(errs)
+        for key, err in errs.items():
+            check(err <= tol[key], f"{kind} step {k} from the CPU's state: "
+                  f"{key} error {err}")
+    return {"config": cfg, "kind": kind, "cpu_losses": cpu_losses,
+            "card_losses": card_losses, "err_from_cpu_state_by_step": by_step,
+            "tolerance": tol}
+
+
+def phase_resnet50_int8(at, ek, seed: int, bf16_reference: dict) -> dict:
+    """bench_resnet50_int8's configuration on the card: 2 warm steps
+    through ``Estimator.train``, then the step on a batch on the card by
+    CUDA events and the profiler (device ms by kind, the patch copies by
+    their profiler range, busy share, peak memory); phase 16's bf16 ResNet-50
+    step from this run beside it (a reference, not a claim); then ResNet-18
+    card against CPU from the same state. No kernel of the port's own runs
+    on this path."""
+    from analytics_zoo_tpu_torch.estimator import Estimator
+    from analytics_zoo_tpu_torch.feature import FeatureSet
+    from analytics_zoo_tpu_torch.keras import optimizers
+    from analytics_zoo_tpu_torch.models.image import resnet
+
+    _reset_counts(at, ek)
+    b, s = INT8_RESNET_BATCH, RESNET_SIZE
+    rs = np.random.RandomState(seed)
+    x = rs.rand(b, s, s, 3).astype(np.float32)
+    y = rs.randint(0, 2, b).astype(np.float32)
+    model = resnet(50, num_classes=2, input_shape=(s, s, 3), dataflow="int8")
+    est = Estimator(model, "sparse_categorical_crossentropy",
+                    optimizers.SGD(0.1, momentum=0.9), device="cuda",
+                    compute_dtype=torch.bfloat16, seed=seed)
+    est._ensure_initialized(x)
+    before = _resnet_snapshot(est)["state"]
+    fs = FeatureSet.from_ndarrays(x, y)
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_s = [], []
+    for _ in range(INT8_RESNET_WARM):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses += est.train(fs, batch_size=b, epochs=est.epoch)[
+            "loss_history"]
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    xb, yb = torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda()
+    est.model.train()
+    step_ms = cuda_ms(lambda: est._train_step(xb, yb), INT8_RESNET_TIMED,
+                      warmup=0)
+    peak = torch.cuda.max_memory_allocated()
+    prof = step_profile(lambda: est._train_step(xb, yb),
+                        calls=INT8_RESNET_PROFILED, top=12, warmup=False,
+                        split=int8_kernel_class)
+    after = _resnet_snapshot(est)["state"]
+    params = [k for k, _ in est.model.named_parameters()]
+    stats = [k for k in after if k not in set(params)]
+    check(len(losses) == INT8_RESNET_WARM
+          and bool(np.isfinite(losses).all()), f"int8 ResNet-50 losses "
+          f"{losses}")
+    check(_finite_moved(before, after, params) == (True, True),
+          "int8 ResNet-50 parameters not finite and moved")
+    check(_finite_moved(before, after, stats)[0],
+          "int8 ResNet-50 state not finite")
+    check(prof["split_ms"].get("int8_gemm", 0.0) > 0.0,
+          f"the int8 step launched no int8 GEMM: {prof['split_ms']}")
+    counts = {**_lm_counts(at, ek), **_launches(ek)}
+    check(not any(counts.values()), f"the int8 ResNet path launched the "
+          f"port's kernels: {counts}")
+    kept_ms = sum(prof["split_ms"].values())
+    out = {"config": "resnet(50, num_classes=2, input_shape=(224, 224, 3), "
+                     "dataflow='int8'), SGD(0.1, momentum=0.9), bf16 compute"
+                     " (bench.py:521-560)",
+           "batch": b, "losses": losses, "first_step_s": step_s[0],
+           "second_step_s": step_s[1], "step_ms_events": step_ms,
+           "images_per_s_events": b / step_ms * 1e3,
+           "peak_memory_gib": peak / 2 ** 30,
+           "step_device_ms": prof["device_ms"],
+           "device_busy_share": (prof["device_ms"] / step_ms
+                                 if prof["device_ms"] is not None else None),
+           "device_busy_share_at_least": kept_ms / step_ms,
+           "device_ms_by_kind": prof["split_ms"],
+           "patch_copy_device_ms": prof["patch_device_ms"],
+           "step_top_kernels": prof["top_device"],
+           "step_top_host_ops": prof["top_host"],
+           "bf16_resnet50_step_ms_events_same_run":
+               bf16_reference.get("step_ms_events"),
+           "bf16_resnet50_images_per_s_same_run":
+               bf16_reference.get("images_per_s_events"),
+           "port_kernel_launches": counts}
+    del est, model, xb, yb
+    torch.cuda.empty_cache()
+    out["card_vs_cpu"] = int8_card_vs_cpu(seed, "dataflow")
+    return out
+
+
+def phase_int8_training(seed: int) -> dict:
+    """``resnet(18, int8_training=True)`` card against CPU from the same
+    state, then one ``Convolution2D(int8_training=True)`` at a ResNet-50
+    3x3 shape timed alone (forward and backward) beside the bf16 conv."""
+    from analytics_zoo_tpu_torch.keras.layers import Convolution2D
+
+    out = {"card_vs_cpu": int8_card_vs_cpu(seed, "int8_training")}
+    shape, filters, k = INT8_CONV_TIMED
+    x = torch.randn(shape, device="cuda").to(torch.bfloat16)
+    timed = {}
+    for name, int8 in (("int8_training", True), ("bf16", False)):
+        layer = Convolution2D(filters, k, k, border_mode="same", bias=False,
+                              int8_training=int8)
+        layer.build(torch.Generator().manual_seed(seed), (None,)
+                    + shape[1:], torch.device("cuda"))
+        inp = x.clone().requires_grad_()
+        dy = torch.randn_like(layer(inp))
+
+        def fwd(layer=layer, inp=inp):
+            return layer(inp)
+
+        def fwd_bwd(layer=layer, inp=inp, dy=dy):
+            layer(inp).backward(dy)
+
+        timed[name] = {"forward_ms_events": cuda_ms(fwd, 10, warmup=2),
+                       "forward_backward_ms_events": cuda_ms(fwd_bwd, 10,
+                                                             warmup=2)}
+    n, h, w, c = shape
+    out["conv"] = {"input": list(shape), "filters": filters, "kernel": k,
+                   **timed,
+                   "int8_gemm_bound_ms": int8_conv_bound_ms(
+                       n, h, w, k * k * c, filters)}
+    return out
+
+
+def phase_wide_heads(at, ek, dev, seed: int) -> dict:
+    """Heads of 256 on the card: B7/B8 and B4, B5a, B5b, B6 at d 256 timed
+    beside their plain versions and SDPA (each held to its plain version);
+    a TransformerLM step with heads of 256 (f32, B4, B5a and B5b); a bf16
+    flash step at d 256 (B4 and B6); returns (launches by path, stats)."""
+    from analytics_zoo_tpu_torch.capture import TransformerLM
+
+    gen = torch.Generator().manual_seed(seed)
+    seed_t = torch.tensor([seed + 17], dtype=torch.int32, device=dev)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    stats = {"fused": {}}
+    b, h, s, d = ATTN_WIDE_TIMED
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v, do, _ = _attn_case(dev, b, h, s, d, dtype, gen)
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+
+        def sdpa_fwd_bwd(leaves=leaves, do=do):
+            sdpa(*leaves).backward(do)
+
+        t = _attn_timing(at, q, k, v, do, (None, seed_t, d ** -0.5, 0.0,
+                                           False),
+                         lambda q=q, k=k, v=v: sdpa(q, k, v), sdpa_fwd_bwd)
+        peak = PEAK_FLOPS_3XTF32 if dtype == torch.float32 else None
+        for bwd in (False, True):
+            t["bwd_bound" if bwd else "fwd_bound"] = list(
+                attention_bound_ms(b, h, s, d, dtype, bwd, bias=False,
+                                   peak=peak))
+        t["shape"] = [b, h, s, d]
+        stats["fused"][str(dtype).split(".")[-1]] = t
+        log(f"attention timing d256 {dtype} " + json.dumps(t))
+        del q, k, v, do, leaves
+    stats["flash"] = flash_timings(at, dev, FLASH_WIDE_TIMED)
+    torch.cuda.empty_cache()
+
+    # the LM step with heads of 256
+    lm = TransformerLM(**LM_WIDE, seed=seed + 4)
+    tokens = lm_tokens(seed + 4, LM_WIDE_BATCH * LM_WIDE_STEPS,
+                       LM_WIDE["max_len"] + 1)
+    _reset_counts(at, ek)
+    hist = lm.fit(tokens, batch_size=LM_WIDE_BATCH, epochs=1)
+    torch.cuda.synchronize()
+    lm_launches = _lm_counts(at, ek)
+    n = LM_WIDE["n_block"] * LM_WIDE_STEPS
+    want = {"flash_fwd": n, "flash_bwd_dq": n, "flash_bwd_dkv": n,
+            "flash_bwd_fused": 0, "fused_short_fwd": 0, "fused_short_bwd": 0,
+            "gather_rows": LM_WIDE_STEPS}
+    check(lm_launches == want, f"the LM with heads of 256 launched "
+          f"{lm_launches}, expected {want}")
+    check(dict(at.flash_route_counts) == flash_routes_of(
+        at, torch.float32, lm_launches), "the LM's flash routes")
+    check(bool(np.isfinite(hist["loss_history"]).all()),
+          "the LM with heads of 256: losses not finite")
+    stats["lm"] = {"config": LM_WIDE, "batch": LM_WIDE_BATCH,
+                   "head_dim": LM_WIDE["hidden"] // LM_WIDE["n_head"],
+                   "reduced": "n_block 8 -> 2, for time",
+                   "losses": list(hist["loss_history"]),
+                   "launches": lm_launches,
+                   "flash_routes": dict(at.flash_route_counts),
+                   **_lm_step_stats(lm, tokens, LM_WIDE_BATCH, 2, 1)}
+    del lm
+    torch.cuda.empty_cache()
+
+    # a bf16 flash step at d 256: B4, then B6
+    leaves = [torch.randn(FLASH_WIDE_STEP, device=dev, generator=None).to(
+        torch.bfloat16).requires_grad_() for _ in range(3)]
+
+    def flash_step(leaves=leaves):
+        at.flash_attention(*leaves, causal=True).float().sum().backward()
+
+    def sdpa_step(leaves=leaves):
+        sdpa(*leaves, is_causal=True).float().sum().backward()
+
+    _reset_counts(at, ek)
+    flash_step()
+    torch.cuda.synchronize()
+    step_launches = dict(at.flash_launch_counts)
+    check(step_launches == {"flash_fwd": 1, "flash_bwd_dq": 0,
+                            "flash_bwd_dkv": 0, "flash_bwd_fused": 1}
+          and dict(at.flash_route_counts) == flash_routes_of(
+              at, torch.bfloat16, step_launches),
+          f"the bf16 d 256 step launched {step_launches}")
+    check(all(bool(torch.isfinite(t.grad.float()).all()) for t in leaves),
+          "the bf16 d 256 step's gradients are not finite")
+    stats["flash_step"] = {"shape": list(FLASH_WIDE_STEP), "dtype": "bf16",
+                           "causal": True, "launches": step_launches,
+                           "step_ms_events": cuda_ms(flash_step, 5, 1),
+                           "sdpa_step_ms_events": cuda_ms(sdpa_step, 5, 1)}
+    del leaves
+    torch.cuda.empty_cache()
+    return {"lm_heads256": lm_launches,
+            "longseq_d256_step": {**step_launches, "fused_short_fwd": 0,
+                                  "fused_short_bwd": 0,
+                                  "gather_rows": 0}}, stats
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -4474,8 +5021,8 @@ def main() -> int:
     timed("build", kernel_build.load_library)
     log(f"kernel library {os.path.relpath(kernel_build.library_path(), REPO)}"
         f" ready in {phase_s['build']:.3f} s (nvcc "
-        f"{kernel_build.last_build_seconds:.3f} s); rebuilt, s: "
-        + json.dumps(timed("rebuild", rebuild_seconds, kernel_build)))
+        f"{kernel_build.last_build_seconds:.3f} s); ptxas -v: "
+        + json.dumps(timed("ptxas", ptxas_report, kernel_build)))
 
     # -- 3. kernels against their plain versions ------------------------------
     gen = torch.Generator().manual_seed(args.seed)
@@ -4546,6 +5093,11 @@ def main() -> int:
     log("lm long context " + json.dumps(long_stats) + f" | {smi}")
     lm_cpu = timed("lm_vs_cpu", phase_lm_vs_cpu, args.seed)
     log("lm card vs cpu " + json.dumps(lm_cpu) + f" | {smi}")
+    # -- 18. heads of 256 ----------------------------------------------------
+    torch.cuda.empty_cache()
+    wide_launches, heads256 = timed("wide_heads", phase_wide_heads, at, ek,
+                                    dev, args.seed)
+    log("heads of 256 " + json.dumps(heads256) + f" | {smi}")
     # -- 16. ResNet-50 trained on the card -----------------------------------
     torch.cuda.empty_cache()
     workdir = tempfile.mkdtemp(prefix="chip_smoke_", dir=build)
@@ -4568,12 +5120,25 @@ def main() -> int:
         log("bert_serving " + json.dumps(bert_serving) + f" | {smi}")
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+    # -- 19. the int8 ResNet: served calibrated, trained in int8 -------------
+    torch.cuda.empty_cache()
+    quant18 = timed("resnet18_quantized", phase_resnet18_quantized,
+                    args.seed)
+    log("resnet18_quantized " + json.dumps(quant18) + f" | {smi}")
+    torch.cuda.empty_cache()
+    int8_50 = timed("resnet50_int8", phase_resnet50_int8, at, ek, args.seed,
+                    resnet_stats["bench"])
+    log("resnet50_int8 " + json.dumps(int8_50) + f" | {smi}")
+    torch.cuda.empty_cache()
+    int8_train = timed("int8_training", phase_int8_training, args.seed)
+    log("int8_training " + json.dumps(int8_train) + f" | {smi}")
     log("phases, s: " + json.dumps(phase_s))
 
     # -- 8. the kernels line, 9. the result line ------------------------------
     serve = timings[0]
     lm_paths = {"lm_train": lm_launches, "lm_long": long_launches,
-                **{f"lm_generate_{n}": c for n, c in gen_launches.items()}}
+                **{f"lm_generate_{n}": c for n, c in gen_launches.items()},
+                **wide_launches}
     rows_launches = {"serving": launches,
                      "serving_bf16": quant["bf16"][0]["gather_rows"],
                      "serving_int8": quant["int8"][0]["gather_rows"],
@@ -4761,6 +5326,17 @@ def main() -> int:
                              for label, *_ in ATTN_F32_TIMED[1:]},
             "launches_by_path": {k: v for k, v in by_path.items()
                                  if k not in bf16_paths}}
+        # heads of 256, both routes, at ATTN_WIDE_TIMED
+        heads_256 = {}
+        for tag, u in heads256["fused"].items():
+            heads_256[tag] = {
+                "shape": u["shape"], "ms": u[f"{key}_ms"],
+                "device_ms": u[f"{key}_device_ms"],
+                "plain_ms": u[f"plain_{key}_ms"],
+                "bound_ms": u[f"{key}_bound"][0],
+                "bound_by": u[f"{key}_bound"][1],
+                "library_ms": u[library[0]],
+                "max_abs_err": u[f"{key}_max_abs_err"]}
         # the top-level numbers are the main path's: BERT's bf16 route
         attn_entries.append({
             "name": name, "route": "cuda",
@@ -4780,7 +5356,7 @@ def main() -> int:
             "device_ms": main_t[f"{key}_device_ms"],
             "no_dropout": {k: v for k, v in attn["rate_0.0"].items()
                            if k.startswith((key, "plain_" + key, "library"))},
-            "routes": routes,
+            "routes": routes, "heads_256": heads_256,
         })
     flash_sources = {
         "bf16_tc": "analytics_zoo_tpu_torch/csrc/flash_attn_bf16.cu",
@@ -4788,6 +5364,7 @@ def main() -> int:
     flash_paths = {**lm_paths, **{f"longseq_{k}": c
                                   for k, c in longseq_launches.items()}}
     flash_entries = []
+    flash.update(heads256["flash"])  # the d 256 timings, by label
     # the top-level numbers are bf16's, on the tensor cores: B4 and B6 at
     # bench_longseq's headline, B5a and B5b at its 8192 keys; each route's
     # beside them (f32, on each kernel's f32 route: the LM's step for B4
@@ -4872,6 +5449,8 @@ def main() -> int:
                         "launches_by_path": {
                             k: c for k, c in by_path.items()
                             if not k.startswith("longseq")}}}
+        entry_k["heads_256"] = {lab: timed_at(lab)
+                                for lab, _, _ in FLASH_WIDE_TIMED}
         flash_entries.append(entry_k)
     print(smi)
     print(json.dumps({"kernels": [entry, pool_entry, scatter_entry,

@@ -252,14 +252,24 @@ def test_conv_output_is_contiguous_nhwc_with_no_layout_copy():
 
 
 def test_int8_convolution_paths_raise_naming_their_roadmap_item():
-    with pytest.raises(NotImplementedError, match="Queue A item 3"):
-        pconv.Convolution2D(4, 3, 3, int8_training=True)
-    layer = pconv.Convolution2D(4, 3, 3)
+    """Queue A item 3 is ported: neither int8 route raises any more. A
+    layer with ``int8_training`` runs ``int8_train_conv``, and one whose
+    kernel is a ``QuantizedWeight`` runs ``qconv_apply`` (their parity with
+    JAX: ``tests/test_torch_port_int8_conv.py``)."""
+    from analytics_zoo_tpu_torch.inference.quantize import qconv_apply
+    from analytics_zoo_tpu_torch.ops.int8_training import int8_train_conv
+    x = torch.randn(1, 8, 8, 2, generator=torch.Generator().manual_seed(0))
+    trained = pconv.Convolution2D(4, 3, 3, int8_training=True, bias=False)
+    trained.build(torch.Generator().manual_seed(0), (None, 8, 8, 2),
+                  torch.device("cpu"))
+    assert torch.equal(trained(x), int8_train_conv(
+        x, trained.kernel, (1, 1), "VALID"))
+    layer = pconv.Convolution2D(4, 3, 3, bias=False)
     layer.build(torch.Generator().manual_seed(0), (None, 8, 8, 2),
                 torch.device("cpu"))
     kernel = layer.kernel.detach()
     del layer._parameters["kernel"]
     layer.kernel = QuantizedWeight(kernel.to(torch.int8),
                                    torch.tensor(1.0))
-    with pytest.raises(NotImplementedError, match="Queue A item 3"):
-        layer(torch.randn(1, 8, 8, 2))
+    assert torch.equal(layer(x), qconv_apply(x, layer.kernel, (1, 1),
+                                             "VALID", (1, 1), 1))

@@ -11,6 +11,7 @@ a small BERT on the card:
 import ast
 import importlib.util
 import os
+import re
 
 import numpy as np
 import pytest
@@ -214,6 +215,51 @@ def test_library_is_keyed_by_a_hash_of_the_sources():
             "fused_short_attn_bf16.cu", "gather_int8.cu",
             "scatter_rows.cu", "flash_attn_bf16.cu",
             "flash_attn_tf32.cu"} <= {os.path.basename(s) for s in srcs}
+
+
+def test_the_build_keeps_its_ptxas_log_beside_the_library(tmp_path,
+                                                         monkeypatch):
+    """A build writes the compilers' ``ptxas -v`` output beside the library
+    under the same name, so a run that reuses the library still reads the
+    kernels' registers and spills; no temporary file is left."""
+    cmds = []
+
+    def fake_run_all(batch):
+        cmds.append(batch)
+        for cmd in batch:
+            with open(cmd[cmd.index("-o") + 1], "w") as f:
+                f.write("object")
+        return "ptxas info    : Used 255 registers"
+
+    monkeypatch.setattr(kernel_build, "BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(kernel_build, "_nvcc", lambda: "nvcc")
+    monkeypatch.setattr(kernel_build, "_run_all", fake_run_all)
+    out = str(tmp_path / "libazt_kernels-0123.so")
+    kernel_build._build(out)
+    assert all("-Xptxas" in cmd for cmd in cmds[0])
+    assert sorted(os.listdir(tmp_path)) == ["libazt_kernels-0123.ptxas.txt",
+                                            "libazt_kernels-0123.so"]
+    with open(tmp_path / "libazt_kernels-0123.ptxas.txt") as f:
+        assert f.read() == "ptxas info    : Used 255 registers"
+    monkeypatch.setattr(kernel_build, "library_path", lambda: out)
+    assert kernel_build.build_log() == "ptxas info    : Used 255 registers"
+
+
+@pytest.mark.parametrize("source,limit", [
+    ("fused_short_attn.cu", "FUSED_SHORT_MAX_HEAD_DIM"),
+    ("fused_short_attn_bf16.cu", "FUSED_SHORT_MAX_HEAD_DIM"),
+    ("flash_attn_tf32.cu", "FLASH_MAX_HEAD_DIM"),
+    ("flash_attn_bf16.cu", "FLASH_MAX_HEAD_DIM")])
+def test_each_attention_source_takes_the_head_width_its_wrapper_allows(
+        source, limit):
+    """The widest head a CUDA source's C entries take (its ``kMaxD``) is
+    the limit its Python wrapper checks before a launch (256), so a width
+    the wrapper lets through is never refused by the kernel, and one it
+    refuses never reaches the kernel."""
+    from analytics_zoo_tpu_torch.ops import attention as at
+    with open(os.path.join(kernel_build.CSRC_DIR, source)) as f:
+        found = re.findall(r"constexpr int kMaxD = (\d+);", f.read())
+    assert [int(v) for v in found] == [getattr(at, limit)] == [256]
 
 
 # -- on the card --------------------------------------------------------------
@@ -433,6 +479,101 @@ def test_int8_matmul_is_exact_on_the_card(cuda_device, m, k, n):
     assert torch.equal(got.cpu(), (a.long() @ b.long()).int())
 
 
+#: int8_conv2d on the card: ResNet's convolutions (7x7/2 with cin 3, 3x3 at
+#: strides 1 and 2, 1x1 at strides 1 and 2), explicit pads, dilation and
+#: groups, as (input, kernel [kh, kw, cin / groups, cout], strides,
+#: padding, dilation, groups)
+INT8_CONV_CASES = [
+    ((4, 32, 32, 3), (7, 7, 3, 64), (2, 2), "SAME", (1, 1), 1),
+    ((4, 16, 16, 64), (3, 3, 64, 64), (1, 1), "SAME", (1, 1), 1),
+    ((4, 16, 16, 64), (3, 3, 64, 128), (2, 2), "SAME", (1, 1), 1),
+    ((4, 16, 16, 64), (1, 1, 64, 256), (1, 1), "SAME", (1, 1), 1),
+    ((4, 16, 16, 256), (1, 1, 256, 128), (2, 2), "SAME", (1, 1), 1),
+    ((2, 9, 9, 8), (5, 3, 8, 16), (1, 2), ((2, 0), (1, 3)), (1, 1), 1),
+    ((2, 10, 10, 8), (3, 3, 8, 8), (1, 1), "SAME", (2, 2), 1),
+    ((2, 8, 8, 16), (3, 3, 8, 16), (1, 1), "VALID", (1, 1), 2),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,kshape,strides,padding,dilation,groups",
+                         INT8_CONV_CASES)
+def test_int8_conv2d_on_the_card_equals_the_cpu_bit_for_bit(
+        cuda_device, shape, kshape, strides, padding, dilation, groups):
+    """The int8 convolution's int32 sums on the card (``torch._int_mm``
+    over the patches) equal the CPU's (the same code) bit for bit, and no
+    float convolution runs."""
+    from analytics_zoo_tpu_torch.ops.int8_dataflow import int8_conv2d
+    gen = torch.Generator().manual_seed(sum(shape) + sum(kshape))
+    xq = torch.randint(-127, 128, shape, generator=gen, dtype=torch.int8)
+    wq = torch.randint(-127, 128, kshape, generator=gen, dtype=torch.int8)
+    want = int8_conv2d(xq, wq, strides, padding, dilation, groups)
+    got = int8_conv2d(xq.to(cuda_device), wq.to(cuda_device), strides,
+                      padding, dilation, groups)
+    assert got.device.type == "cuda" and got.dtype == torch.int32
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_batchnorm_exact_statistics_on_the_card_equal_the_cpu(cuda_device):
+    """``BatchNormalization(exact_statistics=True)``: the training output
+    and the running statistics it moves, and the eval output, on the card
+    equal the CPU's bit for bit, in f32 and in bf16 (what lets the
+    requantizing ``int8_training`` ResNet's codes on the card be the
+    CPU's)."""
+    from analytics_zoo_tpu_torch.keras.layers import BatchNormalization
+    gen = torch.Generator().manual_seed(5)
+    c = 64
+    x = (torch.randn(16, 32, 32, c, generator=gen) * 0.3
+         + torch.rand(c, generator=gen) * 4)
+    gamma = 1 + 0.1 * torch.randn(c, generator=gen)
+    beta = 0.1 * torch.randn(c, generator=gen)
+    for dtype in (torch.float32, torch.bfloat16):
+        outs = []
+        for dev in (torch.device("cpu"), cuda_device):
+            layer = BatchNormalization(exact_statistics=True)
+            layer.build(None, x.shape, dev)
+            with torch.no_grad():
+                layer.gamma.copy_(gamma)
+                layer.beta.copy_(beta)
+            xd = x.to(dev, dtype)
+            with torch.no_grad():
+                y = layer(xd)
+                layer.eval()
+                y_eval = layer(xd)
+            outs.append([t.cpu() for t in (y, layer.moving_mean,
+                                           layer.moving_var, y_eval)])
+        for want, got in zip(*outs):
+            assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_int8_train_conv_forward_on_the_card_equals_the_cpu(cuda_device):
+    """``int8_train_conv``'s forward (dynamic scales, int8 sums, one f32
+    product) is the CPU's bit for bit on the card, in f32 and in bf16; its
+    straight-through gradients are cuDNN's bf16 convolutions, within one
+    bf16 step of the largest value, 2^-7 of the CPU's scale (one step
+    measured on an H100)."""
+    from analytics_zoo_tpu_torch.ops.int8_training import int8_train_conv
+    gen = torch.Generator().manual_seed(3)
+    x = torch.randn(8, 28, 28, 64, generator=gen)
+    w = torch.randn(3, 3, 64, 64, generator=gen) * 0.05
+    g = torch.randn(8, 14, 14, 64, generator=gen)
+    for dtype in (torch.float32, torch.bfloat16):
+        outs = []
+        for dev in ("cpu", cuda_device):
+            xd = x.to(dev, dtype, copy=True).requires_grad_()
+            wd = w.to(dev, copy=True).requires_grad_()
+            y = int8_train_conv(xd, wd, (2, 2), "SAME")
+            y.backward(g.to(dtype).to(dev))
+            outs.append((y.detach().cpu(), xd.grad.cpu(), wd.grad.cpu()))
+        assert torch.equal(outs[0][0], outs[1][0])
+        for want, got in zip(outs[0][1:], outs[1][1:]):
+            scale = float(want.float().abs().max())
+            assert float((got.float() - want.float()).abs().max()) <= \
+                2.0 ** -7 * scale
+
+
 @pytest.mark.cuda
 def test_calibrated_int8_on_the_card_equals_the_cpu_at_padded_buckets(
         cuda_device, tmp_path):
@@ -598,7 +739,7 @@ def _close(got, want, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("s", [1, 17, 64, 65, 128, 129, 512])
-@pytest.mark.parametrize("d", [24, 32, 64, 128])
+@pytest.mark.parametrize("d", [24, 32, 64, 128, 160, 256])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 def test_fused_short_kernels_equal_their_plain_versions_on_the_card(
@@ -893,7 +1034,7 @@ def _flash_inputs(dev, sq, skv, d, dtype, seed, b=1, h=2):
 @pytest.mark.cuda
 @pytest.mark.parametrize("sq,skv", FLASH_LENGTHS,
                          ids=[f"{a}x{b}" for a, b in FLASH_LENGTHS])
-@pytest.mark.parametrize("d", [24, 64, 96, 128])
+@pytest.mark.parametrize("d", [24, 64, 96, 128, 160, 256])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 def test_flash_kernels_equal_their_plain_versions_on_the_card(
@@ -1118,13 +1259,13 @@ def test_flash_backward_takes_the_design_the_resident_bytes_pick(
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
-def test_card_wrappers_refuse_heads_past_128_before_any_launch(
+def test_card_wrappers_refuse_heads_past_256_before_any_launch(
         cuda_device, dtype):
-    """The CUDA kernels take heads up to 128: a wider CUDA tensor raises
+    """The CUDA kernels take heads up to 256: a wider CUDA tensor raises
     ``ValueError`` in every attention wrapper and launches nothing (the
     plain versions, which CPU tensors take, compute any width)."""
     from analytics_zoo_tpu_torch.ops import attention as at
-    w = torch.zeros(1, 1, 8, 129, device=cuda_device, dtype=dtype)
+    w = torch.zeros(1, 1, 8, 257, device=cuda_device, dtype=dtype)
     rows = torch.zeros(1, 1, 8, device=cuda_device)
     at.reset_launch_counts()
     calls = (
@@ -1138,7 +1279,7 @@ def test_card_wrappers_refuse_heads_past_128_before_any_launch(
         lambda: at.flash_bwd_fused(w, w, w, w, rows, rows, None, 0.1,
                                    False))
     for call in calls:
-        with pytest.raises(ValueError, match="head_dim 129"):
+        with pytest.raises(ValueError, match="head_dim 257"):
             call()
     assert sum(at.launch_counts.values()) == 0
     assert sum(at.flash_launch_counts.values()) == 0
