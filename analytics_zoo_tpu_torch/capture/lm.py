@@ -1,6 +1,7 @@
 """TransformerLM: a decoder-only language model with cached generation
-(counterpart of ``analytics_zoo_tpu/capture/lm.py``; ported so far:
-``fit``, ``logits``, ``params`` and greedy ``generate``).
+(counterpart of ``analytics_zoo_tpu/capture/lm.py``): ``fit``, ``logits``,
+``params``, ``generate`` (greedy, sampled, beam search) and the slot and
+paged decode steps that ``GenerativeServing`` runs.
 
 The model is an ``nn.Module`` whose parameters carry the JAX package's
 tree names: ``embed`` ``[vocab, hidden]`` (tied to the output logits),
@@ -15,17 +16,24 @@ Training runs causal :func:`~analytics_zoo_tpu_torch.ops.attention.
 flash_attention` at every length, through ``GraphModel.from_loss`` and
 the shared Estimator: on the card every block's forward launches B4 and its
 backward B6 or B5a + B5b. Generation prefills the prompt, without its last
-token, right-padded to a length bucket, then decodes greedily off the
-per-block KV caches (``ops/decode.py``). The prefill's attention takes the
-fused short kernel (B7, causal) at a bucketed length of 512 or less and
-flash (B4) above, the JAX package's cutover; decoding runs the plain
+token, right-padded to a length bucket, then decodes off the per-block KV
+caches (``ops/decode.py``). The prefill's attention takes the fused short
+kernel (B7, causal) at a bucketed length of 512 or less and flash (B4)
+above, the JAX package's cutover; decoding runs the plain
 ``masked_context``. The token lookups go through the row-gather kernel
 (B1) in clip mode, where the JAX package indexes ``embed`` directly:
 the same rows for the ids a vocabulary holds.
 
-Beam search and sampling belong to the ``GenerativeServing`` slice, and
-meshes, tensor parallelism and pipeline stages to the model-parallel
-slice (6); each raises ``NotImplementedError``.
+``slot_step`` and ``paged_slot_step`` advance every resident stream of a
+slot cache or page pool by one token; slot ids, lengths and page tables
+are tensors, so their shapes never change as streams join and leave.
+Sampling draws its Gumbel noise from a ``torch.Generator`` seeded by
+``seed`` (``ops/decode.gumbel_noise``), not from JAX's PRNG.
+
+Meshes, tensor parallelism and pipeline stages belong to the
+model-parallel slice (6), and ``verify_step`` and
+``generate_speculative`` to speculative decoding (ROADMAP Queue A item
+4b); each raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -41,8 +49,10 @@ from ..keras.layers.attention import _Dense, _LayerNorm
 from ..keras.layers.core import get_activation
 from ..ops import embedding_kernels as _ek
 from ..ops.attention import (flash_attention, fused_short_applicable,
-                             fused_short_attention)
-from ..ops.decode import cached_attention, greedy_generate, init_kv_cache
+                             fused_short_attention, masked_context)
+from ..ops.decode import (beam_generate, cached_attention, greedy_generate,
+                          init_kv_cache, init_paged_pool, init_slot_cache,
+                          paged_attention, sample_generate, slot_attention)
 from .graph_model import GraphModel
 
 #: prefill length buckets: a prompt is right-padded to the smallest that
@@ -178,6 +188,92 @@ class TransformerLM(nn.Module):
             kvs.append(holder["kv"])
         return kvs
 
+    def prefill_kv_suffix(self, tokens, prefix_kvs, prefix_len: int) -> List:
+        """Causal forward over a right-padded suffix block ``[B, Tb]`` whose
+        positions start at ``prefix_len``, attending over the prefix's K/V
+        (``prefix_kvs``: per block ``(k, v)`` ``[B, H, prefix_len, D]``)
+        and the suffix itself; returns the suffix's K/V per block. The
+        shared-prefix join: the prefix was prefilled once into shared
+        pages."""
+        s = tokens.shape[1]
+        x = self._embed(tokens, prefix_len)
+        key_pos = torch.arange(prefix_len + s, device=x.device)
+        row_pos = torch.arange(s, device=x.device)
+        visible = (key_pos[None, None, None, :]
+                   <= prefix_len + row_pos[None, None, :, None])
+        kvs = []
+        for blk, (pk, pv) in zip(self.blocks, prefix_kvs):
+            holder = {}
+
+            def kv_fn(q, k, v, pk=pk, pv=pv, holder=holder):
+                holder["kv"] = (k, v)
+                k_buf = torch.cat([pk.to(k.dtype), k], dim=2)
+                v_buf = torch.cat([pv.to(v.dtype), v], dim=2)
+                return masked_context(q, k_buf, v_buf, visible,
+                                      1.0 / (q.shape[-1] ** 0.5))
+            x = self._block(blk, x, kv_fn)
+            kvs.append(holder["kv"])
+        return kvs
+
+    # -- slot and paged decode (continuous batching) --------------------------
+
+    def init_slot_caches(self, slots: int, device=None) -> List:
+        """One slot cache per block, f32 (the serial ``generate`` caches'
+        dtype), on ``device``."""
+        return [init_slot_cache(slots, self.n_head, self.max_len,
+                                self._head_dim, torch.float32, device)
+                for _ in range(self.n_block)]
+
+    def init_paged_caches(self, num_pages: int, page_len: int,
+                          int8: bool = False, device=None) -> List:
+        """One page pool per block (page 0 the null page), on ``device``."""
+        if self.max_len % page_len:
+            raise ValueError(f"page_len {page_len} must divide "
+                             f"max_len {self.max_len}")
+        return [init_paged_pool(num_pages, self.n_head, page_len,
+                                self._head_dim, torch.float32, int8=int8,
+                                device=device)
+                for _ in range(self.n_block)]
+
+    def _decode_step(self, tokens, lengths, attend) -> torch.Tensor:
+        """Next-token logits ``[S, vocab]`` of one token a slot: ``tokens``
+        ``[S]`` at positions ``lengths`` ``[S]``; ``attend(q, k, v, i)``
+        is block i's attention."""
+        pos = self.pos[lengths.long().clamp(max=self.max_len - 1)]
+        x = (_ek.gather_rows_clip(self.embed, tokens.to(torch.int32)[:, None])
+             + pos[:, None])
+        for i, blk in enumerate(self.blocks):
+            x = self._block(blk, x, lambda q, k, v, i=i: attend(q, k, v, i))
+        return self.ln_f(x)[:, -1] @ self.embed.t()
+
+    def slot_step(self, tokens, lengths, caches):
+        """One decode step over every slot: feed ``tokens`` ``[S]``, write
+        each slot's K/V at its ``lengths[s]`` position and attend against
+        its visible prefix. Returns ``(logits [S, vocab], caches)``, the
+        caches written in place."""
+        logits = self._decode_step(
+            tokens, lengths, lambda q, k, v, i: slot_attention(
+                q, k, v, caches[i], lengths)[0])
+        return logits, caches
+
+    def paged_slot_step(self, tokens, lengths, table, caches):
+        """``slot_step`` through the page pools: each slot's K/V lives in
+        the pages its ``table`` row names."""
+        logits = self._decode_step(
+            tokens, lengths, lambda q, k, v, i: paged_attention(
+                q, k, v, caches[i], table, lengths, self.max_len)[0])
+        return logits, caches
+
+    def verify_step(self, *args, **kwargs):
+        raise NotImplementedError(
+            "speculative decoding (verify_step) is not ported yet: ROADMAP "
+            "Queue A item 4b")
+
+    def generate_speculative(self, *args, **kwargs):
+        raise NotImplementedError(
+            "speculative decoding (generate_speculative) is not ported yet: "
+            "ROADMAP Queue A item 4b")
+
     # -- public surface -------------------------------------------------------
 
     def _device(self, device: DeviceLike) -> torch.device:
@@ -212,17 +308,22 @@ class TransformerLM(nn.Module):
                  top_k: Optional[int] = None, top_p: Optional[float] = None,
                  seed: Optional[int] = None, device: DeviceLike = None,
                  return_logits: bool = False):
-        """Greedy continuation of ``prompt`` ``[B, S]``: prefill the prompt
-        minus its last token through the per-block KV caches, then decode
-        ``max_new_tokens``. Returns ``[B, max_new_tokens]`` int64 numpy;
-        with ``return_logits`` also each step's logits ``[B,
-        max_new_tokens, vocab]`` f32."""
-        del seed
-        if beam_size > 1 or temperature is not None or top_k is not None \
-                or top_p is not None:
-            raise NotImplementedError(
-                "beam search and sampling are not ported yet (the "
-                "GenerativeServing slice)")
+        """Continuation of ``prompt`` ``[B, S]``: prefill the prompt minus
+        its last token through the per-block KV caches, then decode
+        ``max_new_tokens``: greedy by default, beam search (the best beam
+        returned) with ``beam_size > 1``, sampled when ``temperature``,
+        ``top_k`` or ``top_p`` is given (``seed`` makes the draws
+        reproducible; else fresh entropy). Returns ``[B, max_new_tokens]``
+        int64 numpy; with ``return_logits`` (greedy or sampled) also each
+        step's logits ``[B, max_new_tokens, vocab]`` f32."""
+        sampling = (temperature is not None or top_k is not None
+                    or top_p is not None)
+        if sampling and beam_size > 1:
+            raise ValueError("choose either beam_size > 1 or sampling "
+                             "(temperature/top_k/top_p), not both")
+        if return_logits and beam_size > 1:
+            raise ValueError("return_logits is for greedy and sampled "
+                             "decoding")
         dev = self._device(device)
         prompt = torch.as_tensor(np.asarray(prompt), dtype=torch.long,
                                  device=dev)
@@ -255,9 +356,22 @@ class TransformerLM(nn.Module):
 
             steps: Optional[List[torch.Tensor]] = [] if return_logits \
                 else None
-            out = greedy_generate(step_fn, None, caches, prompt[:, -1],
-                                  max_new_tokens, eos_id=eos_id,
-                                  logits_out=steps)
+            last = prompt[:, -1]
+            if beam_size > 1:
+                out = beam_generate(step_fn, None, caches, last,
+                                    max_new_tokens, beam_size,
+                                    eos_id=eos_id)[0][:, 0]
+            elif sampling:
+                if seed is None:  # fresh entropy: repeated calls differ
+                    seed = int(np.random.SeedSequence().entropy % (2 ** 31))
+                out = sample_generate(
+                    step_fn, None, caches, last, max_new_tokens, seed,
+                    temperature if temperature is not None else 1.0, top_k,
+                    top_p, eos_id=eos_id, logits_out=steps)
+            else:
+                out = greedy_generate(step_fn, None, caches, last,
+                                      max_new_tokens, eos_id=eos_id,
+                                      logits_out=steps)
         tokens = out.cpu().numpy()
         if not return_logits:
             return tokens

@@ -66,6 +66,13 @@ inputs' dtype before ``p·v`` and ``pᵀ·dO``, and ``ds`` before ``ds·k`` and
 backward designs' plain versions give the same gradients bit for bit. A
 ``[b, 1, 1, kv]`` key bias runs inside B4; its backward is autograd
 through :func:`blockwise_attention`, as in the JAX package.
+
+Heads wider than 256 columns take the ``wide`` route in every wrapper:
+``csrc/attn_wide.cu`` holds a forward, a dq pass and a dk/dv pass for any
+width, both families' options, f32 sums on the CUDA cores (each
+128-column chunk of the output recomputes its scores); B6 launches the
+two passes there, and :func:`flash_bwd` takes them. The route counts as
+``"wide"`` in ``route_counts`` and ``flash_route_counts``.
 """
 from __future__ import annotations
 
@@ -79,9 +86,10 @@ from .kernel_build import LaunchCounts, load_library, on_card
 #: the longest sequence the fused kernels take (the TPU's VMEM budget for
 #: the [s, s] block; here the shared memory of the backward's dq pass)
 FUSED_SHORT_MAX_SEQ = 512
-#: the widest head the CUDA kernels take (an instance at 256 columns, whose
-#: dk/dv pass walks the queries once per 128-wide half of the columns); the
-#: plain versions take any
+#: the widest head the tiled CUDA kernels take (an instance at 256 columns,
+#: whose dk/dv pass walks the queries once per 128-wide half of the
+#: columns); wider heads take the ``wide`` route (``csrc/attn_wide.cu``),
+#: and the plain versions take any
 FUSED_SHORT_MAX_HEAD_DIM = 256
 _NEG_INF = -1e30
 _LOG2E = 1.4426950408889634
@@ -90,14 +98,14 @@ _DTYPES = (torch.float32, torch.bfloat16)
 #: one B8 launch is the two passes of one backward
 launch_counts = LaunchCounts("fused_short_fwd", "fused_short_bwd")
 #: B7 and B8 launches by route: bf16 and f32 (as 3xTF32), both on the
-#: tensor cores
-route_counts = LaunchCounts("bf16_tc", "f32_tc")
+#: tensor cores, and ``wide`` (heads past 256, ``csrc/attn_wide.cu``)
+route_counts = LaunchCounts("bf16_tc", "f32_tc", "wide")
 #: B4, B5a, B5b and B6
 flash_launch_counts = LaunchCounts("flash_fwd", "flash_bwd_dq",
                                    "flash_bwd_dkv", "flash_bwd_fused")
 #: B4, B5a, B5b and B6 launches by route: bf16 and f32 (as 3xTF32), both
-#: on the tensor cores
-flash_route_counts = LaunchCounts("bf16_tc", "f32_tc")
+#: on the tensor cores, and ``wide`` (heads past 256)
+flash_route_counts = LaunchCounts("bf16_tc", "f32_tc", "wide")
 
 
 def reset_launch_counts() -> None:
@@ -108,20 +116,28 @@ def reset_launch_counts() -> None:
     flash_route_counts.reset()
 
 
-def fused_short_route(dtype: torch.dtype) -> str:
-    """The fused kernels' route for inputs of ``dtype``: ``"bf16_tc"`` (the
-    tensor cores in bf16) or ``"f32_tc"`` (the tensor cores as 3xTF32)."""
+def fused_short_route(dtype: torch.dtype, head_dim: int) -> str:
+    """The fused kernels' route for inputs of ``dtype`` and heads of
+    ``head_dim``: ``"wide"`` past 256 columns (``csrc/attn_wide.cu``),
+    else ``"bf16_tc"`` (the tensor cores in bf16) or ``"f32_tc"`` (the
+    tensor cores as 3xTF32)."""
+    if head_dim > FUSED_SHORT_MAX_HEAD_DIM:
+        return "wide"
     return "bf16_tc" if dtype == torch.bfloat16 else "f32_tc"
 
 
-def flash_route(dtype: torch.dtype, kernel: str) -> str:
+def flash_route(dtype: torch.dtype, kernel: str, head_dim: int) -> str:
     """The route of the flash ``kernel`` (a ``flash_launch_counts`` name:
     ``"flash_fwd"`` B4, ``"flash_bwd_dq"`` B5a, ``"flash_bwd_dkv"`` B5b,
-    ``"flash_bwd_fused"`` B6) for inputs of ``dtype``: ``"bf16_tc"`` (the
-    tensor cores, ``csrc/flash_attn_bf16.cu``) or ``"f32_tc"`` (the tensor
-    cores as 3xTF32, ``csrc/flash_attn_tf32.cu``)."""
+    ``"flash_bwd_fused"`` B6) for inputs of ``dtype`` and heads of
+    ``head_dim``: ``"wide"`` past 256 columns (``csrc/attn_wide.cu``, where
+    B6 launches the two-pass pair), else ``"bf16_tc"`` (the tensor cores,
+    ``csrc/flash_attn_bf16.cu``) or ``"f32_tc"`` (the tensor cores as
+    3xTF32, ``csrc/flash_attn_tf32.cu``)."""
     if kernel not in flash_launch_counts:
         raise ValueError(f"no flash kernel {kernel!r}")
+    if head_dim > FLASH_MAX_HEAD_DIM:
+        return "wide"
     return "bf16_tc" if dtype == torch.bfloat16 else "f32_tc"
 
 
@@ -311,14 +327,13 @@ def dot_product_attention(q, k, v, bias=None, causal: bool = False,
 # -- the kernels' wrappers ---------------------------------------------------
 
 
-def _check_head_dim(q, most: int) -> None:
-    """Raise on an empty head, and on a CUDA tensor's head wider than
-    ``most``, the widest the CUDA kernels take; the plain versions, which
-    CPU tensors take, compute any width, as the JAX package does."""
+def _check_head_dim(q) -> None:
+    """Raise on an empty head. Every width past it is computed, as the JAX
+    package does: the plain versions on the CPU, on the card the tiled
+    kernels up to 256 columns and ``csrc/attn_wide.cu`` past them."""
     d = q.shape[-1]
-    if d < 1 or (q.device.type == "cuda" and d > most):
-        raise ValueError(f"head_dim {d} outside [1, {most}] (the CUDA "
-                         f"kernels' widths)")
+    if d < 1:
+        raise ValueError(f"head_dim {d} < 1")
 
 
 def _check(tensors, key_bias, seed, rate: float) -> None:
@@ -341,7 +356,7 @@ def _check(tensors, key_bias, seed, rate: float) -> None:
         raise TypeError(f"dtype {q.dtype} not in {list(_DTYPES)}")
     if not 1 <= s <= FUSED_SHORT_MAX_SEQ:
         raise ValueError(f"seq {s} outside [1, {FUSED_SHORT_MAX_SEQ}]")
-    _check_head_dim(q, FUSED_SHORT_MAX_HEAD_DIM)
+    _check_head_dim(q)
     if key_bias is not None and (
             key_bias.shape != (b, s) or key_bias.dtype != torch.float32
             or key_bias.device != q.device or not key_bias.is_contiguous()):
@@ -393,7 +408,7 @@ def fused_short_fwd(q, k, v, key_bias, seed, scale: float, rate: float,
     :func:`fused_short_attention_plain`; CUDA tensors launch the kernel of
     the dtype's route on the current stream."""
     _check((q, k, v), key_bias, seed, rate)
-    route = fused_short_route(q.dtype)
+    route = fused_short_route(q.dtype, q.shape[-1])
     if not on_card(q, "fused_short_fwd"):
         return fused_short_attention_plain(q, k, v, key_bias, scale, rate,
                                            seed, causal, with_stats=True)
@@ -402,14 +417,22 @@ def fused_short_fwd(q, k, v, key_bias, seed, scale: float, rate: float,
                         device=q.device)
     a = _launch_args(q, key_bias, seed, scale, rate)
     lib = load_library()
-    fn = (lib.azt_fused_short_fwd_bf16 if route == "bf16_tc"
-          else lib.azt_fused_short_fwd_f32)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), a["bias"],
-                a["seed"], o.data_ptr(), stats.data_ptr(), *a["dims"],
-                a["scale_log2e"], a["thresh"], a["inv"], int(bool(causal)),
-                stream)
+        if route == "wide":
+            bh, heads, s, d = a["dims"]
+            rc = lib.azt_attn_wide_fwd(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), a["bias"],
+                a["seed"], o.data_ptr(), stats.data_ptr(), None, bh, heads,
+                s, s, d, a["scale_log2e"], a["thresh"], a["inv"],
+                int(bool(causal)), int(q.dtype == torch.bfloat16), stream)
+        else:
+            fn = (lib.azt_fused_short_fwd_bf16 if route == "bf16_tc"
+                  else lib.azt_fused_short_fwd_f32)
+            rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), a["bias"],
+                    a["seed"], o.data_ptr(), stats.data_ptr(), *a["dims"],
+                    a["scale_log2e"], a["thresh"], a["inv"],
+                    int(bool(causal)), stream)
     launch_counts.launched("fused_short_fwd", rc)
     route_counts.launched(route, rc)
     return o, stats
@@ -425,7 +448,7 @@ def fused_short_bwd(q, k, v, do, key_bias, seed, scale: float, rate: float,
     pass, then a dk/dv pass, each recomputing ``p``: no atomics) on the
     current stream."""
     _check((q, k, v, do), key_bias, seed, rate)
-    route = fused_short_route(q.dtype)
+    route = fused_short_route(q.dtype, q.shape[-1])
     _check_saved(q, stats, o)
     if not on_card(q, "fused_short_bwd"):
         return fused_short_bwd_plain(q, k, v, do, key_bias, scale, rate,
@@ -438,7 +461,11 @@ def fused_short_bwd(q, k, v, do, key_bias, seed, scale: float, rate: float,
     delta = torch.empty((b * h, s), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        if route == "bf16_tc":
+        if route == "wide":
+            rc = _wide_bwd(lib, q, k, v, do, o, a, stats, None, delta, None,
+                           (dq, dk, dv), scale, causal,
+                           1 if q.dtype == torch.float32 else 2, stream)
+        elif route == "bf16_tc":
             rc = lib.azt_fused_short_bwd_bf16(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
                 a["bias"], a["seed"], stats.data_ptr(), delta.data_ptr(),
@@ -455,6 +482,34 @@ def fused_short_bwd(q, k, v, do, key_bias, seed, scale: float, rate: float,
     launch_counts.launched("fused_short_bwd", rc)
     route_counts.launched(route, rc)
     return dq, dk, dv
+
+
+def _wide_bwd(lib, q, k, v, do, o, a, stats, lse, delta, glse, outs,
+              scale: float, causal: bool, dmode: int, stream) -> int:
+    """The ``wide`` route's backward: its dq pass, then its dk/dv pass, on
+    ``stream`` (either of ``outs`` ``(dq, dk, dv)`` may be None: its pass
+    does not run). ``a``: :func:`_launch_args`' dict; ``dmode`` 0 reads D
+    from ``delta``, 1 forms it from ``o``, 2 as ``Σ dp·p``; the dq pass
+    writes a formed D to ``delta``. Returns the first nonzero code."""
+    dq, dk, dv = outs
+    bh, heads, sq, d = a["dims"]
+    skv = k.shape[-2]
+    common = (a["bias"], a["seed"], _ptr(stats), _ptr(lse), _ptr(glse))
+    tail = (bh, heads, sq, skv, d, a["scale_log2e"], scale, a["thresh"],
+            a["inv"], int(bool(causal)))
+    bf16 = int(q.dtype == torch.bfloat16)
+    rc = 0
+    if dq is not None:
+        rc = lib.azt_attn_wide_bwd_dq(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(o), do.data_ptr(),
+            *common, delta.data_ptr(), dq.data_ptr(), *tail, dmode, bf16,
+            stream)
+    if rc == 0 and dk is not None:
+        rc = lib.azt_attn_wide_bwd_dkv(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), *common,
+            delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), *tail, bf16,
+            stream)
+    return rc
 
 
 class _FusedShort(torch.autograd.Function):
@@ -514,8 +569,9 @@ def fused_short_applicable(q_len: int, kv_len: int, causal: bool) -> bool:
 #: :func:`blockwise_attention` (the kernels cut fixed 64-row tiles)
 DEFAULT_Q_BLOCK = 512
 DEFAULT_KV_BLOCK = 1024
-#: the widest head the CUDA flash kernels take (an instance of each at 256
-#: columns, one block an SM); the plain versions take any
+#: the widest head the tiled CUDA flash kernels take (an instance of each
+#: at 256 columns, one block an SM); wider heads take the ``wide`` route
+#: (``csrc/attn_wide.cu``), and the plain versions take any
 FLASH_MAX_HEAD_DIM = 256
 _LN2 = 1.0 / _LOG2E
 #: the JAX package's budget for its one-pass backward: K/V in their dtype
@@ -671,7 +727,7 @@ def _flash_check(q, k, v, do=None, key_bias=None, rows=()) -> None:
         raise TypeError(f"dtype {q.dtype} not in {list(_DTYPES)}")
     if q_len < 1 or kv_len < 1:
         raise ValueError("empty sequence")
-    _check_head_dim(q, FLASH_MAX_HEAD_DIM)
+    _check_head_dim(q)
     if key_bias is not None and (
             key_bias.shape != (b, kv_len) or key_bias.dtype != torch.float32
             or key_bias.device != q.device or not key_bias.is_contiguous()):
@@ -702,7 +758,7 @@ def flash_fwd(q, k, v, key_bias, scale: float, causal: bool):
     _flash_check(q, k, v, key_bias=key_bias)
     if not on_card(q, "flash_fwd"):
         return flash_fwd_plain(q, k, v, key_bias, scale, causal)
-    route = flash_route(q.dtype, "flash_fwd")
+    route = flash_route(q.dtype, "flash_fwd", q.shape[-1])
     o = torch.empty_like(q)
     lse = torch.empty(q.shape[:-1], dtype=torch.float32, device=q.device)
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(key_bias),
@@ -711,7 +767,12 @@ def flash_fwd(q, k, v, key_bias, scale: float, causal: bool):
     lib = load_library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        if route == "bf16_tc":
+        if route == "wide":
+            rc = lib.azt_attn_wide_fwd(
+                *ptrs[:4], None, o.data_ptr(), None, lse.data_ptr(), bh,
+                q.shape[1], q_len, kv_len, d, scale * _LOG2E, 0, 1.0,
+                int(bool(causal)), int(q.dtype == torch.bfloat16), stream)
+        elif route == "bf16_tc":
             rc = lib.azt_flash_fwd_bf16(
                 *ptrs, bh, q_len, kv_len, d, q.shape[1], scale * _LOG2E,
                 int(bool(causal)), stream)
@@ -740,13 +801,18 @@ def flash_bwd_dq(q, k, v, do, lse, delta, glse, scale: float,
     if not on_card(q, "flash_bwd_dq"):
         return flash_bwd_dq_plain(q, k, v, do, lse, delta, glse, scale,
                                   causal)
-    route = flash_route(q.dtype, "flash_bwd_dq")
+    route = flash_route(q.dtype, "flash_bwd_dq", q.shape[-1])
     dq = torch.empty_like(q)
     bh, q_len, kv_len, d = _dims(q, k)
     lib = load_library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        if route == "bf16_tc":
+        if route == "wide":
+            rc = _wide_bwd(lib, q, k, v, do, None,
+                           _launch_args(q, None, None, scale, 0.0), None,
+                           lse, delta, glse, (dq, None, None), scale, causal,
+                           0, stream)
+        elif route == "bf16_tc":
             rc = lib.azt_flash_bwd_dq_bf16(
                 *ptrs, dq.data_ptr(), bh, q_len, kv_len, d, scale * _LOG2E,
                 scale, int(bool(causal)), stream)
@@ -769,14 +835,19 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, glse, scale: float,
     if not on_card(q, "flash_bwd_dkv"):
         return flash_bwd_dkv_plain(q, k, v, do, lse, delta, glse, scale,
                                    causal)
-    route = flash_route(q.dtype, "flash_bwd_dkv")
+    route = flash_route(q.dtype, "flash_bwd_dkv", q.shape[-1])
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     outs = (dk.data_ptr(), dv.data_ptr())
     bh, q_len, kv_len, d = _dims(q, k)
     lib = load_library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        if route == "bf16_tc":
+        if route == "wide":
+            rc = _wide_bwd(lib, q, k, v, do, None,
+                           _launch_args(q, None, None, scale, 0.0), None,
+                           lse, delta, glse, (None, dk, dv), scale, causal,
+                           0, stream)
+        elif route == "bf16_tc":
             rc = lib.azt_flash_bwd_dkv_bf16(
                 *ptrs, *outs, bh, q_len, kv_len, d, scale * _LOG2E, scale,
                 int(bool(causal)), stream)
@@ -800,7 +871,17 @@ def flash_bwd_fused(q, k, v, do, lse, delta, glse, scale: float,
     if not on_card(q, "flash_bwd_fused"):
         return flash_bwd_fused_plain(q, k, v, do, lse, delta, glse, scale,
                                      causal)
-    route = flash_route(q.dtype, "flash_bwd_fused")
+    route = flash_route(q.dtype, "flash_bwd_fused", q.shape[-1])
+    if route == "wide":  # the two-pass pair, counted as one B6 launch
+        dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+        with torch.cuda.device(q.device):
+            rc = _wide_bwd(load_library(), q, k, v, do, None,
+                           _launch_args(q, None, None, scale, 0.0), None,
+                           lse, delta, glse, (dq, dk, dv), scale, causal, 0,
+                           torch.cuda.current_stream(q.device).cuda_stream)
+        flash_launch_counts.launched("flash_bwd_fused", rc)
+        flash_route_counts.launched(route, rc)
+        return dq, dk, dv
     dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     outs = (dq.data_ptr(), dk.data_ptr(), dv.data_ptr())
@@ -824,10 +905,12 @@ def flash_bwd_fused(q, k, v, do, lse, delta, glse, scale: float,
 def flash_bwd(q, k, v, o, lse, do, glse, scale: float, causal: bool):
     """The flash backward: the preamble ``delta = Σ dO·O`` per row (one
     plain reduction, as in the JAX package), then B6 where
-    :func:`fused_bwd_applicable` holds, else B5a and B5b."""
+    :func:`fused_bwd_applicable` holds and the head is at most 256 wide,
+    else B5a and B5b (heads past 256: the ``wide`` pair)."""
     delta = (do.float() * o.float()).sum(-1)
     args = (q, k, v, do, lse, delta, glse, scale, causal)
-    if fused_bwd_applicable(k.shape[-2], q.shape[-1], q.element_size()):
+    if (q.shape[-1] <= FLASH_MAX_HEAD_DIM and fused_bwd_applicable(
+            k.shape[-2], q.shape[-1], q.element_size())):
         return flash_bwd_fused(*args)
     return (flash_bwd_dq(*args),) + flash_bwd_dkv(*args)
 

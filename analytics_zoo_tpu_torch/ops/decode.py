@@ -1,22 +1,33 @@
-"""KV-cached decoding (counterpart of ``analytics_zoo_tpu/ops/decode.py``;
-ported so far: ``init_kv_cache``, ``cached_attention`` and
-``greedy_generate``, whose loop JAX shares with its other selectors).
+"""KV-cached decoding (counterpart of ``analytics_zoo_tpu/ops/decode.py``):
+the per-request cache (``init_kv_cache``, ``cached_attention``), the slot
+caches and the paged pools that ``GenerativeServing`` keeps its resident
+streams in, and the greedy, sampled and beam selectors.
 
-The cache is a static ``max_len`` buffer pair per block, as in the JAX
-package, and visibility is a position mask built from the write position,
-so attention always runs over the whole buffer through the shared
-:func:`~analytics_zoo_tpu_torch.ops.attention.masked_context`. Two
-departures, both for PyTorch's eager execution:
+Every cache is a static buffer, as in the JAX package, and visibility is a
+position mask built from the write positions, so attention always runs
+over the whole buffer through the shared
+:func:`~analytics_zoo_tpu_torch.ops.attention.masked_context` (plain
+PyTorch there too: no TPU kernel is on a decode step). Departures, all for
+PyTorch's eager execution:
 
-- the buffers are written in place (``cached_attention`` returns the same
-  dict, its ``length`` advanced), where JAX's pure functions return new
-  arrays; the write position is a host integer, so the overflow guard
-  always runs;
+- the buffers, slot states, page tables and pools are written in place
+  (each function returns the same dict or tensor it was given), where
+  JAX's pure functions return new arrays; ``cached_attention``'s write
+  position is a host integer, so its overflow guard always runs;
 - the JAX package's single ``lax.scan`` over the decode steps is a Python
-  loop here (a CUDA graph over it is later work).
+  loop here (a CUDA graph over it is later work);
+- the sampled selector is ``argmax(filtered logits + Gumbel noise)``, which
+  is what ``jax.random.categorical`` computes, with the noise passed in
+  explicitly: :func:`gumbel_noise` draws it from a ``torch.Generator``
+  seeded by the request's seed (JAX's PRNG is not reproduced), so a
+  stream's draws depend on its seed alone.
 
-Slot caches, paged pools, beam search, sampling and speculative decoding
-belong to the ``GenerativeServing`` slice and are not ported.
+Slot ids, lengths, occupancy and page tables are tensors (data), so the
+step's shapes never change as streams come and go. Page 0 of a paged pool
+is the null page: it absorbs the writes of inactive slots and of positions
+past a stream's allocation, and is never visible. Speculative decoding
+(``paged_verify_attention``, ``speculative_generate``) is ROADMAP Queue A
+item 4b, and the pool sharding over devices (``shard_paged_pool``) item 7.
 """
 from __future__ import annotations
 
@@ -25,9 +36,12 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
-from .attention import masked_context
+from .attention import _NEG_INF, masked_context
+from .int8_dataflow import next_amax, quant_int8, scale_of_amax
 
 KVCache = Dict[str, Any]
+SlotCache = Dict[str, torch.Tensor]
+PagedCache = Dict[str, torch.Tensor]
 
 
 def init_kv_cache(batch: int, heads: int, max_len: int, head_dim: int,
@@ -68,6 +82,250 @@ def cached_attention(q: torch.Tensor, k_new: torch.Tensor,
     return ctx, cache
 
 
+# -- slot caches (continuous batching) ----------------------------------------
+
+
+def init_slot_cache(slots: int, heads: int, max_len: int, head_dim: int,
+                    dtype=torch.float32, device=None) -> SlotCache:
+    """Per-block K/V buffers ``[S, H, max_len, D]`` for S decode slots; the
+    slots' lengths live in the shared slot state (:func:`init_slot_state`)."""
+    shape = (slots, heads, max_len, head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def init_slot_state(slots: int, device=None) -> Dict[str, torch.Tensor]:
+    """Occupancy shared by every block: each slot's fed-token count
+    (int32) and whether it is active."""
+    return {"length": torch.zeros(slots, dtype=torch.int32, device=device),
+            "active": torch.zeros(slots, dtype=torch.bool, device=device)}
+
+
+def slot_join(state: Dict[str, torch.Tensor], slot, length
+              ) -> Dict[str, torch.Tensor]:
+    """Mark ``slot`` occupied with ``length`` tokens already fed (in
+    place)."""
+    state["length"][slot] = int(length)
+    state["active"][slot] = True
+    return state
+
+
+def slot_evict(state: Dict[str, torch.Tensor], mask
+               ) -> Dict[str, torch.Tensor]:
+    """Vacate every slot where ``mask`` ``[S]`` is True (in place)."""
+    mask = torch.as_tensor(mask, device=state["length"].device)
+    state["length"].masked_fill_(mask, 0)
+    state["active"].masked_fill_(mask, False)
+    return state
+
+
+def slot_insert(cache: SlotCache, slot, k_new: torch.Tensor,
+                v_new: torch.Tensor) -> SlotCache:
+    """Write a prefilled K/V block ``[H, T, D]`` into ``slot`` at position
+    0 (in place)."""
+    t = k_new.shape[1]
+    cache["k"][slot, :, :t] = k_new.to(cache["k"].dtype)
+    cache["v"][slot, :, :t] = v_new.to(cache["v"].dtype)
+    return cache
+
+
+def _visible(lengths: torch.Tensor, t: int, kcols: int) -> torch.Tensor:
+    """Each slot's visible prefix ``[S, 1, t, kcols]``: positions up to its
+    length, inclusive (the position just written is visible)."""
+    key_pos = torch.arange(kcols, device=lengths.device)[None, None, :]
+    return (key_pos <= lengths.long()[:, None, None]).expand(
+        -1, t, -1)[:, None]
+
+
+def slot_attention(q: torch.Tensor, k_new: torch.Tensor,
+                   v_new: torch.Tensor, cache: SlotCache,
+                   lengths: torch.Tensor, scale: Optional[float] = None
+                   ) -> Tuple[torch.Tensor, SlotCache]:
+    """One decode step over every slot: write each slot's new K/V
+    (``[S, H, 1, D]``) at its own ``lengths[s]`` position, then attend each
+    slot's query against its visible prefix with ``cached_attention``'s
+    arithmetic. Returns ``(ctx [S, H, 1, D], cache)``; the caller advances
+    the lengths once every block has attended. A position past the buffer
+    is clamped to its last row, as ``lax.dynamic_update_slice`` does."""
+    _, _, t, d = q.shape
+    max_len = cache["k"].shape[2]
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    rows = torch.arange(q.shape[0], device=q.device)
+    pos = lengths.long().clamp(max=max_len - 1)
+    cache["k"][rows, :, pos] = k_new[:, :, 0].to(cache["k"].dtype)
+    cache["v"][rows, :, pos] = v_new[:, :, 0].to(cache["v"].dtype)
+    ctx = masked_context(q, cache["k"], cache["v"],
+                         _visible(lengths, t, max_len), scale)
+    return ctx, cache
+
+
+# -- paged pools ----------------------------------------------------------------
+
+
+def init_paged_pool(num_pages: int, heads: int, page_len: int,
+                    head_dim: int, dtype=torch.float32, int8: bool = False,
+                    device=None) -> PagedCache:
+    """A block's K/V page pool ``[P, H, page_len, D]``; page 0 is the null
+    page, so allocators hand out ``1..P-1``. With ``int8`` the pool holds
+    int8 codes, a per-position f32 scale ``[P, page_len]`` and the running
+    amax scalars of delayed scaling, seeded at 1.0."""
+    if num_pages < 2:
+        raise ValueError(f"num_pages must be >= 2 (page 0 is the reserved "
+                         f"null page), got {num_pages}")
+    if page_len < 1:
+        raise ValueError(f"page_len must be >= 1, got {page_len}")
+    shape = (num_pages, heads, page_len, head_dim)
+    if int8:
+        return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+                "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                "scale_k": torch.zeros(num_pages, page_len, device=device),
+                "scale_v": torch.zeros(num_pages, page_len, device=device),
+                "amax_k": torch.ones((), device=device),
+                "amax_v": torch.ones((), device=device)}
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def page_table_set(table: torch.Tensor, slot, row) -> torch.Tensor:
+    """Install ``row`` ``[W]`` as ``slot``'s page table (in place)."""
+    table[slot] = torch.as_tensor(row, dtype=table.dtype, device=table.device)
+    return table
+
+
+def page_table_clear(table: torch.Tensor, mask) -> torch.Tensor:
+    """Point every table row where ``mask`` ``[S]`` is True at the null page
+    (in place)."""
+    mask = torch.as_tensor(mask, device=table.device)
+    table.masked_fill_(mask[:, None], 0)
+    return table
+
+
+def page_copy(cache: PagedCache, src, dst) -> PagedCache:
+    """Copy page ``src`` into page ``dst`` (in place): the copy-on-write of
+    a shared prefix's partly filled tail page."""
+    for key in ("k", "v", "scale_k", "scale_v"):
+        if key in cache:
+            cache[key][dst] = cache[key][src]
+    return cache
+
+
+def _page_positions(table: torch.Tensor, positions: torch.Tensor,
+                    page_len: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Logical ``positions`` ``[S, T]`` through per-slot ``table`` rows
+    ``[S, W]`` to (pool page ids, in-page offsets); a position past a
+    row's width lands on the null page."""
+    w = table.shape[1]
+    idx = positions // page_len
+    page = torch.gather(table, 1, idx.clamp(max=w - 1))
+    page = torch.where(idx < w, page, torch.zeros_like(page))
+    return page.long(), (positions % page_len).long()
+
+
+def _paged_write(cache: PagedCache, pages: torch.Tensor, offs: torch.Tensor,
+                 k_rows: torch.Tensor, v_rows: torch.Tensor,
+                 inline_amax: bool) -> PagedCache:
+    """Scatter token rows ``[..., H, D]`` (leading dims those of ``pages``)
+    into the pool, in place. An int8 pool quantizes on the way in with the
+    running amax: ``inline_amax`` (prefills) first folds in the block's own
+    amax; the decode step uses the delayed value alone."""
+    if "scale_k" not in cache:
+        cache["k"][pages, :, offs, :] = k_rows.to(cache["k"].dtype)
+        cache["v"][pages, :, offs, :] = v_rows.to(cache["v"].dtype)
+        return cache
+    kf, vf = k_rows.float(), v_rows.float()
+    seen_k, seen_v = kf.abs().max(), vf.abs().max()
+    amax_k = (torch.maximum(cache["amax_k"], seen_k) if inline_amax
+              else cache["amax_k"])
+    amax_v = (torch.maximum(cache["amax_v"], seen_v) if inline_amax
+              else cache["amax_v"])
+    sk, sv = scale_of_amax(amax_k), scale_of_amax(amax_v)
+    cache["k"][pages, :, offs, :] = quant_int8(kf, sk)
+    cache["v"][pages, :, offs, :] = quant_int8(vf, sv)
+    cache["scale_k"][pages, offs] = sk.expand(pages.shape)
+    cache["scale_v"][pages, offs] = sv.expand(pages.shape)
+    cache["amax_k"] = next_amax(cache["amax_k"], seen_k)
+    cache["amax_v"] = next_amax(cache["amax_v"], seen_v)
+    return cache
+
+
+def paged_gather(cache: PagedCache, table: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Each slot's pages in logical order: ``table`` ``[S, C]`` to K/V
+    ``[S, H, C·page_len, D]`` (int8 pools dequantized to f32), a transient
+    copy beside the pool."""
+    idx = table.long()
+    k, v = cache["k"][idx], cache["v"][idx]  # [S, C, H, page_len, D]
+    if "scale_k" in cache:
+        k = k.float() * cache["scale_k"][idx][:, :, None, :, None]
+        v = v.float() * cache["scale_v"][idx][:, :, None, :, None]
+    s, c, h, pl, d = k.shape
+    return (k.permute(0, 2, 1, 3, 4).reshape(s, h, c * pl, d),
+            v.permute(0, 2, 1, 3, 4).reshape(s, h, c * pl, d))
+
+
+def paged_insert(cache: PagedCache, table_row: torch.Tensor,
+                 k_new: torch.Tensor, v_new: torch.Tensor, start: int = 0
+                 ) -> PagedCache:
+    """Write a prefilled K/V block ``[H, T, D]`` into the pages named by
+    ``table_row`` ``[W]`` at logical positions ``start..start+T-1`` (in
+    place); positions past the row's width fall on the null page."""
+    t = k_new.shape[1]
+    positions = start + torch.arange(t, device=k_new.device)[None]
+    pages, offs = _page_positions(
+        torch.as_tensor(table_row, device=k_new.device)[None], positions,
+        cache["k"].shape[2])
+    return _paged_write(cache, pages, offs, k_new.transpose(0, 1)[None],
+                        v_new.transpose(0, 1)[None], inline_amax=True)
+
+
+def paged_attention(q: torch.Tensor, k_new: torch.Tensor,
+                    v_new: torch.Tensor, cache: PagedCache,
+                    table: torch.Tensor, lengths: torch.Tensor,
+                    max_len: int, scale: Optional[float] = None
+                    ) -> Tuple[torch.Tensor, PagedCache]:
+    """:func:`slot_attention` through the page pool: write each slot's new
+    K/V at its ``lengths[s]`` position in the page that holds it, gather the
+    first ``max_len // page_len`` table columns back into a logical
+    ``[S, H, max_len, D]`` view and run the same ``masked_context`` over
+    the same mask. Positions past a slot's pages are the null page's, and
+    masked to exact zeros."""
+    _, _, t, d = q.shape
+    page_len = cache["k"].shape[2]
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    pages, offs = _page_positions(table, lengths.long()[:, None], page_len)
+    _paged_write(cache, pages, offs, k_new.transpose(1, 2),
+                 v_new.transpose(1, 2), inline_amax=False)
+    k_buf, v_buf = paged_gather(cache, table[:, :max_len // page_len])
+    ctx = masked_context(q, k_buf, v_buf, _visible(lengths, t, max_len),
+                         scale)
+    return ctx, cache
+
+
+# -- selectors --------------------------------------------------------------
+
+
+def _decode_loop(step_fn, params, cache, prompt_last_token, max_new_tokens,
+                 eos_id, select_fn, logits_out=None) -> torch.Tensor:
+    """Feed a token, select the next by ``select_fn(logits, step)``, force
+    ``eos_id`` on finished rows; ``[B, max_new_tokens]``."""
+    token = prompt_last_token
+    done = torch.zeros(token.shape, dtype=torch.bool, device=token.device)
+    out = []
+    for i in range(max_new_tokens):
+        logits, cache = step_fn(params, token, cache)
+        if logits_out is not None:
+            logits_out.append(logits)
+        nxt = select_fn(logits, i).to(token.dtype)
+        if eos_id is not None:
+            nxt = torch.where(done, torch.full_like(nxt, eos_id), nxt)
+            done = done | (nxt == eos_id)
+        out.append(nxt)
+        token = nxt
+    if not out:
+        return prompt_last_token.new_zeros((token.shape[0], 0))
+    return torch.stack(out, 1)
+
+
 def greedy_generate(step_fn: Callable, params: Any, cache: Any,
                     prompt_last_token: torch.Tensor, max_new_tokens: int,
                     eos_id: Optional[int] = None,
@@ -79,19 +337,144 @@ def greedy_generate(step_fn: Callable, params: Any, cache: Any,
     With ``eos_id`` finished rows keep emitting it. Appends each step's
     logits to ``logits_out`` when given. Returns ``[B, max_new_tokens]``;
     ``argmax`` takes the first of tied logits, as ``jnp.argmax`` does."""
-    token = prompt_last_token
-    done = torch.zeros(token.shape, dtype=torch.bool, device=token.device)
-    out = []
-    for _ in range(max_new_tokens):
-        logits, cache = step_fn(params, token, cache)
-        if logits_out is not None:
-            logits_out.append(logits)
-        nxt = torch.argmax(logits, dim=-1).to(token.dtype)
+    return _decode_loop(step_fn, params, cache, prompt_last_token,
+                        max_new_tokens, eos_id,
+                        lambda logits, _: torch.argmax(logits, dim=-1),
+                        logits_out)
+
+
+def beam_generate(step_fn: Callable, params: Any, cache: Any,
+                  prompt_last_token: torch.Tensor, max_new_tokens: int,
+                  beam_size: int, eos_id: Optional[int] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Beam search with :func:`greedy_generate`'s ``step_fn`` contract over
+    ``N = batch · beam_size`` rows. Every cache tensor whose leading axis is
+    the batch is repeated ``beam_size``-fold and reordered by backpointer
+    each step; a finished beam (it emitted ``eos_id``) keeps its score and
+    pads with eos. Returns ``(sequences [B, beam, max_new], scores [B,
+    beam])``, best first by summed log-probability."""
+    b, k = prompt_last_token.shape[0], beam_size
+    dev = prompt_last_token.device
+
+    def remap(tree, fn, lead):
+        if isinstance(tree, dict):
+            return {key: remap(val, fn, lead) for key, val in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(remap(val, fn, lead) for val in tree)
+        if (isinstance(tree, torch.Tensor) and tree.dim() > 0
+                and tree.shape[0] == lead):
+            return fn(tree)
+        return tree
+
+    caches = remap(cache, lambda a: a.repeat_interleave(k, 0), b)
+    tokens = prompt_last_token[:, None].repeat(1, k)  # [B, K]
+    # beam 0 alone is live at first, so the first expansion picks k
+    # distinct continuations rather than k copies of the argmax
+    scores = torch.tensor([0.0] + [_NEG_INF] * (k - 1),
+                          device=dev).repeat(b, 1)
+    done = torch.zeros((b, k), dtype=torch.bool, device=dev)
+    seqbuf = torch.zeros((b, k, max_new_tokens),
+                         dtype=prompt_last_token.dtype, device=dev)
+    for i in range(max_new_tokens):
+        logits, caches = step_fn(params, tokens.reshape(b * k), caches)
+        v = logits.shape[-1]
+        logp = torch.log_softmax(logits.float(), dim=-1).reshape(b, k, v)
         if eos_id is not None:
-            nxt = torch.where(done, torch.full_like(nxt, eos_id), nxt)
-            done = done | (nxt == eos_id)
-        out.append(nxt)
-        token = nxt
-    if not out:
-        return prompt_last_token.new_zeros((token.shape[0], 0))
-    return torch.stack(out, 1)  # [B, max_new]
+            # a finished beam may only continue with eos, at no cost
+            eos_row = torch.full((v,), _NEG_INF, device=dev)
+            eos_row[eos_id] = 0.0
+            logp = torch.where(done[..., None], eos_row, logp)
+        cand = (scores[..., None] + logp).reshape(b, k * v)
+        scores, idx = torch.topk(cand, k, dim=-1)
+        parent = idx // v
+        token = (idx % v).to(tokens.dtype)
+        flat = (parent + torch.arange(b, device=dev)[:, None] * k).reshape(-1)
+        caches = remap(caches, lambda a: a.index_select(0, flat), b * k)
+        seqbuf = torch.gather(seqbuf, 1, parent[..., None].expand(
+            -1, -1, max_new_tokens)).clone()
+        seqbuf[:, :, i] = token
+        done = torch.gather(done, 1, parent)
+        if eos_id is not None:
+            done = done | (token == eos_id)
+        tokens = token
+    return seqbuf, scores
+
+
+def make_logit_filter(temperature: float = 1.0, top_k: Optional[int] = None,
+                      top_p: Optional[float] = None
+                      ) -> Callable[[torch.Tensor], torch.Tensor]:
+    """The sampling filter that :func:`sample_generate` and
+    ``GenerativeServing`` share: temperature scales the logits, ``top_k``
+    keeps the k highest, ``top_p`` keeps the smallest prefix of the sorted
+    distribution whose probability reaches ``top_p`` (at least one token);
+    the rest score ``-1e30``."""
+    if temperature <= 0:
+        raise ValueError("temperature must be > 0 (use greedy_generate "
+                         "for deterministic argmax decoding)")
+    if top_k is not None and top_k < 1:
+        raise ValueError(f"top_k must be >= 1, got {top_k} "
+                         "(pass top_k=None to disable)")
+    if top_p is not None and not 0.0 < top_p <= 1.0:
+        raise ValueError(f"top_p must be in (0, 1], got {top_p} "
+                         "(pass top_p=None to disable)")
+
+    def filter_logits(logits: torch.Tensor) -> torch.Tensor:
+        logits = logits / temperature
+        if top_k is not None:
+            kth = torch.topk(logits, top_k, dim=-1).values[..., -1:]
+            logits = torch.where(logits < kth, _NEG_INF, logits)
+        if top_p is not None:
+            sorted_logits = torch.sort(logits, dim=-1, descending=True).values
+            probs = torch.softmax(sorted_logits, dim=-1)
+            cum = torch.cumsum(probs, dim=-1)
+            cutoff_idx = ((cum - probs) < top_p).sum(-1, keepdim=True) - 1
+            cutoff = torch.gather(sorted_logits, -1, cutoff_idx)
+            logits = torch.where(logits < cutoff, _NEG_INF, logits)
+        return logits
+
+    return filter_logits
+
+
+def gumbel_noise(seed: int, shape, device=None) -> torch.Tensor:
+    """Standard Gumbel noise ``-log(-log(u))`` of ``shape``, f32, ``u``
+    uniform from a ``torch.Generator`` seeded with ``seed`` on the CPU
+    (floored at f32's smallest normal, as JAX's uniform is), then moved to
+    ``device``: the same draws on every device. Draws are consecutive, so
+    ``[n, ...]`` begins with the ``[m, ...]`` draws of any m < n."""
+    gen = torch.Generator().manual_seed(int(seed))
+    u = torch.rand(tuple(shape), generator=gen).clamp_min(
+        torch.finfo(torch.float32).tiny)
+    return (-torch.log(-torch.log(u))).to(device)
+
+
+def sampled_select(filtered: torch.Tensor, noise: torch.Tensor
+                   ) -> torch.Tensor:
+    """The categorical draw of ``jax.random.categorical``: ``argmax(noise +
+    filtered logits)`` over the last axis."""
+    return torch.argmax(noise + filtered, dim=-1)
+
+
+def sample_generate(step_fn: Callable, params: Any, cache: Any,
+                    prompt_last_token: torch.Tensor, max_new_tokens: int,
+                    seed: int, temperature: float = 1.0,
+                    top_k: Optional[int] = None,
+                    top_p: Optional[float] = None,
+                    eos_id: Optional[int] = None,
+                    logits_out: Optional[List[torch.Tensor]] = None
+                    ) -> torch.Tensor:
+    """Sampled decoding (temperature / top-k / nucleus, the filter of
+    :func:`make_logit_filter`) with :func:`greedy_generate`'s contract.
+    Step i draws with row i of ``gumbel_noise(seed, [max_new_tokens, B,
+    vocab])``. Finished rows keep emitting ``eos_id``."""
+    filter_logits = make_logit_filter(temperature, top_k, top_p)
+    noise: List[torch.Tensor] = []
+
+    def select(logits, i):
+        if not noise:
+            noise.append(gumbel_noise(
+                seed, (max_new_tokens,) + tuple(logits.shape),
+                logits.device))
+        return sampled_select(filter_logits(logits.float()), noise[0][i])
+
+    return _decode_loop(step_fn, params, cache, prompt_last_token,
+                        max_new_tokens, eos_id, select, logits_out)

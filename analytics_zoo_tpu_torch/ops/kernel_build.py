@@ -166,6 +166,15 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.azt_flash_bwd_dkv_bf16.argtypes = [p] * 9 + [ll, i, i, i, f, f, i,
                                                      p]
     lib.azt_flash_bwd_dkv_bf16.restype = i
+    lib.azt_attn_wide_fwd.argtypes = [p] * 8 + [ll, i, i, i, i, f, u, f, i,
+                                                i, p]
+    lib.azt_attn_wide_fwd.restype = i
+    lib.azt_attn_wide_bwd_dq.argtypes = [p] * 12 + [ll, i, i, i, i, f, f, u,
+                                                    f, i, i, i, p]
+    lib.azt_attn_wide_bwd_dq.restype = i
+    lib.azt_attn_wide_bwd_dkv.argtypes = [p] * 12 + [ll, i, i, i, i, f, f, u,
+                                                     f, i, i, p]
+    lib.azt_attn_wide_bwd_dkv.restype = i
     return lib
 
 

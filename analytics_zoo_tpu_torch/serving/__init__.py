@@ -1,8 +1,9 @@
-"""One-shot cluster serving over the file-spool queue."""
+"""Cluster serving over the file-spool queue: one-shot models
+(``ClusterServing``) and ``TransformerLM`` streams (``GenerativeServing``)."""
 from .client import InputQueue, OutputQueue
 from .config import ServingConfig
 from .queues import FileQueue, QueueBackend, make_queue
-from .server import ClusterServing
+from .server import ClusterServing, GenerativeServing
 
-__all__ = ["ClusterServing", "FileQueue", "InputQueue", "OutputQueue",
-           "QueueBackend", "ServingConfig", "make_queue"]
+__all__ = ["ClusterServing", "FileQueue", "GenerativeServing", "InputQueue",
+           "OutputQueue", "QueueBackend", "ServingConfig", "make_queue"]

@@ -1,6 +1,6 @@
 """Serving client (counterpart of ``analytics_zoo_tpu/serving/client.py``):
-``InputQueue.enqueue_image``/``enqueue_tensor`` and ``OutputQueue.query``/
-``dequeue``.
+``InputQueue.enqueue_image``/``enqueue_tensor``/``enqueue_prompt`` and
+``OutputQueue.query``/``dequeue``/``stream``.
 
 Every enqueue stamps ``enqueue_t`` (client wall clock, the only clock two
 processes share) and a ``trace_id``, as the JAX client does, so records
@@ -90,6 +90,31 @@ class InputQueue(_API):
             uri, self._stamp({"tensor": np.asarray(tensor).tolist()},
                              deadline_ms, criticality))
 
+    def enqueue_prompt(self, uri: str, tokens,
+                       deadline_ms: Optional[int] = None,
+                       max_new_tokens: Optional[int] = None,
+                       seed: Optional[int] = None, prefix=None,
+                       criticality: Optional[str] = None) -> None:
+        """A generative request: ``tokens`` is the int prompt.
+        ``max_new_tokens`` caps this stream (else the server's budget);
+        ``seed`` makes sampled decoding reproducible; with ``deadline_ms``
+        the server checks the deadline every token and evicts an expired
+        stream with a deadline error as its one terminal. ``prefix``
+        resumes a stream that already decoded some tokens elsewhere: the
+        server prefills ``prompt + prefix`` and goes on from there (a
+        sampled stream must then pass its original ``seed``)."""
+        payload: Dict[str, Any] = {
+            "prompt": [int(t) for t in np.asarray(tokens).reshape(-1)]}
+        if max_new_tokens is not None:
+            payload["max_new_tokens"] = int(max_new_tokens)
+        if seed is not None:
+            payload["seed"] = int(seed)
+        if prefix is not None:
+            payload["prefix"] = [int(t) for t in
+                                 np.asarray(prefix).reshape(-1)]
+        self.queue.enqueue(uri, self._stamp(payload, deadline_ms,
+                                            criticality))
+
 
 class OutputQueue(_API):
     def query(self, uri: str, timeout_s: float = 0.0
@@ -112,3 +137,37 @@ class OutputQueue(_API):
         if isinstance(self.queue, FileQueue):
             return self.queue.all_results()
         raise NotImplementedError("dequeue-all needs the file queue")
+
+    def stream(self, uri: str, timeout_s: float = 30.0):
+        """Yield a generative stream's tokens as the server posts them,
+        each new token once, in order. The server overwrites ``uri``'s
+        result with growing partials (``{"stream": [...], "done":
+        false}``) and then its terminal (``{"value": [...], "done":
+        true}`` or ``{"error": ...}``). Raises ``RuntimeError`` on an error
+        terminal and ``TimeoutError`` after ``timeout_s`` without progress
+        (progress restarts the clock)."""
+        seen = 0
+        deadline = time.monotonic() + timeout_s
+        sleep_s = 0.005
+        state: Dict[str, int] = {}
+        while True:
+            res = self._get_result_guarded(uri, state)
+            if res is not None:
+                if "error" in res:
+                    raise RuntimeError(f"stream {uri!r}: {res['error']}")
+                done = bool(res.get("done", True))
+                tokens = res.get("value" if done else "stream") or []
+                if len(tokens) > seen:
+                    for t in tokens[seen:]:
+                        yield t
+                    seen = len(tokens)
+                    deadline = time.monotonic() + timeout_s
+                    sleep_s = 0.005
+                if done:
+                    return
+            remaining = deadline - time.monotonic()
+            if remaining <= 0:
+                raise TimeoutError(f"stream {uri!r}: no progress in "
+                                   f"{timeout_s}s ({seen} tokens received)")
+            time.sleep(min(sleep_s, remaining))
+            sleep_s = min(sleep_s * 2, 0.25)

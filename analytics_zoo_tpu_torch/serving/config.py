@@ -1,7 +1,9 @@
 """Serving config (counterpart of ``analytics_zoo_tpu/serving/config.py``):
-the one-shot serving fields, image payloads' ``input_dtype`` and the YAML
-schema of ``from_yaml``. The generative, brownout and health-file fields
-are later slices."""
+the one-shot serving fields, image payloads' ``input_dtype``, the
+generative server's fields and the YAML schema of ``from_yaml``. The
+TensorBoard, brownout and health-file fields are later slices (ROADMAP
+Queue A item 5); ``spec_k`` and ``kv_shard`` parse, and
+``GenerativeServing`` refuses values it does not serve yet."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -29,6 +31,22 @@ class ServingConfig:
     shed_wait_ms: Optional[int] = None  # estimated-wait admission (None =
     #   depth-only shedding via max_pending)
     claim_retries: int = 20  # consecutive transient claim failures absorbed
+    # -- generative serving (continuous batching) -----------------------------
+    slots: int = 8  # resident decode slots (the decode step's batch)
+    max_new_tokens: int = 64  # a stream's budget when its request has none
+    eos_id: Optional[int] = None  # stop token; None runs out the budget
+    stream_interval: int = 1  # a partial result every N tokens
+    temperature: Optional[float] = None  # any of the three set: sample
+    top_k: Optional[int] = None          # through make_logit_filter; all
+    top_p: Optional[float] = None        # None: greedy argmax
+    # -- paged KV engine -------------------------------------------------------
+    kv_pages: Optional[int] = None  # pool size in pages (page 0 the null
+    #   page); None keeps a max_len rectangle a slot
+    kv_page_len: int = 16  # tokens a page: a power of two <= 16 dividing
+    #   the LM's max_len (so it divides every prefill bucket)
+    kv_int8: bool = False  # int8 pool with delayed scaling
+    kv_shard: int = 1  # devices the pool's pages spread over (item 7)
+    spec_k: int = 0  # draft tokens a speculative round; 0 = off (item 4b)
 
     @staticmethod
     def from_yaml(path: str) -> "ServingConfig":
@@ -70,4 +88,23 @@ class ServingConfig:
             cfg.shed_wait_ms = int(params["shed_wait_ms"])
         cfg.claim_retries = int(params.get("claim_retries",
                                            cfg.claim_retries))
+        cfg.slots = int(params.get("slots", cfg.slots))
+        cfg.max_new_tokens = int(params.get("max_new_tokens",
+                                            cfg.max_new_tokens))
+        if params.get("eos_id") is not None:
+            cfg.eos_id = int(params["eos_id"])
+        cfg.stream_interval = int(params.get("stream_interval",
+                                             cfg.stream_interval))
+        if params.get("temperature") is not None:
+            cfg.temperature = float(params["temperature"])
+        if params.get("top_k") is not None:
+            cfg.top_k = int(params["top_k"])
+        if params.get("top_p") is not None:
+            cfg.top_p = float(params["top_p"])
+        if params.get("kv_pages") is not None:
+            cfg.kv_pages = int(params["kv_pages"])
+        cfg.kv_page_len = int(params.get("kv_page_len", cfg.kv_page_len))
+        cfg.kv_int8 = bool(params.get("kv_int8", cfg.kv_int8))
+        cfg.kv_shard = int(params.get("kv_shard", cfg.kv_shard))
+        cfg.spec_k = int(params.get("spec_k", cfg.spec_k))
         return cfg

@@ -61,6 +61,10 @@ class QueueBackend:
         "retriable": True}`` for each. Returns the shed uris."""
         raise NotImplementedError
 
+    def pending_count(self) -> int:
+        """Requests waiting to be claimed."""
+        raise NotImplementedError
+
 
 class FileQueue(QueueBackend):
     def __init__(self, root: str):
@@ -182,6 +186,11 @@ class FileQueue(QueueBackend):
                                 {"error": reason, "retriable": True})
                 dropped.append(rec["uri"])
         return dropped
+
+    def pending_count(self) -> int:
+        """Requests in the spool (members of published batch dirs count:
+        listing flattens them)."""
+        return len(self._listed(_CLAIM_RANK))
 
     @staticmethod
     def _result_key(uri: str) -> str:

@@ -15,9 +15,13 @@ fails. Deadlines are checked at claim, after decode and before dispatch;
 overload sheds with explicit errors; :meth:`ClusterServing.drain` finishes
 in-flight work before it stops.
 
+:class:`GenerativeServing` serves ``TransformerLM`` streams by
+continuous batching under the same invariant, over slot caches or a paged
+KV pool.
+
 Later slices bring brownout, the ops-plane events, fault-injection sites,
-trace flow points, TensorBoard summaries, ``reload_model``, the
-``health.json`` writer and ``GenerativeServing``.
+trace flow points, TensorBoard summaries, ``reload_model`` and the
+``health.json`` writer (ROADMAP Queue A item 5).
 """
 from __future__ import annotations
 
@@ -29,10 +33,12 @@ import time
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from ..common.context import DeviceLike
 from ..common.utils import time_it, wall_clock
 from ..inference.inference_model import InferenceModel
+from ..ops import decode as _decode
 from .config import ServingConfig
 from .queues import QueueBackend, decode_image, make_queue
 
@@ -40,6 +46,7 @@ logger = logging.getLogger("analytics_zoo_tpu_torch.serving")
 
 #: canonical terminal error texts (clients match on these)
 SHED_ERROR = "shed: queue overloaded"
+PAGE_SHED_ERROR = "shed: kv page pool exhausted"
 DEADLINE_ERROR = "deadline exceeded"
 SHUTDOWN_ERROR = "serving shut down before this request completed"
 
@@ -579,6 +586,800 @@ class ClusterServing:
         if self.terminal_state is None:
             self.terminal_state = "stopped"
         self.check_health()
+
+
+class GenerativeServing:
+    """Token-level continuous batching for ``TransformerLM`` generation
+    (the JAX package's ``GenerativeServing``).
+
+    ``config.slots`` streams stay resident in one slot-batched KV cache
+    (``ops/decode.py``) and one decode step advances all of them a token;
+    requests join free slots through the bucketed prefill
+    (``TransformerLM.prefill_kv``: B1, then B7 at a bucket of 512 or less,
+    B4 above) and finished or expired streams are evicted every step. Slot
+    ids, lengths, occupancy and page tables are tensors on the card, so
+    the step's shapes never change.
+
+    Every claimed request gets exactly one terminal result (``{"value":
+    tokens, "done": true}`` or an error): deadlines are checked at claim
+    and every step (an expired stream is evicted mid-flight with the
+    deadline error), overload sheds by the estimated wait at the current
+    smoothed seconds a token, a failed step errors every active stream and
+    the server goes on, and :meth:`drain` stops admitting but finishes the
+    streams in flight. Partials (``{"stream": [...], "done": false}``)
+    overwrite the same result record and are progress, not terminals;
+    ``OutputQueue.stream`` turns them into a generator.
+
+    Served streams are the serial ``TransformerLM.generate`` runs: both
+    take the same bucketed prefill, the same ``masked_context`` arithmetic
+    on the same f32 caches, and, when sampling, the same logit filter and
+    Gumbel draws (``gumbel_noise(seed, ...)``, each request's own seed).
+
+    The paged engine (``config.kv_pages``) replaces the rectangles with
+    one page pool a block and a page table a slot: a join allocates the
+    pages its prompt and budget need (shedding with ``PAGE_SHED_ERROR``
+    when the pool is short), retirement returns them by refcount,
+    :meth:`register_prefix` shares a prompt prefix's pages with
+    copy-on-write tails, and ``config.kv_int8`` keeps the pool in int8 with
+    delayed scaling.
+
+    Not ported yet, each refused with ``NotImplementedError``: speculative
+    decoding (``spec_k``, a ``draft_lm``; ROADMAP Queue A item 4b), a pool
+    sharded over devices (``kv_shard``; item 7), and ``handoff``, brownout,
+    the ``health.json`` writer and fault injection (item 5).
+    """
+
+    SHED_INTERVAL_S = 0.05
+    #: TTFTs and terminal latencies kept for :meth:`health_snapshot`
+    LATENCY_WINDOW = 8192
+
+    def __init__(self, config: ServingConfig, lm,
+                 queue: Optional[QueueBackend] = None, draft_lm=None,
+                 device: DeviceLike = None):
+        """``lm``: a ``TransformerLM``; its parameters move to ``device``
+        (the card when omitted; raises without one unless
+        ``device="cpu"``)."""
+        if draft_lm is not None or config.spec_k:
+            raise NotImplementedError(
+                "speculative decoding (spec_k, draft_lm) is not ported yet: "
+                "ROADMAP Queue A item 4b")
+        if int(config.kv_shard or 1) > 1:
+            raise NotImplementedError(
+                "a KV pool sharded over devices (kv_shard > 1) is not "
+                "ported yet: ROADMAP Queue A item 7")
+        if config.slots < 1:
+            raise ValueError(f"slots must be >= 1, got {config.slots}")
+        self.config = config
+        self.lm = lm
+        self.queue = (queue if queue is not None
+                      else make_queue(config.data_src))
+        self.slots = s = int(config.slots)
+        self.device = dev = lm._device(device)
+        lm.eval()
+        self._sampling = (config.temperature is not None
+                          or config.top_k is not None
+                          or config.top_p is not None)
+        self._filter = None
+        if self._sampling:
+            self._filter = _decode.make_logit_filter(
+                config.temperature if config.temperature is not None
+                else 1.0, config.top_k, config.top_p)
+        self._paged = config.kv_pages is not None
+        if self._paged:
+            pl, num_pages = int(config.kv_page_len), int(config.kv_pages)
+            if pl < 1 or (pl & (pl - 1)) or pl > 16:
+                raise ValueError(f"kv_page_len must be a power of two "
+                                 f"<= 16 (divides every prefill bucket), "
+                                 f"got {pl}")
+            if lm.max_len % pl:
+                raise ValueError(f"kv_page_len {pl} must divide the LM's "
+                                 f"max_len {lm.max_len}")
+            if num_pages < 2:
+                raise ValueError(f"kv_pages must be >= 2 (page 0 is the "
+                                 f"null page), got {num_pages}")
+            self.page_len, self.num_pages = pl, num_pages
+            self._table_w = -(-lm.max_len // pl)
+            self._caches = lm.init_paged_caches(num_pages, pl,
+                                                int8=config.kv_int8,
+                                                device=dev)
+            self._table = torch.zeros((s, self._table_w), dtype=torch.int32,
+                                      device=dev)
+            # host allocator: a free-page stack, refcounts, each slot's
+            # pages (a shared prefix's pages appear in many)
+            self._free_pages = self._initial_free_pages(num_pages)
+            self._page_refs = np.zeros(num_pages, np.int64)
+            self._slot_pages: List[List[int]] = [[] for _ in range(s)]
+            self._prefixes: List[Dict[str, Any]] = []
+        else:
+            self._caches = lm.init_slot_caches(s, device=dev)
+        self._state = _decode.init_slot_state(s, device=dev)
+        # -- host bookkeeping (the scheduler thread's own) ------------------
+        self._uri: List[Optional[str]] = [None] * s
+        self._tokens: List[Optional[List[int]]] = [None] * s
+        self._budget = [0] * s
+        self._expires: List[Optional[float]] = [None] * s
+        self._enqueue_t = [0.0] * s
+        self._first_t: List[Optional[float]] = [None] * s
+        self._streamed = [0] * s
+        self._noise: List[Optional[Any]] = [None] * s
+        self._seed: List[Optional[int]] = [None] * s
+        self._next_tokens = np.zeros(s, np.int64)
+        self._active_host = np.zeros(s, bool)
+        # -- SLO bookkeeping ------------------------------------------------
+        self._lock = threading.Lock()
+        self._counters = {"shed": 0, "expired": 0, "errors": 0,
+                          "claim_faults": 0}
+        self.records_served = 0
+        self.tokens_total = 0
+        self.steps = 0
+        self._ttft: "collections.deque[float]" = collections.deque(
+            maxlen=self.LATENCY_WINDOW)
+        self._latencies: "collections.deque[float]" = collections.deque(
+            maxlen=self.LATENCY_WINDOW)
+        self._in_flight = 0
+        self._meta: Dict[str, float] = {}  # uri -> enqueue_t
+        self._ewma_token_s = 0.0  # smoothed wall seconds a decoded token
+        self._last_claim_m: Optional[float] = None
+        self._last_shed_m = -1e18
+        self._claim_fail_streak = 0
+        self._stop = threading.Event()
+        self._draining = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+        self._loop_running = False
+        self._background_error: Optional[BaseException] = None
+        self.terminal_state: Optional[str] = None
+
+    # -- the device programs ---------------------------------------------------
+
+    def _select(self, logits, noise):
+        if self._filter is None:
+            return torch.argmax(logits, dim=-1)
+        return _decode.sampled_select(self._filter(logits.float()),
+                                           noise)
+
+    def _advance(self):
+        """Lengths advance once, after every block attended with the
+        pre-increment value (write, then attend, as serial decode)."""
+        self._state["length"] += self._state["active"].to(
+            self._state["length"].dtype)
+
+    def _step(self, tokens, noise):
+        logits, self._caches = self.lm.slot_step(
+            tokens, self._state["length"], self._caches)
+        nxt = self._select(logits, noise)
+        self._advance()
+        return nxt
+
+    def _step_paged(self, tokens, noise):
+        logits, self._caches = self.lm.paged_slot_step(
+            tokens, self._state["length"], self._table, self._caches)
+        nxt = self._select(logits, noise)
+        self._advance()
+        return nxt
+
+    def _device_tokens(self, padded: np.ndarray):
+        return torch.as_tensor(padded, dtype=torch.long,
+                                     device=self.device)
+
+    def _prefill(self, padded, slot: int, length: int) -> None:
+        kvs = self.lm.prefill_kv(self._device_tokens(padded))
+        for c, (k, v) in zip(self._caches, kvs):
+            _decode.slot_insert(c, slot, k[0], v[0])
+        _decode.slot_join(self._state, slot, length)
+
+    def _prefill_paged(self, padded, row, slot: int, length: int) -> None:
+        kvs = self.lm.prefill_kv(self._device_tokens(padded))
+        row_d = self._device_tokens(row)
+        for c, (k, v) in zip(self._caches, kvs):
+            _decode.paged_insert(c, row_d, k[0], v[0])
+        _decode.slot_join(self._state, slot, length)
+        _decode.page_table_set(self._table, slot, row_d)
+
+    def _prefill_suffix(self, padded, row, prow, slot: int, length: int,
+                        plen: int) -> None:
+        """Gather the shared prefix's K/V (refcounted pages, prefilled
+        once) and run only the divergent suffix forward."""
+        prow_d, row_d = self._device_tokens(prow), self._device_tokens(row)
+        pref = [_decode.paged_gather(c, prow_d[None])
+                for c in self._caches]
+        pref = [(k[:, :, :plen], v[:, :, :plen]) for k, v in pref]
+        kvs = self.lm.prefill_kv_suffix(self._device_tokens(padded), pref,
+                                        plen)
+        for c, (k, v) in zip(self._caches, kvs):
+            _decode.paged_insert(c, row_d, k[0], v[0], start=plen)
+        _decode.slot_join(self._state, slot, length)
+        _decode.page_table_set(self._table, slot, row_d)
+
+    def _prefill_prefix(self, padded, row) -> None:
+        kvs = self.lm.prefill_kv(self._device_tokens(padded))
+        row_d = self._device_tokens(row)
+        for c, (k, v) in zip(self._caches, kvs):
+            _decode.paged_insert(c, row_d, k[0], v[0])
+
+    def _copy_pages(self, src: int, dst: int) -> None:
+        for c in self._caches:
+            _decode.page_copy(c, src, dst)
+
+    # -- terminal accounting (exactly one terminal a request) -----------------
+
+    @property
+    def counters(self) -> Dict[str, int]:
+        with self._lock:
+            return dict(self._counters)
+
+    def _count(self, key: str, n: int = 1) -> None:
+        with self._lock:
+            self._counters[key] += n
+
+    def _pct(self, window, p: float) -> Optional[float]:
+        """Percentile ``p`` (0..1) of a window of seconds, in ms."""
+        with self._lock:
+            vals = sorted(window)
+        if not vals:
+            return None
+        return vals[min(len(vals) - 1, int(p * len(vals)))] * 1e3
+
+    def _expiry(self, rec: Dict[str, Any]) -> Optional[float]:
+        deadline_ms = (rec.get("deadline_ms")
+                       or self.config.default_deadline_ms)
+        if not deadline_ms:
+            return None
+        t0 = rec.get("enqueue_t")
+        base = float(t0) if t0 is not None else wall_clock()
+        return base + float(deadline_ms) / 1000.0
+
+    def _post_terminal(self, uri: str, value: Dict[str, Any]) -> None:
+        """The one place a claimed request gets its terminal result (partial
+        ``stream`` records do not come here). Error results carry
+        ``retriable``: shed errors are."""
+        if "error" in value and "retriable" not in value:
+            value = dict(value)
+            value["retriable"] = value["error"] in (SHED_ERROR,
+                                                    PAGE_SHED_ERROR)
+        try:
+            self.queue.put_result(uri, value)
+        except OSError:
+            logger.exception("posting result for %s failed", uri)
+        with self._lock:
+            self._in_flight = max(0, self._in_flight - 1)
+            t0 = self._meta.pop(uri, None)
+            if t0 is not None:
+                self._latencies.append(max(wall_clock() - t0, 0.0))
+
+    def _retire(self, slot: int, value: Dict[str, Any],
+                counter: Optional[str] = None) -> None:
+        """Post a slot's terminal and free its host bookkeeping (the device
+        evict is the caller's one :meth:`_evict_slots`)."""
+        self._post_terminal(self._uri[slot], value)
+        if counter is not None:
+            self._count(counter)
+        elif "value" in value:
+            self.records_served += 1
+        if self._paged:
+            self._release_pages(slot)
+        self._clear_slot(slot)
+
+    def _clear_slot(self, slot: int) -> None:
+        self._uri[slot] = None
+        self._tokens[slot] = None
+        self._noise[slot] = None
+        self._expires[slot] = None
+        self._first_t[slot] = None
+        self._streamed[slot] = 0
+        self._seed[slot] = None
+        self._active_host[slot] = False
+
+    @staticmethod
+    def _initial_free_pages(num_pages: int) -> List[int]:
+        """Allocatable pages ``1..num_pages-1`` as a pop()-able stack."""
+        return list(range(num_pages - 1, 0, -1))
+
+    def _release_pages(self, slot: int) -> None:
+        """Drop the slot's hold on each of its pages; a page no one holds
+        goes back on the free stack (a registered prefix holds its own)."""
+        pages, self._slot_pages[slot] = self._slot_pages[slot], []
+        for p in pages:
+            self._page_refs[p] -= 1
+            if self._page_refs[p] == 0:
+                self._free_pages.append(p)
+
+    # -- the device path ---------------------------------------------------------
+
+    def _dispatch_step(self, tokens: np.ndarray, noise):
+        """One decode step over every slot, enqueued on the card; returns
+        the next tokens, still on the device."""
+        with time_it("serving.generative.dispatch"), torch.inference_mode():
+            tok = torch.as_tensor(tokens, device=self.device)
+            if self._paged:
+                return self._step_paged(tok, noise)
+            return self._step(tok, noise)
+
+    def _insert_request_device(self, padded, slot: int, length: int) -> None:
+        with torch.inference_mode():
+            self._prefill(padded, slot, length)
+
+    def _evict_slots(self, mask: np.ndarray) -> None:
+        with torch.inference_mode():
+            m = torch.as_tensor(mask, device=self.device)
+            _decode.slot_evict(self._state, m)
+            if self._paged:
+                _decode.page_table_clear(self._table, m)
+
+    def _fetch_tokens(self, nxt) -> np.ndarray:
+        """The step's one host sync."""
+        with time_it("serving.generative.fetch"):
+            return nxt.cpu().numpy()
+
+    def _step_noise(self):
+        """Each active slot's Gumbel row for this step, ``[S, vocab]`` on
+        the card (zeros for a free slot); None when greedy."""
+        if not self._sampling:
+            return None
+        rows = torch.zeros((self.slots, self.lm.vocab_size))
+        for i in range(self.slots):
+            if self._active_host[i]:
+                rows[i] = self._noise[i][len(self._tokens[i])]
+        return rows.to(self.device, non_blocking=True)
+
+    # -- admission ---------------------------------------------------------------
+
+    def _shed(self) -> None:
+        """Admission control at token granularity: slots free up at
+        ``slots / (budget · smoothed seconds a token)`` streams a second;
+        shed the backlog to what starts within ``shed_wait_ms``."""
+        now = time.monotonic()
+        if now - self._last_shed_m < self.SHED_INTERVAL_S:
+            return
+        self._last_shed_m = now
+        cfg = self.config
+        allowed = cfg.max_pending
+        if cfg.shed_wait_ms and self._ewma_token_s > 0:
+            stream_s = cfg.max_new_tokens * self._ewma_token_s
+            allowed = min(allowed, max(
+                self.slots,
+                int(cfg.shed_wait_ms / 1000.0 / stream_s * self.slots)))
+        try:
+            dropped = self.queue.shed(allowed, reason=SHED_ERROR)
+        except OSError as e:
+            logger.warning("shed pass failed (transient): %r", e)
+            return
+        if dropped:
+            self._count("shed", len(dropped))
+            logger.warning("overload: shed %d oldest streams with error "
+                           "results (allowed depth %d)", len(dropped),
+                           allowed)
+
+    def _match_prefix(self, prompt) -> Optional[Dict[str, Any]]:
+        """The longest registered prefix that ``prompt`` strictly extends
+        (the last prompt token is never prefilled)."""
+        best = None
+        for pfx in self._prefixes:
+            n = pfx["len"]
+            if (len(prompt) > n and list(prompt[:n]) == pfx["tokens"]
+                    and (best is None or n > best["len"])):
+                best = pfx
+        return best
+
+    def register_prefix(self, tokens) -> int:
+        """Prefill a shared prompt prefix once into refcounted pool pages.
+        A later join whose prompt extends it references those pages (whole
+        pages in place; a partly filled tail page as a private copy, since
+        the stream appends into it) and prefills only its own suffix. The
+        registry keeps a hold on the pages for good. Call it before
+        :meth:`start` or between steps. Returns the prefix's index."""
+        from ..capture.lm import prefill_bucket
+        if not self._paged:
+            raise RuntimeError("shared prefixes require the paged KV "
+                               "engine (set kv_pages)")
+        toks = [int(x) for x in tokens]
+        n = len(toks)
+        if n < 1 or n >= self.lm.max_len:
+            raise ValueError(f"prefix length {n} out of range for "
+                             f"max_len={self.lm.max_len}")
+        npages = -(-n // self.page_len)
+        if len(self._free_pages) < npages:
+            raise RuntimeError(
+                f"kv page pool exhausted: prefix needs {npages} pages, "
+                f"{len(self._free_pages)} free")
+        pages = [self._free_pages.pop() for _ in range(npages)]
+        for p in pages:
+            self._page_refs[p] = 1  # the registry's hold
+        row = np.zeros(self._table_w, np.int64)
+        row[:npages] = pages
+        padded = np.zeros((1, prefill_bucket(n, self.lm.max_len)), np.int64)
+        padded[0, :n] = toks
+        with torch.inference_mode():
+            self._prefill_prefix(padded, row)
+        self._prefixes.append({"tokens": toks, "len": n, "pages": pages})
+        return len(self._prefixes) - 1
+
+    def _join_paged(self, slot: int, uri: str, prompt, t: int,
+                    budget: int) -> bool:
+        """Allocate pages for a valid request and prefill it into
+        ``slot``. A pool too short for it sheds the request (its one
+        terminal is the page shed error); resident streams go on."""
+        from ..capture.lm import prefill_bucket
+        pl = self.page_len
+        pfx = self._match_prefix(prompt)
+        plen = pfx["len"] if pfx else 0
+        full = plen // pl        # whole shared pages
+        rem = plen % pl          # prefix tokens on the shared tail page
+        fed = t - 1              # positions prefilled before decoding
+        tb = (prefill_bucket(fed - plen, self.lm.max_len)
+              if fed > plen else 0)
+        # the highest position the stream writes within its pages: the
+        # bucket's padding past the suffix, and the decode budget
+        high = max(plen + tb, t + budget)
+        # padding past the table's width is never visible: the null page
+        # takes it
+        fresh_needed = min(-(-high // pl), self._table_w) - full
+        if len(self._free_pages) < fresh_needed:
+            self._post_terminal(uri, {"error": PAGE_SHED_ERROR})
+            self._count("shed")
+            logger.warning("kv page pool exhausted: shed %s (need %d "
+                           "pages, %d free)", uri, fresh_needed,
+                           len(self._free_pages))
+            return False
+        fresh = [self._free_pages.pop() for _ in range(fresh_needed)]
+        shared = [int(p) for p in pfx["pages"][:full]] if pfx else []
+        row = np.zeros(self._table_w, np.int64)
+        row[:full] = shared
+        row[full:full + fresh_needed] = fresh
+        for p in shared:
+            self._page_refs[p] += 1
+        for p in fresh:
+            self._page_refs[p] = 1
+        self._slot_pages[slot] = shared + fresh
+        with torch.inference_mode():
+            if pfx and rem:
+                # copy-on-write: the stream appends into logical page
+                # ``full``, which holds the prefix's tail tokens
+                self._copy_pages(pfx["pages"][full], fresh[0])
+            if fed > plen:
+                padded = np.zeros((1, tb), np.int64)
+                padded[0, :fed - plen] = prompt[plen:fed]
+                if pfx:
+                    self._prefill_suffix(padded, row,
+                                         np.asarray(pfx["pages"], np.int64),
+                                         slot, fed, plen)
+                else:
+                    self._prefill_paged(padded, row, slot, fed)
+            else:  # nothing to prefill: join and install the table row
+                _decode.slot_join(self._state, slot, fed)
+                _decode.page_table_set(self._table, slot,
+                                            self._device_tokens(row))
+        return True
+
+    def _join(self, slot: int, uri: str, rec: Dict[str, Any],
+              now: float) -> bool:
+        """Check a claimed request and prefill it into ``slot``. False (the
+        slot stays free) when the request ends at once: an empty prompt,
+        over the budget, expired, or (paged) no pages. A request carrying
+        a ``prefix`` (tokens decoded elsewhere) prefills ``prompt +
+        prefix`` and decodes on from ``len(prefix)``; a sampled one takes
+        its draws from the same schedule, so it goes on as it would have."""
+        from ..capture.lm import prefill_bucket
+        cfg = self.config
+        prompt = rec.get("prompt")
+        if not prompt:
+            self._post_terminal(uri, {"error": "empty prompt"})
+            self._count("errors")
+            return False
+        budget = int(rec.get("max_new_tokens") or cfg.max_new_tokens)
+        prompt = [int(x) for x in prompt]
+        prefix = [int(x) for x in (rec.get("prefix") or [])]
+        t = len(prompt)
+        if budget < 1 or t + budget > self.lm.max_len:
+            self._post_terminal(uri, {
+                "error": f"prompt ({t}) + max_new_tokens ({budget}) "
+                         f"out of range for max_len={self.lm.max_len}"})
+            self._count("errors")
+            return False
+        exp = self._expiry(rec)
+        if exp is not None and now >= exp:
+            self._post_terminal(uri, {"error": DEADLINE_ERROR})
+            self._count("expired")
+            return False
+        if prefix and len(prefix) >= budget:
+            # decoded in full elsewhere, never answered: settle it
+            self._post_terminal(uri, {"value": prefix[:budget],
+                                      "done": True})
+            self.records_served += 1
+            return False
+        full = prompt + prefix
+        t_full = len(full)
+        with time_it("serving.generative.join"):
+            if self._paged:
+                if not self._join_paged(slot, uri, full, t_full,
+                                        budget - len(prefix)):
+                    return False
+            elif t_full > 1:
+                # full[:-1] right-padded to its bucket: the prefill serial
+                # generate() runs
+                tb = prefill_bucket(t_full - 1, self.lm.max_len)
+                padded = np.zeros((1, tb), np.int64)
+                padded[0, :t_full - 1] = full[:-1]
+                self._insert_request_device(padded, slot, t_full - 1)
+            else:
+                with torch.inference_mode():
+                    _decode.slot_join(self._state, slot, 0)
+        self._uri[slot] = uri
+        self._tokens[slot] = list(prefix)
+        self._budget[slot] = budget
+        self._expires[slot] = exp
+        self._enqueue_t[slot] = float(rec.get("enqueue_t") or now)
+        # an adopted stream's TTFT was observed where it started
+        self._first_t[slot] = now if prefix else None
+        self._streamed[slot] = len(prefix)
+        self._next_tokens[slot] = int(full[-1])
+        if self._sampling:
+            seed = rec.get("seed")
+            if seed is None:  # fresh entropy: repeated requests differ
+                seed = int(np.random.SeedSequence().entropy % (2 ** 31))
+            # the request's whole schedule: step i draws row i, as serial
+            # sample_generate's gumbel_noise(seed, [budget, 1, vocab])
+            self._seed[slot] = int(seed)
+            self._noise[slot] = _decode.gumbel_noise(
+                seed, (budget, self.lm.vocab_size))
+        self._active_host[slot] = True
+        return True
+
+    def _admit(self) -> None:
+        free = [i for i in range(self.slots) if not self._active_host[i]]
+        if not free:
+            return
+        self._shed()
+        try:
+            got = self.queue.claim_batch(len(free))
+            self._claim_fail_streak = 0
+        except OSError as e:
+            self._count("claim_faults")
+            self._claim_fail_streak += 1
+            if self._claim_fail_streak > self.config.claim_retries:
+                raise  # a dead backend, not a flaky one
+            logger.warning("transient claim failure (%d/%d): %r",
+                           self._claim_fail_streak,
+                           self.config.claim_retries, e)
+            return
+        if not got:
+            return
+        self._last_claim_m = time.monotonic()
+        now = wall_clock()
+        with self._lock:
+            self._in_flight += len(got)
+            for uri, rec in got:
+                self._meta[uri] = float(rec.get("enqueue_t") or now)
+        for uri, rec in got:
+            slot = free.pop(0)
+            if not self._join(slot, uri, rec, now):
+                free.insert(0, slot)
+
+    # -- the step loop -----------------------------------------------------------
+
+    def _expire_slots(self) -> None:
+        """The per-token deadline check: an expired stream is evicted
+        mid-flight with the deadline error as its one terminal."""
+        now = wall_clock()
+        mask = np.zeros(self.slots, bool)
+        for i in range(self.slots):
+            if (self._active_host[i] and self._expires[i] is not None
+                    and now >= self._expires[i]):
+                mask[i] = True
+                self._retire(i, {"error": DEADLINE_ERROR}, counter="expired")
+        if mask.any():
+            self._evict_slots(mask)
+
+    def _fail_active(self, message: str) -> None:
+        mask = self._active_host.copy()
+        for i in np.flatnonzero(mask):
+            self._retire(int(i), {"error": message}, counter="errors")
+        if mask.any():
+            self._evict_slots(mask)
+
+    def _post_tokens(self, nxt: np.ndarray) -> None:
+        """Fold a step's tokens into every active stream: TTFT at the
+        first token, a partial every ``stream_interval`` tokens, the
+        terminal and eviction at eos or at the budget."""
+        now = wall_clock()
+        cfg = self.config
+        finished = np.zeros(self.slots, bool)
+        n_tok = 0
+        for i in range(self.slots):
+            if not self._active_host[i]:
+                continue
+            tok = int(nxt[i])
+            self._tokens[i].append(tok)
+            self._next_tokens[i] = tok
+            n_tok += 1
+            if self._first_t[i] is None:
+                self._first_t[i] = now
+                with self._lock:
+                    self._ttft.append(max(now - self._enqueue_t[i], 0.0))
+            if (len(self._tokens[i]) >= self._budget[i]
+                    or (cfg.eos_id is not None and tok == cfg.eos_id)):
+                finished[i] = True
+                self._retire(i, {"value": list(self._tokens[i]),
+                                 "done": True})
+            elif (cfg.stream_interval > 0
+                  and (len(self._tokens[i]) - self._streamed[i]
+                       >= cfg.stream_interval)):
+                try:
+                    self.queue.put_result(self._uri[i], self._partial(i))
+                    self._streamed[i] = len(self._tokens[i])
+                except OSError:
+                    logger.exception("partial result for %s failed",
+                                     self._uri[i])
+        self.tokens_total += n_tok
+        if finished.any():
+            self._evict_slots(finished)
+
+    def _partial(self, slot: int) -> Dict[str, Any]:
+        """A progress record: the tokens so far and, when sampling, the
+        seed (what a resumed request passes to go on identically)."""
+        out: Dict[str, Any] = {"stream": list(self._tokens[slot]),
+                               "done": False}
+        if self._seed[slot] is not None:
+            out["seed"] = self._seed[slot]
+        return out
+
+    def serve_step(self) -> int:
+        """One scheduler step: evict expired streams, admit requests into
+        free slots (shed, then prefill), run one decode step over every
+        occupied slot, stream and terminate per token. Returns the number
+        of streams stepped; :meth:`run` loops it."""
+        self._expire_slots()
+        if not self._draining.is_set():
+            self._admit()
+        n_active = int(np.sum(self._active_host))
+        if n_active == 0:
+            return 0
+        t_step = time.perf_counter()
+        try:
+            nxt = self._dispatch_step(self._next_tokens, self._step_noise())
+            nxt_host = self._fetch_tokens(nxt)
+        except Exception as e:
+            logger.exception("decode step failed for %d streams", n_active)
+            self._fail_active(repr(e))
+            return 0
+        self.steps += 1
+        per = (time.perf_counter() - t_step) / n_active
+        self._ewma_token_s = (per if self._ewma_token_s == 0.0
+                              else 0.8 * self._ewma_token_s + 0.2 * per)
+        self._post_tokens(nxt_host)
+        return n_active
+
+    # -- lifecycle (as ClusterServing) -------------------------------------------
+
+    def run(self, poll_interval_s: float = 0.005) -> None:
+        logger.info("generative serving started (src=%s slots=%d)",
+                    self.config.data_src, self.slots)
+        self.terminal_state = None
+        self._loop_running = True
+        self._last_shed_m = -1e18
+        try:
+            while not self._stop.is_set():
+                stepped = self.serve_step()
+                if self._draining.is_set() and stepped == 0:
+                    return  # drained: every stream in flight finished
+                if stepped == 0:
+                    time.sleep(poll_interval_s)
+        finally:
+            self._loop_running = False
+            if self._stop.is_set():
+                self._fail_active(SHUTDOWN_ERROR)
+
+    def start(self) -> "GenerativeServing":
+        """Run the loop in a background thread; a crash there is re-raised
+        by :meth:`stop`, :meth:`drain` and :meth:`check_health`."""
+        self._stop.clear()
+        self._draining.clear()
+        self.terminal_state = None
+        self._background_error = None
+
+        def _run() -> None:
+            try:
+                self.run()
+            except BaseException as e:
+                logger.exception("generative serving loop died")
+                self._background_error = e
+
+        self._thread = threading.Thread(target=_run, daemon=True,
+                                        name="zoo-generative-loop")
+        self._thread.start()
+        return self
+
+    def check_health(self) -> None:
+        err = self._background_error
+        if err is not None:
+            raise RuntimeError(
+                "generative serving loop died in the background") from err
+
+    def drain(self, timeout_s: float = 30.0) -> None:
+        """Stop admitting and finish every stream in flight (each runs to
+        its budget, eos or deadline)."""
+        self._draining.set()
+        if self._loop_running and self._thread is None:
+            return  # a foreground run(): the loop ends itself
+        t = self._thread
+        if t is not None:
+            t.join(timeout=timeout_s)
+            if t.is_alive():
+                raise RuntimeError(
+                    f"drain did not complete within {timeout_s}s "
+                    f"({int(np.sum(self._active_host))} streams active)")
+            self._thread = None
+        if self.terminal_state is None:
+            self.terminal_state = "drained"
+        self.check_health()
+
+    def handoff(self, to_queue, timeout_s: float = 30.0) -> int:
+        raise NotImplementedError(
+            "handing streams to another server (handoff) is not ported "
+            "yet: ROADMAP Queue A item 5")
+
+    def stop(self) -> None:
+        """Hard stop: active streams get explicit shutdown errors."""
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=10)
+            if self._thread.is_alive():
+                self._thread = None
+                raise RuntimeError(
+                    "generative serving loop did not shut down within 10s "
+                    "(queue backend wedged?); thread leaked")
+            self._thread = None
+        else:
+            self._fail_active(SHUTDOWN_ERROR)
+        if self.terminal_state is None:
+            self.terminal_state = "stopped"
+        self.check_health()
+
+    def health_snapshot(self) -> Dict[str, Any]:
+        """Lifecycle state, queue depth, slots occupied, tokens decoded,
+        TTFT and latency percentiles (ms) and the SLO counters."""
+        with self._lock:
+            in_flight = self._in_flight
+            n_ttft, n_lat = len(self._ttft), len(self._latencies)
+        err = self._background_error
+        if self.terminal_state is not None:
+            state = self.terminal_state
+        elif err is not None:
+            state = "crashed"
+        elif self._draining.is_set():
+            state = "draining"
+        elif self._loop_running or (self._thread is not None
+                                    and self._thread.is_alive()):
+            state = "running"
+        else:
+            state = "idle"
+        try:
+            pending = self.queue.pending_count()
+        except (OSError, NotImplementedError):
+            pending = None
+        claim_age = (round(time.monotonic() - self._last_claim_m, 3)
+                     if self._last_claim_m is not None else None)
+        return {
+            "state": state,
+            "time": wall_clock(),
+            "queue_pending": pending,
+            "in_flight": in_flight,
+            "slots": self.slots,
+            "slots_occupied": int(np.sum(self._active_host)),
+            "tokens_total": self.tokens_total,
+            "tokens_per_sec_ewma": (1.0 / self._ewma_token_s
+                                    if self._ewma_token_s > 0 else None),
+            "kv_pages_free": (len(self._free_pages) if self._paged
+                              else None),
+            "last_claim_age_s": claim_age,
+            "ttft_ms": {"p50": self._pct(self._ttft, 0.50),
+                        "p99": self._pct(self._ttft, 0.99),
+                        "window": n_ttft},
+            "latency_ms": {"p50": self._pct(self._latencies, 0.50),
+                           "p99": self._pct(self._latencies, 0.99),
+                           "window": n_lat},
+            "counters": self.counters,
+            "error": repr(err) if err is not None else None,
+        }
 
 
 def main() -> None:

@@ -272,6 +272,47 @@ Phases, each of which must pass or the script exits non-zero:
    filters 3x3, forward and backward timed beside the bf16 conv. None of
    the three launches a kernel of the port's own.
 
+20. generative serving (north-star: ``bench.py``'s ``bench_generate``;
+   the slice's main path): ``GenerativeServing`` with the TransformerLM
+   at ``LM_CFG``'s width (seeded random weights, f32), every request sent
+   with ``enqueue_prompt`` through a ``dir://`` spool, the first read back
+   with ``OutputQueue.stream``. (a) contiguous slots: 32 slots, 32 new
+   tokens, 64 greedy prompts of 100 tokens (bucket 128: B7) and 4 of 1000
+   (bucket 1024: B4) that join mid-run; every request one terminal; the
+   prefills launch B7 or B4 once a block, B1 once a prefill and once a
+   step, and no backward kernel runs; this run is timed. Then the same
+   prompts again with each step's logits kept (a tap that copies them on
+   the host, so this run is not timed): its tokens equal the timed run's,
+   each stream's logits are within ``LOGIT_TOL`` of their scale of a
+   serial ``generate`` of its prompt on the card, and its tokens equal,
+   except where the serial run's top two logits are that close
+   (printed). (b) paged: ``kv_page_len`` 16, 64
+   slots, 128 streams (those of (a) and 60 more), ``kv_pages`` the pages
+   64 resident streams take: the tokens of (a)'s prompts equal (a)'s. (c)
+   (b) with ``kv_int8``: one terminal each, tokens well formed, launches
+   as (b)'s, the count that differ from (b)'s printed. (d)
+   ``register_prefix`` of 64 tokens against the same 16 prompts without
+   it, as (a) against serial; the registration launches B7 once a block
+   and the joins none. (e) sampled (temperature 0.8, top-k 50, top-p 0.9,
+   a seed a request): as (a), timed untapped, then tapped against
+   ``generate(seed=...)``, where a token may differ only where the draw's
+   own scores (filtered logits plus the step's Gumbel noise) are that
+   close. Each prints tokens/s, TTFT and
+   latency p50/p99, steps and the KV bytes; then a decode step of 32
+   resident streams alone: ms by CUDA events, device ms, busy share, top
+   kernels.
+21. heads past 256 (``csrc/attn_wide.cu``, C15): every attention wrapper
+   at heads of 257, 320 and 512 (the forwards also 1024), f32 and bf16, is
+   held to its plain version as in 6 and 8 (B7 with dropout 0 and 0.1,
+   bias or not, causal or not; B4; B5a + B5b and B6 with and without an
+   lse cotangent), every launch counted on the ``wide`` route; B7/B8's
+   dropout mask at 320 columns bit for bit; the three kernels (forward,
+   dq pass, dk/dv pass) timed at [2, 4, 512, 512] causal beside their
+   plain versions and SDPA with their bounds; a TransformerLM with 4 heads
+   of 512 (depth 2, max_len 512) trains 2 steps and generates after a
+   100-token prompt, every attention launch on the ``wide`` route (the
+   launches the kernels line reports for the three).
+
 Each phase's seconds are printed. The last three lines of output are the
 card's
 ``nvidia-smi`` name and power limit, the ``{"kernels": [...]}`` line,
@@ -654,6 +695,9 @@ _PTXAS_ENTRY = re.compile(
     r"fused_short_(?:fwd|bwd_dq|bwd_dkv)(?:_bf16)?)_kernel)I((?:L[ib]\d+E)+)"
     r"E")
 _PTXAS_ARG = re.compile(r"L[ib](\d+)E")
+#: the wide kernels' entries (``csrc/attn_wide.cu``), by dtype
+_PTXAS_WIDE = re.compile(
+    r"entry function '\S*?(wide_(?:fwd|dq|dkv)_kernel)I(f|13__nv_bfloat16)E")
 _PTXAS_SPILL = re.compile(
     r"(\d+) bytes spill stores, (\d+) bytes spill loads")
 _PTXAS_REGS = re.compile(r"Used (\d+) registers")
@@ -672,6 +716,11 @@ def ptxas_usage(log: str) -> dict:
         if m:
             args = ",".join(_PTXAS_ARG.findall(m.group(2)))
             name = f"{m.group(1)}<{args}>"
+            usage[name] = {}
+            continue
+        m = _PTXAS_WIDE.search(line)
+        if m:
+            name = f"{m.group(1)}<{'f32' if m.group(2) == 'f' else 'bf16'}>"
             usage[name] = {}
             continue
         m = _PTXAS_SPILL.search(line)
@@ -700,9 +749,13 @@ def ptxas_report(kernel_build) -> dict:
              "bf16 fused short kernels (B7, B8's two passes) at 4 widths"),
             ("ptxas_f32_fused", "fused_short_", False, 25,
              "f32 fused short kernels (B7 at 3 splits, B8's two passes at "
-             "2, at 3 widths; at d 256 B7 at 2 and B8 at 1)")):
+             "2, at 3 widths; at d 256 B7 at 2 and B8 at 1)"),
+            ("ptxas_wide", "wide_", None, 6,
+             "wide kernels (forward, dq and dk/dv passes) in f32 and "
+             "bf16")):
         out[key] = {k: v for k, v in usage.items()
-                    if k.startswith(kind) and ("_bf16_" in k) == bf16}
+                    if k.startswith(kind)
+                    and (bf16 is None or ("_bf16_" in k) == bf16)}
         check(len(out[key]) == want, f"ptxas -v named {sorted(out[key])}, "
               f"expected the {what}")
     return out
@@ -2051,7 +2104,7 @@ def phase_attention_kernels(at, dev, seed: int):
                           for d in ATTN_DIMS[ATTN_PINNED:]]:
         errs = errors if (s, d) in pinned else wide_errors
         for dtype in (torch.float32, torch.bfloat16):
-            route = at.fused_short_route(dtype)
+            route = at.fused_short_route(dtype, d)
             q, k, v, do, mask = _attn_case(dev, 2, 3, s, d, dtype, gen)
             mask[-1] = 0  # a row of all-masked keys
             bias = ((1.0 - mask) * -1e9).to(dev)
@@ -2277,7 +2330,8 @@ def phase_bert(at, ek, seed: int):
         check(got == per(k, backward), f"{name} launched {got}, expected "
               f"{per(k, backward)}")
         want = blocks * k * (2 if backward else 1)
-        check(counts[name]["routes"] == {"bf16_tc": want, "f32_tc": 0},
+        check(counts[name]["routes"] == {"bf16_tc": want, "f32_tc": 0,
+                                          "wide": 0},
               f"{name} took the routes {counts[name]['routes']}, expected "
               f"{want} bf16_tc")
     losses = np.asarray(hist["loss_history"])
@@ -2412,7 +2466,8 @@ def phase_bert_vs_cpu(at, seed: int):
     check(probs_err <= 1e-5, f"card probabilities differ by {probs_err}")
     fused = launches["fused_short_fwd"] + launches["fused_short_bwd"]
     check(launches["fused_short_bwd"] > 0 and launches["routes"] == {
-        "bf16_tc": 0, "f32_tc": fused}, f"the f32 card run launched "
+        "bf16_tc": 0, "f32_tc": fused, "wide": 0},
+          f"the f32 card run launched "
         f"{launches}, not the f32 route alone")
     steps = len(l_cpu)
     check(len(g_dev) == len(g_cpu) == steps and g_dev[0].keys() == w_cpu.keys()
@@ -2523,7 +2578,8 @@ FLASH_ROUTES = {
 
 def flash_routes_of(at, dtype, launches: dict) -> dict:
     """The flash route counts that these flash launches (by kernel name)
-    of ``dtype`` must make, every route named, by ``FLASH_ROUTES``."""
+    of ``dtype`` and heads of 256 or fewer (every caller's) must make,
+    every route named, by ``FLASH_ROUTES``."""
     routes = {r: 0 for r in at.flash_route_counts}
     for kernel, n in launches.items():
         if kernel in at.flash_launch_counts:
@@ -2924,7 +2980,7 @@ def phase_longseq(at, dev, seed: int):
                 "flash_bwd_dq": 0 if fused else n,
                 "flash_bwd_dkv": 0 if fused else n,
                 "route_bf16_tc": (2 if fused else 3) * n,
-                "route_f32_tc": 0}
+                "route_f32_tc": 0, "route_wide": 0}
         check(counts == want, f"long-context steps at {label} launched "
               f"{counts}, expected {want}")
         # eps = 0: the inputs come back bit for bit unless a gradient was
@@ -3140,7 +3196,8 @@ def phase_lm_generate(at, ek, lm, seed: int):
                 "fused_short_bwd": 0, "gather_rows": 1 + GEN_NEW}
         check(counts == want, f"generate after {length} tokens launched "
               f"{counts}, expected {want}")
-        check(routes == {"bf16_tc": 0, "f32_tc": want["fused_short_fwd"]},
+        check(routes == {"bf16_tc": 0, "f32_tc": want["fused_short_fwd"],
+                         "wide": 0},
               f"generate after {length} tokens took the routes {routes}, "
               f"expected f32_tc alone")
         flash_routes = dict(at.flash_route_counts)
@@ -4430,7 +4487,8 @@ def phase_bert_serving(at, ek, seed: int, workdir: str):
                 "gather_rows": ek.launch_counts["gather_rows"]}
     k = server.batches_dispatched
     want_launches = {"fused_short_fwd": blocks * k, "fused_short_bwd": 0,
-                     "routes": {"bf16_tc": blocks * k, "f32_tc": 0},
+                     "routes": {"bf16_tc": blocks * k, "f32_tc": 0,
+                                "wide": 0},
                      "gather_rows": 3 * k}
     check(launches == want_launches, f"{k} served batches launched "
           f"{launches}, expected {want_launches}")
@@ -4980,6 +5038,641 @@ def phase_wide_heads(at, ek, dev, seed: int) -> dict:
                                   "gather_rows": 0}}, stats
 
 
+#: heads past 256 (the ``wide`` route, ``csrc/attn_wide.cu``): the grid's
+#: widths, 1024 for the forwards alone; B7/B8's lengths and the flash
+#: kernels' (q, kv) lengths
+WIDE_DIMS = (257, 320, 512)
+WIDE_FWD_DIM = 1024
+WIDE_FUSED_SEQS = (1, 33, 128)
+WIDE_FLASH_LENGTHS = ((33, 33), (100, 300), (300, 100))
+#: the shape the wide kernels are timed at, causal
+WIDE_TIMED = (2, 4, 512, 512)
+#: the LM path with heads of 512 that drives the wide kernels through the
+#: user's entry points: training steps (flash: a forward, then the dq and
+#: dk/dv passes) and a generate (the fused prefill at bucket 128)
+LM_WIDE512 = dict(LM_CFG, n_block=2, n_head=4, max_len=512)
+LM_WIDE512_BATCH, LM_WIDE512_STEPS = 4, 2
+#: the f32 rate of the CUDA cores, at which the wide kernels compute
+PEAK_F32_SIMT = 67e12
+
+
+def _wide_grid(at, dev, gen, seed_t) -> dict:
+    """Hold every wrapper at heads of 257, 320 and 512 (forwards also
+    1024) to its plain version: B7/B8 with and without a padding bias,
+    causal or not, dropout 0 and 0.1; B4 with and without a bias, causal or
+    not; B5a + B5b and B6 with and without an lse cotangent. Returns the
+    largest errors over the output's scale (the gradients' joint scale)
+    by dtype and the number of cases."""
+    errs, cases = {}, 0
+
+    def hold(err, dtype, what):
+        key = f"{what}_{str(dtype).split('.')[-1]}"
+        errs[key] = max(errs.get(key, 0.0), err)
+        check(err <= ATTN_ATOL[dtype], f"wide {what} != plain by {err} "
+              f"({dtype})")
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for d in WIDE_DIMS + (WIDE_FWD_DIM,):
+            fwd_only = d == WIDE_FWD_DIM
+            for s in WIDE_FUSED_SEQS[1:] if fwd_only else WIDE_FUSED_SEQS:
+                q, k, v, do, mask = _attn_case(dev, 2, 2, s, d, dtype, gen)
+                bias = ((1.0 - mask) * -1e9).to(dev)
+                for kb in (None, bias):
+                    for causal in (False, True):
+                        for rate in (0.0, 0.1):
+                            args = (kb, seed_t, d ** -0.5, rate, causal)
+                            o, stats = at.fused_short_fwd(q, k, v, *args)
+                            want = at.fused_short_attention_plain(
+                                q, k, v, kb, d ** -0.5, rate, seed_t, causal)
+                            hold(_rel_err(o, want), dtype, "fused_fwd")
+                            cases += 1
+                            if fwd_only:
+                                continue
+                            got = at.fused_short_bwd(q, k, v, do, *args,
+                                                     stats, o)
+                            plain = at.fused_short_bwd_plain(
+                                q, k, v, do, kb, d ** -0.5, rate, seed_t,
+                                causal)
+                            hold(_grads_errs(got, plain, False)[0], dtype,
+                                 "fused_bwd")
+            lengths = WIDE_FLASH_LENGTHS[1:2] if fwd_only \
+                else WIDE_FLASH_LENGTHS
+            for sq, skv in lengths:
+                q, k, v, do, glse, bias = _flash_case(dev, sq, skv, d, dtype,
+                                                      gen)
+                scale = d ** -0.5
+                for causal in (False, True):
+                    for kb in (None, bias):
+                        o, lse = at.flash_fwd(q, k, v, kb, scale, causal)
+                        want_o, want_lse = at.flash_fwd_plain(q, k, v, kb,
+                                                              scale, causal)
+                        hold(_rel_err(o, want_o), dtype, "flash_fwd")
+                        hold(_rel_err(lse, want_lse), torch.float32,
+                             "flash_lse")
+                        cases += 1
+                    if fwd_only:
+                        continue
+                    o, lse = at.flash_fwd_plain(q, k, v, None, scale, causal)
+                    delta = (do.float() * o.float()).sum(-1)
+                    for gl in (None, glse):
+                        a = (q, k, v, do, lse, delta, gl, scale, causal)
+                        want = at.flash_bwd_fused_plain(*a)
+                        pair = (at.flash_bwd_dq(*a),) + at.flash_bwd_dkv(*a)
+                        one_key = skv == 1 and gl is None
+                        hold(_grads_errs(pair, want, one_key)[0], dtype,
+                             "flash_bwd_pair")
+                        hold(_grads_errs(at.flash_bwd_fused(*a), want,
+                                         one_key)[0], dtype,
+                             "flash_bwd_fused")
+                        cases += 1
+    torch.cuda.synchronize()
+    return {"max_rel_err": errs, "cases": cases}
+
+
+def _wide_dropout_mask(at, dev, seed_t) -> dict:
+    """B7/B8's dropout mask at heads of 320 equals ``dropout_keep_mask``
+    bit for bit: q = k = 0 gives p = 1/s everywhere, and v = I (s = d =
+    320) reads p·keep back out of o, dO = I out of dv."""
+    s = 320
+    kept = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        q = torch.zeros(4, 3, s, s, device=dev, dtype=dtype)
+        eye = torch.eye(s, device=dev, dtype=dtype).expand(
+            4, 3, s, s).contiguous()
+        o, stats = at.fused_short_fwd(q, q, eye, None, seed_t, 1.0, 0.1,
+                                      False)
+        _, _, dv = at.fused_short_bwd(q, q, eye, eye, None, seed_t, 1.0,
+                                      0.1, False, stats, o)
+        want = at.dropout_keep_mask(seed_t, 12, s, 0.1).reshape(4, 3, s, s)
+        check(torch.equal(o != 0, want), f"wide B7's dropout mask != the "
+              f"plain mask ({dtype})")
+        check(torch.equal(dv.transpose(-1, -2) != 0, want),
+              f"wide B8's dropout mask != the plain mask ({dtype})")
+        kept[str(dtype).split(".")[-1]] = float(want.float().mean())
+    return {"entries": 2 * 4 * 3 * s * s, "kept_share": kept}
+
+
+def _wide_timings(at, dev, gen) -> dict:
+    """The three wide kernels at ``WIDE_TIMED`` causal, by their flash
+    wrappers (forward with lse, dq pass, dk/dv pass), beside their plain
+    versions and ``scaled_dot_product_attention(is_causal=True)``, held
+    to the plain versions; bounds at the card's peak for the dtype (in
+    f32 the tensor cores as 3xTF32, the rate the other f32 attention
+    kernels are bounded at) and, in f32, also at the CUDA cores' f32 rate
+    (the kernels' own arithmetic)."""
+    b, h, s, d = WIDE_TIMED
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, do = (torch.randn(b, h, s, d, generator=gen).to(dtype)
+                       .to(dev) for _ in range(4))
+        scale = d ** -0.5
+        o, lse = at.flash_fwd(q, k, v, None, scale, True)
+        delta = (do.float() * o.float()).sum(-1)
+        a = (q, k, v, do, lse, delta, None, scale, True)
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+
+        def sdpa_fwd_bwd(leaves=leaves, do=do):
+            sdpa(*leaves, is_causal=True).backward(do)
+
+        fns = {
+            "fwd_ms": lambda: at.flash_fwd(q, k, v, None, scale, True),
+            "dq_ms": lambda: at.flash_bwd_dq(*a),
+            "dkv_ms": lambda: at.flash_bwd_dkv(*a),
+            "plain_fwd_ms": lambda: at.flash_fwd_plain(q, k, v, None, scale,
+                                                       True),
+            "plain_dq_ms": lambda: at.flash_bwd_dq_plain(*a),
+            "plain_dkv_ms": lambda: at.flash_bwd_dkv_plain(*a),
+            "library_fwd_ms": lambda: sdpa(q, k, v, is_causal=True),
+            "library_fwd_bwd_ms": sdpa_fwd_bwd}
+        t = {"shape": [b, h, s, d], "dtype": str(dtype).split(".")[-1],
+             "causal": True}
+        for key, fn in fns.items():
+            t[key] = cuda_ms(fn, 5, warmup=2)
+            t[key.replace("_ms", "_device_ms")] = device_ms(fn, calls=3)
+        want_o, want_lse = at.flash_fwd_plain(q, k, v, None, scale, True)
+        t["fwd_max_abs_err"] = float((o.float() - want_o.float()).abs()
+                                     .max())
+        t["fwd_rel_err"] = _rel_err(o, want_o)
+        want = at.flash_bwd_fused_plain(*a)
+        got = (at.flash_bwd_dq(*a),) + at.flash_bwd_dkv(*a)
+        t["dq_max_abs_err"] = float((got[0].float() - want[0].float())
+                                    .abs().max())
+        t["dkv_max_abs_err"] = max(float((g.float() - w.float()).abs().max())
+                                   for g, w in zip(got[1:], want[1:]))
+        t["bwd_rel_err"] = _grads_errs(got, want, False)[0]
+        check(t["fwd_rel_err"] <= ATTN_ATOL[dtype]
+              and t["bwd_rel_err"] <= ATTN_ATOL[dtype],
+              f"wide kernels at {WIDE_TIMED} {dtype} != plain: {t}")
+        for kind in ("fwd", "dq", "dkv"):
+            t[f"{kind}_bound"] = list(flash_bound_ms(
+                b, h, s, s, d, dtype, kind, True,
+                peak=PEAK_FLOPS_3XTF32 if dtype == torch.float32 else None))
+            t[f"{kind}_bound_simt"] = list(flash_bound_ms(
+                b, h, s, s, d, dtype, kind, True, peak=PEAK_F32_SIMT))
+        out[t["dtype"]] = t
+        del q, k, v, do, leaves
+    return out
+
+
+def _wide_lm_path(at, ek, seed: int) -> tuple:
+    """A TransformerLM with heads of 512 (``LM_WIDE512``) through its
+    entry points: ``fit`` (each block and step a flash forward, a dq and a
+    dk/dv pass) and ``generate`` after a 100-token prompt (each block's
+    prefill a fused forward at bucket 128): every launch on the ``wide``
+    route. Returns (launches, stats)."""
+    from analytics_zoo_tpu_torch.capture import TransformerLM
+
+    lm = TransformerLM(**LM_WIDE512, seed=seed + 31)
+    tokens = lm_tokens(seed + 31, LM_WIDE512_BATCH * LM_WIDE512_STEPS,
+                       LM_WIDE512["max_len"] + 1)
+    prompt = lm_tokens(seed + 32, 1, 100)
+    _reset_counts(at, ek)
+    t0 = time.perf_counter()
+    hist = lm.fit(tokens, batch_size=LM_WIDE512_BATCH, epochs=1)
+    out = lm.generate(prompt, 4)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _lm_counts(at, ek)
+    blocks, steps = LM_WIDE512["n_block"], LM_WIDE512_STEPS
+    want = {"flash_fwd": blocks * steps, "flash_bwd_dq": blocks * steps,
+            "flash_bwd_dkv": blocks * steps, "flash_bwd_fused": 0,
+            "fused_short_fwd": blocks, "fused_short_bwd": 0,
+            "gather_rows": steps + 1 + 4}
+    check(counts == want, f"the heads-of-512 LM launched {counts}, "
+          f"expected {want}")
+    check(dict(at.route_counts) == {"bf16_tc": 0, "f32_tc": 0,
+                                    "wide": blocks}
+          and dict(at.flash_route_counts) == {
+              "bf16_tc": 0, "f32_tc": 0, "wide": 3 * blocks * steps},
+          f"the heads-of-512 LM took {dict(at.route_counts)} and "
+          f"{dict(at.flash_route_counts)}, not the wide route alone")
+    check(bool(np.isfinite(hist["loss_history"]).all())
+          and out.shape == (1, 4), "the heads-of-512 LM failed")
+    return counts, {"config": LM_WIDE512, "batch": LM_WIDE512_BATCH,
+                    "steps": steps, "losses": list(hist["loss_history"]),
+                    "wall_s": wall, "launches": counts}
+
+
+def phase_attn_wide(at, ek, dev, seed: int) -> dict:
+    """C15's kernels, heads past 256 (``csrc/attn_wide.cu``): the grid
+    against the plain versions, the dropout mask bit for bit, the timings
+    at ``WIDE_TIMED``, every launch of the grid counted on the ``wide``
+    route, then the heads-of-512 LM path whose launches the kernels line
+    reports."""
+    gen = torch.Generator().manual_seed(seed + 29)
+    seed_t = torch.tensor([seed + 29], dtype=torch.int32, device=dev)
+    _reset_counts(at, ek)
+    stats = {"grid": _wide_grid(at, dev, gen, seed_t),
+             "dropout_mask": _wide_dropout_mask(at, dev, seed_t)}
+    fused = sum(at.launch_counts.values())
+    flash = sum(at.flash_launch_counts.values())
+    check(dict(at.route_counts) == {"bf16_tc": 0, "f32_tc": 0,
+                                    "wide": fused}
+          and dict(at.flash_route_counts) == {"bf16_tc": 0, "f32_tc": 0,
+                                              "wide": flash},
+          f"the wide grid took {dict(at.route_counts)} and "
+          f"{dict(at.flash_route_counts)}")
+    stats["grid"]["launches"] = {"fused": fused, "flash": flash}
+    torch.cuda.empty_cache()
+    stats["timed"] = _wide_timings(at, dev, gen)
+    torch.cuda.empty_cache()
+    launches, stats["lm_heads_512"] = _wide_lm_path(at, ek, seed)
+    torch.cuda.empty_cache()
+    return launches, stats
+
+
+#: generative serving (GenerativeServing at LM_CFG's width, seeded random
+#: weights): the contiguous run's slots, budget and prompts (100 tokens:
+#: bucket 128, B7; 1000: bucket 1024, B4), the paged run's, the sampled
+#: run's knobs, and the shared prefix's length
+GEN_SERVE = dict(slots=32, max_new_tokens=32, stream_interval=8)
+GEN_SERVE_PROMPTS = {100: 64, 1000: 4}
+GEN_PAGED = dict(slots=64, kv_page_len=16, streams=128)
+GEN_SAMPLED = dict(temperature=0.8, top_k=50, top_p=0.9, streams=32)
+GEN_PREFIX = dict(prefix=64, streams=16)
+
+
+class _LogitTap:
+    """Keeps each served stream's logits, step by step: wraps the server's
+    selector, which sees a step's logits ``[slots, vocab]`` before the
+    tokens are posted, and keeps one copy of them a step; ``rows[uri]``
+    lists the stream's rows in step order."""
+
+    def __init__(self, srv):
+        self.rows = {}
+        select = srv._select
+
+        def tapped(logits, noise):
+            kept = logits.detach().clone()
+            for i in np.flatnonzero(srv._active_host):
+                self.rows.setdefault(srv._uri[i], []).append(kept[int(i)])
+            return select(logits, noise)
+        srv._select = tapped
+
+
+def _serve_generative(lm, workdir: str, name: str, prompts: list,
+                      seeds=None, prefix=None, tap=True, **cfg_kw) -> tuple:
+    """``GenerativeServing`` on the card over a fresh ``dir://`` spool:
+    every prompt enqueued with ``enqueue_prompt`` before the loop starts,
+    the loop run in its thread until each request has its terminal, read
+    back with ``OutputQueue.stream`` for the first and ``query`` for the
+    others. Returns (tokens by uri, the server, logits by uri, stats)."""
+    from analytics_zoo_tpu_torch.common.utils import timers
+    from analytics_zoo_tpu_torch.serving import (GenerativeServing,
+                                                 InputQueue, OutputQueue,
+                                                 ServingConfig)
+    spool = os.path.join(workdir, name)
+    src = f"dir://{spool}"
+    srv = GenerativeServing(ServingConfig(data_src=src, **cfg_kw), lm)
+    if prefix is not None:
+        srv.register_prefix(prefix)
+    logits = _LogitTap(srv) if tap else None
+    inq, outq = InputQueue(src), OutputQueue(src)
+    uris = [f"{name}-{i}" for i in range(len(prompts))]
+    for i, (uri, p) in enumerate(zip(uris, prompts)):
+        inq.enqueue_prompt(uri, p, seed=None if seeds is None else seeds[i])
+    torch.cuda.synchronize()
+    timers.reset()
+    t0 = time.perf_counter()
+    srv.start()
+    try:
+        first = list(outq.stream(uris[0], timeout_s=120))
+        results = {uris[0]: {"value": first, "done": True}}
+        for uri in uris[1:]:
+            deadline = time.monotonic() + 120
+            while True:
+                res = outq.query(uri, timeout_s=1.0)
+                if res is not None and (res.get("done") or "error" in res):
+                    break
+                check(time.monotonic() < deadline, f"{uri}: no terminal")
+            results[uri] = res
+        wall = time.perf_counter() - t0
+    finally:
+        srv.drain(timeout_s=60)
+    errors = {u: r["error"] for u, r in results.items() if "error" in r}
+    check(not errors, f"{name}: error terminals {errors}")
+    check(all(r.get("done") is True for r in results.values()),
+          f"{name}: a request has no terminal")
+    tokens = {u: r["value"] for u, r in results.items()}
+    snap = srv.health_snapshot()
+    check(snap["in_flight"] == 0 and snap["slots_occupied"] == 0
+          and snap["counters"] == {"shed": 0, "expired": 0, "errors": 0,
+                                   "claim_faults": 0},
+          f"{name}: the server ended with {snap}")
+    n_tok = sum(len(t) for t in tokens.values())
+    # host seconds in the loop's spans: the joins (claim excluded: their
+    # prefills), the steps' dispatch and their one fetch each
+    spans = {k.split(".")[-1]: {"s": v[0], "count": v[1]}
+             for k, v in timers.stats().items()
+             if k.startswith("serving.generative.")}
+    stats = {"streams": len(prompts), "tokens": n_tok, "wall_s": wall,
+             "tokens_per_s": n_tok / wall, "steps": srv.steps,
+             "ms_per_step_wall": wall * 1e3 / max(srv.steps, 1),
+             "spans": spans,
+             "ttft_ms": snap["ttft_ms"], "latency_ms": snap["latency_ms"],
+             "kv_pages_free": snap["kv_pages_free"]}
+    return tokens, srv, (logits.rows if logits else None), stats
+
+
+def _against_serial(lm, prompts, uris, served, served_logits, budget,
+                    **gen_kw) -> dict:
+    """Each served stream against a serial ``lm.generate`` of its prompt
+    on the card: each step's logits within ``LOGIT_TOL`` of their scale of
+    the serial run's, and its tokens equal, except where the scores the
+    serial run chose by are within that tolerance of each other (printed;
+    the stream is compared up to there). Greedy, the scores are the
+    logits; sampled, the filtered logits plus the step's Gumbel noise, the
+    draw's own margin, taken back to logit units by the temperature."""
+    from analytics_zoo_tpu_torch.ops.decode import (gumbel_noise,
+                                                    make_logit_filter)
+    temperature = gen_kw.get("temperature")
+    if temperature is not None:
+        filt = make_logit_filter(temperature, gen_kw.get("top_k"),
+                                 gen_kw.get("top_p"))
+    worst, near_ties = 0.0, []
+    for i, (uri, p) in enumerate(zip(uris, prompts)):
+        kw = dict(gen_kw)
+        if "seeds" in kw:
+            kw["seed"] = kw.pop("seeds")[i]
+        want, logits = lm.generate(np.asarray([p]), budget,
+                                   return_logits=True, **kw)
+        want, logits = want[0].tolist(), logits[0]
+        if temperature is not None:  # the serial run's draws, step by step
+            noise = gumbel_noise(kw["seed"],
+                                 (budget, 1, logits.shape[-1]))[:, 0]
+        got = served[uri]
+        for step, (a, b) in enumerate(zip(got, want)):
+            row = served_logits[uri][step].float().cpu().numpy()
+            scale = max(1.0, float(np.abs(logits[step]).max()))
+            err = float(np.abs(row - logits[step]).max()) / scale
+            worst = max(worst, err)
+            check(err <= LOGIT_TOL, f"{uri} step {step}: logits differ from "
+                  f"the serial run's by {err} of their scale")
+            if a != b:
+                scores = logits[step]
+                if temperature is not None:
+                    scores = (filt(torch.tensor(scores)) + noise[step]
+                              ).numpy() * temperature
+                top2 = np.sort(scores)[-2:]
+                margin = float(top2[1] - top2[0]) / scale
+                check(margin <= LOGIT_TOL, f"{uri} step {step}: token {a} "
+                      f"!= serial {b}, top-two margin {margin}")
+                near_ties.append({"uri": uri, "step": step, "served": a,
+                                  "serial": b, "margin": margin})
+                log(f"generative near-tie {near_ties[-1]}")
+                break
+        else:
+            check(len(got) == len(want), f"{uri}: {len(got)} tokens")
+    return {"logits_max_rel_err": worst, "near_ties": near_ties}
+
+
+def _decode_step_stats(lm, workdir: str, name: str, prompts, slots: int,
+                       **cfg_kw) -> dict:
+    """One decode step of ``slots`` resident streams after 100-token
+    prompts, on a server whose slots are all joined: ms by CUDA events,
+    the profiler's device time, busy share and top kernels, and the KV
+    caches' bytes."""
+    from analytics_zoo_tpu_torch.serving import (GenerativeServing,
+                                                 InputQueue, ServingConfig)
+    src = f"dir://{os.path.join(workdir, name)}"
+    srv = GenerativeServing(ServingConfig(
+        data_src=src, slots=slots, max_new_tokens=256, **cfg_kw), lm)
+    inq = InputQueue(src)
+    for i in range(slots):
+        inq.enqueue_prompt(f"step-{i}", prompts[i])
+    check(srv.serve_step() == slots, "the step server did not fill its "
+          "slots")
+    tokens = srv._next_tokens.copy()
+
+    def step():
+        return srv._dispatch_step(tokens, None)
+
+    ms = cuda_ms(step, 20, warmup=3)
+    prof = step_profile(step, calls=5, top=8, warmup=False)
+    host_t0 = time.perf_counter()
+    for _ in range(5):
+        step().cpu()
+    host_ms = (time.perf_counter() - host_t0) * 1e3 / 5
+    srv.stop()  # the resident streams end with shutdown errors
+    kv_bytes = sum(t.numel() * t.element_size() for c in srv._caches
+                   for t in c.values())
+    return {"slots": slots, "step_ms_events": ms,
+            "step_ms_host_with_fetch": host_ms,
+            "step_device_ms": prof["device_ms"],
+            "device_busy_share": (prof["device_ms"] / host_ms
+                                  if prof["device_ms"] is not None
+                                  else None),
+            "step_device_launches": prof["device_launches"],
+            "step_top_kernels": prof["top_device"],
+            "step_top_host_ops": prof["top_host"],
+            "kv_cache_bytes": kv_bytes}
+
+
+def phase_generative(at, ek, seed: int, workdir: str) -> tuple:
+    """GenerativeServing at ``LM_CFG``'s width with seeded random weights
+    (see the module docstring, 20). Returns (launches by run, stats)."""
+    from analytics_zoo_tpu_torch.capture import TransformerLM, prefill_bucket
+
+    blocks, budget = LM_CFG["n_block"], GEN_SERVE["max_new_tokens"]
+    lm = TransformerLM(**LM_CFG, seed=seed + 41)
+    lm._device(None)
+    prompts = [p.tolist() for length, n in GEN_SERVE_PROMPTS.items()
+               for p in lm_tokens(seed + 41 + length, n, length)]
+    # the long prompts join mid-run, among the short ones
+    prompts = prompts[:40] + prompts[64:] + prompts[40:64]
+    launches, stats = {}, {}
+
+    # a warm-up of both prefill buckets, so that the runs below time the
+    # server and not the first calls' set-up
+    _serve_generative(lm, workdir, "warmup", prompts[:2] + prompts[40:41],
+                      tap=False, **GEN_SERVE)
+
+    # 1. contiguous slots, greedy: the serving numbers from a run without
+    # the logit tap (it copies each step's logits and loops over the slots
+    # on the host, inside the timed loop), then a tapped run of the same
+    # prompts for the parity with serial generate
+    _reset_counts(at, ek)
+    tokens, srv, _, stats["contiguous"] = _serve_generative(
+        lm, workdir, "contiguous", prompts, tap=False, **GEN_SERVE)
+    counts = _lm_counts(at, ek)
+    buckets = [prefill_bucket(len(p) - 1, LM_CFG["max_len"])
+               for p in prompts]
+    flash = sum(tb > at.FUSED_SHORT_MAX_SEQ for tb in buckets)
+    want = {"fused_short_fwd": blocks * (len(prompts) - flash),
+            "flash_fwd": blocks * flash, "fused_short_bwd": 0,
+            "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "flash_bwd_fused": 0,
+            "gather_rows": len(prompts) + srv.steps}
+    check(counts == want, f"contiguous serving launched {counts}, "
+          f"expected {want}")
+    check(dict(at.route_counts) == {"bf16_tc": 0, "f32_tc":
+                                    want["fused_short_fwd"], "wide": 0}
+          and dict(at.flash_route_counts) == flash_routes_of(
+              at, torch.float32, counts),
+          f"contiguous serving took {dict(at.route_counts)} and "
+          f"{dict(at.flash_route_counts)}")
+    launches["generative_contiguous"] = counts
+    contiguous = [tokens[f"contiguous-{i}"] for i in range(len(prompts))]
+    kv_contig = sum(t.numel() * t.element_size() for c in srv._caches
+                    for t in c.values())
+    del srv
+    tapped, _, logits, stats["contiguous_tapped"] = _serve_generative(
+        lm, workdir, "tapped", prompts, **GEN_SERVE)
+    uris = [f"tapped-{i}" for i in range(len(prompts))]
+    check([tapped[u] for u in uris] == contiguous, "the tapped run's "
+          "tokens differ from the untapped run's")
+    stats["contiguous"].update(
+        launches=counts, prompt_lengths=dict(GEN_SERVE_PROMPTS),
+        kv_bytes=kv_contig,
+        **_against_serial(lm, prompts, uris, tapped, logits, budget))
+    del logits
+    torch.cuda.empty_cache()
+
+    # 2. paged: the contiguous prompts, then more short ones, 128 streams
+    extra = [p.tolist() for p in lm_tokens(
+        seed + 43, GEN_PAGED["streams"] - len(prompts), 100)]
+    paged_prompts = prompts + extra
+    page_len = GEN_PAGED["kv_page_len"]
+    pages = 1 + sum(-(-max(prefill_bucket(len(p) - 1, LM_CFG["max_len"]),
+                           len(p) + budget) // page_len)
+                    for p in sorted(paged_prompts, key=len)[-GEN_PAGED[
+                        "slots"]:])
+    paged_kw = dict(slots=GEN_PAGED["slots"], max_new_tokens=budget,
+                    stream_interval=GEN_SERVE["stream_interval"],
+                    kv_pages=pages, kv_page_len=page_len)
+    _reset_counts(at, ek)
+    paged, srv, _, stats["paged"] = _serve_generative(
+        lm, workdir, "paged", paged_prompts, tap=False, **paged_kw)
+    launches["generative_paged"] = counts = _lm_counts(at, ek)
+    flash = sum(prefill_bucket(len(p) - 1, LM_CFG["max_len"])
+                > at.FUSED_SHORT_MAX_SEQ for p in paged_prompts)
+    want = dict(want, fused_short_fwd=blocks * (len(paged_prompts) - flash),
+                flash_fwd=blocks * flash,
+                gather_rows=len(paged_prompts) + srv.steps)
+    check(counts == want, f"paged serving launched {counts}, expected "
+          f"{want}")
+    pool_bytes = sum(t.numel() * t.element_size() for c in srv._caches
+                     for t in c.values())
+    del srv
+    got = [paged[f"paged-{i}"] for i in range(len(paged_prompts))]
+    check(got[:len(prompts)] == contiguous, "the paged run's tokens differ "
+          "from the contiguous run's")
+    check(all(len(t) == budget for t in got), "paged streams malformed")
+    stats["paged"].update(kv_pages=pages, kv_bytes=pool_bytes,
+                          launches=launches["generative_paged"],
+                          equal_to_contiguous=len(prompts))
+
+    # 3. paged with an int8 pool
+    _reset_counts(at, ek)
+    int8, srv, _, stats["paged_int8"] = _serve_generative(
+        lm, workdir, "int8", paged_prompts, tap=False, kv_int8=True,
+        **paged_kw)
+    launches["generative_int8"] = counts = _lm_counts(at, ek)
+    want = dict(want, gather_rows=len(paged_prompts) + srv.steps)
+    check(counts == want, f"int8 paged serving launched {counts}, "
+          f"expected {want}")
+    pool8 = sum(t.numel() * t.element_size() for c in srv._caches
+                for t in c.values())
+    del srv
+    got8 = [int8[f"int8-{i}"] for i in range(len(paged_prompts))]
+    check(all(len(t) == budget and all(0 <= x < LM_CFG["vocab_size"]
+                                       for x in t) for t in got8),
+          "int8 streams malformed")
+    differ = sum(a != b for s8, s32 in zip(got8, got)
+                 for a, b in zip(s8, s32))
+    diverged = sum(s8 != s32 for s8, s32 in zip(got8, got))
+    stats["paged_int8"].update(kv_bytes=pool8, tokens_differing=differ,
+                               streams_differing=diverged)
+    log(f"generative int8 pool: {differ} of {budget * len(got)} tokens "
+        f"differ from the f32 pool's ({diverged} streams)")
+
+    # 4. a registered shared prefix against the same prompts without it
+    common = lm_tokens(seed + 44, 1, GEN_PREFIX["prefix"])[0].tolist()
+    tails = lm_tokens(seed + 45, GEN_PREFIX["streams"],
+                      100 - GEN_PREFIX["prefix"])
+    shared_prompts = [common + t.tolist() for t in tails]
+    kw = dict(paged_kw, slots=GEN_PREFIX["streams"])
+    plain, _, plain_logits, _ = _serve_generative(
+        lm, workdir, "noprefix", shared_prompts, **kw)
+    _reset_counts(at, ek)
+    shared, srv, shared_logits, stats["prefix"] = _serve_generative(
+        lm, workdir, "prefix", shared_prompts, prefix=common, **kw)
+    launches["generative_prefix"] = counts = _lm_counts(at, ek)
+    # the registration prefills the prefix (B7 a block, bucket <= 512);
+    # each join embeds its suffix (B1) and attends over the prefix's pages
+    # outside any kernel, so no join launches B7 or B4
+    want = dict(want, fused_short_fwd=blocks, flash_fwd=0,
+                gather_rows=1 + len(shared_prompts) + srv.steps)
+    check(counts == want, f"prefix serving launched {counts}, expected "
+          f"{want}")
+    del srv
+    same, ties = 0, []
+    for i in range(len(shared_prompts)):
+        a, b = shared[f"prefix-{i}"], plain[f"noprefix-{i}"]
+        for step, (x, y) in enumerate(zip(a, b)):
+            ref = plain_logits[f"noprefix-{i}"][step].float()
+            got_l = shared_logits[f"prefix-{i}"][step].float()
+            scale = max(1.0, float(ref.abs().max()))
+            err = float((got_l - ref).abs().max()) / scale
+            check(err <= LOGIT_TOL, f"prefix stream {i} step {step}: logits "
+                  f"differ by {err} of their scale")
+            if x != y:
+                top2 = torch.topk(ref, 2).values
+                margin = float(top2[0] - top2[1]) / scale
+                check(margin <= LOGIT_TOL, f"prefix stream {i} step {step}: "
+                      f"{x} != {y}, margin {margin}")
+                ties.append({"stream": i, "step": step, "margin": margin})
+                log(f"generative prefix near-tie {ties[-1]}")
+                break
+        else:
+            same += 1
+    stats["prefix"].update(prefix_tokens=GEN_PREFIX["prefix"],
+                           streams_equal=same, near_ties=ties,
+                           launches=launches["generative_prefix"])
+    del plain_logits, shared_logits
+
+    # 5. sampled, per-request seeds
+    n = GEN_SAMPLED["streams"]
+    knobs = {k: GEN_SAMPLED[k] for k in ("temperature", "top_k", "top_p")}
+    seeds = [seed * 1000 + 7 * i + 1 for i in range(n)]
+    sample_prompts = prompts[:n]
+    sample_kw = dict(seeds=seeds, slots=GEN_SERVE["slots"],
+                     max_new_tokens=budget,
+                     stream_interval=GEN_SERVE["stream_interval"], **knobs)
+    _reset_counts(at, ek)
+    sampled, srv, _, stats["sampled"] = _serve_generative(
+        lm, workdir, "sampled", sample_prompts, tap=False, **sample_kw)
+    launches["generative_sampled"] = counts = _lm_counts(at, ek)
+    want = dict(want, fused_short_fwd=blocks * n, flash_fwd=0,
+                gather_rows=n + srv.steps)
+    check(counts == want, f"sampled serving launched {counts}, expected "
+          f"{want}")
+    del srv
+    tapped, _, logits, stats["sampled_tapped"] = _serve_generative(
+        lm, workdir, "sampled_tapped", sample_prompts, **sample_kw)
+    uris = [f"sampled_tapped-{i}" for i in range(n)]
+    check([tapped[u] for u in uris]
+          == [sampled[f"sampled-{i}"] for i in range(n)],
+          "the tapped sampled run's tokens differ from the untapped run's")
+    stats["sampled"].update(knobs, launches=counts, **_against_serial(
+        lm, sample_prompts, uris, tapped, logits, budget,
+        seeds=list(seeds), **knobs))
+    del logits
+    torch.cuda.empty_cache()
+
+    # the decode step alone: 32 contiguous slots, then 64 paged
+    short = prompts[:40] + prompts[44:] + extra
+    stats["decode_step"] = _decode_step_stats(
+        lm, workdir, "step", short, GEN_SERVE["slots"])
+    stats["decode_step_paged"] = _decode_step_stats(
+        lm, workdir, "step_paged", short, GEN_PAGED["slots"],
+        kv_pages=1 + GEN_PAGED["slots"] * (-(-(100 + 256) // page_len)),
+        kv_page_len=page_len)
+    del lm
+    torch.cuda.empty_cache()
+    return launches, stats
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -5093,6 +5786,22 @@ def main() -> int:
     log("lm long context " + json.dumps(long_stats) + f" | {smi}")
     lm_cpu = timed("lm_vs_cpu", phase_lm_vs_cpu, args.seed)
     log("lm card vs cpu " + json.dumps(lm_cpu) + f" | {smi}")
+    # -- 20. generative serving (the slice's main path) ----------------------
+    torch.cuda.empty_cache()
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_", dir=build)
+    try:
+        gen_serving_launches, gen_serving = timed(
+            "generative", phase_generative, at, ek, args.seed, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    for part, part_stats in gen_serving.items():
+        log(f"generative {part} " + json.dumps(part_stats) + f" | {smi}")
+    # -- 21. heads past 256 ---------------------------------------------------
+    torch.cuda.empty_cache()
+    wide512_launches, attn_wide = timed("attn_wide", phase_attn_wide, at,
+                                        ek, dev, args.seed)
+    for part, part_stats in attn_wide.items():
+        log(f"heads past 256 {part} " + json.dumps(part_stats) + f" | {smi}")
     # -- 18. heads of 256 ----------------------------------------------------
     torch.cuda.empty_cache()
     wide_launches, heads256 = timed("wide_heads", phase_wide_heads, at, ek,
@@ -5138,7 +5847,7 @@ def main() -> int:
     serve = timings[0]
     lm_paths = {"lm_train": lm_launches, "lm_long": long_launches,
                 **{f"lm_generate_{n}": c for n, c in gen_launches.items()},
-                **wide_launches}
+                **wide_launches, **gen_serving_launches}
     rows_launches = {"serving": launches,
                      "serving_bf16": quant["bf16"][0]["gather_rows"],
                      "serving_int8": quant["int8"][0]["gather_rows"],
@@ -5452,10 +6161,46 @@ def main() -> int:
         entry_k["heads_256"] = {lab: timed_at(lab)
                                 for lab, _, _ in FLASH_WIDE_TIMED}
         flash_entries.append(entry_k)
+    wide_entries = []
+    for name, key, line, also, launched in (
+            ("attn_wide_fwd", "fwd", 203, 716,
+             ("flash_fwd", "fused_short_fwd")),
+            ("attn_wide_bwd_dq", "dq", 379, 761,
+             ("flash_bwd_dq", "flash_bwd_fused", "fused_short_bwd")),
+            ("attn_wide_bwd_dkv", "dkv", 428, 761,
+             ("flash_bwd_dkv", "flash_bwd_fused", "fused_short_bwd"))):
+        t = attn_wide["timed"]["float32"]
+        n = sum(wide512_launches[k] for k in launched)
+        lib = "library_fwd_ms" if key == "fwd" else "library_fwd_bwd_ms"
+        wide_entries.append({
+            "name": name, "route": "cuda",
+            "source": "analytics_zoo_tpu_torch/csrc/attn_wide.cu",
+            "replaces": f"analytics_zoo_tpu/ops/attention.py:{line}",
+            "also_replaces": f"analytics_zoo_tpu/ops/attention.py:{also}",
+            "heads": "past 256 columns", "launches": n,
+            "launches_by_path": {"lm_heads_512": n},
+            "wrappers": list(launched),
+            "max_abs_err": t[f"{key}_max_abs_err"],
+            "max_rel_err_grid": attn_wide["grid"]["max_rel_err"],
+            "shape": f"{t['shape']} f32 causal",
+            "ms": t[f"{key}_ms"], "kernel_ms": t[f"{key}_ms"],
+            "device_ms": t[f"{key}_device_ms"],
+            "plain_ms": t[f"plain_{key}_ms"],
+            "bound_ms": t[f"{key}_bound"][0],
+            "bound_by": t[f"{key}_bound"][1],
+            "bound_rate": "3xTF32, 494.7 / 3 TFLOP/s",
+            "bound_ms_f32_cuda_cores": t[f"{key}_bound_simt"][0],
+            "library_ms": t[lib],
+            "library": "scaled_dot_product_attention(is_causal=True), "
+                       + ("forward" if key == "fwd" else
+                          "forward and backward (it has no backward "
+                          "alone)"),
+            "bf16": {k: v for k, v in attn_wide["timed"]["bfloat16"].items()
+                     if k.startswith((key, f"plain_{key}", "library"))}})
     print(smi)
     print(json.dumps({"kernels": [entry, pool_entry, scatter_entry,
                                   int8_entry]
-                      + attn_entries + flash_entries}))
+                      + attn_entries + flash_entries + wide_entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -153,8 +153,8 @@ def test_the_forward_saves_each_rows_max_and_sum(causal):
 
 
 def test_the_dtype_picks_the_route():
-    assert at.fused_short_route(torch.bfloat16) == "bf16_tc"
-    assert at.fused_short_route(torch.float32) == "f32_tc"
+    assert at.fused_short_route(torch.bfloat16, 64) == "bf16_tc"
+    assert at.fused_short_route(torch.float32, 64) == "f32_tc"
     q, k, v, g = (torch.tensor(a).bfloat16() for a in _qkv(12))
     o, stats = at.fused_short_fwd(q, k, v, None, None, 0.25, 0.0, False)
     assert stats.shape == (2, 2, 3, 17)
@@ -337,7 +337,7 @@ def test_cpu_tensors_take_the_plain_versions_and_launch_nothing():
     _port(q, k, v, g, None, False)
     _port(q, k, v, g, None, False, torch.bfloat16)
     assert at.launch_counts == {"fused_short_fwd": 0, "fused_short_bwd": 0}
-    assert at.route_counts == {"bf16_tc": 0, "f32_tc": 0}
+    assert at.route_counts == {"bf16_tc": 0, "f32_tc": 0, "wide": 0}
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take():

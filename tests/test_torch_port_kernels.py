@@ -262,6 +262,24 @@ def test_each_attention_source_takes_the_head_width_its_wrapper_allows(
     assert [int(v) for v in found] == [getattr(at, limit)] == [256]
 
 
+@pytest.mark.parametrize("d", [0, 1, 256, 257, 320, 1024])
+def test_head_dim_check_refuses_only_empty_heads(d):
+    """``_check_head_dim`` raises for a head narrower than one column and
+    lets every other width through (past 256 the card takes the ``wide``
+    route); the routes' names follow the width."""
+    from analytics_zoo_tpu_torch.ops import attention as at
+    q = torch.zeros(1, 1, 2, d)
+    if d < 1:
+        with pytest.raises(ValueError, match="head_dim 0"):
+            at._check_head_dim(q)
+        return
+    at._check_head_dim(q)
+    wide = d > 256
+    assert (at.fused_short_route(torch.float32, d) == "wide") == wide
+    assert (at.flash_route(torch.bfloat16, "flash_bwd_fused", d)
+            == "wide") == wide
+
+
 # -- on the card --------------------------------------------------------------
 
 
@@ -744,6 +762,10 @@ def _close(got, want, dtype):
                          ids=["f32", "bf16"])
 def test_fused_short_kernels_equal_their_plain_versions_on_the_card(
         cuda_device, s, d, dtype):
+    _hold_fused_short_kernels(cuda_device, s, d, dtype)
+
+
+def _hold_fused_short_kernels(cuda_device, s, d, dtype):
     from analytics_zoo_tpu_torch.ops import attention as at
     q, k, v, do, bias = _attn_inputs(cuda_device, 2, 3, s, d, dtype, s + d)
     seed = torch.tensor([1234], dtype=torch.int32, device=cuda_device)
@@ -776,12 +798,13 @@ def test_fused_short_kernels_equal_their_plain_versions_on_the_card(
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("s", [128, 320], ids=["d128", "wide_d320"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 def test_the_kernels_dropout_mask_is_the_plain_mask_bit_for_bit(
-        cuda_device, dtype):
+        cuda_device, dtype, s):
     from analytics_zoo_tpu_torch.ops import attention as at
-    b, h, s = 4, 3, 128
+    b, h = 4, 3
     # q = k = 0 gives p = 1/s everywhere; v = I reads p·keep back out
     # (1/(128·0.9) is far from 0 in bf16 too)
     q = torch.zeros(b, h, s, s, device=cuda_device, dtype=dtype)
@@ -813,10 +836,12 @@ def test_bf16_and_f32_each_take_their_tensor_core_route(cuda_device):
                                       False)
         at.fused_short_bwd(q, k, v, do, bias, None, 0.125, 0.0, False,
                            stats, o)
-        assert at.route_counts == {"bf16_tc": 0, "f32_tc": 0, route: 2}
-        assert at.flash_route_counts == {"bf16_tc": 0, "f32_tc": 0}
+        assert at.route_counts == {"bf16_tc": 0, "f32_tc": 0, "wide": 0,
+                                    route: 2}
+        assert at.flash_route_counts == {"bf16_tc": 0, "f32_tc": 0,
+                                         "wide": 0}
         assert stats.shape == (2, 2, 2, 40)
-    assert [at.flash_route(torch.float32, k) for k in (
+    assert [at.flash_route(torch.float32, k, 128) for k in (
         "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "flash_bwd_fused")] \
         == ["f32_tc"] * 4
     # the backward reads the forward's row statistics (and in f32 its output)
@@ -849,7 +874,7 @@ def test_f32_route_equals_its_plain_versions_at_the_timed_shapes(
     o, stats = at.fused_short_fwd(q, k, v, kb, seed, scale, rate, causal)
     grads = at.fused_short_bwd(q, k, v, do, kb, seed, scale, rate, causal,
                                stats, o)
-    assert at.route_counts == {"bf16_tc": 0, "f32_tc": 2}
+    assert at.route_counts == {"bf16_tc": 0, "f32_tc": 2, "wide": 0}
     want = at.fused_short_attention_plain(q, k, v, kb, scale, rate, seed,
                                           causal)
     assert _close(o, want, torch.float32)
@@ -915,7 +940,8 @@ def test_a_bert_step_launches_each_attention_kernel_once_per_block(
     assert steps == 4 and np.isfinite(hist["loss_history"]).all()
     assert at.launch_counts == {"fused_short_fwd": 2 * steps,
                                 "fused_short_bwd": 2 * steps}
-    assert at.route_counts == {"bf16_tc": 4 * steps, "f32_tc": 0}
+    assert at.route_counts == {"bf16_tc": 4 * steps, "f32_tc": 0,
+                               "wide": 0}
     assert ek.launch_counts["gather_rows"] == 3 * steps
     at.reset_launch_counts()
     assert clf.predict(tok, batch_size=32).shape == (64, 2)
@@ -956,7 +982,7 @@ def test_a_served_bert_batch_launches_b7_per_block_and_three_b1(
     ek.reset_launch_counts()
     assert server.serve_once() == 4
     assert at.launch_counts == {"fused_short_fwd": 2, "fused_short_bwd": 0}
-    assert at.route_counts == {"bf16_tc": 2, "f32_tc": 0}
+    assert at.route_counts == {"bf16_tc": 2, "f32_tc": 0, "wide": 0}
     assert ek.launch_counts["gather_rows"] == 3
     res = OutputQueue(src).dequeue()
     served = np.array([res[f"t{i}"]["value"] for i in range(4)], np.float32)
@@ -1075,7 +1101,7 @@ def _hold_flash_kernels(cuda_device, sq, skv, d, dtype):
             o, lse = at.flash_fwd(q, k, v, kb, scale, causal)
             torch.cuda.synchronize()
             assert at.flash_launch_counts["flash_fwd"] == before + 1
-            routes[at.flash_route(dtype, "flash_fwd")] += 1
+            routes[at.flash_route(dtype, "flash_fwd", d)] += 1
             assert at.flash_route_counts == routes
             want_o, want_lse = at.flash_fwd_plain(q, k, v, kb, scale, causal)
             case = f"causal={causal} bias={kb is not None}"
@@ -1100,7 +1126,7 @@ def _hold_flash_kernels(cuda_device, sq, skv, d, dtype):
                 counts["flash_bwd_fused"] + 2
             for kernel, n in (("flash_bwd_dq", 1), ("flash_bwd_dkv", 1),
                               ("flash_bwd_fused", 2)):
-                routes[at.flash_route(dtype, kernel)] += n
+                routes[at.flash_route(dtype, kernel, d)] += n
             assert at.flash_route_counts == routes
             case = f"causal={causal} glse={gl is not None}"
             assert all(t.dtype == dtype for t in two_pass + fused)
@@ -1221,7 +1247,7 @@ def test_flash_takes_the_tensor_cores_in_bf16_and_in_f32(cuda_device):
         at.flash_attention(*leaves, causal=True).backward(do)
         torch.cuda.synchronize()
         assert at.flash_route_counts == {"bf16_tc": 0, "f32_tc": 0,
-                                         **routes}
+                                         "wide": 0, **routes}
         assert at.flash_launch_counts == {
             "flash_fwd": 1, "flash_bwd_dq": 0 if fused else 1,
             "flash_bwd_dkv": 0 if fused else 1,
@@ -1250,36 +1276,75 @@ def test_flash_backward_takes_the_design_the_resident_bytes_pick(
         "flash_fwd": 1, "flash_bwd_dq": 0 if fused else 1,
         "flash_bwd_dkv": 0 if fused else 1,
         "flash_bwd_fused": 1 if fused else 0}
-    routes = {"bf16_tc": 0, "f32_tc": 0}
+    routes = {"bf16_tc": 0, "f32_tc": 0, "wide": 0}
     for kernel, n in at.flash_launch_counts.items():
-        routes[at.flash_route(dtype, kernel)] += n
+        routes[at.flash_route(dtype, kernel, 128)] += n
     assert at.flash_route_counts == routes
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
-def test_card_wrappers_refuse_heads_past_256_before_any_launch(
-        cuda_device, dtype):
-    """The CUDA kernels take heads up to 256: a wider CUDA tensor raises
-    ``ValueError`` in every attention wrapper and launches nothing (the
-    plain versions, which CPU tensors take, compute any width)."""
+def test_card_wrappers_take_heads_past_256_on_the_wide_route(cuda_device,
+                                                             dtype):
+    """At a head of 257 every attention wrapper launches the ``wide``
+    route (``csrc/attn_wide.cu``) once, counted under its own name, and
+    equals its plain version within 2e-5 (f32) or 2e-2 (bf16) of scale."""
     from analytics_zoo_tpu_torch.ops import attention as at
-    w = torch.zeros(1, 1, 8, 257, device=cuda_device, dtype=dtype)
-    rows = torch.zeros(1, 1, 8, device=cuda_device)
+    q, k, v, do, bias = _attn_inputs(cuda_device, 1, 2, 40, 257, dtype, 7)
+    scale = 257 ** -0.5
     at.reset_launch_counts()
-    calls = (
-        lambda: at.fused_short_fwd(w, w, w, None, None, 0.25, 0.0, False),
-        lambda: at.fused_short_bwd(w, w, w, w, None, None, 0.25, 0.0, False,
-                                   torch.zeros(2, 1, 1, 8,
-                                               device=cuda_device), w),
-        lambda: at.flash_fwd(w, w, w, None, 0.1, False),
-        lambda: at.flash_bwd_dq(w, w, w, w, rows, rows, None, 0.1, False),
-        lambda: at.flash_bwd_dkv(w, w, w, w, rows, rows, None, 0.1, False),
-        lambda: at.flash_bwd_fused(w, w, w, w, rows, rows, None, 0.1,
-                                   False))
-    for call in calls:
-        with pytest.raises(ValueError, match="head_dim 257"):
-            call()
-    assert sum(at.launch_counts.values()) == 0
-    assert sum(at.flash_launch_counts.values()) == 0
+    o, stats = at.fused_short_fwd(q, k, v, bias, None, scale, 0.0, True)
+    grads = at.fused_short_bwd(q, k, v, do, bias, None, scale, 0.0, True,
+                               stats, o)
+    want_o = at.fused_short_attention_plain(q, k, v, bias, scale, 0.0, None,
+                                            True)
+    want = at.fused_short_bwd_plain(q, k, v, do, bias, scale, 0.0, None,
+                                    True)
+    torch.cuda.synchronize()
+    assert _close(o, want_o, dtype)
+    assert all(_close(g, w, dtype) for g, w in zip(grads, want))
+    assert at.launch_counts == {"fused_short_fwd": 1, "fused_short_bwd": 1}
+    assert at.route_counts == {"bf16_tc": 0, "f32_tc": 0, "wide": 2}
+    fo, lse = at.flash_fwd(q, k, v, None, scale, True)
+    want_fo, want_lse = at.flash_fwd_plain(q, k, v, None, scale, True)
+    assert _close(fo, want_fo, dtype) and _close(lse, want_lse,
+                                                 torch.float32)
+    delta = (do.float() * want_fo.float()).sum(-1)
+    args = (q, k, v, do, want_lse, delta, None, scale, True)
+    want = at.flash_bwd_fused_plain(*args)
+    got = ((at.flash_bwd_dq(*args),) + at.flash_bwd_dkv(*args),
+           at.flash_bwd_fused(*args))
+    torch.cuda.synchronize()
+    for grads in got:
+        assert all(_close(g, w, dtype) for g, w in zip(grads, want))
+    assert at.flash_launch_counts == {"flash_fwd": 1, "flash_bwd_dq": 1,
+                                      "flash_bwd_dkv": 1,
+                                      "flash_bwd_fused": 1}
+    assert at.flash_route_counts == {"bf16_tc": 0, "f32_tc": 0, "wide": 4}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [1, 33, 128])
+@pytest.mark.parametrize("d", [320, 512])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_wide_fused_short_kernels_equal_their_plain_versions_on_the_card(
+        cuda_device, s, d, dtype):
+    """B7 and B8 at heads of 320 and 512 (the ``wide`` route): bias or
+    not, causal or not, dropout 0 and 0.1, as the grid above."""
+    _hold_fused_short_kernels(cuda_device, s, d, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sq,skv", [(1, 1), (33, 33), (100, 300),
+                                    (300, 100)],
+                         ids=["1x1", "33x33", "100x300", "300x100"])
+@pytest.mark.parametrize("d", [320, 512])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_wide_flash_kernels_equal_their_plain_versions_on_the_card(
+        cuda_device, sq, skv, d, dtype):
+    """B4, B5a + B5b and B6 at heads of 320 and 512 (the ``wide`` route,
+    where B6 launches the pair): as the flash grid above."""
+    _hold_flash_kernels(cuda_device, sq, skv, d, dtype)

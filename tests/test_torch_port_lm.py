@@ -157,9 +157,16 @@ def test_generate_guards_and_what_waits_for_later_slices():
     with pytest.raises(ValueError, match="exceeds max_len"):
         plm.generate(np.zeros((1, 6), np.int32), max_new_tokens=4,
                      device="cpu")
+    # beam search and sampling are ported (the GenerativeServing slice);
+    # both at once, and beams with return_logits, are refused
     for kw in (dict(beam_size=2), dict(temperature=0.7), dict(top_k=3)):
-        with pytest.raises(NotImplementedError, match="GenerativeServing"):
-            plm.generate(np.zeros((1, 3), np.int32), 2, device="cpu", **kw)
+        out = plm.generate(np.zeros((1, 3), np.int32), 2, device="cpu", **kw)
+        assert out.shape == (1, 2)
+    with pytest.raises(ValueError, match="not both"):
+        plm.generate(np.zeros((1, 3), np.int32), 2, beam_size=2, top_k=3)
+    with pytest.raises(ValueError, match="greedy and sampled"):
+        plm.generate(np.zeros((1, 3), np.int32), 2, beam_size=2,
+                     return_logits=True)
     with pytest.raises(NotImplementedError, match="slice, 6"):
         TransformerLM(vocab_size=5, hidden=8, n_head=2, tensor_parallel=True)
 
