@@ -27,13 +27,15 @@ the same rows for the ids a vocabulary holds.
 ``slot_step`` and ``paged_slot_step`` advance every resident stream of a
 slot cache or page pool by one token; slot ids, lengths and page tables
 are tensors, so their shapes never change as streams join and leave.
-Sampling draws its Gumbel noise from a ``torch.Generator`` seeded by
-``seed`` (``ops/decode.gumbel_noise``), not from JAX's PRNG.
+``verify_step`` feeds a block of tokens a slot through the page pool in
+one pass (B1 once, attention outside any kernel), and
+``generate_speculative`` decodes with a draft model proposing and this one
+verifying. Sampling draws its Gumbel noise from a ``torch.Generator``
+seeded by ``seed`` (``ops/decode.gumbel_noise``, ``spec_draws``), not from
+JAX's PRNG.
 
 Meshes, tensor parallelism and pipeline stages belong to the
-model-parallel slice (6), and ``verify_step`` and
-``generate_speculative`` to speculative decoding (ROADMAP Queue A item
-4b); each raises ``NotImplementedError``.
+model-parallel slice (6) and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -52,7 +54,10 @@ from ..ops.attention import (flash_attention, fused_short_applicable,
                              fused_short_attention, masked_context)
 from ..ops.decode import (beam_generate, cached_attention, greedy_generate,
                           init_kv_cache, init_paged_pool, init_slot_cache,
-                          paged_attention, sample_generate, slot_attention)
+                          paged_attention, paged_insert,
+                          paged_verify_attention, sample_generate,
+                          slot_attention, slot_insert, spec_draws,
+                          speculative_generate)
 from .graph_model import GraphModel
 
 #: prefill length buckets: a prompt is right-padded to the smallest that
@@ -264,15 +269,110 @@ class TransformerLM(nn.Module):
                 q, k, v, caches[i], table, lengths, self.max_len)[0])
         return logits, caches
 
-    def verify_step(self, *args, **kwargs):
-        raise NotImplementedError(
-            "speculative decoding (verify_step) is not ported yet: ROADMAP "
-            "Queue A item 4b")
+    def verify_step(self, blocks, lengths, table, caches):
+        """Speculative verify: feed ``blocks`` ``[S, T]`` (each slot's last
+        committed token and T-1 drafts) through the page pools in one pass;
+        row j sits at position ``lengths + j``, its K/V written there.
+        Returns the full logits ``[S, T, vocab]`` and the caches (written
+        in place). Positions past the position table (transient drafts at
+        the end of ``max_len``) read its last row, as JAX's clamp does."""
+        t = blocks.shape[1]
+        positions = (lengths.long()[:, None]
+                     + torch.arange(t, device=blocks.device)[None])
+        x = (_ek.gather_rows_clip(self.embed, blocks.to(torch.int32))
+             + self.pos[positions.clamp(max=self.max_len - 1)])
+        for blk, cache in zip(self.blocks, caches):
+            x = self._block(blk, x, lambda q, k, v, cache=cache:
+                            paged_verify_attention(q, k, v, cache, table,
+                                                   lengths)[0])
+        return self.ln_f(x) @ self.embed.t(), caches
 
-    def generate_speculative(self, *args, **kwargs):
-        raise NotImplementedError(
-            "speculative decoding (generate_speculative) is not ported yet: "
-            "ROADMAP Queue A item 4b")
+    def generate_speculative(self, prompt, draft_lm: "TransformerLM",
+                             max_new_tokens: int, spec_k: int = 4,
+                             eos_id: Optional[int] = None,
+                             temperature: Optional[float] = None,
+                             top_k: Optional[int] = None,
+                             top_p: Optional[float] = None,
+                             seed: Optional[int] = None,
+                             page_len: int = 16, draws=None,
+                             device: DeviceLike = None,
+                             stats: Optional[dict] = None) -> np.ndarray:
+        """Speculative continuation of ``prompt`` ``[B, S]`` through a paged
+        target cache: ``draft_lm`` proposes ``spec_k`` tokens a round off
+        its slot cache, this model verifies the block in one
+        ``verify_step``, and the accept rule keeps the longest agreeing
+        run. Greedy output equals ``generate``'s tokens; sampled
+        (``temperature``, ``top_k``, ``top_p``) follows the accept/resample
+        rule, its draws from ``spec_draws(seed, ...)`` or from ``draws``
+        (the same contract). Both prompts are prefilled through the
+        bucketed path ``generate`` takes. ``stats`` receives the rounds and
+        the draft tokens proposed and accepted. Returns ``[B,
+        max_new_tokens]`` int64 numpy."""
+        sampling = (temperature is not None or top_k is not None
+                    or top_p is not None)
+        prompt = np.asarray(prompt)
+        b, s = prompt.shape
+        if spec_k < 1:
+            raise ValueError(f"spec_k must be >= 1, got {spec_k}")
+        if s + max_new_tokens > self.max_len:
+            raise ValueError(
+                f"prompt ({s}) + max_new_tokens ({max_new_tokens}) exceeds "
+                f"max_len={self.max_len}")
+        if s + max_new_tokens + spec_k > draft_lm.max_len:
+            raise ValueError(
+                f"draft max_len={draft_lm.max_len} too short for prompt "
+                f"({s}) + max_new_tokens ({max_new_tokens}) + spec_k "
+                f"({spec_k}) transient draft positions")
+        if self.max_len % page_len:
+            raise ValueError(f"page_len {page_len} must divide "
+                             f"max_len {self.max_len}")
+        dev = self._device(device)
+        draft_lm._device(dev)
+        self.eval()
+        draft_lm.eval()
+        pl = page_len
+        # private pages a row, enough for the prompt, the budget and the
+        # transient spec_k overshoot; the table is as wide as the server's
+        per_row = -(-(s + max_new_tokens + spec_k) // pl)
+        width = -(-(self.max_len + spec_k) // pl)
+        table_host = np.zeros((b, width), np.int64)
+        for r in range(b):
+            table_host[r, :per_row] = 1 + r * per_row + np.arange(per_row)
+        prompt_t = torch.as_tensor(prompt, dtype=torch.long, device=dev)
+        with torch.inference_mode():
+            table = torch.as_tensor(table_host, dtype=torch.int32,
+                                    device=dev)
+            caches = self.init_paged_caches(b * per_row + 1, pl, device=dev)
+            dcaches = draft_lm.init_slot_caches(b, device=dev)
+            if s > 1:
+                tb = prefill_bucket(s - 1, self.max_len)
+                padded = torch.zeros((b, tb), dtype=torch.long, device=dev)
+                padded[:, :s - 1] = prompt_t[:, :-1]
+                for c, (k, v) in zip(caches, self.prefill_kv(padded)):
+                    for r in range(b):
+                        paged_insert(c, table[r], k[r], v[r])
+                dtb = prefill_bucket(s - 1, draft_lm.max_len)
+                dpadded = torch.zeros((b, dtb), dtype=torch.long,
+                                      device=dev)
+                dpadded[:, :s - 1] = prompt_t[:, :-1]
+                for c, (k, v) in zip(dcaches, draft_lm.prefill_kv(dpadded)):
+                    for r in range(b):
+                        slot_insert(c, r, k[r], v[r])
+            if sampling and draws is None:
+                if seed is None:  # fresh entropy: repeated calls differ
+                    seed = int(np.random.SeedSequence().entropy % (2 ** 31))
+                draws = spec_draws(seed, b, spec_k, self.vocab_size, dev)
+            out = speculative_generate(
+                lambda _, toks, ln, dc: draft_lm.slot_step(toks, ln, dc),
+                lambda _, block, ln, tc: self.verify_step(block, ln, table,
+                                                          tc),
+                None, None, dcaches, caches, prompt_t[:, -1],
+                torch.full((b,), s - 1, dtype=torch.int32, device=dev),
+                max_new_tokens, spec_k, eos_id=eos_id,
+                draws=draws if sampling else None,
+                temperature=temperature if temperature is not None else 1.0,
+                top_k=top_k, top_p=top_p, stats=stats)
+        return out.cpu().numpy()
 
     # -- public surface -------------------------------------------------------
 

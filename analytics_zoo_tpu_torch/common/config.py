@@ -101,3 +101,68 @@ _global_config.register("embed.sparse_updates", True,
                         "update (parallel/embedding.py apply_row_update) "
                         "when the optimizer has one (sparse_rows); false "
                         "updates them with the dense optimizer.")
+_global_config.register("faults.plan", "",
+                        "Fault-injection schedule: 'site:N' fires on the "
+                        "N-th call, 'site:0.1' with probability 0.1, "
+                        "'@B' suffix sets the budget (default 1); "
+                        "comma-separated. '' = injection disabled.")
+_global_config.register("faults.seed", 0,
+                        "Seed for probabilistic fault-injection draws "
+                        "(per-site streams are derived deterministically).")
+_global_config.register("metrics.enabled", True,
+                        "Record into the process-global metrics registry "
+                        "(common/metrics.py). False turns every counter/"
+                        "gauge/histogram record into a sub-microsecond "
+                        "no-op; serving health counters go dark too.")
+_global_config.register("profile.enabled", False,
+                        "Step-phase attribution profiler (common/profiler."
+                        "py): decompose serving steps into host_input/"
+                        "dispatch/execute/fetch/compile phases with MFU and "
+                        "roofline gauges. Off = sub-microsecond no-ops.")
+_global_config.register("profile.capture_dir", "",
+                        "Output directory for torch.profiler capture "
+                        "windows ('' disables all captures, armed or not).")
+_global_config.register("profile.capture_steps", 0,
+                        "Arm one torch.profiler capture for this many "
+                        "profiled steps at the first step boundary (0 = not "
+                        "armed).")
+_global_config.register("profile.capture_on_breach", False,
+                        "Arm a time-bounded torch.profiler capture on the "
+                        "first serving SLO breach (shed or expired) of the "
+                        "process.")
+_global_config.register("profile.capture_seconds", 2.0,
+                        "Wall-seconds bound for breach-triggered capture "
+                        "windows.")
+_global_config.register("profile.peak_flops", 0.0,
+                        "Override the device's peak bf16 FLOP/s for the MFU "
+                        "gauge (0 = auto-detect from the card's name; "
+                        "detection knows the H100).")
+_global_config.register("ops.enabled", False,
+                        "Master switch for the ops-plane event log "
+                        "(ops/events.py). Off by default: a disabled plane "
+                        "costs one boolean check per would-be event.")
+_global_config.register("ops.dir", "",
+                        "Shared event-spool directory for the structured "
+                        "event log; empty = a private temp spool per "
+                        "creating process.")
+_global_config.register("ops.ring_events", 2048,
+                        "Capacity of the per-process in-memory event ring "
+                        "(EventLog.tail); the JSONL spool on disk is the "
+                        "unbounded record.")
+_global_config.register("serving.brownout_high", 0.75,
+                        "Pressure (max of queue-fill and KV-page-scarcity "
+                        "ratios) above which the brownout controller steps "
+                        "DOWN one degradation rung on the next shed pass.")
+_global_config.register("serving.brownout_low", 0.35,
+                        "Pressure below which the brownout controller "
+                        "steps back UP one rung after "
+                        "serving.brownout_hold_ticks consecutive calm "
+                        "ticks.")
+_global_config.register("serving.brownout_hold_ticks", 3,
+                        "Consecutive calm ticks required before the "
+                        "brownout controller recovers one rung "
+                        "(hysteresis).")
+_global_config.register("serving.brownout_token_frac", 0.25,
+                        "Fraction of the configured max_new_tokens that "
+                        "the deepest brownout rung caps generative "
+                        "budgets to (rung 3; rung 2 caps at twice this).")

@@ -48,3 +48,8 @@ def wall_clock() -> float:
     ``enqueue_t``, spool file names, client deadlines). Every purely local
     interval uses ``time.monotonic()`` instead."""
     return time.time()
+
+
+#: span observers, called as ``fn(name, start_perf_counter, seconds)``
+#: (the profiler offers its phases to them)
+span_hooks: list = []

@@ -25,9 +25,17 @@ PyTorch's eager execution:
 Slot ids, lengths, occupancy and page tables are tensors (data), so the
 step's shapes never change as streams come and go. Page 0 of a paged pool
 is the null page: it absorbs the writes of inactive slots and of positions
-past a stream's allocation, and is never visible. Speculative decoding
-(``paged_verify_attention``, ``speculative_generate``) is ROADMAP Queue A
-item 4b, and the pool sharding over devices (``shard_paged_pool``) item 7.
+past a stream's allocation, and is never visible.
+
+Speculative decoding (Leviathan et al.): a small draft model proposes
+``spec_k`` tokens serially and the target verifies them in one batched
+pass through its paged pool (:func:`paged_verify_attention`); the accept
+rule keeps the longest agreeing run (:func:`spec_accept_greedy`) or, when
+sampling, the distribution-preserving accept/resample rule
+(:func:`_spec_accept_sampled`). Its draws are explicit tensors
+(:func:`spec_draws`, or any source with the same contract), so a test can
+feed JAX's. The pool sharding over devices (``shard_paged_pool``) is
+ROADMAP Queue A item 7.
 """
 from __future__ import annotations
 
@@ -301,6 +309,39 @@ def paged_attention(q: torch.Tensor, k_new: torch.Tensor,
     return ctx, cache
 
 
+def paged_verify_attention(q: torch.Tensor, k_new: torch.Tensor,
+                           v_new: torch.Tensor, cache: PagedCache,
+                           table: torch.Tensor, lengths: torch.Tensor,
+                           scale: Optional[float] = None
+                           ) -> Tuple[torch.Tensor, PagedCache]:
+    """Speculative verify over every slot: write the T = k+1 new K/V rows
+    (``[S, H, T, D]``) at logical positions ``lengths[s] ..
+    lengths[s]+T-1``, crossing pages as needed (positions past a stream's
+    allocation fall on the null page), then attend each row causally within
+    the new block on top of the slot's visible prefix, over all
+    ``table.shape[1]`` gathered columns (the slack past ``max_len`` masked
+    to exact zeros). Returns ``(ctx [S, H, T, D], cache)``. The caller
+    advances lengths by the accepted count, not by T: rejected positions
+    keep stale K/V that the next round overwrites at the same positions.
+    The T-batched products round differently from T serial steps, so
+    speculative parity is token identity, not bit identity."""
+    s, _, t, d = q.shape
+    page_len = cache["k"].shape[2]
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    positions = (lengths.long()[:, None]
+                 + torch.arange(t, device=q.device)[None])
+    pages, offs = _page_positions(table, positions, page_len)
+    _paged_write(cache, pages, offs, k_new.transpose(1, 2),
+                 v_new.transpose(1, 2), inline_amax=False)
+    k_buf, v_buf = paged_gather(cache, table)
+    kcols = table.shape[1] * page_len
+    key_pos = torch.arange(kcols, device=q.device)[None, None, :]
+    row_pos = torch.arange(t, device=q.device)[None, :, None]
+    visible = key_pos <= lengths.long()[:, None, None] + row_pos
+    ctx = masked_context(q, k_buf, v_buf, visible[:, None], scale)
+    return ctx, cache
+
+
 # -- selectors --------------------------------------------------------------
 
 
@@ -478,3 +519,195 @@ def sample_generate(step_fn: Callable, params: Any, cache: Any,
 
     return _decode_loop(step_fn, params, cache, prompt_last_token,
                         max_new_tokens, eos_id, select, logits_out)
+
+
+# -- speculative decoding ---------------------------------------------------------
+#
+# The decode step is bound by memory bandwidth, so a small DRAFT model
+# proposes k tokens serially and the TARGET verifies all k in one batched
+# pass: one target pass emits between 1 and k+1 tokens. Greedy, the accept
+# rule is "accept while the draft matches the target's argmax", which makes
+# speculative greedy token-identical to serial greedy. Rejected drafts leave
+# stale K/V past the accepted length, invisible under the length mask and
+# overwritten at the same positions in the next round: no rollback.
+
+
+def spec_accept_greedy(drafts: torch.Tensor, target_logits: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Greedy accept rule. ``drafts`` ``[S, k]`` are the proposals and
+    ``target_logits`` ``[S, k+1, V]`` the verify pass's (row j predicts the
+    token after draft j). Returns ``(emitted [S, k+1], n [S])``: the
+    target's argmax a position and how many lead entries are valid, ``n =
+    1 + (leading draft/argmax matches)``, so a round whose drafts all agree
+    emits k+1 tokens."""
+    g = torch.argmax(target_logits, dim=-1)
+    match = (drafts == g[:, :-1]).to(torch.int32)
+    n = 1 + torch.cumprod(match, dim=1).sum(dim=1)
+    return g, n
+
+
+def _spec_accept_sampled(drafts: torch.Tensor, draft_logits: torch.Tensor,
+                         target_logits: torch.Tensor, uniform: torch.Tensor,
+                         gumbel: torch.Tensor,
+                         filter_logits: Callable[[torch.Tensor],
+                                                 torch.Tensor]
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The stochastic accept/resample rule: accept draft token d_i with
+    probability min(1, p_i(d_i) / q_i(d_i)) (``uniform`` ``[S, k]``); at
+    the first rejection draw from norm(max(p - q, 0)), and when every draft
+    survives draw the bonus token from the target's last distribution (q is
+    0 there, so the residual is p). Where the residual sums to zero (p ==
+    q) the draw is from p. The draw is ``argmax(log residual + gumbel)``
+    (``gumbel`` ``[S, V]``), ``jax.random.categorical``'s. Returns
+    ``(emitted [S, k+1], n [S])`` as :func:`spec_accept_greedy`; the output
+    follows the target's distribution."""
+    s, k = drafts.shape
+    p = torch.softmax(filter_logits(target_logits.float()), dim=-1)
+    q = torch.softmax(filter_logits(draft_logits.float()), dim=-1)
+    idx = drafts.long()[..., None]
+    pd = torch.gather(p[:, :k], -1, idx)[..., 0]
+    qd = torch.gather(q, -1, idx)[..., 0]
+    accept = (uniform * qd < pd).to(torch.int32)
+    m = torch.cumprod(accept, dim=1).sum(dim=1)        # [S] in [0, k]
+    q_pad = torch.cat([q, torch.zeros_like(p[:, :1])], dim=1)
+    rows = torch.arange(s, device=drafts.device)
+    pm, qm = p[rows, m], q_pad[rows, m]                 # [S, V]
+    resid = torch.clamp_min(pm - qm, 0.0)
+    total = resid.sum(dim=-1, keepdim=True)
+    resid = torch.where(total > 0, resid, pm)
+    logits = torch.where(resid > 0, torch.log(resid),
+                         torch.full_like(resid, _NEG_INF))
+    x = torch.argmax(logits + gumbel, dim=-1).to(drafts.dtype)
+    j = torch.arange(k + 1, device=drafts.device)[None]
+    drafts_pad = torch.cat([drafts, drafts.new_zeros((s, 1))], dim=1)
+    emitted = torch.where(j < m[:, None], drafts_pad,
+                          torch.where(j == m[:, None], x[:, None],
+                                      torch.zeros_like(drafts_pad)))
+    return emitted, m + 1
+
+
+def spec_draws(seed: int, batch: int, spec_k: int, vocab: int, device=None
+               ) -> Callable[[int], Tuple[torch.Tensor, torch.Tensor,
+                                          torch.Tensor]]:
+    """The draws of sampled speculative rounds, from one CPU
+    ``torch.Generator`` seeded with ``seed``: round r takes, in order, the
+    drafts' Gumbel noise ``[k, B, V]``, the accept uniforms ``[B, k]``
+    (floored at f32's smallest normal) and the residual draw's Gumbel noise
+    ``[B, V]``. Rounds must be asked for in order; the draws depend on the
+    seed alone, on every device."""
+    gen = torch.Generator().manual_seed(int(seed))
+    tiny = torch.finfo(torch.float32).tiny
+    state = {"next": 0}
+
+    def gumbel(shape):
+        u = torch.rand(shape, generator=gen).clamp_min(tiny)
+        return -torch.log(-torch.log(u))
+
+    def draw(r: int):
+        if r != state["next"]:
+            raise ValueError(f"spec_draws: round {r} asked for after "
+                             f"{state['next'] - 1}; rounds go in order")
+        state["next"] += 1
+        g_draft = gumbel((spec_k, batch, vocab))
+        u = torch.rand((batch, spec_k), generator=gen).clamp_min(tiny)
+        g_resid = gumbel((batch, vocab))
+        return (g_draft.to(device), u.to(device), g_resid.to(device))
+
+    return draw
+
+
+def speculative_generate(draft_step_fn: Callable, verify_fn: Callable,
+                         draft_params: Any, target_params: Any,
+                         draft_cache: Any, target_cache: Any,
+                         prompt_last_token: torch.Tensor,
+                         lengths: torch.Tensor, max_new_tokens: int,
+                         spec_k: int, eos_id: Optional[int] = None,
+                         draws: Optional[Callable] = None,
+                         temperature: float = 1.0,
+                         top_k: Optional[int] = None,
+                         top_p: Optional[float] = None,
+                         stats: Optional[Dict[str, int]] = None
+                         ) -> torch.Tensor:
+    """Speculative decoding: at most ``max_new_tokens`` rounds, each
+    ``spec_k`` serial draft steps, one batched target verify and the accept
+    rule. Lengths are a row's own (slot and paged style):
+
+    - ``draft_step_fn(draft_params, tokens [B], lengths [B], draft_cache)
+      -> (logits [B, V], draft_cache)``
+    - ``verify_fn(target_params, block [B, k+1], lengths [B],
+      target_cache) -> (logits [B, k+1, V], target_cache)``
+
+    Greedy when ``draws`` is None (token-identical to serial greedy);
+    otherwise it samples through :func:`make_logit_filter`'s chain, round r
+    taking ``draws(r) -> (draft gumbel [k, B, V], uniform [B, k], residual
+    gumbel [B, V])`` (:func:`spec_draws`). Finished rows (eos or budget)
+    freeze and the output pads with ``eos_id``; the loop ends once every
+    row is done. ``stats``, when given, receives ``rounds``, ``proposed``
+    (draft tokens offered to rows still live) and ``accepted`` (of those,
+    the ones the rule kept). Returns ``[B, max_new_tokens]``."""
+    b, dev = prompt_last_token.shape[0], prompt_last_token.device
+    sampling = draws is not None
+    filt = (make_logit_filter(temperature, top_k, top_p) if sampling
+            else None)
+    last = prompt_last_token
+    ln = torch.as_tensor(lengths, device=dev).to(torch.int32)
+    fill = eos_id if eos_id is not None else 0
+    out = torch.full((b, max_new_tokens + 1), fill, dtype=last.dtype,
+                     device=dev)  # the last column takes dropped writes
+    cursor = torch.zeros(b, dtype=torch.int32, device=dev)
+    done = torch.zeros(b, dtype=torch.bool, device=dev)
+    j = torch.arange(spec_k + 1, device=dev)[None]
+    rows = torch.arange(b, device=dev)[:, None].expand(-1, spec_k + 1)
+    rounds = proposed = accepted = 0
+    for r in range(max_new_tokens):
+        if sampling:
+            g_draft, uniform, g_resid = draws(r)
+        tok, dl = last, ln
+        drafts, dlogits = [], []
+        for i in range(spec_k):
+            logits, draft_cache = draft_step_fn(draft_params, tok, dl,
+                                                draft_cache)
+            if sampling:
+                nxt = sampled_select(filt(logits.float()), g_draft[i])
+                dlogits.append(logits)
+            else:
+                nxt = torch.argmax(logits, dim=-1)
+            tok = nxt.to(last.dtype)
+            drafts.append(tok)
+            dl = dl + 1
+        drafts_t = torch.stack(drafts, dim=1)                # [B, k]
+        block = torch.cat([last[:, None], drafts_t], dim=1)
+        tlogits, target_cache = verify_fn(target_params, block, ln,
+                                          target_cache)
+        if sampling:
+            emitted, n = _spec_accept_sampled(
+                drafts_t, torch.stack(dlogits, dim=1), tlogits, uniform,
+                g_resid, filt)
+        else:
+            emitted, n = spec_accept_greedy(drafts_t, tlogits)
+        emitted = emitted.to(last.dtype)
+        n = torch.where(done, 0, n.to(torch.int32))
+        if stats is not None:
+            live = int((~done).sum())
+            proposed += spec_k * live
+            accepted += int((n - 1).clamp_min(0).sum())
+        n = torch.minimum(n, max_new_tokens - cursor)        # budget clamp
+        if eos_id is not None:
+            iseos = (emitted == eos_id) & (j < n[:, None])
+            first = torch.where(iseos, j, spec_k + 1).min(dim=1).values
+            n = torch.minimum(n, (first + 1).to(n.dtype))
+            done = done | iseos.any(dim=1)
+        pos = torch.where(j < n[:, None], cursor[:, None] + j,
+                          max_new_tokens)
+        out[rows, pos.long()] = emitted
+        prev = torch.gather(emitted, 1, (n - 1).clamp_min(0).long()[:, None])
+        last = torch.where(n > 0, prev[:, 0], last)
+        ln = ln + n
+        cursor = cursor + n
+        done = done | (cursor >= max_new_tokens)
+        rounds += 1
+        if bool(done.all()):
+            break
+    if stats is not None:
+        stats.update(rounds=rounds, proposed=proposed, accepted=accepted)
+    return out[:, :max_new_tokens]

@@ -3,7 +3,8 @@
 from .client import InputQueue, OutputQueue
 from .config import ServingConfig
 from .queues import FileQueue, QueueBackend, make_queue
-from .server import ClusterServing, GenerativeServing
+from .server import ClusterServing, GenerativeServing, ModelReloadError
 
 __all__ = ["ClusterServing", "FileQueue", "GenerativeServing", "InputQueue",
-           "OutputQueue", "QueueBackend", "ServingConfig", "make_queue"]
+           "ModelReloadError", "OutputQueue", "QueueBackend",
+           "ServingConfig", "make_queue"]

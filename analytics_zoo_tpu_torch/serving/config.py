@@ -1,9 +1,9 @@
 """Serving config (counterpart of ``analytics_zoo_tpu/serving/config.py``):
-the one-shot serving fields, image payloads' ``input_dtype``, the
-generative server's fields and the YAML schema of ``from_yaml``. The
-TensorBoard, brownout and health-file fields are later slices (ROADMAP
-Queue A item 5); ``spec_k`` and ``kv_shard`` parse, and
-``GenerativeServing`` refuses values it does not serve yet."""
+the one-shot serving fields, image payloads' ``input_dtype``, the health
+file, the generative server's fields and the YAML schema of
+``from_yaml``. The TensorBoard field is a later slice (ROADMAP Queue A
+item 5); ``kv_shard`` parses, and ``GenerativeServing`` refuses values past
+1 (item 7)."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -31,6 +31,9 @@ class ServingConfig:
     shed_wait_ms: Optional[int] = None  # estimated-wait admission (None =
     #   depth-only shedding via max_pending)
     claim_retries: int = 20  # consecutive transient claim failures absorbed
+    health_path: Optional[str] = None  # periodic + terminal health.json;
+    #   metrics.prom is written beside it
+    health_interval_s: float = 1.0  # min seconds between health writes
     # -- generative serving (continuous batching) -----------------------------
     slots: int = 8  # resident decode slots (the decode step's batch)
     max_new_tokens: int = 64  # a stream's budget when its request has none
@@ -46,7 +49,8 @@ class ServingConfig:
     #   the LM's max_len (so it divides every prefill bucket)
     kv_int8: bool = False  # int8 pool with delayed scaling
     kv_shard: int = 1  # devices the pool's pages spread over (item 7)
-    spec_k: int = 0  # draft tokens a speculative round; 0 = off (item 4b)
+    spec_k: int = 0  # draft tokens a speculative round; 0 = off. Needs
+    #   kv_pages and a draft_lm, greedy only
 
     @staticmethod
     def from_yaml(path: str) -> "ServingConfig":
@@ -107,4 +111,7 @@ class ServingConfig:
         cfg.kv_int8 = bool(params.get("kv_int8", cfg.kv_int8))
         cfg.kv_shard = int(params.get("kv_shard", cfg.kv_shard))
         cfg.spec_k = int(params.get("spec_k", cfg.spec_k))
+        cfg.health_path = raw.get("health_path", cfg.health_path)
+        if raw.get("health_interval_s") is not None:
+            cfg.health_interval_s = float(raw["health_interval_s"])
         return cfg

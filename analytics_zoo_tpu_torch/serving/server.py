@@ -12,20 +12,32 @@ and the model normalizes it there.
 The invariant is the JAX package's: **every claimed request receives
 exactly one terminal result**, a value or an explicit error, whatever
 fails. Deadlines are checked at claim, after decode and before dispatch;
-overload sheds with explicit errors; :meth:`ClusterServing.drain` finishes
-in-flight work before it stops.
+overload sheds with explicit errors and drives the brownout ladder;
+:meth:`ClusterServing.drain` finishes in-flight work before it stops;
+:meth:`ClusterServing.reload_model` swaps the model off the serve path with
+a canary and rolls back on any failure.
+
+Both servers report into the platform substrate: the metrics registry
+(``common/metrics.py``, the JAX package's family names, labels and help
+text, one ``server`` label an instance), the ops-plane event log
+(``ops/events.py``), the fault-injection sites (``common/faults.py``) and
+the phase profiler (``common/profiler.py``). ``health_snapshot()`` is a
+per-instance view of the registry; with ``config.health_path`` the servers
+write it as ``health.json`` on a cadence, and the registry's Prometheus
+text as ``metrics.prom`` beside it.
 
 :class:`GenerativeServing` serves ``TransformerLM`` streams by
 continuous batching under the same invariant, over slot caches or a paged
-KV pool.
+KV pool, with speculative rounds when given a draft model.
 
-Later slices bring brownout, the ops-plane events, fault-injection sites,
-trace flow points, TensorBoard summaries, ``reload_model`` and the
-``health.json`` writer (ROADMAP Queue A item 5).
+Trace flow points and TensorBoard summaries are later slices (ROADMAP Queue
+A item 5), and ``health.json``'s ``alerts`` and ``incident`` stay empty
+until the alert engine and incident correlator are ported.
 """
 from __future__ import annotations
 
-import collections
+import itertools
+import json
 import logging
 import os
 import threading
@@ -35,10 +47,15 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..common import faults, file_io
+from ..common import metrics as _metrics
+from ..common import profiler as _profiler
+from ..common.config import global_config
 from ..common.context import DeviceLike
 from ..common.utils import time_it, wall_clock
 from ..inference.inference_model import InferenceModel
 from ..ops import decode as _decode
+from ..ops import events as ops_events
 from .config import ServingConfig
 from .queues import QueueBackend, decode_image, make_queue
 
@@ -50,6 +67,178 @@ PAGE_SHED_ERROR = "shed: kv page pool exhausted"
 DEADLINE_ERROR = "deadline exceeded"
 SHUTDOWN_ERROR = "serving shut down before this request completed"
 
+#: SLO telemetry in the registry, the JAX package's families. Every family
+#: is labeled by server instance, so two servers in one process keep
+#: separate series; ``health_snapshot()`` is a per-instance view of these.
+_M_COUNTERS = {
+    "shed": _metrics.counter(
+        "serving.shed_total", "Requests shed by admission control.",
+        labels=("server",)),
+    "expired": _metrics.counter(
+        "serving.expired_total", "Requests answered with deadline errors.",
+        labels=("server",)),
+    "errors": _metrics.counter(
+        "serving.error_total",
+        "Requests answered with non-deadline error results.",
+        labels=("server",)),
+    "claim_faults": _metrics.counter(
+        "serving.claim_fault_total", "Transient claim-stage failures.",
+        labels=("server",)),
+    "reloads": _metrics.counter(
+        "serving.reload_total", "Successful hot model reloads.",
+        labels=("server",)),
+    "reload_failures": _metrics.counter(
+        "serving.reload_failure_total",
+        "Model reloads that failed and rolled back.", labels=("server",)),
+}
+#: the keys of the servers' ``counters`` view (the reload counts are in
+#: ``health_snapshot()["counters"]``)
+_SLO_KEYS = ("shed", "expired", "errors", "claim_faults")
+_M_RECORDS = _metrics.counter(
+    "serving.records_total", "Records answered with prediction values.",
+    labels=("server",))
+_M_LATENCY = _metrics.histogram(
+    "serving.request_latency_seconds",
+    "Enqueue-to-terminal-result latency (client-stamped enqueue_t).",
+    labels=("server",))
+_M_QUEUE_DEPTH = _metrics.gauge(
+    "serving.queue_depth", "Pending requests in the claim queue.",
+    labels=("server",))
+_M_IN_FLIGHT = _metrics.gauge(
+    "serving.in_flight", "Claimed requests without a terminal result yet.",
+    labels=("server",))
+_M_CLAIM_AGE = _metrics.gauge(
+    "serving.claim_age_seconds", "Seconds since the last successful claim.",
+    labels=("server",))
+#: generative (continuous-batching) serving telemetry
+_M_TTFT = _metrics.histogram(
+    "serving.ttft_seconds",
+    "Enqueue-to-first-token latency of generative streams.",
+    labels=("server",))
+_M_TOKENS = _metrics.counter(
+    "serving.tokens_total",
+    "Tokens decoded across all generative streams.", labels=("server",))
+_M_SLOTS = _metrics.gauge(
+    "serving.slots_occupied",
+    "Decode slots currently holding an active stream.", labels=("server",))
+#: paged KV engine + speculative decoding telemetry
+_M_PAGES_FREE = _metrics.gauge(
+    "serving.kv_pages_free",
+    "Allocatable pages remaining in the paged KV pool (0 = joins shed).",
+    labels=("server",))
+_M_PAGE_EVICT = _metrics.counter(
+    "serving.kv_page_evictions_total",
+    "KV pages returned to the pool by stream retirement.",
+    labels=("server",))
+_M_SPEC_ACCEPT = _metrics.gauge(
+    "serving.spec_accept_ratio",
+    "Mean fraction of draft tokens accepted in the last verify round.",
+    labels=("server",))
+_M_BROWNOUT = _metrics.gauge(
+    "serving.brownout_level",
+    "Current brownout degradation rung: 0=normal, 1=coarse streaming/wide "
+    "batch window, 2=half token budget, 3=quarter token budget "
+    "(docs/serving.md 'Overload survival').", labels=("server",))
+
+_instance_ids = itertools.count()
+
+#: ops-plane event types, one event a state transition
+_E_BROWNOUT = ops_events.event_type(
+    "serving.brownout_rung",
+    "Brownout ladder rung change (level_from/level_to, pressure).")
+_E_SHED = ops_events.event_type(
+    "serving.shed",
+    "Admission control shed the oldest requests (count, allowed depth).")
+_E_RELOAD = ops_events.event_type(
+    "serving.reload",
+    "Hot model reload landed (ok=true, version) or rolled back "
+    "(ok=false).")
+_E_LIFECYCLE = ops_events.event_type(
+    "serving.lifecycle",
+    "Server reached a terminal lifecycle state "
+    "(state=drained|stopped|crashed).")
+
+
+class _Brownout:
+    """Hysteretic brownout ladder, ticked on the shed cadence with the
+    server's pressure: queue fill against the shed-allowed depth, and KV
+    page scarcity for a paged generative server. ``tick(pressure)`` steps
+    DOWN one rung whenever pressure exceeds ``serving.brownout_high`` and
+    back UP one rung only after ``serving.brownout_hold_ticks`` ticks in a
+    row below ``serving.brownout_low``: degrade fast, recover cautiously.
+
+    The rungs trade answer quality for answer existence:
+
+    - **L1** coarsens stream partials (4x ``stream_interval``) and widens
+      the one-shot micro-batch window (2x ``batch_wait_ms``);
+    - **L2** also caps new streams' ``max_new_tokens`` at 2 x
+      ``serving.brownout_token_frac`` of the budget and widens the window
+      to 4x;
+    - **L3** tightens the cap to ``serving.brownout_token_frac``.
+
+    Speculative depth and the int8 pool are fixed when a server is built:
+    an operator applies them by config and a rolling restart, not live."""
+
+    MAX_LEVEL = 3
+    #: batch-window multiplier a rung (one-shot micro-batching)
+    _WINDOW = (1, 2, 4, 4)
+    #: stream-partial stride multiplier a rung (generative)
+    _STRIDE = (1, 4, 4, 4)
+
+    def __init__(self, label: str = ""):
+        cfg = global_config()
+        self.high = float(cfg.get("serving.brownout_high"))
+        self.low = float(cfg.get("serving.brownout_low"))
+        self.hold_ticks = int(cfg.get("serving.brownout_hold_ticks"))
+        self.token_frac = float(cfg.get("serving.brownout_token_frac"))
+        self.label = label
+        self.level = 0
+        self._calm = 0
+
+    def tick(self, pressure: float) -> int:
+        prev = self.level
+        if pressure > self.high:
+            self._calm = 0
+            if self.level < self.MAX_LEVEL:
+                self.level += 1
+        elif pressure < self.low:
+            self._calm += 1
+            if self._calm >= self.hold_ticks and self.level > 0:
+                self.level -= 1
+                self._calm = 0
+        else:
+            self._calm = 0
+        if self.level != prev:
+            _E_BROWNOUT.emit(label=self.label, level_from=prev,
+                             level_to=self.level,
+                             pressure=round(float(pressure), 4))
+        return self.level
+
+    def token_cap(self, budget: int) -> int:
+        """Effective per-stream token budget at the current rung."""
+        if self.level < 2:
+            return budget
+        frac = self.token_frac * (2.0 if self.level == 2 else 1.0)
+        return max(1, min(budget, int(round(budget * frac))))
+
+    def batch_window_ms(self, base_ms: float) -> float:
+        return base_ms * self._WINDOW[self.level]
+
+    def stream_stride(self, base: int) -> int:
+        return base * self._STRIDE[self.level] if base > 0 else base
+
+
+def _model_version_of(path: Optional[str]) -> str:
+    """Version label for a servable path: its basename (snapshot export
+    dirs are named by version), or ``inline-0`` for a model handed over as
+    a live object."""
+    base = os.path.basename(str(path or "").rstrip("/"))
+    return base or "inline-0"
+
+
+class ModelReloadError(RuntimeError):
+    """``reload_model`` failed; the PREVIOUS model is still serving."""
+
 
 def top_n(probs: np.ndarray, n: int) -> List[Dict[str, float]]:
     """Per-record topN (class, prob) filter."""
@@ -57,11 +246,176 @@ def top_n(probs: np.ndarray, n: int) -> List[Dict[str, float]]:
     return [{"class": int(i), "prob": float(probs[i])} for i in idx]
 
 
-class ClusterServing:
+class _ServerTelemetry:
+    """What both servers share: the registry children of one instance,
+    the exactly-one-terminal accounting, and the ``health.json`` and
+    ``metrics.prom`` writer."""
+
+    def _init_telemetry(self) -> None:
+        self.metrics_label = f"srv{next(_instance_ids)}"
+        label = self.metrics_label
+        self._m = {key: fam.labels(server=label)
+                   for key, fam in _M_COUNTERS.items()}
+        self._m_records = _M_RECORDS.labels(server=label)
+        self._m_latency = _M_LATENCY.labels(server=label)
+        self._m_depth = _M_QUEUE_DEPTH.labels(server=label)
+        self._m_in_flight = _M_IN_FLIGHT.labels(server=label)
+        self._m_claim_age = _M_CLAIM_AGE.labels(server=label)
+        self._m_brownout = _M_BROWNOUT.labels(server=label)
+        self._brownout = _Brownout(label)
+        self._lock = threading.Lock()
+        self._in_flight = 0  # claimed, no terminal result yet
+        self._meta: Dict[str, float] = {}  # uri -> client enqueue_t
+        self._last_claim_m: Optional[float] = None  # monotonic
+        self._last_health_m = -1e18
+        self._last_shed_m = -1e18
+        self._claim_fail_streak = 0
+        self._stop = threading.Event()
+        self._draining = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+        self._loop_running = False
+        self._background_error: Optional[BaseException] = None
+        self.terminal_state: Optional[str] = None
+
+    @property
+    def counters(self) -> Dict[str, int]:
+        """The SLO counters of this instance, from the registry."""
+        return {key: int(self._m[key].value()) for key in _SLO_KEYS}
+
+    def _count(self, key: str, n: int = 1) -> None:
+        self._m[key].inc(n)
+        if key in ("shed", "expired"):
+            # the first SLO breach can arm a capture window
+            # (profile.capture_on_breach); a no-op otherwise
+            _profiler.on_slo_breach(key)
+
+    def _expiry(self, rec: Dict[str, Any]) -> Optional[float]:
+        """Absolute wall-clock expiry, or None. Wall clock on purpose: the
+        client stamps ``enqueue_t`` in another process."""
+        deadline_ms = rec.get("deadline_ms") or self.config.default_deadline_ms
+        if not deadline_ms:
+            return None
+        t0 = rec.get("enqueue_t")
+        base = float(t0) if t0 is not None else wall_clock()
+        return base + float(deadline_ms) / 1000.0
+
+    def _note_claimed(self, got) -> None:
+        """In-flight accounting for freshly claimed requests."""
+        self._last_claim_m = time.monotonic()
+        now = wall_clock()
+        with self._lock:
+            self._in_flight += len(got)
+            in_flight = self._in_flight
+            for uri, rec in got:
+                self._meta[uri] = float(rec.get("enqueue_t") or now)
+        self._m_in_flight.set(in_flight)
+
+    def _post_terminal(self, uri: str, value: Dict[str, Any]) -> None:
+        """The one place a claimed request gets its terminal result (a
+        generative stream's partials do not come here). Error results
+        carry ``retriable``: only shed errors are."""
+        if "error" in value and "retriable" not in value:
+            value = dict(value)
+            value["retriable"] = value["error"] in (SHED_ERROR,
+                                                    PAGE_SHED_ERROR)
+        try:
+            self.queue.put_result(uri, value)
+        except OSError:
+            logger.exception("posting result for %s failed", uri)
+        with self._lock:
+            self._in_flight = max(0, self._in_flight - 1)
+            in_flight = self._in_flight
+            t0 = self._meta.pop(uri, None)
+        self._m_in_flight.set(in_flight)
+        if t0 is not None:
+            self._m_latency.observe(max(wall_clock() - t0, 0.0))
+
+    def _lifecycle_state(self) -> str:
+        err = self._background_error
+        if self.terminal_state is not None:
+            return self.terminal_state
+        if err is not None:
+            return "crashed"
+        if self._draining.is_set():
+            return "draining"
+        if self._loop_running or (self._thread is not None
+                                  and self._thread.is_alive()):
+            return "running"
+        return "idle"
+
+    def _health_common(self) -> Dict[str, Any]:
+        """The snapshot keys both servers share; refreshes the
+        point-in-time gauges on the same cadence."""
+        with self._lock:
+            in_flight = self._in_flight
+        try:
+            pending = self.queue.pending_count()
+        except (OSError, NotImplementedError):
+            pending = None
+        if pending is not None:
+            self._m_depth.set(pending)
+        self._m_in_flight.set(in_flight)
+        claim_age = (round(time.monotonic() - self._last_claim_m, 3)
+                     if self._last_claim_m is not None else None)
+        if claim_age is not None:
+            self._m_claim_age.set(claim_age)
+        return {"state": self._lifecycle_state(), "time": wall_clock(),
+                "queue_pending": pending, "in_flight": in_flight,
+                "last_claim_age_s": claim_age}
+
+    @staticmethod
+    def _pct_ms(fam, p: float) -> Optional[float]:
+        v = fam.percentile(p)
+        return None if v is None else round(v * 1e3, 3)
+
+    def _emit_terminal(self, state: str) -> None:
+        self.terminal_state = state
+        _E_LIFECYCLE.emit(label=self.metrics_label, state=state)
+
+    def _write_health(self) -> None:
+        """Write ``health.json`` (atomically: readers never see a torn
+        file) and the registry's Prometheus text as ``metrics.prom`` beside
+        it. The health cadence is the profiler's slow tick too: it samples
+        device memory and closes an elapsed capture window."""
+        path = self.config.health_path
+        if not path:
+            return
+        try:
+            _profiler.sample_memory()
+            _profiler.maybe_stop_capture()
+        except Exception:
+            logger.debug("profiler health tick failed", exc_info=True)
+        for target, text in (
+                (path, lambda: json.dumps(self.health_snapshot())),
+                (os.path.join(os.path.dirname(path), "metrics.prom"),
+                 _metrics.expose_text)):
+            tmp = target + ".tmp"
+            try:
+                with file_io.fopen(tmp, "w") as f:
+                    f.write(text())
+                file_io.replace(tmp, target)
+            except OSError:
+                logger.warning("health write to %s failed", target)
+
+    def _maybe_write_health(self) -> None:
+        if not self.config.health_path:
+            return
+        now = time.monotonic()
+        if now - self._last_health_m >= self.config.health_interval_s:
+            self._last_health_m = now
+            self._write_health()
+
+    def check_health(self) -> None:
+        """Raise the background loop's failure, if any."""
+        err = self._background_error
+        if err is not None:
+            raise RuntimeError(
+                f"{type(self).__name__} loop died in the background") from err
+
+
+class ClusterServing(_ServerTelemetry):
     #: min seconds between shed passes (a shed lists the whole backlog)
     SHED_INTERVAL_S = 0.05
-    #: terminal latencies kept for :meth:`latency_ms`
-    LATENCY_WINDOW = 8192
 
     def __init__(self, config: ServingConfig,
                  model: Optional[InferenceModel] = None,
@@ -76,37 +430,33 @@ class ClusterServing:
         self.queue = queue if queue is not None \
             else make_queue(config.data_src)
         self.model = model if model is not None \
-            else self._load_model(device)
-        self.model.prewarm(self._example_batch(),
-                           buckets=(config.batch_size,))
-        self._stop = threading.Event()
-        self._draining = threading.Event()
-        self._thread: Optional[threading.Thread] = None
+            else self._load_model(device=device)
+        # a model loaded later (reload_model by path) lands where this is
+        self._device = self.model.device
+        # which snapshot is live: stamped here and on every successful
+        # reload_model
+        self.model_version = _model_version_of(
+            config.model_path if (model is None or config.model_path)
+            else None)
+        self._inline_versions = itertools.count(1)
+        self.prewarmed = self._prewarm_model(self.model)
         self._pool = None
-        self._background_error: Optional[BaseException] = None
         self.records_served = 0
         self.batches_dispatched = 0
         self.device_seconds = 0.0  # blocked-on-fetch time across batches
-        self._lock = threading.Lock()
-        self._counters = {"shed": 0, "expired": 0, "errors": 0,
-                          "claim_faults": 0}
-        self._latencies: "collections.deque[float]" = collections.deque(
-            maxlen=self.LATENCY_WINDOW)
-        self._in_flight = 0  # claimed, no terminal result yet
-        self._enqueue_t: Dict[str, float] = {}  # uri -> client enqueue_t
         self._ewma_record_s = 0.0  # smoothed device seconds per record
-        self._last_shed_m = -1e18
-        self._claim_fail_streak = 0
-        self._loop_running = False
-        self.terminal_state: Optional[str] = None
+        self._reload_lock = threading.Lock()
+        self._init_telemetry()
 
-    def _load_model(self, device: DeviceLike) -> InferenceModel:
-        cfg = self.config
+    def _load_model(self, cfg: Optional[ServingConfig] = None,
+                    device: DeviceLike = None) -> InferenceModel:
+        cfg = cfg if cfg is not None else self.config
         if cfg.model_type != "zoo":
             raise NotImplementedError(
                 f"model_type {cfg.model_type!r} is not ported yet; the "
                 f"torch port serves 'zoo' models")
-        im = InferenceModel(concurrent_num=cfg.concurrent_num, device=device)
+        im = InferenceModel(concurrent_num=cfg.concurrent_num,
+                            device=device)
         im.load_zoo(cfg.model_path)
         if cfg.quantize:  # before the prewarm: no request pays for it
             im.quantize(cfg.quantize)
@@ -120,9 +470,18 @@ class ClusterServing:
         dtype = np.uint8 if cfg.input_dtype == "uint8" else np.float32
         return np.zeros((cfg.batch_size,) + tuple(cfg.image_shape), dtype)
 
+    def _prewarm_model(self, model: InferenceModel) -> bool:
+        """Run the configured ``batch_size`` bucket once, so the first
+        claimed batch finds its kernels built and loaded."""
+        model.prewarm(self._example_batch(),
+                      buckets=(self.config.batch_size,))
+        return True
+
     # -- record prep ----------------------------------------------------------
 
     def _prepare(self, record: Dict[str, Any]) -> np.ndarray:
+        # fault site: a faulty decode becomes this record's error result
+        faults.inject("serving.decode")
         cfg = self.config
         if "image" in record:  # base64-encoded image bytes
             img = decode_image(record["image"])
@@ -154,49 +513,11 @@ class ClusterServing:
 
     # -- SLO bookkeeping ------------------------------------------------------
 
-    @property
-    def counters(self) -> Dict[str, int]:
-        with self._lock:
-            return dict(self._counters)
-
-    def _count(self, key: str, n: int = 1) -> None:
-        with self._lock:
-            self._counters[key] += n
-
     def latency_ms(self, p: float) -> Optional[float]:
-        """Percentile ``p`` (0..1) of enqueue-to-terminal latency over the
-        recent window, in ms; None before any terminal."""
-        with self._lock:
-            lat = sorted(self._latencies)
-        if not lat:
-            return None
-        return lat[min(len(lat) - 1, int(p * len(lat)))] * 1e3
-
-    def _expiry(self, rec: Dict[str, Any]) -> Optional[float]:
-        """Absolute wall-clock expiry, or None. Wall clock on purpose: the
-        client stamps ``enqueue_t`` in another process."""
-        deadline_ms = rec.get("deadline_ms") or self.config.default_deadline_ms
-        if not deadline_ms:
-            return None
-        t0 = rec.get("enqueue_t")
-        base = float(t0) if t0 is not None else wall_clock()
-        return base + float(deadline_ms) / 1000.0
-
-    def _post_terminal(self, uri: str, value: Dict[str, Any]) -> None:
-        """The one place a claimed request gets its terminal result. Error
-        results carry ``retriable``: only shed errors are."""
-        if "error" in value and "retriable" not in value:
-            value = dict(value)
-            value["retriable"] = value["error"] == SHED_ERROR
-        try:
-            self.queue.put_result(uri, value)
-        except OSError:
-            logger.exception("posting result for %s failed", uri)
-        with self._lock:
-            self._in_flight = max(0, self._in_flight - 1)
-            t0 = self._enqueue_t.pop(uri, None)
-            if t0 is not None:
-                self._latencies.append(max(wall_clock() - t0, 0.0))
+        """Percentile ``p`` (0..1) of enqueue-to-terminal latency, in ms,
+        from the registry's histogram (within ``metrics.BUCKET_REL_ERROR``
+        of the exact value); None before any terminal."""
+        return self._pct_ms(self._m_latency, p)
 
     def _error_batch(self, uris: List[str], message: str,
                      counter: str = "errors") -> None:
@@ -209,7 +530,9 @@ class ClusterServing:
 
     def _shed(self) -> None:
         """Erroring admission control: ``max_pending`` caps the depth;
-        ``shed_wait_ms`` caps the estimated wait of the queue tail."""
+        ``shed_wait_ms`` caps the estimated wait of the queue tail. The
+        brownout ladder ticks on the same cadence, with the queue's fill
+        against the allowed depth as its pressure."""
         now = time.monotonic()
         if now - self._last_shed_m < self.SHED_INTERVAL_S:
             return
@@ -228,22 +551,35 @@ class ClusterServing:
         except OSError as e:
             logger.warning("shed pass failed (transient): %r", e)
             return
+        try:
+            pending = self.queue.pending_count()
+        except (OSError, NotImplementedError):
+            pending = None
+        fill = (pending / float(max(allowed, 1))
+                if pending is not None else 0.0)
+        self._m_brownout.set(self._brownout.tick(fill))
         if dropped:
             self._count("shed", len(dropped))
+            _E_SHED.emit(label=self.metrics_label, count=len(dropped),
+                         allowed=allowed)
             logger.warning("overload: shed %d oldest requests with error "
                            "results (allowed depth %d)", len(dropped),
                            allowed)
 
     def _claim(self) -> List[Tuple[str, Dict[str, Any]]]:
-        """Shed, then fill one micro-batch within ``batch_wait_ms`` on the
-        monotonic clock. Transient claim failures are retried with jittered
-        backoff; ``claim_retries`` in a row surface the backend as dead."""
+        """Shed, then fill one micro-batch within the batch window on the
+        monotonic clock (``batch_wait_ms``, widened by brownout). Transient
+        claim failures (a flaky backend, the ``serving.claim`` fault) are
+        retried with jittered backoff; ``claim_retries`` in a row surface
+        the backend as dead."""
         cfg = self.config
         self._shed()
-        deadline = time.monotonic() + cfg.batch_wait_ms / 1000.0
+        wait_ms = self._brownout.batch_window_ms(cfg.batch_wait_ms)
+        deadline = time.monotonic() + wait_ms / 1000.0
         batch: List[Tuple[str, Dict[str, Any]]] = []
         while len(batch) < cfg.batch_size and time.monotonic() < deadline:
             try:
+                faults.inject("serving.claim")
                 with time_it("serving.claim_batch"):
                     got = self.queue.claim_batch(cfg.batch_size - len(batch))
                 self._claim_fail_streak = 0
@@ -264,11 +600,7 @@ class ClusterServing:
             else:
                 time.sleep(0.001)
         if batch:
-            now = wall_clock()
-            with self._lock:
-                self._in_flight += len(batch)
-                for uri, rec in batch:
-                    self._enqueue_t[uri] = float(rec.get("enqueue_t") or now)
+            self._note_claimed(batch)
         return batch
 
     def _filter_expired(self, batch: List[Tuple[str, Dict[str, Any]]]
@@ -292,6 +624,7 @@ class ClusterServing:
         expired during decode get their error results here."""
         uris, arrays, expiries = [], [], []
         errors, expired = [], []
+        t_dec = time.perf_counter()
         with time_it("serving.decode_batch"):
             futures = [(uri, rec,
                         self._decode_pool().submit(self._prepare, rec))
@@ -309,6 +642,8 @@ class ClusterServing:
                 uris.append(uri)
                 arrays.append(arr)
                 expiries.append(exp)
+        _profiler.record_phase("serving", "host_input",
+                               time.perf_counter() - t_dec, start=t_dec)
         for uri, msg in errors:
             self._post_terminal(uri, {"error": msg})
         if errors:
@@ -347,15 +682,32 @@ class ClusterServing:
         return [uris[i] for i in keep], x[keep]
 
     def _dispatch(self, x: np.ndarray):
-        """Async dispatch of one decoded batch; returns the fetch thunk."""
+        """Async dispatch of one decoded batch; returns the fetch thunk.
+        The one place of the ``serving.predict`` fault site: callers post
+        error results for the batch and serve on."""
+        faults.inject("serving.predict")
+        t_d = time.perf_counter()
         with time_it("serving.dispatch_batch"):
             handle = self.model.predict_async(x)
+        _profiler.record_phase("serving", "dispatch",
+                               time.perf_counter() - t_d, start=t_d)
         with self._lock:
             self.batches_dispatched += 1
         return handle
 
+    def _fetch(self, fetch) -> Tuple[np.ndarray, float]:
+        """Wait for a dispatched batch's result; returns it and the seconds
+        blocked (the ``fetch`` phase)."""
+        t0 = time.perf_counter()
+        probs = np.asarray(fetch())
+        elapsed = time.perf_counter() - t0
+        _profiler.record_phase("serving", "fetch", elapsed, start=t0)
+        return probs, elapsed
+
     def _writeback(self, uris: List[str], probs: np.ndarray,
                    device_elapsed: float) -> None:
+        # fault site: a failed writeback errors its batch, serving goes on
+        faults.inject("serving.writeback")
         cfg = self.config
         with time_it("serving.writeback_batch"):
             for uri, p in zip(uris, probs):
@@ -365,6 +717,7 @@ class ClusterServing:
                         uri, {"topN": top_n(p, cfg.filter_top_n)})
                 else:
                     self._post_terminal(uri, {"value": p.tolist()})
+        self._m_records.inc(len(uris))
         self.records_served += len(uris)
         self.device_seconds += device_elapsed
         if uris:
@@ -391,6 +744,110 @@ class ClusterServing:
                     continue
                 self._error_batch(list(item[0]), SHUTDOWN_ERROR)
 
+    # -- deep health ------------------------------------------------------------
+
+    def health_snapshot(self) -> Dict[str, Any]:
+        """Lifecycle state, queue depth, last-claim age, in-flight count,
+        p50/p99 terminal latency (ms, null on an empty window), brownout
+        rung, model version and the SLO and reload counters: the JAX
+        package's keys, a per-instance view of the metrics registry."""
+        snap = self._health_common()
+        with self._lock:
+            ewma = self._ewma_record_s
+        snap.update({
+            "records_served": self.records_served,
+            "device_seconds": round(self.device_seconds, 4),
+            "service_time_s_ewma": (round(ewma, 6) if ewma > 0 else None),
+            "brownout_level": self._brownout.level,
+            "latency_ms": {"p50": self._pct_ms(self._m_latency, 0.50),
+                           "p99": self._pct_ms(self._m_latency, 0.99),
+                           "window": self._m_latency.count()},
+            "counters": {k: int(c.value()) for k, c in self._m.items()},
+            "prewarmed": self.prewarmed,
+            "model_version": self.model_version,
+            "alerts": [],
+            "incident": None,
+            "error": (repr(self._background_error)
+                      if self._background_error is not None else None),
+        })
+        return snap
+
+    # -- hot model reload -------------------------------------------------------
+
+    def reload_model(self, model_path: Optional[str] = None, *,
+                     model: Optional[InferenceModel] = None,
+                     model_type: Optional[str] = None,
+                     version: Optional[str] = None) -> InferenceModel:
+        """Hot-swap the serving model with a canary and rollback. The
+        candidate loads and prewarms off the serve path (the old model
+        serves the whole time), canary-predicts one zeros batch, and only
+        then swaps in: one attribute store, so no request is dropped or
+        misrouted (a dispatched batch holds the model that took it). ANY
+        failure (load, prewarm, canary, the ``serving.reload`` fault)
+        leaves the old model and its version serving and raises
+        :class:`ModelReloadError`. A candidate loaded from a path lands on
+        the serving model's device."""
+        with self._reload_lock:
+            old = self.model
+            cfg = self.config
+            try:
+                faults.inject("serving.reload")
+                if model is None:
+                    if model_path is None:
+                        raise ValueError(
+                            "reload_model needs model_path= or model=")
+                    import dataclasses
+                    model = self._load_model(dataclasses.replace(
+                        cfg, model_path=model_path,
+                        model_type=model_type or cfg.model_type),
+                        device=self._device)
+                self._prewarm_model(model)
+                canary = model.predict(self._example_batch())
+                leaves = (list(canary) if isinstance(canary, (list, tuple))
+                          else [canary])
+                if not leaves:
+                    raise ValueError("canary predict returned no outputs")
+                for leaf in leaves:
+                    a = np.asarray(leaf)
+                    if a.shape[0] != cfg.batch_size:
+                        raise ValueError(
+                            f"canary predict returned leading dim "
+                            f"{a.shape[0]} for a batch of {cfg.batch_size}")
+                    if np.issubdtype(a.dtype, np.floating) \
+                            and not np.isfinite(a).all():
+                        raise ValueError(
+                            "canary predict produced non-finite values")
+                self.model = model  # the swap: the next dispatch uses it
+                if model_path is not None:
+                    cfg.model_path = model_path
+                    if model_type:
+                        cfg.model_type = model_type
+                # stamp only on success: a failed reload leaves the old
+                # model and its version label live
+                if version is not None:
+                    self.model_version = version
+                elif model_path is not None:
+                    self.model_version = _model_version_of(model_path)
+                else:
+                    self.model_version = \
+                        f"inline-{next(self._inline_versions)}"
+                self._count("reloads")
+                _E_RELOAD.emit(label=self.metrics_label, ok=True,
+                               version=self.model_version)
+                logger.info("model reloaded%s",
+                            f" from {model_path}" if model_path else "")
+                return model
+            except Exception as e:
+                self.model = old  # rollback (a no-op unless a partial swap)
+                self._count("reload_failures")
+                _E_RELOAD.emit(label=self.metrics_label, ok=False,
+                               version=self.model_version)
+                logger.exception(
+                    "model reload failed; previous model still serving")
+                raise ModelReloadError(
+                    f"model reload failed ({e!r}); previous model still "
+                    f"serving") from e
+
     # -- the serve loop -------------------------------------------------------
 
     def serve_once(self) -> int:
@@ -398,6 +855,7 @@ class ClusterServing:
         writeback); returns the number of records claimed, each of which
         has its terminal result when this returns."""
         batch = self._claim()
+        self._maybe_write_health()
         if not batch:
             return 0
         claimed = len(batch)
@@ -406,11 +864,9 @@ class ClusterServing:
         if uris:
             uris, x = self._expire_before_dispatch(uris, x, expiries)
         if uris:
-            start = time.perf_counter()
             try:
-                fetch = self._dispatch(x)
-                probs = np.asarray(fetch())
-                self._writeback(uris, probs, time.perf_counter() - start)
+                probs, elapsed = self._fetch(self._dispatch(x))
+                self._writeback(uris, probs, elapsed)
             except Exception as e:
                 logger.exception("predict/writeback failed for %d records",
                                  len(uris))
@@ -454,6 +910,7 @@ class ClusterServing:
                 while not self._stop.is_set() and not dead.is_set():
                     if self._draining.is_set():
                         return  # drain: stop claiming; sentinel flushes
+                    self._maybe_write_health()
                     batch = self._filter_expired(self._claim())
                     if not batch:
                         time.sleep(poll_interval_s)
@@ -475,10 +932,9 @@ class ClusterServing:
                     return
                 uris, fetch = item
                 try:
-                    t0 = time.perf_counter()
-                    probs = fetch()  # waits for the card's result only
-                    self._writeback(uris, np.asarray(probs),
-                                    time.perf_counter() - t0)
+                    # waits for the card's result only
+                    probs, elapsed = self._fetch(fetch)
+                    self._writeback(uris, probs, elapsed)
                 except Exception as e:
                     # one failed batch must not wedge the server
                     logger.exception("writeback failed for %d records",
@@ -520,8 +976,9 @@ class ClusterServing:
                 t.join(timeout=10)
             self._shutdown_pool()
             self._loop_running = False
-            self.terminal_state = ("crashed" if errors
-                                   else "drained" if drained else "stopped")
+            self._emit_terminal("crashed" if errors
+                                else "drained" if drained else "stopped")
+            self._write_health()
         if errors:
             raise errors[0]
 
@@ -545,16 +1002,11 @@ class ClusterServing:
         self._thread.start()
         return self
 
-    def check_health(self) -> None:
-        """Raise the background loop's failure, if any."""
-        err = self._background_error
-        if err is not None:
-            raise RuntimeError("serving loop died in the background") from err
-
     def drain(self, timeout_s: float = 30.0) -> None:
         """Graceful shutdown: stop claiming, finish every in-flight batch,
-        flush all results. Called on a foreground :meth:`run` (e.g. from a
-        SIGTERM handler) it only flags the loop, which unwinds itself."""
+        flush all results, write the terminal ``health.json``. Called on a
+        foreground :meth:`run` (e.g. from a SIGTERM handler) it only flags
+        the loop, which unwinds itself."""
         self._draining.set()
         if self._loop_running and self._thread is None:
             return
@@ -568,7 +1020,8 @@ class ClusterServing:
             self._thread = None
         self._shutdown_pool()
         if self.terminal_state is None:
-            self.terminal_state = "drained"
+            self._emit_terminal("drained")
+        self._write_health()
         self.check_health()
 
     def stop(self) -> None:
@@ -584,11 +1037,12 @@ class ClusterServing:
             self._thread = None
         self._shutdown_pool()
         if self.terminal_state is None:
-            self.terminal_state = "stopped"
+            self._emit_terminal("stopped")
+        self._write_health()
         self.check_health()
 
 
-class GenerativeServing:
+class GenerativeServing(_ServerTelemetry):
     """Token-level continuous batching for ``TransformerLM`` generation
     (the JAX package's ``GenerativeServing``).
 
@@ -604,11 +1058,14 @@ class GenerativeServing:
     tokens, "done": true}`` or an error): deadlines are checked at claim
     and every step (an expired stream is evicted mid-flight with the
     deadline error), overload sheds by the estimated wait at the current
-    smoothed seconds a token, a failed step errors every active stream and
-    the server goes on, and :meth:`drain` stops admitting but finishes the
-    streams in flight. Partials (``{"stream": [...], "done": false}``)
-    overwrite the same result record and are progress, not terminals;
-    ``OutputQueue.stream`` turns them into a generator.
+    smoothed seconds a token, a failed step (or the ``serving.decode_step``
+    fault) errors every active stream and the server goes on, and
+    :meth:`drain` stops admitting but finishes the streams in flight.
+    Partials (``{"stream": [...], "done": false}``) overwrite the same
+    result record and are progress, not terminals; ``OutputQueue.stream``
+    turns them into a generator. :meth:`handoff` re-enqueues the streams in
+    flight on another server's queue with the tokens decoded so far, and
+    that server finishes them as they would have gone on.
 
     Served streams are the serial ``TransformerLM.generate`` runs: both
     take the same bucketed prefill, the same ``masked_context`` arithmetic
@@ -618,31 +1075,31 @@ class GenerativeServing:
     The paged engine (``config.kv_pages``) replaces the rectangles with
     one page pool a block and a page table a slot: a join allocates the
     pages its prompt and budget need (shedding with ``PAGE_SHED_ERROR``
-    when the pool is short), retirement returns them by refcount,
-    :meth:`register_prefix` shares a prompt prefix's pages with
-    copy-on-write tails, and ``config.kv_int8`` keeps the pool in int8 with
-    delayed scaling.
+    when the pool is short, or the ``serving.page_alloc`` fault fires),
+    retirement returns them by refcount, :meth:`register_prefix` shares a
+    prompt prefix's pages with copy-on-write tails, and ``config.kv_int8``
+    keeps the pool in int8 with delayed scaling.
 
-    Not ported yet, each refused with ``NotImplementedError``: speculative
-    decoding (``spec_k``, a ``draft_lm``; ROADMAP Queue A item 4b), a pool
-    sharded over devices (``kv_shard``; item 7), and ``handoff``, brownout,
-    the ``health.json`` writer and fault injection (item 5).
+    Speculative rounds (``config.spec_k`` with a ``draft_lm``, on the paged
+    engine, greedy only, as the JAX package's): each step runs ``spec_k``
+    draft steps off the draft's slot caches, one ``verify_step`` of the
+    target through the pool, and the greedy accept rule, so a stream gains
+    1 to ``spec_k + 1`` tokens a step, token-identical to serial greedy
+    ``generate``. The brownout ladder caps new streams' budgets and
+    coarsens partials under pressure.
+
+    A pool sharded over devices (``kv_shard``; ROADMAP Queue A item 7) is
+    refused with ``NotImplementedError``.
     """
 
     SHED_INTERVAL_S = 0.05
-    #: TTFTs and terminal latencies kept for :meth:`health_snapshot`
-    LATENCY_WINDOW = 8192
 
     def __init__(self, config: ServingConfig, lm,
                  queue: Optional[QueueBackend] = None, draft_lm=None,
                  device: DeviceLike = None):
-        """``lm``: a ``TransformerLM``; its parameters move to ``device``
-        (the card when omitted; raises without one unless
-        ``device="cpu"``)."""
-        if draft_lm is not None or config.spec_k:
-            raise NotImplementedError(
-                "speculative decoding (spec_k, draft_lm) is not ported yet: "
-                "ROADMAP Queue A item 4b")
+        """``lm``: a ``TransformerLM``; its parameters (and ``draft_lm``'s)
+        move to ``device`` (the card when omitted; raises without one
+        unless ``device="cpu"``)."""
         if int(config.kv_shard or 1) > 1:
             raise NotImplementedError(
                 "a KV pool sharded over devices (kv_shard > 1) is not "
@@ -651,6 +1108,7 @@ class GenerativeServing:
             raise ValueError(f"slots must be >= 1, got {config.slots}")
         self.config = config
         self.lm = lm
+        self.model_version = _model_version_of(config.model_path)
         self.queue = (queue if queue is not None
                       else make_queue(config.data_src))
         self.slots = s = int(config.slots)
@@ -665,6 +1123,14 @@ class GenerativeServing:
                 config.temperature if config.temperature is not None
                 else 1.0, config.top_k, config.top_p)
         self._paged = config.kv_pages is not None
+        self._spec = draft_lm is not None and config.spec_k > 0
+        if self._spec and not self._paged:
+            raise ValueError("speculative decoding rides the paged KV "
+                             "engine: set kv_pages alongside spec_k")
+        if self._spec and self._sampling:
+            raise ValueError("speculative decoding in the scheduler is "
+                             "greedy-only; unset temperature/top_k/top_p")
+        self._spec_k = int(config.spec_k) if self._spec else 0
         if self._paged:
             pl, num_pages = int(config.kv_page_len), int(config.kv_pages)
             if pl < 1 or (pl & (pl - 1)) or pl > 16:
@@ -678,7 +1144,9 @@ class GenerativeServing:
                 raise ValueError(f"kv_pages must be >= 2 (page 0 is the "
                                  f"null page), got {num_pages}")
             self.page_len, self.num_pages = pl, num_pages
-            self._table_w = -(-lm.max_len // pl)
+            # slack columns for the transient spec_k overshoot past
+            # max_len (past a stream's allocation, the null page takes it)
+            self._table_w = -(-(lm.max_len + self._spec_k) // pl)
             self._caches = lm.init_paged_caches(num_pages, pl,
                                                 int8=config.kv_int8,
                                                 device=dev)
@@ -693,6 +1161,18 @@ class GenerativeServing:
         else:
             self._caches = lm.init_slot_caches(s, device=dev)
         self._state = _decode.init_slot_state(s, device=dev)
+        if self._spec:
+            if draft_lm.max_len < lm.max_len + self._spec_k:
+                raise ValueError(
+                    f"draft max_len={draft_lm.max_len} must cover "
+                    f"max_len={lm.max_len} + spec_k={self._spec_k} "
+                    f"transient draft positions")
+            self.draft_lm = draft_lm
+            draft_lm._device(dev)
+            draft_lm.eval()
+            self._dcaches = draft_lm.init_slot_caches(s, device=dev)
+        #: draft tokens offered to active streams, and accepted
+        self.spec_totals = {"proposed": 0, "accepted": 0}
         # -- host bookkeeping (the scheduler thread's own) ------------------
         self._uri: List[Optional[str]] = [None] * s
         self._tokens: List[Optional[List[int]]] = [None] * s
@@ -702,40 +1182,35 @@ class GenerativeServing:
         self._first_t: List[Optional[float]] = [None] * s
         self._streamed = [0] * s
         self._noise: List[Optional[Any]] = [None] * s
-        self._seed: List[Optional[int]] = [None] * s
         self._next_tokens = np.zeros(s, np.int64)
         self._active_host = np.zeros(s, bool)
-        # -- SLO bookkeeping ------------------------------------------------
-        self._lock = threading.Lock()
-        self._counters = {"shed": 0, "expired": 0, "errors": 0,
-                          "claim_faults": 0}
+        # what a handoff re-enqueues: the original prompt, seed and
+        # deadline ride along with the tokens decoded so far
+        self._prompt: List[Optional[List[int]]] = [None] * s
+        self._seed: List[Optional[int]] = [None] * s
+        self._deadline_ms: List[Optional[float]] = [None] * s
+        # -- SLO bookkeeping (ClusterServing's families and more) -----------
+        self._init_telemetry()
+        label = self.metrics_label
+        self._m_ttft = _M_TTFT.labels(server=label)
+        self._m_tokens = _M_TOKENS.labels(server=label)
+        self._m_slots = _M_SLOTS.labels(server=label)
+        self._m_pages_free = _M_PAGES_FREE.labels(server=label)
+        self._m_page_evict = _M_PAGE_EVICT.labels(server=label)
+        self._m_spec_accept = _M_SPEC_ACCEPT.labels(server=label)
+        if self._paged:
+            self._m_pages_free.set(len(self._free_pages))
         self.records_served = 0
-        self.tokens_total = 0
         self.steps = 0
-        self._ttft: "collections.deque[float]" = collections.deque(
-            maxlen=self.LATENCY_WINDOW)
-        self._latencies: "collections.deque[float]" = collections.deque(
-            maxlen=self.LATENCY_WINDOW)
-        self._in_flight = 0
-        self._meta: Dict[str, float] = {}  # uri -> enqueue_t
         self._ewma_token_s = 0.0  # smoothed wall seconds a decoded token
-        self._last_claim_m: Optional[float] = None
-        self._last_shed_m = -1e18
-        self._claim_fail_streak = 0
-        self._stop = threading.Event()
-        self._draining = threading.Event()
-        self._thread: Optional[threading.Thread] = None
-        self._loop_running = False
-        self._background_error: Optional[BaseException] = None
-        self.terminal_state: Optional[str] = None
+        self._handoff_evt = threading.Event()
 
     # -- the device programs ---------------------------------------------------
 
     def _select(self, logits, noise):
         if self._filter is None:
             return torch.argmax(logits, dim=-1)
-        return _decode.sampled_select(self._filter(logits.float()),
-                                           noise)
+        return _decode.sampled_select(self._filter(logits.float()), noise)
 
     def _advance(self):
         """Lengths advance once, after every block attended with the
@@ -757,9 +1232,31 @@ class GenerativeServing:
         self._advance()
         return nxt
 
+    def _step_spec(self, tokens):
+        """One speculative round: ``spec_k`` chained draft steps, one
+        batched verify through the pool, the greedy accept. Lengths advance
+        by each active slot's accepted count. Returns ``[S, spec_k + 2]``:
+        the emitted tokens, then the count valid in each row."""
+        lengths = self._state["length"]
+        active = self._state["active"].to(lengths.dtype)
+        tok, ln, drafts = tokens, lengths, []
+        for _ in range(self._spec_k):
+            dlogits, self._dcaches = self.draft_lm.slot_step(
+                tok, ln, self._dcaches)
+            tok = torch.argmax(dlogits, dim=-1).to(tokens.dtype)
+            drafts.append(tok)
+            ln = ln + active
+        drafts_t = torch.stack(drafts, dim=1)
+        block = torch.cat([tokens[:, None], drafts_t], dim=1)
+        tlogits, self._caches = self.lm.verify_step(block, lengths,
+                                                    self._table, self._caches)
+        emitted, n = _decode.spec_accept_greedy(drafts_t, tlogits)
+        n = n.to(lengths.dtype) * active
+        self._state["length"] += n
+        return torch.cat([emitted, n[:, None].to(emitted.dtype)], dim=1)
+
     def _device_tokens(self, padded: np.ndarray):
-        return torch.as_tensor(padded, dtype=torch.long,
-                                     device=self.device)
+        return torch.as_tensor(padded, dtype=torch.long, device=self.device)
 
     def _prefill(self, padded, slot: int, length: int) -> None:
         kvs = self.lm.prefill_kv(self._device_tokens(padded))
@@ -767,11 +1264,19 @@ class GenerativeServing:
             _decode.slot_insert(c, slot, k[0], v[0])
         _decode.slot_join(self._state, slot, length)
 
-    def _prefill_paged(self, padded, row, slot: int, length: int) -> None:
+    def _prefill_paged(self, padded, row, slot: int, length: int,
+                       dpadded=None) -> None:
+        """Prefill into the pages of ``row``; under speculative decoding
+        ``dpadded`` (the prompt at the draft's bucket) fills the draft's
+        slot cache too."""
         kvs = self.lm.prefill_kv(self._device_tokens(padded))
         row_d = self._device_tokens(row)
         for c, (k, v) in zip(self._caches, kvs):
             _decode.paged_insert(c, row_d, k[0], v[0])
+        if dpadded is not None:
+            dkvs = self.draft_lm.prefill_kv(self._device_tokens(dpadded))
+            for c, (k, v) in zip(self._dcaches, dkvs):
+                _decode.slot_insert(c, slot, k[0], v[0])
         _decode.slot_join(self._state, slot, length)
         _decode.page_table_set(self._table, slot, row_d)
 
@@ -802,50 +1307,6 @@ class GenerativeServing:
 
     # -- terminal accounting (exactly one terminal a request) -----------------
 
-    @property
-    def counters(self) -> Dict[str, int]:
-        with self._lock:
-            return dict(self._counters)
-
-    def _count(self, key: str, n: int = 1) -> None:
-        with self._lock:
-            self._counters[key] += n
-
-    def _pct(self, window, p: float) -> Optional[float]:
-        """Percentile ``p`` (0..1) of a window of seconds, in ms."""
-        with self._lock:
-            vals = sorted(window)
-        if not vals:
-            return None
-        return vals[min(len(vals) - 1, int(p * len(vals)))] * 1e3
-
-    def _expiry(self, rec: Dict[str, Any]) -> Optional[float]:
-        deadline_ms = (rec.get("deadline_ms")
-                       or self.config.default_deadline_ms)
-        if not deadline_ms:
-            return None
-        t0 = rec.get("enqueue_t")
-        base = float(t0) if t0 is not None else wall_clock()
-        return base + float(deadline_ms) / 1000.0
-
-    def _post_terminal(self, uri: str, value: Dict[str, Any]) -> None:
-        """The one place a claimed request gets its terminal result (partial
-        ``stream`` records do not come here). Error results carry
-        ``retriable``: shed errors are."""
-        if "error" in value and "retriable" not in value:
-            value = dict(value)
-            value["retriable"] = value["error"] in (SHED_ERROR,
-                                                    PAGE_SHED_ERROR)
-        try:
-            self.queue.put_result(uri, value)
-        except OSError:
-            logger.exception("posting result for %s failed", uri)
-        with self._lock:
-            self._in_flight = max(0, self._in_flight - 1)
-            t0 = self._meta.pop(uri, None)
-            if t0 is not None:
-                self._latencies.append(max(wall_clock() - t0, 0.0))
-
     def _retire(self, slot: int, value: Dict[str, Any],
                 counter: Optional[str] = None) -> None:
         """Post a slot's terminal and free its host bookkeeping (the device
@@ -854,7 +1315,22 @@ class GenerativeServing:
         if counter is not None:
             self._count(counter)
         elif "value" in value:
+            self._m_records.inc()
             self.records_served += 1
+        if self._paged:
+            self._release_pages(slot)
+        self._clear_slot(slot)
+
+    def _abandon(self, slot: int) -> None:
+        """Free a slot without posting a terminal: the server that adopts
+        its re-enqueued continuation posts the stream's one terminal. Only
+        :meth:`handoff` does this; every other exit goes through
+        :meth:`_retire`."""
+        with self._lock:
+            self._in_flight = max(0, self._in_flight - 1)
+            in_flight = self._in_flight
+            self._meta.pop(self._uri[slot], None)
+        self._m_in_flight.set(in_flight)
         if self._paged:
             self._release_pages(slot)
         self._clear_slot(slot)
@@ -866,7 +1342,9 @@ class GenerativeServing:
         self._expires[slot] = None
         self._first_t[slot] = None
         self._streamed[slot] = 0
+        self._prompt[slot] = None
         self._seed[slot] = None
+        self._deadline_ms[slot] = None
         self._active_host[slot] = False
 
     @staticmethod
@@ -878,21 +1356,36 @@ class GenerativeServing:
         """Drop the slot's hold on each of its pages; a page no one holds
         goes back on the free stack (a registered prefix holds its own)."""
         pages, self._slot_pages[slot] = self._slot_pages[slot], []
+        freed = 0
         for p in pages:
             self._page_refs[p] -= 1
             if self._page_refs[p] == 0:
                 self._free_pages.append(p)
+                freed += 1
+        if freed:
+            self._m_page_evict.inc(freed)
+        self._m_pages_free.set(len(self._free_pages))
 
     # -- the device path ---------------------------------------------------------
 
     def _dispatch_step(self, tokens: np.ndarray, noise):
-        """One decode step over every slot, enqueued on the card; returns
-        the next tokens, still on the device."""
+        """One decode step (or speculative round) over every slot, enqueued
+        on the card; returns its tokens, still on the device. The
+        ``serving.decode_step`` fault site: a failure errors every active
+        stream and the scheduler serves on."""
+        faults.inject("serving.decode_step")
+        t0 = time.perf_counter()
         with time_it("serving.generative.dispatch"), torch.inference_mode():
             tok = torch.as_tensor(tokens, device=self.device)
-            if self._paged:
-                return self._step_paged(tok, noise)
-            return self._step(tok, noise)
+            if self._spec:
+                out = self._step_spec(tok)
+            elif self._paged:
+                out = self._step_paged(tok, noise)
+            else:
+                out = self._step(tok, noise)
+        _profiler.record_phase("serving", "dispatch",
+                               time.perf_counter() - t0, start=t0)
+        return out
 
     def _insert_request_device(self, padded, slot: int, length: int) -> None:
         with torch.inference_mode():
@@ -907,8 +1400,12 @@ class GenerativeServing:
 
     def _fetch_tokens(self, nxt) -> np.ndarray:
         """The step's one host sync."""
+        t0 = time.perf_counter()
         with time_it("serving.generative.fetch"):
-            return nxt.cpu().numpy()
+            out = nxt.cpu().numpy()
+        _profiler.record_phase("serving", "fetch",
+                               time.perf_counter() - t0, start=t0)
+        return out
 
     def _step_noise(self):
         """Each active slot's Gumbel row for this step, ``[S, vocab]`` on
@@ -926,15 +1423,19 @@ class GenerativeServing:
     def _shed(self) -> None:
         """Admission control at token granularity: slots free up at
         ``slots / (budget · smoothed seconds a token)`` streams a second;
-        shed the backlog to what starts within ``shed_wait_ms``."""
+        shed the backlog to what starts within ``shed_wait_ms`` (the
+        brownout cap shortens the budget, so a browned-out server admits
+        deeper queues). The brownout ladder ticks here, on the larger of
+        the queue's fill and the page pool's scarcity."""
         now = time.monotonic()
         if now - self._last_shed_m < self.SHED_INTERVAL_S:
             return
         self._last_shed_m = now
         cfg = self.config
         allowed = cfg.max_pending
+        eff_budget = self._brownout.token_cap(cfg.max_new_tokens)
         if cfg.shed_wait_ms and self._ewma_token_s > 0:
-            stream_s = cfg.max_new_tokens * self._ewma_token_s
+            stream_s = eff_budget * self._ewma_token_s
             allowed = min(allowed, max(
                 self.slots,
                 int(cfg.shed_wait_ms / 1000.0 / stream_s * self.slots)))
@@ -943,8 +1444,21 @@ class GenerativeServing:
         except OSError as e:
             logger.warning("shed pass failed (transient): %r", e)
             return
+        try:
+            pending = self.queue.pending_count()
+        except (OSError, NotImplementedError):
+            pending = None
+        fill = (pending / float(max(allowed, 1))
+                if pending is not None else 0.0)
+        scarcity = 0.0
+        if self._paged:
+            scarcity = 1.0 - (len(self._free_pages)
+                              / float(max(self.num_pages - 1, 1)))
+        self._m_brownout.set(self._brownout.tick(max(fill, scarcity)))
         if dropped:
             self._count("shed", len(dropped))
+            _E_SHED.emit(label=self.metrics_label, count=len(dropped),
+                         allowed=allowed)
             logger.warning("overload: shed %d oldest streams with error "
                            "results (allowed depth %d)", len(dropped),
                            allowed)
@@ -971,6 +1485,10 @@ class GenerativeServing:
         if not self._paged:
             raise RuntimeError("shared prefixes require the paged KV "
                                "engine (set kv_pages)")
+        if self._spec:
+            raise RuntimeError("shared prefixes are not wired into the "
+                               "speculative scheduler (the draft cache is "
+                               "contiguous)")
         toks = [int(x) for x in tokens]
         n = len(toks)
         if n < 1 or n >= self.lm.max_len:
@@ -991,16 +1509,18 @@ class GenerativeServing:
         with torch.inference_mode():
             self._prefill_prefix(padded, row)
         self._prefixes.append({"tokens": toks, "len": n, "pages": pages})
+        self._m_pages_free.set(len(self._free_pages))
         return len(self._prefixes) - 1
 
     def _join_paged(self, slot: int, uri: str, prompt, t: int,
                     budget: int) -> bool:
         """Allocate pages for a valid request and prefill it into
-        ``slot``. A pool too short for it sheds the request (its one
-        terminal is the page shed error); resident streams go on."""
+        ``slot``. A pool too short for it (or the ``serving.page_alloc``
+        fault) sheds the request: its one terminal is the page shed error,
+        and resident streams go on."""
         from ..capture.lm import prefill_bucket
         pl = self.page_len
-        pfx = self._match_prefix(prompt)
+        pfx = self._match_prefix(prompt) if not self._spec else None
         plen = pfx["len"] if pfx else 0
         full = plen // pl        # whole shared pages
         rem = plen % pl          # prefix tokens on the shared tail page
@@ -1008,12 +1528,14 @@ class GenerativeServing:
         tb = (prefill_bucket(fed - plen, self.lm.max_len)
               if fed > plen else 0)
         # the highest position the stream writes within its pages: the
-        # bucket's padding past the suffix, and the decode budget
-        high = max(plen + tb, t + budget)
+        # bucket's padding past the suffix, the decode budget and the
+        # transient spec_k overshoot
+        high = max(plen + tb, t + budget + self._spec_k)
         # padding past the table's width is never visible: the null page
         # takes it
         fresh_needed = min(-(-high // pl), self._table_w) - full
-        if len(self._free_pages) < fresh_needed:
+        if (faults.inject("serving.page_alloc")
+                or len(self._free_pages) < fresh_needed):
             self._post_terminal(uri, {"error": PAGE_SHED_ERROR})
             self._count("shed")
             logger.warning("kv page pool exhausted: shed %s (need %d "
@@ -1030,6 +1552,7 @@ class GenerativeServing:
         for p in fresh:
             self._page_refs[p] = 1
         self._slot_pages[slot] = shared + fresh
+        self._m_pages_free.set(len(self._free_pages))
         with torch.inference_mode():
             if pfx and rem:
                 # copy-on-write: the stream appends into logical page
@@ -1043,21 +1566,29 @@ class GenerativeServing:
                                          np.asarray(pfx["pages"], np.int64),
                                          slot, fed, plen)
                 else:
-                    self._prefill_paged(padded, row, slot, fed)
+                    dpadded = None
+                    if self._spec:
+                        dpadded = np.zeros(
+                            (1, prefill_bucket(fed, self.draft_lm.max_len)),
+                            np.int64)
+                        dpadded[0, :fed] = prompt[:fed]
+                    self._prefill_paged(padded, row, slot, fed, dpadded)
             else:  # nothing to prefill: join and install the table row
                 _decode.slot_join(self._state, slot, fed)
                 _decode.page_table_set(self._table, slot,
-                                            self._device_tokens(row))
+                                       self._device_tokens(row))
         return True
 
     def _join(self, slot: int, uri: str, rec: Dict[str, Any],
               now: float) -> bool:
         """Check a claimed request and prefill it into ``slot``. False (the
         slot stays free) when the request ends at once: an empty prompt,
-        over the budget, expired, or (paged) no pages. A request carrying
-        a ``prefix`` (tokens decoded elsewhere) prefills ``prompt +
+        over the budget, expired, or (paged) no pages. The budget is capped
+        by the brownout rung. A request carrying a ``prefix`` (tokens
+        decoded elsewhere: a handed-off stream) prefills ``prompt +
         prefix`` and decodes on from ``len(prefix)``; a sampled one takes
-        its draws from the same schedule, so it goes on as it would have."""
+        row ``len(prefix)`` of its seed's draws next, so it goes on as it
+        would have."""
         from ..capture.lm import prefill_bucket
         cfg = self.config
         prompt = rec.get("prompt")
@@ -1065,7 +1596,8 @@ class GenerativeServing:
             self._post_terminal(uri, {"error": "empty prompt"})
             self._count("errors")
             return False
-        budget = int(rec.get("max_new_tokens") or cfg.max_new_tokens)
+        budget = self._brownout.token_cap(
+            int(rec.get("max_new_tokens") or cfg.max_new_tokens))
         prompt = [int(x) for x in prompt]
         prefix = [int(x) for x in (rec.get("prefix") or [])]
         t = len(prompt)
@@ -1084,15 +1616,16 @@ class GenerativeServing:
             # decoded in full elsewhere, never answered: settle it
             self._post_terminal(uri, {"value": prefix[:budget],
                                       "done": True})
+            self._m_records.inc()
             self.records_served += 1
             return False
         full = prompt + prefix
         t_full = len(full)
+        t0 = time.perf_counter()
         with time_it("serving.generative.join"):
             if self._paged:
-                if not self._join_paged(slot, uri, full, t_full,
-                                        budget - len(prefix)):
-                    return False
+                joined = self._join_paged(slot, uri, full, t_full,
+                                          budget - len(prefix))
             elif t_full > 1:
                 # full[:-1] right-padded to its bucket: the prefill serial
                 # generate() runs
@@ -1100,9 +1633,15 @@ class GenerativeServing:
                 padded = np.zeros((1, tb), np.int64)
                 padded[0, :t_full - 1] = full[:-1]
                 self._insert_request_device(padded, slot, t_full - 1)
+                joined = True
             else:
                 with torch.inference_mode():
                     _decode.slot_join(self._state, slot, 0)
+                joined = True
+        _profiler.record_phase("serving", "host_input",
+                               time.perf_counter() - t0, start=t0)
+        if not joined:
+            return False
         self._uri[slot] = uri
         self._tokens[slot] = list(prefix)
         self._budget[slot] = budget
@@ -1112,6 +1651,8 @@ class GenerativeServing:
         self._first_t[slot] = now if prefix else None
         self._streamed[slot] = len(prefix)
         self._next_tokens[slot] = int(full[-1])
+        self._prompt[slot] = prompt
+        self._deadline_ms[slot] = rec.get("deadline_ms")
         if self._sampling:
             seed = rec.get("seed")
             if seed is None:  # fresh entropy: repeated requests differ
@@ -1143,12 +1684,8 @@ class GenerativeServing:
             return
         if not got:
             return
-        self._last_claim_m = time.monotonic()
+        self._note_claimed(got)
         now = wall_clock()
-        with self._lock:
-            self._in_flight += len(got)
-            for uri, rec in got:
-                self._meta[uri] = float(rec.get("enqueue_t") or now)
         for uri, rec in got:
             slot = free.pop(0)
             if not self._join(slot, uri, rec, now):
@@ -1176,40 +1713,49 @@ class GenerativeServing:
         if mask.any():
             self._evict_slots(mask)
 
-    def _post_tokens(self, nxt: np.ndarray) -> None:
-        """Fold a step's tokens into every active stream: TTFT at the
-        first token, a partial every ``stream_interval`` tokens, the
-        terminal and eviction at eos or at the budget."""
+    def _post_tokens(self, emitted: np.ndarray, n_acc: np.ndarray) -> None:
+        """Fold a step's tokens into every active stream: ``emitted[i,
+        :n_acc[i]]`` (one token a step; up to ``spec_k + 1`` a speculative
+        round, cut at the budget and at eos on the host, where the stream
+        is retired in the same pass, so the device's over-advanced length
+        never feeds another step). TTFT at the first token, a partial every
+        ``stream_interval`` tokens (stretched by brownout), the terminal
+        and eviction at eos or at the budget."""
         now = wall_clock()
         cfg = self.config
+        stride = self._brownout.stream_stride(cfg.stream_interval)
         finished = np.zeros(self.slots, bool)
         n_tok = 0
         for i in range(self.slots):
             if not self._active_host[i]:
                 continue
-            tok = int(nxt[i])
-            self._tokens[i].append(tok)
-            self._next_tokens[i] = tok
-            n_tok += 1
+            take = min(int(n_acc[i]), self._budget[i] - len(self._tokens[i]))
+            toks = [int(x) for x in emitted[i, :take]]
+            if cfg.eos_id is not None and cfg.eos_id in toks:
+                toks = toks[:toks.index(cfg.eos_id) + 1]
+            if not toks:
+                continue
+            self._tokens[i].extend(toks)
+            self._next_tokens[i] = toks[-1]
+            n_tok += len(toks)
             if self._first_t[i] is None:
                 self._first_t[i] = now
-                with self._lock:
-                    self._ttft.append(max(now - self._enqueue_t[i], 0.0))
+                self._m_ttft.observe(max(now - self._enqueue_t[i], 0.0))
             if (len(self._tokens[i]) >= self._budget[i]
-                    or (cfg.eos_id is not None and tok == cfg.eos_id)):
+                    or (cfg.eos_id is not None and toks[-1] == cfg.eos_id)):
                 finished[i] = True
                 self._retire(i, {"value": list(self._tokens[i]),
                                  "done": True})
-            elif (cfg.stream_interval > 0
-                  and (len(self._tokens[i]) - self._streamed[i]
-                       >= cfg.stream_interval)):
+            elif (stride > 0
+                  and len(self._tokens[i]) - self._streamed[i] >= stride):
                 try:
                     self.queue.put_result(self._uri[i], self._partial(i))
                     self._streamed[i] = len(self._tokens[i])
                 except OSError:
                     logger.exception("partial result for %s failed",
                                      self._uri[i])
-        self.tokens_total += n_tok
+        if n_tok:
+            self._m_tokens.inc(n_tok)
         if finished.any():
             self._evict_slots(finished)
 
@@ -1224,28 +1770,41 @@ class GenerativeServing:
 
     def serve_step(self) -> int:
         """One scheduler step: evict expired streams, admit requests into
-        free slots (shed, then prefill), run one decode step over every
-        occupied slot, stream and terminate per token. Returns the number
-        of streams stepped; :meth:`run` loops it."""
+        free slots (shed, then prefill), run one decode step (or
+        speculative round) over every occupied slot, stream and terminate.
+        Returns the number of streams stepped; :meth:`run` loops it."""
+        self._maybe_write_health()
         self._expire_slots()
         if not self._draining.is_set():
             self._admit()
         n_active = int(np.sum(self._active_host))
+        self._m_slots.set(n_active)
         if n_active == 0:
             return 0
         t_step = time.perf_counter()
         try:
-            nxt = self._dispatch_step(self._next_tokens, self._step_noise())
-            nxt_host = self._fetch_tokens(nxt)
+            out = self._fetch_tokens(self._dispatch_step(
+                self._next_tokens, self._step_noise()))
         except Exception as e:
             logger.exception("decode step failed for %d streams", n_active)
             self._fail_active(repr(e))
             return 0
         self.steps += 1
-        per = (time.perf_counter() - t_step) / n_active
+        if self._spec:
+            emitted, n_acc = out[:, :-1], out[:, -1]
+            live = n_acc[self._active_host]
+            accepted = int(np.maximum(live - 1, 0).sum())
+            self.spec_totals["proposed"] += self._spec_k * n_active
+            self.spec_totals["accepted"] += accepted
+            self._m_spec_accept.set(accepted / (self._spec_k * n_active))
+            n_emitted = int(live.sum())
+        else:
+            emitted, n_acc = out[:, None], np.ones(self.slots, np.int64)
+            n_emitted = n_active
+        per = (time.perf_counter() - t_step) / max(n_emitted, 1)
         self._ewma_token_s = (per if self._ewma_token_s == 0.0
                               else 0.8 * self._ewma_token_s + 0.2 * per)
-        self._post_tokens(nxt_host)
+        self._post_tokens(emitted, n_acc)
         return n_active
 
     # -- lifecycle (as ClusterServing) -------------------------------------------
@@ -1257,7 +1816,8 @@ class GenerativeServing:
         self._loop_running = True
         self._last_shed_m = -1e18
         try:
-            while not self._stop.is_set():
+            while (not self._stop.is_set()
+                   and not self._handoff_evt.is_set()):
                 stepped = self.serve_step()
                 if self._draining.is_set() and stepped == 0:
                     return  # drained: every stream in flight finished
@@ -1267,12 +1827,14 @@ class GenerativeServing:
             self._loop_running = False
             if self._stop.is_set():
                 self._fail_active(SHUTDOWN_ERROR)
+            self._maybe_write_health()
 
     def start(self) -> "GenerativeServing":
         """Run the loop in a background thread; a crash there is re-raised
         by :meth:`stop`, :meth:`drain` and :meth:`check_health`."""
         self._stop.clear()
         self._draining.clear()
+        self._handoff_evt.clear()
         self.terminal_state = None
         self._background_error = None
 
@@ -1288,15 +1850,9 @@ class GenerativeServing:
         self._thread.start()
         return self
 
-    def check_health(self) -> None:
-        err = self._background_error
-        if err is not None:
-            raise RuntimeError(
-                "generative serving loop died in the background") from err
-
     def drain(self, timeout_s: float = 30.0) -> None:
         """Stop admitting and finish every stream in flight (each runs to
-        its budget, eos or deadline)."""
+        its budget, eos or deadline), then write the terminal health."""
         self._draining.set()
         if self._loop_running and self._thread is None:
             return  # a foreground run(): the loop ends itself
@@ -1309,13 +1865,70 @@ class GenerativeServing:
                     f"({int(np.sum(self._active_host))} streams active)")
             self._thread = None
         if self.terminal_state is None:
-            self.terminal_state = "drained"
+            self._emit_terminal("drained")
+        self._write_health()
         self.check_health()
 
-    def handoff(self, to_queue, timeout_s: float = 30.0) -> int:
-        raise NotImplementedError(
-            "handing streams to another server (handoff) is not ported "
-            "yet: ROADMAP Queue A item 5")
+    def handoff(self, to_queue: QueueBackend, timeout_s: float = 30.0
+                ) -> int:
+        """Drain without finishing here: pause the loop and re-enqueue
+        every stream in flight on ``to_queue`` with its ``prompt``, the
+        tokens decoded so far as its ``prefix``, its full budget, its
+        ``enqueue_t``, deadline and sampling ``seed``, so another server
+        adopts it mid-stream and goes on as it would have. No terminal is
+        posted here; the adopting server posts the stream's one terminal.
+        A stream whose re-enqueue fails gets a shutdown error instead.
+        Returns the number of streams handed off."""
+        self._draining.set()
+        self._handoff_evt.set()
+        t = self._thread
+        if t is not None:
+            t.join(timeout=timeout_s)
+            if t.is_alive():
+                raise RuntimeError(
+                    f"handoff: serve loop did not pause within {timeout_s}s")
+            self._thread = None
+        elif self._loop_running:
+            # a foreground run(): wait for the loop to notice the event
+            deadline = time.monotonic() + timeout_s
+            while self._loop_running:
+                if time.monotonic() >= deadline:
+                    raise RuntimeError(
+                        f"handoff: serve loop did not pause within "
+                        f"{timeout_s}s")
+                time.sleep(0.002)
+        moved = 0
+        mask = np.zeros(self.slots, bool)
+        for i in range(self.slots):
+            if not self._active_host[i]:
+                continue
+            uri = self._uri[i]
+            rec: Dict[str, Any] = {
+                "prompt": list(self._prompt[i]),
+                "prefix": list(self._tokens[i]),
+                "max_new_tokens": self._budget[i],
+                "enqueue_t": self._enqueue_t[i],
+            }
+            if self._deadline_ms[i] is not None:
+                rec["deadline_ms"] = self._deadline_ms[i]
+            if self._seed[i] is not None:
+                rec["seed"] = self._seed[i]
+            mask[i] = True
+            try:
+                to_queue.enqueue(uri, rec)
+            except Exception:
+                logger.exception("handoff enqueue for %s failed", uri)
+                self._retire(i, {"error": SHUTDOWN_ERROR}, counter="errors")
+                continue
+            self._abandon(i)
+            moved += 1
+        if mask.any():
+            self._evict_slots(mask)
+        if self.terminal_state is None:
+            self._emit_terminal("drained")
+        self._write_health()
+        self.check_health()
+        return moved
 
     def stop(self) -> None:
         """Hard stop: active streams get explicit shutdown errors."""
@@ -1331,55 +1944,44 @@ class GenerativeServing:
         else:
             self._fail_active(SHUTDOWN_ERROR)
         if self.terminal_state is None:
-            self.terminal_state = "stopped"
+            self._emit_terminal("stopped")
+        self._write_health()
         self.check_health()
 
     def health_snapshot(self) -> Dict[str, Any]:
         """Lifecycle state, queue depth, slots occupied, tokens decoded,
-        TTFT and latency percentiles (ms) and the SLO counters."""
-        with self._lock:
-            in_flight = self._in_flight
-            n_ttft, n_lat = len(self._ttft), len(self._latencies)
-        err = self._background_error
-        if self.terminal_state is not None:
-            state = self.terminal_state
-        elif err is not None:
-            state = "crashed"
-        elif self._draining.is_set():
-            state = "draining"
-        elif self._loop_running or (self._thread is not None
-                                    and self._thread.is_alive()):
-            state = "running"
-        else:
-            state = "idle"
-        try:
-            pending = self.queue.pending_count()
-        except (OSError, NotImplementedError):
-            pending = None
-        claim_age = (round(time.monotonic() - self._last_claim_m, 3)
-                     if self._last_claim_m is not None else None)
-        return {
-            "state": state,
-            "time": wall_clock(),
-            "queue_pending": pending,
-            "in_flight": in_flight,
+        page pool, speculative acceptance, brownout rung, TTFT and latency
+        percentiles (ms) and the counters: the JAX package's keys, a
+        per-instance view of the metrics registry."""
+        snap = self._health_common()
+        snap.update({
             "slots": self.slots,
             "slots_occupied": int(np.sum(self._active_host)),
-            "tokens_total": self.tokens_total,
-            "tokens_per_sec_ewma": (1.0 / self._ewma_token_s
+            "tokens_total": int(self._m_tokens.value()),
+            "tokens_per_sec_ewma": (round(1.0 / self._ewma_token_s, 1)
                                     if self._ewma_token_s > 0 else None),
             "kv_pages_free": (len(self._free_pages) if self._paged
                               else None),
-            "last_claim_age_s": claim_age,
-            "ttft_ms": {"p50": self._pct(self._ttft, 0.50),
-                        "p99": self._pct(self._ttft, 0.99),
-                        "window": n_ttft},
-            "latency_ms": {"p50": self._pct(self._latencies, 0.50),
-                           "p99": self._pct(self._latencies, 0.99),
-                           "window": n_lat},
-            "counters": self.counters,
-            "error": repr(err) if err is not None else None,
-        }
+            "kv_shards": 1 if self._paged else None,
+            "kv_pages_free_min_shard": None,
+            "spec_accept_ratio": (
+                round(float(self._m_spec_accept.value()), 4)
+                if self._spec else None),
+            "brownout_level": self._brownout.level,
+            "ttft_ms": {"p50": self._pct_ms(self._m_ttft, 0.50),
+                        "p99": self._pct_ms(self._m_ttft, 0.99),
+                        "window": self._m_ttft.count()},
+            "latency_ms": {"p50": self._pct_ms(self._m_latency, 0.50),
+                           "p99": self._pct_ms(self._m_latency, 0.99),
+                           "window": self._m_latency.count()},
+            "counters": {k: int(c.value()) for k, c in self._m.items()},
+            "model_version": self.model_version,
+            "alerts": [],
+            "incident": None,
+            "error": (repr(self._background_error)
+                      if self._background_error is not None else None),
+        })
+        return snap
 
 
 def main() -> None:

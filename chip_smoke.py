@@ -313,12 +313,54 @@ Phases, each of which must pass or the script exits non-zero:
    100-token prompt, every attention launch on the ``wide`` route (the
    launches the kernels line reports for the three).
 
+22. speculative decoding (ROADMAP Queue A item 4b): the TransformerLM at
+   ``LM_CFG``'s width (seeded random weights, the output projections of
+   blocks 3-8 scaled by ``SPEC_TAIL_SCALE``, f32, paged with 16-token
+   pages) and a 2-block draft of the same width built from its embedding,
+   first two blocks, ``ln_f`` and position rows (``max_len`` 2048 +
+   ``SPEC_K``, the extra rows seeded), ``SPEC_K`` = 4. (a)
+   ``generate_speculative`` on 8 prompts of 100 tokens, 64 new: tokens
+   equal greedy ``generate``'s except at printed near-ties (the serial
+   run's top two logits within ``LOGIT_TOL`` of their scale); B7 10 times
+   (8 target blocks, 2 draft), B1 twice plus 5 a round. (b)
+   ``GenerativeServing(spec_k=4, draft_lm=...)`` through the spool: 64
+   slots, 32 new tokens, (20)'s 64 prompts of 100 tokens and 4 of 1000
+   joining mid-run, one terminal each, tokens held to serial ``generate``
+   as in (a); the plain paged run of the same streams beside it; then one
+   round of 64 resident streams alone and its verify pass alone (ms by
+   events, device ms, busy share, top kernels), the plain decode step
+   beside it. (c) a draft with its own weights (acceptance near 0) at 4
+   streams, held the same way. (d) sampled ``generate_speculative``
+   (temperature 0.8, top-k 24) on a small LM (vocab 64) and a 1-block
+   draft: the first emitted token of 8192 rows of one prompt, each row its
+   own draws, within total variation ``SPEC_TV_BOUND`` of the target's
+   filtered softmax. Printed: tokens/s, ms a round, acceptance, launches.
+23. the serving platform: (a) ``ClusterServing`` of NCF (B1) with
+   ``health_path``: an armed ``serving.predict`` fault errors its batch of
+   64 and every other record equals the direct forward; ``reload_model``
+   to a second NCF while a burst of 512 is in flight drops no record (each
+   equals one model's forward, the split printed) and stamps ``ncf-v2``;
+   the next burst is the new model's; an injected ``serving.reload`` fault
+   raises ``ModelReloadError`` and v2 serves on; ``health.json`` and
+   ``metrics.prom`` read back with the outcomes' counters. A burst of 512
+   past ``max_pending`` 128 sheds with errors and steps the brownout
+   ladder down and back (levels and events printed). (b)
+   ``GenerativeServing`` at ``LM_CFG``'s width, paged: the
+   ``serving.decode_step`` fault errors each of 4 active streams once and
+   4 later streams complete; ``serving.page_alloc`` sheds its join with
+   ``PAGE_SHED_ERROR``; 8 streams handed off after 6 steps finish on a
+   second server held to serial ``generate`` as in 22; ``arm_capture
+   (steps=2)`` writes a ``torch.profiler`` trace holding kernels. (c) the
+   host cost of a disabled and an enabled counter, histogram and profiler
+   phase, ns a call.
+
 Each phase's seconds are printed. The last three lines of output are the
 card's
 ``nvidia-smi`` name and power limit, the ``{"kernels": [...]}`` line,
 and the ``{"ok": true, ...}`` line.
 """
 import argparse
+import contextlib
 import ctypes
 import json
 import math
@@ -5312,7 +5354,8 @@ class _LogitTap:
 
 
 def _serve_generative(lm, workdir: str, name: str, prompts: list,
-                      seeds=None, prefix=None, tap=True, **cfg_kw) -> tuple:
+                      seeds=None, prefix=None, tap=True, draft_lm=None,
+                      **cfg_kw) -> tuple:
     """``GenerativeServing`` on the card over a fresh ``dir://`` spool:
     every prompt enqueued with ``enqueue_prompt`` before the loop starts,
     the loop run in its thread until each request has its terminal, read
@@ -5324,7 +5367,8 @@ def _serve_generative(lm, workdir: str, name: str, prompts: list,
                                                  ServingConfig)
     spool = os.path.join(workdir, name)
     src = f"dir://{spool}"
-    srv = GenerativeServing(ServingConfig(data_src=src, **cfg_kw), lm)
+    srv = GenerativeServing(ServingConfig(data_src=src, **cfg_kw), lm,
+                            draft_lm=draft_lm)
     if prefix is not None:
         srv.register_prefix(prefix)
     logits = _LogitTap(srv) if tap else None
@@ -5358,7 +5402,8 @@ def _serve_generative(lm, workdir: str, name: str, prompts: list,
     snap = srv.health_snapshot()
     check(snap["in_flight"] == 0 and snap["slots_occupied"] == 0
           and snap["counters"] == {"shed": 0, "expired": 0, "errors": 0,
-                                   "claim_faults": 0},
+                                   "claim_faults": 0, "reloads": 0,
+                                   "reload_failures": 0},
           f"{name}: the server ended with {snap}")
     n_tok = sum(len(t) for t in tokens.values())
     # host seconds in the loop's spans: the joins (claim excluded: their
@@ -5673,6 +5718,680 @@ def phase_generative(at, ek, seed: int, workdir: str) -> tuple:
     return launches, stats
 
 
+#: speculative decoding at ``LM_CFG``'s width: draft tokens a round, the
+#: generate_speculative streams (8 prompts of 100, 64 new tokens), the
+#: served streams (``GEN_SERVE_PROMPTS``, 32 new tokens, 64 slots) and the
+#: reject-path streams of a draft with its own weights
+SPEC_K = 4
+SPEC_GEN = dict(streams=8, prompt=100, new=64)
+SPEC_SERVE = dict(slots=64, max_new_tokens=32, kv_page_len=16,
+                  stream_interval=8)
+SPEC_REJECT_STREAMS = 4
+#: random blocks (std 0.02) each add O(1) to the residual, so a 2-block
+#: draft of the target's first blocks agrees with it no better than chance
+#: (acceptance 0.001 on the H100, PERF.md): the target's later blocks have
+#: their output projections scaled by this, so that the draft agrees in
+#: part and rounds accept several tokens
+SPEC_TAIL_SCALE = 0.05
+#: the sampled accept rule's check: a small LM (vocab 64), the first
+#: emitted token of SPEC_SAMPLED_ROWS rows (each its own draws) against the
+#: target's filtered softmax, total variation within SPEC_TV_BOUND (about
+#: four times the expected sampling error at this many rows)
+SPEC_SMALL = dict(vocab_size=64, hidden=64, n_block=2, n_head=4, max_len=64)
+SPEC_SAMPLED = dict(temperature=0.8, top_k=24)
+SPEC_SAMPLED_ROWS = 8192
+SPEC_TV_BOUND = 0.06
+
+
+@contextlib.contextmanager
+def brownout_off():
+    """The generative and speculative runs measure full-budget streams.
+    Their page pools are sized for the resident streams, so the pool's
+    scarcity alone would step the brownout ladder down and cap the budgets
+    of late joins; this lifts ``serving.brownout_high`` out of reach while
+    they run (phase 23 drives the ladder on purpose)."""
+    from analytics_zoo_tpu_torch.common.config import global_config
+    cfg = global_config()
+    cfg.set("serving.brownout_high", float("inf"))
+    try:
+        yield
+    finally:
+        cfg.unset("serving.brownout_high")
+
+
+def spec_draft(lm, seed: int, shared: bool = True):
+    """A 2-block draft of ``lm``'s width, ``max_len`` ``lm.max_len +
+    SPEC_K``. Shared: ``lm``'s embedding, first two blocks, ``ln_f`` and
+    position rows (the SPEC_K extra rows keep their seeded values), so it
+    agrees with ``lm`` in part; else its own seeded weights."""
+    from analytics_zoo_tpu_torch.capture import TransformerLM
+    cfg = dict(vocab_size=lm.vocab_size, hidden=lm.hidden, n_block=2,
+               n_head=lm.n_head, max_len=lm.max_len + SPEC_K)
+    draft = TransformerLM(**cfg, seed=seed)
+    if shared:
+        with torch.no_grad():
+            draft.embed.copy_(lm.embed.detach().cpu())
+            draft.pos[:lm.max_len].copy_(lm.pos.detach().cpu())
+            for i in range(2):
+                draft.blocks[i].load_state_dict(lm.blocks[i].state_dict())
+            draft.ln_f.load_state_dict(lm.ln_f.state_dict())
+    draft._device(None)
+    return draft
+
+
+def _held_to_serial(lm, prompts, got: dict, budget: int, what: str) -> dict:
+    """Each stream in ``got`` (uri -> tokens, in the order of ``prompts``)
+    against greedy ``generate`` of its prompt on the card, in batches of
+    16 prompts of one length: its tokens equal, except where the serial
+    run's top two logits are within ``LOGIT_TOL`` of their scale (printed;
+    the stream is compared up to there)."""
+    uris = list(got)
+    near_ties, equal = [], 0
+    by_len: dict = {}
+    for i, p in enumerate(prompts):
+        by_len.setdefault(len(p), []).append(i)
+    for idx in by_len.values():
+        for c in range(0, len(idx), 16):
+            chunk = idx[c:c + 16]
+            want, logits = lm.generate(
+                np.asarray([prompts[i] for i in chunk]), budget,
+                return_logits=True)
+            for row, i in enumerate(chunk):
+                a, b = got[uris[i]], want[row].tolist()
+                for step, (x, y) in enumerate(zip(a, b)):
+                    if x != y:
+                        row_logits = logits[row, step]
+                        scale = max(1.0, float(np.abs(row_logits).max()))
+                        top2 = np.sort(row_logits)[-2:]
+                        margin = float(top2[1] - top2[0]) / scale
+                        check(margin <= LOGIT_TOL, f"{what} {uris[i]} step "
+                              f"{step}: token {x} != serial {y}, top-two "
+                              f"margin {margin}")
+                        near_ties.append({"uri": uris[i], "step": step,
+                                          "margin": margin})
+                        log(f"{what} near-tie {near_ties[-1]}")
+                        break
+                else:
+                    check(len(a) == len(b), f"{what} {uris[i]}: {len(a)} "
+                          f"tokens, serial {len(b)}")
+                    equal += 1
+    return {"streams_equal_to_serial": equal, "near_ties": near_ties}
+
+
+def _spec_round_stats(lm, draft, workdir: str, prompts) -> dict:
+    """A speculative round of ``SPEC_SERVE['slots']`` resident streams
+    after 100-token prompts, and its verify pass alone: ms by CUDA events,
+    the profiler's device ms, busy share and launches; the plain paged
+    decode step of the same streams beside it."""
+    from analytics_zoo_tpu_torch.serving import (GenerativeServing,
+                                                 InputQueue, ServingConfig)
+    slots, pl = SPEC_SERVE["slots"], SPEC_SERVE["kv_page_len"]
+    pages = 1 + slots * -(-(100 + 256 + SPEC_K) // pl)
+    out = {}
+    for name, k in (("spec", SPEC_K), ("plain", 0)):
+        src = f"dir://{os.path.join(workdir, 'round_' + name)}"
+        srv = GenerativeServing(ServingConfig(
+            data_src=src, slots=slots, max_new_tokens=256, spec_k=k,
+            kv_pages=pages, kv_page_len=pl), lm, draft_lm=draft)
+        inq = InputQueue(src)
+        for i in range(slots):
+            inq.enqueue_prompt(f"round-{i}", prompts[i])
+        check(srv.serve_step() == slots, "the round server did not fill "
+              "its slots")
+        tokens = srv._next_tokens.copy()
+
+        def step():
+            return srv._dispatch_step(tokens, None)
+
+        ms = cuda_ms(step, 10, warmup=2)
+        prof = step_profile(step, calls=3, top=6, warmup=False)
+        t0 = time.perf_counter()
+        for _ in range(3):
+            step().cpu()
+        host_ms = (time.perf_counter() - t0) * 1e3 / 3
+        entry = {"ms_events": ms, "ms_host_with_fetch": host_ms,
+                 "device_ms": prof["device_ms"],
+                 "busy_share": (prof["device_ms"] / host_ms
+                                if prof["device_ms"] is not None else None),
+                 "device_launches": prof["device_launches"],
+                 "top_kernels": prof["top_device"]}
+        if k:
+            # the verify pass alone: the target's one batched T = k+1 pass
+            st = srv._state
+            block = torch.as_tensor(np.repeat(tokens[:, None], k + 1, 1),
+                                    device=srv.device)
+
+            def verify():
+                with torch.inference_mode():
+                    return lm.verify_step(block, st["length"], srv._table,
+                                          srv._caches)[0]
+            vprof = step_profile(verify, calls=3, top=4)
+            entry["verify"] = {"ms_events": cuda_ms(verify, 10, warmup=2),
+                               "device_ms": vprof["device_ms"],
+                               "device_launches": vprof["device_launches"],
+                               "top_kernels": vprof["top_device"]}
+        srv.stop()  # the resident streams end with shutdown errors
+        del srv
+        torch.cuda.empty_cache()
+        out[name] = entry
+    return out
+
+
+def phase_speculative(at, ek, seed: int, workdir: str) -> tuple:
+    """Speculative decoding at ``LM_CFG``'s width (see the module
+    docstring, 22). Returns (launches by run, stats)."""
+    from analytics_zoo_tpu_torch.capture import TransformerLM, prefill_bucket
+
+    blocks = LM_CFG["n_block"]
+    lm = TransformerLM(**LM_CFG, seed=seed + 51)
+    with torch.no_grad():
+        for blk in lm.blocks[2:]:
+            blk.attn_out.kernel.mul_(SPEC_TAIL_SCALE)
+            blk.fc2.kernel.mul_(SPEC_TAIL_SCALE)
+    lm._device(None)
+    draft = spec_draft(lm, seed + 52)
+    launches, stats = {}, {}
+
+    # (a) generate_speculative against greedy generate
+    prompts = lm_tokens(seed + 53, SPEC_GEN["streams"], SPEC_GEN["prompt"])
+    lm.generate_speculative(prompts[:1], draft, 4, spec_k=SPEC_K)  # warm-up
+    _reset_counts(at, ek)
+    spec_stats: dict = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = lm.generate_speculative(prompts, draft, SPEC_GEN["new"],
+                                  spec_k=SPEC_K, stats=spec_stats)
+    wall = time.perf_counter() - t0
+    launches["spec_generate"] = counts = _lm_counts(at, ek)
+    want = {"fused_short_fwd": blocks + 2, "flash_fwd": 0,
+            "fused_short_bwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+            "flash_bwd_fused": 0,
+            "gather_rows": 2 + (SPEC_K + 1) * spec_stats["rounds"]}
+    check(counts == want, f"generate_speculative launched {counts}, "
+          f"expected {want}")
+    t0 = time.perf_counter()
+    lm.generate(prompts, SPEC_GEN["new"])
+    serial_wall = time.perf_counter() - t0
+    n_tok = got.size
+    stats["generate"] = {
+        "streams": SPEC_GEN["streams"], "prompt": SPEC_GEN["prompt"],
+        "new_tokens": SPEC_GEN["new"], "spec_k": SPEC_K,
+        "rounds": spec_stats["rounds"],
+        "acceptance": spec_stats["accepted"] / spec_stats["proposed"],
+        "tokens_per_s": n_tok / wall,
+        "ms_per_round_wall": wall * 1e3 / spec_stats["rounds"],
+        "serial_generate_tokens_per_s": n_tok / serial_wall,
+        "launches": counts,
+        **_held_to_serial(lm, prompts.tolist(),
+                          {f"gen-{i}": r.tolist() for i, r in enumerate(got)},
+                          SPEC_GEN["new"], "speculative generate")}
+
+    # (b) GenerativeServing(spec_k) through the spool, beside the plain
+    # paged run of the same streams
+    serve_prompts = [p.tolist() for length, n in GEN_SERVE_PROMPTS.items()
+                     for p in lm_tokens(seed + 54 + length, n, length)]
+    serve_prompts = serve_prompts[:40] + serve_prompts[64:] \
+        + serve_prompts[40:64]
+    budget, pl = SPEC_SERVE["max_new_tokens"], SPEC_SERVE["kv_page_len"]
+    pages = 1 + sum(-(-max(prefill_bucket(len(p) - 1, LM_CFG["max_len"]),
+                           len(p) + budget + SPEC_K) // pl)
+                    for p in sorted(serve_prompts, key=len)[
+                        -SPEC_SERVE["slots"]:])
+    kw = dict(SPEC_SERVE, kv_pages=pages)
+    _serve_generative(lm, workdir, "spec_warmup", serve_prompts[:2]
+                      + serve_prompts[40:41], tap=False, spec_k=SPEC_K,
+                      draft_lm=draft, **kw)
+    plain, srv, _, stats["plain_paged"] = _serve_generative(
+        lm, workdir, "plain", serve_prompts, tap=False, **kw)
+    del srv
+    _reset_counts(at, ek)
+    served, srv, _, stats["serving"] = _serve_generative(
+        lm, workdir, "spec", serve_prompts, tap=False, spec_k=SPEC_K,
+        draft_lm=draft, **kw)
+    launches["spec_serving"] = counts = _lm_counts(at, ek)
+    flash = sum(prefill_bucket(len(p) - 1, LM_CFG["max_len"])
+                > at.FUSED_SHORT_MAX_SEQ for p in serve_prompts)
+    short = len(serve_prompts) - flash
+    want = dict(want, fused_short_fwd=(blocks + 2) * short,
+                flash_fwd=(blocks + 2) * flash,
+                gather_rows=2 * len(serve_prompts)
+                + (SPEC_K + 1) * srv.steps)
+    check(counts == want, f"speculative serving launched {counts}, "
+          f"expected {want}")
+    totals = dict(srv.spec_totals)
+    del srv
+    uris = [f"spec-{i}" for i in range(len(serve_prompts))]
+    same = sum(served[u] == plain[f"plain-{i}"] for i, u in enumerate(uris))
+    stats["serving"].update(
+        spec_k=SPEC_K, launches=counts,
+        acceptance=totals["accepted"] / totals["proposed"],
+        ms_per_round_wall=stats["serving"]["ms_per_step_wall"],
+        streams_equal_to_plain_paged=same,
+        **_held_to_serial(lm, serve_prompts, {u: served[u] for u in uris},
+                          budget, "speculative serving"))
+    stats["speedup_tokens_per_s_vs_plain_paged"] = (
+        stats["serving"]["tokens_per_s"]
+        / stats["plain_paged"]["tokens_per_s"])
+    stats["round"] = _spec_round_stats(lm, draft, workdir,
+                                       serve_prompts[:40]
+                                       + serve_prompts[44:])
+
+    # (c) a draft with its own weights: acceptance near 0, the reject path
+    other = spec_draft(lm, seed + 55, shared=False)
+    rej_prompts = serve_prompts[:SPEC_REJECT_STREAMS]
+    rejected, srv, _, stats["reject"] = _serve_generative(
+        lm, workdir, "reject", rej_prompts, tap=False, spec_k=SPEC_K,
+        draft_lm=other, **dict(kw, slots=SPEC_REJECT_STREAMS))
+    totals = dict(srv.spec_totals)
+    del srv, other
+    stats["reject"].update(
+        acceptance=totals["accepted"] / totals["proposed"],
+        **_held_to_serial(lm, rej_prompts, rejected, budget,
+                          "speculative reject"))
+    del lm, draft
+    torch.cuda.empty_cache()
+
+    # (d) the sampled accept rule keeps the target's distribution
+    stats["sampled"] = _spec_sampled_distribution(seed)
+    return launches, stats
+
+
+def _spec_sampled_distribution(seed: int) -> dict:
+    """Sampled ``generate_speculative`` on a small LM: the first emitted
+    token of ``SPEC_SAMPLED_ROWS`` rows of one prompt (each row its own
+    draws) against the target's filtered softmax at the prompt, by total
+    variation; the draft's own distribution's distance beside it."""
+    from analytics_zoo_tpu_torch.capture import TransformerLM
+    from analytics_zoo_tpu_torch.ops.decode import make_logit_filter
+    lm = TransformerLM(**SPEC_SMALL, seed=seed + 56)
+    lm._device(None)
+    draft = TransformerLM(**dict(SPEC_SMALL, n_block=1, max_len=SPEC_SMALL[
+        "max_len"] + SPEC_K), seed=seed + 57)
+    draft._device(None)
+    prompt = np.random.RandomState(seed + 58).randint(
+        0, SPEC_SMALL["vocab_size"], (1, 8))
+    filt = make_logit_filter(SPEC_SAMPLED["temperature"],
+                             SPEC_SAMPLED["top_k"], None)
+    with torch.inference_mode():
+        x = torch.as_tensor(prompt).cuda()
+        p = torch.softmax(filt(lm._forward(x)[0, -1].float()), -1)
+        q = torch.softmax(filt(draft._forward(x)[0, -1].float()), -1)
+    t0 = time.perf_counter()
+    out = lm.generate_speculative(np.repeat(prompt, SPEC_SAMPLED_ROWS, 0),
+                                  draft, 2, spec_k=SPEC_K, seed=seed + 59,
+                                  page_len=8, **SPEC_SAMPLED)
+    wall = time.perf_counter() - t0
+    freq = np.bincount(out[:, 0], minlength=SPEC_SMALL["vocab_size"]) \
+        / SPEC_SAMPLED_ROWS
+    p, q = p.cpu().numpy(), q.cpu().numpy()
+    tv = 0.5 * float(np.abs(freq - p).sum())
+    check(tv <= SPEC_TV_BOUND, f"sampled speculative first tokens are "
+          f"{tv} from the target's distribution (bound {SPEC_TV_BOUND})")
+    check(bool((freq[p == 0] == 0).all()), "a token outside the target's "
+          "top-k was sampled")
+    return {"rows": SPEC_SAMPLED_ROWS, **SPEC_SAMPLED,
+            "tv_to_target": tv, "tv_bound": SPEC_TV_BOUND,
+            "tv_draft_to_target": 0.5 * float(np.abs(q - p).sum()),
+            "wall_s": wall}
+
+
+#: the platform phase: NCF bursts, the generative fault and handoff runs
+OPS_BURST = 512
+OPS_BATCH = 64
+OPS_GEN = dict(slots=8, max_new_tokens=24, kv_page_len=16)
+
+
+def _ncf_send(inq, x, prefix: str) -> list:
+    """Enqueue the rows of ``x`` as ``prefix-i``; returns their uris."""
+    uris = [f"{prefix}-{i}" for i in range(len(x))]
+    for uri, row in zip(uris, x):
+        inq.enqueue_tensor(uri, row)
+    return uris
+
+
+def _ncf_wait(server, outq, uris, timeout_s=120) -> dict:
+    """Wait for every uri's terminal result."""
+    deadline = time.monotonic() + timeout_s
+    results = {}
+    while len(results) < len(uris):
+        check(time.monotonic() < deadline, f"{len(results)} of "
+              f"{len(uris)} terminals")
+        server.check_health()
+        for uri in uris:
+            if uri not in results:
+                res = outq.query(uri)
+                if res is not None:
+                    results[uri] = res
+        time.sleep(0.005)
+    return results
+
+
+def _ops_cluster(ek, seed: int, workdir: str) -> tuple:
+    """``ClusterServing`` of NCF with ``health_path``: a ``serving.predict``
+    fault at one batch, a reload mid-burst, a failed reload, the health
+    files read back, then a burst past ``max_pending`` (brownout)."""
+    from analytics_zoo_tpu_torch.common import faults
+    from analytics_zoo_tpu_torch.models import NeuralCF
+    from analytics_zoo_tpu_torch.ops import events
+    from analytics_zoo_tpu_torch.serving import (ClusterServing, FileQueue,
+                                                 InputQueue,
+                                                 ModelReloadError,
+                                                 OutputQueue, ServingConfig)
+    models = []
+    for i in range(2):
+        ncf = NeuralCF(**NCF).build(torch.Generator().manual_seed(seed + i),
+                                    device="cuda")
+        path = os.path.join(workdir, f"ncf-v{i + 1}")
+        ncf.save_model(path)
+        models.append((ncf, path))
+    health = os.path.join(workdir, "health", "health.json")
+    os.makedirs(os.path.dirname(health))
+    spool = os.path.join(workdir, "ops_spool")
+    src = "dir://" + spool
+    queue = CountingQueue(FileQueue(spool))
+    server = ClusterServing(ServingConfig(
+        model_path=models[0][1], data_src=src, image_shape=(2,),
+        batch_size=OPS_BATCH, health_path=health, health_interval_s=0.05),
+        queue=queue)
+    check(server.model_version == "ncf-v1", server.model_version)
+    inq, outq = InputQueue(src), OutputQueue(src)
+    rng = np.random.default_rng(seed)
+    x = ncf_pairs(rng, 3 * OPS_BURST)
+
+    def forward(i, rows):
+        with torch.inference_mode():
+            return models[i][0].model(torch.from_numpy(rows).cuda()
+                                      ).cpu().numpy()
+
+    ek.reset_launch_counts()
+    faults.arm("serving.predict", at=2)
+    # 1. a burst, published before the server starts, whose second batch
+    # meets the armed predict fault; 2. a reload to v2 while the second
+    # burst is in flight; 3. a third burst after it; 4. a reload that
+    # fails (injected), then one batch more
+    a_uris = _ncf_send(inq, x[:OPS_BURST], "a")
+    server.start()
+    try:
+        first = _ncf_wait(server, outq, a_uris)
+        b_uris = _ncf_send(inq, x[OPS_BURST:2 * OPS_BURST], "b")
+        t0 = time.perf_counter()
+        server.reload_model(models[1][1])
+        reload_s = time.perf_counter() - t0
+        second = _ncf_wait(server, outq, b_uris)
+        third = _ncf_wait(server, outq,
+                          _ncf_send(inq, x[2 * OPS_BURST:], "c"))
+        faults.arm("serving.reload", at=1)
+        try:
+            server.reload_model(models[0][1])
+            check(False, "an injected reload fault did not raise")
+        except ModelReloadError:
+            pass
+        check(server.model_version == "ncf-v2", "a failed reload changed "
+              "the version")
+        fourth = _ncf_wait(server, outq, _ncf_send(inq, x[:OPS_BATCH], "d"))
+    finally:
+        server.drain(timeout_s=60)
+        faults.reset()
+    launches = ek.launch_counts["gather_rows"]
+    errors = {u: r for u, r in first.items() if "error" in r}
+    check(len(errors) == OPS_BATCH and all(
+        "serving.predict" in r["error"] for r in errors.values()),
+          f"the armed predict fault errored {len(errors)} records")
+    ok = [i for i in range(OPS_BURST) if f"a-{i}" not in errors]
+    vals = np.array([first[f"a-{i}"]["value"] for i in ok])
+    np.testing.assert_allclose(vals, forward(0, x[ok]), rtol=1e-5, atol=0)
+    v1 = forward(0, x[OPS_BURST:2 * OPS_BURST])
+    v2 = forward(1, x[OPS_BURST:2 * OPS_BURST])
+    by_model = [0, 0]
+    for i in range(OPS_BURST):
+        res = second[f"b-{i}"]
+        check("value" in res,
+              f"b-{i} got {res} across the reload")
+        got = np.asarray(res["value"])
+        which = [np.allclose(got, v, rtol=1e-5, atol=0)
+                 for v in (v1[i], v2[i])]
+        check(any(which), f"b-{i} equals neither model's forward")
+        by_model[which.index(True)] += 1
+    for tag, res, i in (("c", third, 1), ("d", fourth, 1)):
+        rows = x[2 * OPS_BURST:] if tag == "c" else x[:OPS_BATCH]
+        got = np.array([res[f"{tag}-{j}"]["value"] for j in range(len(rows))])
+        np.testing.assert_allclose(got, forward(i, rows), rtol=1e-5, atol=0)
+    check(queue.posts == {u: 1 for u in queue.posts}
+          and len(queue.posts) == 3 * OPS_BURST + OPS_BATCH,
+          "a request got no terminal or more than one")
+    with open(health) as f:
+        snap = json.load(f)
+    with open(os.path.join(os.path.dirname(health), "metrics.prom")) as f:
+        prom = f.read()
+    label = server.metrics_label
+    n_values = 3 * OPS_BURST + OPS_BATCH - OPS_BATCH
+    want = {"shed": 0, "expired": 0, "errors": OPS_BATCH, "claim_faults": 0,
+            "reloads": 1, "reload_failures": 1}
+    check(snap["counters"] == want and snap["state"] == "drained"
+          and snap["model_version"] == "ncf-v2"
+          and snap["records_served"] == n_values,
+          f"health.json reads {snap}")
+    for name, value in (("records_total", n_values),
+                        ("error_total", OPS_BATCH), ("reload_total", 1),
+                        ("reload_failure_total", 1)):
+        line = f'zoo_serving_{name}{{server="{label}"}} {value}'
+        check(line in prom, f"metrics.prom lacks {line!r}")
+    cluster = {"records": len(queue.posts), "predict_fault_errors":
+               len(errors), "reload_s": reload_s,
+               "burst_b_by_model": {"v1": by_model[0], "v2": by_model[1]},
+               "health_counters": snap["counters"],
+               "latency_ms": snap["latency_ms"],
+               "gather_rows": launches}
+
+    # 5. a burst past max_pending: shed with errors, the brownout ladder
+    log_dir = os.path.join(workdir, "events")
+    ev_log = events.reset_default(root=log_dir, enabled=True)
+    try:
+        spool2 = os.path.join(workdir, "burst_spool")
+        src2 = "dir://" + spool2
+        burst = ClusterServing(ServingConfig(
+            model_path=models[1][1], data_src=src2, image_shape=(2,),
+            batch_size=OPS_BATCH, max_pending=2 * OPS_BATCH), queue=None)
+        inq2 = InputQueue(src2)
+        for i, row in enumerate(x[:8 * OPS_BATCH]):
+            inq2.enqueue_tensor(f"o-{i}", row)
+        levels = []
+        while burst.serve_once():
+            levels.append(burst._brownout.level)
+            burst._last_shed_m = -1e18  # a shed pass (and tick) a batch
+        for _ in range(4):  # calm ticks: the ladder steps back up
+            burst._last_shed_m = -1e18
+            burst.serve_once()
+            levels.append(burst._brownout.level)
+        evs = [{k: ev[k] for k in ev if k not in ("wall", "mono", "pid",
+                                                  "seq", "label")}
+               for ev in ev_log.read(types=["serving.shed",
+                                            "serving.brownout_rung"])]
+        results = OutputQueue(src2).dequeue()
+        shed = sum(r.get("error") == "shed: queue overloaded"
+                   for r in results.values())
+        check(len(results) == 8 * OPS_BATCH and shed == burst.counters[
+            "shed"] and shed > 0 and max(levels) >= 1,
+              f"the burst: {len(results)} results, {shed} shed, levels "
+              f"{levels}")
+        burst.stop()
+    finally:
+        events.reset_default()
+    cluster["brownout"] = {"levels": levels, "shed": shed, "events": evs}
+    return cluster, launches
+
+
+def _ops_generative(at, ek, seed: int, workdir: str) -> tuple:
+    """``GenerativeServing`` at ``LM_CFG``'s width, paged: the
+    ``serving.decode_step`` and ``serving.page_alloc`` faults, a handoff
+    mid-decode to a second server, and a ``torch.profiler`` capture of two
+    steps."""
+    from analytics_zoo_tpu_torch.capture import TransformerLM
+    from analytics_zoo_tpu_torch.common import faults
+    from analytics_zoo_tpu_torch.common import profiler
+    from analytics_zoo_tpu_torch.serving import (GenerativeServing,
+                                                 InputQueue, OutputQueue,
+                                                 ServingConfig)
+    from analytics_zoo_tpu_torch.serving.server import PAGE_SHED_ERROR
+    lm = TransformerLM(**LM_CFG, seed=seed + 61)
+    lm._device(None)
+    budget, pl = OPS_GEN["max_new_tokens"], OPS_GEN["kv_page_len"]
+    prompts = [p.tolist() for p in lm_tokens(seed + 62, 12, 100)]
+    pages = 1 + OPS_GEN["slots"] * -(-(128 + budget) // pl)
+
+    def server(name, **kw):
+        src = f"dir://{os.path.join(workdir, name)}"
+        return GenerativeServing(ServingConfig(
+            data_src=src, kv_pages=pages, **dict(OPS_GEN, **kw)), lm), src
+
+    def drive(srv, limit=400):
+        idle = 0
+        for _ in range(limit):
+            idle = idle + 1 if srv.serve_step() == 0 else 0
+            if idle >= 2:
+                return
+
+    out = {}
+    _reset_counts(at, ek)
+    # the decode_step fault: each active stream errors once, then more
+    # streams join and complete
+    srv, src = server("fault")
+    inq, outq = InputQueue(src), OutputQueue(src)
+    for i in range(4):
+        inq.enqueue_prompt(f"f-{i}", prompts[i])
+    faults.arm("serving.decode_step", at=3)
+    try:
+        for _ in range(4):
+            srv.serve_step()
+        for i in range(4, 8):
+            inq.enqueue_prompt(f"f-{i}", prompts[i])
+        drive(srv)
+    finally:
+        faults.reset()
+    res = outq.dequeue()
+    errs = sorted(u for u, r in res.items() if "error" in r)
+    check(errs == [f"f-{i}" for i in range(4)]
+          and all("serving.decode_step" in res[u]["error"] for u in errs)
+          and all(res[f"f-{i}"].get("done") for i in range(4, 8))
+          and srv.counters["errors"] == 4,
+          f"decode_step fault: errors {errs}, counters {srv.counters}")
+    # the page_alloc fault: the join is shed, the others go on
+    for i in range(8, 10):
+        inq.enqueue_prompt(f"f-{i}", prompts[i])
+    faults.arm("serving.page_alloc", at=1)
+    try:
+        drive(srv)
+    finally:
+        faults.reset()
+    res = outq.dequeue()
+    check(res["f-8"].get("error") == PAGE_SHED_ERROR
+          and res["f-9"].get("done") is True,
+          f"page_alloc fault: {res['f-8']}, {res['f-9']}")
+    out["faults"] = {"decode_step_errors": len(errs),
+                     "page_alloc_shed": res["f-8"]["error"],
+                     "counters": srv.health_snapshot()["counters"]}
+    srv.stop()
+    del srv
+
+    # handoff mid-decode: 8 streams, 6 steps, then a second server adopts
+    a, a_src = server("handoff_a")
+    b, b_src = server("handoff_b")
+    inq = InputQueue(a_src)
+    for i in range(8):
+        inq.enqueue_prompt(f"h-{i}", prompts[i])
+    for _ in range(6):
+        a.serve_step()
+    t0 = time.perf_counter()
+    moved = a.handoff(b.queue)
+    handoff_ms = (time.perf_counter() - t0) * 1e3
+    check(moved == 8, f"handoff moved {moved} streams")
+    drive(b)
+    res = OutputQueue(b_src).dequeue()
+    check(sorted(res) == [f"h-{i}" for i in range(8)]
+          and all(r.get("done") is True for r in res.values()),
+          f"adopted streams: {res}")
+    out["handoff"] = {"streams": moved, "handoff_ms": handoff_ms,
+                      "adopted_prefix_tokens": 6,
+                      **_held_to_serial(lm, prompts[:8],
+                                        {f"h-{i}": res[f"h-{i}"]["value"]
+                                         for i in range(8)}, budget,
+                                        "handoff")}
+    a.stop()
+    del a
+
+    # a torch.profiler capture of two steps of the adopting server
+    cap_dir = os.path.join(workdir, "capture")
+    profiler._reset_capture_for_tests()
+    profiler.set_enabled(True)
+    try:
+        inq = InputQueue(b_src)
+        for i in range(8, 12):
+            inq.enqueue_prompt(f"cap-{i}", prompts[i])
+        check(profiler.arm_capture(steps=2, out_dir=cap_dir),
+              "arm_capture did not open a window")
+        sp = profiler.StepProfiler("serving")
+        for _ in range(2):
+            sp.step_start()
+            b.serve_step()
+            sp.step_end()
+        check(not profiler.capture_active(), "the capture did not close")
+    finally:
+        profiler.set_enabled(False)
+    trace = profiler.last_trace()
+    with open(trace) as f:
+        trace_events = json.load(f)["traceEvents"]
+    kernels = sum(1 for e in trace_events if e.get("cat") == "kernel")
+    check(kernels > 0, f"the capture {trace} holds no kernel")
+    out["capture"] = {"file": os.path.relpath(trace, workdir),
+                      "bytes": os.path.getsize(trace),
+                      "kernel_events": kernels}
+    b.stop()
+    del b, lm
+    torch.cuda.empty_cache()
+    return out, _lm_counts(at, ek)
+
+
+def _disabled_cost() -> dict:
+    """ns a call of a disabled counter, histogram and profiler phase, and
+    of the enabled ones, on this host (median of 5 runs of 200,000)."""
+    from analytics_zoo_tpu_torch.common import metrics, profiler
+    reg = metrics.Registry(capacity=256, enabled=False)
+    c = reg.counter("serving.records_total", labels=())
+    h = reg.histogram("serving.request_latency_seconds", labels=())
+    n = 200_000
+
+    def per_call(fn):
+        runs = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn()
+            runs.append((time.perf_counter() - t0) * 1e9 / n)
+        return sorted(runs)[2]
+
+    out = {"counter_inc_disabled_ns": per_call(c.inc),
+           "histogram_observe_disabled_ns": per_call(lambda: h.observe(
+               0.001)),
+           "record_phase_disabled_ns": per_call(
+               lambda: profiler.record_phase("cost", "fetch", 0.001))}
+    reg.set_enabled(True)
+    out["counter_inc_enabled_ns"] = per_call(c.inc)
+    out["histogram_observe_enabled_ns"] = per_call(lambda: h.observe(0.001))
+    reg.close()
+    return out
+
+
+def phase_serving_ops(at, ek, seed: int, workdir: str) -> tuple:
+    """The serving platform on the card (see the module docstring, 23).
+    Returns (launches by run, stats)."""
+    cluster, ncf_rows = _ops_cluster(ek, seed, workdir)
+    generative, gen_counts = _ops_generative(at, ek, seed, workdir)
+    stats = {"cluster": cluster, "generative": generative,
+             "disabled_cost": _disabled_cost()}
+    return {"serving_ops_ncf": {"gather_rows": ncf_rows},
+            "serving_ops_generative": gen_counts}, stats
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -5790,12 +6509,31 @@ def main() -> int:
     torch.cuda.empty_cache()
     workdir = tempfile.mkdtemp(prefix="chip_smoke_", dir=build)
     try:
-        gen_serving_launches, gen_serving = timed(
-            "generative", phase_generative, at, ek, args.seed, workdir)
+        with brownout_off():
+            gen_serving_launches, gen_serving = timed(
+                "generative", phase_generative, at, ek, args.seed, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     for part, part_stats in gen_serving.items():
         log(f"generative {part} " + json.dumps(part_stats) + f" | {smi}")
+    # -- 22. speculative decoding, 23. the serving platform -------------------
+    torch.cuda.empty_cache()
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_", dir=build)
+    try:
+        with brownout_off():
+            spec_launches, spec = timed("speculative", phase_speculative,
+                                        at, ek, args.seed, workdir)
+        for part, part_stats in spec.items():
+            log(f"speculative {part} " + json.dumps(part_stats)
+                + f" | {smi}")
+        torch.cuda.empty_cache()
+        ops_launches, ops = timed("serving_ops", phase_serving_ops, at, ek,
+                                  args.seed, workdir)
+        for part, part_stats in ops.items():
+            log(f"serving_ops {part} " + json.dumps(part_stats)
+                + f" | {smi}")
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
     # -- 21. heads past 256 ---------------------------------------------------
     torch.cuda.empty_cache()
     wide512_launches, attn_wide = timed("attn_wide", phase_attn_wide, at,
@@ -5847,7 +6585,9 @@ def main() -> int:
     serve = timings[0]
     lm_paths = {"lm_train": lm_launches, "lm_long": long_launches,
                 **{f"lm_generate_{n}": c for n, c in gen_launches.items()},
-                **wide_launches, **gen_serving_launches}
+                **wide_launches, **gen_serving_launches, **spec_launches,
+                "serving_ops_generative":
+                    ops_launches["serving_ops_generative"]}
     rows_launches = {"serving": launches,
                      "serving_bf16": quant["bf16"][0]["gather_rows"],
                      "serving_int8": quant["int8"][0]["gather_rows"],
@@ -5859,6 +6599,8 @@ def main() -> int:
                      "bert": sum(c["gather_rows"]
                                  for c in bert_launches.values()),
                      "bert_serving": bert_serving_launches["gather_rows"],
+                     "serving_ops_ncf":
+                         ops_launches["serving_ops_ncf"]["gather_rows"],
                      **{k: c["gather_rows"] for k, c in lm_paths.items()}}
     entry = {
         "name": "gather_rows", "route": "cuda",

@@ -70,7 +70,11 @@ def test_port_and_chip_smoke_import_no_jax():
             os.path.join(PKG, "feature", "image", "__init__.py"),
             os.path.join(PKG, "feature", "image", "transforms.py"),
             os.path.join(PKG, "feature", "image", "spec.py"),
-            os.path.join(PKG, "feature", "image", "image_set.py")} <= set(
+            os.path.join(PKG, "feature", "image", "image_set.py"),
+            os.path.join(PKG, "common", "metrics.py"),
+            os.path.join(PKG, "common", "faults.py"),
+            os.path.join(PKG, "common", "profiler.py"),
+            os.path.join(PKG, "ops", "events.py")} <= set(
                 sources)
     bad = {os.path.relpath(p, REPO): m for p in sources
            for m in _imports(p) if _forbidden(m)}
@@ -1348,3 +1352,75 @@ def test_wide_flash_kernels_equal_their_plain_versions_on_the_card(
     """B4, B5a + B5b and B6 at heads of 320 and 512 (the ``wide`` route,
     where B6 launches the pair): as the flash grid above."""
     _hold_flash_kernels(cuda_device, sq, skv, d, dtype)
+
+
+# -- speculative decoding and handoff on the card -------------------------------
+
+_SPEC_LM = dict(vocab_size=128, hidden=64, n_block=2, n_head=4, max_len=64)
+
+
+def _spec_lms(device):
+    """The same seeded target and 1-block draft, on ``device``."""
+    from analytics_zoo_tpu_torch.capture import TransformerLM
+    lm = TransformerLM(**_SPEC_LM, seed=3)
+    draft = TransformerLM(**dict(_SPEC_LM, n_block=1, max_len=72), seed=4)
+    lm._device(device)
+    draft._device(device)
+    return lm, draft
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("eos", [None, 9])
+def test_generate_speculative_on_the_card_equals_the_cpu(cuda_device, eos):
+    """Greedy ``generate_speculative`` on the card gives the CPU's tokens
+    and the card's own serial ``generate``'s."""
+    prompt = np.random.RandomState(5).randint(0, 128, (3, 9))
+    got = {}
+    for dev in ("cpu", "cuda"):
+        lm, draft = _spec_lms(dev)
+        got[dev] = lm.generate_speculative(prompt, draft, 20, spec_k=4,
+                                           eos_id=eos, page_len=8,
+                                           device=dev)
+        if dev == "cuda":
+            np.testing.assert_array_equal(
+                got[dev], lm.generate(prompt, 20, eos_id=eos, device=dev))
+    np.testing.assert_array_equal(got["cuda"], got["cpu"])
+
+
+@pytest.mark.cuda
+def test_speculative_serving_and_handoff_on_the_card_equal_the_cpu(
+        cuda_device, tmp_path):
+    """``GenerativeServing(spec_k)`` on the card, with its streams handed
+    off to a second card server after two rounds, ends with the CPU's
+    uninterrupted tokens."""
+    from analytics_zoo_tpu_torch.serving import (GenerativeServing,
+                                                 InputQueue, OutputQueue,
+                                                 ServingConfig)
+    prompts = np.random.RandomState(6).randint(0, 128, (3, 7)).tolist()
+    results = {}
+    for dev, hand in (("cpu", False), ("cuda", False), ("cuda", True)):
+        lm, draft = _spec_lms(dev)
+        srvs = []
+        for name in ("a", "b"):
+            src = f"dir://{tmp_path}/{dev}{hand}{name}"
+            srvs.append((GenerativeServing(ServingConfig(
+                data_src=src, slots=3, max_new_tokens=16, kv_pages=24,
+                kv_page_len=8, spec_k=3), lm, draft_lm=draft, device=dev),
+                src))
+        (a, a_src), (b, b_src) = srvs
+        for i, p in enumerate(prompts):
+            InputQueue(a_src).enqueue_prompt(f"s{i}", p)
+        last = a
+        if hand:
+            a.serve_step()
+            a.serve_step()
+            assert a.handoff(b.queue) == 3
+            last = b
+        idle = 0
+        while idle < 3:
+            idle = idle + 1 if last.serve_step() == 0 else 0
+        out = OutputQueue(b_src if hand else a_src)
+        results[(dev, hand)] = [out.query(f"s{i}")["value"]
+                                for i in range(3)]
+    assert results[("cuda", False)] == results[("cpu", False)]
+    assert results[("cuda", True)] == results[("cpu", False)]
