@@ -138,9 +138,10 @@ _global_config.register("profile.peak_flops", 0.0,
                         "gauge (0 = auto-detect from the card's name; "
                         "detection knows the H100).")
 _global_config.register("ops.enabled", False,
-                        "Master switch for the ops-plane event log "
-                        "(ops/events.py). Off by default: a disabled plane "
-                        "costs one boolean check per would-be event.")
+                        "Master switch for the ops plane (the event log, "
+                        "the metric history sampler and the SLO alert "
+                        "engine). Off by default: a disabled plane costs "
+                        "one boolean check per would-be event.")
 _global_config.register("ops.dir", "",
                         "Shared event-spool directory for the structured "
                         "event log; empty = a private temp spool per "
@@ -166,3 +167,65 @@ _global_config.register("serving.brownout_token_frac", 0.25,
                         "Fraction of the configured max_new_tokens that "
                         "the deepest brownout rung caps generative "
                         "budgets to (rung 3; rung 2 caps at twice this).")
+_global_config.register("ops.sample_interval_s", 0.25,
+                        "Cadence of the metric history sampler thread "
+                        "snapshotting the registry into per-series rings.")
+_global_config.register("ops.history_depth", 512,
+                        "Samples retained per (metric, label) series in "
+                        "the history rings (memory is series x depth).")
+_global_config.register("ops.eval_interval_s", 0.5,
+                        "Cadence of the SLO alert engine's evaluation "
+                        "pass over the metric history.")
+_global_config.register("ops.incident_dir", "",
+                        "Directory incident bundles are sealed into; "
+                        "empty = an 'incidents/' subdirectory of the "
+                        "event spool.")
+_global_config.register("ops.incident_window_s", 60.0,
+                        "Trailing window of events and metric history "
+                        "frozen into each incident bundle.")
+_global_config.register("fleet.stale_after_s", 5.0,
+                        "Health-file age beyond which the fleet router "
+                        "treats an instance as dead: its spool is "
+                        "reclaimed and its in-flight streams fail over "
+                        "from their last streamed prefix.")
+_global_config.register("fleet.health_refresh_s", 0.25,
+                        "Router cadence for re-reading per-instance "
+                        "health files (placement gauges refresh at most "
+                        "this often).")
+_global_config.register("fleet.scale_headroom", 1.25,
+                        "Multiplier on observed demand when computing the "
+                        "fleet.desired_instances scale signal (>1 keeps "
+                        "spare capacity for failover).")
+_global_config.register("fleet.scale_interval_s", 0.25,
+                        "Fleet supervisor actuation cadence: how often "
+                        "the desired-instance signal is compared against "
+                        "the live fleet and a spawn/drain is issued.")
+_global_config.register("fleet.breaker_failures", 3,
+                        "Consecutive settled error terminals from one "
+                        "instance that trip its circuit breaker open.")
+_global_config.register("fleet.breaker_latency_ratio", 4.0,
+                        "An instance whose EWMA service time exceeds this "
+                        "multiple of the fleet median for "
+                        "fleet.breaker_failures consecutive health "
+                        "refreshes trips its breaker.")
+_global_config.register("fleet.breaker_cooldown_s", 1.0,
+                        "Seconds an open breaker holds before moving to "
+                        "half-open and admitting one probe placement.")
+_global_config.register("client.retry_budget_ratio", 0.1,
+                        "Retry-budget token-bucket earn rate: each first "
+                        "attempt deposits this many tokens, each "
+                        "retry/hedge spends one, so retry amplification "
+                        "stays at most 1 + ratio.")
+_global_config.register("client.retry_attempts", 2,
+                        "Max budgeted retries per logical request in "
+                        "ResilientClient.call (only on terminal errors "
+                        "with retriable: true).")
+_global_config.register("client.retry_backoff_s", 0.05,
+                        "Full-jitter retry backoff base: attempt N sleeps "
+                        "uniform(0, base * 2^N) seconds before "
+                        "re-enqueueing.")
+_global_config.register("client.hedge_delay_ms", 200.0,
+                        "Hedge trigger floor for ResilientClient."
+                        "query_any: a second copy races the first after "
+                        "this long (or the client's observed p99 once "
+                        "enough history exists) without a terminal.")

@@ -1,12 +1,17 @@
 """Small runtime utilities (counterpart of ``analytics_zoo_tpu/common/
-utils.py``): the ``time_it`` wall-time span registry and ``wall_clock``."""
+utils.py``): the ``time_it`` wall-time span registry, its span hooks (a
+live ``utils.trace.trace`` session is one) and ``wall_clock``."""
 from __future__ import annotations
 
 import contextlib
+import logging
 import threading
 import time
 from collections import defaultdict
 from typing import Dict, Iterator, Tuple
+
+logger = logging.getLogger("analytics_zoo_tpu_torch")
+
 
 class _TimerRegistry:
     def __init__(self) -> None:
@@ -35,12 +40,17 @@ timers = _TimerRegistry()
 @contextlib.contextmanager
 def time_it(name: str) -> Iterator[None]:
     """Add the wall time of the ``with`` body to ``timers`` under
-    ``name``."""
+    ``name`` and offer the span to every hook in ``span_hooks``."""
     start = time.perf_counter()
     try:
         yield
     finally:
-        timers.add(name, time.perf_counter() - start)
+        elapsed = time.perf_counter() - start
+        timers.add(name, elapsed)
+        # a snapshot: a hook added or removed on another thread meanwhile
+        # must not break this span's exit
+        for hook in tuple(span_hooks):
+            hook(name, start, elapsed)
 
 
 def wall_clock() -> float:
@@ -51,5 +61,5 @@ def wall_clock() -> float:
 
 
 #: span observers, called as ``fn(name, start_perf_counter, seconds)``
-#: (the profiler offers its phases to them)
+#: by ``time_it`` (the profiler offers its phases to them too)
 span_hooks: list = []

@@ -30,9 +30,11 @@ text as ``metrics.prom`` beside it.
 continuous batching under the same invariant, over slot caches or a paged
 KV pool, with speculative rounds when given a draft model.
 
-Trace flow points and TensorBoard summaries are later slices (ROADMAP Queue
-A item 5), and ``health.json``'s ``alerts`` and ``incident`` stay empty
-until the alert engine and incident correlator are ported.
+Both stamp each request's flow chain (``utils/trace.py``: claim, decode,
+dispatch, result) while a trace session is active, start the process's
+ops plane (``ops.alerts.ensure_default``, a no-op unless ``ops.enabled``)
+and report its active alerts and last sealed incident in ``health.json``.
+TensorBoard summaries are a later slice (ROADMAP Queue A item 5c).
 """
 from __future__ import annotations
 
@@ -54,8 +56,11 @@ from ..common.config import global_config
 from ..common.context import DeviceLike
 from ..common.utils import time_it, wall_clock
 from ..inference.inference_model import InferenceModel
+from ..ops import alerts as ops_alerts
 from ..ops import decode as _decode
 from ..ops import events as ops_events
+from ..ops import incident as ops_incident
+from ..utils import trace as _trace
 from .config import ServingConfig
 from .queues import QueueBackend, decode_image, make_queue
 
@@ -265,7 +270,8 @@ class _ServerTelemetry:
         self._brownout = _Brownout(label)
         self._lock = threading.Lock()
         self._in_flight = 0  # claimed, no terminal result yet
-        self._meta: Dict[str, float] = {}  # uri -> client enqueue_t
+        # uri -> (client enqueue_t, trace_id)
+        self._meta: Dict[str, Tuple[float, Optional[int]]] = {}
         self._last_claim_m: Optional[float] = None  # monotonic
         self._last_health_m = -1e18
         self._last_shed_m = -1e18
@@ -300,15 +306,30 @@ class _ServerTelemetry:
         return base + float(deadline_ms) / 1000.0
 
     def _note_claimed(self, got) -> None:
-        """In-flight accounting for freshly claimed requests."""
+        """In-flight accounting for freshly claimed requests, and their
+        ``serving.claim`` flow points."""
         self._last_claim_m = time.monotonic()
         now = wall_clock()
         with self._lock:
             self._in_flight += len(got)
             in_flight = self._in_flight
             for uri, rec in got:
-                self._meta[uri] = float(rec.get("enqueue_t") or now)
+                self._meta[uri] = (float(rec.get("enqueue_t") or now),
+                                   rec.get("trace_id"))
         self._m_in_flight.set(in_flight)
+        if _trace.tracing():
+            for uri, rec in got:
+                _trace.flow_point(rec.get("trace_id"), "serving.claim", "t")
+
+    def _flow_uris(self, uris: List[str], stage: str) -> None:
+        """One flow point a uri (a no-op unless a trace session is
+        active)."""
+        if not _trace.tracing():
+            return
+        with self._lock:
+            ids = [self._meta.get(u, (0.0, None))[1] for u in uris]
+        for flow_id in ids:
+            _trace.flow_point(flow_id, stage, "t")
 
     def _post_terminal(self, uri: str, value: Dict[str, Any]) -> None:
         """The one place a claimed request gets its terminal result (a
@@ -325,10 +346,13 @@ class _ServerTelemetry:
         with self._lock:
             self._in_flight = max(0, self._in_flight - 1)
             in_flight = self._in_flight
-            t0 = self._meta.pop(uri, None)
+            meta = self._meta.pop(uri, None)
         self._m_in_flight.set(in_flight)
-        if t0 is not None:
+        if meta is not None:
+            t0, flow_id = meta
             self._m_latency.observe(max(wall_clock() - t0, 0.0))
+            # the flow chain's terminus
+            _trace.flow_point(flow_id, "serving.result", "f")
 
     def _lifecycle_state(self) -> str:
         err = self._background_error
@@ -389,7 +413,9 @@ class _ServerTelemetry:
                 (path, lambda: json.dumps(self.health_snapshot())),
                 (os.path.join(os.path.dirname(path), "metrics.prom"),
                  _metrics.expose_text)):
-            tmp = target + ".tmp"
+            # a name of this writer's own: instances sharing a directory
+            # write the same metrics.prom
+            tmp = f"{target}.{os.getpid()}-{threading.get_ident()}.tmp"
             try:
                 with file_io.fopen(tmp, "w") as f:
                     f.write(text())
@@ -624,6 +650,7 @@ class ClusterServing(_ServerTelemetry):
         expired during decode get their error results here."""
         uris, arrays, expiries = [], [], []
         errors, expired = [], []
+        tracing = _trace.tracing()
         t_dec = time.perf_counter()
         with time_it("serving.decode_batch"):
             futures = [(uri, rec,
@@ -635,6 +662,9 @@ class ClusterServing(_ServerTelemetry):
                 except Exception as e:  # undecodable record -> its error
                     errors.append((uri, str(e)))
                     continue
+                if tracing:
+                    _trace.flow_point(rec.get("trace_id"),
+                                      "serving.decode", "t")
                 exp = self._expiry(rec)
                 if exp is not None and wall_clock() >= exp:
                     expired.append(uri)
@@ -765,8 +795,8 @@ class ClusterServing(_ServerTelemetry):
             "counters": {k: int(c.value()) for k, c in self._m.items()},
             "prewarmed": self.prewarmed,
             "model_version": self.model_version,
-            "alerts": [],
-            "incident": None,
+            "alerts": sorted(ops_alerts.active_alerts()),
+            "incident": ops_incident.last_incident(),
             "error": (repr(self._background_error)
                       if self._background_error is not None else None),
         })
@@ -865,6 +895,7 @@ class ClusterServing(_ServerTelemetry):
             uris, x = self._expire_before_dispatch(uris, x, expiries)
         if uris:
             try:
+                self._flow_uris(uris, "serving.dispatch")
                 probs, elapsed = self._fetch(self._dispatch(x))
                 self._writeback(uris, probs, elapsed)
             except Exception as e:
@@ -882,6 +913,7 @@ class ClusterServing(_ServerTelemetry):
 
         logger.info("serving started (src=%s batch=%d)",
                     self.config.data_src, self.config.batch_size)
+        ops_alerts.ensure_default()  # a no-op unless ops.enabled
         self.terminal_state = None
         self._loop_running = True
         self._last_shed_m = -1e18
@@ -957,6 +989,7 @@ class ClusterServing(_ServerTelemetry):
                 if not uris:
                     continue
                 try:
+                    self._flow_uris(uris, "serving.dispatch")
                     fetch = self._dispatch(x)
                 except Exception as e:
                     logger.exception("dispatch failed for %d records",
@@ -985,6 +1018,7 @@ class ClusterServing(_ServerTelemetry):
     def start(self) -> "ClusterServing":
         """Run the loop in a background thread; a crash there is re-raised
         by :meth:`stop`, :meth:`drain` and :meth:`check_health`."""
+        ops_alerts.ensure_default()  # a no-op unless ops.enabled
         self._stop.clear()
         self._draining.clear()
         self.terminal_state = None
@@ -1812,6 +1846,7 @@ class GenerativeServing(_ServerTelemetry):
     def run(self, poll_interval_s: float = 0.005) -> None:
         logger.info("generative serving started (src=%s slots=%d)",
                     self.config.data_src, self.slots)
+        ops_alerts.ensure_default()  # a no-op unless ops.enabled
         self.terminal_state = None
         self._loop_running = True
         self._last_shed_m = -1e18
@@ -1832,6 +1867,7 @@ class GenerativeServing(_ServerTelemetry):
     def start(self) -> "GenerativeServing":
         """Run the loop in a background thread; a crash there is re-raised
         by :meth:`stop`, :meth:`drain` and :meth:`check_health`."""
+        ops_alerts.ensure_default()  # a no-op unless ops.enabled
         self._stop.clear()
         self._draining.clear()
         self._handoff_evt.clear()
@@ -1976,8 +2012,8 @@ class GenerativeServing(_ServerTelemetry):
                            "window": self._m_latency.count()},
             "counters": {k: int(c.value()) for k, c in self._m.items()},
             "model_version": self.model_version,
-            "alerts": [],
-            "incident": None,
+            "alerts": sorted(ops_alerts.active_alerts()),
+            "incident": ops_incident.last_incident(),
             "error": (repr(self._background_error)
                       if self._background_error is not None else None),
         })

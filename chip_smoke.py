@@ -353,6 +353,32 @@ Phases, each of which must pass or the script exits non-zero:
    (steps=2)`` writes a ``torch.profiler`` trace holding kernels. (c) the
    host cost of a disabled and an enabled counter, histogram and profiler
    phase, ns a call.
+24. the serving fleet (ROADMAP Queue A item 5a). (a) a ``FleetRouter``
+   over two in-process ``GenerativeServing`` instances of ``LM_CFG``'s LM
+   (one set of weights, paged f32, 40 slots, a partial every token), each
+   stepped by its own thread: 32 streams of 100-token prompts (B7) and 2 of
+   1000 (B4), 32 new tokens each, published to the front spool. Once every
+   stream on A has ``FLEET_STOP_AFTER`` tokens A stops; its health file
+   goes stale after ``FLEET_STALE_S`` and B adopts A's streams with their
+   prefixes. Every uri gets exactly one terminal (counted at each
+   instance's ``put_result``), tokens equal serial ``generate``'s except
+   at printed near-ties, and B1, B4 and B7 launch. Printed: tokens/s, the
+   seconds from staleness to the adopter's first token, the streams
+   continued. (d) then a ``ResilientClient`` against the same front: first
+   attempts that no instance can finish in their deadline are shed by the
+   router and retried, hedged queries race a copy; attempts stay within
+   ``1 + client.retry_budget_ratio`` of requests. (b) ``FleetSupervisor``
+   spawns two instances of the same LM (``fleet_lm_factory``, each process
+   its own CUDA context and LM), the router spreads 16 streams over them,
+   and the newer scales in through its ``DRAIN_`` flag and ``handoff``
+   mid-decode: the audit journals hold one terminal a uri, the tokens are
+   serial ``generate``'s, each process's peak device bytes are printed. (c)
+   ``ClusterServing`` of NCF (B1) with ``ops.enabled`` under a
+   ``serving.predict`` fault on 4 batches of a 512-record burst:
+   ``goodput_burn`` fires into ``health.json``'s ``alerts``, its incident
+   is sealed and shows as ``incident``, the events render in causal order
+   (fault, alert, incident), and a ``trace()`` session holds every record's
+   whole flow chain (enqueue, claim, decode, dispatch, result).
 
 Each phase's seconds are printed. The last three lines of output are the
 card's
@@ -6392,6 +6418,510 @@ def phase_serving_ops(at, ek, seed: int, workdir: str) -> tuple:
             "serving_ops_generative": gen_counts}, stats
 
 
+#: phase 24's instances: paged f32, a partial every token (the failover
+#: prefix and the adopter's first token are read from them)
+FLEET = dict(slots=20, max_new_tokens=32, stream_interval=1, kv_page_len=16)
+#: prompt length -> streams, in the order they are published (the router
+#: fills one instance's free slots before it places on the next)
+FLEET_PROMPTS = {1000: 2, 100: 32}
+#: seconds a health file may age before the router calls its instance dead
+#: (``fleet.stale_after_s``'s default: a step that joins many prompts
+#: must not look like a death)
+FLEET_STALE_S = 5.0
+FLEET_SUP = dict(streams=16, prompt=100, slots=8, timeout_s=300)
+#: tokens each stream on A has decoded when A stops
+FLEET_STOP_AFTER = 8
+FLEET_OPS = dict(burst=512, faulted_batches=4)
+FLEET_CLIENT = dict(calls=8, hedged=8, prompt=100, new_tokens=8)
+
+
+def _fleet_pages(prompts, budget: int) -> int:
+    """Pages for every stream resident on one instance, twice over (an
+    adopter holds its own streams and the dead instance's), plus the null
+    page."""
+    pl = FLEET["kv_page_len"]
+    return 1 + 2 * sum(-(-(len(p) + budget) // pl) for p in prompts)
+
+
+class _TerminalCount:
+    """Counts the terminals a server posts through its queue."""
+
+    def __init__(self, queue):
+        self.counts = {}
+        self._lock = threading.Lock()
+        put = queue.put_result
+
+        def counted(uri, value):
+            if "error" in value or "value" in value:
+                with self._lock:
+                    self.counts[uri] = self.counts.get(uri, 0) + 1
+            put(uri, value)
+        queue.put_result = counted
+
+
+def _assigned_to(router, name: str) -> list:
+    """The uris the router has placed on instance ``name`` and not seen
+    settle (read while the router's thread may be changing the map)."""
+    while True:
+        try:
+            return sorted(u for u, e in list(router._assigned.items())
+                          if e["instance"] == name)
+        except RuntimeError:  # resized mid-copy: read again
+            continue
+
+
+def _loop_thread(fn, stop, errors, name):
+    """Call ``fn`` until ``stop`` is set (a short nap when it did
+    nothing); an exception lands in ``errors``."""
+    def run():
+        try:
+            while not stop.is_set():
+                if not fn():
+                    time.sleep(0.002)
+        except BaseException as e:  # surfaced by the phase
+            errors.append(e)
+            traceback.print_exc()
+    t = threading.Thread(target=run, daemon=True, name=name)
+    t.start()
+    return t
+
+
+def fleet_lm_factory(root: str, name: str):
+    """``FleetSupervisor``'s instance factory: ``LM_CFG``'s TransformerLM
+    from the seed in ``<root>/fleet.json``, paged ``GenerativeServing`` on
+    the card on ``instance_queue(root, name)``. Without a card the LM's
+    move raises ``NoCudaDeviceError``: an instance never serves from the
+    CPU."""
+    from analytics_zoo_tpu_torch.capture import TransformerLM
+    from analytics_zoo_tpu_torch.common.config import global_config
+    from analytics_zoo_tpu_torch.ops import kernel_build
+    from analytics_zoo_tpu_torch.serving import (GenerativeServing,
+                                                 ServingConfig,
+                                                 instance_queue)
+    with open(os.path.join(root, "fleet.json")) as f:
+        spec = json.load(f)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    global_config().set("serving.brownout_high", float("inf"))
+    kernel_build.load_library()
+    lm = TransformerLM(**LM_CFG, seed=spec["seed"])
+    lm._device(None)
+    return GenerativeServing(ServingConfig(
+        data_src=root, kv_pages=spec["kv_pages"],
+        health_path=os.path.join(root, f"{name}.health.json"),
+        health_interval_s=0.05, **dict(FLEET, slots=spec["slots"])), lm,
+        queue=instance_queue(root, name))
+
+
+def _fleet_failover(at, ek, lm, seed: int, workdir: str) -> tuple:
+    """(a) Two in-process instances behind a ``FleetRouter``; A stops
+    mid-run and goes stale, B adopts its streams; then (d) a
+    ``ResilientClient`` against the fleet front."""
+    from analytics_zoo_tpu_torch.serving import (FileQueue, FleetInstance,
+                                                 FleetRouter,
+                                                 GenerativeServing,
+                                                 InputQueue,
+                                                 ResilientClient,
+                                                 ServingConfig,
+                                                 instance_queue)
+    from analytics_zoo_tpu_torch.common.utils import wall_clock
+    from analytics_zoo_tpu_torch.serving import fleet as fleet_mod
+    budget = FLEET["max_new_tokens"]
+    prompts = [p.tolist() for n, (s, k) in enumerate(FLEET_PROMPTS.items())
+               for p in lm_tokens(seed + 72 + n, k, s)]
+    uris = [f"fl-{i}" for i in range(len(prompts))]
+    root = os.path.join(workdir, "fleet")
+    front = FileQueue(root)
+    pages = _fleet_pages(prompts, budget)
+    servers, insts, counts = [], [], []
+    for name in ("a", "b"):
+        q = instance_queue(root, name)
+        hp = os.path.join(root, f"{name}.health.json")
+        servers.append(GenerativeServing(ServingConfig(
+            data_src=root, kv_pages=pages, health_path=hp,
+            health_interval_s=0.05, **FLEET), lm, queue=q))
+        counts.append(_TerminalCount(q))
+        insts.append(FleetInstance(name, q, hp, slots=FLEET["slots"]))
+    a, b = servers
+    router = FleetRouter(front, insts, stale_after_s=FLEET_STALE_S,
+                         health_refresh_s=0.05)
+    a.serve_step()
+    b.serve_step()
+    failovers0 = fleet_mod._M_FAILOVERS.value()
+    stops = {k: threading.Event() for k in ("a", "b")}
+    errors: list = []
+    _reset_counts(at, ek)
+    torch.cuda.synchronize()
+    threads = {k: _loop_thread(srv.serve_step, stops[k], errors, f"fleet-{k}")
+               for k, srv in (("a", a), ("b", b))}
+    inq = InputQueue(f"dir://{root}")
+    t0 = time.perf_counter()
+    for uri, p in zip(uris, prompts):
+        inq.enqueue_prompt(uri, p)
+    router.start()
+    deadline = time.monotonic() + 120
+    while router.stats["assigned"] < len(uris):
+        check(time.monotonic() < deadline, "fleet: the router placed "
+              f"{router.stats} of {len(uris)}")
+        time.sleep(0.01)
+    first_on_a = _assigned_to(router, "a")
+    # A runs until every stream first placed on it has decoded
+    # FLEET_STOP_AFTER tokens (or finished), then stops: its health file
+    # goes stale
+    while True:
+        check(not errors and time.monotonic() < deadline,
+              f"fleet: A never streamed ({errors})")
+        parts = [front.get_result(u) for u in first_on_a]
+        if all(r is not None and (
+                r.get("done") or len(r.get("stream") or [])
+                >= FLEET_STOP_AFTER) for r in parts):
+            break
+        time.sleep(0.02)
+    stops["a"].set()
+    threads["a"].join(timeout=60)
+    with open(a.config.health_path) as f:
+        stale_at = json.load(f)["time"] + FLEET_STALE_S
+    on_a = _assigned_to(router, "a")
+    prefix_at_kill = {}
+    for uri in on_a:
+        res = front.get_result(uri) or {}
+        if not res.get("done") and "error" not in res:
+            prefix_at_kill[uri] = len(res.get("stream") or [])
+    first_adopted = None
+    results = {}
+    deadline = time.monotonic() + 300
+    while len(results) < len(uris):
+        check(not errors and time.monotonic() < deadline,
+              f"fleet: {len(results)} of {len(uris)} terminals ({errors})")
+        for uri in uris:
+            if uri in results:
+                continue
+            res = front.get_result(uri)
+            if res is None:
+                continue
+            if (first_adopted is None and uri in prefix_at_kill
+                    and len(res.get("value") or res.get("stream") or [])
+                    > prefix_at_kill[uri]):
+                first_adopted = wall_clock()
+            if res.get("done") or "error" in res:
+                results[uri] = res
+        time.sleep(0.02)
+    wall = time.perf_counter() - t0
+    launches = _lm_counts(at, ek)
+    errs = {u: r["error"] for u, r in results.items() if "error" in r}
+    check(not errs, f"fleet: error terminals {errs}")
+    terminals = {u: counts[0].counts.get(u, 0) + counts[1].counts.get(u, 0)
+                 for u in uris}
+    check(all(n == 1 for n in terminals.values()),
+          f"fleet: terminals by uri {terminals}")
+    got = {u: results[u]["value"] for u in uris}
+    held = _held_to_serial(lm, prompts, got, budget, "fleet")
+    for key in ("gather_rows", "fused_short_fwd", "flash_fwd"):
+        check(launches[key] > 0, f"fleet: {key} never launched")
+    n_tok = sum(len(t) for t in got.values())
+    failover = {
+        "streams": len(uris), "tokens": n_tok, "wall_s": wall,
+        "tokens_per_s": n_tok / wall,
+        "streams_first_placed_on_a": len(first_on_a),
+        "streams_on_a_at_stop": len(on_a),
+        "streams_unfinished_on_a": len(prefix_at_kill),
+        "streams_continued_with_prefix":
+            int(fleet_mod._M_FAILOVERS.value() - failovers0),
+        "prefix_tokens_at_stop": sorted(prefix_at_kill.values()),
+        "stale_to_adopted_token_s": (first_adopted - stale_at
+                                     if first_adopted else None),
+        "terminals_by_instance": {"a": sum(counts[0].counts.values()),
+                                  "b": sum(counts[1].counts.values())},
+        "launches": launches, **held}
+    check(prefix_at_kill and first_adopted is not None,
+          "fleet: no stream was continued on B")
+
+    # (d) a ResilientClient against the fleet front: retries of the
+    # router's retriable shed, hedges, all within the retry budget
+    client = ResilientClient(f"dir://{root}", backoff_s=0.01)
+    short = lm_tokens(seed + 75, FLEET_CLIENT["calls"]
+                      + FLEET_CLIENT["hedged"], FLEET_CLIENT["prompt"])
+    answers = []
+    for i in range(FLEET_CLIENT["calls"]):
+        def enqueue(uri, p=short[i].tolist()):
+            # a first attempt asks for a budget no instance can decode in
+            # its deadline: the router sheds it (retriable); a retry asks
+            # for FLEET_CLIENT's budget, no deadline
+            if "~r" in uri:
+                inq.enqueue_prompt(uri, p,
+                                   max_new_tokens=FLEET_CLIENT["new_tokens"])
+            else:
+                inq.enqueue_prompt(uri, p, deadline_ms=100, max_new_tokens=(
+                    LM_CFG["max_len"] - FLEET_CLIENT["prompt"]))
+        answers.append(client.call(f"rc-{i}", enqueue, timeout_s=60))
+    for i in range(FLEET_CLIENT["hedged"]):
+        p = short[FLEET_CLIENT["calls"] + i].tolist()
+        answers.append(client.query_any(
+            f"hq-{i}", lambda uri, p=p: inq.enqueue_prompt(
+                uri, p, max_new_tokens=FLEET_CLIENT["new_tokens"]),
+            timeout_s=60, hedge_delay_s=0.02))
+    time.sleep(0.5)  # a hedge's loser may still be decoding
+    reaped = client.reap_pending()
+    n_req = client.requests_sent
+    bound = n_req * (1 + client.budget.ratio) + 1
+    values = sum(1 for r in answers if r is not None and "value" in r)
+    sheds = sum(1 for r in answers if r is not None
+                and r.get("error") == fleet_mod.FLEET_SHED_ERROR)
+    check(all(r is not None for r in answers)
+          and values + sheds == len(answers) and values > 0
+          and client.attempts_sent <= bound,
+          f"resilient client: {answers}, {client.attempts_sent} attempts "
+          f"for {n_req} requests")
+    resilient = {"requests": n_req, "attempts": client.attempts_sent,
+                 "attempt_bound": bound, "values": values,
+                 "final_sheds": sheds, "losers_reaped": reaped,
+                 "budget_tokens_left": client.budget.tokens}
+    router.stop()
+    stops["b"].set()
+    threads["b"].join(timeout=60)
+    check(not errors, f"fleet threads: {errors}")
+    del a, b, servers
+    torch.cuda.empty_cache()
+    return failover, resilient, launches
+
+
+def _fleet_supervisor(lm, seed: int, workdir: str) -> dict:
+    """(b) ``FleetSupervisor`` spawns two instances of the same LM, the
+    router spreads a burst over them, one scales in through its
+    ``DRAIN_`` flag and ``handoff`` mid-decode; the audit journals hold
+    one terminal a uri and the tokens are serial ``generate``'s."""
+    import collections
+
+    from analytics_zoo_tpu_torch.cluster import FleetSupervisor
+    from analytics_zoo_tpu_torch.serving import (FileQueue, FleetRouter,
+                                                 InputQueue)
+    budget = FLEET["max_new_tokens"]
+    prompts = [p.tolist() for p in lm_tokens(
+        seed + 74, FLEET_SUP["streams"], FLEET_SUP["prompt"])]
+    uris = [f"sup-{i}" for i in range(len(prompts))]
+    root = os.path.join(workdir, "fleet_sup")
+    front = FileQueue(root)
+    with open(os.path.join(root, "fleet.json"), "w") as f:
+        json.dump({"seed": seed + 71, "slots": FLEET_SUP["slots"],
+                   "kv_pages": _fleet_pages(prompts, budget)}, f)
+    router = FleetRouter(front, [], stale_after_s=30.0,
+                         health_refresh_s=0.05)
+    sup = FleetSupervisor(router, root, "chip_smoke:fleet_lm_factory",
+                          min_instances=2, max_instances=2,
+                          slots=FLEET_SUP["slots"], scale_interval_s=0.0,
+                          ready_timeout_s=FLEET_SUP["timeout_s"])
+    t0 = time.perf_counter()
+    events = []
+    try:
+        while sup.alive_count() < 2:
+            # an instance that dies before READY is retried once
+            check(sup._counter <= 3, f"fleet supervisor: instances died "
+                  f"before READY ({events})")
+            ev = sup.step()
+            if ev:
+                events.append(ev)
+        spawn_s = time.perf_counter() - t0
+        inq = InputQueue(f"dir://{root}")
+        for uri, p in zip(uris, prompts):
+            inq.enqueue_prompt(uri, p)
+        # route until both instances stream, then scale in the newest
+        deadline = time.monotonic() + 120
+        while True:
+            check(time.monotonic() < deadline, "fleet supervisor: the "
+                  "instances never streamed")
+            router.route_once()
+            parts = [front.get_result(u) for u in uris]
+            by = collections.Counter(e["instance"] for e in
+                                     router._assigned.values())
+            if (len(by) == 2 and sum(1 for r in parts if r is not None
+                                     and r.get("stream")) >= 4):
+                break
+            time.sleep(0.01)
+        placed = dict(by)
+        sup.min_instances = sup.max_instances = 1
+        t_in = time.perf_counter()
+        ev = None
+        while ev is None:
+            ev = sup.step()
+        events.append(ev)
+        check(ev.startswith("in:"), f"fleet supervisor: {ev}")
+        results = {}
+        deadline = time.monotonic() + 240
+        while len(results) < len(uris) or sup._draining:
+            check(time.monotonic() < deadline,
+                  f"fleet supervisor: {len(results)} of {len(uris)}")
+            router.route_once()
+            sup.step()
+            for uri in uris:
+                if uri not in results:
+                    res = front.get_result(uri)
+                    if res is not None and (res.get("done")
+                                            or "error" in res):
+                        results[uri] = res
+            time.sleep(0.005)
+        scale_in_s = time.perf_counter() - t_in
+        status = sup.status()
+    finally:
+        sup.shutdown(timeout_s=120)
+    terminals = collections.Counter()
+    audit = os.path.join(root, "audit")
+    for name in os.listdir(audit):
+        with open(os.path.join(audit, name)) as f:
+            terminals.update(line.strip() for line in f if line.strip())
+    check(terminals == collections.Counter(uris),
+          f"fleet supervisor: audit {dict(terminals)}")
+    errs = {u: r["error"] for u, r in results.items() if "error" in r}
+    check(not errs, f"fleet supervisor: error terminals {errs}")
+    held = _held_to_serial(lm, prompts, {u: results[u]["value"]
+                                         for u in uris}, budget,
+                           "fleet supervisor")
+    peaks = {}
+    for name in sorted(os.listdir(root)):
+        if name.startswith("exit_"):
+            with open(os.path.join(root, name)) as f:
+                peaks[name[5:-5]] = json.load(f)["peak_device_bytes"]
+    check(len(peaks) == 2 and all(peaks.values()),
+          f"fleet supervisor: peak memory {peaks}")
+    return {"events": events, "spawn_two_s": spawn_s,
+            "placed_before_scale_in": placed, "scale_in_to_done_s":
+            scale_in_s, "status_after": status,
+            "terminals": sum(terminals.values()),
+            "peak_device_bytes": peaks, **held}
+
+
+def _fleet_ops(ek, seed: int, workdir: str) -> tuple:
+    """(c) ``ClusterServing`` of NCF with ``ops.enabled`` under a
+    ``serving.predict`` fault burst: a burn-rate alert fires into
+    ``health.json``, an incident is sealed, its timeline renders in causal
+    order, and a ``trace()`` session holds each record's flow chain."""
+    from analytics_zoo_tpu_torch.common import faults
+    from analytics_zoo_tpu_torch.common.config import global_config
+    from analytics_zoo_tpu_torch.models import NeuralCF
+    from analytics_zoo_tpu_torch.ops import alerts, events, incident
+    from analytics_zoo_tpu_torch.serving import (ClusterServing,
+                                                 InputQueue, OutputQueue,
+                                                 ServingConfig)
+    from analytics_zoo_tpu_torch.utils import trace
+    ncf = NeuralCF(**NCF).build(torch.Generator().manual_seed(seed + 81),
+                                device="cuda")
+    path = os.path.join(workdir, "ncf-ops")
+    ncf.save_model(path)
+    ops_dir = os.path.join(workdir, "ops_events")
+    health = os.path.join(workdir, "ops_health", "health.json")
+    os.makedirs(os.path.dirname(health))
+    cfg = global_config()
+    settings = {"ops.enabled": True, "ops.dir": ops_dir,
+                "ops.sample_interval_s": 0.05, "ops.eval_interval_s": 0.05}
+    for k, v in settings.items():
+        cfg.set(k, v)
+    events.reset_default(root=ops_dir, enabled=True)
+    src = "dir://" + os.path.join(workdir, "ops_fleet_spool")
+    n = FLEET_OPS["burst"]
+    x = ncf_pairs(np.random.default_rng(seed + 82), n)
+    trace_path = os.path.join(workdir, "fleet_ops_trace.json")
+    try:
+        server = ClusterServing(ServingConfig(
+            model_path=path, data_src=src, image_shape=(2,),
+            batch_size=OPS_BATCH, health_path=health,
+            health_interval_s=0.05))
+        inq, outq = InputQueue(src), OutputQueue(src)
+        ek.reset_launch_counts()
+        server.start()
+        time.sleep(0.3)  # the sampler's baseline before the burst
+        faults.arm("serving.predict", p=1.0,
+                   budget=FLEET_OPS["faulted_batches"])
+        t0 = time.perf_counter()
+        with trace.trace(trace_path):
+            res = _ncf_wait(server, outq, _ncf_send(inq, x, "ops"))
+            t_done = time.perf_counter()
+            time.sleep(0.2)  # a result is read before its flow end lands
+        fired = faults.fire_count("serving.predict")
+        faults.reset()
+        fired_s = None
+        deadline = time.monotonic() + 30
+        while True:
+            with open(health) as f:
+                snap = json.load(f)
+            if snap.get("alerts") and snap.get("incident"):
+                fired_s = time.perf_counter() - t0
+                after_last_s = time.perf_counter() - t_done
+                break
+            check(time.monotonic() < deadline,
+                  f"no alert in health.json: {snap.get('alerts')}")
+            time.sleep(0.02)
+        launches = ek.launch_counts["gather_rows"]
+        server.drain(timeout_s=60)
+        errors = sum(1 for r in res.values() if "error" in r)
+        check(fired == FLEET_OPS["faulted_batches"] and errors > 0
+              and errors == server.counters["errors"]
+              and all("serving.predict" in r["error"]
+                      for r in res.values() if "error" in r),
+              f"fleet ops: {fired} faults, {errors} error terminals, "
+              f"counters {server.counters}")
+        bundle = incident.load_bundle(snap["incident"]["path"])
+        timeline = incident.render_timeline(
+            bundle["events"], reason=bundle["reason"],
+            alert=bundle["alert"])
+        evs = incident.order_events(events.default_log().read())
+        types = [e["type"] for e in evs]
+        check("fault.fired" in types and "ops.alert" in types
+              and "ops.incident" in types
+              and types.index("fault.fired") < types.index("ops.alert")
+              < types.index("ops.incident"),
+              f"fleet ops: event order {types}")
+    finally:
+        faults.reset()
+        alerts.shutdown_default()
+        events.reset_default(enabled=False)
+        for k in settings:
+            cfg.unset(k)
+    with open(trace_path) as f:
+        trace_evs = json.load(f)
+    chains = {}
+    for e in trace_evs:
+        tid = (e.get("args") or {}).get("trace_id")
+        if e.get("ph") == "X" and tid is not None:
+            chains.setdefault(tid, set()).add(e["name"])
+    stages = {"serving.enqueue", "serving.claim", "serving.decode",
+              "serving.dispatch", "serving.result"}
+    whole = sum(1 for c in chains.values() if c == stages)
+    check(whole == n and len(chains) == n,
+          f"fleet ops: {whole} whole flow chains of {n}")
+    log("fleet ops timeline (first lines):\n"
+        + "\n".join(timeline.splitlines()[:12]))
+    return {"records": n, "faulted_batches": fired,
+            "predict_fault_errors": errors,
+            "alerts": snap["alerts"], "incident": snap["incident"],
+            "alert_in_health_s_from_burst_start": fired_s,
+            "alert_in_health_s_after_last_result": after_last_s,
+            "timeline_lines": len(timeline.splitlines()),
+            "event_types_in_order": [t for t in types if t in (
+                "fault.fired", "ops.alert", "ops.incident")][:8],
+            "whole_flow_chains": whole,
+            "trace_bytes": os.path.getsize(trace_path),
+            "gather_rows": launches}, launches
+
+
+def phase_fleet(at, ek, seed: int, workdir: str) -> tuple:
+    """The serving fleet on the card (see the module docstring, 24).
+    Returns (launches by run, stats)."""
+    from analytics_zoo_tpu_torch.capture import TransformerLM
+    torch.cuda.reset_peak_memory_stats()
+    lm = TransformerLM(**LM_CFG, seed=seed + 71)
+    lm._device(None)
+    failover, resilient, gen_counts = _fleet_failover(at, ek, lm, seed,
+                                                      workdir)
+    sup = _fleet_supervisor(lm, seed, workdir)
+    del lm
+    torch.cuda.empty_cache()
+    ops, ncf_rows = _fleet_ops(ek, seed, workdir)
+    stats = {"failover": failover, "supervisor": sup, "ops": ops,
+             "resilient_client": resilient,
+             "parent_peak_device_bytes": torch.cuda.max_memory_allocated()}
+    return {"fleet_ncf": {"gather_rows": ncf_rows},
+            "fleet_generative": gen_counts}, stats
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -6532,6 +7062,13 @@ def main() -> int:
         for part, part_stats in ops.items():
             log(f"serving_ops {part} " + json.dumps(part_stats)
                 + f" | {smi}")
+        # -- 24. the serving fleet -------------------------------------------
+        torch.cuda.empty_cache()
+        with brownout_off():
+            fleet_launches, fleet = timed("fleet", phase_fleet, at, ek,
+                                          args.seed, workdir)
+        for part, part_stats in fleet.items():
+            log(f"fleet {part} " + json.dumps(part_stats) + f" | {smi}")
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     # -- 21. heads past 256 ---------------------------------------------------
@@ -6587,7 +7124,8 @@ def main() -> int:
                 **{f"lm_generate_{n}": c for n, c in gen_launches.items()},
                 **wide_launches, **gen_serving_launches, **spec_launches,
                 "serving_ops_generative":
-                    ops_launches["serving_ops_generative"]}
+                    ops_launches["serving_ops_generative"],
+                "fleet_generative": fleet_launches["fleet_generative"]}
     rows_launches = {"serving": launches,
                      "serving_bf16": quant["bf16"][0]["gather_rows"],
                      "serving_int8": quant["int8"][0]["gather_rows"],
@@ -6601,6 +7139,7 @@ def main() -> int:
                      "bert_serving": bert_serving_launches["gather_rows"],
                      "serving_ops_ncf":
                          ops_launches["serving_ops_ncf"]["gather_rows"],
+                     "fleet_ncf": fleet_launches["fleet_ncf"]["gather_rows"],
                      **{k: c["gather_rows"] for k, c in lm_paths.items()}}
     entry = {
         "name": "gather_rows", "route": "cuda",

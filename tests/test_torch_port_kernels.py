@@ -74,7 +74,19 @@ def test_port_and_chip_smoke_import_no_jax():
             os.path.join(PKG, "common", "metrics.py"),
             os.path.join(PKG, "common", "faults.py"),
             os.path.join(PKG, "common", "profiler.py"),
-            os.path.join(PKG, "ops", "events.py")} <= set(
+            os.path.join(PKG, "ops", "events.py"),
+            os.path.join(PKG, "ops", "history.py"),
+            os.path.join(PKG, "ops", "alerts.py"),
+            os.path.join(PKG, "ops", "incident.py"),
+            os.path.join(PKG, "ops", "__main__.py"),
+            os.path.join(PKG, "utils", "__init__.py"),
+            os.path.join(PKG, "utils", "trace.py"),
+            os.path.join(PKG, "cluster", "__init__.py"),
+            os.path.join(PKG, "cluster", "bootstrap.py"),
+            os.path.join(PKG, "cluster", "supervisor.py"),
+            os.path.join(PKG, "serving", "fleet.py"),
+            os.path.join(PKG, "serving", "client.py"),
+            os.path.join(PKG, "common", "file_io.py")} <= set(
                 sources)
     bad = {os.path.relpath(p, REPO): m for p in sources
            for m in _imports(p) if _forbidden(m)}
@@ -1424,3 +1436,65 @@ def test_speculative_serving_and_handoff_on_the_card_equal_the_cpu(
                                 for i in range(3)]
     assert results[("cuda", False)] == results[("cpu", False)]
     assert results[("cuda", True)] == results[("cpu", False)]
+
+
+# -- the fleet router over card instances ------------------------------------------
+
+
+@pytest.mark.cuda
+def test_fleet_router_places_and_fails_over_on_the_card(cuda_device,
+                                                        tmp_path):
+    """Two ``GenerativeServing`` instances on the card behind a
+    ``FleetRouter``: two streams are placed, the instance holding them
+    freezes mid-decode (its health file keeps an old stamp), and the other
+    adopts both with their prefixes; the tokens equal the CPU's serial
+    ``generate`` and each stream has one terminal."""
+    import json
+
+    from analytics_zoo_tpu_torch.capture import TransformerLM
+    from analytics_zoo_tpu_torch.serving import (FileQueue, FleetInstance,
+                                                 FleetRouter,
+                                                 GenerativeServing,
+                                                 InputQueue, ServingConfig,
+                                                 instance_queue)
+    cfg = dict(vocab_size=128, hidden=64, n_block=2, n_head=4, max_len=64)
+    prompts = np.random.RandomState(7).randint(0, 128, (2, 9)).tolist()
+    cpu = TransformerLM(**cfg, seed=3)
+    cpu._device("cpu")
+    want = cpu.generate(np.asarray(prompts), 12, device="cpu").tolist()
+    lm = TransformerLM(**cfg, seed=3)
+    lm._device(cuda_device)
+    root = str(tmp_path / "fleet")
+    front = FileQueue(root)
+    servers, insts = [], []
+    for name in ("a", "b"):
+        q = instance_queue(root, name)
+        hp = os.path.join(root, f"{name}.health.json")
+        servers.append(GenerativeServing(ServingConfig(
+            data_src=root, slots=2, max_new_tokens=12, stream_interval=2,
+            health_path=hp, health_interval_s=0.0), lm, queue=q))
+        insts.append(FleetInstance(name, q, hp, slots=2))
+    a, b = servers
+    router = FleetRouter(front, insts, stale_after_s=5.0,
+                         health_refresh_s=0.0)
+    a.serve_step()
+    for i, p in enumerate(prompts):
+        InputQueue(f"dir://{root}").enqueue_prompt(f"s{i}", p)
+    assert router.route_once() == 2
+    for _ in range(5):
+        a.serve_step()
+    with open(a.config.health_path) as f:
+        snap = json.load(f)
+    snap["time"] -= 60.0
+    with open(a.config.health_path, "w") as f:
+        json.dump(snap, f)
+    b.serve_step()
+    router.route_once()
+    idle = 0
+    while idle < 3:
+        idle = idle + 1 if b.serve_step() == 0 else 0
+    got = [front.get_result(f"s{i}") for i in range(2)]
+    assert [r["value"] for r in got] == want
+    assert router.stats["assigned"] == 2  # settled on the next pass
+    router.route_once()
+    assert router.stats == {"assigned": 0, "backlog": 0}
