@@ -78,12 +78,38 @@ def global_config() -> Config:
     return _global_config
 
 
+_global_config.register("failure.retry_times", 5,
+                        "Max training retries from checkpoint within a retry "
+                        "window (reference: bigdl.failure.retryTimes).")
+_global_config.register("failure.retry_interval_s", 120.0,
+                        "Window seconds for retry budget reset "
+                        "(reference: bigdl.failure.retryTimeInterval).")
 _global_config.register("failure.io_retries", 3,
                         "Retries for transient result-store read failures "
                         "in the serving client (exponential backoff).")
 _global_config.register("failure.io_backoff_s", 0.05,
                         "Base backoff seconds for those retries (doubles "
                         "per attempt).")
+_global_config.register("checkpoint.keep", 5,
+                        "Snapshots retained per checkpoint dir (older ones "
+                        "pruned after each successful write; >= 2 keeps a "
+                        "fallback candidate for torn-newest recovery; "
+                        "0 = unlimited).")
+_global_config.register("checkpoint.verify", True,
+                        "Verify the per-snapshot checksum manifest on "
+                        "restore; a mismatch raises CheckpointCorruptError "
+                        "and elastic restores fall back to the next-older "
+                        "valid snapshot.")
+_global_config.register("eval.async", True,
+                        "Pipeline evaluate()/predict() through the "
+                        "DeviceFeed with on-device accumulation (one host "
+                        "sync per pass). False falls back to the "
+                        "synchronous per-batch loops (parity reference / "
+                        "A-B benchmarking).")
+_global_config.register("online.snapshot_interval_s", 30.0,
+                        "Default wall-time snapshot cadence for "
+                        "Estimator.train_online (unbounded streams "
+                        "checkpoint by time, not epoch boundaries).")
 _global_config.register("data.validate_ids", "count",
                         "Embedding-id validation policy ('count' | 'raise' "
                         "| 'clamp'). 'clamp' clips silently; 'count' clips "

@@ -1,4 +1,4 @@
 """The training loop: ``Estimator``."""
-from .estimator import Estimator
+from .estimator import CheckpointCorruptError, Estimator, PreemptedError
 
-__all__ = ["Estimator"]
+__all__ = ["CheckpointCorruptError", "Estimator", "PreemptedError"]

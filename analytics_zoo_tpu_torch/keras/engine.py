@@ -22,6 +22,7 @@ every layer through :meth:`set_dropout_generator`.
 """
 from __future__ import annotations
 
+import copy
 import itertools
 import os
 from collections import defaultdict
@@ -172,6 +173,73 @@ class _TrainableMixin:
             if isinstance(m, Layer):
                 m.dropout_generator = generator
 
+    # -- transfer learning (the JAX package's freeze API) ---------------------
+
+    @property
+    def frozen_layers(self) -> frozenset:
+        return getattr(self, "_frozen_layers", frozenset())
+
+    def _param_layer_names(self) -> List[str]:
+        """Names of the top-level layers that own parameters, in build
+        order. An unbuilt ``Model`` reads them from a copy built on the
+        CPU (its own weights stay unbuilt); an unbuilt ``Sequential``
+        needs its input shape first."""
+        model = self
+        if not self.built:
+            if not isinstance(self, Model):
+                raise RuntimeError("model must be built before freeze()")
+            model = copy.deepcopy(self).build(device="cpu")
+        names: List[str] = []
+        for key, _ in model.named_parameters():
+            top = key.split(".", 1)[0]
+            if top not in names:
+                names.append(top)
+        return names
+
+    def _all_layer_names(self) -> set:
+        """Top-level layer names only: a parameter's state-dict key starts
+        with one, so a nested layer's name could never match and freezing
+        it would silently do nothing."""
+        if isinstance(self, Model):
+            return {n.layer.name for n in self._nodes}
+        return {layer.name for layer in getattr(self, "layers", [])}
+
+    def freeze(self, names: Optional[Sequence[str]] = None) -> "Layer":
+        """Freeze the given layers (every layer with parameters if
+        ``names`` is None): their parameters get no gradient and no
+        optimizer update. An unknown name raises ``ValueError``."""
+        if names is None:
+            names = self._param_layer_names()
+        elif isinstance(names, str):
+            names = [names]
+        known = self._all_layer_names()
+        try:
+            known |= set(self._param_layer_names())
+        except RuntimeError:
+            pass  # unbuilt Sequential: layer names only
+        unknown = set(names) - known
+        if unknown:
+            # a typo here would silently leave a backbone trainable
+            raise ValueError(f"freeze: unknown layer name(s) "
+                             f"{sorted(unknown)}; known layers: "
+                             f"{sorted(known)}")
+        self._frozen_layers = frozenset(self.frozen_layers | set(names))
+        return self
+
+    def unfreeze(self, names: Optional[Sequence[str]] = None) -> "Layer":
+        """Unfreeze the given layers (all if None)."""
+        if names is None:
+            self._frozen_layers = frozenset()
+        else:
+            if isinstance(names, str):
+                names = [names]
+            self._frozen_layers = frozenset(self.frozen_layers - set(names))
+        return self
+
+    def trainable_param_names(self) -> List[str]:
+        return [n for n in self._param_layer_names()
+                if n not in self.frozen_layers]
+
     # -- training (delegates to the Estimator, as in the JAX package) ---------
 
     def compile(self, optimizer, loss, metrics: Optional[List] = None):
@@ -196,14 +264,30 @@ class _TrainableMixin:
             self._estimator.to(device)
         return self._estimator
 
+    def set_checkpoint(self, path: str, trigger=None) -> None:
+        self._ckpt = (path, trigger)
+
+    def set_gradient_clipping_by_l2_norm(self, clip_norm: float) -> None:
+        self._clip = ("l2", clip_norm)
+
+    def set_constant_gradient_clipping(self, min_value: float,
+                                       max_value: float) -> None:
+        self._clip = ("const", (min_value, max_value))
+
     def fit(self, x, y=None, batch_size: int = 32, nb_epoch: int = 1,
             validation_data=None, featureset=None, device: DeviceLike = None,
             **kwargs):
         """Train on ``x``/``y`` arrays (or a ``FeatureSet``) through the
-        Estimator; returns ``{"loss_history", "iterations"}``."""
+        Estimator, with the checkpoint and gradient clipping set on this
+        model; other keywords (``steps_per_dispatch``, triggers) go to
+        ``Estimator.train``. Returns ``{"loss_history", "iterations"}``."""
         from ..feature import FeatureSet
         nb_epoch = kwargs.pop("epochs", nb_epoch)
         est = self.get_estimator(device)
+        if hasattr(self, "_ckpt"):
+            est.set_checkpoint(*self._ckpt)
+        if hasattr(self, "_clip"):
+            est.set_gradient_clipping(self._clip)
         if featureset is None:
             featureset = (x if isinstance(x, FeatureSet)
                           else FeatureSet.from_ndarrays(x, y))
@@ -316,6 +400,33 @@ class Model(_TrainableMixin, Layer):
         self.built_shape = input_shape
         self.built = True
         return self
+
+    def _node_by_layer_name(self, name: str) -> Node:
+        for node in self._nodes:
+            if node.layer.name == name:
+                return node
+        raise KeyError(f"no layer named '{name}'; have "
+                       f"{[n.layer.name for n in self._nodes]}")
+
+    def freeze_up_to(self, names) -> "Model":
+        """Freeze every layer from the inputs up to and including the named
+        layers (reference ``freezeUpTo``)."""
+        names = [names] if isinstance(names, str) else list(names)
+        seen: set = set()
+
+        def visit(node: Node):
+            if id(node) in seen:
+                return
+            seen.add(id(node))
+            for sym in node.inputs:
+                if sym.node is not None:
+                    visit(sym.node)
+
+        for name in names:
+            visit(self._node_by_layer_name(name))
+        param_names = set(self._param_layer_names())
+        return self.freeze([n.layer.name for n in self._nodes
+                            if id(n) in seen and n.layer.name in param_names])
 
     def forward(self, inputs):
         xs = inputs if isinstance(inputs, (list, tuple)) else [inputs]

@@ -380,6 +380,24 @@ Phases, each of which must pass or the script exits non-zero:
    (fault, alert, incident), and a ``trace()`` session holds every record's
    whole flow chain (enqueue, claim, decode, dispatch, result).
 
+25. the Estimator's training loop (ROADMAP Queue A item 5b,
+   ``phase_estimator_loop``): BERT-base fine-tuned as phase 7 does, with
+   ``set_gradient_clipping(("l2", 1.0))``, from one set of seeded weights,
+   under PyTorch's deterministic algorithms (``index_add_`` without
+   atomics): (a) 16 steps three times (the card's own run-to-run distance,
+   the largest pair's; 0 where the runs agree bit for bit), (b) 16 steps
+   at ``steps_per_dispatch=4`` equal to (a) bit for bit where (a)'s runs
+   agree bit for bit, else within twice that distance, with ms a step by
+   CUDA events and wall clock at K = 1 and 4 (and in PyTorch's default
+   mode, one more run each), (c) elastic retry: a torn
+   snapshot and a failed 10th dispatch fall back one snapshot and end at
+   (a)'s parameters with 2 verified snapshots left, (d) a real SIGTERM
+   at 0.4 of a run: ``PreemptedError``, the marker's snapshot resumes to (a)'s
+   parameters, (e) NCF at MovieLens-1M width with its tables frozen: 8
+   steps leave them bit for bit, (f) ``train_online(max_steps=8)`` writes a
+   ``TimeInterval`` snapshot. B1, B7 and B8 launch; printed with the peak
+   memory, the snapshot's host copy, write, verify and restore seconds.
+
 Each phase's seconds are printed. The last three lines of output are the
 card's
 ``nvidia-smi`` name and power limit, the ``{"kernels": [...]}`` line,
@@ -393,6 +411,7 @@ import math
 import os
 import re
 import shutil
+import signal
 import socket
 import subprocess
 import sys
@@ -400,6 +419,7 @@ import tempfile
 import threading
 import time
 import traceback
+import warnings
 
 import numpy as np
 import torch
@@ -2560,6 +2580,373 @@ def phase_bert_vs_cpu(at, seed: int):
             "params": sum(v.numel() for v in w_cpu.values()),
             "params_other_gradient": free,
             "max_abs_err_params_other_gradient": free_err}
+
+
+#: the training loop's phase: BERT-base as phase_bert fine-tunes it, 16
+#: steps (2 epochs of 8 batches), K steps a dispatch, a snapshot every 4
+#: steps of which the newest 2 are kept, a step fault at the 10th dispatch
+LOOP_STEPS, LOOP_K, LOOP_SNAPSHOT_EVERY, LOOP_KEEP = 16, 4, 4, 2
+LOOP_STRAIGHT_RUNS = 3
+#: the SIGTERM's time as a share of a straight run's wall: the host runs a
+#: few steps ahead of the card, so a little before half way lands mid-run
+LOOP_SIGTERM_AT = 0.4
+LOOP_FAULT_AT, LOOP_ONLINE_STEPS, LOOP_ONLINE_INTERVAL_S = 10, 8, 0.25
+#: NCF at MovieLens-1M width frozen below its dense layers: 8 steps
+FREEZE_BATCH, FREEZE_STEPS = 2048, 8
+NCF_TABLE_LAYERS = tuple(name for name, _, _ in NCF_TABLES)
+
+
+def param_distance(a: dict, b: dict) -> dict:
+    """Max |a - b| and the relative L2 distance over every float tensor of
+    two state dicts."""
+    worst, diff, norm = 0.0, 0.0, 0.0
+    for k, v in a.items():
+        if not v.is_floating_point():
+            continue
+        d = (v.double() - b[k].double())
+        worst = max(worst, float(d.abs().max()) if d.numel() else 0.0)
+        diff += float(d.square().sum())
+        norm += float(v.double().square().sum())
+    return {"max_abs": worst, "rel_l2": (diff / max(norm, 1e-300)) ** 0.5}
+
+
+def loss_distance(a, b) -> float:
+    return float(np.max(np.abs(np.asarray(a) - np.asarray(b))))
+
+
+@contextlib.contextmanager
+def deterministic_algorithms(on: bool = True):
+    """PyTorch's deterministic algorithms for the block (its default mode
+    where ``on`` is False), then the settings as they were. The embedding
+    backward's ``index_add_`` then adds by a sorted reduction, not with
+    atomics in no fixed order, so two runs of one training agree bit for
+    bit. Ops without such an algorithm only warn (``warn_only``), and
+    cuBLAS's warning (no ``CUBLAS_WORKSPACE_CONFIG``; one stream computes
+    here) is silenced; ``torch.empty`` is not filled, as in a default
+    run."""
+    from torch.utils import deterministic
+    was = (torch.are_deterministic_algorithms_enabled(),
+           torch.is_deterministic_algorithms_warn_only_enabled(),
+           deterministic.fill_uninitialized_memory)
+    torch.use_deterministic_algorithms(on, warn_only=True)
+    deterministic.fill_uninitialized_memory = False
+    try:
+        with warnings.catch_warnings():
+            warnings.filterwarnings("ignore", message=".*CuBLAS.*")
+            yield
+    finally:
+        torch.use_deterministic_algorithms(was[0], warn_only=was[1])
+        deterministic.fill_uninitialized_memory = was[2]
+
+
+def phase_estimator_loop(at, ek, seed: int, workdir: str):
+    """The Estimator's training loop on the card (ROADMAP Queue A item
+    5b): BERT-base fine-tuned as ``phase_bert`` does (bf16, dropout 0.1,
+    Adam at ``BERT_LR``, batch 128 x 128, 1024 seeded records) through
+    ``Estimator.train`` with ``set_gradient_clipping(("l2", 1.0))``, from
+    one set of seeded weights, under :func:`deterministic_algorithms` (the
+    kernels and the loop are the default run's; only ``index_add_`` adds
+    in a fixed order, so the comparisons below can be bit for bit):
+
+    (a) 16 steps, one a dispatch, three times: the card's run-to-run
+        distance, the largest of the three pairs' (max |Δ| and relative L2
+        over the parameters, max |Δ| over the losses); the first run's
+        parameters are P;
+    (b) the same 16 steps at K = 4 a dispatch: its losses and parameters
+        equal the first run's bit for bit where (a)'s runs agree bit for
+        bit, else within twice their distance; ms a step by CUDA events
+        and by wall clock at K = 1 and K = 4, of these runs and of one
+        more each in PyTorch's default mode;
+    (c) elastic retry: a snapshot every 4 steps, ``checkpoint.keep`` 2,
+        ``ckpt.corrupt`` tears the second snapshot and ``train.step``
+        fails the 10th dispatch: the restore falls back one snapshot
+        (``ckpt.fallback_total`` 1), the run ends at (a)'s parameters
+        under (b)'s rule, two snapshot directories are left, each with a
+        manifest that verifies;
+    (d) a real SIGTERM from a timer thread at 0.4 of a straight run's wall
+        clock: PreemptedError,
+        the marker names a snapshot that exists, and a fresh Estimator
+        loaded from it trains to 16 steps and ends at (a)'s parameters;
+    (e) the flagship NCF (MovieLens-1M width) with its four embedding
+        tables frozen, 8 steps through ``fit``: the tables stay equal to
+        their initial values bit for bit, every other layer moves;
+    (f) ``train_online(max_steps=8)`` with a 0.25 s ``TimeInterval``
+        snapshot: at least one is written.
+
+    Returns (launches over the whole phase, stats)."""
+    with deterministic_algorithms():
+        return _estimator_loop(at, ek, seed, workdir)
+
+
+def _estimator_loop(at, ek, seed: int, workdir: str):
+    """:func:`phase_estimator_loop`'s runs and checks."""
+    from analytics_zoo_tpu_torch.capture import BERTClassifier
+    from analytics_zoo_tpu_torch.capture.text import bert_input_pack
+    from analytics_zoo_tpu_torch.common import faults, metrics
+    from analytics_zoo_tpu_torch.common.config import global_config
+    from analytics_zoo_tpu_torch.common.triggers import SeveralIteration
+    from analytics_zoo_tpu_torch.estimator import Estimator, PreemptedError
+    from analytics_zoo_tpu_torch.estimator import estimator as est_mod
+    from analytics_zoo_tpu_torch.feature import FeatureSet
+    from analytics_zoo_tpu_torch.keras.optimizers import Adam
+    from analytics_zoo_tpu_torch.models import NeuralCF
+
+    cfg = dict(BERT_CFG, compute_dtype="bfloat16", hidden_p_drop=0.1,
+               attn_p_drop=0.1)
+    tokens, labels = bert_records(seed, BERT_RECORDS, BERT_SEQ)
+    packed = bert_input_pack(tokens)
+    epochs = LOOP_STEPS // (BERT_RECORDS // BERT_BATCH)
+    clf = BERTClassifier(2, bert_config=cfg, optimizer=Adam(BERT_LR)).build(
+        BERT_SEQ, torch.Generator().manual_seed(seed), device="cuda")
+    model = clf.model
+    init = {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+    def estimator():
+        model.load_state_dict(init)
+        est = Estimator(model, model.loss_fn, Adam(BERT_LR), device="cuda")
+        est.set_gradient_clipping(("l2", 1.0))
+        return est
+
+    def data():
+        return FeatureSet.from_ndarrays(packed, labels)
+
+    def params():
+        return {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+    def train(est, k=1, **kw):
+        torch.cuda.synchronize()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
+        t0 = time.perf_counter()
+        start.record()
+        hist = est.train(data(), BERT_BATCH, epochs=epochs,
+                         steps_per_dispatch=k, **kw)
+        end.record()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        steps = len(hist["loss_history"])
+        return hist, {"ms_per_step_events": start.elapsed_time(end) / steps,
+                      "ms_per_step_wall": wall * 1e3 / steps, "wall_s": wall}
+
+    at.reset_launch_counts()
+    ek.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    stats = {"records": BERT_RECORDS, "batch": BERT_BATCH, "seq": BERT_SEQ,
+             "steps": LOOP_STEPS, "clip": ["l2", 1.0]}
+    # (a) the straight run, three times: where the runs do not agree bit
+    # for bit, a single pair's distance is one draw of the card's spread
+    # (Adam amplifies any rounding), so the spread is the largest pair's
+    runs = []
+    for _ in range(LOOP_STRAIGHT_RUNS):
+        est = estimator()
+        hist, timing = train(est)
+        check(est.global_step == LOOP_STEPS
+              and len(hist["loss_history"]) == LOOP_STEPS
+              and bool(np.isfinite(hist["loss_history"]).all()),
+              f"straight run: {est.global_step} steps, "
+              f"{hist['loss_history']}")
+        runs.append((hist["loss_history"], params(), timing))
+    losses_p, p_ref, _ = runs[0]
+    pairs = [{**param_distance(a[1], b[1]), "loss": loss_distance(a[0], b[0])}
+             for i, a in enumerate(runs) for b in runs[i + 1:]]
+    own = {k: max(d[k] for d in pairs) for k in pairs[0]}
+    stats["run_to_run"] = {"largest": own, "pairs": pairs}
+    exact = own["max_abs"] == 0.0 and own["loss"] == 0.0
+
+    def held(what, losses, got):
+        dist = {**param_distance(p_ref, got),
+                "loss": loss_distance(losses_p, losses)}
+        if exact:
+            ok = dist["max_abs"] == 0.0 and dist["loss"] == 0.0
+        else:
+            ok = all(dist[k] <= 2 * own[k] for k in dist)
+        check(ok, f"{what}: {dist} from the straight run, whose own "
+              f"run-to-run distance is {own}")
+        return dist
+
+    # (b) K steps a dispatch
+    est = estimator()
+    hist, timing_k4 = train(est, LOOP_K)
+    stats["k4_distance"] = held(f"K = {LOOP_K}", hist["loss_history"],
+                                params())
+    stats["ms_per_step_deterministic"] = {"k1": runs[-1][2],
+                                          f"k{LOOP_K}": timing_k4}
+    # ms a step as users train, in PyTorch's default mode (the sorted
+    # index_add_ makes a deterministic step slower: PERF.md)
+    with deterministic_algorithms(False):
+        stats["ms_per_step"] = {f"k{k}": train(estimator(), k)[1]
+                                for k in (1, LOOP_K)}
+    # (c) elastic retry past a torn snapshot
+    write = metrics.histogram("ckpt.write_seconds")
+    verify = metrics.histogram("ckpt.verify_seconds")
+    restore = metrics.histogram("ckpt.restore_seconds")
+    fallback = metrics.counter("ckpt.fallback_total")
+    before = (write.count(), write.sum(), verify.count(), verify.sum(),
+              restore.sum(), fallback.value())
+    ckpt = os.path.join(workdir, "estimator_loop_retry")
+    global_config().set("checkpoint.keep", LOOP_KEEP)
+    faults.reset()
+    faults.arm("ckpt.corrupt", at=2)
+    faults.arm("train.step", at=LOOP_FAULT_AT)
+    try:
+        est = estimator()
+        est.set_checkpoint(ckpt, SeveralIteration(LOOP_SNAPSHOT_EVERY))
+        copies, marks = [], {}
+        snapshot, restore_valid, step = (est._snapshot,
+                                         est._restore_latest_valid,
+                                         est._train_step)
+
+        def timed_copy():
+            t0 = time.perf_counter()
+            out = snapshot()
+            copies.append(time.perf_counter() - t0)
+            return out
+
+        def timed_restore():
+            marks["fault"] = time.perf_counter()
+            return restore_valid()
+
+        def timed_step(x, y):
+            loss = step(x, y)
+            if "fault" in marks and "recovered" not in marks:
+                torch.cuda.synchronize()
+                marks["recovered"] = time.perf_counter()
+            return loss
+
+        est._snapshot, est._restore_latest_valid = timed_copy, timed_restore
+        est._train_step = timed_step
+        hist, _ = train(est)
+        fired = (faults.fire_count("ckpt.corrupt"),
+                 faults.fire_count("train.step"))
+    finally:
+        faults.reset()
+        global_config().unset("checkpoint.keep")
+    check(fired == (1, 1), f"faults fired {fired}, expected one each")
+    fell_back = fallback.value() - before[5]
+    check(fell_back == 1, f"ckpt.fallback_total moved by {fell_back}")
+    check(est.global_step == LOOP_STEPS, f"retried run ended at step "
+          f"{est.global_step}")
+    left = sorted(os.listdir(ckpt))
+    want_left = [f"snapshot-{LOOP_STEPS - LOOP_SNAPSHOT_EVERY}",
+                 f"snapshot-{LOOP_STEPS}"]
+    check(left == want_left, f"snapshots left {left}, expected {want_left}")
+    for name in left:
+        check(est_mod._verify_manifest(os.path.join(ckpt, name), name),
+              f"{name} has no manifest")
+    # the history holds the failed attempt's first epoch and then the
+    # replay from the restored snapshot: the run's own losses are the
+    # steps before that snapshot and the replay's
+    kept = LOOP_SNAPSHOT_EVERY
+    own_losses = (hist["loss_history"][:kept]
+                  + hist["loss_history"][-(LOOP_STEPS - kept):])
+    stats["retry"] = {
+        "distance": held("elastic retry", own_losses, params()),
+        "fallbacks": fell_back, "snapshots_left": left,
+        "snapshot_bytes": os.path.getsize(os.path.join(
+            ckpt, left[-1], est_mod.CHECKPOINT_FILE)),
+        "host_copy_s": copies, "writes": write.count() - before[0],
+        "write_s": write.sum() - before[1],
+        "verifies": verify.count() - before[2],
+        "verify_s": verify.sum() - before[3],
+        "restore_s": restore.sum() - before[4],
+        "fault_to_next_good_step_s": marks["recovered"] - marks["fault"]}
+    shutil.rmtree(ckpt, ignore_errors=True)
+    # (d) a real SIGTERM part way through
+    ckpt = os.path.join(workdir, "estimator_loop_preempt")
+    late = []
+    outer = signal.signal(signal.SIGTERM, lambda *_: late.append(1))
+    try:
+        est = estimator()
+        est.set_checkpoint(ckpt, SeveralIteration(10 * LOOP_STEPS))
+        delay = runs[-1][2]["wall_s"] * LOOP_SIGTERM_AT
+        timer = threading.Timer(delay, os.kill, (os.getpid(),
+                                                 signal.SIGTERM))
+        timer.start()
+        try:
+            train(est)
+            preempted = None
+        except PreemptedError as e:
+            preempted = e
+        timer.join(timeout=60)
+    finally:
+        signal.signal(signal.SIGTERM, outer)
+    check(preempted is not None and not late,
+          f"no preemption from a SIGTERM at {delay:.3f} s")
+    marker = Estimator.preemption_marker(ckpt)
+    snap = os.path.join(ckpt, marker["snapshot"])
+    check(marker["resumable"] and os.path.isdir(snap)
+          and snap == preempted.snapshot,
+          f"marker {marker} does not name the snapshot {preempted.snapshot}")
+    stopped = est.global_step
+    check(0 < stopped < LOOP_STEPS, f"preempted at step {stopped}")
+    resumed = estimator()
+    resumed.load_checkpoint(snap)
+    hist, _ = train(resumed)
+    check(resumed.global_step == LOOP_STEPS, f"resumed run ended at step "
+          f"{resumed.global_step}")
+    stats["preempt"] = {
+        "sigterm_after_s": delay, "stopped_at_step": stopped,
+        "marker": marker,
+        "distance": held("resumed after preemption",
+                         losses_p[:stopped] + hist["loss_history"],
+                         params())}
+    shutil.rmtree(ckpt, ignore_errors=True)
+    # (f) train_online: TimeInterval snapshots
+    ckpt = os.path.join(workdir, "estimator_loop_online")
+    est = estimator()
+    est.set_checkpoint(ckpt)
+    t0 = time.perf_counter()
+    hist = est.train_online(data(), BERT_BATCH, max_steps=LOOP_ONLINE_STEPS,
+                            snapshot_interval_s=LOOP_ONLINE_INTERVAL_S)
+    online_s = time.perf_counter() - t0
+    snaps = [step for step, _ in est._snapshot_candidates()]
+    check(hist["iterations"] == LOOP_ONLINE_STEPS and len(snaps) >= 1,
+          f"train_online: {hist['iterations']} steps, snapshots {snaps}")
+    stats["online"] = {"steps": hist["iterations"], "snapshots": snaps,
+                       "wall_s": online_s,
+                       "losses_equal_straight": hist["loss_history"]
+                       == losses_p[:LOOP_ONLINE_STEPS]}
+    shutil.rmtree(ckpt, ignore_errors=True)
+    launches = {**at.launch_counts,
+                "gather_rows": ek.launch_counts["gather_rows"],
+                "routes": dict(at.route_counts)}
+    stats["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del clf, model, init, est, resumed
+    torch.cuda.empty_cache()
+    # (e) freeze: NCF's tables frozen, 8 steps through fit
+    ek.reset_launch_counts()
+    pairs = ncf_pairs(np.random.default_rng(seed), FREEZE_BATCH
+                      * FREEZE_STEPS)
+    clicks = np.random.default_rng(seed + 1).integers(
+        0, 2, len(pairs)).astype(np.float32)
+    ncf = NeuralCF(**NCF).build(torch.Generator().manual_seed(seed),
+                                device="cuda")
+    ncf.compile("adam", "sparse_categorical_crossentropy", ["accuracy"])
+    ncf.model.freeze(list(NCF_TABLE_LAYERS))
+    before_w = {k: v.detach().clone()
+                for k, v in ncf.model.state_dict().items()}
+    hist = ncf.fit(pairs, clicks, batch_size=FREEZE_BATCH, nb_epoch=1,
+                   device="cuda")
+    after_w = ncf.model.state_dict()
+    frozen = [k for k in before_w if k.split(".")[0] in NCF_TABLE_LAYERS]
+    moved = [k for k in before_w if k not in frozen]
+    check(len(frozen) == len(NCF_TABLE_LAYERS) and all(
+        torch.equal(after_w[k], before_w[k]) for k in frozen),
+          "a frozen NCF table moved")
+    still = [k for k in moved if torch.equal(after_w[k], before_w[k])]
+    check(hist["iterations"] == FREEZE_STEPS and not still,
+          f"NCF freeze: {hist['iterations']} steps, unmoved {still}")
+    launches["gather_rows"] += ek.launch_counts["gather_rows"]
+    stats["freeze"] = {"model": "NCF (MovieLens-1M width)",
+                       "frozen": list(NCF_TABLE_LAYERS),
+                       "steps": hist["iterations"],
+                       "gather_rows": ek.launch_counts["gather_rows"],
+                       "trainable_moved": len(moved)}
+    want = {"fused_short_fwd": 1, "fused_short_bwd": 1, "gather_rows": 1}
+    check(all(launches[k] >= v for k, v in want.items())
+          and launches["routes"]["bf16_tc"] > 0,
+          f"the loop launched {launches}")
+    stats["launches"] = launches
+    return launches, stats
 
 
 def flash_pairs(sq: int, skv: int, causal: bool) -> int:
@@ -7014,6 +7401,12 @@ def main() -> int:
         log("bert " + json.dumps(bert_stats) + f" | {smi}")
         bert_cpu = timed("bert_vs_cpu", phase_bert_vs_cpu, at, args.seed)
         log("bert card vs cpu " + json.dumps(bert_cpu) + f" | {smi}")
+        # -- 25. the Estimator's training loop --------------------------
+        torch.cuda.empty_cache()
+        loop_launches, loop_stats = timed(
+            "estimator_loop", phase_estimator_loop, at, ek, args.seed,
+            workdir)
+        log("estimator loop " + json.dumps(loop_stats) + f" | {smi}")
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
@@ -7136,6 +7529,7 @@ def main() -> int:
                          for r in shard_ranks for job in ("correct", "full")),
                      "bert": sum(c["gather_rows"]
                                  for c in bert_launches.values()),
+                     "estimator_loop": loop_launches["gather_rows"],
                      "bert_serving": bert_serving_launches["gather_rows"],
                      "serving_ops_ncf":
                          ops_launches["serving_ops_ncf"]["gather_rows"],
@@ -7276,7 +7670,8 @@ def main() -> int:
         by_path["bert_serving"] = bert_serving_launches[name]
         by_path.update({k: c[name] for k, c in lm_paths.items()})
         by_path["bert_vs_cpu"] = bert_cpu["launches"][name]
-        bf16_paths = set(bert_launches) | {"bert_serving"}
+        by_path["estimator_loop"] = loop_launches[name]
+        bf16_paths = set(bert_launches) | {"bert_serving", "estimator_loop"}
         # the BERT fine-tune is bf16, the others f32 (both checked)
         routes = {"bf16_tc": {
             "source": attn_sources["bf16_tc"],

@@ -18,6 +18,7 @@ import torch
 from analytics_zoo_tpu.ops.attention import (
     dot_product_attention as jax_dot_product_attention)
 from analytics_zoo_tpu_torch.ops import attention as at
+from torch_port_threads import torch_threads_per_worker  # noqa: F401
 
 ATOL = 1e-5
 

@@ -27,6 +27,7 @@ from analytics_zoo_tpu_torch.keras import Input, Model
 from analytics_zoo_tpu_torch.keras.layers import (BERT, Dense, Dropout,
                                                   MultiHeadAttention)
 from analytics_zoo_tpu_torch.ops import attention as at
+from torch_port_threads import torch_threads_per_worker  # noqa: F401
 
 CFG = dict(vocab=100, hidden_size=32, n_block=2, n_head=2,
            intermediate_size=64, max_position_len=64)
@@ -217,7 +218,8 @@ def test_a_checkpoint_from_another_device_type_restarts_dropout(tmp_path):
     """A card's generator state (16 bytes) does not fit a CPU generator: a
     checkpoint saved on the card resumes on the CPU with the generator
     started from the Estimator's seed, everything else restored."""
-    from analytics_zoo_tpu_torch.estimator.estimator import CHECKPOINT_FILE
+    from analytics_zoo_tpu_torch.estimator.estimator import (
+        CHECKPOINT_FILE, _write_manifest)
     tok = _tokens(seed=4)
     y = (tok == 7).any(axis=1).astype(np.float32)
     clf = BERTClassifier(2, bert_config=CFG).build(SEQ, device="cpu")
@@ -230,6 +232,7 @@ def test_a_checkpoint_from_another_device_type_restarts_dropout(tmp_path):
     tree["meta"].update(dropout_rng=torch.zeros(16, dtype=torch.uint8),
                         dropout_device="cuda")
     torch.save(tree, path / CHECKPOINT_FILE)
+    _write_manifest(str(path))  # the edited file is the snapshot's now
 
     resumed = BERTClassifier(2, bert_config=CFG).build(SEQ, device="cpu")
     rest = resumed.model.get_estimator("cpu")

@@ -30,6 +30,7 @@ from analytics_zoo_tpu_torch.convert import from_jax_params
 from analytics_zoo_tpu_torch.inference.quantize import QuantizedWeight
 from analytics_zoo_tpu_torch.keras import layers as port
 from analytics_zoo_tpu_torch.keras.layers import conv as pconv
+from torch_port_threads import torch_threads_per_worker  # noqa: F401
 
 ATOL = 1e-5
 

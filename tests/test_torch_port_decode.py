@@ -16,6 +16,7 @@ import torch
 
 from analytics_zoo_tpu.ops import decode as jd
 from analytics_zoo_tpu_torch.ops import decode as pd
+from torch_port_threads import torch_threads_per_worker  # noqa: F401
 
 S, H, L, D = 4, 3, 32, 8  # slots, heads, max_len, head_dim
 

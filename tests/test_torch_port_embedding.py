@@ -23,6 +23,7 @@ from analytics_zoo_tpu_torch.common.config import global_config as port_config
 from analytics_zoo_tpu_torch.keras.layers import Embedding as PortEmbedding
 from analytics_zoo_tpu_torch.ops import embedding_kernels as port_ek
 from analytics_zoo_tpu_torch.parallel import embedding as port_embed
+from torch_port_threads import torch_threads_per_worker  # noqa: F401
 
 
 @contextlib.contextmanager

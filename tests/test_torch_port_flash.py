@@ -18,6 +18,7 @@ import torch
 
 from analytics_zoo_tpu.ops import attention as jat
 from analytics_zoo_tpu_torch.ops import attention as at
+from torch_port_threads import torch_threads_per_worker  # noqa: F401
 
 ATOL = 2e-5
 #: (q_len, kv_len): ragged tiles, lengths apart, the LM's S - 1 shapes

@@ -19,6 +19,7 @@ import torch
 
 from analytics_zoo_tpu.ops import attention as jat
 from analytics_zoo_tpu_torch.ops import attention as at
+from torch_port_threads import torch_threads_per_worker  # noqa: F401
 
 #: bf16 outputs round to 8 bits: relative to the output's scale
 BF16_TOL = 2e-2

@@ -45,6 +45,7 @@ from analytics_zoo_tpu_torch.serving import fleet as pfleet
 from analytics_zoo_tpu_torch.serving import queues as pqueues
 from analytics_zoo_tpu_torch.serving.server import SHED_ERROR
 from tests.test_redis_serving import FakeRedis
+from torch_port_threads import torch_threads_per_worker  # noqa: F401
 
 T = 2_000_000.0  # the routers' fixed wall clock
 LM = dict(vocab_size=128, hidden=64, n_block=2, n_head=4, max_len=64)

@@ -22,6 +22,7 @@ from analytics_zoo_tpu_torch.keras.layers import core as port_core
 from analytics_zoo_tpu_torch.keras.layers import embedding as port_embedding
 from analytics_zoo_tpu_torch.ops import embedding_kernels as ek
 from analytics_zoo_tpu_torch.parallel import embedding as port_embed
+from torch_port_threads import torch_threads_per_worker  # noqa: F401
 
 ROWS, DIM, N, BAG = 23, 5, 11, 4
 COMBINERS = [None, "sum", "mean", "sqrtn"]

@@ -27,6 +27,7 @@ from analytics_zoo_tpu_torch.convert import from_jax_params
 from analytics_zoo_tpu_torch.serving import (GenerativeServing, InputQueue,
                                              OutputQueue, ServingConfig)
 from analytics_zoo_tpu_torch.serving import server as port_server
+from torch_port_threads import torch_threads_per_worker  # noqa: F401
 
 CFG = dict(vocab_size=128, hidden=64, n_block=2, n_head=4, max_len=64)
 _PAIRS = {}

@@ -34,6 +34,7 @@ from analytics_zoo_tpu_torch.models import ZooModel
 from analytics_zoo_tpu_torch.models.image.imageclassification import \
     ImageClassifier
 from analytics_zoo_tpu_torch.nnframes import NNImageReader
+from torch_port_threads import torch_threads_per_worker  # noqa: F401
 
 SIZE = 32
 LABELS = ["cat", "dog", "bird"]

@@ -45,6 +45,7 @@ from analytics_zoo_tpu_torch.models.image import imageclassification as pic
 from analytics_zoo_tpu_torch.serving import (ClusterServing, InputQueue,
                                              OutputQueue, ServingConfig)
 from analytics_zoo_tpu_torch.serving import queues as port_queues
+from torch_port_threads import torch_threads_per_worker  # noqa: F401
 
 SIZE, CLASSES, BATCH = 32, 10, 8
 BERT_CFG = dict(vocab=100, hidden_size=32, n_block=2, n_head=2,

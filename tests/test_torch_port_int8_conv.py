@@ -51,6 +51,7 @@ from analytics_zoo_tpu_torch.keras.layers import conv as pconv
 from analytics_zoo_tpu_torch.models.image import imageclassification as pic
 from analytics_zoo_tpu_torch.ops import int8_dataflow as pflow
 from analytics_zoo_tpu_torch.ops import int8_training as ptrain
+from torch_port_threads import torch_threads_per_worker  # noqa: F401
 
 DIMS = ("NHWC", "HWIO", "NHWC")
 #: weight-only int8 and the f32 forward: the same products summed in

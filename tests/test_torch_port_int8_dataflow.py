@@ -53,6 +53,7 @@ from analytics_zoo_tpu_torch.feature import FeatureSet
 from analytics_zoo_tpu_torch.keras import optimizers
 from analytics_zoo_tpu_torch.models.image import imageclassification as pic
 from analytics_zoo_tpu_torch.ops import int8_dataflow as p8
+from torch_port_threads import torch_threads_per_worker  # noqa: F401
 
 LOSS = "sparse_categorical_crossentropy"
 SIZE, BATCH, LR = 32, 8, 0.1
@@ -291,8 +292,19 @@ def test_apply_float_matches_jax_with_gradients(backbone):
             assert _rel(tp[name][k].grad, jg[name][k]) <= FLOAT_GRAD_RTOL
 
 
-def _jax_model(classes=2):
-    jm = jic.resnet(18, classes, (SIZE, SIZE, 3), dataflow="int8")
+@pytest.fixture(scope="module")
+def jax_model():
+    """JAX's ``resnet(18, 2, dataflow="int8")`` and its init (numpy, read
+    only)."""
+    jm = jic.resnet(18, 2, (SIZE, SIZE, 3), dataflow="int8")
+    return (jm, *_np(jm.build(jax.random.PRNGKey(0))))
+
+
+@pytest.fixture(scope="module")
+def jax_int8_training_model():
+    """JAX's ``resnet(18, 10, int8_training=True)`` and its init (numpy,
+    read only)."""
+    jm = jic.resnet(18, 10, (SIZE, SIZE, 3), int8_training=True)
     return (jm, *_np(jm.build(jax.random.PRNGKey(0))))
 
 
@@ -304,12 +316,13 @@ def _port_model(params, state, classes=2):
     return model
 
 
-def test_the_model_holds_the_jax_trees_and_its_estimator_moves_them():
+def test_the_model_holds_the_jax_trees_and_its_estimator_moves_them(
+        jax_model):
     """``resnet(dataflow="int8")``'s state dict is JAX's params and state
     flattened (nested ``<conv>.kernel``, ``in_amax``, ``<block>_add.
     out_amax``...); the Estimator reads the state back as JAX's tree and
     writes it; a training forward moves it, an eval forward does not."""
-    jm, params, state = _jax_model()
+    jm, params, state = jax_model
     model = pic.resnet(18, 2, (SIZE, SIZE, 3),
                        dataflow="int8").build(device="cpu")
     assert set(model.state_dict()) == (set(from_jax_params(params))
@@ -365,11 +378,11 @@ def _trace_of(opt_state):
     return found[0]
 
 
-def test_estimator_bf16_steps_match_jax():
+def test_estimator_bf16_steps_match_jax(jax_model):
     """Two ``Estimator.train`` steps of ``resnet(18, dataflow="int8")`` in
     bf16 with SGD(0.1, momentum 0.9) at batch 16, each from JAX's
     parameters, state and momentum trace before the step."""
-    jm, params, state = _jax_model()
+    jm, params, state = jax_model
     batch, steps = 16, 2
     rs = np.random.RandomState(0)
     x = rs.rand(batch * steps, SIZE, SIZE, 3).astype(np.float32)
@@ -417,13 +430,13 @@ def test_estimator_bf16_steps_match_jax():
                 assert _rel(got[n], want[n]) <= EST_STATE_RTOL, (k, n)
 
 
-def test_int8_training_resnet_runs_every_conv_int8_and_matches_jax_in_eval():
+def test_int8_training_resnet_runs_every_conv_int8_and_matches_jax_in_eval(
+        jax_int8_training_model):
     """``resnet(18, int8_training=True)``: every convolution layer takes
     the int8 route; in eval (running statistics, nothing to cascade) the
     output is JAX's within 1e-5 (measured 0); a training step's gradients
     are finite for every parameter."""
-    jm = jic.resnet(18, 10, (SIZE, SIZE, 3), int8_training=True)
-    params, state = _np(jm.build(jax.random.PRNGKey(0)))
+    jm, params, state = jax_int8_training_model
     model = pic.resnet(18, 10, (SIZE, SIZE, 3),
                        int8_training=True).build(device="cpu")
     model.load_state_dict({**from_jax_params(params),
@@ -444,7 +457,8 @@ def test_int8_training_resnet_runs_every_conv_int8_and_matches_jax_in_eval():
                for p in model.parameters())
 
 
-def test_int8_training_estimator_first_step_matches_jax():
+def test_int8_training_estimator_first_step_matches_jax(
+        jax_int8_training_model):
     """One ``Estimator.train`` step of ``resnet(18, int8_training=True)``
     in f32 with SGD(0.1, momentum 0.9) at batch 16, from JAX's init: loss
     within 1e-6 relative (0 measured), the update of all parameters within
@@ -458,8 +472,7 @@ def test_int8_training_estimator_first_step_matches_jax():
     the same: its first step on a 1-device mesh is 0.57 of the update away
     from its step on the test's 8-device mesh (measured on the CPU)."""
     classes, batch = 10, 16
-    jm = jic.resnet(18, classes, (SIZE, SIZE, 3), int8_training=True)
-    params, state = _np(jm.build(jax.random.PRNGKey(0)))
+    jm, params, state = jax_int8_training_model
     rs = np.random.RandomState(0)
     x = rs.rand(batch, SIZE, SIZE, 3).astype(np.float32)
     y = rs.randint(0, classes, batch).astype(np.float32)

@@ -24,6 +24,7 @@ from analytics_zoo_tpu_torch.models import NeuralCF, ZooModel
 from analytics_zoo_tpu_torch.ops import embedding_kernels as ek
 from analytics_zoo_tpu_torch.ops import kernel_build
 from analytics_zoo_tpu_torch.serving import ClusterServing, ServingConfig
+from torch_port_threads import torch_threads_per_worker  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.dirname(analytics_zoo_tpu_torch.__file__)
@@ -86,7 +87,8 @@ def test_port_and_chip_smoke_import_no_jax():
             os.path.join(PKG, "cluster", "supervisor.py"),
             os.path.join(PKG, "serving", "fleet.py"),
             os.path.join(PKG, "serving", "client.py"),
-            os.path.join(PKG, "common", "file_io.py")} <= set(
+            os.path.join(PKG, "common", "file_io.py"),
+            os.path.join(PKG, "estimator", "sync_eval.py")} <= set(
                 sources)
     bad = {os.path.relpath(p, REPO): m for p in sources
            for m in _imports(p) if _forbidden(m)}
@@ -1498,3 +1500,63 @@ def test_fleet_router_places_and_fails_over_on_the_card(cuda_device,
     assert router.stats["assigned"] == 2  # settled on the next pass
     router.route_once()
     assert router.stats == {"assigned": 0, "backlog": 0}
+
+
+@pytest.mark.cuda
+def test_estimator_loop_groups_clips_and_retries_on_the_card(cuda_device,
+                                                             tmp_path):
+    """An MLP trained on the card through ``Estimator.train`` (SGD, whose
+    updates do not amplify rounding as Adam's do): 4 steps a
+    dispatch equal one a dispatch bit for bit with l2 clipping on; a run
+    whose 6th dispatch fails after the newest snapshot is torn falls back
+    one snapshot and ends at the straight run's parameters bit for bit;
+    the clipped run is the CPU's within 1e-5."""
+    from analytics_zoo_tpu_torch.common import faults
+    from analytics_zoo_tpu_torch.common.triggers import SeveralIteration
+    from analytics_zoo_tpu_torch.estimator import Estimator
+    from analytics_zoo_tpu_torch.feature import FeatureSet
+    from analytics_zoo_tpu_torch.keras import Sequential, optimizers
+    from analytics_zoo_tpu_torch.keras.layers import Dense
+
+    rs = np.random.RandomState(0)
+    x = rs.randn(640, 6).astype(np.float32)
+    y = rs.randint(0, 2, 640).astype(np.float32)
+    init = Sequential([Dense(16, activation="relu", name="d1"),
+                       Dense(2, activation="softmax", name="d2")]).build(
+        torch.Generator().manual_seed(0), (None, 6), device="cpu"
+    ).state_dict()
+
+    def run(device, k=1, ckpt=None):
+        model = Sequential([Dense(16, activation="relu", name="d1"),
+                            Dense(2, activation="softmax", name="d2")])
+        model.build(input_shape=(None, 6), device=device)
+        model.load_state_dict(init)
+        est = Estimator(model, "sparse_categorical_crossentropy",
+                        optimizers.SGD(0.05), device=device)
+        est.set_gradient_clipping(("l2", 0.1))
+        if ckpt:
+            est.set_checkpoint(ckpt, SeveralIteration(1))
+        hist = est.train(FeatureSet.from_ndarrays(x, y), 64, epochs=3,
+                         steps_per_dispatch=k)
+        return hist["loss_history"], {n: v.cpu() for n, v in
+                                      model.state_dict().items()}
+
+    losses, params = run(cuda_device)
+    losses4, params4 = run(cuda_device, k=4)
+    assert losses4 == losses
+    assert all(torch.equal(params4[n], v) for n, v in params.items())
+    faults.reset()
+    faults.arm("ckpt.corrupt", at=5)
+    faults.arm("train.step", at=6)
+    try:
+        _, retried = run(cuda_device, ckpt=str(tmp_path / "ckpt"))
+        fired = (faults.fire_count("ckpt.corrupt"),
+                 faults.fire_count("train.step"))
+    finally:
+        faults.reset()
+    assert fired == (1, 1)
+    assert all(torch.equal(retried[n], v) for n, v in params.items())
+    cpu_losses, cpu_params = run("cpu")
+    np.testing.assert_allclose(losses, cpu_losses, rtol=1e-5, atol=0)
+    for n, v in cpu_params.items():
+        torch.testing.assert_close(params[n], v, rtol=0, atol=1e-5)

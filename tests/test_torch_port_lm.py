@@ -19,6 +19,7 @@ from analytics_zoo_tpu_torch.capture import (GraphModel, TransformerLM,
                                              prefill_bucket)
 from analytics_zoo_tpu_torch.convert import from_jax_params
 from analytics_zoo_tpu_torch.ops import attention as at
+from torch_port_threads import torch_threads_per_worker  # noqa: F401
 
 ATOL = 1e-5
 CFG = dict(vocab_size=128, hidden=32, n_block=2, n_head=2, max_len=64)
@@ -84,9 +85,15 @@ def test_three_adam_steps_match_jax():
                                rtol=1e-5)
 
 
+@pytest.fixture(scope="module")
+def prefill_pair():
+    """The pair both prefill lengths read (neither trains it)."""
+    return _pair(seed=3)
+
+
 @pytest.mark.parametrize("length", [9, 40])
-def test_prefill_kv_matches_jax(length):
-    jlm, plm = _pair(seed=3)
+def test_prefill_kv_matches_jax(length, prefill_pair):
+    jlm, plm = prefill_pair
     tokens = np.random.RandomState(length).randint(0, 128, (2, length))
     tb = prefill_bucket(length, CFG["max_len"])
     padded = np.zeros((2, tb), np.int32)

@@ -16,6 +16,7 @@ from analytics_zoo_tpu.models import NeuralCF as JaxNeuralCF
 from analytics_zoo_tpu_torch.convert import from_jax_params
 from analytics_zoo_tpu_torch.models import NeuralCF as PortNeuralCF
 from analytics_zoo_tpu_torch.models import ZooModel as PortZooModel
+from torch_port_threads import torch_threads_per_worker  # noqa: F401
 
 SMALL = dict(user_count=63, item_count=47, num_classes=2, user_embed=8,
              item_embed=8, hidden_layers=[16, 8], mf_embed=4)

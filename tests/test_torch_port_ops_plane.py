@@ -46,6 +46,7 @@ from analytics_zoo_tpu_torch.serving import (ClusterServing,
                                              GenerativeServing, ServingConfig)
 from analytics_zoo_tpu_torch.serving import client as pclient
 from analytics_zoo_tpu_torch.utils import trace as ptrace
+from torch_port_threads import torch_threads_per_worker  # noqa: F401
 
 T0 = 1_000_000.0
 SIDES = {"jax": (jmetrics, JaxHistory, jalerts, jincident, jevents),

@@ -48,6 +48,7 @@ from analytics_zoo_tpu_torch.serving import (ClusterServing,
                                              ModelReloadError, OutputQueue,
                                              ServingConfig)
 from analytics_zoo_tpu_torch.serving import server as pserver
+from torch_port_threads import torch_threads_per_worker  # noqa: F401
 
 NCF = dict(user_count=63, item_count=47, num_classes=2, user_embed=8,
            item_embed=8, hidden_layers=[16, 8], mf_embed=4)

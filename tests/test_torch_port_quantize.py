@@ -38,6 +38,7 @@ from analytics_zoo_tpu_torch.ops import int8_dataflow as port_i8
 from analytics_zoo_tpu_torch.serving import (ClusterServing, FileQueue,
                                              InputQueue, OutputQueue,
                                              ServingConfig)
+from torch_port_threads import torch_threads_per_worker  # noqa: F401
 
 CFG = dict(user_count=63, item_count=47, num_classes=2, user_embed=8,
            item_embed=8, hidden_layers=[16, 8], mf_embed=4)

@@ -66,6 +66,7 @@ from analytics_zoo_tpu_torch.models.image import imageclassification as pic
 from analytics_zoo_tpu_torch.nnframes import NNClassifier
 from analytics_zoo_tpu_torch.parallel.mesh import (DATA_AXIS, Mesh,
                                                    set_default_mesh)
+from torch_port_threads import torch_threads_per_worker  # noqa: F401
 
 LOSS = "sparse_categorical_crossentropy"
 #: the training check: ResNet-18, 10 classes, 32 x 32, batch 16 (JAX's
@@ -275,13 +276,19 @@ def _update_rel(got, want, prev, keys):
     return (diff / max(upd, 1e-300)) ** 0.5
 
 
+@pytest.fixture(scope="module")
+def resnet18_jax():
+    """JAX's ResNet-18, its init (numpy, read only) and the images both
+    dtypes' steps take."""
+    jm = jic.resnet(18, CLASSES, (SIZE, SIZE, 3))
+    return (jm, *_jax_built(jm), *_images(BATCH * STEPS))
+
+
 @pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
-def test_estimator_steps_match_jax(bf16):
+def test_estimator_steps_match_jax(bf16, resnet18_jax):
     """Three ``Estimator.train`` steps of ResNet-18 with SGD(0.1, momentum
     0.9), free and each from JAX's state (see the module docstring)."""
-    jm = jic.resnet(18, CLASSES, (SIZE, SIZE, 3))
-    params, state = _jax_built(jm)
-    x, y = _images(BATCH * STEPS)
+    jm, params, state, x, y = resnet18_jax
     jdtype, tdtype = ((jnp.bfloat16, torch.bfloat16) if bf16
                       else (None, None))
     jax_losses, snaps = _jax_run(jm, params, state, x, y, jdtype)

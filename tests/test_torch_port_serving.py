@@ -40,6 +40,7 @@ from analytics_zoo_tpu_torch.serving import ClusterServing, FileQueue
 from analytics_zoo_tpu_torch.serving import InputQueue, OutputQueue
 from analytics_zoo_tpu_torch.serving import ServingConfig
 from analytics_zoo_tpu_torch.serving.server import DEADLINE_ERROR, SHED_ERROR
+from torch_port_threads import torch_threads_per_worker  # noqa: F401
 
 CFG = dict(user_count=63, item_count=47, num_classes=2, user_embed=8,
            item_embed=8, hidden_layers=[16, 8], mf_embed=4)

@@ -49,6 +49,7 @@ from analytics_zoo_tpu_torch.models import NeuralCF
 from analytics_zoo_tpu_torch.ops import embedding_kernels as ek
 from analytics_zoo_tpu_torch.parallel import embedding as engine
 from analytics_zoo_tpu_torch.parallel.mesh import Mesh, shard_batch
+from torch_port_threads import torch_threads_per_worker  # noqa: F401
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 WORKER = os.path.join(HERE, "torch_port_sharded_worker.py")

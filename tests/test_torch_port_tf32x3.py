@@ -39,6 +39,7 @@ import pytest
 import torch
 
 from analytics_zoo_tpu_torch.ops import attention as at
+from torch_port_threads import torch_threads_per_worker  # noqa: F401
 
 #: the f32 route against its plain versions, relative to the output's scale
 ATOL = 2e-5

@@ -27,6 +27,7 @@ from analytics_zoo_tpu_torch.feature import FeatureSet
 from analytics_zoo_tpu_torch.keras import objectives, optimizers
 from analytics_zoo_tpu_torch.models import NeuralCF, WideAndDeep, ZooModel
 from analytics_zoo_tpu_torch.models.recommendation import wide_and_deep
+from torch_port_threads import torch_threads_per_worker  # noqa: F401
 
 #: 10 steps per epoch; every batch divides JAX's 8-device test mesh
 N, BATCH = 320, 32

@@ -26,6 +26,7 @@ from analytics_zoo_tpu_torch.convert import from_jax_params
 from analytics_zoo_tpu_torch.keras.layers import (MultiHeadAttention,
                                                   TransformerLayer)
 from analytics_zoo_tpu_torch.ops import attention as at
+from torch_port_threads import torch_threads_per_worker  # noqa: F401
 
 ATOL = 2e-5
 TL_CFG = dict(vocab=50, hidden_size=16, n_block=2, n_head=2,
